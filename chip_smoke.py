@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of the fused 2D QGDFoam step from the sources in the
-checkout, checks each kernel against its plain PyTorch version at the
-production size (1024x512 f32), runs the kernel path in lock-step with the
-plain path, drives the library's main path (cases -> make_fused_step ->
-common.run_steps) for both supersonic jets, and times the kernel, plain and
-composable paths.  One line per phase; any failure exits non-zero.  The last
-line is {"ok": true, "device": {...}}.  Without a CUDA device it fails
-before printing any result.  It imports nothing of JAX.
+Builds the CUDA kernels of the fused 2D and 3D QGDFoam steps from the
+sources in the checkout, and for each dimension checks each kernel against
+its plain PyTorch version at the production size (1024x512 and 256x126x126
+f32), runs the kernel path in lock-step with the plain path, drives the
+library's main path (cases -> make_fused_step -> common.run_steps) for both
+cases of that dimension, and times the kernel, plain and composable paths.
+One line per phase; any failure exits non-zero.  The last line is
+{"ok": true, "device": {...}}.  Without a CUDA device it fails before
+printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -22,8 +23,17 @@ import torch
 
 SHAPE = (1024, 512)
 CASES = ("supersonic_jet", "supersonic_jet_varsc")
-SOURCE = "qgdsolver_tpu_torch/ops/csrc/qgd2d.cu"
-REPLACES = "qgdsolver_tpu/ops/fused_qgd2d.py:1000"
+SHAPE3 = (256, 126, 126)
+CASES3 = ("supersonic_duct_3d", "supersonic_jet_3d_varsc")
+CSRC = "qgdsolver_tpu_torch/ops/csrc/"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    **{k: (CSRC + "qgd2d.cu", "qgdsolver_tpu/ops/fused_qgd2d.py:1000")
+       for k in ("qgd2d_dt", "qgd2d_update", "qgd2d_ghosts")},
+    **{k: (CSRC + "qgd3d.cu", "qgdsolver_tpu/ops/fused_qgd3d.py:349")
+       for k in ("qgd3d_dt", "qgd3d_update", "qgd3d_sensor",
+                 "qgd3d_ghosts")},
+}
 
 
 def card_line() -> str:
@@ -104,13 +114,13 @@ def phase_build():
     sys.stdout.flush()
 
 
-def warm_state(name, dev):
-    """The case at SHAPE after 20 plain steps: (solver, FusedState)."""
+def warm_state(name, shape, build, dev):
+    """The case at `shape` after 20 plain steps of the fused step that
+    `build` makes: (solver, fused state)."""
     from qgdsolver_tpu_torch import cases
-    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 
-    solver, state = getattr(cases, name)(shape=SHAPE, device=dev)
-    step, to_f, _ = F.build_fused_step(solver, plain=True)
+    solver, state = getattr(cases, name)(shape=shape, device=dev)
+    step, to_f, _ = build(solver, plain=True)
     fs = to_f(state)
     for _ in range(20):
         fs = step(fs)
@@ -118,14 +128,14 @@ def warm_state(name, dev):
     return solver, fs
 
 
-def phase_kernels(dev, stats):
+def phase_kernels(warm, stats):
     """Each kernel against its plain version on the same inputs.  Returns
     (name, kernel call, plain call) at the plain jet's inputs, for timing."""
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 
     jobs = []
     for name in CASES:
-        solver, fs = warm_state(name, dev)
+        solver, fs = warm[name]
         prm, prof = F.make_params(solver)
         prof = solver.mesh.tensor(prof).contiguous()
         sc = None
@@ -189,15 +199,13 @@ def phase_kernels(dev, stats):
     return jobs
 
 
-def phase_lockstep(dev):
-    """10 steps of the kernel path against the plain path."""
-    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
-
-    for name, dt_tol, f_tol in (("supersonic_jet", 1e-6, 1e-3),
-                                ("supersonic_jet_varsc", 1e-5, 2e-3)):
-        solver, fs = warm_state(name, dev)
-        k_step, _, from_f = F.build_fused_step(solver)
-        p_step, _, _ = F.build_fused_step(solver, plain=True)
+def phase_lockstep(num, warm, build, tols):
+    """10 steps of the kernel path against the plain path, from the warm
+    states; tols[case] = (dt rtol, field bound relative to its max)."""
+    for name, (dt_tol, f_tol) in tols.items():
+        solver, fs = warm[name]
+        k_step, _, from_f = build(solver)
+        p_step, _, _ = build(solver, plain=True)
         a = b = fs
         for _ in range(10):
             a = k_step(a)
@@ -206,37 +214,40 @@ def phase_lockstep(dev):
         dt_r = abs(float(sa.dt) / float(sb.dt) - 1.0)
         check(dt_r <= dt_tol, f"{name} lock-step dt rel {dt_r:.2e}")
         msgs = [f"dt rel {dt_r:.2e}"]
-        for fld in ("rho", "rhoU", "rhoE"):
+        for fld in ("rho", "rhoU", "rhoE", "sc"):
             r = rel_err(getattr(sb, fld), getattr(sa, fld))
             check(r <= f_tol, f"{name} lock-step {fld} rel {r:.2e}")
             msgs.append(f"{fld} {r:.2e}")
-        print(f"phase 4 lock-step 10 steps, {name}: ok " + ", ".join(msgs),
-              flush=True)
+        print(f"phase {num} lock-step 10 steps, {name}: ok "
+              + ", ".join(msgs), flush=True)
 
 
-def phase_main_path(dev):
-    """cases -> make_fused_step -> common.run_steps, as a user calls it."""
+def phase_main_path(num, dev, shape, runs, kernels, varsc_only=()):
+    """cases -> make_fused_step -> common.run_steps, as a user calls it, for
+    each (case, steps) of `runs`.  The launch counts of `kernels` are set to
+    0 just before and read just after; each kernel must have launched once
+    per step (a kernel named in `varsc_only`, once per varScModel5 step)."""
     from qgdsolver_tpu_torch import cases
-    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.physics.qgdcoeffs import VarScModel5
     from qgdsolver_tpu_torch.solvers import common
 
-    runs = (("supersonic_jet", 500), ("supersonic_jet_varsc", 100))
     built = []
     for name, n in runs:
-        solver, state = getattr(cases, name)(shape=SHAPE, device=dev)
+        solver, state = getattr(cases, name)(shape=shape, device=dev)
         check(solver.fused_supported(), f"{name} not fused-supported")
         built.append((name, n, solver, state) + solver.make_fused_step())
-    for k in F.KERNELS:
+    for k in kernels:
         k.launches = 0
     outs = []
     for name, n, solver, state, step, to_f, from_f in built:
         outs.append((name, n, solver,
                      from_f(common.run_steps(step, to_f(state), n))))
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in F.KERNELS}
-    total = sum(n for _, n in runs)
+    launches = {k.__name__: k.launches for k in kernels}
     for k, v in launches.items():
-        check(v == total, f"{k} launched {v} times, expected {total}")
+        want = sum(n for _, n, solver, _ in outs if k not in varsc_only
+                   or isinstance(solver.tau_model, VarScModel5))
+        check(v == want, f"{k} launched {v} times, expected {want}")
     msgs = []
     for name, n, solver, s in outs:
         U, e, T, p = solver.primitives(s)
@@ -247,8 +258,8 @@ def phase_main_path(dev):
         check(mach < 5.0, f"{name}: max Mach {mach}")
         msgs.append(f"{name} {n} steps t={float(s.t):.4e} max Mach "
                     f"{mach:.3f}")
-    print("phase 5 main path: ok " + "; ".join(msgs) + f" | launches "
-          f"{launches}", flush=True)
+    print(f"phase {num} main path {shape}: ok " + "; ".join(msgs)
+          + f" | launches {launches}", flush=True)
     return launches
 
 
@@ -287,24 +298,164 @@ def phase_time(dev, card, jobs, stats):
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
         + " | device ms/call kernel vs plain: " + ", ".join(
-            f"{k} {v['ms']:.4f} vs {v['plain_ms']:.4f}"
-            for k, v in stats.items()) + f" | card: {card}", flush=True)
+            f"{k} {stats[k]['ms']:.4f} vs {stats[k]['plain_ms']:.4f}"
+            for k, _, _ in jobs) + f" | card: {card}", flush=True)
+
+def phase_kernels3(warm, stats):
+    """Each 3D kernel against its plain version on the same inputs.
+    Returns (name, kernel call, plain call) at each case's inputs, for
+    timing (the sensor's at the varsc jet's, the others' at the duct's)."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    C = (slice(1, -1),) * 3
+    jobs = {}
+    for name in CASES3:
+        solver, fs = warm[name]
+        prm, planes = F3.make_params(solver)
+        planes = solver.mesh.tensor(planes).contiguous()
+        sc = None
+        if prm.varsc:
+            sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
+                                              solver.tau_model.smoothCoeff))
+        dts = (fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
+        dt_ref = F3.dt_reference_3d(prm, *dts)
+        dt_k = F3.qgd3d_dt(prm, *dts)
+        err = abs(float(dt_k) - float(dt_ref))
+        check(err <= 1e-6 * abs(float(dt_ref)),
+              f"{name} qgd3d_dt {float(dt_k)!r} vs {float(dt_ref)!r}")
+        msgs = [f"dt rel {err / float(dt_ref):.2e}"]
+        stats["qgd3d_dt"]["err"] = max(stats["qgd3d_dt"]["err"], err)
+
+        upd = (fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc, dt_ref)
+        ref, side_ref = F3.update_reference_3d(prm, *upd)
+        new, side = F3.qgd3d_update(prm, *upd)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, (a, b) in enumerate(zip(ref, new)):
+            r = rel_err(a[C], b[C])
+            check(r <= 1e-5, f"{name} qgd3d_update {F3.FIELDS[k]} rel {r:.2e}")
+            worst = max(worst, r)
+            stats["qgd3d_update"]["err"] = max(
+                stats["qgd3d_update"]["err"], float((a[C] - b[C]).abs().max()))
+        if solver._flux_sides():
+            r = rel_err(side_ref, side)
+            check(r <= 1e-5, f"{name} qgd3d_update qgdFlux side rel {r:.2e}")
+            worst = max(worst, r)
+        msgs.append(f"update rel {worst:.2e}")
+
+        if prm.varsc:
+            s_ref = F3.sensor_reference_3d(prm, ref[0], ref[1], sc)
+            s_k = F3.qgd3d_sensor(prm, ref[0], ref[1], sc)
+            torch.cuda.synchronize()
+            r = rel_err(s_ref, s_k)
+            check(r <= 1e-6, f"{name} qgd3d_sensor rel {r:.2e}")
+            stats["qgd3d_sensor"]["err"] = float((s_ref - s_k).abs().max())
+            msgs.append(f"sensor rel {r:.2e}")
+            jobs["qgd3d_sensor"] = (
+                lambda: F3.qgd3d_sensor(prm, ref[0], ref[1], sc),
+                lambda: F3.sensor_reference_3d(prm, ref[0], ref[1], sc))
+
+        fa = [x.clone() for x in ref]
+        fb = [x.clone() for x in ref]
+        F3.ghosts_reference_3d(prm, fa, side_ref, planes)
+        F3.qgd3d_ghosts(prm, fb, side_ref, planes)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, (a, b) in enumerate(zip(fa, fb)):
+            r = rel_err(a, b)
+            check(r <= 1e-6, f"{name} qgd3d_ghosts {F3.FIELDS[k]} rel {r:.2e}")
+            worst = max(worst, r)
+            stats["qgd3d_ghosts"]["err"] = max(
+                stats["qgd3d_ghosts"]["err"], float((a - b).abs().max()))
+        msgs.append(f"ghosts rel {worst:.2e}")
+
+        if name == "supersonic_duct_3d":
+            jobs["qgd3d_dt"] = (lambda: F3.qgd3d_dt(prm, *dts),
+                                lambda: F3.dt_reference_3d(prm, *dts))
+            jobs["qgd3d_update"] = (lambda: F3.qgd3d_update(prm, *upd),
+                                    lambda: F3.update_reference_3d(prm, *upd))
+            jobs["qgd3d_ghosts"] = (
+                lambda: F3.qgd3d_ghosts(prm, fb, side_ref, planes),
+                lambda: F3.ghosts_reference_3d(prm, fa, side_ref, planes))
+        print(f"phase 7 3D kernels vs plain, {name} {SHAPE3}: ok "
+              + ", ".join(msgs), flush=True)
+    return [(k,) + jobs[k] for k in ("qgd3d_dt", "qgd3d_update",
+                                     "qgd3d_sensor", "qgd3d_ghosts")]
+
+
+def phase_time3(dev, card, jobs, stats):
+    """Grid points per second at SHAPE3: the duct's kernel, plain frame and
+    composable paths and the varsc jet's kernel path (CUDA events); then,
+    with the profiler, each path's device idle share and each 3D kernel's
+    device time against its plain version's."""
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    pts = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
+    solver, state = cases.supersonic_duct_3d(shape=SHAPE3, device=dev)
+    vsolver, vstate = cases.supersonic_jet_3d_varsc(shape=SHAPE3, device=dev)
+    paths = []
+    for label, steps in (("kernel", 50), ("plain", 5)):
+        step, to_f, _ = F3.build_fused_step_3d(solver,
+                                               plain=(label == "plain"))
+        paths.append((label, steps, step, to_f(state)))
+    paths.append(("composable", 3, solver.make_step(), state))
+    vstep, vto, _ = vsolver.make_fused_step()
+    paths.append(("varsc kernel", 20, vstep, vto(vstate)))
+    rates, advances = {}, []
+    for label, steps, step, s0 in paths:
+        box = [s0]
+
+        def advance(box=box, step=step):
+            box[0] = step(box[0])
+
+        ms = cuda_ms(advance, steps, warmup=2)
+        rates[label] = (pts / (ms * 1e-3), ms)
+        advances.append((label, steps, advance))
+    idle = {label: 1.0 - device_ms(advance, min(steps, 20), warmup=1)
+            / rates[label][1] for label, steps, advance in advances}
+    for kname, kern, plain in jobs:
+        stats[kname]["ms"] = device_ms(kern, 20, warmup=2)
+        stats[kname]["plain_ms"] = device_ms(plain, 3, warmup=1)
+    print(f"phase 10 time 3D {SHAPE3}: " + "; ".join(
+        f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
+        f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
+        + " | device ms/call kernel vs plain: " + ", ".join(
+            f"{k} {stats[k]['ms']:.4f} vs {stats[k]['plain_ms']:.4f}"
+            for k, _, _ in jobs) + f" | card: {card}", flush=True)
 
 
 def main() -> int:
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
     card = phase_env()
     dev = torch.device("cuda", 0)
     phase_build()
-    stats = {k: {"err": 0.0} for k in ("qgd2d_dt", "qgd2d_update",
-                                       "qgd2d_ghosts")}
-    jobs = phase_kernels(dev, stats)
-    phase_lockstep(dev)
-    launches = phase_main_path(dev)
+    stats = {k: {"err": 0.0} for k in KERNELS}
+    tols = ((1e-6, 1e-3), (1e-5, 2e-3))  # (dt, fields): plain, varsc
+
+    warm = {n: warm_state(n, SHAPE, F.build_fused_step, dev) for n in CASES}
+    jobs = phase_kernels(warm, stats)
+    phase_lockstep(4, warm, F.build_fused_step, dict(zip(CASES, tols)))
+    del warm
+    launches = phase_main_path(5, dev, SHAPE, zip(CASES, (500, 100)),
+                               F.KERNELS)
     phase_time(dev, card, jobs, stats)
+
+    warm = {n: warm_state(n, SHAPE3, F3.build_fused_step_3d, dev)
+            for n in CASES3}
+    jobs3 = phase_kernels3(warm, stats)
+    phase_lockstep(8, warm, F3.build_fused_step_3d, dict(zip(CASES3, tols)))
+    del warm
+    launches.update(phase_main_path(9, dev, SHAPE3, zip(CASES3, (100, 40)),
+                                    F3.KERNELS, varsc_only=("qgd3d_sensor",)))
+    phase_time3(dev, card, jobs3, stats)
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": launches[k], "max_abs_err": v["err"], "ms": v["ms"],
-         "plain_ms": v["plain_ms"]} for k, v in stats.items()]}))
+        {"name": k, "route": "cuda", "source": KERNELS[k][0],
+         "replaces": KERNELS[k][1], "launches": launches[k],
+         "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"]}
+        for k, v in stats.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

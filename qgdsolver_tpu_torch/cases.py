@@ -1,6 +1,6 @@
 """Canonical case configurations (PyTorch port of `qgdsolver_tpu.cases`:
-the 2D supersonic jets).  Each builder returns (solver, initial_state), with
-every tensor in `dtype` on `device`.
+the 2D supersonic jets, the 3D duct and the 3D varsc jet).  Each builder
+returns (solver, initial_state), with every tensor in `dtype` on `device`.
 """
 from __future__ import annotations
 
@@ -107,3 +107,85 @@ def supersonic_jet_varsc(shape=(512, 256), dtype=torch.float32, mach=2.0,
         sc0=torch.full(solver.mesh.shape, 0.05, **full),
     )
     return solver, state
+
+
+def supersonic_duct_3d(shape=(256, 126, 126), dtype=torch.float32, mach=2.0,
+                       device="cpu"):
+    """3D QGDFoam duct: a Mach-`mach` flow through a (4.0, 2.0, 2.0) box
+    with a hot low-density spherical disturbance advecting through it.  All
+    BCs are scalar-valued (uniform inflow, zero-gradient outflow and walls,
+    fixed far-field pressure on the y/z sides)."""
+    mesh = Mesh.uniform(shape, lengths=(4.0, 2.0, 2.0), dtype=dtype,
+                        device=device)
+    th = PerfectGasThermo(R=287.0, Cp=1004.5)
+    p_inf, T_inf = 1.0e5, 300.0
+    u_in = mach * float(th.c(torch.tensor(T_inf, dtype=torch.float64)))
+    zg = bcm.ZeroGradient()
+    bc_U = bcm.FieldBCs((
+        (bcm.FixedValue(mesh.tensor([u_in, 0.0, 0.0])), zg),
+        (zg, zg), (zg, zg)))
+    bc_p = bcm.FieldBCs(((zg, bcm.FixedValue(p_inf)),
+                         (bcm.FixedValue(p_inf), bcm.FixedValue(p_inf)),
+                         (bcm.FixedValue(p_inf), bcm.FixedValue(p_inf))))
+    bc_T = bcm.FieldBCs(((bcm.FixedValue(T_inf), zg),
+                         (zg, zg), (zg, zg)))
+    solver = QGDFoam(
+        mesh=mesh, thermo=th,
+        tau_model=ConstScPrModel1(alpha=0.5, Sc=1.0, Pr=1.0),
+        bc_U=bc_U, bc_p=bc_p, bc_T=bc_T,
+        time=common.TimeControls(max_co=0.2, max_dt=1e-3, dt0=1e-7),
+    )
+    xc = [np.asarray(c) for c in mesh.centers]
+    r2 = ((xc[0][:, None, None] - 1.0) ** 2
+          + (xc[1][None, :, None] - 1.0) ** 2
+          + (xc[2][None, None, :] - 1.0) ** 2)
+    hot = 1.0 + 0.2 * np.exp(-r2 / 0.08)
+    p0 = torch.full(mesh.shape, p_inf, dtype=dtype, device=mesh.device)
+    T0 = mesh.tensor(T_inf * hot)
+    U0 = torch.stack([torch.full_like(p0, u_in), torch.zeros_like(p0),
+                      torch.zeros_like(p0)])
+    return solver, solver.init(p0=p0, T0=T0, U0=U0)
+
+
+def supersonic_jet_3d_varsc(shape=(256, 126, 126), dtype=torch.float32,
+                            mach=2.0, device="cpu"):
+    """The 3D shock-capturing jet: a round Mach-`mach` jet entering a
+    quiescent (4.0, 2.0, 2.0) box through a tanh-profiled slot in the x-low
+    plane (an array-valued (3, 1, ny, nz) inlet velocity), the varScModel5
+    sensor, and the qgdFlux pressure BC on the outflow."""
+    mesh = Mesh.uniform(shape, lengths=(4.0, 2.0, 2.0), dtype=dtype,
+                        device=device)
+    th = PerfectGasThermo(R=287.0, Cp=1004.5)
+    p_inf, T_inf = 1.0e5, 300.0
+    u_jet = mach * float(th.c(torch.tensor(T_inf, dtype=torch.float64)))
+    yc = np.asarray(mesh.centers[1])
+    zc = np.asarray(mesh.centers[2])
+    rr = np.sqrt((yc[:, None] - 1.0) ** 2 + (zc[None, :] - 1.0) ** 2)
+    delta = 3.0 * float(mesh.dx[1][0])
+    prof = 0.5 * (np.tanh((0.3 - rr) / delta) + 1.0)  # (ny, nz) slot
+    zg = bcm.ZeroGradient()
+    # value array (3, 1, ny, nz): the normal-axis dim kept as 1
+    inlet = np.stack([u_jet * prof, np.zeros_like(prof),
+                      np.zeros_like(prof)])[:, None]
+    bc_U = bcm.FieldBCs((
+        (bcm.FixedValue(mesh.tensor(inlet)), zg),
+        (zg, zg), (zg, zg)))
+    bc_p = bcm.FieldBCs(((zg, bcm.QGDFluxP()),
+                         (bcm.FixedValue(p_inf), bcm.FixedValue(p_inf)),
+                         (bcm.FixedValue(p_inf), bcm.FixedValue(p_inf))))
+    bc_T = bcm.FieldBCs(((bcm.FixedValue(T_inf), zg),
+                         (zg, zg), (zg, zg)))
+    solver = QGDFoam(
+        mesh=mesh, thermo=th,
+        tau_model=VarScModel5(alpha=0.5, Pr=1.0, rC=0.5, minSc=0.05,
+                              maxSc=1.0, smoothCoeff=0.1),
+        bc_U=bc_U, bc_p=bc_p, bc_T=bc_T,
+        time=common.TimeControls(max_co=0.2, max_dt=1e-3, dt0=1e-7),
+    )
+    p0 = torch.full(mesh.shape, p_inf, dtype=dtype, device=mesh.device)
+    T0 = torch.full_like(p0, T_inf)
+    decay = np.exp(-np.asarray(mesh.centers[0]))[:, None, None]
+    U0 = torch.stack([mesh.tensor(u_jet * prof[None] * decay),
+                      torch.zeros_like(p0), torch.zeros_like(p0)])
+    return solver, solver.init(p0=p0, T0=T0, U0=U0,
+                               sc0=torch.full_like(p0, 0.05))

@@ -1,5 +1,5 @@
 """Boundary conditions over structured block faces (PyTorch port of
-`qgdsolver_tpu.core.bc`, the subset the 2D QGDFoam slice uses).
+`qgdsolver_tpu.core.bc`, the subset the QGDFoam slices use).
 
 A BC is a small frozen dataclass that maps the first interior cell layer to a
 ghost cell layer; ops/pad.py applies it.  Ghost conventions (ghost center
@@ -8,6 +8,7 @@ mirrored across the face, distance dx_edge from the interior center):
   ZeroGradient     : G = I
   FixedGradient g  : G = I + g dx_edge  (g = outward-normal gradient)
   Symmetry scalar  : G = I;  vector: normal component negated
+  Periodic         : G = opposite-side interior layer
   Extrapolated     : G = 2 I - I2
 
 BC `value`/`grad` entries may be a scalar (or a per-component vector for
@@ -44,6 +45,11 @@ class FixedGradient(BC):
 @dataclasses.dataclass(frozen=True)
 class Symmetry(BC):
     """Symmetry plane / slip wall. Scalars: zero gradient; vectors: mirror."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Periodic(BC):
+    """Cyclic boundary; both sides of the axis must be Periodic."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-`load()` compiles `csrc/qgd2d.cu` into a shared library with a plain C
+`load()` compiles every `csrc/*.cu` into one shared library with a plain C
 interface at first use, under `build/qgd_kernels/` at the repository root,
-keyed by a hash of the source and the flags, and loads it.  Nothing is built
-or loaded at import: importing this module needs neither nvcc nor a card.
-`QGDParams` and `BCEntry` mirror the C structs of the same names.
+keyed by a hash of all the sources and the flags, and loads it.  Each source
+is compiled by its own nvcc process, all started together, and the objects
+are then linked.  Nothing is built or loaded at import: importing this
+module needs neither nvcc nor a card.  `QGDParams`, `QGD3DParams` and
+`BCEntry` mirror the C structs of the same names.
 """
 from __future__ import annotations
 
@@ -17,10 +19,9 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "qgd2d.cu"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qgd_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -48,6 +49,24 @@ class QGDParams(ctypes.Structure):
     )
 
 
+class QGD3DParams(ctypes.Structure):
+    """Step constants of the 3D kernels, rounded to f32 once like
+    `QGDParams`; per-axis constants are 3-vectors (x, y, z)."""
+
+    _fields_ = (
+        [(n, _c_int) for n in ("nx", "ny", "nz", "varsc", "mu_const0",
+                               "adjust_dt")]
+        + [(n, _c_float * 3) for n in ("d", "inv_d", "inv_2d", "area")]
+        + [(n, _c_float) for n in (
+            "inv_vol", "R", "Cv", "inv_Cv", "CvR", "gammaR", "gamma", "alpha",
+            "k_mu", "k_muv", "inv_Pr_tau", "mu0", "mu0_Pr_th", "max_co",
+            "max_dt", "c_tau", "rC", "one_m_rC", "minSc", "maxSc", "cqSc",
+            "h_cell")]
+        # [field p, T, ux, uy, uz][axis][side]
+        + [("bc", BCEntry * 2 * 3 * 5)]
+    )
+
+
 def nvcc_path() -> str:
     """The nvcc to build with: PATH first, then the CUDA toolkit's default."""
     found = shutil.which("nvcc")
@@ -59,26 +78,52 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def sources() -> list:
+    """Every kernel source, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _library_path() -> pathlib.Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"qgd2d_{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"qgd_{h.hexdigest()[:16]}.so"
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels unless this source was built already; the
-    `-Xptxas -v` report (registers, shared memory, spills) is kept beside
-    the library.  Raises with nvcc's stderr when the build fails."""
+    """Compile the kernels unless these sources were built already: one nvcc
+    per source, run together, then one link.  The `-Xptxas -v` report
+    (registers, shared memory, spills) of every source is kept beside the
+    library.  Raises with nvcc's stderr when a build fails."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports, failed = [], []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        reports.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name}:\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)],
+                          capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link the kernels:\n{link.stderr}")
+    out.with_suffix(".ptxas.txt").write_text("".join(reports))
     os.replace(tmp, out)
     return out
 
@@ -89,21 +134,28 @@ def ptxas_report() -> str:
     return rep.read_text() if rep.exists() else ""
 
 
+def _bind(lib, name, argtypes, restype=_c_int):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with argtypes set."""
     lib = ctypes.CDLL(str(build()))
-    params = ctypes.POINTER(QGDParams)
-    lib.qgd2d_dt_partials.argtypes = [_c_int, _c_int]
-    lib.qgd2d_dt_partials.restype = _c_int
-    lib.qgd2d_error_string.argtypes = [_c_int]
-    lib.qgd2d_error_string.restype = ctypes.c_char_p
-    lib.qgd2d_dt.argtypes = [params] + [_ptr] * 7
-    lib.qgd2d_dt.restype = _c_int
-    lib.qgd2d_update.argtypes = [params] + [_ptr] * 12
-    lib.qgd2d_update.restype = _c_int
-    lib.qgd2d_ghosts.argtypes = [params] + [_ptr] * 7
-    lib.qgd2d_ghosts.restype = _c_int
+    p2 = ctypes.POINTER(QGDParams)
+    p3 = ctypes.POINTER(QGD3DParams)
+    _bind(lib, "qgd2d_dt_partials", [_c_int, _c_int])
+    _bind(lib, "qgd2d_error_string", [_c_int], ctypes.c_char_p)
+    _bind(lib, "qgd2d_dt", [p2] + [_ptr] * 7)
+    _bind(lib, "qgd2d_update", [p2] + [_ptr] * 12)
+    _bind(lib, "qgd2d_ghosts", [p2] + [_ptr] * 7)
+    _bind(lib, "qgd3d_dt_partials", [p3])
+    _bind(lib, "qgd3d_dt", [p3] + [_ptr] * 8)
+    _bind(lib, "qgd3d_update", [p3] + [_ptr] * 14)
+    _bind(lib, "qgd3d_sensor", [p3] + [_ptr] * 5)
+    _bind(lib, "qgd3d_ghosts", [p3] + [_ptr] * 8)
     return lib
 
 

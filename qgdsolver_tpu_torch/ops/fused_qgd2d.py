@@ -75,22 +75,23 @@ def _raw_value(b):
     return None
 
 
-def supported(solver) -> bool:
-    """True if this solver config runs on the fused step."""
+def common_gate(solver, ndim: int) -> bool:
+    """The conditions both fused steps (2D and 3D) share: an explicit
+    QGDFoam on a uniform `ndim`-D f32 mesh, perfect gas with constant
+    transport, the `full` stencil, and qgdFlux p (unlimited, unrelaxed)
+    only on x sides."""
     from ..solvers.qgd import QGDFoam
 
     if type(solver) is not QGDFoam:
         return False
     mesh = solver.mesh
-    if mesh.ndim != 2 or mesh.dtype != torch.float32:
+    if mesh.ndim != ndim or mesh.dtype != torch.float32:
         return False
     if not all(np.allclose(d, d[0]) for d in mesh.dx):
         return False
     th = solver.thermo
     if not (isinstance(th, PerfectGasThermo)
             and isinstance(th.transport, ConstTransport)):
-        return False
-    if not isinstance(solver.tau_model, (ConstScPrModel1, VarScModel5)):
         return False
     if solver.implicit_diffusion:
         return False
@@ -99,8 +100,16 @@ def supported(solver) -> bool:
     for term in ("grad(U)", "grad(e)", "grad(rho)", "grad(p)"):
         if fvsc.scheme_for(solver.fvsc_scheme, term) != "full":
             return False
-    if any(a != 0 for a, _ in solver._flux_sides()):
+    return all(a == 0 for a, _ in solver._flux_sides())
+
+
+def supported(solver) -> bool:
+    """True if this solver config runs on the fused step."""
+    if not common_gate(solver, 2):
         return False
+    if not isinstance(solver.tau_model, (ConstScPrModel1, VarScModel5)):
+        return False
+    mesh = solver.mesh
     for bcs in solver._bcs():
         for a in range(2):
             for side in (0, 1):
@@ -245,11 +254,11 @@ def make_params(solver) -> tuple:
 
 
 def _zg(f):
-    """Coefficient ghosts: zero-gradient copies of the edge cells."""
-    nr, w = f.shape
-    rows = torch.arange(nr, device=f.device).clamp(1, nr - 2)
-    cols = torch.arange(w, device=f.device).clamp(1, w - 2)
-    return f[rows][:, cols]
+    """Coefficient ghosts: zero-gradient copies of the edge cells (any
+    number of axes)."""
+    for a, n in enumerate(f.shape):
+        f = f.index_select(a, torch.arange(n, device=f.device).clamp(1, n - 2))
+    return f
 
 
 def _xi(a, b):
@@ -489,8 +498,10 @@ def ghosts_reference(prm, frames, side, profiles):
 # ---------------------------------------------------------------------------
 
 
-def _check(prm, name, *tensors):
-    shape = (prm.nx + 2, prm.ny + 2)
+def check_tensors(name, shape, *tensors):
+    """Raise unless the tensors are contiguous float32 of `shape` on one CPU
+    or CUDA device; True if that device is a card."""
+    shape = tuple(shape)
     dev = tensors[0].device
     for x in tensors:
         if x.dtype != torch.float32:
@@ -504,6 +515,10 @@ def _check(prm, name, *tensors):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {dev}")
     return dev.type == "cuda"
+
+
+def _check(prm, name, *tensors):
+    return check_tensors(name, (prm.nx + 2, prm.ny + 2), *tensors)
 
 
 def _scalar(name, x, like):
@@ -593,11 +608,13 @@ KERNELS = (qgd2d_dt, qgd2d_update, qgd2d_ghosts)
 
 
 def _edge_frame(interior):
-    """Interior cells -> frame with edge-replicated ghosts."""
-    nx, ny = interior.shape
-    rows = (torch.arange(nx + 2, device=interior.device) - 1).clamp(0, nx - 1)
-    cols = (torch.arange(ny + 2, device=interior.device) - 1).clamp(0, ny - 1)
-    return interior[rows][:, cols].contiguous()
+    """Interior cells -> frame with edge-replicated ghosts (any number of
+    axes)."""
+    f = interior
+    for a, n in enumerate(interior.shape):
+        idx = (torch.arange(n + 2, device=f.device) - 1).clamp(0, n - 1)
+        f = f.index_select(a, idx)
+    return f.contiguous()
 
 
 def build_fused_step(solver, plain: bool = False):

@@ -1,0 +1,660 @@
+"""Fused explicit 3D QGDFoam step on hand-written CUDA kernels (PyTorch port
+of `qgdsolver_tpu.ops.fused_qgd3d.build_fused_step_3d`, the x-slab Pallas
+kernel K4, together with its dt pre-pass).
+
+State carried across steps: the ghost-padded primitive frames p, T, ux, uy,
+uz, each a contiguous (nx+2, ny+2, nz+2) float32 tensor with z the fast
+axis; index [r, s, t] holds cell (r-1, s-1, t-1) and index 0 / n+1 of each
+axis is a ghost.  varScModel5 configs also carry the smoothed sensor `sc`
+(a frame, edge-replicated ghosts) and `sc_raw`, the raw sensor of the
+current fields (interior cells only, (nx, ny, nz)).
+
+One step:
+  1. `qgd3d_dt`: acoustic Courant number and min tau_f over the exact live
+     face sets, then setDeltaT - a one-element tensor on the device;
+  2. varScModel5 only: `fvc_smooth` of `sc_raw` (plain torch, as XLA does
+     it in the reference) -> this step's sensor;
+  3. `qgd3d_update`: the six face fluxes of each cell and the explicit
+     update into new frames, plus ws/tau_f on the two x-boundary faces;
+  4. varScModel5 only: `qgd3d_sensor`, the raw sensor over the fresh frames;
+  5. `qgd3d_ghosts`: BC ghost planes along x, then y over every x, then z.
+
+Each of 1 and 3-5 is a wrapper: for CPU tensors it runs the plain torch
+version beside it (`dt_reference_3d`, `update_reference_3d`,
+`sensor_reference_3d`, `ghosts_reference_3d`); for CUDA tensors it launches
+the kernel from csrc/qgd3d.cu or raises.  Each wrapper counts its launches in
+a plain integer attribute (`qgd3d_dt.launches`, ...).
+
+Restrictions (`supported()`): 3D uniform f32 mesh, PerfectGasThermo with
+constant transport, the constScPrModel1 family or varScModel5 (scalar cqSc),
+explicit diffusion, the `full` stencil for every gradient, qgdFlux p only on
+x sides, y/z BCs of scalar value, and x BCs whose values are scalars or
+static (ny, nz) planes.
+"""
+from __future__ import annotations
+
+import ctypes
+import typing as tp
+
+import numpy as np
+import torch
+
+from ..core import bc as bcm
+from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5, fvc_smooth
+from ..solvers import common
+from . import _build
+from .fused_qgd2d import (KINDS, _bc_ghost, _edge_frame, _ptr, _raw_value,
+                          _scalar, _zg, check_tensors, common_gate)
+from .fvsc import _hi, _lo
+from .pad import _sl
+
+FIELDS = ("p", "T", "ux", "uy", "uz")
+_CONST_SC_PR = ("ConstScPrModel1", "ConstScPrModel1n", "ConstScPrModel2")
+
+
+class Fused3DState(tp.NamedTuple):
+    """Carry of the fused 3D step: ghost-padded primitive frames + time,
+    and for varScModel5 the smoothed sensor frame and the raw sensor."""
+
+    p: torch.Tensor
+    T: torch.Tensor
+    ux: torch.Tensor
+    uy: torch.Tensor
+    uz: torch.Tensor
+    t: torch.Tensor
+    dt: torch.Tensor
+    sc: tp.Optional[torch.Tensor] = None
+    sc_raw: tp.Optional[torch.Tensor] = None
+
+
+# ---------------------------------------------------------------------------
+# BC compilation and the capability check
+# ---------------------------------------------------------------------------
+
+
+def _to_numpy(v) -> np.ndarray:
+    return torch.as_tensor(v).detach().cpu().numpy().astype(np.float64)
+
+
+def _kind(b) -> str:
+    return ("fixed" if isinstance(b, bcm.FixedValue)
+            else "grad" if isinstance(b, bcm.FixedGradient) else "io")
+
+
+def _scalar_bc(b, axis, comp=None):
+    """(kind, value) of a BC the ghost formula takes with a scalar value;
+    None if it is not one (array/callable values, flux BCs, ...)."""
+    if isinstance(b, bcm.ZeroGradient):
+        return ("zg", 0.0)
+    if isinstance(b, bcm.Symmetry):
+        return ("sym", -1.0 if comp == axis else 1.0)
+    if isinstance(b, bcm.Extrapolated):
+        return ("extrap", 0.0)
+    if not isinstance(b, (bcm.FixedValue, bcm.FixedGradient,
+                          bcm.InletOutlet)):
+        return None
+    raw = _raw_value(b)
+    if callable(raw):
+        return None
+    v = _to_numpy(raw)
+    if comp is not None and v.ndim >= 1 and v.shape[0] >= comp + 1:
+        v = v[comp]
+    if v.size != 1:
+        return None
+    return (_kind(b), float(v.reshape(())))
+
+
+def _plane_value(b, mesh, side, comp=None):
+    """An x-side BC's value or gradient as a static (ny, nz) float64 plane,
+    or None.  A callable is evaluated on the ghost layer's coordinates at
+    t=0 and t=1 and must give the same plane there."""
+    raw = _raw_value(b)
+    ny, nz = mesh.shape[1], mesh.shape[2]
+    if callable(raw):
+        coords = (mesh.tensor(mesh.x_faces[0][0 if side == 0 else -1]
+                              ).reshape(1, 1, 1),
+                  mesh.tensor(mesh.centers[1]).reshape(1, ny, 1),
+                  mesh.tensor(mesh.centers[2]).reshape(1, 1, nz))
+        try:
+            v0 = _to_numpy(raw(0.0, coords))
+            v1 = _to_numpy(raw(1.0, coords))
+        except Exception:  # noqa: BLE001 - a callable that is not static
+            return None
+        if not np.array_equal(v0, v1):
+            return None
+        v = v0
+        if comp is not None and v.ndim >= 3 and v.shape[0] >= comp + 1:
+            v = v[comp]
+    else:
+        v = _to_numpy(raw)
+        if comp is not None and v.ndim >= 1 and v.shape[0] >= comp + 1:
+            v = v[comp]
+    try:
+        return np.broadcast_to(np.squeeze(v), (ny, nz)).astype(np.float64)
+    except ValueError:
+        return None
+
+
+def _x_bc_spec(b, side, comp, mesh, planes):
+    """(kind, value, plane index) for an x side: scalar kinds as
+    `_scalar_bc` (plane -1), array or static-callable values as a plane
+    appended to `planes`; None if not representable."""
+    sc = _scalar_bc(b, 0, comp)
+    if sc is not None:
+        return sc + (-1,)
+    if isinstance(b, bcm.QGDFluxP):
+        return ("qgdflux", 0.0, -1)
+    if not isinstance(b, (bcm.FixedValue, bcm.FixedGradient,
+                          bcm.InletOutlet)):
+        return None
+    v = _plane_value(b, mesh, side, comp)
+    if v is None:
+        return None
+    planes.append(v)
+    return (_kind(b), 0.0, len(planes) - 1)
+
+
+def _field_bcs(solver):
+    bc_U, bc_p, bc_T = solver._bcs()
+    return ((bc_p, None), (bc_T, None), (bc_U, 0), (bc_U, 1), (bc_U, 2))
+
+
+def _bc_specs(solver):
+    """specs[field][axis][side] = (kind, value, plane) or None, and the
+    (ny, nz) planes of the array-valued x-side BCs."""
+    mesh = solver.mesh
+    planes = []
+    specs = []
+    for bcs, comp in _field_bcs(solver):
+        rows = []
+        for a in range(3):
+            row = []
+            for side in (0, 1):
+                if a == 0:
+                    row.append(_x_bc_spec(bcs[a, side], side, comp, mesh,
+                                          planes))
+                else:
+                    s = _scalar_bc(bcs[a, side], a, comp)
+                    row.append(None if s is None else s + (-1,))
+            rows.append(row)
+        specs.append(rows)
+    return specs, planes
+
+
+def supported(solver) -> bool:
+    """True if this solver config runs on the fused 3D step."""
+    if not common_gate(solver, 3):
+        return False
+    tm = solver.tau_model
+    if isinstance(tm, VarScModel5):
+        # per-cell cqSc floors / const-Sc cellSets: composable only
+        if np.ndim(tm.cqSc) != 0 \
+                or getattr(tm, "const_sc_mask", None) is not None:
+            return False
+    elif not isinstance(tm, ConstScPrModel1) \
+            or type(tm).__name__ not in _CONST_SC_PR:
+        return False
+    specs, _ = _bc_specs(solver)
+    return all(e is not None for rows in specs for row in rows for e in row)
+
+
+def make_params(solver) -> tuple:
+    """(QGD3DParams, plane table (n_planes, ny, nz) float32) for a
+    supported solver."""
+    mesh = solver.mesh
+    th = solver.thermo
+    tm = solver.tau_model
+    tc = solver.time
+    nx, ny, nz = mesh.shape
+    d = [float(mesh.dx[a][0]) for a in range(3)]
+    vol = d[0] * d[1] * d[2]
+    h_cell = float(mesh._h_cell_np.reshape(-1)[0])
+    varsc = isinstance(tm, VarScModel5)
+    f3 = ctypes.c_float * 3
+    prm = _build.QGD3DParams(
+        nx=nx, ny=ny, nz=nz, varsc=int(varsc),
+        mu_const0=int(th.transport.mu0 == 0.0),
+        adjust_dt=int(tc.adjust_time_step),
+        d=f3(*d), inv_d=f3(*(1.0 / x for x in d)),
+        inv_2d=f3(*(1.0 / (2.0 * x) for x in d)),
+        area=f3(*(vol / x for x in d)), inv_vol=1.0 / vol,
+        R=th.R, Cv=th.Cv, inv_Cv=1.0 / th.Cv, CvR=th.Cv + th.R,
+        gammaR=th.gamma * th.R, gamma=th.gamma, alpha=tm.alpha,
+        k_mu=0.0 if varsc else tm.Sc * tm.alpha * h_cell,
+        k_muv=tm.alpha * h_cell, inv_Pr_tau=1.0 / tm.Pr,
+        mu0=th.transport.mu0, mu0_Pr_th=th.transport.mu0 * (1.0 / th.Pr),
+        max_co=tc.max_co, max_dt=tc.max_dt, c_tau=tc.c_tau,
+        rC=tm.rC if varsc else 0.0, one_m_rC=1.0 - tm.rC if varsc else 0.0,
+        minSc=tm.minSc if varsc else 0.0, maxSc=tm.maxSc if varsc else 1.0,
+        cqSc=float(tm.cqSc) if varsc else 0.0, h_cell=h_cell,
+    )
+    specs, planes = _bc_specs(solver)
+    for f, rows in enumerate(specs):
+        for a in range(3):
+            for side in (0, 1):
+                kind, value, plane = rows[a][side]
+                e = prm.bc[f][a][side]
+                e.kind, e.value, e.prof = KINDS[kind], value, plane
+    if not planes:
+        planes.append(np.zeros((ny, nz)))
+    return prm, np.stack(planes).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions of the four kernels (same frame layout)
+# ---------------------------------------------------------------------------
+
+
+def _aint(x, a):
+    """Face values along axis a of a frame (n_a+1 faces, other axes full)."""
+    return 0.5 * (_lo(x, a) + _hi(x, a))
+
+
+def _trim(x, a):
+    """Keep the interior along every axis except a."""
+    for b in range(3):
+        if b != a:
+            x = _sl(x, b, slice(1, -1))
+    return x
+
+
+def _tan(xf, a, b, prm):
+    """Central d/dx_b of the a-face values xf, at the interior faces."""
+    g = (_sl(xf, b, slice(2, None)) - _sl(xf, b, slice(None, -2))) \
+        * prm.inv_2d[b]
+    c = 3 - a - b
+    return _sl(g, c, slice(1, -1))
+
+
+def dt_reference_3d(prm, T, ux, uy, uz, dt):
+    """Plain version of `qgd3d_dt`: setDeltaT from the max acoustic wave
+    speed per axis and the min tau_f over the live faces (faces against the
+    ghost layers included; coefficient ghosts zero-gradient)."""
+    gRT = prm.gammaR * T
+    c = gRT * torch.rsqrt(gRT)
+    coef = _zg(c if prm.varsc else prm.alpha / c)
+    co = torch.zeros((), dtype=T.dtype, device=T.device)
+    tau_min = torch.full((), float("inf"), dtype=T.dtype, device=T.device)
+    for a, u in enumerate((ux, uy, uz)):
+        wave = torch.abs(_trim(_aint(u, a), a)) + _trim(_aint(c, a), a)
+        co = torch.maximum(co, torch.max(wave) * dt / prm.d[a])
+        cf = _trim(_aint(coef, a), a)
+        tauf = (prm.alpha / cf) * prm.d[a] if prm.varsc else cf * prm.d[a]
+        tau_min = torch.minimum(tau_min, torch.min(tauf))
+    tc = common.TimeControls(adjust_time_step=bool(prm.adjust_dt),
+                             max_co=prm.max_co, max_dt=prm.max_dt,
+                             c_tau=prm.c_tau)
+    return common.set_delta_t(dt, co, tau_min, tc)
+
+
+def _axis_fluxes(prm, a, cell, coef):
+    """The five face fluxes (area included) at the a-faces of every interior
+    line, and ws, tau_f there - the reference kernel's per-axis body."""
+    p, rho, e, H, u3, ru = cell
+    mu_eff, alphau, tcoef = coef
+    tang = [b for b in range(3) if b != a]
+    d = prm.d[a]
+
+    def face(x):
+        return _trim(_aint(x, a), a)
+
+    def sn(x):
+        return _trim((_hi(x, a) - _lo(x, a)) * prm.inv_d[a], a)
+
+    pf_a, rf_a, ef_a = _aint(p, a), _aint(rho, a), _aint(e, a)
+    uf_a = [_aint(u, a) for u in u3]
+    pf, rf = _trim(pf_a, a), _trim(rf_a, a)
+    Hf = face(H)
+    uf = [_trim(x, a) for x in uf_a]
+    ruf = [face(x) for x in ru]
+    muf = face(mu_eff)
+    af = muf * prm.inv_Pr_tau if alphau is None else face(alphau)
+    if prm.varsc:
+        tauf = (prm.alpha / face(tcoef)) * d
+    else:
+        tauf = face(tcoef) * d
+    urr = [face(u3[a] * ru[k]) for k in range(3)]
+
+    gU = [[None] * 3 for _ in range(3)]  # gU[i][j] = dU_j/dx_i
+    gR, gP, ge = [None] * 3, [None] * 3, [None] * 3
+    for j in range(3):
+        gU[a][j] = sn(u3[j])
+    gR[a], gP[a], ge[a] = sn(rho), sn(p), sn(e)
+    for b in tang:
+        for j in range(3):
+            gU[b][j] = _tan(uf_a[j], a, b, prm)
+        gR[b] = _tan(rf_a, a, b, prm)
+        gP[b] = _tan(pf_a, a, b, prm)
+        ge[b] = _tan(ef_a, a, b, prm)
+
+    divU = gU[0][0] + gU[1][1] + gU[2][2]
+    u_gradrho = uf[0] * gR[0] + uf[1] * gR[1] + uf[2] * gR[2]
+    rg = ruf[0] * gU[0][a] + ruf[1] * gU[1][a] + ruf[2] * gU[2][a]
+    ws = tauf * (u_gradrho * uf[a] + ruf[a] * divU + rg)
+    jm = ruf[a] - (ws + tauf * gP[a])
+    u_gradp = uf[0] * gP[0] + uf[1] * gP[1] + uf[2] * gP[2]
+    iso = u_gradp + prm.gamma * pf * divU
+    pi = []
+    for j in range(3):
+        t1 = urr[0] * gU[0][j] + urr[1] * gU[1][j] + urr[2] * gU[2][j] \
+            + uf[a] * gP[j]
+        if j == a:
+            pij = tauf * (t1 + iso) \
+                + muf * (gU[a][j] + gU[j][a] - (2.0 / 3.0) * divU)
+        else:
+            pij = tauf * t1 + muf * (gU[a][j] + gU[j][a])
+        pi.append(pij)
+    prr = pf / (rf * rf)
+    de = [ge[k] - prr * gR[k] for k in range(3)]
+    q = -tauf * (urr[0] * de[0] + urr[1] * de[1] + urr[2] * de[2]) \
+        - af * ge[a]
+    area = prm.area[a]
+    phiJm = jm * area
+    fl = [phiJm]
+    for j in range(3):
+        fl.append(phiJm * uf[j] + area * ((pf if j == a else 0.0) - pi[j]))
+    fl.append(phiJm * Hf
+              + area * (q - (pi[0] * uf[0] + pi[1] * uf[1] + pi[2] * uf[2])))
+    return fl, ws, tauf
+
+
+def update_reference_3d(prm, p, T, ux, uy, uz, sc, dt):
+    """Plain version of `qgd3d_update`: the QGD fluxes and the explicit
+    update.  Returns (new frames p, T, ux, uy, uz with the interior filled
+    and zero ghosts, side) where side[0 / 1] = ws/tau_f on the x-low /
+    x-high boundary faces, shape (2, ny, nz)."""
+    u3 = (ux, uy, uz)
+    rho = p / (prm.R * T)
+    e = prm.Cv * T
+    gRT = prm.gammaR * T
+    rcs = torch.rsqrt(gRT)
+    ru = tuple(rho * u for u in u3)
+    ke = ux * ux + uy * uy + uz * uz
+    H = prm.CvR * T + 0.5 * ke
+    # coefficient fields with zero-gradient ghosts
+    if prm.varsc:
+        mu_qgd = ((prm.k_muv * sc) * p) * rcs
+        tcoef = _zg(gRT * rcs)
+    else:
+        mu_qgd = (prm.k_mu * p) * rcs
+        tcoef = _zg(prm.alpha * rcs)
+    if prm.mu_const0:
+        mu_eff, alphau = _zg(mu_qgd), None
+    else:
+        mu_eff = _zg(mu_qgd + prm.mu0)
+        alphau = _zg(mu_qgd * prm.inv_Pr_tau + prm.mu0_Pr_th)
+    cell = (p, rho, e, H, u3, ru)
+    acc = None
+    for a in range(3):
+        fl, ws, tauf = _axis_fluxes(prm, a, cell, (mu_eff, alphau, tcoef))
+        if a == 0:
+            side = torch.stack([ws[0] / tauf[0], ws[-1] / tauf[-1]])
+        dfl = [_hi(f, a) - _lo(f, a) for f in fl]
+        acc = dfl if acc is None else [x + y for x, y in zip(acc, dfl)]
+
+    C = (slice(1, -1),) * 3
+    sdt = dt * prm.inv_vol
+    rho_c = rho[C]
+    rhon = rho_c - sdt * acc[0]
+    run = [ru[j][C] - sdt * acc[1 + j] for j in range(3)]
+    rhoE = rho_c * (e[C] + 0.5 * ke[C])
+    rhoEn = rhoE - sdt * acc[4]
+    inv_rhon = 1.0 / rhon
+    un = [r * inv_rhon for r in run]
+    en = rhoEn * inv_rhon - 0.5 * (un[0] * un[0] + un[1] * un[1]
+                                   + un[2] * un[2])
+    Tn = en * prm.inv_Cv
+    pn = rhon * prm.R * Tn
+    out = []
+    for interior in (pn, Tn, un[0], un[1], un[2]):
+        f = torch.zeros_like(p)
+        f[C] = interior
+        out.append(f)
+    return tuple(out), side.contiguous()
+
+
+def sensor_reference_3d(prm, p, T, sc):
+    """Plain version of `qgd3d_sensor`: the raw varScModel5 sensor of the
+    fresh frames (rho from the stored p, T; zero-gradient ghosts), relaxed
+    against the current smoothed sensor `sc`.  Returns (nx, ny, nz)."""
+    C = (slice(1, -1),) * 3
+    r = p[C] * (1.0 / (prm.R * T[C]))
+    rg = _edge_frame(r)
+    g = [(_sl(rg, a, slice(2, None)) - _sl(rg, a, slice(None, -2)))
+         * prm.inv_2d[a] for a in range(3)]
+    g = [_trim(x, a) for a, x in enumerate(g)]
+    mag = torch.sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2])
+    s = prm.rC * (mag * prm.h_cell / r) + prm.one_m_rC * sc[C]
+    s = torch.clamp(s, prm.minSc, prm.maxSc)
+    return torch.clamp(s, min=prm.cqSc)
+
+
+def ghosts_reference_3d(prm, frames, side, planes):
+    """Plain version of `qgd3d_ghosts`, in place on the fresh frames: the
+    x-ghost planes from the interior (qgdFlux p: interior +- side*dx), then
+    the y-ghost rows over every x, then the z-ghost lanes over every x and
+    y, so edges and corners see the earlier axes.  inletOutlet switches on
+    the fresh adjacent-cell outward velocity (on ghost layers of earlier
+    axes, the nearest interior cell's)."""
+    nx, ny, nz = prm.nx, prm.ny, prm.nz
+    ux, uy, uz = frames[2], frames[3], frames[4]
+    I = slice(1, -1)
+    for f, fld in enumerate(frames):
+        for sd in (0, 1):
+            e = prm.bc[f][0][sd]
+            r1, r2, rg = (1, 2, 0) if sd == 0 else (nx, nx - 1, nx + 1)
+            in1 = fld[r1, I, I]
+            if e.kind == KINDS["qgdflux"]:
+                q = side[sd] * prm.d[0]
+                g = in1 + q if sd == 0 else in1 - q
+            else:
+                v = planes[e.prof] if e.prof >= 0 else e.value
+                g = _bc_ghost(e, in1, fld[r2, I, I], prm.d[0], v,
+                              ux[r1, I, I], sd)
+            fld[rg, I, I] = g
+    rows = torch.arange(nx + 2, device=ux.device).clamp(1, nx)
+    lanes = torch.arange(ny + 2, device=ux.device).clamp(1, ny)
+    for f, fld in enumerate(frames):
+        for sd in (0, 1):
+            e = prm.bc[f][1][sd]
+            l1, l2, lg = (1, 2, 0) if sd == 0 else (ny, ny - 1, ny + 1)
+            fld[:, lg, I] = _bc_ghost(e, fld[:, l1, I], fld[:, l2, I],
+                                      prm.d[1], e.value, uy[rows, l1, I], sd)
+    for f, fld in enumerate(frames):
+        for sd in (0, 1):
+            e = prm.bc[f][2][sd]
+            l1, l2, lg = (1, 2, 0) if sd == 0 else (nz, nz - 1, nz + 1)
+            un = uz[rows][:, lanes, l1]
+            fld[:, :, lg] = _bc_ghost(e, fld[:, :, l1], fld[:, :, l2],
+                                      prm.d[2], e.value, un, sd)
+    return frames
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: plain version for CPU tensors, the CUDA kernel otherwise
+# ---------------------------------------------------------------------------
+
+
+def _check(prm, name, *tensors):
+    return check_tensors(name, (prm.nx + 2, prm.ny + 2, prm.nz + 2), *tensors)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def qgd3d_dt(prm, T, ux, uy, uz, dt):
+    """New dt (0-dim tensor) from the current frames and the previous dt."""
+    on_card = _check(prm, "qgd3d_dt", T, ux, uy, uz)
+    _scalar("qgd3d_dt", dt, T)
+    if not on_card:
+        return dt_reference_3d(prm, T, ux, uy, uz, dt)
+    lib = _build.load()
+    with torch.cuda.device(T.device):
+        n = lib.qgd3d_dt_partials(prm)
+        partials = torch.empty((n, 4), dtype=T.dtype, device=T.device)
+        out = torch.empty((), dtype=T.dtype, device=T.device)
+        code = lib.qgd3d_dt(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
+                            _ptr(dt), _ptr(partials), _ptr(out), _stream(T))
+    _build.check(lib, code, "qgd3d_dt")
+    qgd3d_dt.launches += 1
+    return out
+
+
+def qgd3d_update(prm, p, T, ux, uy, uz, sc, dt):
+    """(new frames, side) - see `update_reference_3d`.  The kernel leaves
+    the new frames' ghosts unset; `qgd3d_ghosts` fills them."""
+    fr = (p, T, ux, uy, uz) + ((sc,) if prm.varsc else ())
+    on_card = _check(prm, "qgd3d_update", *fr)
+    _scalar("qgd3d_update", dt, p)
+    if not on_card:
+        return update_reference_3d(prm, p, T, ux, uy, uz, sc, dt)
+    lib = _build.load()
+    new = tuple(torch.empty_like(p) for _ in range(5))
+    side = torch.empty((2, prm.ny, prm.nz), dtype=p.dtype, device=p.device)
+    with torch.cuda.device(p.device):
+        code = lib.qgd3d_update(prm, _ptr(p), _ptr(T), _ptr(ux), _ptr(uy),
+                                _ptr(uz), _ptr(sc if prm.varsc else None),
+                                _ptr(dt), *(_ptr(x) for x in new),
+                                _ptr(side), _stream(p))
+    _build.check(lib, code, "qgd3d_update")
+    qgd3d_update.launches += 1
+    return new, side
+
+
+def qgd3d_sensor(prm, p, T, sc):
+    """The raw varScModel5 sensor of the fresh frames, (nx, ny, nz) - see
+    `sensor_reference_3d`.  Reads only interior cells of p and T."""
+    if not prm.varsc:
+        raise ValueError("qgd3d_sensor: the config has no varScModel5 sensor")
+    on_card = _check(prm, "qgd3d_sensor", p, T, sc)
+    if not on_card:
+        return sensor_reference_3d(prm, p, T, sc)
+    lib = _build.load()
+    out = torch.empty((prm.nx, prm.ny, prm.nz), dtype=p.dtype,
+                      device=p.device)
+    with torch.cuda.device(p.device):
+        code = lib.qgd3d_sensor(prm, _ptr(p), _ptr(T), _ptr(sc), _ptr(out),
+                                _stream(p))
+    _build.check(lib, code, "qgd3d_sensor")
+    qgd3d_sensor.launches += 1
+    return out
+
+
+def qgd3d_ghosts(prm, frames, side, planes):
+    """Fill the ghosts of the fresh frames in place - see
+    `ghosts_reference_3d`.  Three launches: x planes, y rows, z lanes."""
+    on_card = _check(prm, "qgd3d_ghosts", *frames)
+    check_tensors("qgd3d_ghosts", (2, prm.ny, prm.nz), side)
+    check_tensors("qgd3d_ghosts", (planes.shape[0], prm.ny, prm.nz), planes)
+    if side.device != frames[0].device or planes.device != side.device:
+        raise ValueError("qgd3d_ghosts: side and planes must lie beside the "
+                         "frames")
+    if not on_card:
+        return ghosts_reference_3d(prm, frames, side, planes)
+    lib = _build.load()
+    with torch.cuda.device(side.device):
+        code = lib.qgd3d_ghosts(prm, _ptr(planes), _ptr(side),
+                                *(_ptr(x) for x in frames), _stream(side))
+    _build.check(lib, code, "qgd3d_ghosts")
+    qgd3d_ghosts.launches += 1
+    return frames
+
+
+qgd3d_dt.launches = 0
+qgd3d_update.launches = 0
+qgd3d_sensor.launches = 0
+qgd3d_ghosts.launches = 0
+KERNELS = (qgd3d_dt, qgd3d_update, qgd3d_sensor, qgd3d_ghosts)
+
+
+# ---------------------------------------------------------------------------
+# the step and its State conversions
+# ---------------------------------------------------------------------------
+
+
+def build_fused_step_3d(solver, plain: bool = False):
+    """(step, to_fused, from_fused) for a supported 3D QGDFoam solver.
+
+    step: Fused3DState -> Fused3DState.  With plain=True the step calls the
+    plain torch versions directly on any device (the comparison path for
+    the kernels on the card); the default goes through the kernel wrappers.
+    """
+    from ..ops.pad import ghost_pad
+    from ..solvers.qgd import State
+
+    if not supported(solver):
+        raise ValueError("solver config not supported by the fused 3D step")
+    mesh = solver.mesh
+    th = solver.thermo
+    tm = solver.tau_model
+    varsc = isinstance(tm, VarScModel5)
+    prm, planes_np = make_params(solver)
+    planes = mesh.tensor(planes_np).contiguous()
+    if plain:
+        k_dt, k_update, k_sensor, k_ghosts = (
+            dt_reference_3d, update_reference_3d, sensor_reference_3d,
+            ghosts_reference_3d)
+    else:
+        k_dt, k_update, k_sensor, k_ghosts = KERNELS
+
+    def step(fs: Fused3DState) -> Fused3DState:
+        dt_new = k_dt(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
+        sc = sc_raw = None
+        if varsc:
+            sc = _edge_frame(fvc_smooth(fs.sc_raw, tm.smoothCoeff))
+        frames, side = k_update(prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc,
+                                dt_new)
+        if varsc:
+            sc_raw = k_sensor(prm, frames[0], frames[1], sc)
+        p, T, ux, uy, uz = k_ghosts(prm, frames, side, planes)
+        return Fused3DState(p=p, T=T, ux=ux, uy=uy, uz=uz, t=fs.t + dt_new,
+                            dt=dt_new, sc=sc, sc_raw=sc_raw)
+
+    flux_sides = solver._flux_sides()
+    bc_U, bc_p, bc_T = solver._bcs()
+    dx = float(mesh.dx[0][0])
+    C = (slice(1, -1),) * 3
+
+    def to_fused(s: State) -> Fused3DState:
+        bc_pp = bc_p
+        for i, (a, side) in enumerate(flux_sides):
+            bc_pp = bc_pp.replace(a, side, bcm.FixedGradient(s.pbc[i]))
+        U, e, T, p = solver.primitives(s)
+        bc_Ur = bcm.resolve_inlet_outlet(bc_U, U, 3)
+        bc_pp = bcm.resolve_inlet_outlet(bc_pp, U, 3)
+        bc_Tr = bcm.resolve_inlet_outlet(bc_T, U, 3)
+        Upad = ghost_pad(U, bc_Ur, mesh, t=s.t, vector=True)
+        pf = ghost_pad(p, bc_pp, mesh, t=s.t).contiguous()
+        Tf = ghost_pad(T, bc_Tr, mesh, t=s.t).contiguous()
+        sc = sc_raw = None
+        if varsc:
+            sc = _edge_frame(s.sc)
+            sc_raw = tm.sc_raw_update(mesh, th.rho_from_p_T(pf[C], Tf[C]),
+                                      s.sc).contiguous()
+        return Fused3DState(p=pf, T=Tf, ux=Upad[0].contiguous(),
+                            uy=Upad[1].contiguous(), uz=Upad[2].contiguous(),
+                            t=s.t, dt=s.dt, sc=sc, sc_raw=sc_raw)
+
+    def from_fused(fs: Fused3DState) -> State:
+        p = fs.p[C]
+        T = fs.T[C]
+        U = torch.stack([fs.ux[C], fs.uy[C], fs.uz[C]])
+        rho = th.rho_from_p_T(p, T)
+        e = th.e_from_T(T)
+        # lagged qgdFlux gradients from the p ghost planes (ghost = interior
+        # + g*dx on both sides)
+        pbc = []
+        for _, side in flux_sides:
+            if side == 0:
+                g = (fs.p[0:1, 1:-1, 1:-1] - fs.p[1:2, 1:-1, 1:-1]) * (1.0 / dx)
+            else:
+                g = (fs.p[-1:, 1:-1, 1:-1] - fs.p[-2:-1, 1:-1, 1:-1]) \
+                    * (1.0 / dx)
+            pbc.append(g)
+        sc = fs.sc[C] if varsc else torch.full_like(rho, tm.Sc)
+        return State(rho=rho, rhoU=rho[None] * U,
+                     rhoE=rho * e + 0.5 * rho * torch.sum(U * U, dim=0),
+                     sc=sc, t=fs.t, dt=fs.dt, pbc=tuple(pbc))
+
+    return step, to_fused, from_fused

@@ -77,7 +77,7 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
         return extend_prior(
             _eval_bc_value(raw, t, coords, vector, ncomp, interior))
 
-    def one(bc, side, interior, dx, near2):
+    def one(bc, side, interior, other_interior, dx, near2):
         if isinstance(bc, bcm.FixedValue):
             return 2.0 * ev(bc.value, side, interior) - interior
         if isinstance(bc, bcm.ZeroGradient):
@@ -92,6 +92,8 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
             return interior
         if isinstance(bc, bcm.FixedGradient):
             return interior + ev(bc.grad, side, interior) * dx
+        if isinstance(bc, bcm.Periodic):
+            return other_interior
         if isinstance(bc, bcm.Extrapolated):
             return 2.0 * interior - near2
         if isinstance(bc, bcm.FluxSwitched):
@@ -105,9 +107,10 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
         raise NotImplementedError(f"BC {bc!r} is not in the port yet")
 
     n = arr.shape[ax]
-    lo = one(bc_lo, 0, _sl(arr, ax, slice(0, 1)), mesh.dx[a][0],
-             _sl(arr, ax, slice(1, 2)))
-    hi = one(bc_hi, 1, _sl(arr, ax, slice(n - 1, n)), mesh.dx[a][-1],
+    i_lo = _sl(arr, ax, slice(0, 1))
+    i_hi = _sl(arr, ax, slice(n - 1, n))
+    lo = one(bc_lo, 0, i_lo, i_hi, mesh.dx[a][0], _sl(arr, ax, slice(1, 2)))
+    hi = one(bc_hi, 1, i_hi, i_lo, mesh.dx[a][-1],
              _sl(arr, ax, slice(n - 2, n - 1)))
     return lo, hi, ax
 

@@ -1,5 +1,6 @@
 """tau-regularization coefficient models (PyTorch port of
-`qgdsolver_tpu.physics.qgdcoeffs`: constScPrModel1 and varScModel5).
+`qgdsolver_tpu.physics.qgdcoeffs`: the constScPrModel1 family and
+varScModel5).
 
 A model is a frozen dataclass; `correct()` maps the current thermo state to a
 `Coeffs` record.  varScModel5's relaxed sensor is carried in the solver state.
@@ -67,6 +68,18 @@ class ConstScPrModel1(TauModel):
         tau_f = tuple(aoc_f[a] * mesh.h_face(a) for a in range(mesh.ndim))
         return _finish(mesh, tau, tau_f, p, torch.full_like(tau, self.Sc),
                        self.Pr)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstScPrModel1n(ConstScPrModel1):
+    """Variant of model1 for a per-cell ScQGD field (reference
+    constScPrModel1n); with the constant Sc it computes what model1 does."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstScPrModel2(ConstScPrModel1):
+    """Same tau as model1 with fixed Sc/Pr handling (reference
+    constScPrModel2)."""
 
 
 def _neighbour_max(field):

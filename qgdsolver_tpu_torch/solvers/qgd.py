@@ -256,16 +256,25 @@ class QGDFoam:
 
     # -- fused kernel path ----------------------------------------------------
     def fused_supported(self) -> bool:
-        """True if this config runs on the fused 2D step
-        (ops.fused_qgd2d: hand-written CUDA kernels on the card)."""
+        """True if this config runs on a fused step: 2D (ops.fused_qgd2d) or
+        3D (ops.fused_qgd3d), both hand-written CUDA kernels on the card."""
+        if self.mesh.ndim == 3:
+            from ..ops import fused_qgd3d
+
+            return fused_qgd3d.supported(self)
         from ..ops import fused_qgd2d
 
         return fused_qgd2d.supported(self)
 
     def make_fused_step(self):
-        """(step, to_fused, from_fused): the fused 2D step over ghost-padded
-        primitive frames.  `step` maps a FusedState to the next; to_fused /
-        from_fused convert to and from the composable State."""
+        """(step, to_fused, from_fused): the fused 2D or 3D step over
+        ghost-padded primitive frames.  `step` maps a FusedState (2D) or
+        Fused3DState (3D) to the next; to_fused / from_fused convert to and
+        from the composable State."""
+        if self.mesh.ndim == 3:
+            from ..ops import fused_qgd3d
+
+            return fused_qgd3d.build_fused_step_3d(self)
         from ..ops import fused_qgd2d
 
         return fused_qgd2d.build_fused_step(self)

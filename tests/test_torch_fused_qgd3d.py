@@ -1,0 +1,413 @@
+"""The port's fused 3D step (ops.fused_qgd3d) against the JAX package.
+
+On the CPU the kernel wrappers run their plain torch versions, so these
+tests check the plain versions, the gate, the BC compiler and the State
+conversions; the CUDA kernels are held against the same plain versions on
+the card (tests/test_torch_gpu.py, chip_smoke.py).  The JAX fused 3D step
+runs in interpret mode, as tests/test_fused_qgd3d.py runs it.  Bounds are
+the JAX 3D fused tests' own: dt rtol 1e-6, rho/rhoU/rhoE/sc within 2e-5 of
+their max over 10 steps, pbc within quant + 2e-3*scale.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qgdsolver_tpu import cases as jcases
+from qgdsolver_tpu.core import bc as jbc
+from qgdsolver_tpu.ops import fused_qgd3d as JF
+from qgdsolver_tpu.ops.pad import ghost_pad as j_ghost_pad
+from qgdsolver_tpu.physics import qgdcoeffs as jcoeffs
+from qgdsolver_tpu.physics import thermo as jthermo
+from qgdsolver_tpu_torch import cases as tcases
+from qgdsolver_tpu_torch import interop
+from qgdsolver_tpu_torch.core import bc as tbc
+from qgdsolver_tpu_torch.ops import fused_qgd3d as F
+from qgdsolver_tpu_torch.physics import qgdcoeffs as tcoeffs
+from qgdsolver_tpu_torch.physics import thermo as tthermo
+
+SHAPE = (8, 6, 6)
+CASES = ["supersonic_duct_3d", "supersonic_jet_3d_varsc"]
+C = (slice(1, -1),) * 3
+
+
+def _flagship(pkg_cases, shape, dtype, xp):
+    """The varsc jet with the jet reaching the outlet and a pressure bump
+    near it, so the qgdFlux dp/dn signal is far above f32 ulp(p) (mirrors
+    tests/test_fused_qgd3d.py::_flagship_case)."""
+    solver, _ = pkg_cases.supersonic_jet_3d_varsc(shape=shape, dtype=dtype)
+    mesh = solver.mesh
+    xc = np.asarray(mesh.centers[0])[:, None, None]
+    yc = np.asarray(mesh.centers[1])[None, :, None]
+    zc = np.asarray(mesh.centers[2])[None, None, :]
+    rr = np.sqrt((yc - 1.0) ** 2 + (zc - 1.0) ** 2)
+    prof = 0.5 * (np.tanh((0.3 - rr) / (3.0 * float(mesh.dx[1][0]))) + 1.0)
+    u_jet = 2.0 * float(np.sqrt(solver.thermo.gamma * solver.thermo.R
+                                * 300.0))
+    p0 = 1e5 * (1.0 + 0.3 * np.exp(-((xc - 3.4) ** 2 + rr ** 2) / 0.3)) \
+        * np.ones(mesh.shape)
+    U0 = np.zeros((3,) + mesh.shape)
+    U0[0] = u_jet * prof * np.exp(-(4.0 - xc) / 2.0)
+    state = solver.init(p0=xp(p0.astype(np.float32)),
+                        T0=xp(np.full(mesh.shape, 300.0, np.float32)),
+                        U0=xp(U0.astype(np.float32)),
+                        sc0=xp(np.full(mesh.shape, 0.05, np.float32)))
+    return solver, state
+
+
+def _build(name, shape=SHAPE):
+    """(jax solver, jax f32 state, port solver, port state from the JAX
+    one)."""
+    if name == "flagship":
+        js, jst = _flagship(jcases, shape, np.float32, jnp.asarray)
+        ts, _ = _flagship(tcases, shape, torch.float32, torch.as_tensor)
+    else:
+        js, jst = getattr(jcases, name)(shape=shape, dtype=np.float32)
+        ts, _ = getattr(tcases, name)(shape=shape, dtype=torch.float32)
+    st = interop.state_from_numpy(jax.tree.map(np.asarray, jst),
+                                  dtype=torch.float32)
+    return js, jst, ts, st
+
+
+def _f64(x):
+    return np.asarray(x, dtype=np.float64)
+
+
+def _rel(a, b):
+    a = _f64(a)
+    return np.max(np.abs(a - _f64(b))) / max(np.max(np.abs(a)), 1e-30)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_case_builders_match_jax(name):
+    """Both packages build the same initial State, bit for bit, in f64."""
+    _, js = getattr(jcases, name)(shape=SHAPE, dtype=np.float64)
+    _, ts = getattr(tcases, name)(shape=SHAPE, dtype=torch.float64)
+    out = interop.state_to_numpy(ts)
+    for f in ("rho", "rhoU", "rhoE", "sc", "t", "dt"):
+        np.testing.assert_array_equal(np.asarray(getattr(js, f)),
+                                      getattr(out, f), err_msg=f)
+
+
+class _OtherTransport(tthermo.Transport):
+    pass
+
+
+def _variant(kind, pkg, cases_mod, bcm, coeffs, thermo, xp):
+    """A 3D config per gate case, built the same way in either package."""
+    nx, ny, nz = SHAPE
+    if kind in ("duct", "model1n", "model2", "transport", "y_array",
+                "y_qgdflux"):
+        solver, _ = cases_mod.supersonic_duct_3d(shape=SHAPE)
+    else:
+        solver, _ = cases_mod.supersonic_jet_3d_varsc(shape=SHAPE)
+    if kind in ("model1n", "model2"):
+        cls = (coeffs.ConstScPrModel1n if kind == "model1n"
+               else coeffs.ConstScPrModel2)
+        return dataclasses.replace(solver, tau_model=cls(alpha=0.5, Sc=1.0,
+                                                         Pr=1.0))
+    if kind == "cell_cqsc":
+        tm = dataclasses.replace(solver.tau_model,
+                                 cqSc=xp(np.full(SHAPE, 0.1)))
+        return dataclasses.replace(solver, tau_model=tm)
+    if kind == "transport":
+        tr = (jthermo.SutherlandTransport(As=1.458e-6, Ts=110.4)
+              if pkg == "jax"
+              else _OtherTransport())
+        return dataclasses.replace(
+            solver, thermo=dataclasses.replace(solver.thermo, transport=tr))
+    if kind == "y_array":
+        bc_p = solver.bc_p.replace(
+            1, 0, bcm.FixedValue(xp(np.full((nx, 1, nz), 1e5))))
+        return dataclasses.replace(solver, bc_p=bc_p)
+    if kind == "y_qgdflux":
+        return dataclasses.replace(solver,
+                                   bc_p=solver.bc_p.replace(1, 1,
+                                                            bcm.QGDFluxP()))
+    return solver
+
+
+GATE = {"duct": True, "varsc_jet": True, "model1n": True, "model2": True,
+        "cell_cqsc": False, "transport": False, "y_array": False,
+        "y_qgdflux": False}
+
+
+@pytest.mark.parametrize("kind", list(GATE))
+def test_gate_agrees_with_jax(kind):
+    js = _variant(kind, "jax", jcases, jbc, jcoeffs, jthermo, jnp.asarray)
+    ts = _variant(kind, "torch", tcases, tbc, tcoeffs, tthermo,
+                  torch.as_tensor)
+    assert JF.supported(js) == GATE[kind]
+    assert F.supported(ts) == GATE[kind]
+    assert ts.fused_supported() == GATE[kind]
+    if not GATE[kind]:
+        with pytest.raises(ValueError):
+            F.build_fused_step_3d(ts)
+
+
+def test_gate_rejects_time_dependent_inlet():
+    ts, _ = tcases.supersonic_duct_3d(shape=SHAPE)
+
+    def pulsed(t, coords):
+        yy = coords[1]
+        return torch.stack(torch.broadcast_tensors(
+            (300.0 + 10.0 * t) * torch.ones_like(yy), torch.zeros_like(yy),
+            torch.zeros_like(yy)))
+
+    static = dataclasses.replace(
+        ts, bc_U=ts.bc_U.replace(0, 0, tbc.FixedValue(
+            lambda t, c: pulsed(0.0, c))))
+    assert F.supported(static)
+    moving = dataclasses.replace(
+        ts, bc_U=ts.bc_U.replace(0, 0, tbc.FixedValue(pulsed)))
+    assert not F.supported(moving)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_roundtrip_state(name):
+    ts, s = getattr(tcases, name)(shape=SHAPE)
+    s = ts.make_step()(s)  # populate sc and pbc
+    _, to_f, from_f = ts.make_fused_step()
+    fs = to_f(s)
+    s2 = from_f(fs)
+    for f in ("rho", "rhoU", "rhoE", "sc"):
+        torch.testing.assert_close(getattr(s2, f), getattr(s, f),
+                                   rtol=1e-6, atol=0.0)
+    assert s2.t is s.t and s2.dt is s.dt
+    assert len(s2.pbc) == len(s.pbc)
+    dx = float(ts.mesh.dx[0][0])
+    quant = 4.0 * np.float32(1e5) * np.finfo(np.float32).eps / dx
+    for ga, gb in zip(s.pbc, s2.pbc):
+        torch.testing.assert_close(gb, ga, rtol=0.0, atol=quant)
+    if F.make_params(ts)[0].varsc:
+        assert fs.sc_raw.shape == SHAPE and fs.sc.shape == fs.p.shape
+
+
+@pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship"])
+def test_fused_step_matches_jax_fused_and_composable(name):
+    """10 steps of the port's fused 3D step (the plain versions, on the CPU)
+    against the JAX fused 3D kernel and the JAX composable step."""
+    js, jst, ts, st = _build(name)
+    assert JF.supported(js) and F.supported(ts) and ts.fused_supported()
+    jstep, jto, jfrom = JF.build_fused_step_3d(js, interpret=True)
+    jstep = jax.jit(jstep)
+    cstep = jax.jit(js.make_step())
+    tstep, tto, tfrom = ts.make_fused_step()
+    jfs, tfs, cs = jto(jst), tto(st), jst
+    for _ in range(10):
+        jfs, tfs, cs = jstep(jfs), tstep(tfs), cstep(cs)
+    out = interop.state_to_numpy(tfrom(tfs))
+    assert _rel(jst.rho, out.rho) > 1e-6, "the state must evolve"
+    for ref in (jfrom(jfs), cs):
+        np.testing.assert_allclose(out.dt, _f64(ref.dt), rtol=1e-6)
+        np.testing.assert_allclose(out.t, _f64(ref.t), rtol=1e-6)
+        for f in ("rho", "rhoU", "rhoE", "sc"):
+            assert _rel(getattr(ref, f), getattr(out, f)) < 2e-5, f
+        assert len(ref.pbc) == len(out.pbc)
+        quant = 8.0 * np.float32(1e5) * np.finfo(np.float32).eps / 0.5
+        for ga, gb in zip(ref.pbc, out.pbc):
+            scale = np.abs(_f64(ga)).max()
+            if name == "flagship":
+                assert scale > 50.0 * quant, "qgdFlux signal too small"
+            np.testing.assert_allclose(gb, _f64(ga),
+                                       atol=quant + 2e-3 * scale)
+
+
+def test_every_bc_kind_matches_jax_composable():
+    """Every BC kind the 3D kernels take, with a random velocity kick: 10
+    steps of the port's fused 3D step against the JAX composable step.
+    (The JAX fused 3D kernel itself drifts ~1e-4 of max rhoU from its
+    composable step on this config: where a y side and a z side both carry
+    inletOutlet on U, ROADMAP queue 3.  The port follows the composable.)"""
+    from test_torch_gpu import every_bc_kind_3d
+
+    js, jst = every_bc_kind_3d(jcases, jbc, SHAPE, np.float32, jnp.asarray)
+    ts, _ = every_bc_kind_3d(tcases, tbc, SHAPE, torch.float32,
+                             torch.as_tensor)
+    assert JF.supported(js) and F.supported(ts)
+    # the inlet velocity (3 planes) and the p gradient on x-low
+    assert F.make_params(ts)[1].shape == (4,) + SHAPE[1:]
+    rng = np.random.default_rng(0)
+    kick = (20.0 * rng.standard_normal(jst.rhoU.shape)).astype(np.float32)
+    jst = jst._replace(rhoU=jst.rhoU + kick * jst.rho[None])
+    st = interop.state_from_numpy(jax.tree.map(np.asarray, jst),
+                                  dtype=torch.float32)
+    cstep = jax.jit(js.make_step())
+    tstep, tto, tfrom = ts.make_fused_step()
+    cs, tfs = jst, tto(st)
+    for _ in range(10):
+        cs, tfs = cstep(cs), tstep(tfs)
+    out = interop.state_to_numpy(tfrom(tfs))
+    np.testing.assert_allclose(out.dt, _f64(cs.dt), rtol=1e-6)
+    for f in ("rho", "rhoU", "rhoE", "sc"):
+        assert _rel(getattr(cs, f), getattr(out, f)) < 2e-5, f
+    quant = 8.0 * np.float32(1e5) * np.finfo(np.float32).eps / 0.5
+    for ga, gb in zip(cs.pbc, out.pbc):
+        scale = np.abs(_f64(ga)).max()
+        np.testing.assert_allclose(gb, _f64(ga), atol=quant + 2e-3 * scale)
+
+
+def _one_jax_step(name):
+    js, jst, ts, st = _build(name)
+    return js, jst, jax.jit(js.make_step())(jst), ts, st
+
+
+@pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship"])
+def test_dt_reference_matches_jax_step(name):
+    _, _, s1, ts, st = _one_jax_step(name)
+    fs = ts.make_fused_step()[1](st)
+    prm, _ = F.make_params(ts)
+    dt = F.dt_reference_3d(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
+    np.testing.assert_allclose(float(dt), float(s1.dt), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship"])
+def test_update_reference_matches_jax_step(name):
+    """One step of the plain update from the JAX composable step's dt and
+    sensor, against that step (f32 here, partly f64 there under x64)."""
+    _, _, s1, ts, st = _one_jax_step(name)
+    _, to_f, from_f = ts.make_fused_step()
+    fs = to_f(st)
+    prm, _ = F.make_params(ts)
+    sc = F._edge_frame(torch.as_tensor(np.array(s1.sc, np.float32))) \
+        if prm.varsc else None
+    dt = torch.tensor(float(s1.dt), dtype=torch.float32)
+    frames, side = F.update_reference_3d(prm, fs.p, fs.T, fs.ux, fs.uy,
+                                         fs.uz, sc, dt)
+    out = from_f(F.Fused3DState(*frames, t=fs.t, dt=dt, sc=sc))
+    for f in ("rho", "rhoU", "rhoE"):
+        assert _rel(getattr(s1, f), getattr(out, f).numpy()) < 1e-5, f
+    for i, (_, sd) in enumerate(ts._flux_sides()):
+        # pbc = +ws/tau_f on the low side, -ws/tau_f on the high side
+        g = side[sd] if sd == 0 else -side[sd]
+        np.testing.assert_allclose(g.numpy()[None], _f64(s1.pbc[i]),
+                                   rtol=1e-4, atol=1e-3)
+
+
+def test_sensor_reference_matches_jax_sc_raw_update():
+    """The raw sensor of fresh frames against the JAX sc_raw_update on the
+    same density, with a spiky density and a random previous sensor."""
+    js, _, ts, _ = _build("supersonic_jet_3d_varsc")
+    prm, _ = F.make_params(ts)
+    rng = np.random.default_rng(3)
+    rho = 1.2 * (1.0 + 0.05 * rng.standard_normal(SHAPE))
+    rho[3:5, 2:4, 2:4] *= 2.0
+    T = rng.uniform(280.0, 320.0, SHAPE)
+    p = rho * ts.thermo.R * T
+    sc_prev = rng.uniform(0.05, 0.5, SHAPE)
+    pf = F._edge_frame(torch.as_tensor(p, dtype=torch.float32))
+    Tf = F._edge_frame(torch.as_tensor(T, dtype=torch.float32))
+    scf = F._edge_frame(torch.as_tensor(sc_prev, dtype=torch.float32))
+    got = F.sensor_reference_3d(prm, pf, Tf, scf)
+    rho32 = pf[C] * (1.0 / (prm.R * Tf[C]))
+    ref = js.tau_model.sc_raw_update(js.mesh, jnp.asarray(rho32.numpy()),
+                                     jnp.asarray(scf[C].numpy()))
+    assert _rel(ref, got.numpy()) < 1e-5
+    assert float(got.max()) > 0.3, "the spike must raise the sensor"
+
+
+@pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship"])
+def test_ghosts_reference_matches_jax_ghost_pad(name):
+    """Ghost planes, rows and lanes (edges, array inlet, qgdFlux) of fresh
+    frames against ghost_pad of the same interior under the JAX BCs."""
+    js, _, s1, ts, _ = _one_jax_step(name)
+    prm, planes = F.make_params(ts)
+    U, _, T, p = js.primitives(s1)
+    bc_U, bc_p, bc_T = js._bcs()
+    for i, (a, side) in enumerate(js._flux_sides()):
+        bc_p = bc_p.replace(a, side, jbc.FixedGradient(s1.pbc[i]))
+    padded = [j_ghost_pad(p, jbc.resolve_inlet_outlet(bc_p, U, 3), js.mesh),
+              j_ghost_pad(T, jbc.resolve_inlet_outlet(bc_T, U, 3), js.mesh)]
+    Up = j_ghost_pad(U, jbc.resolve_inlet_outlet(bc_U, U, 3), js.mesh,
+                     vector=True)
+    padded += [Up[0], Up[1], Up[2]]
+    frames = []
+    for ref in padded:
+        f = torch.zeros(ref.shape, dtype=torch.float32)
+        f[C] = torch.as_tensor(np.asarray(ref[C], np.float32))
+        frames.append(f)
+    side = torch.zeros((2,) + SHAPE[1:], dtype=torch.float32)
+    for i, (_, sd) in enumerate(js._flux_sides()):
+        g = torch.as_tensor(np.asarray(s1.pbc[i], np.float32))[0]
+        side[sd] = g if sd == 0 else -g
+    F.ghosts_reference_3d(prm, frames, side, torch.as_tensor(planes))
+    for k, ref in enumerate(padded):
+        assert _rel(ref, frames[k].numpy()) < 1e-6, F.FIELDS[k]
+
+
+@pytest.mark.parametrize("varsc", [False, True])
+def test_sod_tube_vs_exact(varsc):
+    """Physics through the port's fused 3D path: a quasi-1D Sod tube
+    matches the exact Riemann solution (mirrors the JAX 3D Sod tests; the
+    varsc variant adds the sensor and the qgdFlux outflow)."""
+    from test_qgd import _sod_exact
+    from qgdsolver_tpu_torch.core.mesh import Mesh
+    from qgdsolver_tpu_torch.solvers import common
+    from qgdsolver_tpu_torch.solvers.qgd import QGDFoam
+
+    n = 128
+    mesh = Mesh.uniform((n, 6, 6), lengths=(1.0, 6.0 / n, 6.0 / n))
+    R, gamma = 1.0, 1.4
+    th = tthermo.PerfectGasThermo(R=R, Cp=gamma * R / (gamma - 1))
+    zg = tbc.FieldBCs.uniform(tbc.ZeroGradient(), 3)
+    if varsc:
+        tm = tcoeffs.VarScModel5(alpha=0.5, Pr=1.0, rC=0.5, minSc=0.05,
+                                 maxSc=1.0, smoothCoeff=0.1)
+        bc_p = zg.replace(0, 1, tbc.QGDFluxP())
+    else:
+        tm = tcoeffs.ConstScPrModel1(alpha=0.5, Sc=1.0, Pr=1.0)
+        bc_p = zg
+    solver = QGDFoam(
+        mesh=mesh, thermo=th, tau_model=tm, bc_U=zg, bc_p=bc_p, bc_T=zg,
+        time=common.TimeControls(max_co=0.3, max_dt=1e-3, dt0=1e-6))
+    assert F.supported(solver)
+    x = np.asarray(mesh.centers[0])
+    p0 = np.where(x < 0.5, 1.0, 0.1)[:, None, None] * np.ones(mesh.shape)
+    rho0 = np.where(x < 0.5, 1.0, 0.125)[:, None, None] * np.ones(mesh.shape)
+    s = solver.init(p0=p0, T0=p0 / (R * rho0), U0=np.zeros((3,) + mesh.shape),
+                    sc0=np.full(mesh.shape, 0.05) if varsc else None)
+    step, to_f, from_f = solver.make_fused_step()
+    fs = to_f(s)
+    t_end = 0.12
+    for _ in range(2000):
+        fs = step(fs)
+        if float(fs.t) >= t_end:
+            break
+    assert float(fs.t) >= t_end
+    out = interop.state_to_numpy(from_f(fs))
+    rho = out.rho
+    assert np.max(np.std(rho, axis=(1, 2))) < 1e-3  # stays quasi-1D
+    prof = rho[:, 3, 3]
+    rho_ex, u_ex, _ = _sod_exact(x, float(out.t))
+    assert np.mean(np.abs(prof - rho_ex)) < 0.04
+    assert np.mean(np.abs(out.rhoU[0, :, 3, 3] / prof - u_ex)) < 0.08
+    if varsc:
+        sc = out.sc[:, 3, 3]
+        assert sc.max() > 2.0 * 0.05 and sc[: n // 8].mean() < 0.08
+
+
+def test_wrappers_check_their_inputs():
+    ts, s = tcases.supersonic_jet_3d_varsc(shape=SHAPE)
+    fs = ts.make_fused_step()[1](s)
+    prm, planes = F.make_params(ts)
+    with pytest.raises(TypeError):
+        F.qgd3d_dt(prm, fs.T.double(), fs.ux, fs.uy, fs.uz, fs.dt)
+    with pytest.raises(ValueError):
+        F.qgd3d_dt(prm, fs.T[:-1], fs.ux, fs.uy, fs.uz, fs.dt)
+    with pytest.raises(ValueError):
+        F.qgd3d_dt(prm, fs.T.transpose(0, 2).contiguous().transpose(0, 2),
+                   fs.ux, fs.uy, fs.uz, fs.dt)
+    with pytest.raises(ValueError):
+        F.qgd3d_ghosts(prm, [fs.p, fs.T, fs.ux, fs.uy, fs.uz],
+                       torch.zeros((2, 6, 5)), torch.as_tensor(planes))
+    duct, _ = tcases.supersonic_duct_3d(shape=SHAPE)
+    with pytest.raises(ValueError):
+        F.qgd3d_sensor(F.make_params(duct)[0], fs.p, fs.T, fs.sc)
+    launches = [k.launches for k in F.KERNELS]
+    F.qgd3d_dt(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
+    F.qgd3d_sensor(prm, fs.p, fs.T, fs.sc)
+    assert [k.launches for k in F.KERNELS] == launches, \
+        "the plain version on the CPU is not a launch"

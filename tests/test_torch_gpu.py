@@ -1,23 +1,59 @@
-"""CUDA kernels of the fused 2D step against their plain torch versions, on
-the card, at the production size (1024x512 f32), from a state after 20 plain
-steps.  Marked `gpu`: they skip where no CUDA device exists.  Run them on the
-card with `python -m pytest tests/test_torch_gpu.py -m gpu -q`.
+"""CUDA kernels of the fused 2D and 3D steps against their plain torch
+versions, on the card, at the production sizes (1024x512 and 256x126x126
+f32), from a state after 20 plain steps.  Marked `gpu`: they skip where no
+CUDA device exists.  Run them on the card with
+`python -m pytest tests/test_torch_gpu.py -m gpu -q`.
 
-Bounds: dt and ghosts rtol 1e-6 (a reduction of exact max/min, and selects
-plus one FMA); one update step within 1e-5 of each field's max (rsqrtf and
-FMA contraction); 10 lock-step steps within the JAX fused tests' bounds.
+Bounds: dt, ghosts and the 3D sensor rtol 1e-6 (a reduction of exact
+max/min; selects plus one FMA; rsqrtf-free pointwise arithmetic); one update
+step within 1e-5 of each field's max (rsqrtf and FMA contraction); 10
+lock-step steps within the JAX fused tests' bounds.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from qgdsolver_tpu_torch import cases
+from qgdsolver_tpu_torch.core import bc
 from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
 from qgdsolver_tpu_torch.solvers import common
 
 pytestmark = pytest.mark.gpu
 
 SHAPE = (1024, 512)
 CASES = ["supersonic_jet", "supersonic_jet_varsc"]
+SHAPE3 = (256, 126, 126)
+CASES3 = ["supersonic_duct_3d", "supersonic_jet_3d_varsc"]
+
+
+def every_bc_kind_3d(cases_mod, bcm, shape, dtype, xp, **kw):
+    """The 3D varsc jet with every BC kind the 3D kernels take on some side:
+    extrapolated, symmetry, inletOutlet (scalar and plane), fixed gradient
+    (scalar and plane), fixed value, the array inlet and qgdFlux.  Built
+    the same way from either package's `cases` and `bc` modules (`kw`: the
+    port's `device`)."""
+    solver, state = cases_mod.supersonic_jet_3d_varsc(shape=shape,
+                                                      dtype=dtype, **kw)
+    ny, nz = shape[1], shape[2]
+    plane = 1e5 + 100.0 * np.sin(np.arange(ny * nz)).reshape(1, ny, nz)
+    solver = dataclasses.replace(
+        solver,
+        bc_U=bcm.FieldBCs((
+            (solver.bc_U[0, 0], bcm.Extrapolated()),
+            (bcm.Symmetry(), bcm.InletOutlet(xp(np.array([0.0, -30.0, 5.0])))),
+            (bcm.InletOutlet(xp(np.array([1.0, 2.0, 3.0]))), bcm.Symmetry()))),
+        bc_p=bcm.FieldBCs((
+            (bcm.FixedGradient(xp(plane * 1e-3)), bcm.QGDFluxP()),
+            (bcm.Symmetry(), bcm.FixedValue(1e5)),
+            (bcm.FixedGradient(3.0), bcm.InletOutlet(xp(1e5))))),
+        bc_T=bcm.FieldBCs((
+            (bcm.FixedValue(300.0), bcm.Extrapolated()),
+            (bcm.InletOutlet(310.0), bcm.FixedGradient(2.0)),
+            (bcm.ZeroGradient(), bcm.FixedValue(305.0)))))
+    return solver, state
 
 
 @pytest.fixture(scope="module")
@@ -95,4 +131,79 @@ def test_main_path_launches_each_kernel_once_per_step(device):
         k.launches = 0
     s = from_f(common.run_steps(step, fs, 20))
     assert [k.launches for k in F.KERNELS] == [20, 20, 20]
+    assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
+
+
+def _warm3(name, device):
+    if name == "every_bc_kind_3d":
+        solver, state = every_bc_kind_3d(cases, bc, SHAPE3, torch.float32,
+                                         torch.as_tensor, device=device)
+    else:
+        solver, state = getattr(cases, name)(shape=SHAPE3, device=device)
+    step, to_f, _ = F3.build_fused_step_3d(solver, plain=True)
+    fs = to_f(state)
+    for _ in range(20):
+        fs = step(fs)
+    return solver, fs
+
+
+@pytest.mark.parametrize("name", CASES3 + ["every_bc_kind_3d"])
+def test_3d_kernels_match_plain_versions(name, device):
+    solver, fs = _warm3(name, device)
+    prm, planes = F3.make_params(solver)
+    planes = solver.mesh.tensor(planes).contiguous()
+    dts = (fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
+    dt_ref = F3.dt_reference_3d(prm, *dts)
+    torch.testing.assert_close(F3.qgd3d_dt(prm, *dts), dt_ref, rtol=1e-6,
+                               atol=0.0)
+    sc = None
+    if prm.varsc:
+        sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
+                                          solver.tau_model.smoothCoeff))
+    args = (fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc, dt_ref)
+    ref, side_ref = F3.update_reference_3d(prm, *args)
+    new, side = F3.qgd3d_update(prm, *args)
+    C = (slice(1, -1),) * 3
+    for k in range(5):
+        assert _rel(ref[k][C], new[k][C]) <= 1e-5, F3.FIELDS[k]
+    if solver._flux_sides():
+        assert _rel(side_ref, side) <= 1e-5
+    if prm.varsc:
+        s_ref = F3.sensor_reference_3d(prm, ref[0], ref[1], sc)
+        assert _rel(s_ref, F3.qgd3d_sensor(prm, ref[0], ref[1], sc)) <= 1e-6
+    fa = [x.clone() for x in ref]
+    fb = [x.clone() for x in ref]
+    F3.ghosts_reference_3d(prm, fa, side_ref, planes)
+    F3.qgd3d_ghosts(prm, fb, side_ref, planes)
+    for k in range(5):
+        assert _rel(fa[k], fb[k]) <= 1e-6, F3.FIELDS[k]
+
+
+@pytest.mark.parametrize("name,dt_tol,f_tol",
+                         [("supersonic_duct_3d", 1e-6, 1e-3),
+                          ("supersonic_jet_3d_varsc", 1e-5, 2e-3)])
+def test_3d_kernel_path_tracks_plain_path(name, dt_tol, f_tol, device):
+    solver, fs = _warm3(name, device)
+    k_step, _, from_f = F3.build_fused_step_3d(solver)
+    p_step, _, _ = F3.build_fused_step_3d(solver, plain=True)
+    a = b = fs
+    for _ in range(10):
+        a, b = k_step(a), p_step(b)
+    sa, sb = from_f(a), from_f(b)
+    torch.testing.assert_close(sa.dt, sb.dt, rtol=dt_tol, atol=0.0)
+    for f in ("rho", "rhoU", "rhoE", "sc"):
+        assert _rel(getattr(sb, f), getattr(sa, f)) <= f_tol, f
+
+
+@pytest.mark.parametrize("name", CASES3)
+def test_3d_main_path_launches_each_kernel_once_per_step(name, device):
+    solver, state = getattr(cases, name)(shape=SHAPE3, device=device)
+    step, to_f, from_f = solver.make_fused_step()
+    fs = to_f(state)
+    for k in F3.KERNELS:
+        k.launches = 0
+    s = from_f(common.run_steps(step, fs, 10))
+    varsc = F3.make_params(solver)[0].varsc
+    assert [k.launches for k in F3.KERNELS] == [10, 10, 10 if varsc else 0,
+                                                10]
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
