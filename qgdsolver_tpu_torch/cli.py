@@ -1,0 +1,177 @@
+"""Case-runner CLI (PyTorch port of `qgdsolver_tpu.cli`): the executable
+surface of the reference solvers.
+
+    python -m qgdsolver_tpu_torch <case_dir> [--device cuda|cpu]
+        [--max-steps N] [--chunk K] [--no-fused]
+
+Reads an OpenFOAM-layout case directory (`io.foam_case.build_case`), runs
+chunks of K steps with `solvers.common.run_steps` (the adaptive dt stays on
+the device; `t` is read back once per chunk), writes OpenFOAM-format time
+directories via `io.foam_write` whenever the solution time crosses the next
+write threshold (adjustableRunTime lands on it exactly; writeControl
+timeStep counts steps), and prints the reference-style Time/deltaT lines.
+
+On a CUDA device a config the fused kernels take runs on them
+(`QGDFoam.fused_builder()`; the log names the builder); otherwise, and with
+--no-fused, the composable step runs.  `--device cuda` without a card is an
+error: there is no fallback to the CPU.  Domain decomposition over several
+devices waits for ROADMAP queue 1, item 11.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import sys
+import time
+
+import torch
+
+
+def run_case(case_dir: str, max_steps=None, chunk: int = 50,
+             log=print, fused: str = "auto", device="cuda") -> int:
+    """Run the case to controlDict endTime; returns the step count.
+
+    fused: "auto" takes the fused kernel path when `device` is a CUDA
+    device and the config supports it (the carry stays in the kernels'
+    frame layout between chunks and converts back only for writes);
+    "never" forces the composable step; "always" takes the fused path of a
+    supported config on any device (on the CPU its wrappers run their
+    plain versions, which is how the tests drive this path).
+    """
+    from .io import foam_case, foam_write, foamdict
+    from .solvers import common
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: no CUDA device is available")
+    solver, state = foam_case.build_case(case_dir, device=device)
+    control = foamdict.parse_file(
+        os.path.join(case_dir, "system", "controlDict"))
+    end_time = float(control.get("endTime", math.inf))
+    write_control = str(control.get("writeControl", "adjustableRunTime"))
+    if isinstance(control.get("writeControl"), list):
+        write_control = str(control["writeControl"][0])
+    write_interval = float(control.get("writeInterval", 0.0) or 0.0)
+
+    from_fused = None
+    if ((fused == "always" or (fused == "auto" and device.type == "cuda"))
+            and solver.fused_supported()):
+        builder = solver.fused_builder()
+        step, to_fused, from_fused = builder(solver)
+        state = to_fused(state)
+        log(f"fused kernel path engaged: {builder.__name__}")
+    else:
+        step = solver.make_step()
+        log("composable step engaged: make_step")
+
+    def in_t(x):
+        # a time as the carried t holds it: in f32 an instant between two
+        # f32 values can never be landed on, and the landing step below
+        # would trim dt to a remainder the f32 sum t + dt cannot add
+        if not math.isfinite(x):
+            return x
+        return float(torch.tensor(x, dtype=state.t.dtype))
+
+    end_time = in_t(end_time)
+    t = float(state.t)
+    n_steps = 0
+    by_steps = write_control == "timeStep"
+    next_write = None
+    if write_interval > 0.0:
+        next_write = (n_steps + write_interval if by_steps
+                      else in_t(t + write_interval))
+
+    def write():
+        view = from_fused(state) if from_fused else state
+        tdir = foam_write.write_state(case_dir, solver, view)
+        log("writing fields to %s" % tdir)
+        return tdir
+
+    adjustable = (not by_steps
+                  and getattr(solver, "time", None) is not None
+                  and solver.time.adjust_time_step)
+
+    def _set_dt(s, dt_val):
+        # carried-dt surgery between chunks: the controller's growth cap is
+        # exactly 1.2x, so seeding dt = (target - t)/1.2 makes the next
+        # step land ON the target when the CFL allows (Time::adjustDeltaT
+        # parity, adjustableRunTime)
+        return s._replace(dt=torch.as_tensor(dt_val, dtype=s.dt.dtype,
+                                             device=s.dt.device))
+
+    t_wall = time.perf_counter()
+    while t < end_time and (max_steps is None or n_steps < max_steps):
+        target = end_time
+        if adjustable and next_write is not None:
+            target = min(target, next_write)
+        k = chunk if max_steps is None else min(chunk, max_steps - n_steps)
+        dt_cur = max(float(state.dt), 1e-300)
+        if math.isfinite(target):
+            remaining = target - t
+            if adjustable and remaining <= dt_cur * 1.2 * (1 + 1e-12):
+                # landing step: trim dt to hit the write/end instant
+                state = _set_dt(state, remaining / 1.2)
+                state = common.run_steps(step, state, 1)
+                n_steps += 1
+                t = float(state.t)
+                log("Time = %.8g  deltaT = %.8g  (%d steps, %.1f s)"
+                    % (t, float(state.dt), n_steps,
+                       time.perf_counter() - t_wall))
+                if next_write is not None and t >= next_write * (1 - 1e-9):
+                    write()
+                    while next_write <= t * (1 + 1e-9):
+                        next_write = in_t(next_write + write_interval)
+                continue
+            # bound the chunk so the run approaches the next stop without
+            # overshooting it; dt may grow 1.2x per step COMPOUNDING, so
+            # the k-step distance is at most dt*1.2*(1.2^k - 1)/0.2
+            if adjustable:
+                k_geo = int(math.log(remaining * (0.2 / 1.2) / dt_cur + 1.0)
+                            / math.log(1.2))
+                k = max(1, min(k, k_geo))
+            else:
+                k = max(1, min(k, int(remaining / dt_cur) + 1))
+        state = common.run_steps(step, state, k)
+        n_steps += k
+        t = float(state.t)
+        log("Time = %.8g  deltaT = %.8g  (%d steps, %.1f s)"
+            % (t, float(state.dt), n_steps, time.perf_counter() - t_wall))
+        if next_write is not None:
+            due = (n_steps >= next_write) if by_steps else (t >= next_write)
+            if due:
+                write()
+                while by_steps and next_write <= n_steps:
+                    next_write += write_interval
+                while not by_steps and next_write <= t:
+                    next_write = in_t(next_write + write_interval)
+    tdir = write()
+    log("End.  Final fields in %s" % tdir)
+    return n_steps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m qgdsolver_tpu_torch",
+        description="Run an OpenFOAM-layout QGDFoam case directory "
+                    "(application from system/controlDict).")
+    ap.add_argument("case", help="case directory")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; cpu runs "
+                         "the composable step)")
+    ap.add_argument("--max-steps", type=int, default=None,
+                    help="stop after N steps even before endTime")
+    ap.add_argument("--chunk", type=int, default=50,
+                    help="steps between reads of the solution time "
+                         "(default 50)")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="force the composable step (skip the fused CUDA "
+                         "kernel path)")
+    args = ap.parse_args(argv)
+    run_case(args.case, max_steps=args.max_steps, chunk=args.chunk,
+             fused="never" if args.no_fused else "auto", device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -82,6 +82,11 @@ class QGDFluxP(BC):
     with dp/dn = -phiwStar/(tau_f*|Sf|) from the previous step."""
 
 
+def noslip(ndim: int) -> FixedValue:
+    """noSlip wall: U fixed at zero."""
+    return FixedValue([0.0] * ndim)
+
+
 def resolve_inlet_outlet(bcs: "FieldBCs", U, ndim: int) -> "FieldBCs":
     """Replace InletOutlet markers with FluxSwitched from the current cell
     velocity U (d, *cells).  No-op when no marker is present."""

@@ -1,0 +1,157 @@
+"""Typed case configuration: the dictionary/run-time-selection system
+(PyTorch port of `qgdsolver_tpu.core.config`, for QGDFoam configs).
+
+A case is a plain JSON-able dict with the reference's four selection points
+(fvsc scheme, tau model, thermo combination, BC types per field file) plus
+the controlDict time controls, resolved through `core.registry` into the
+frozen solver dataclass.  `build_solver(cfg)` is the solver-main startup
+equivalent.
+
+The BC registry holds the field-file `type` words whose BC classes the port
+has.  BC values stay plain floats and lists (tensors are made on the mesh's
+device when the BCs are applied), so one config builds on any device.
+"""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from . import bc as bcm
+from .mesh import Mesh
+from .registry import create, register, register_missing
+from ..physics import qgdcoeffs, thermo  # noqa: F401 — registers the words
+from ..solvers.common import TimeControls
+
+# ---------------------------------------------------------------------------
+# BC registry (field-file "type" words)
+# ---------------------------------------------------------------------------
+
+register("bc", "fixedValue")(lambda value=0.0, **_: bcm.FixedValue(value))
+register("bc", "zeroGradient")(lambda **_: bcm.ZeroGradient())
+register("bc", "fixedGradient")(
+    lambda gradient=0.0, **_: bcm.FixedGradient(gradient))
+register("bc", "symmetry")(lambda **_: bcm.Symmetry())
+register("bc", "slip")(lambda **_: bcm.Symmetry())
+register("bc", "cyclic")(lambda **_: bcm.Periodic())
+register("bc", "periodic")(lambda **_: bcm.Periodic())
+register("bc", "inletOutlet")(
+    lambda inletValue=0.0, **_: bcm.InletOutlet(inletValue))
+register("bc", "extrapolated")(lambda **_: bcm.Extrapolated())
+register("bc", "noSlip")(lambda ndim=3, **_: bcm.noslip(ndim))
+register("bc", "qgdFlux")(lambda **_: bcm.QGDFluxP())
+register_missing("bc", "ROADMAP queue 1, item 7 (waveTransmissive and "
+                 "time-dependent BCs)", "waveTransmissive", "cosVelocity")
+register_missing("bc", "ROADMAP queue 1, items 8-9 (the QHD family)",
+                 "qhdFlux", "mQhdFlux")
+
+_NOT_PORTED_SOLVERS = {
+    "zQGDFoam": "ROADMAP queue 1, item 7",
+    "QHDFoam": "ROADMAP queue 1, item 8",
+    "SRFQHDFoam": "ROADMAP queue 1, item 8",
+    "mulesQHDFoam": "ROADMAP queue 1, item 8",
+    "scalarTransportQHDFoam": "ROADMAP queue 1, item 8",
+    "interQHDFoam": "ROADMAP queue 1, item 9",
+}
+
+
+def _dtype(word) -> torch.dtype:
+    return {"float32": torch.float32, "float64": torch.float64}[str(word)]
+
+
+def build_mesh(cfg: dict, device="cpu") -> Mesh:
+    dtype = _dtype(cfg.get("dtype", "float32"))
+    if "x_faces" in cfg:
+        return Mesh(x_faces=tuple(np.asarray(f) for f in cfg["x_faces"]),
+                    dtype=dtype, device=device)
+    return Mesh.uniform(
+        tuple(cfg["shape"]), lengths=tuple(cfg.get("lengths") or []) or None,
+        origin=tuple(cfg.get("origin") or []) or None, dtype=dtype,
+        device=device)
+
+
+def build_bcs(cfg: dict, ndim: int):
+    """boundary sub-dict {axis_side: {"type": word, ...params}} per field;
+    sides named x_lo/x_hi/y_lo/y_hi/z_lo/z_hi (axis order x,y,z)."""
+    names = ["x", "y", "z"][:ndim]
+    rows = []
+    for nm in names:
+        row = []
+        for suffix in ("_lo", "_hi"):
+            entry = cfg.get(nm + suffix, {"type": "zeroGradient"})
+            kw = {k: v for k, v in entry.items() if k != "type"}
+            kw.setdefault("ndim", ndim)
+            row.append(create("bc", entry["type"], **kw))
+        rows.append(tuple(row))
+    return bcm.FieldBCs(tuple(rows))
+
+
+def build_thermo(cfg: dict):
+    if "janaf" in cfg or "eos" in cfg:
+        raise NotImplementedError(
+            "JANAF and equation-of-state thermo are not in the PyTorch port "
+            "yet: ROADMAP queue 1, item 7")
+    kw = {k: v for k, v in cfg.items() if k not in ("type", "transport")}
+    if "transport" in cfg:
+        tcfg = cfg["transport"]
+        kw["transport"] = create(
+            "transport", tcfg["type"],
+            **{k: v for k, v in tcfg.items() if k != "type"})
+    return create("thermo", cfg["type"], **kw)
+
+
+def build_tau_model(cfg: dict):
+    return create("tau", cfg["type"],
+                  **{k: v for k, v in cfg.items() if k != "type"})
+
+
+def build_time_controls(cfg: dict) -> TimeControls:
+    """controlDict equivalents (adjustTimeStep/maxCo/maxDeltaT/cTau)."""
+    return TimeControls(
+        adjust_time_step=cfg.get("adjustTimeStep", True),
+        max_co=cfg.get("maxCo", 0.5),
+        max_dt=cfg.get("maxDeltaT", 1.0),
+        c_tau=cfg.get("cTau", 0.75),
+        dt0=cfg.get("deltaT", 1e-6),
+    )
+
+
+def build_solver(cfg: dict, device="cpu"):
+    """Top-level case builder (the solver-main startup equivalent): QGDFoam
+    and rhoQGDFoam's psi-thermo configs."""
+    from ..solvers.qgd import QGDFoam
+
+    name = cfg["solver"]
+    if name in _NOT_PORTED_SOLVERS:
+        raise NotImplementedError(
+            f"solver {name!r} is not in the PyTorch port yet: "
+            f"{_NOT_PORTED_SOLVERS[name]}")
+    if name not in ("QGDFoam", "rhoQGDFoam"):
+        raise KeyError(f"unknown solver {name!r}")
+    mesh = build_mesh(cfg["mesh"], device=device)
+    nd = mesh.ndim
+
+    kw = dict(mesh=mesh)
+    if "thermo" in cfg:
+        kw["thermo"] = build_thermo(cfg["thermo"])
+    if "tau" in cfg:
+        kw["tau_model"] = build_tau_model(cfg["tau"])
+    if "controlDict" in cfg:
+        kw["time"] = build_time_controls(cfg["controlDict"])
+    if "fvsc" in cfg:
+        kw["fvsc_scheme"] = cfg["fvsc"]
+    bnd = cfg.get("boundary", {})
+    for field, attr in (("U", "bc_U"), ("p", "bc_p"), ("T", "bc_T")):
+        if field in bnd:
+            kw[attr] = build_bcs(bnd[field], nd)
+    if "implicit_diffusion" in cfg:
+        kw["implicit_diffusion"] = cfg["implicit_diffusion"]
+    return QGDFoam(**kw)
+
+
+def load_case(path: str, device="cpu"):
+    """Load a JSON case file and build its solver."""
+    with open(path) as f:
+        return build_solver(json.load(f), device=device)
+

@@ -44,7 +44,8 @@ class QGDParams(ctypes.Structure):
             "dx", "dy", "inv_dx", "inv_dy", "inv_2dx", "inv_2dy", "hfx", "hfy",
             "inv_vol", "R", "Cv", "inv_Cv", "CvR", "gammaR", "gamma", "alpha",
             "k_mu", "k_muv", "Pr_tau", "inv_Pr_tau", "Pr_th", "mu0", "max_co",
-            "max_dt", "c_tau")]
+            "max_dt", "c_tau", "inv_hfx", "inv_hfy", "h_cell", "rC",
+            "one_m_rC", "minSc", "maxSc", "cqSc", "smooth_ratio")]
         + [("bc", BCEntry * 2 * 2 * 4)]  # [field p, T, ux, uy][axis][side]
     )
 
@@ -151,6 +152,7 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd2d_dt", [p2] + [_ptr] * 7)
     _bind(lib, "qgd2d_update", [p2] + [_ptr] * 12)
     _bind(lib, "qgd2d_ghosts", [p2] + [_ptr] * 7)
+    _bind(lib, "qgd2d_emit", [p2] + [_ptr] * 11)
     _bind(lib, "qgd3d_dt_partials", [p3])
     _bind(lib, "qgd3d_dt", [p3] + [_ptr] * 8)
     _bind(lib, "qgd3d_update", [p3] + [_ptr] * 14)

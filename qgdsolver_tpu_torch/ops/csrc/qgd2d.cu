@@ -15,6 +15,14 @@
 //   qgd2d_ghosts  x-ghost rows from the fresh interior, then y-ghost lanes of
 //                 every row (corners included): the sequential-axis padding.
 //
+// The x-slab kernel K2 (build_tiled_fused_step, :1609) runs the same physics
+// and also reads, over the fresh fields, the next step's rates and the
+// varScModel5 sensor's raw value and first smoothing ring.  Here that is one
+// more kernel on the fresh frames, after qgd2d_ghosts:
+//
+//   qgd2d_emit    two-pass reduction of the Courant and tau rates, plus the
+//                 raw sensor, ring 1 and the change flag (see its section).
+//
 // Frames are contiguous (nx+2, ny+2) float32 with y the fast axis, so a warp
 // reads 32 neighbouring lanes of one row.  What bounds the step on the card
 // is memory: about 4 frames in and 4 out per step (plus the sensor frame for
@@ -52,6 +60,9 @@ struct QGDParams {
   float R, Cv, inv_Cv, CvR, gammaR, gamma, alpha, k_mu, k_muv;
   float Pr_tau, inv_Pr_tau, Pr_th, mu0;
   float max_co, max_dt, c_tau;
+  // qgd2d_emit: rates per unit dt, and the varScModel5 sensor constants
+  float inv_hfx, inv_hfy, h_cell, rC, one_m_rC, minSc, maxSc, cqSc,
+      smooth_ratio;
   BCEntry bc[4][2][2];  // [field p, T, ux, uy][axis][side]
 };
 
@@ -488,10 +499,222 @@ __global__ void qgd2d_ghost_lanes_kernel(QGDParams P,
                              uy[ru * W + l1], sd);
 }
 
+// ---------------------------------------------------------------------------
+// qgd2d_emit: what the next step needs, read from the fresh frames
+// ---------------------------------------------------------------------------
+//
+// Replaces the epilogue of the TPU slab kernel K2
+// (qgdsolver_tpu/ops/fused_qgd2d.py::build_tiled_fused_step, kernel :1609;
+// emit_dt/emit_sc in frame_fn :863-994): the next step's Courant and tau
+// rates and, for varScModel5, the raw sensor, its first fvc::smooth ring and
+// the change flag.  It runs after qgd2d_ghosts: the rates read the fresh
+// ghost rows and lanes, which qgd2d_update has not written yet.
+//
+// Bounded by memory like the update: one pass over p, T, ux, uy and sc
+// (~20 B/cell in, 8 B/cell out).  Ring 1 at a block edge needs raw values of
+// the neighbouring block's cells; rather than reading them back (a second
+// launch) or repairing them afterwards (the reference's strip fixes), each
+// block stages rho over its tile plus two rings and sc over its tile plus
+// one ring in shared memory, computes raw over tile + 1, then ring 1 over
+// the tile.  The sensor's arithmetic uses explicit roundings (no FMA
+// contraction), so raw, ring 1 and the flag are those of the plain torch
+// version bit for bit; the rates use rsqrtf like qgd2d_dt.
+
+constexpr int EMIT_NP = 8;   // floats per block partial (5 used)
+constexpr int ER = BY + 4;   // staged rho rows: the tile and two rings
+constexpr int EL = BX + 4;   // staged rho lanes
+constexpr int SR = BY + 2;   // raw sensor rows: the tile and one ring
+constexpr int SL = BX + 2;   // raw sensor lanes
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The tau coefficient of a cell: c (varScModel5) or alpha/c.
+__device__ __forceinline__ float tau_coef(const QGDParams& P, float T) {
+  const float gRT = P.gammaR * T;
+  const float rcs = rsqrtf(gRT);
+  return P.varsc ? gRT * rcs : P.alpha * rcs;
+}
+
+// The raw varScModel5 sensor of the cell at R[i][j] (rho with zero-gradient
+// ghosts staged around it): clip(rC*|grad rho|*h/rho + (1-rC)*sc, minSc,
+// maxSc), floored at cqSc; the cell gradient is the Gauss one of the
+// linear face interpolates.
+__device__ __forceinline__ float raw_sensor(const QGDParams& P,
+                                            const float (*R)[EL], int i,
+                                            int j, float scv) {
+  const float h = 0.5f;
+  const float fa_lo = __fadd_rn(__fmul_rn(h, R[i - 1][j]), __fmul_rn(h, R[i][j]));
+  const float fa_hi = __fadd_rn(__fmul_rn(h, R[i][j]), __fmul_rn(h, R[i + 1][j]));
+  const float fb_lo = __fadd_rn(__fmul_rn(h, R[i][j - 1]), __fmul_rn(h, R[i][j]));
+  const float fb_hi = __fadd_rn(__fmul_rn(h, R[i][j]), __fmul_rn(h, R[i][j + 1]));
+  const float gx = __fdiv_rn(__fadd_rn(fa_hi, -fa_lo), P.dx);
+  const float gy = __fdiv_rn(__fadd_rn(fb_hi, -fb_lo), P.dy);
+  const float mag = __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
+  const float v = __fadd_rn(
+      __fmul_rn(P.rC, __fdiv_rn(__fmul_rn(mag, P.h_cell), R[i][j])),
+      __fmul_rn(P.one_m_rC, scv));
+  return fmaxf(fminf(fmaxf(v, P.minSc), P.maxSc), P.cqSc);
+}
+
+// Pass 1: thread (r, s), r in 0..nx, s in 0..ny, owns the x-face r+1/2 at
+// lane s (s >= 1), the y-face s+1/2 at row r (r >= 1) — the live face sets
+// of qgd2d_dt — and, for varScModel5, the sensor of cell (r, s) when it is
+// an interior cell.  Per-block partials: max wave x, max wave y, the tau
+// coefficient face extreme per axis (max c_f, or min (alpha/c)_f), the flag.
+__global__ void __launch_bounds__(BX * BY)
+qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
+                          const float* __restrict__ T,
+                          const float* __restrict__ ux,
+                          const float* __restrict__ uy,
+                          const float* __restrict__ sc,
+                          float* __restrict__ partials,
+                          float* __restrict__ sc_raw,
+                          float* __restrict__ sc_s1) {
+  __shared__ float red[5][BX * BY];
+  __shared__ float rho_t[ER][EL];
+  __shared__ float sc_t[SR][SL];
+  __shared__ float raw_t[SR][SL];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * BX + tx;
+  const int s0 = blockIdx.x * BX, r0 = blockIdx.y * BY;
+  const int s = s0 + tx, r = r0 + ty;
+  const int nx = P.nx, ny = P.ny, W = ny + 2;
+  const bool vs = P.varsc != 0;
+  const float c_id = vs ? -INFINITY : INFINITY;  // identity of the tau fold
+  float wx = -INFINITY, wy = -INFINITY, cx = c_id, cy = c_id, chg = 0.0f;
+  if (r <= nx && s <= ny) {
+    if (s >= 1) {
+      const int a = r * W + s, b = a + W;
+      wx = wave(P, ux[a], ux[b], T[a], T[b]);
+      // coefficient ghosts are zero-gradient: clamp to the interior rows
+      cx = xi(tau_coef(P, T[clampi(r, 1, nx) * W + s]),
+              tau_coef(P, T[clampi(r + 1, 1, nx) * W + s]));
+    }
+    if (r >= 1) {
+      const int a = r * W + s, b = a + 1;
+      wy = wave(P, uy[a], uy[b], T[a], T[b]);
+      cy = xi(tau_coef(P, T[r * W + clampi(s, 1, ny)]),
+              tau_coef(P, T[r * W + clampi(s + 1, 1, ny)]));
+    }
+  }
+  if (vs) {
+    // rho = p*(1/(R*T)) over the tile and two rings, zero-gradient ghosts
+    for (int k = tid; k < ER * EL; k += BX * BY) {
+      const int i = k / EL, j = k % EL;
+      const int g = clampi(r0 - 2 + i, 1, nx) * W + clampi(s0 - 2 + j, 1, ny);
+      rho_t[i][j] = __fmul_rn(p[g], __fdiv_rn(1.0f, __fmul_rn(P.R, T[g])));
+    }
+    for (int k = tid; k < SR * SL; k += BX * BY) {
+      const int i = k / SL, j = k % SL;
+      sc_t[i][j] = sc[clampi(r0 - 1 + i, 1, nx) * W + clampi(s0 - 1 + j, 1, ny)];
+    }
+    __syncthreads();
+    // raw over the tile and one ring; entries outside the interior are
+    // never read (ring 1 replicates the edge cell there)
+    for (int k = tid; k < SR * SL; k += BX * BY) {
+      const int i = k / SL, j = k % SL;
+      const int rc = r0 - 1 + i, scl = s0 - 1 + j;
+      if (rc >= 1 && rc <= nx && scl >= 1 && scl <= ny) {
+        raw_t[i][j] = raw_sensor(P, rho_t, i + 1, j + 1, sc_t[i][j]);
+      }
+    }
+    __syncthreads();
+    if (r >= 1 && r <= nx && s >= 1 && s <= ny) {
+      const int i = ty + 1, j = tx + 1;
+      const float f = raw_t[i][j];
+      const float up = r < nx ? raw_t[i + 1][j] : f;
+      const float dn = r > 1 ? raw_t[i - 1][j] : f;
+      const float le = s < ny ? raw_t[i][j + 1] : f;
+      const float ri = s > 1 ? raw_t[i][j - 1] : f;
+      const float nb = fmaxf(fmaxf(up, dn), fmaxf(le, ri));
+      const float s1 = fmaxf(f, __fdiv_rn(nb, P.smooth_ratio));
+      const int o = (r - 1) * ny + (s - 1);
+      sc_raw[o] = f;
+      sc_s1[o] = s1;
+      chg = s1 > f ? 1.0f : 0.0f;
+    }
+  }
+  red[0][tid] = wx;
+  red[1][tid] = wy;
+  red[2][tid] = cx;
+  red[3][tid] = cy;
+  red[4][tid] = chg;
+  __syncthreads();
+  for (int k = BX * BY / 2; k > 0; k >>= 1) {
+    if (tid < k) {
+      red[0][tid] = fmaxf(red[0][tid], red[0][tid + k]);
+      red[1][tid] = fmaxf(red[1][tid], red[1][tid + k]);
+      red[2][tid] = vs ? fmaxf(red[2][tid], red[2][tid + k])
+                       : fminf(red[2][tid], red[2][tid + k]);
+      red[3][tid] = vs ? fmaxf(red[3][tid], red[3][tid + k])
+                       : fminf(red[3][tid], red[3][tid + k]);
+      red[4][tid] = fmaxf(red[4][tid], red[4][tid + k]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    float* out = partials + EMIT_NP * (blockIdx.y * gridDim.x + blockIdx.x);
+    for (int q = 0; q < 5; ++q) out[q] = red[q][0];
+  }
+}
+
+// Pass 2: one block folds the partials into the rates (and the flag):
+// co_rate = max(wave_x/h_x, wave_y/h_y) (times 1/h, as the reference),
+// tau_rate = min over axes of alpha/max(c_f)*h or min(alpha/c)_f*h.
+__global__ void __launch_bounds__(RED)
+qgd2d_emit_final_kernel(QGDParams P, const float* __restrict__ partials,
+                        int n, float* __restrict__ rates,
+                        float* __restrict__ chg) {
+  __shared__ float red[5][RED];
+  const int tid = threadIdx.x;
+  const bool vs = P.varsc != 0;
+  const float c_id = vs ? -INFINITY : INFINITY;
+  float wx = -INFINITY, wy = -INFINITY, cx = c_id, cy = c_id, f = 0.0f;
+  for (int i = tid; i < n; i += RED) {
+    const float* q = partials + EMIT_NP * i;
+    wx = fmaxf(wx, q[0]);
+    wy = fmaxf(wy, q[1]);
+    cx = vs ? fmaxf(cx, q[2]) : fminf(cx, q[2]);
+    cy = vs ? fmaxf(cy, q[3]) : fminf(cy, q[3]);
+    f = fmaxf(f, q[4]);
+  }
+  red[0][tid] = wx;
+  red[1][tid] = wy;
+  red[2][tid] = cx;
+  red[3][tid] = cy;
+  red[4][tid] = f;
+  __syncthreads();
+  for (int k = RED / 2; k > 0; k >>= 1) {
+    if (tid < k) {
+      red[0][tid] = fmaxf(red[0][tid], red[0][tid + k]);
+      red[1][tid] = fmaxf(red[1][tid], red[1][tid + k]);
+      red[2][tid] = vs ? fmaxf(red[2][tid], red[2][tid + k])
+                       : fminf(red[2][tid], red[2][tid + k]);
+      red[3][tid] = vs ? fmaxf(red[3][tid], red[3][tid + k])
+                       : fminf(red[3][tid], red[3][tid + k]);
+      red[4][tid] = fmaxf(red[4][tid], red[4][tid + k]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    rates[0] = fmaxf(__fmul_rn(red[0][0], P.inv_hfx),
+                     __fmul_rn(red[1][0], P.inv_hfy));
+    rates[1] = vs ? fminf(__fmul_rn(__fdiv_rn(P.alpha, red[2][0]), P.hfx),
+                          __fmul_rn(__fdiv_rn(P.alpha, red[3][0]), P.hfy))
+                  : fminf(__fmul_rn(red[2][0], P.hfx),
+                          __fmul_rn(red[3][0], P.hfy));
+    if (vs) chg[0] = red[4][0];
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// Blocks of the face-owning grid of qgd2d_dt and qgd2d_emit: the length of
+// their partials.
 int qgd2d_dt_partials(int nx, int ny) {
   return ((ny + 1 + BX - 1) / BX) * ((nx + 1 + BY - 1) / BY);
 }
@@ -539,6 +762,22 @@ int qgd2d_ghosts(const QGDParams* prm, const float* prof, const float* side,
   const dim3 grid_lanes((prm->nx + 2 + threads - 1) / threads, 8);
   qgd2d_ghost_lanes_kernel<<<grid_lanes, threads, 0, st>>>(*prm, prof, p, T,
                                                            ux, uy);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int qgd2d_emit(const QGDParams* prm, const float* p, const float* T,
+               const float* ux, const float* uy, const float* sc,
+               float* partials, float* rates, float* sc_raw, float* sc_s1,
+               float* chg, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 block(BX, BY);
+  const dim3 grid((prm->ny + 1 + BX - 1) / BX, (prm->nx + 1 + BY - 1) / BY);
+  qgd2d_emit_partial_kernel<<<grid, block, 0, st>>>(*prm, p, T, ux, uy, sc,
+                                                    partials, sc_raw, sc_s1);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  qgd2d_emit_final_kernel<<<1, RED, 0, st>>>(
+      *prm, partials, static_cast<int>(grid.x * grid.y), rates, chg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,13 +1,13 @@
-"""Fused explicit 2D QGDFoam step on hand-written CUDA kernels (PyTorch port
-of `qgdsolver_tpu.ops.fused_qgd2d.build_fused_step`, the whole-frame Pallas
-kernel K1).
+"""Fused explicit 2D QGDFoam steps on hand-written CUDA kernels (PyTorch port
+of `qgdsolver_tpu.ops.fused_qgd2d`: the whole-frame Pallas kernel K1,
+`build_fused_step`, and the x-slab kernel K2, `build_tiled_fused_step`).
 
 State carried across steps: the ghost-padded primitive frames p, T, ux, uy
 (and the varScModel5 sensor), each a contiguous (nx+2, ny+2) float32 tensor
 with y the fast axis.  Row r, lane s hold cell (r-1, s-1); row 0 / nx+1 and
 lane 0 / ny+1 are ghosts.
 
-One step:
+One step of `build_fused_step` (K1):
   1. varScModel5 only: the sensor pre-pass (`VarScModel5.sc_update`, plain
      torch; it is XLA in the reference too);
   2. `qgd2d_dt`: acoustic Courant number and min tau_f over the exact live
@@ -15,17 +15,27 @@ One step:
   3. `qgd2d_update`: the fluxes and the explicit update into new frames;
   4. `qgd2d_ghosts`: BC ghost rows, then ghost lanes of every row.
 
-Each of 2-4 is a wrapper: for CPU tensors it runs the plain torch version
-beside it (`dt_reference`, `update_reference`, `ghosts_reference`); for CUDA
-tensors it launches the kernel from csrc/qgd2d.cu or raises.  Each wrapper
-counts its launches in a plain integer attribute (`qgd2d_dt.launches`, ...).
-The three plain versions composed are the reference's `frame_fn`.
+`build_tiled_fused_step` (K2) shares 3-4 and ends each step with
+`qgd2d_emit`, which reads from the fresh frames what the next step needs:
+its Courant/tau rates (so setDeltaT reads no frame) and, for varScModel5,
+the raw sensor, its first smoothing ring and a change flag (so the sensor
+costs nothing more unless the flag fired: `fvc_smooth_continue`).  The
+frames are whole, so none of the reference's slab strip fixes exist here;
+K2's VMEM slab sizing is TPU-only and is not ported.
+
+Each kernel call is a wrapper: for CPU tensors it runs the plain torch
+version beside it (`dt_reference`, `update_reference`, `ghosts_reference`,
+`emit_reference`); for CUDA tensors it launches the kernel from
+csrc/qgd2d.cu or raises.  Each wrapper counts its launches in a plain
+integer attribute (`qgd2d_dt.launches`, ...).  The plain versions composed
+are the reference's `frame_fn`.
 
 Restrictions (`supported()`): 2D uniform f32 mesh, PerfectGasThermo with
 constant transport, constScPrModel1 or varScModel5,
 explicit diffusion, the `full` stencil for every gradient, qgdFlux p only on
 x sides, and BCs {FixedValue, ZeroGradient, FixedGradient, Symmetry,
-Extrapolated, InletOutlet} whose values do not depend on time.
+Extrapolated, InletOutlet} whose values do not depend on time.  K2 also
+needs a scalar cqSc (`tiled_supported()`).
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ import numpy as np
 import torch
 
 from ..core import bc as bcm
-from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5
+from ..physics.qgdcoeffs import (ConstScPrModel1, VarScModel5,
+                                 _neighbour_max, fvc_smooth_continue)
 from ..physics.thermo import ConstTransport, PerfectGasThermo
 from ..solvers import common
 from . import _build, fvsc
@@ -243,7 +254,17 @@ def make_params(solver) -> tuple:
         Pr_tau=tm.Pr, inv_Pr_tau=1.0 / tm.Pr, Pr_th=th.Pr,
         mu0=th.transport.mu0,
         max_co=tc.max_co, max_dt=tc.max_dt, c_tau=tc.c_tau,
+        inv_hfx=1.0 / dx, inv_hfy=1.0 / dy, h_cell=h_cell,
     )
+    if varsc and getattr(tm.cqSc, "ndim", 0) == 0:
+        # the sensor constants of qgd2d_emit (a per-cell cqSc floor keeps
+        # the plain pre-pass: see folds_sensor)
+        prm.rC = tm.rC
+        prm.one_m_rC = 1.0 - tm.rC
+        prm.minSc = tm.minSc
+        prm.maxSc = tm.maxSc
+        prm.cqSc = float(tm.cqSc)
+        prm.smooth_ratio = 1.0 + tm.smoothCoeff
     profiles = _compile_bcs(solver, prm)
     return prm, profiles
 
@@ -493,6 +514,59 @@ def ghosts_reference(prm, frames, side, profiles):
     return frames
 
 
+def emit_reference(prm, p, T, ux, uy, sc):
+    """Plain version of `qgd2d_emit`: what the next step needs, read from
+    the fresh frames after `ghosts_reference` (and the sensor frame `sc`
+    this step used).  Returns (co_rate, tau_rate, sc_raw, sc_s1, sc_chg):
+
+      co_rate  max over the live x- and y-faces (the physical boundary
+               faces against the fresh ghosts included) of (|u_f| + c_f)/h,
+               a rate: setDeltaT takes co = co_rate*dt;
+      tau_rate min tau_f with zero-gradient coefficient ghosts:
+               alpha/max(c_f)*h (varScModel5), min(alpha/c)_f*h otherwise;
+      sc_raw   varScModel5: the raw sensor clip(rC*|grad rho|*h/rho
+               + (1-rC)*sc, minSc, maxSc), floored at cqSc, over the
+               interior (nx, ny); rho = p*(1/(R*T)) with zero-gradient
+               ghosts;
+      sc_s1    the first fvc::smooth ring max(raw, nbr_max(raw)/maxRatio),
+               edge-replicated neighbours at the boundary;
+      sc_chg   1.0 if any(sc_s1 > sc_raw), else 0.0.
+
+    The sensor outputs are None unless varScModel5.  The arithmetic is the
+    reference's slab kernel's (`emit_dt`/`emit_sc`)."""
+    C = slice(1, -1)
+    gRT = prm.gammaR * T
+    rcs = torch.rsqrt(gRT)
+    c = gRT * rcs
+    wave_x = torch.abs(_xi(ux[:-1, C], ux[1:, C])) + _xi(c[:-1, C], c[1:, C])
+    wave_y = torch.abs(_xi(uy[C, :-1], uy[C, 1:])) + _xi(c[C, :-1], c[C, 1:])
+    co_rate = torch.maximum(torch.max(wave_x) * prm.inv_hfx,
+                            torch.max(wave_y) * prm.inv_hfy)
+    coef = _zg(c if prm.varsc else prm.alpha * rcs)
+    cx = _xi(coef[:-1, C], coef[1:, C])
+    cy = _xi(coef[C, :-1], coef[C, 1:])
+    if prm.varsc:
+        tau_rate = torch.minimum((prm.alpha / torch.max(cx)) * prm.hfx,
+                                 (prm.alpha / torch.max(cy)) * prm.hfy)
+    else:
+        tau_rate = torch.minimum(torch.min(cx) * prm.hfx,
+                                 torch.min(cy) * prm.hfy)
+    if not prm.varsc:
+        return co_rate, tau_rate, None, None, None
+    rho = _zg(p * (1.0 / (prm.R * T)))
+    fa = 0.5 * rho[:-1] + 0.5 * rho[1:]
+    gx = ((fa[1:] - fa[:-1]) / prm.dx)[:, C]
+    fb = 0.5 * rho[:, :-1] + 0.5 * rho[:, 1:]
+    gy = ((fb[:, 1:] - fb[:, :-1]) / prm.dy)[C]
+    mag = torch.sqrt(gx * gx + gy * gy)
+    raw = prm.rC * (mag * prm.h_cell / rho[C, C]) + prm.one_m_rC * sc[C, C]
+    raw = torch.clamp(raw, prm.minSc, prm.maxSc)
+    raw = torch.clamp(raw, min=prm.cqSc).contiguous()
+    s1 = torch.maximum(raw, _neighbour_max(raw) / prm.smooth_ratio)
+    chg = torch.any(s1 > raw).to(raw.dtype)
+    return co_rate, tau_rate, raw, s1, chg
+
+
 # ---------------------------------------------------------------------------
 # the wrappers: plain version for CPU tensors, the CUDA kernel otherwise
 # ---------------------------------------------------------------------------
@@ -596,10 +670,42 @@ def qgd2d_ghosts(prm, frames, side, profiles):
     return frames
 
 
+def qgd2d_emit(prm, p, T, ux, uy, sc):
+    """(co_rate, tau_rate, sc_raw, sc_s1, sc_chg) of the fresh frames — see
+    `emit_reference`.  Launch it after `qgd2d_ghosts`: the rates read the
+    fresh ghost rows and lanes.  On the card the two rates and the flag are
+    one-element device tensors (two passes: per-block partials, then one
+    block), never read back here."""
+    fr = (p, T, ux, uy) + ((sc,) if prm.varsc else ())
+    on_card = _check(prm, "qgd2d_emit", *fr)
+    if not on_card:
+        return emit_reference(prm, p, T, ux, uy, sc)
+    lib = _build.load()
+    dev = p.device
+    with torch.cuda.device(dev):
+        n = lib.qgd2d_dt_partials(prm.nx, prm.ny)  # the same face grid
+        partials = torch.empty((n, 8), dtype=p.dtype, device=dev)
+        rates = torch.empty(2, dtype=p.dtype, device=dev)
+        raw = s1 = chg = None
+        if prm.varsc:
+            raw = torch.empty((prm.nx, prm.ny), dtype=p.dtype, device=dev)
+            s1 = torch.empty_like(raw)
+            chg = torch.empty((), dtype=p.dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.qgd2d_emit(prm, _ptr(p), _ptr(T), _ptr(ux), _ptr(uy),
+                              _ptr(sc if prm.varsc else None), _ptr(partials),
+                              _ptr(rates), _ptr(raw), _ptr(s1), _ptr(chg),
+                              stream)
+    _build.check(lib, code, "qgd2d_emit")
+    qgd2d_emit.launches += 1
+    return rates[0], rates[1], raw, s1, chg
+
+
 qgd2d_dt.launches = 0
 qgd2d_update.launches = 0
 qgd2d_ghosts.launches = 0
-KERNELS = (qgd2d_dt, qgd2d_update, qgd2d_ghosts)
+qgd2d_emit.launches = 0
+KERNELS = (qgd2d_dt, qgd2d_update, qgd2d_ghosts, qgd2d_emit)
 
 
 # ---------------------------------------------------------------------------
@@ -617,16 +723,68 @@ def _edge_frame(interior):
     return f.contiguous()
 
 
+def _state_io(solver):
+    """(to_frames, from_fused) between the composable State and the
+    ghost-padded frames, shared by both 2D fused steps: to_frames gives a
+    FusedState, from_fused reads any carry with FusedState's fields."""
+    from ..ops.pad import ghost_pad
+    from ..solvers.qgd import State
+
+    mesh = solver.mesh
+    th = solver.thermo
+    tm = solver.tau_model
+    varsc = isinstance(tm, VarScModel5)
+    flux_sides = solver._flux_sides()
+    bc_U, bc_p, bc_T = solver._bcs()
+    dx = float(mesh.dx[0][0])
+
+    def to_frames(s: State) -> FusedState:
+        bc_pp = bc_p
+        for i, (a, side) in enumerate(flux_sides):
+            bc_pp = bc_pp.replace(a, side, bcm.FixedGradient(s.pbc[i]))
+        U, e, T, p = solver.primitives(s)
+        bc_Ur = bcm.resolve_inlet_outlet(bc_U, U, 2)
+        bc_pp = bcm.resolve_inlet_outlet(bc_pp, U, 2)
+        bc_Tr = bcm.resolve_inlet_outlet(bc_T, U, 2)
+        Upad = ghost_pad(U, bc_Ur, mesh, t=s.t, vector=True)
+        return FusedState(
+            p=ghost_pad(p, bc_pp, mesh, t=s.t).contiguous(),
+            T=ghost_pad(T, bc_Tr, mesh, t=s.t).contiguous(),
+            ux=Upad[0].contiguous(), uy=Upad[1].contiguous(),
+            t=s.t, dt=s.dt,
+            sc=_edge_frame(s.sc) if varsc else None)
+
+    def from_fused(fs) -> State:
+        p = fs.p[1:-1, 1:-1]
+        T = fs.T[1:-1, 1:-1]
+        U = torch.stack([fs.ux[1:-1, 1:-1], fs.uy[1:-1, 1:-1]])
+        rho = th.rho_from_p_T(p, T)
+        e = th.e_from_T(T)
+        # lagged qgdFlux gradients from the p ghost rows (ghost = interior
+        # + g*dx on both sides)
+        pbc = []
+        for _, side in flux_sides:
+            if side == 0:
+                g = (fs.p[0:1, 1:-1] - fs.p[1:2, 1:-1]) * (1.0 / dx)
+            else:
+                g = (fs.p[-1:, 1:-1] - fs.p[-2:-1, 1:-1]) * (1.0 / dx)
+            pbc.append(g)
+        sc = fs.sc[1:-1, 1:-1] if varsc else torch.full_like(rho, tm.Sc)
+        return State(rho=rho, rhoU=rho[None] * U,
+                     rhoE=rho * e + 0.5 * rho * torch.sum(U * U, dim=0),
+                     sc=sc, t=fs.t, dt=fs.dt, pbc=tuple(pbc))
+
+    return to_frames, from_fused
+
+
 def build_fused_step(solver, plain: bool = False):
-    """(step, to_fused, from_fused) for a supported QGDFoam solver.
+    """(step, to_fused, from_fused) for a supported QGDFoam solver: K1's
+    step, with the varScModel5 sensor as a plain pre-pass.
 
     step: FusedState -> FusedState.  With plain=True the step calls the plain
     torch versions directly on any device (the comparison path for the
     kernels on the card); the default goes through the kernel wrappers.
     """
-    from ..ops.pad import ghost_pad
-    from ..solvers.qgd import State
-
     if not supported(solver):
         raise ValueError("solver config not supported by the fused step")
     mesh = solver.mesh
@@ -654,44 +812,107 @@ def build_fused_step(solver, plain: bool = False):
         return FusedState(p=p, T=T, ux=ux, uy=uy, t=fs.t + dt_new, dt=dt_new,
                           sc=sc_new)
 
-    flux_sides = solver._flux_sides()
-    bc_U, bc_p, bc_T = solver._bcs()
-    dx = float(mesh.dx[0][0])
+    to_fused, from_fused = _state_io(solver)
+    return step, to_fused, from_fused
 
-    def to_fused(s: State) -> FusedState:
-        bc_pp = bc_p
-        for i, (a, side) in enumerate(flux_sides):
-            bc_pp = bc_pp.replace(a, side, bcm.FixedGradient(s.pbc[i]))
-        U, e, T, p = solver.primitives(s)
-        bc_Ur = bcm.resolve_inlet_outlet(bc_U, U, 2)
-        bc_pp = bcm.resolve_inlet_outlet(bc_pp, U, 2)
-        bc_Tr = bcm.resolve_inlet_outlet(bc_T, U, 2)
-        Upad = ghost_pad(U, bc_Ur, mesh, t=s.t, vector=True)
-        return FusedState(
-            p=ghost_pad(p, bc_pp, mesh, t=s.t).contiguous(),
-            T=ghost_pad(T, bc_Tr, mesh, t=s.t).contiguous(),
-            ux=Upad[0].contiguous(), uy=Upad[1].contiguous(),
-            t=s.t, dt=s.dt,
-            sc=_edge_frame(s.sc) if varsc else None)
 
-    def from_fused(fs: FusedState) -> State:
-        p = fs.p[1:-1, 1:-1]
-        T = fs.T[1:-1, 1:-1]
-        U = torch.stack([fs.ux[1:-1, 1:-1], fs.uy[1:-1, 1:-1]])
-        rho = th.rho_from_p_T(p, T)
-        e = th.e_from_T(T)
-        # lagged qgdFlux gradients from the p ghost rows (ghost = interior
-        # + g*dx on both sides)
-        pbc = []
-        for _, side in flux_sides:
-            if side == 0:
-                g = (fs.p[0:1, 1:-1] - fs.p[1:2, 1:-1]) * (1.0 / dx)
-            else:
-                g = (fs.p[-1:, 1:-1] - fs.p[-2:-1, 1:-1]) * (1.0 / dx)
-            pbc.append(g)
-        sc = fs.sc[1:-1, 1:-1] if varsc else torch.full_like(rho, tm.Sc)
-        return State(rho=rho, rhoU=rho[None] * U,
-                     rhoE=rho * e + 0.5 * rho * torch.sum(U * U, dim=0),
-                     sc=sc, t=fs.t, dt=fs.dt, pbc=tuple(pbc))
+# ---------------------------------------------------------------------------
+# K2: the step that carries what its last kernel emitted
+# ---------------------------------------------------------------------------
+
+
+class TiledState(tp.NamedTuple):
+    """Carry of `build_tiled_fused_step`: FusedState's frames and time, plus
+    what `qgd2d_emit` read from them for the next step (the reference's
+    TiledState carry, without its slab ghost tiles): the Courant and tau
+    rates (0-dim tensors) and, for varScModel5, the raw sensor, its first
+    smoothing ring ((nx, ny) cells) and the change flag (0-dim, 1.0/0.0)."""
+
+    p: torch.Tensor
+    T: torch.Tensor
+    ux: torch.Tensor
+    uy: torch.Tensor
+    t: torch.Tensor
+    dt: torch.Tensor
+    sc: tp.Optional[torch.Tensor] = None
+    co_rate: tp.Optional[torch.Tensor] = None
+    tau_rate: tp.Optional[torch.Tensor] = None
+    sc_raw: tp.Optional[torch.Tensor] = None
+    sc_s1: tp.Optional[torch.Tensor] = None
+    sc_chg: tp.Optional[torch.Tensor] = None
+
+
+def tiled_supported(solver) -> bool:
+    """True if the config runs on `build_tiled_fused_step`: the fused gate,
+    and for varScModel5 a scalar cqSc floor (the kernel takes it as a
+    constant).  The reference's VMEM and slab tests are TPU-only."""
+    if not supported(solver):
+        return False
+    tm = solver.tau_model
+    return not isinstance(tm, VarScModel5) or getattr(tm.cqSc, "ndim", 0) == 0
+
+
+def folds_sensor(solver) -> bool:
+    """True for the configs `make_fused_step` sends to
+    `build_tiled_fused_step`: 2D varScModel5 with a scalar cqSc, whose raw
+    sensor and first smoothing ring `qgd2d_emit` folds into the step (the
+    reference's `fold_sc` configs).  Every other 2D config keeps
+    `build_fused_step` and its plain sensor pre-pass."""
+    return tiled_supported(solver) and isinstance(solver.tau_model,
+                                                  VarScModel5)
+
+
+def build_tiled_fused_step(solver, plain: bool = False):
+    """(step, to_fused, from_fused): the port of the reference's x-slab
+    kernel K2 for a `tiled_supported` solver.
+
+    K2 runs K1's physics and, over the fresh fields, emits what the next
+    step needs; here the K1 kernels are shared and `qgd2d_emit` does the
+    emitting, launched after `qgd2d_ghosts` so the rates read fresh ghosts.
+    The frames are whole (no slabs), so there are no stale halos and no
+    strip fixes.  step: TiledState -> TiledState does
+
+      1. setDeltaT from the carried rates (dt = co_rate*dt-controlled, with
+         cTau*tau_rate and maxDeltaT caps), no frame read;
+      2. varScModel5: sc = fvc_smooth_continue(sc_s1, sc_chg), which runs
+         rings only when the carried flag fired;
+      3. `qgd2d_update`;  4. `qgd2d_ghosts`;  5. `qgd2d_emit`.
+
+    to_fused converts a State and calls `qgd2d_emit` once on its frames,
+    so the first dt is the K1 path's.  With plain=True every kernel is its
+    plain torch version, on any device.
+    """
+    if not tiled_supported(solver):
+        raise ValueError("solver config not supported by the tiled fused "
+                         "step")
+    mesh = solver.mesh
+    tm = solver.tau_model
+    tc = solver.time
+    varsc = isinstance(tm, VarScModel5)
+    prm, profiles_np = make_params(solver)
+    profiles = mesh.tensor(profiles_np).contiguous()
+    if plain:
+        k_update, k_ghosts, k_emit = update_reference, ghosts_reference, \
+            emit_reference
+    else:
+        k_update, k_ghosts, k_emit = qgd2d_update, qgd2d_ghosts, qgd2d_emit
+
+    def step(ts: TiledState) -> TiledState:
+        dt_new = common.set_delta_t(ts.dt, ts.co_rate * ts.dt, ts.tau_rate,
+                                    tc)
+        sc = None
+        if varsc:
+            sc = _edge_frame(fvc_smooth_continue(ts.sc_s1, ts.sc_chg,
+                                                 tm.smoothCoeff))
+        frames, side = k_update(prm, ts.p, ts.T, ts.ux, ts.uy, sc, dt_new)
+        p, T, ux, uy = k_ghosts(prm, frames, side, profiles)
+        return TiledState(p, T, ux, uy, ts.t + dt_new, dt_new, sc,
+                          *k_emit(prm, p, T, ux, uy, sc))
+
+    to_frames, from_fused = _state_io(solver)
+
+    def to_fused(s) -> TiledState:
+        fs = to_frames(s)
+        return TiledState(*fs, *k_emit(prm, fs.p, fs.T, fs.ux, fs.uy, fs.sc))
 
     return step, to_fused, from_fused

@@ -17,6 +17,7 @@ import torch
 
 from ..core import bc as bcm
 from ..core.mesh import Mesh
+from ..core.registry import register, register_missing
 from ..ops import fvsc
 
 
@@ -53,6 +54,7 @@ class TauModel:
     """Base marker. Subclasses implement correct(mesh, **state) -> Coeffs."""
 
 
+@register("tau", "constScPrModel1")
 @dataclasses.dataclass(frozen=True)
 class ConstScPrModel1(TauModel):
     """Compressible default: tau = alpha*h/c; tau_f = interp(alpha/c)*h_f;
@@ -70,12 +72,14 @@ class ConstScPrModel1(TauModel):
                        self.Pr)
 
 
+@register("tau", "constScPrModel1n")
 @dataclasses.dataclass(frozen=True)
 class ConstScPrModel1n(ConstScPrModel1):
     """Variant of model1 for a per-cell ScQGD field (reference
     constScPrModel1n); with the constant Sc it computes what model1 does."""
 
 
+@register("tau", "constScPrModel2")
 @dataclasses.dataclass(frozen=True)
 class ConstScPrModel2(ConstScPrModel1):
     """Same tau as model1 with fixed Sc/Pr handling (reference
@@ -120,6 +124,34 @@ def fvc_smooth(field, coeff, max_iters: int = 10_000):
     return f
 
 
+def fvc_smooth_continue(f1, changed, coeff, max_iters: int = 10_000):
+    """Continue the `fvc_smooth` fixed point from a supplied FIRST ring
+    f1 = max(f, nbr_max(f)/maxRatio) and its change flag (any(f1 > f);
+    a flag that is true when nothing changed only costs a no-op sweep, the
+    iteration being idempotent at the fixed point).  `changed` may be a
+    bool or a tensor, read once.  Bitwise `fvc_smooth(f)`: it starts at
+    it = 1 and runs four rings per host test, as `fvc_smooth` does after
+    its first ring.  Every ring it runs adds one to
+    `fvc_smooth_continue.rings`."""
+    max_ratio = 1.0 + coeff
+    f = f1
+    changed = bool(changed)
+    it = 1
+    while changed and it < max_iters:
+        fn = f
+        for _ in range(4):
+            fn = torch.maximum(fn, _neighbour_max(fn) / max_ratio)
+        fvc_smooth_continue.rings += 4
+        changed = bool(torch.any(fn > f))
+        f = fn
+        it += 4
+    return f
+
+
+fvc_smooth_continue.rings = 0
+
+
+@register("tau", "varScModel5")
 @dataclasses.dataclass(frozen=True)
 class VarScModel5(TauModel):
     """Relaxed density-gradient shock sensor:
@@ -157,3 +189,9 @@ class VarScModel5(TauModel):
                       for a in range(mesh.ndim))
         sc = self.sc_update(mesh, rho, sc_prev)
         return _finish(mesh, tau, tau_f, p, sc, self.Pr)
+
+
+register_missing("tau", "ROADMAP queue 1, item 8 (the QHD family)",
+                 "constTau", "HbyUQHD", "H2bynuQHD", "T0byGr")
+register_missing("tau", "ROADMAP queue 1, item 7 (the rest of QGDFoam)",
+                 "varScModel6", "varScModel7")

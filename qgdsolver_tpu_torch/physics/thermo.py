@@ -10,11 +10,14 @@ import dataclasses
 
 import torch
 
+from ..core.registry import register, register_missing
+
 
 class Transport:
     """Base marker for dynamic-viscosity models mu(p, T)."""
 
 
+@register("transport", "const")
 @dataclasses.dataclass(frozen=True)
 class ConstTransport(Transport):
     """constTransport: mu = const."""
@@ -25,6 +28,7 @@ class ConstTransport(Transport):
         return torch.full_like(T, self.mu0)
 
 
+@register("thermo", "psiPerfectGas")
 @dataclasses.dataclass(frozen=True)
 class PerfectGasThermo:
     """Calorically perfect gas, psi-based: e = Cv*T, psi = 1/(R*T),
@@ -72,3 +76,10 @@ class PerfectGasThermo:
     def alphah(self, p, T):
         """Thermal diffusivity alpha = kappa/Cp = mu/Pr [kg/(m s)]."""
         return self.transport.mu(p, T) / self.Pr
+
+
+register_missing("transport", "ROADMAP queue 1, item 7 (the rest of QGDFoam)",
+                 "sutherland", "powerLaw")
+register_missing("thermo", "ROADMAP queue 1, item 7 (JANAF thermo; RhoThermo "
+                 "and rhoConst with rhoQGDFoam)",
+                 "rhoConst", "rhoThermo", "janafPerfectGas")

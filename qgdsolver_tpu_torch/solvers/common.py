@@ -55,34 +55,41 @@ def tau_f_min(tau_f):
 
 class NonphysicalStateError(RuntimeError):
     """Raised by the checked runner when a prognostic field goes nonfinite
-    or nonpositive (the reference aborts on negative e or rho)."""
+    or nonpositive (the reference aborts on negative e or rho, and writes
+    the fields first); `dump_path` is the checkpoint of the bad state."""
+
+    def __init__(self, message, dump_path=None):
+        super().__init__(message)
+        self.dump_path = dump_path
 
 
 def run_steps(step_fn, state, n_steps: int, log_every: int = 0,
               log_fn: tp.Optional[tp.Callable] = None,
               check_every: int = 0,
-              check_fields: tp.Tuple[str, ...] = ("rho", "rhoE")):
+              check_fields: tp.Tuple[str, ...] = ("rho", "rhoE"),
+              dump_dir: tp.Optional[str] = None):
     """Run `n_steps` of `step_fn` in a Python loop.
 
     With check_every > 0 the named state fields are checked for finiteness
-    and positivity at that cadence (a device sync each time), raising
-    NonphysicalStateError on failure; log_fn(done, state) runs every
-    log_every steps.  With both 0 the loop never syncs with the device.
+    and positivity at that cadence (a device sync each time); on failure
+    the whole state is written by `utils.checkpoint.save` to `dump_dir`
+    (default "nonphysical_dump") and NonphysicalStateError is raised with
+    its path.  log_fn(done, state) runs every log_every steps.  With both 0
+    the loop never syncs with the device.
     """
+    from ..utils import checkpoint, observability
+
     for done in range(1, n_steps + 1):
         state = step_fn(state)
         if check_every > 0 and done % check_every == 0:
-            bad = {}
-            for name in check_fields:
-                f = getattr(state, name, None)
-                if f is None:
-                    continue
-                n_bad = int(torch.sum(~torch.isfinite(f)) + torch.sum(f <= 0))
-                if n_bad:
-                    bad[name] = n_bad
+            bad = observability.nonphysical_dump(state, check_fields,
+                                                 out=lambda *_: None)
             if bad:
+                path = checkpoint.save(state, dump_dir or "nonphysical_dump",
+                                       done)
                 raise NonphysicalStateError(
-                    f"nonphysical state at step {done}: {bad}")
+                    f"nonphysical state at step {done}: {bad} "
+                    f"(state dumped to {path})", dump_path=path)
         if log_fn is not None and log_every > 0 and done % log_every == 0:
             log_fn(done, state)
     return state

@@ -266,15 +266,27 @@ class QGDFoam:
 
         return fused_qgd2d.supported(self)
 
-    def make_fused_step(self):
-        """(step, to_fused, from_fused): the fused 2D or 3D step over
-        ghost-padded primitive frames.  `step` maps a FusedState (2D) or
-        Fused3DState (3D) to the next; to_fused / from_fused convert to and
-        from the composable State."""
+    def fused_builder(self):
+        """The builder `make_fused_step` takes: `build_fused_step_3d` on 3D
+        meshes; on 2D, `build_tiled_fused_step` (K2: the raw sensor and the
+        first smoothing ring folded into the step by `qgd2d_emit`) for
+        varScModel5 with a scalar cqSc, and `build_fused_step` (K1 with the
+        plain sensor pre-pass) for every other config.  The reference's
+        choice between its two 2D kernels is a VMEM fit, which the card does
+        not have."""
         if self.mesh.ndim == 3:
             from ..ops import fused_qgd3d
 
-            return fused_qgd3d.build_fused_step_3d(self)
+            return fused_qgd3d.build_fused_step_3d
         from ..ops import fused_qgd2d
 
-        return fused_qgd2d.build_fused_step(self)
+        if fused_qgd2d.folds_sensor(self):
+            return fused_qgd2d.build_tiled_fused_step
+        return fused_qgd2d.build_fused_step
+
+    def make_fused_step(self):
+        """(step, to_fused, from_fused) of the builder `fused_builder()`
+        names.  `step` maps the fused carry (FusedState, TiledState or
+        Fused3DState) to the next; to_fused / from_fused convert to and from
+        the composable State."""
+        return self.fused_builder()(self)

@@ -1,13 +1,14 @@
-"""CUDA kernels of the fused 2D and 3D steps against their plain torch
-versions, on the card, at the production sizes (1024x512 and 256x126x126
-f32), from a state after 20 plain steps.  Marked `gpu`: they skip where no
-CUDA device exists.  Run them on the card with
-`python -m pytest tests/test_torch_gpu.py -m gpu -q`.
+"""CUDA kernels of the fused 2D (K1 and K2's `qgd2d_emit`) and 3D steps
+against their plain torch versions, on the card, at the production sizes
+(1024x512 and 256x126x126 f32), from a state after 20 plain steps.
+Marked `gpu`: they skip where no CUDA device exists.  Run them on the card
+with `python -m pytest tests/test_torch_gpu.py -m gpu -q`.
 
-Bounds: dt, ghosts and the 3D sensor rtol 1e-6 (a reduction of exact
-max/min; selects plus one FMA; rsqrtf-free pointwise arithmetic); one update
-step within 1e-5 of each field's max (rsqrtf and FMA contraction); 10
-lock-step steps within the JAX fused tests' bounds.
+Bounds: dt, ghosts, the emitted rates and the 3D sensor rtol 1e-6 (a
+reduction of exact max/min; selects plus one FMA; rsqrtf-free pointwise
+arithmetic); the 2D emitted sensor bitwise; one update step within 1e-5 of
+each field's max (rsqrtf and FMA contraction); 10 lock-step steps within
+the JAX fused tests' bounds.
 """
 import dataclasses
 
@@ -123,15 +124,76 @@ def test_kernel_path_tracks_plain_path(name, dt_tol, f_tol, device):
         assert _rel(getattr(sb, f), getattr(sa, f)) <= f_tol, f
 
 
-def test_main_path_launches_each_kernel_once_per_step(device):
-    solver, state = cases.supersonic_jet_varsc(shape=SHAPE, device=device)
+@pytest.mark.parametrize("name,want", [
+    ("supersonic_jet", [20, 20, 20, 0]),
+    # K2's path: qgd2d_emit once per step plus once in to_fused, no qgd2d_dt
+    ("supersonic_jet_varsc", [0, 20, 20, 21])])
+def test_main_path_launches_each_kernel_once_per_step(name, want, device):
+    solver, state = getattr(cases, name)(shape=SHAPE, device=device)
     step, to_f, from_f = solver.make_fused_step()
-    fs = to_f(state)
     for k in F.KERNELS:
         k.launches = 0
-    s = from_f(common.run_steps(step, fs, 20))
-    assert [k.launches for k in F.KERNELS] == [20, 20, 20]
+    s = from_f(common.run_steps(step, to_f(state), 20))
+    assert [k.launches for k in F.KERNELS] == want
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
+
+
+def _warm_tiled(name, device, shape=SHAPE):
+    solver, state = getattr(cases, name)(shape=shape, device=device)
+    step, to_f, _ = F.build_tiled_fused_step(solver, plain=True)
+    ts = to_f(state)
+    for _ in range(20):
+        ts = step(ts)
+    return solver, ts
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_emit_kernel_matches_plain_version(name, device):
+    """qgd2d_emit against emit_reference on the fresh frames of a warm K2
+    state: rates rtol 1e-6 (rsqrtf); the sensor, ring 1 and the flag
+    bitwise (explicit roundings in the kernel)."""
+    solver, ts = _warm_tiled(name, device)
+    prm, _ = F.make_params(solver)
+    args = (prm, ts.p, ts.T, ts.ux, ts.uy, ts.sc)
+    ref = F.emit_reference(*args)
+    got = F.qgd2d_emit(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(ref[:2], got[:2]):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=0.0)
+    if prm.varsc:
+        for a, b in zip(ref[2:], got[2:]):
+            assert torch.equal(a, b)
+    else:
+        assert got[2:] == (None, None, None)
+
+
+@pytest.mark.parametrize("name,dt_tol,f_tol",
+                         [("supersonic_jet", 1e-6, 1e-3),
+                          ("supersonic_jet_varsc", 1e-5, 2e-3)])
+def test_tiled_kernel_path_tracks_plain_path(name, dt_tol, f_tol, device):
+    solver, ts = _warm_tiled(name, device)
+    k_step, _, from_f = F.build_tiled_fused_step(solver)
+    p_step, _, _ = F.build_tiled_fused_step(solver, plain=True)
+    a = b = ts
+    for _ in range(10):
+        a, b = k_step(a), p_step(b)
+    sa, sb = from_f(a), from_f(b)
+    torch.testing.assert_close(sa.dt, sb.dt, rtol=dt_tol, atol=0.0)
+    for f in ("rho", "rhoU", "rhoE", "sc"):
+        assert _rel(getattr(sb, f), getattr(sa, f)) <= f_tol, f
+
+
+def test_tiled_main_path_launches_emit_once_per_step(device):
+    """make_fused_step takes K2's builder for the varsc jet: qgd2d_emit once
+    per step (and once for the initial rates), never qgd2d_dt."""
+    solver, state = cases.supersonic_jet_varsc(shape=SHAPE, device=device)
+    assert solver.fused_builder() is F.build_tiled_fused_step
+    step, to_f, from_f = solver.make_fused_step()
+    F.qgd2d_emit.launches = F.qgd2d_dt.launches = 0
+    ts = common.run_steps(step, to_f(state), 15)
+    assert (F.qgd2d_emit.launches, F.qgd2d_dt.launches) == (16, 0)
+    s = from_f(ts)
+    assert bool(torch.isfinite(s.sc).all()) and float(s.sc.min()) >= 0.05
 
 
 def _warm3(name, device):

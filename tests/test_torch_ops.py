@@ -203,8 +203,11 @@ def test_port_imports_no_jax():
     """Importing the port (kernel modules included) pulls in no JAX and needs
     neither nvcc nor triton: kernels build at first CUDA use."""
     code = ("import qgdsolver_tpu_torch, qgdsolver_tpu_torch.cases, "
-            "qgdsolver_tpu_torch.ops.fused_qgd2d; import sys; "
-            "assert 'jax' not in sys.modules")
+            "qgdsolver_tpu_torch.ops.fused_qgd2d, "
+            "qgdsolver_tpu_torch.ops.fused_qgd3d, qgdsolver_tpu_torch.cli, "
+            "qgdsolver_tpu_torch.io.foam_write, qgdsolver_tpu_torch.utils, "
+            "qgdsolver_tpu_torch.core.config, qgdsolver_tpu_torch.__main__; "
+            "import sys; assert 'jax' not in sys.modules")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

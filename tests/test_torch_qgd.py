@@ -89,11 +89,12 @@ def test_varsc_sensor_and_smooth_match_jax():
     assert float(t_s[16, 0]) > 0.05, "the smoothing wave must spread"
 
 
-def test_run_steps_checks_state():
+def test_run_steps_checks_state(tmp_path):
     tsolver, ts = tcases.supersonic_jet(shape=(16, 8), dtype=torch.float64)
     bad = ts._replace(rho=-ts.rho)
     with pytest.raises(common.NonphysicalStateError):
-        common.run_steps(lambda s: s, bad, 2, check_every=1)
+        common.run_steps(lambda s: s, bad, 2, check_every=1,
+                         dump_dir=str(tmp_path))
     seen = []
     common.run_steps(tsolver.make_step(), ts, 4, log_every=2,
                      log_fn=lambda n, s: seen.append(n))

@@ -1,0 +1,247 @@
+"""The port of K2 (`ops.fused_qgd2d.build_tiled_fused_step`, `qgd2d_emit`)
+and `fvc_smooth_continue` against the JAX package.
+
+On the CPU `qgd2d_emit` runs its plain version, `emit_reference`; the CUDA
+kernel is held against it on the card (tests/test_torch_gpu.py,
+chip_smoke.py).  The JAX tiled step runs its Pallas slab kernel in interpret
+mode, as tests/test_fused_qgd2d.py runs it.  Bounds are those JAX tests'
+own: dt rtol 1e-6; rho/rhoU/rhoE within 1e-5 of their max (2e-5 with the
+density bump across a slab boundary); sc rtol 1e-4 with atol 1e-5 (bump)
+or 1e-4 (spike).  The emitted rates and sensor fields match one JAX tiled
+step to rtol 1e-6 (f32 round-off of the same expressions), and the smoothing
+continuation is bitwise `fvc_smooth`.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qgdsolver_tpu import cases as jcases
+from qgdsolver_tpu.ops import fused_qgd2d as JF
+from qgdsolver_tpu.physics import qgdcoeffs as jcoeffs
+from qgdsolver_tpu_torch import cases as tcases
+from qgdsolver_tpu_torch import interop
+from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+from qgdsolver_tpu_torch.physics import qgdcoeffs as tcoeffs
+from qgdsolver_tpu_torch.solvers import common
+
+SHAPE = (64, 32)
+NAMES = {"plain": "supersonic_jet", "varsc": "supersonic_jet_varsc"}
+
+
+def _f32(x):
+    return np.asarray(x).astype(np.float32)
+
+
+def _rel(a, b):
+    a = _f32(a)
+    return np.max(np.abs(a - _f32(b))) / max(np.max(np.abs(a)), 1e-30)
+
+
+def _perturbed(case, width, centre_row):
+    """Both packages' solvers and the JAX state, with rho and rhoE scaled
+    by 1 + `width`-wide x-band of amplitude (bump 0.35, spike 2.5)."""
+    js, jst = getattr(jcases, NAMES[case])(shape=SHAPE, dtype=np.float32)
+    ts, _ = getattr(tcases, NAMES[case])(shape=SHAPE)
+    if width is not None:
+        amp, cells = width
+        x = np.asarray(js.mesh.centers[0])
+        band = (1.0 + amp * (np.abs(x[:, None] - x[centre_row])
+                             < cells * (x[1] - x[0]))).astype(np.float32)
+        jst = jst._replace(rho=jst.rho * band, rhoE=jst.rhoE * band)
+    return js, jst, ts
+
+
+def _seeded(js, jst):
+    """One JAX composable step (seeds sc and pbc), as numpy and as the
+    port's State."""
+    s = jax.jit(js.make_step())(jst)
+    return s, interop.state_from_numpy(jax.tree.map(np.asarray, s),
+                                       dtype=torch.float32)
+
+
+def _run_both(js, ts, s, st, n, slab_rows):
+    jstep, jto, jfrom = JF.build_tiled_fused_step(js, slab_rows=slab_rows)
+    tstep, tto, tfrom = F.build_tiled_fused_step(ts)
+    jstep = jax.jit(jstep)
+    jt, tt = jto(s), tto(st)
+    fired = [False, False]
+    for _ in range(n):
+        jt, tt = jstep(jt), tstep(tt)
+        if jt.sc_chg is not None:
+            fired[0] |= float(jnp.max(jt.sc_chg)) > 0.0
+            fired[1] |= float(tt.sc_chg) > 0.0
+    return jt, jfrom(jt), tt, interop.state_to_numpy(tfrom(tt)), fired
+
+
+@pytest.mark.parametrize("case", ["plain", "varsc"])
+def test_tiled_matches_jax_tiled(case):
+    """Mirror of tests/test_fused_qgd2d.py::test_tiled_matches_whole_frame:
+    the port's K2 path against the JAX x-slab kernel (4 slabs) and against
+    the port's own K1 path, 5 steps."""
+    js, jst, ts = _perturbed(case, None, 0)
+    assert F.tiled_supported(ts) and JF.tiled_supported(js)
+    s, st = _seeded(js, jst)
+    jt, a, tt, b, _ = _run_both(js, ts, s, st, 5, slab_rows=16)
+    np.testing.assert_allclose(_f32(jt.dt), b.dt, rtol=1e-6)
+    for name in ("rho", "rhoU", "rhoE"):
+        assert _rel(getattr(a, name), getattr(b, name)) < 1e-5, name
+    kstep, kto, kfrom = F.build_fused_step(ts)
+    fs = kto(st)
+    for _ in range(5):
+        fs = kstep(fs)
+    c = interop.state_to_numpy(kfrom(fs))
+    np.testing.assert_allclose(c.dt, b.dt, rtol=1e-6)
+    for name in ("rho", "rhoU", "rhoE", "sc"):
+        assert _rel(getattr(c, name), getattr(b, name)) < 1e-5, name
+
+
+def test_tiled_varsc_sensor_active_matches_jax():
+    """Mirror of test_tiled_varsc_sensor_active_matches_whole_frame: a
+    density bump straddling a slab boundary of the JAX kernel activates the
+    sensor; 8 steps."""
+    js, jst, ts = _perturbed("varsc", (0.35, 6), 32)
+    s, st = _seeded(js, jst)
+    jt, a, _, b, _ = _run_both(js, ts, s, st, 8, slab_rows=16)
+    assert float(np.max(b.sc)) > 0.1, "sensor must be active"
+    np.testing.assert_allclose(_f32(jt.dt), b.dt, rtol=1e-6)
+    np.testing.assert_allclose(b.sc, _f32(a.sc), rtol=1e-4, atol=1e-5)
+    for name in ("rho", "rhoU", "rhoE"):
+        assert _rel(getattr(a, name), getattr(b, name)) < 2e-5, name
+
+
+def test_tiled_varsc_smooth_continuation_fires_and_matches():
+    """Mirror of test_tiled_varsc_smooth_continuation_fires_and_matches: a
+    near-delta density spike drives the raw sensor ratios far beyond
+    maxRatio; the change flag must fire in the port too, and the smoothed
+    sensor track both the JAX composable fvc_smooth wave and the JAX slab
+    kernel (slab_rows=8), 4 steps."""
+    js, jst, ts = _perturbed("varsc", (2.5, 1.1), 24)
+    s, st = _seeded(js, jst)
+    rings = tcoeffs.fvc_smooth_continue.rings
+    jt, a, _, b, fired = _run_both(js, ts, s, st, 4, slab_rows=8)
+    assert fired[0], "the JAX ring-1 change partial never fired"
+    assert fired[1], "the port's change flag never fired"
+    assert tcoeffs.fvc_smooth_continue.rings > rings
+    step_c = jax.jit(js.make_step())
+    ref = s
+    for _ in range(4):
+        ref = step_c(ref)
+    np.testing.assert_allclose(b.dt, _f32(ref.dt), rtol=1e-6)
+    np.testing.assert_allclose(b.sc, _f32(ref.sc), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(b.sc, _f32(a.sc), rtol=1e-4, atol=1e-4)
+
+
+def _port_frames(jt, M):
+    """The JAX TiledState's cell rows and ghost tiles as the port's
+    (nx+2, ny+2) frames (p, T, ux, uy) and its sensor frame."""
+    out = []
+    for k, name in enumerate(("p", "T", "ux", "uy")):
+        rows = np.concatenate([_f32(jt.gl[k][7:8]), _f32(getattr(jt, name)),
+                               _f32(jt.gh[k][0:1])])[:, :M + 2]
+        out.append(torch.as_tensor(np.ascontiguousarray(rows)))
+    sc = None
+    if jt.sc is not None:
+        sc = F._edge_frame(torch.as_tensor(_f32(jt.sc)[:, 1:M + 1]))
+    return out, sc
+
+
+@pytest.mark.parametrize("case,width", [("plain", None),
+                                        ("varsc", (2.5, 1.1))])
+def test_emit_reference_matches_jax_tiled_step(case, width):
+    """emit_reference on the fresh frames of one JAX tiled step (one slab,
+    so no strip completion is pending) against what that step's kernel
+    emitted: co_rate, tau_rate, sc_raw, sc_s1 and the flag."""
+    js, jst, ts = _perturbed(case, width, 24)
+    s, _ = _seeded(js, jst)
+    jstep, jto, _ = JF.build_tiled_fused_step(js, slab_rows=SHAPE[0])
+    jt = jax.jit(jstep)(jto(s))
+    M = SHAPE[1]
+    (p, T, ux, uy), sc = _port_frames(jt, M)
+    prm, _ = F.make_params(ts)
+    co, tau, raw, s1, chg = F.emit_reference(prm, p, T, ux, uy, sc)
+    np.testing.assert_allclose(float(co), float(jt.co_rate), rtol=1e-6)
+    np.testing.assert_allclose(float(tau), float(jt.tau_rate), rtol=1e-6)
+    if case == "plain":
+        assert raw is None and s1 is None and chg is None
+        return
+    np.testing.assert_allclose(raw.numpy(), _f32(jt.sc_raw)[:, 1:M + 1],
+                               rtol=1e-6)
+    np.testing.assert_allclose(s1.numpy(), _f32(jt.sc_s1)[:, 1:M + 1],
+                               rtol=1e-6)
+    assert float(chg) == 1.0 and float(jnp.max(jt.sc_chg)) > 0.0
+
+
+@pytest.mark.parametrize("field", ["random", "spike"])
+def test_fvc_smooth_continue_is_bitwise_fvc_smooth(field):
+    """Continuing from ring 1 and its flag gives the port's fvc_smooth bit
+    for bit, also with a flag that fires when nothing changed.  Against
+    the JAX package's fvc_smooth and fvc_smooth_continue the bound is
+    rtol 1e-6: eagerly one JAX ring is bitwise the port's, but under jit
+    XLA evaluates the ring's division by maxRatio with other roundings
+    (1.7e-7 apart after the random field's rings)."""
+    rng = np.random.default_rng(3)
+    if field == "random":
+        raw = rng.uniform(0.05, 1.0, size=(40, 24)).astype(np.float32)
+    else:
+        raw = np.full((40, 24), 0.05, dtype=np.float32)
+        raw[17, 5] = 1.0
+    f = torch.as_tensor(raw)
+    f1 = torch.maximum(f, tcoeffs._neighbour_max(f) / 1.1)
+    ref = tcoeffs.fvc_smooth(f, 0.1)
+    out = tcoeffs.fvc_smooth_continue(f1, torch.any(f1 > f), 0.1)
+    assert torch.equal(out, ref)
+    j1 = jnp.asarray(f1.numpy())
+    for jref in (jcoeffs.fvc_smooth(jnp.asarray(raw), 0.1),
+                 jcoeffs.fvc_smooth_continue(j1, True, 0.1)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(jref), rtol=1e-6)
+    if field == "spike":
+        assert float(out[17, 0]) > 0.05, "the smoothing wave must spread"
+    # the fixed point with a flag that fires anyway: one no-op sweep
+    rings = tcoeffs.fvc_smooth_continue.rings
+    again = tcoeffs.fvc_smooth_continue(ref, True, 0.1)
+    assert torch.equal(again, ref)
+    assert tcoeffs.fvc_smooth_continue.rings == rings + 4
+
+
+def test_routing_and_gate():
+    """make_fused_step: 2D varScModel5 with a scalar cqSc takes K2's
+    builder, every other 2D config K1's, 3D meshes the 3D builder."""
+    plain, _ = tcases.supersonic_jet(shape=SHAPE)
+    varsc, _ = tcases.supersonic_jet_varsc(shape=SHAPE)
+    assert plain.fused_builder() is F.build_fused_step
+    assert varsc.fused_builder() is F.build_tiled_fused_step
+    cq = dataclasses.replace(varsc.tau_model,
+                             cqSc=torch.full(SHAPE, 0.1))
+    per_cell = dataclasses.replace(varsc, tau_model=cq)
+    assert F.supported(per_cell) and not F.tiled_supported(per_cell)
+    assert per_cell.fused_builder() is F.build_fused_step
+    with pytest.raises(ValueError):
+        F.build_tiled_fused_step(per_cell)
+    duct, _ = tcases.supersonic_duct_3d(shape=(8, 6, 6))
+    assert duct.fused_builder() is F3.build_fused_step_3d
+    step, to_f, from_f = varsc.make_fused_step()
+    assert isinstance(to_f(varsc.init(
+        p0=torch.full(SHAPE, 1e5), T0=torch.full(SHAPE, 300.0),
+        U0=torch.zeros((2,) + SHAPE))), F.TiledState)
+
+
+def test_tiled_step_on_cpu_is_no_launch():
+    """On CPU tensors every wrapper takes its plain version: a tiled run
+    adds no launch to any kernel count."""
+    ts, st = tcases.supersonic_jet_varsc(shape=SHAPE)
+    step, to_f, from_f = F.build_tiled_fused_step(ts)
+    before = [k.launches for k in F.KERNELS]
+    s = from_f(common.run_steps(step, to_f(st), 3))
+    assert [k.launches for k in F.KERNELS] == before
+    assert bool(torch.isfinite(s.rho).all())
+    prm, _ = F.make_params(ts)
+    fs = to_f(st)
+    with pytest.raises(TypeError):
+        F.qgd2d_emit(prm, fs.p.double(), fs.T, fs.ux, fs.uy, fs.sc)
+    with pytest.raises(ValueError):
+        F.qgd2d_emit(prm, fs.p, fs.T, fs.ux, fs.uy, fs.sc[:-1])
