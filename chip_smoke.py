@@ -12,9 +12,18 @@ Then the 4096x2048 varScModel5 + qgdFlux jet (phases 11-14): `qgd2d_emit`
 against its plain version, K2's path in lock-step with its plain path and
 with K1's, the case CLI (`python -m qgdsolver_tpu_torch <case>`) on an
 OpenFOAM case directory with a write and a resume, and the times of the
-three 2D paths.  One line per phase; any failure exits non-zero.  The last
-line is {"ok": true, "device": {...}}.  Without a CUDA device it fails
-before printing any result.  It imports nothing of JAX.
+three 2D paths.  Phases 15-19 run the domain-decomposed steps K3 (2D) and
+K5 (3D x-ring) on ranks started by `parallel.distributed.spawn`: ranks that
+share this one card talk over gloo with halos through pinned host memory,
+so their times are not a scaling figure.  15: K3 on the 1024x512 jet over
+2x1 and 2x2 ranks against the serial kernel path, and each flagged kernel
+against its flagged plain version on every block; 16: K3 on the varsc +
+qgdFlux jet with a density bump, 2x2; 17: K5 on the 3D duct and varsc jet
+over an x-ring of 2, and the flagged 3D kernels on each slab; 18: K3 in a
+one-rank NCCL world, and the case CLI with --devices 2x1; 19: the times.
+One line per phase; any failure exits non-zero.  The last line is
+{"ok": true, "device": {...}}.  Without a CUDA device it fails before
+printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 SHAPE = (1024, 512)
@@ -46,6 +56,79 @@ KERNELS = {
        for k in ("qgd3d_dt", "qgd3d_update", "qgd3d_sensor",
                  "qgd3d_ghosts")},
 }
+
+
+# the least time the card could take, from NVIDIA's H100 SXM data sheet:
+# HBM3 bytes/s, and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def work_bytes(name, shape, varsc=False) -> int:
+    """The bytes a kernel must move at `shape` cells: each input frame read
+    once, each output written once."""
+    cells = int(np.prod(shape))
+    frame = int(np.prod([n + 2 for n in shape]))
+    if len(shape) == 2:
+        nx, ny = shape
+        ghosts = 2 * (ny + nx + 2)  # ghost cells of one field
+        io = {"qgd2d_dt": 3 * frame, "qgd2d_dt_fold": 3 * frame,
+              "qgd2d_update": (4 + varsc) * frame + 4 * cells,
+              "qgd2d_ghosts": 4 * 3 * ghosts,
+              "qgd2d_emit": 5 * frame + 2 * cells}
+    else:
+        nx, ny, nz = shape
+        ghosts = 2 * (ny * nz + (nx + 2) * nz + (nx + 2) * (ny + 2))
+        io = {"qgd3d_dt": 4 * frame, "qgd3d_dt_fold": 4 * frame,
+              "qgd3d_update": (5 + varsc) * frame + 5 * cells,
+              "qgd3d_sensor": 3 * frame + cells,
+              "qgd3d_ghosts": 5 * 3 * ghosts}
+    return 4 * io[name]
+
+
+# what count_ops counts: one operation per output element of an elementwise
+# op, one per input element of a reduction to fewer elements
+POINTWISE = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt",
+             "rsqrt", "reciprocal", "pow", "minimum", "maximum", "fmin",
+             "fmax", "clamp", "clamp_min", "clamp_max", "where", "lt", "le",
+             "gt", "ge", "eq", "ne"}
+REDUCTIONS = {"max", "min", "amax", "amin", "sum", "any", "all"}
+
+
+def count_ops(fn) -> int:
+    """The float operations that one call of fn() does: fn is a kernel's
+    plain version on this run's inputs.  The plain versions compute each
+    face flux once per face and each cell's thermo and coefficients once per
+    cell, so this counts the work the function needs, not the work a
+    kernel repeats (a CUDA thread per cell rebuilds its four or six faces).
+    Index, copy and fill ops count nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            ins = [a for a in args if torch.is_tensor(a)]
+            if name in REDUCTIONS and len(ins) == 1:
+                Counter.ops += ins[0].numel()
+            elif name in POINTWISE or name in REDUCTIONS:
+                Counter.ops += (out[0] if isinstance(out, tuple)
+                                else out).numel()
+            return out
+
+    with Counter():
+        fn()
+    return Counter.ops
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def card_line() -> str:
@@ -79,18 +162,29 @@ def device_ms(fn, n: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / n / 1e3
+    # a profiler session now and then returns no device events at all: take
+    # the measurement again in a new session (at most three)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / n / 1e3
+    raise AssertionError("the profiler saw no device time")
 
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+
+
+def entry_err(a, b) -> float:
+    """The largest error of any entry relative to that entry's own
+    magnitude (a dt quad: the -min tau entry is some 1e-8 of the wave
+    speeds beside it)."""
+    return float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
 
 
 def check(cond: bool, what: str) -> None:
@@ -307,6 +401,7 @@ def phase_time(dev, card, jobs, stats):
     for kname, kern, plain in jobs:
         stats[kname]["ms"] = device_ms(kern, 50)
         stats[kname]["plain_ms"] = device_ms(plain, 20)
+        stats[kname]["ops"] = count_ops(plain)
     print("phase 6 time, supersonic_jet " + f"{SHAPE}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
@@ -430,6 +525,7 @@ def phase_time3(dev, card, jobs, stats):
     for kname, kern, plain in jobs:
         stats[kname]["ms"] = device_ms(kern, 20, warmup=2)
         stats[kname]["plain_ms"] = device_ms(plain, 3, warmup=1)
+        stats[kname]["ops"] = count_ops(plain)
     print(f"phase 10 time 3D {SHAPE3}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
@@ -498,11 +594,11 @@ def phase_lockstep_big(solver, ts):
           + "; ".join(msgs), flush=True)
 
 
-def write_big_case(root: str) -> str:
-    """An OpenFOAM case directory: tests/fixtures/jet_case at 4096x2048
-    cells with varScModel5 (the coefficients of cases.supersonic_jet_varsc)
-    and its qgdFlux outflow."""
-    case = os.path.join(root, "jet_varsc_4096x2048")
+def write_case(root: str, name: str, shape, varsc: bool) -> str:
+    """An OpenFOAM case directory: tests/fixtures/jet_case (constScPrModel1
+    and its qgdFlux outflow) at `shape` cells; with varsc, varScModel5 with
+    the coefficients of cases.supersonic_jet_varsc."""
+    case = os.path.join(root, name)
     here = os.path.dirname(os.path.abspath(__file__))
     shutil.copytree(os.path.join(here, "tests", "fixtures", "jet_case"), case)
 
@@ -515,13 +611,27 @@ def write_big_case(root: str) -> str:
         with open(path, "w") as f:
             f.write(re.sub(old, new, text, count=1, flags=re.S))
 
-    edit("system/blockMeshDict", r"\(64 32 1\)", "(%d %d 1)" % BIG)
-    edit("constant/thermophysicalProperties", r"QGD\s*\{.*?\}",
-         "QGD\n{\n    implicitDiffusion false;\n"
-         "    QGDCoeffs       varScModel5;\n    aQGD 0.5;\n    PrQGD 1.0;\n"
-         "    rC 0.5;\n    minSc 0.05;\n    maxSc 1.0;\n"
-         "    smoothCoeff 0.1;\n}")
+    edit("system/blockMeshDict", r"\(64 32 1\)", "(%d %d 1)" % tuple(shape))
+    if varsc:
+        edit("constant/thermophysicalProperties", r"QGD\s*\{.*?\}",
+             "QGD\n{\n    implicitDiffusion false;\n"
+             "    QGDCoeffs       varScModel5;\n    aQGD 0.5;\n"
+             "    PrQGD 1.0;\n    rC 0.5;\n    minSc 0.05;\n    maxSc 1.0;\n"
+             "    smoothCoeff 0.1;\n}")
     return case
+
+
+def latest_state(case, dev):
+    """(solver, State) of the case's latest written time."""
+    from qgdsolver_tpu_torch.io import foam_case
+
+    ctrl = os.path.join(case, "system", "controlDict")
+    with open(ctrl) as f:
+        text = f.read()
+    with open(ctrl, "w") as f:
+        f.write(text.replace("startFrom       startTime;",
+                             "startFrom       latestTime;"))
+    return foam_case.build_case(case, device=dev)
 
 
 def run_cli(argv, kernels):
@@ -547,12 +657,10 @@ def phase_cli(dev, root):
     that time for 10 more steps.  Each run's launches must be K2's path:
     qgd2d_emit once per step plus once for to_fused, qgd2d_update and
     qgd2d_ghosts once per step, qgd2d_dt never."""
-    from qgdsolver_tpu_torch.io import foam_case
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
-
     from qgdsolver_tpu_torch.physics import qgdcoeffs
 
-    case = write_big_case(root)
+    case = write_case(root, "jet_varsc_%dx%d" % BIG, BIG, varsc=True)
     msgs, total = [], {}
     for n in (50, 10):
         rings = qgdcoeffs.fvc_smooth_continue.rings
@@ -567,14 +675,8 @@ def phase_cli(dev, root):
             total[k] = total.get(k, 0) + v
         writes = re.findall(r"writing fields to (\S+)", log)
         check(len(writes) == 1, f"{len(writes)} writes in one run:\n{log}")
-        ctrl = os.path.join(case, "system", "controlDict")
-        with open(ctrl) as f:
-            text = f.read()
-        with open(ctrl, "w") as f:
-            f.write(text.replace("startFrom       startTime;",
-                                 "startFrom       latestTime;"))
         t0 = time.perf_counter()
-        solver, state = foam_case.build_case(case, device=dev)
+        solver, state = latest_state(case, dev)
         read = time.perf_counter() - t0
         rings = (qgdcoeffs.fvc_smooth_continue.rings - rings) / n
         msgs.append(f"{n} steps in {secs:.1f} s, {rings:.2f} "
@@ -633,6 +735,7 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
     kern, plain = emit_jobs
     stats["qgd2d_emit"]["ms"] = device_ms(kern, 20)
     stats["qgd2d_emit"]["plain_ms"] = device_ms(plain, 5)
+    stats["qgd2d_emit"]["ops"] = count_ops(plain)
     # the step's parts at this size: the two shared K1 kernels (device
     # time) and the smoothing continuation from the emitted ring (wall)
     prof = solver.mesh.tensor(F.make_params(solver)[1]).contiguous()
@@ -654,6 +757,500 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
         + " | device ms/call qgd2d_emit vs emit_reference "
         f"{stats['qgd2d_emit']['ms']:.4f} vs "
         f"{stats['qgd2d_emit']['plain_ms']:.4f} | card: {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 15-19: the decomposed steps K3 and K5 on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SHARED = ("ranks sharing one card; halos through host memory; not a "
+          "scaling figure")
+
+
+def rank_jobs(jobs):
+    """What every rank of phases 15-18 runs (parallel.distributed.spawn).
+    A job: (kind "k3"/"k5", case, shape, (px, py), steps, State with numpy
+    leaves).  For each: the launch counts of the flagged kernels set to 0
+    just before `steps` decomposed steps and read just after, the gathered
+    State, the wall ms per step of steps 3 on, then five more steps with
+    every halo exchange and every MAX all-reduce timed (synchronized) for
+    their share of the step: the exchange of the fresh frames and the dt
+    quad's all-reduce, and in the varsc runs also the sensor pre-pass's
+    halos and its smoothing's stopping tests."""
+    import torch.distributed as dist
+
+    from qgdsolver_tpu_torch import cases, interop
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.parallel import distributed, sharding, spmd
+
+    dev = distributed.rank_device("cuda")
+    spent = {}
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    out = []
+    for kind, name, shape, grid, steps, state_np in jobs:
+        solver, _ = getattr(cases, name)(shape=shape, device=dev)
+        mod = F if kind == "k3" else F3
+        build = (F.build_sharded_fused_step if kind == "k3"
+                 else F3.build_sharded_fused_step_3d)
+        step, to_s, from_s = build(solver, sharding.ProcessGrid(*grid))
+        s = to_s(interop.state_from_numpy(state_np, device=dev))
+        for k in mod.SHARDED_KERNELS:
+            k.launches = 0
+        sync()
+        for i in range(steps):
+            if i == 2:
+                sync()
+                t0 = time.perf_counter()
+            s = step(s)
+        sync()
+        ms_step = (time.perf_counter() - t0) * 1e3 / (steps - 2)
+        launches = {k.__name__: k.launches for k in mod.SHARDED_KERNELS}
+        state = interop.state_to_numpy(from_s(s))
+        plain = (spmd.exchange, spmd.all_max)
+        spent.update(exchange=0.0, all_reduce=0.0)
+        spmd.exchange = timed(plain[0], "exchange")
+        spmd.all_max = timed(plain[1], "all_reduce")
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            s = step(s)
+        sync()
+        total = time.perf_counter() - t0
+        spmd.exchange, spmd.all_max = plain
+        out.append({"state": state, "launches": launches, "ms_step": ms_step,
+                    "exchange": spent["exchange"] / total,
+                    "all_reduce": spent["all_reduce"] / total})
+    return out
+
+
+def spawn_jobs(nprocs, jobs):
+    """Run `jobs` on `nprocs` new ranks of this card; each rank's results."""
+    from qgdsolver_tpu_torch.parallel import distributed
+
+    return distributed.spawn(rank_jobs, nprocs, jobs, device="cuda",
+                             timeout=600)
+
+
+def numpy_state(s):
+    from qgdsolver_tpu_torch import interop
+
+    return interop.state_to_numpy(s)
+
+
+def serial_kernel_state(solver, state, build, steps=10):
+    """`steps` steps of the serial kernel path from a State; numpy State."""
+    from qgdsolver_tpu_torch.solvers import common
+
+    step, to_f, from_f = build(solver)
+    out = from_f(common.run_steps(step, to_f(state), steps))
+    torch.cuda.synchronize()
+    return numpy_state(out)
+
+
+def held(ref, got, bitwise, f_tol=None, split=False) -> str:
+    """Check a gathered State against the serial one: bitwise; or dt equal
+    and the JAX 2D-split bounds (rho, rhoE rtol 1e-6; rhoU rtol 1e-5 atol
+    0.05); or dt equal and fields within f_tol of their max."""
+    if bitwise:
+        for f in ("rho", "rhoU", "rhoE", "t", "dt"):
+            check(np.array_equal(getattr(ref, f), getattr(got, f)),
+                  f"{f} not bitwise")
+        return "bitwise"
+    check(np.array_equal(ref.dt, got.dt), f"dt {got.dt} vs {ref.dt}")
+    worst = {}
+    for f in ("rho", "rhoU", "rhoE", "sc"):
+        a, b = getattr(ref, f).astype(np.float64), getattr(got, f)
+        worst[f] = float(np.abs(a - b).max() / np.abs(a).max())
+        if split:
+            tol = ((1e-5, 0.05) if f == "rhoU" else (1e-6, 0.0))
+            check(np.allclose(b, a, rtol=tol[0], atol=tol[1]),
+                  f"{f} outside the split bounds ({worst[f]:.2e})")
+        else:
+            check(worst[f] <= f_tol, f"{f} rel {worst[f]:.2e} > {f_tol}")
+    same = all(np.array_equal(getattr(ref, f), getattr(got, f))
+               for f in ("rho", "rhoU", "rhoE", "sc"))
+    return "dt equal, " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) \
+        + (" (bitwise)" if same else "")
+
+
+def flagged_blocks_2d(solver, fs, grid, stats):
+    """Phase 15's check of the flagged 2D kernels on every block of `grid`
+    cut with its halo from the warm frames.  Against their flagged plain
+    versions: qgd2d_dt_fold (each quad entry rel 1e-6 of itself),
+    qgd2d_dt_apply on the kernel's quad (rel 1e-6), qgd2d_update (1e-5 of
+    each field's max over the whole mesh, the bound phase 3 holds the
+    serial kernel to; the qgdFlux side rows where physical) and
+    qgd2d_ghosts (1e-6).  And qgd2d_update on the block must equal the
+    serial kernel's result on the whole mesh in the block's window, bit for
+    bit.  Returns a message and (kernel, plain) calls of one step's flagged
+    kernels on rank 0's block, for timing."""
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.parallel import sharding, spmd
+
+    worst, calls = {"dt": 0.0, "update": 0.0, "ghosts": 0.0}, None
+    prm_g, _ = F.make_params(solver)
+    frames = (fs.p, fs.T, fs.ux, fs.uy)
+    whole, _ = F.update_reference(prm_g, *frames, None, fs.dt)
+    whole_k, _ = F.qgd2d_update(prm_g, *frames, None, fs.dt)
+    scale = [f[1:-1, 1:-1].abs().max() for f in whole]
+    C = (slice(1, -1),) * 2
+    for r in range(grid.size):
+        ctx = sharding.block_context(solver.mesh, grid, r)
+        prm, prof = F.block_params(solver, ctx)
+        prof = solver.mesh.tensor(prof).contiguous()
+        win = spmd.frame_window(ctx)
+        blk = [f[win].contiguous() for f in frames]
+        q_ref = F.dt_fold_reference(prm, *blk[1:])
+        q_k = F.qgd2d_dt_fold(prm, *blk[1:])
+        d_ref = F.dt_apply_reference(prm, q_ref, fs.dt)
+        d_k = F.qgd2d_dt_apply(prm, q_k, fs.dt)
+        err = max(entry_err(q_ref, q_k), rel_err(d_ref, d_k))
+        check(err <= 1e-6, f"block {r}: qgd2d_dt_fold/apply rel {err:.2e}")
+        worst["dt"] = max(worst["dt"], err)
+        stats["err"] = max(stats["err"], float((q_ref - q_k).abs().max()),
+                           float((d_ref - d_k).abs().max()))
+        ref, side_ref = F.update_reference(prm, *blk, None, d_ref)
+        new, side = F.qgd2d_update(prm, *blk, None, d_ref)
+        same, _ = F.qgd2d_update(prm, *blk, None, fs.dt)
+        torch.cuda.synchronize()
+        for a, b, m in zip(ref, new, scale):
+            e = float((a[C] - b[C]).abs().max() / m)
+            check(e <= 1e-5, f"block {r}: qgd2d_update rel {e:.2e}")
+            worst["update"] = max(worst["update"], e)
+            stats["err"] = max(stats["err"], float((a[C] - b[C]).abs().max()))
+        for k, (a, b) in enumerate(zip(whole_k, same)):
+            check(torch.equal(a[win][C], b[C]), f"block {r}: qgd2d_update "
+                  f"{F.FIELDS[k]} is not the serial kernel's window")
+        for sd, phys in ((0, prm.edge_lo), (1, prm.edge_hi)):
+            if phys and solver._flux_sides():
+                e = rel_err(side_ref[sd, 1:-1], side[sd, 1:-1])
+                check(e <= 1e-5, f"block {r}: qgdFlux side rel {e:.2e}")
+        fa = [x.clone() for x in ref]
+        fb = [x.clone() for x in ref]
+        F.ghosts_reference(prm, fa, side_ref, prof)
+        F.qgd2d_ghosts(prm, fb, side_ref, prof)
+        torch.cuda.synchronize()
+        for a, b in zip(fa, fb):
+            e = rel_err(a, b)
+            check(e <= 1e-6, f"block {r}: qgd2d_ghosts rel {e:.2e}")
+            worst["ghosts"] = max(worst["ghosts"], e)
+            stats["err"] = max(stats["err"], float((a - b).abs().max()))
+        if r == 0:
+            def kernels(prm=prm, blk=blk, prof=prof):
+                q = F.qgd2d_dt_fold(prm, *blk[1:])
+                d = F.qgd2d_dt_apply(prm, q, fs.dt)
+                fr, sd = F.qgd2d_update(prm, *blk, None, d)
+                F.qgd2d_ghosts(prm, list(fr), sd, prof)
+
+            def plain(prm=prm, blk=blk, prof=prof):
+                q = F.dt_fold_reference(prm, *blk[1:])
+                d = F.dt_apply_reference(prm, q, fs.dt)
+                fr, sd = F.update_reference(prm, *blk, None, d)
+                F.ghosts_reference(prm, list(fr), sd, prof)
+
+            calls = (kernels, plain, (prm.nx, prm.ny))
+    return ("flagged kernels vs plain on every block: " + ", ".join(
+        f"{k} rel {v:.2e}" for k, v in worst.items())
+        + "; update on each block bitwise the serial kernel's window", calls)
+
+
+def flagged_slabs_3d(solver, fs, grid, stats):
+    """Phase 17's check of the flagged 3D kernels on every slab of an x-ring,
+    as flagged_blocks_2d: against the flagged plain versions (the update to
+    1e-5 of each field's max over the whole mesh, as phase 7; the sensor,
+    rel 1e-6, on the fresh frames with the neighbours' planes in the halo),
+    and the update and the sensor bit for bit the serial kernels' results
+    on the whole mesh in the slab's window."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.parallel import sharding, spmd
+
+    prm_g, planes = F3.make_params(solver)
+    planes = solver.mesh.tensor(planes).contiguous()
+    sc = None
+    if prm_g.varsc:
+        sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
+                                          solver.tau_model.smoothCoeff))
+    frames = (fs.p, fs.T, fs.ux, fs.uy, fs.uz)
+    fresh, _ = F3.update_reference_3d(prm_g, *frames, sc, fs.dt)
+    whole_k, _ = F3.qgd3d_update(prm_g, *frames, sc, fs.dt)
+    sensor_k = F3.qgd3d_sensor(prm_g, fresh[0], fresh[1], sc) \
+        if sc is not None else None
+    worst, calls = {"dt": 0.0, "update": 0.0, "sensor": 0.0,
+                    "ghosts": 0.0}, None
+    C = (slice(1, -1),) * 3
+    scale = [f[C].abs().max() for f in fresh]
+    for r in range(grid.size):
+        ctx = sharding.block_context(solver.mesh, grid, r)
+        prm, _ = F3.block_params(solver, ctx)
+        win = spmd.frame_window(ctx)
+        blk = [f[win].contiguous() for f in frames]
+        scb = sc[win].contiguous() if sc is not None else None
+        q_ref = F3.dt_fold_reference_3d(prm, *blk[1:])
+        q_k = F3.qgd3d_dt_fold(prm, *blk[1:])
+        d_ref = F3.dt_apply_reference_3d(prm, q_ref, fs.dt)
+        d_k = F3.qgd3d_dt_apply(prm, q_k, fs.dt)
+        err = max(entry_err(q_ref, q_k), rel_err(d_ref, d_k))
+        check(err <= 1e-6, f"slab {r}: qgd3d_dt_fold/apply rel {err:.2e}")
+        worst["dt"] = max(worst["dt"], err)
+        stats["err"] = max(stats["err"], float((q_ref - q_k).abs().max()),
+                           float((d_ref - d_k).abs().max()))
+        ref, side_ref = F3.update_reference_3d(prm, *blk, scb, d_ref)
+        new, side = F3.qgd3d_update(prm, *blk, scb, d_ref)
+        same, _ = F3.qgd3d_update(prm, *blk, scb, fs.dt)
+        torch.cuda.synchronize()
+        for a, b, m in zip(ref, new, scale):
+            e = float((a[C] - b[C]).abs().max() / m)
+            check(e <= 1e-5, f"slab {r}: qgd3d_update rel {e:.2e}")
+            worst["update"] = max(worst["update"], e)
+            stats["err"] = max(stats["err"], float((a[C] - b[C]).abs().max()))
+        for k, (a, b) in enumerate(zip(whole_k, same)):
+            check(torch.equal(a[win][C], b[C]), f"slab {r}: qgd3d_update "
+                  f"{F3.FIELDS[k]} is not the serial kernel's window")
+        if sc is not None:
+            fp, fT = fresh[0][win].contiguous(), fresh[1][win].contiguous()
+            s_ref = F3.sensor_reference_3d(prm, fp, fT, scb)
+            s_k = F3.qgd3d_sensor(prm, fp, fT, scb)
+            torch.cuda.synchronize()
+            e = rel_err(s_ref, s_k)
+            check(e <= 1e-6, f"slab {r}: qgd3d_sensor rel {e:.2e}")
+            check(torch.equal(sensor_k[r * prm.nx:(r + 1) * prm.nx], s_k),
+                  f"slab {r}: qgd3d_sensor is not the serial kernel's window")
+            worst["sensor"] = max(worst["sensor"], e)
+            stats["err"] = max(stats["err"], float((s_ref - s_k).abs().max()))
+        fa = [x.clone() for x in ref]
+        fb = [x.clone() for x in ref]
+        F3.ghosts_reference_3d(prm, fa, side_ref, planes)
+        F3.qgd3d_ghosts(prm, fb, side_ref, planes)
+        torch.cuda.synchronize()
+        for a, b in zip(fa, fb):
+            e = rel_err(a, b)
+            check(e <= 1e-6, f"slab {r}: qgd3d_ghosts rel {e:.2e}")
+            worst["ghosts"] = max(worst["ghosts"], e)
+            stats["err"] = max(stats["err"], float((a - b).abs().max()))
+        if r == 0 and sc is None:
+            def kernels(prm=prm, blk=blk):
+                q = F3.qgd3d_dt_fold(prm, *blk[1:])
+                d = F3.qgd3d_dt_apply(prm, q, fs.dt)
+                fr, sd = F3.qgd3d_update(prm, *blk, None, d)
+                F3.qgd3d_ghosts(prm, list(fr), sd, planes)
+
+            def plain(prm=prm, blk=blk):
+                q = F3.dt_fold_reference_3d(prm, *blk[1:])
+                d = F3.dt_apply_reference_3d(prm, q, fs.dt)
+                fr, sd = F3.update_reference_3d(prm, *blk, None, d)
+                F3.ghosts_reference_3d(prm, list(fr), sd, planes)
+
+            calls = (kernels, plain, (prm.nx, prm.ny, prm.nz))
+    return ", ".join(f"{k} rel {v:.2e}" for k, v in worst.items()
+                     if k != "sensor" or sc is not None), calls
+
+
+def warm_global(name, shape, build, dev):
+    """The case after 20 plain steps (warm_state), as a State; its solver
+    and the warm fused carry."""
+    solver, fs = warm_state(name, shape, build, dev)
+    return solver, fs, build(solver)[2](fs)
+
+
+def with_bump(solver, state):
+    """A density jump across the x partition edge (the JAX sharded tests'),
+    so the sensor and its cross-partition smoothing are active."""
+    x = torch.as_tensor(np.asarray(solver.mesh.centers[0]),
+                        device=state.rho.device)
+    bump = 1.0 + 0.4 * (torch.abs(x - x[len(x) // 2]) < 0.1).float()
+    return state._replace(rho=state.rho * bump[:, None],
+                          rhoE=state.rhoE * bump[:, None])
+
+
+def summed(results, key="launches"):
+    """Launch counts summed over ranks and jobs."""
+    total = {}
+    for rank in results:
+        for job in rank:
+            for k, v in job[key].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phases_sharded(dev, card):
+    """Phases 15-19.  Returns the kernels-line entries of K3 and K5: the
+    flagged kernels of one step on rank 0's block (launches summed over the
+    sharded runs' ranks; the CLI's ranks are not counted)."""
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.parallel import sharding
+
+    steps = 10
+    jet, jet_fs, jet_state = warm_global("supersonic_jet", SHAPE,
+                                         F.build_fused_step, dev)
+    varsc, _, varsc_state = warm_global("supersonic_jet_varsc", SHAPE,
+                                        F.build_fused_step, dev)
+    varsc_state = with_bump(varsc, varsc_state)
+    warm3 = {n: warm_global(n, SHAPE3, F3.build_fused_step_3d, dev)
+             for n in CASES3}
+    ref = {"jet": serial_kernel_state(jet, jet_state, F.build_fused_step),
+           "varsc": serial_kernel_state(varsc, varsc_state,
+                                        F.build_fused_step)}
+    for n, (solver, _, state) in warm3.items():
+        ref[n] = serial_kernel_state(solver, state, F3.build_fused_step_3d)
+    check(ref["varsc"].sc.max() > ref["varsc"].sc.min() + 0.01,
+          "phase 16: the sensor must be active")
+    jet_np, varsc_np = numpy_state(jet_state), numpy_state(varsc_state)
+    jobs2 = [("k3", "supersonic_jet", SHAPE, (2, 1), steps, jet_np)] + [
+        ("k5", n, SHAPE3, (2, 1), steps, numpy_state(warm3[n][2]))
+        for n in CASES3]
+    jobs4 = [("k3", "supersonic_jet", SHAPE, (2, 2), steps, jet_np),
+             ("k3", "supersonic_jet_varsc", SHAPE, (2, 2), steps, varsc_np)]
+    jobs1 = [("k3", "supersonic_jet", SHAPE, (1, 1), steps, jet_np)]
+    t0 = time.perf_counter()
+    world2 = spawn_jobs(2, jobs2)
+    world4 = spawn_jobs(4, jobs4)
+    world1 = spawn_jobs(1, jobs1)
+    secs = time.perf_counter() - t0
+    # every flagged kernel of the path, once per step on every rank
+    for results, jobs in ((world2, jobs2), (world4, jobs4), (world1, jobs1)):
+        for rank in results:
+            for job, (kind, name, _, grid, n, _) in zip(rank, jobs):
+                for k, v in job["launches"].items():
+                    want = 0 if k == "qgd3d_sensor" and "varsc" not in name \
+                        else n
+                    check(v == want, f"{kind} {name} {grid}: {k} launched "
+                          f"{v} times, expected {want}")
+
+    k3_stats, k5_stats = {"err": 0.0}, {"err": 0.0}
+    msg2x1 = held(ref["jet"], world2[0][0]["state"], bitwise=True)
+    msg2x2 = held(ref["jet"], world4[0][0]["state"], bitwise=False,
+                  split=True)
+    blocks_msg, k3_calls = flagged_blocks_2d(jet, jet_fs,
+                                             sharding.ProcessGrid(2, 2),
+                                             k3_stats)
+    print(f"phase 15 K3 on the jet {SHAPE}, {steps} steps from the warm "
+          f"state: 2x1 {msg2x1}; 2x2 {msg2x2} (vs the serial kernel path) "
+          f"| {blocks_msg} | launches per rank "
+          f"{world4[0][0]['launches']} (2x2)", flush=True)
+    msg16 = held(ref["varsc"], world4[0][1]["state"], bitwise=False,
+                 f_tol=2e-5)
+    print(f"phase 16 K3 on the varsc + qgdFlux jet {SHAPE} with a density "
+          f"bump, 2x2: {msg16}; sensor range "
+          f"{ref['varsc'].sc.min():.3f}-{ref['varsc'].sc.max():.3f}",
+          flush=True)
+    msgs17, k5_calls = [], None
+    for i, n in enumerate(CASES3):
+        got = world2[0][1 + i]["state"]
+        msg = held(ref[n], got, bitwise=(n == "supersonic_duct_3d"),
+                   f_tol=2e-5)
+        solver, fs, _ = warm3[n]
+        slab_msg, calls = flagged_slabs_3d(solver, fs,
+                                           sharding.ProcessGrid(2, 1),
+                                           k5_stats)
+        k5_calls = k5_calls or calls
+        msgs17.append(f"{n}: {msg} | flagged kernels vs plain: {slab_msg}")
+    print(f"phase 17 K5 x-ring of 2 {SHAPE3}, {steps} steps: "
+          + "; ".join(msgs17), flush=True)
+    msg18 = held(ref["jet"], world1[0][0]["state"], bitwise=True)
+    with tempfile.TemporaryDirectory() as root:
+        cli_msg = phase_cli_devices(dev, root)
+    print(f"phase 18 one-rank NCCL K3 on the jet {SHAPE}: {msg18} | {cli_msg}",
+          flush=True)
+
+    # phase 19: the times
+    k_step, to_f, _ = F.build_fused_step(jet)
+    box = [to_f(jet_state)]
+
+    def advance():
+        box[0] = k_step(box[0])
+
+    serial_ms = cuda_ms(advance, 50)
+    runs = [("K3 jet 2x1", world2[0][0]), ("K3 jet 2x2", world4[0][0]),
+            ("K3 varsc jet 2x2", world4[0][1]),
+            ("K5 duct 2x1", world2[0][1]), ("K5 varsc jet 2x1", world2[0][2]),
+            ("K3 jet 1 rank NCCL", world1[0][0])]
+    entries = []
+    for label, kstats, calls, src, repl, kernels in (
+            ("k3_sharded_step", k3_stats, k3_calls, CSRC + "qgd2d.cu",
+             "qgdsolver_tpu/ops/fused_qgd2d.py:1166", F.SHARDED_KERNELS),
+            ("k5_sharded_step", k5_stats, k5_calls, CSRC + "qgd3d.cu",
+             "qgdsolver_tpu/ops/fused_qgd3d.py:930", F3.SHARDED_KERNELS)):
+        # timed on the plain jet / duct: the step without a sensor
+        kern, plain, shape = calls
+        names = [k.__name__ for k in kernels]
+        ops = count_ops(plain)
+        b_ms, b_by = bound(sum(work_bytes(k, shape) for k in names
+                               if k.endswith(("fold", "update", "ghosts"))),
+                           ops)
+        total = summed(world2 + world4 + world1)
+        entries.append({
+            "name": label, "route": "cuda", "source": src, "replaces": repl,
+            "launches": sum(v for k, v in total.items() if k in names),
+            "max_abs_err": kstats["err"], "ms": device_ms(kern, 20),
+            "plain_ms": device_ms(plain, 5), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "ops": ops,
+            "kernels": names, "block": list(shape)})
+    print("phase 19 time (" + SHARED + "): " + "; ".join(
+        f"{label} {r['ms_step']:.4f} ms/step (exchange share "
+        f"{r['exchange']:.3f}, MAX all-reduce share {r['all_reduce']:.3f})"
+        for label, r in runs)
+        + f" | serial kernel path {serial_ms:.4f} ms/step: the one-rank "
+        f"NCCL wrapper costs {world1[0][0]['ms_step'] - serial_ms:+.4f} "
+        f"ms/step | one step's flagged kernels on rank 0's block, device ms "
+        + ", ".join(f"{e['name']} {e['ms']:.4f} vs plain {e['plain_ms']:.4f}"
+                    f" (bound {e['bound_ms']:.4f}, {e['bound_by']})"
+                    for e in entries)
+        + f" | worlds spawned and run in {secs:.1f} s | card: {card}",
+        flush=True)
+    return entries
+
+
+def phase_cli_devices(dev, root) -> str:
+    """Phase 18's CLI part: `python -m qgdsolver_tpu_torch <case> --devices
+    2x1 --device cuda --max-steps 50` on a 1024x512 jet case against a
+    serial CLI run of the same case: the log names K3's builder and the
+    gloo backend, one write, the written fields within 1e-5."""
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+
+    serial, sharded = (write_case(root, n, SHAPE, varsc=False)
+                       for n in ("serial", "2x1"))
+    log, secs, _ = run_cli([serial, "--max-steps", "50", "--device", "cuda"],
+                           F.KERNELS)
+    check("fused kernel path engaged: build_fused_step" in log,
+          f"serial CLI did not take K1:\n{log}")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "qgdsolver_tpu_torch",
+                          sharded, "--devices", "2x1", "--device", "cuda",
+                          "--max-steps", "50"], capture_output=True,
+                         text=True, timeout=600)
+    secs2 = time.perf_counter() - t0
+    check(run.returncode == 0, f"CLI --devices 2x1 failed:\n{run.stdout}\n"
+          f"{run.stderr[-4000:]}")
+    out = run.stdout
+    check("build_sharded_fused_step (2x1 ranks)" in out,
+          f"the CLI did not take K3:\n{out}")
+    check("backend gloo" in out, f"the CLI did not log gloo:\n{out}")
+    writes = re.findall(r"writing fields to (\S+)", out)
+    check(len(writes) == 1, f"{len(writes)} writes:\n{out}")
+    a, b = latest_state(serial, dev)[1], latest_state(sharded, dev)[1]
+    check(float(a.t) == float(b.t), f"times {float(a.t)} vs {float(b.t)}")
+    worst = max(rel_err(getattr(a, f), getattr(b, f))
+                for f in ("rho", "rhoU", "rhoE"))
+    check(worst <= 1e-5, f"CLI --devices 2x1 fields rel {worst:.2e}")
+    return (f"CLI --devices 2x1 (K3, gloo): 50 steps + one write in "
+            f"{secs2:.1f} s (serial CLI {secs:.1f} s), written fields vs "
+            f"the serial CLI's rel {worst:.2e} at t={float(b.t):.4e}")
 
 
 def main() -> int:
@@ -697,11 +1294,21 @@ def main() -> int:
     for k, v in cli_launches.items():
         launches[k] += v
     phase_time_big(solver, state, card, emit_jobs, stats)
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNELS[k][0],
-         "replaces": KERNELS[k][1], "launches": launches[k],
-         "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"]}
-        for k, v in stats.items()]}))
+    sharded = phases_sharded(dev, card)
+    entries = []
+    for k, v in stats.items():
+        # each kernel's bound at the shape its time was taken
+        shape = BIG if k == "qgd2d_emit" else (
+            SHAPE if k.startswith("qgd2d") else SHAPE3)
+        b_ms, b_by = bound(work_bytes(k, shape), v["ops"])
+        entries.append({
+            "name": k, "route": "cuda", "source": KERNELS[k][0],
+            "replaces": KERNELS[k][1], "launches": launches[k],
+            "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ops": v["ops"], "shape": list(shape)})
+    # no single PyTorch call computes any of these functions: library_ms null
+    print(json.dumps({"kernels": entries + sharded}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Canonical case configurations (PyTorch port of `qgdsolver_tpu.cases`:
 the 2D supersonic jets, the 3D duct and the 3D varsc jet).  Each builder
-returns (solver, initial_state), with every tensor in `dtype` on `device`.
+returns (solver, initial_state), with every tensor in `dtype` on `device`:
+the card by default (a RuntimeError where there is none; pass device="cpu"
+to run on the CPU).
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import numpy as np
 import torch
 
 from .core import bc as bcm
-from .core.mesh import Mesh
+from .core.mesh import Mesh, checked_device
 from .physics.qgdcoeffs import ConstScPrModel1, VarScModel5
 from .physics.thermo import PerfectGasThermo
 from .solvers import common
@@ -23,12 +25,13 @@ def _np_dtype(dtype: torch.dtype):
 
 def supersonic_jet(shape=(512, 256), dtype=torch.float32, mach=2.0,
                    implicit_diffusion=False, fvsc_scheme="full",
-                   x_faces=None, device="cpu"):
+                   x_faces=None, device="cuda"):
     """QGDFoam supersonic jet: a Mach-`mach` air jet entering a quiescent
     (4.0, 2.0) box through a slot in the left boundary.
 
     x_faces: optional explicit face coordinates (graded-mesh variants).
     """
+    device = checked_device(device)
     if x_faces is not None:
         mesh = Mesh(x_faces=tuple(x_faces), dtype=dtype, device=device)
     else:
@@ -84,7 +87,7 @@ def supersonic_jet(shape=(512, 256), dtype=torch.float32, mach=2.0,
 
 
 def supersonic_jet_varsc(shape=(512, 256), dtype=torch.float32, mach=2.0,
-                         device="cpu"):
+                         device="cuda"):
     """The shock-capturing flagship: the supersonic jet with the varScModel5
     density-gradient sensor and the qgdFlux outflow pressure BC."""
     solver, state = supersonic_jet(shape=shape, dtype=dtype, mach=mach,
@@ -110,13 +113,13 @@ def supersonic_jet_varsc(shape=(512, 256), dtype=torch.float32, mach=2.0,
 
 
 def supersonic_duct_3d(shape=(256, 126, 126), dtype=torch.float32, mach=2.0,
-                       device="cpu"):
+                       device="cuda"):
     """3D QGDFoam duct: a Mach-`mach` flow through a (4.0, 2.0, 2.0) box
     with a hot low-density spherical disturbance advecting through it.  All
     BCs are scalar-valued (uniform inflow, zero-gradient outflow and walls,
     fixed far-field pressure on the y/z sides)."""
     mesh = Mesh.uniform(shape, lengths=(4.0, 2.0, 2.0), dtype=dtype,
-                        device=device)
+                        device=checked_device(device))
     th = PerfectGasThermo(R=287.0, Cp=1004.5)
     p_inf, T_inf = 1.0e5, 300.0
     u_in = mach * float(th.c(torch.tensor(T_inf, dtype=torch.float64)))
@@ -148,13 +151,13 @@ def supersonic_duct_3d(shape=(256, 126, 126), dtype=torch.float32, mach=2.0,
 
 
 def supersonic_jet_3d_varsc(shape=(256, 126, 126), dtype=torch.float32,
-                            mach=2.0, device="cpu"):
+                            mach=2.0, device="cuda"):
     """The 3D shock-capturing jet: a round Mach-`mach` jet entering a
     quiescent (4.0, 2.0, 2.0) box through a tanh-profiled slot in the x-low
     plane (an array-valued (3, 1, ny, nz) inlet velocity), the varScModel5
     sensor, and the qgdFlux pressure BC on the outflow."""
     mesh = Mesh.uniform(shape, lengths=(4.0, 2.0, 2.0), dtype=dtype,
-                        device=device)
+                        device=checked_device(device))
     th = PerfectGasThermo(R=287.0, Cp=1004.5)
     p_inf, T_inf = 1.0e5, 300.0
     u_jet = mach * float(th.c(torch.tensor(T_inf, dtype=torch.float64)))

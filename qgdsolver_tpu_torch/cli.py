@@ -2,7 +2,9 @@
 surface of the reference solvers.
 
     python -m qgdsolver_tpu_torch <case_dir> [--device cuda|cpu]
-        [--max-steps N] [--chunk K] [--no-fused]
+        [--max-steps N] [--chunk K] [--no-fused] [--devices PXxPY]
+    torchrun --nproc-per-node N -m qgdsolver_tpu_torch <case_dir>
+        --devices PXxPY
 
 Reads an OpenFOAM-layout case directory (`io.foam_case.build_case`), runs
 chunks of K steps with `solvers.common.run_steps` (the adaptive dt stays on
@@ -14,8 +16,17 @@ timeStep counts steps), and prints the reference-style Time/deltaT lines.
 On a CUDA device a config the fused kernels take runs on them
 (`QGDFoam.fused_builder()`; the log names the builder); otherwise, and with
 --no-fused, the composable step runs.  `--device cuda` without a card is an
-error: there is no fallback to the CPU.  Domain decomposition over several
-devices waits for ROADMAP queue 1, item 11.
+error: there is no fallback to the CPU.
+
+--devices PXxPY decomposes the case over PX*PY ranks, the reference's
+`decomposePar + mpirun <solver>`: outside a launched world the CLI starts
+the ranks itself (`parallel.distributed.spawn`), under `torchrun` it joins
+the launcher's world.  Every rank builds the case; on a CUDA device a config
+the kernels take, on blocks that divide the mesh, runs K3
+(`build_sharded_fused_step`, 2D) or K5 (`build_sharded_fused_step_3d`, 3D
+x-ring), otherwise the decomposed composable step
+(`parallel.sharding.build_spmd_step`); the log names which.  Rank 0 alone
+logs and writes, after the fields are gathered.
 """
 from __future__ import annotations
 
@@ -26,10 +37,12 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 
 def run_case(case_dir: str, max_steps=None, chunk: int = 50,
-             log=print, fused: str = "auto", device="cuda") -> int:
+             log=print, fused: str = "auto", device="cuda",
+             devices=None) -> int:
     """Run the case to controlDict endTime; returns the step count.
 
     fused: "auto" takes the fused kernel path when `device` is a CUDA
@@ -38,13 +51,68 @@ def run_case(case_dir: str, max_steps=None, chunk: int = 50,
     "never" forces the composable step; "always" takes the fused path of a
     supported config on any device (on the CPU its wrappers run their
     plain versions, which is how the tests drive this path).
+
+    devices: "PXxPY" runs the case decomposed over PX*PY ranks (see the
+    module docstring); rank 0's log lines reach `log`.
     """
-    from .io import foam_case, foam_write, foamdict
-    from .solvers import common
+    from .parallel import distributed, sharding
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {device}: no CUDA device is available")
+    if devices is None:
+        return _run(case_dir, max_steps, chunk, log, fused, device, None)
+    grid = sharding.ProcessGrid.parse(devices)
+    if distributed.initialize(device, log=log):
+        quiet = dist.get_rank() != 0
+        return _run(case_dir, max_steps, chunk,
+                    (lambda *_: None) if quiet else log, fused, device, grid)
+    if device.type == "cuda":
+        from .ops import _build
+
+        _build.load()  # once, here: the ranks only load the library
+    n, lines = distributed.spawn(_rank_run, grid.size, case_dir, max_steps,
+                                 chunk, fused, str(device), devices,
+                                 device=device)[0]
+    for line in lines:
+        log(line)
+    return n
+
+
+def _rank_run(case_dir, max_steps, chunk, fused, device, devices):
+    """One spawned rank of `run_case(..., devices=...)`: (steps, rank 0's
+    log lines)."""
+    from .parallel import sharding
+
+    lines = []
+    log = lines.append if dist.get_rank() == 0 else (lambda *_: None)
+    n = _run(case_dir, max_steps, chunk, log, fused, torch.device(device),
+             sharding.ProcessGrid.parse(devices))
+    return n, lines
+
+
+def _sharded_builder(solver, grid):
+    """K3 or K5 for a config the kernels take on `grid`, else None."""
+    from .ops import fused_qgd2d, fused_qgd3d
+
+    if solver.mesh.ndim == 2 and fused_qgd2d.sharded_supported(solver, grid):
+        return fused_qgd2d.build_sharded_fused_step
+    if solver.mesh.ndim == 3 and fused_qgd3d.sharded_supported(solver, grid):
+        return fused_qgd3d.build_sharded_fused_step_3d
+    return None
+
+
+def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
+    """run_case on this process: the whole case (grid None) or this rank's
+    block of it."""
+    from .io import foam_case, foam_write, foamdict
+    from .parallel import distributed, sharding
+    from .solvers import common
+
+    writer = True
+    if grid is not None:
+        device = distributed.rank_device(device)
+        writer = dist.get_rank() == 0
     solver, state = foam_case.build_case(case_dir, device=device)
     control = foamdict.parse_file(
         os.path.join(case_dir, "system", "controlDict"))
@@ -55,8 +123,20 @@ def run_case(case_dir: str, max_steps=None, chunk: int = 50,
     write_interval = float(control.get("writeInterval", 0.0) or 0.0)
 
     from_fused = None
-    if ((fused == "always" or (fused == "auto" and device.type == "cuda"))
-            and solver.fused_supported()):
+    want_fused = fused == "always" or (fused == "auto"
+                                       and device.type == "cuda")
+    if grid is not None:
+        where = f"({grid.px}x{grid.py} ranks)"
+        builder = _sharded_builder(solver, grid) if want_fused else None
+        if builder is not None:
+            step, to_sharded, from_fused = builder(solver, grid)
+            state = to_sharded(state)
+            log(f"fused kernel path engaged: {builder.__name__} {where}")
+        else:
+            step, to_spmd, from_fused = sharding.build_spmd_step(solver, grid)
+            state = to_spmd(state)
+            log(f"composable step engaged: build_spmd_step {where}")
+    elif want_fused and solver.fused_supported():
         builder = solver.fused_builder()
         step, to_fused, from_fused = builder(solver)
         state = to_fused(state)
@@ -83,7 +163,10 @@ def run_case(case_dir: str, max_steps=None, chunk: int = 50,
                       else in_t(t + write_interval))
 
     def write():
+        # decomposed: every rank joins the gather, rank 0 writes
         view = from_fused(state) if from_fused else state
+        if not writer:
+            return None
         tdir = foam_write.write_state(case_dir, solver, view)
         log("writing fields to %s" % tdir)
         return tdir
@@ -167,9 +250,13 @@ def main(argv=None) -> int:
     ap.add_argument("--no-fused", action="store_true",
                     help="force the composable step (skip the fused CUDA "
                          "kernel path)")
+    ap.add_argument("--devices", default=None, metavar="PXxPY",
+                    help="decompose the case over PX*PY ranks (started "
+                         "here, or by torchrun)")
     args = ap.parse_args(argv)
     run_case(args.case, max_steps=args.max_steps, chunk=args.chunk,
-             fused="never" if args.no_fused else "auto", device=args.device)
+             fused="never" if args.no_fused else "auto", device=args.device,
+             devices=args.devices)
     return 0
 
 

@@ -27,6 +27,17 @@ def _reshape_axis(arr: np.ndarray, axis: int, ndim: int) -> np.ndarray:
     return arr.reshape(shape)
 
 
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device; raises when it names a CUDA device and
+    none is available (the entry points default to the card and never
+    fall back to the CPU by themselves)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Rectilinear structured mesh in 1, 2 or 3 dimensions.

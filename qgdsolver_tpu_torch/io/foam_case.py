@@ -23,6 +23,7 @@ import os
 import torch
 
 from . import foamdict
+from ..core.mesh import checked_device
 from ..core.registry import create
 from ..physics import qgdcoeffs as _qgdcoeffs  # noqa: F401 — registers tau
 from ..solvers.common import TimeControls
@@ -160,14 +161,16 @@ def build_foam_thermo(thermo_props: dict):
         Pr=float(transp.get("Pr", 1.0)))
 
 
-def build_case(case_dir: str, device="cpu", dtype=torch.float32):
+def build_case(case_dir: str, device="cuda", dtype=torch.float32):
     """Full case ingestion: blockMeshDict + system/constant dicts + `0/`
     (or the start time's) field files -> (solver, initial state), with the
-    mesh and state in `dtype` on `device`.  Dispatches on controlDict
-    `application`."""
+    mesh and state in `dtype` on `device`: the card by default (a
+    RuntimeError where there is none; pass device="cpu" for the CPU).
+    Dispatches on controlDict `application`."""
     from .foam_fields import load_block_mesh, load_initial_fields
     from ..solvers.qgd import QGDFoam
 
+    device = checked_device(device)
     cfg = load_case(case_dir)
     control = cfg.get("controlDict", {})
     app = str(control.get("application", "QGDFoam"))

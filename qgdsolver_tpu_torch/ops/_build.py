@@ -35,11 +35,14 @@ class BCEntry(ctypes.Structure):
 
 class QGDParams(ctypes.Structure):
     """Step constants of the 2D kernels; every float is rounded to f32 here
-    once, and the plain torch versions read the same rounded values."""
+    once, and the plain torch versions read the same rounded values.  The
+    edge flags are 1 where a frame edge is a physical boundary and 0 at a
+    partition edge of a decomposed run."""
 
     _fields_ = (
         [(n, _c_int) for n in ("nx", "ny", "varsc", "mu_const0", "adjust_dt",
-                               "prof_len")]
+                               "prof_len", "edge_lo", "edge_hi", "edge_lo_y",
+                               "edge_hi_y")]
         + [(n, _c_float) for n in (
             "dx", "dy", "inv_dx", "inv_dy", "inv_2dx", "inv_2dy", "hfx", "hfy",
             "inv_vol", "R", "Cv", "inv_Cv", "CvR", "gammaR", "gamma", "alpha",
@@ -52,11 +55,12 @@ class QGDParams(ctypes.Structure):
 
 class QGD3DParams(ctypes.Structure):
     """Step constants of the 3D kernels, rounded to f32 once like
-    `QGDParams`; per-axis constants are 3-vectors (x, y, z)."""
+    `QGDParams`; per-axis constants are 3-vectors (x, y, z); the edge flags
+    of the two x ends as in `QGDParams`."""
 
     _fields_ = (
         [(n, _c_int) for n in ("nx", "ny", "nz", "varsc", "mu_const0",
-                               "adjust_dt")]
+                               "adjust_dt", "edge_lo", "edge_hi")]
         + [(n, _c_float * 3) for n in ("d", "inv_d", "inv_2d", "area")]
         + [(n, _c_float) for n in (
             "inv_vol", "R", "Cv", "inv_Cv", "CvR", "gammaR", "gamma", "alpha",
@@ -150,11 +154,15 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd2d_dt_partials", [_c_int, _c_int])
     _bind(lib, "qgd2d_error_string", [_c_int], ctypes.c_char_p)
     _bind(lib, "qgd2d_dt", [p2] + [_ptr] * 7)
+    _bind(lib, "qgd2d_dt_fold", [p2] + [_ptr] * 6)
+    _bind(lib, "qgd2d_dt_apply", [p2] + [_ptr] * 4)
     _bind(lib, "qgd2d_update", [p2] + [_ptr] * 12)
     _bind(lib, "qgd2d_ghosts", [p2] + [_ptr] * 7)
     _bind(lib, "qgd2d_emit", [p2] + [_ptr] * 11)
     _bind(lib, "qgd3d_dt_partials", [p3])
     _bind(lib, "qgd3d_dt", [p3] + [_ptr] * 8)
+    _bind(lib, "qgd3d_dt_fold", [p3] + [_ptr] * 7)
+    _bind(lib, "qgd3d_dt_apply", [p3] + [_ptr] * 4)
     _bind(lib, "qgd3d_update", [p3] + [_ptr] * 14)
     _bind(lib, "qgd3d_sensor", [p3] + [_ptr] * 5)
     _bind(lib, "qgd3d_ghosts", [p3] + [_ptr] * 8)

@@ -23,6 +23,19 @@
 //   qgd2d_emit    two-pass reduction of the Courant and tau rates, plus the
 //                 raw sensor, ring 1 and the change flag (see its section).
 //
+// The domain-decomposed step K3 (build_sharded_fused_step, :1166) runs the
+// same kernels on each rank's block, whose frame edges may be partition
+// edges: there the one-cell halo holds the neighbour's true cells, and the
+// four edge flags of QGDParams (1: a physical boundary) tell the kernels to
+// read it as it is.  At a partition edge the coefficient fields take the
+// halo cell's own value instead of a zero-gradient ghost, the tau clamps of
+// qgd2d_dt do not apply, no qgdFlux side row is written and no ghost is
+// built (the halo exchange fills it).  The serial builders set every flag
+// to 1, which is the single-block step.  dt over the ranks is a fold of
+// each block's partials to one (max wave x, max wave y, -min tau) quad, a
+// MAX all-reduce of it, then setDeltaT on the reduced quad (qgd2d_dt_fold,
+// qgd2d_dt_apply): the serial path's dt bit for bit.
+//
 // Frames are contiguous (nx+2, ny+2) float32 with y the fast axis, so a warp
 // reads 32 neighbouring lanes of one row.  What bounds the step on the card
 // is memory: about 4 frames in and 4 out per step (plus the sensor frame for
@@ -56,6 +69,8 @@ struct BCEntry {
 // Step constants, passed by value.  Mirrored by ops/_build.py::QGDParams.
 struct QGDParams {
   int nx, ny, varsc, mu_const0, adjust_dt, prof_len;
+  // 1 where the frame edge is a physical boundary, 0 at a partition edge
+  int edge_lo, edge_hi, edge_lo_y, edge_hi_y;
   float dx, dy, inv_dx, inv_dy, inv_2dx, inv_2dy, hfx, hfy, inv_vol;
   float R, Cv, inv_Cv, CvR, gammaR, gamma, alpha, k_mu, k_muv;
   float Pr_tau, inv_Pr_tau, Pr_th, mu0;
@@ -263,7 +278,8 @@ __device__ __forceinline__ float wave(const QGDParams& P, float uA, float uB,
 // Pass 1: thread (r, s), r in 0..nx, s in 0..ny, owns the x-face r+1/2 at
 // lane s (s >= 1) and the y-face s+1/2 at row r (r >= 1): exactly the live
 // face sets of the reference.  Per-block partials: max wave x, max wave y,
-// min tau_f.
+// min tau_f.  The tau coefficient ghosts are zero-gradient at physical
+// edges; a partition edge's halo cell is used as it is.
 __global__ void __launch_bounds__(BX * BY)
 qgd2d_dt_partial_kernel(QGDParams P, const float* __restrict__ T,
                         const float* __restrict__ ux,
@@ -279,15 +295,15 @@ qgd2d_dt_partial_kernel(QGDParams P, const float* __restrict__ T,
     if (s >= 1) {
       const int a = r * W + s, b = a + W;
       mx = wave(P, ux[a], ux[b], T[a], T[b]);
-      const int ac = (r < 1 ? 1 : r) * W + s;
-      const int bc = (r + 1 > nx ? nx : r + 1) * W + s;
+      const int ac = (r < 1 && P.edge_lo ? 1 : r) * W + s;
+      const int bc = (r + 1 > nx && P.edge_hi ? nx : r + 1) * W + s;
       tmin = tau_from_T(P, T[ac], T[bc], P.hfx);
     }
     if (r >= 1) {
       const int a = r * W + s, b = a + 1;
       my = wave(P, uy[a], uy[b], T[a], T[b]);
-      const int ac = r * W + (s < 1 ? 1 : s);
-      const int bc = r * W + (s + 1 > ny ? ny : s + 1);
+      const int ac = r * W + (s < 1 && P.edge_lo_y ? 1 : s);
+      const int bc = r * W + (s + 1 > ny && P.edge_hi_y ? ny : s + 1);
       tmin = fminf(tmin, tau_from_T(P, T[ac], T[bc], P.hfy));
     }
   }
@@ -314,17 +330,24 @@ qgd2d_dt_partial_kernel(QGDParams P, const float* __restrict__ T,
 
 // Pass 2: one block folds the partials and applies setDeltaT (immediate
 // reduction, damped increase, cTau*min(tau_f) and maxDeltaT caps).
+// mode DT_FOLD writes the fold as a quad (max wave x, max wave y, -min tau,
+// 0) to out instead, so that one MAX all-reduce over the ranks folds the
+// blocks; mode DT_APPLY takes one such reduced quad (n = 1) and applies
+// setDeltaT to it.
+enum { DT_FULL = 0, DT_FOLD = 1, DT_APPLY = 2 };
+
 __global__ void __launch_bounds__(RED)
 qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
-                      const float* __restrict__ dt_old,
-                      float* __restrict__ dt_new) {
+                      int mode, const float* __restrict__ dt_old,
+                      float* __restrict__ out) {
   __shared__ float smx[RED], smy[RED], stau[RED];
   const int tid = threadIdx.x;
+  const float tsign = mode == DT_APPLY ? -1.0f : 1.0f;
   float mx = -INFINITY, my = -INFINITY, tmin = INFINITY;
   for (int i = tid; i < n; i += RED) {
     mx = fmaxf(mx, partials[4 * i + 0]);
     my = fmaxf(my, partials[4 * i + 1]);
-    tmin = fminf(tmin, partials[4 * i + 2]);
+    tmin = fminf(tmin, tsign * partials[4 * i + 2]);
   }
   smx[tid] = mx;
   smy[tid] = my;
@@ -339,9 +362,16 @@ qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
     __syncthreads();
   }
   if (tid == 0) {
+    if (mode == DT_FOLD) {
+      out[0] = smx[0];
+      out[1] = smy[0];
+      out[2] = -stau[0];
+      out[3] = 0.0f;
+      return;
+    }
     const float dtv = dt_old[0];
     if (!P.adjust_dt) {
-      dt_new[0] = dtv;
+      out[0] = dtv;
       return;
     }
     // explicit roundings: no FMA contraction in the controller
@@ -351,7 +381,7 @@ qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
     const float fact = fminf(
         fminf(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
     const float max_dt1 = fminf(P.max_dt, __fmul_rn(P.c_tau, stau[0]));
-    dt_new[0] = fminf(__fmul_rn(fact, dtv), max_dt1);
+    out[0] = fminf(__fmul_rn(fact, dtv), max_dt1);
   }
 }
 
@@ -377,17 +407,18 @@ qgd2d_update_kernel(QGDParams P, const float* __restrict__ p,
       c[dr + 1][ds + 1] = load_cell(P, p, T, ux, uy, i0 + dr * W + ds);
     }
   }
-  // coefficient fields take zero-gradient ghosts: a neighbour outside the
-  // interior is the centre cell itself
+  // coefficient fields take zero-gradient ghosts at physical edges: a
+  // neighbour outside the interior is the centre cell itself; across a
+  // partition edge it is the halo cell
   const Coef k0 = cell_coef(P, c[1][1].p, c[1][1].T, P.varsc ? sc[i0] : 0.0f);
-  const Coef kN = r > 1 ? cell_coef(P, c[0][1].p, c[0][1].T,
-                                    P.varsc ? sc[i0 - W] : 0.0f) : k0;
-  const Coef kS = r < nx ? cell_coef(P, c[2][1].p, c[2][1].T,
-                                     P.varsc ? sc[i0 + W] : 0.0f) : k0;
-  const Coef kW = s > 1 ? cell_coef(P, c[1][0].p, c[1][0].T,
-                                    P.varsc ? sc[i0 - 1] : 0.0f) : k0;
-  const Coef kE = s < ny ? cell_coef(P, c[1][2].p, c[1][2].T,
-                                     P.varsc ? sc[i0 + 1] : 0.0f) : k0;
+  const Coef kN = r > 1 || !P.edge_lo
+      ? cell_coef(P, c[0][1].p, c[0][1].T, P.varsc ? sc[i0 - W] : 0.0f) : k0;
+  const Coef kS = r < nx || !P.edge_hi
+      ? cell_coef(P, c[2][1].p, c[2][1].T, P.varsc ? sc[i0 + W] : 0.0f) : k0;
+  const Coef kW = s > 1 || !P.edge_lo_y
+      ? cell_coef(P, c[1][0].p, c[1][0].T, P.varsc ? sc[i0 - 1] : 0.0f) : k0;
+  const Coef kE = s < ny || !P.edge_hi_y
+      ? cell_coef(P, c[1][2].p, c[1][2].T, P.varsc ? sc[i0 + 1] : 0.0f) : k0;
 
   const Flux xl = xface(P, c[0][1], c[1][1], c[0][0], c[0][2], c[1][0],
                         c[1][2], kN, k0);
@@ -417,9 +448,10 @@ qgd2d_update_kernel(QGDParams P, const float* __restrict__ p,
   Tn[i0] = Tv;
   uxn[i0] = uxv;
   uyn[i0] = uyv;
-  // ws0/tau_f on the x-boundary faces: the qgdFlux p ghost of this step
-  if (r == 1) side[s] = xl.ws / xl.tau;
-  if (r == nx) side[W + s] = xh.ws / xh.tau;
+  // ws0/tau_f on the physical x-boundary faces: the qgdFlux p ghost of this
+  // step
+  if (r == 1 && P.edge_lo) side[s] = xl.ws / xl.tau;
+  if (r == nx && P.edge_hi) side[W + s] = xh.ws / xh.tau;
 }
 
 __device__ __forceinline__ float bc_ghost(const BCEntry& b, float in1,
@@ -451,6 +483,7 @@ __device__ __forceinline__ float* field_ptr(int f, float* p, float* T,
 }
 
 // Phase 0: x-ghost rows 0 and nx+1 at lanes 1..ny.  blockIdx.y = 2*field+side.
+// A partition side is skipped: the halo exchange fills it.
 __global__ void qgd2d_ghost_rows_kernel(QGDParams P,
                                         const float* __restrict__ prof,
                                         const float* __restrict__ side,
@@ -459,7 +492,7 @@ __global__ void qgd2d_ghost_rows_kernel(QGDParams P,
   const int s = 1 + blockIdx.x * blockDim.x + threadIdx.x;
   const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
   const int nx = P.nx, ny = P.ny, W = ny + 2;
-  if (s > ny) return;
+  if (s > ny || !(sd == 0 ? P.edge_lo : P.edge_hi)) return;
   float* fld = field_ptr(f, p, T, ux, uy);
   const int r1 = sd == 0 ? 1 : nx;
   const int r2 = sd == 0 ? 2 : nx - 1;
@@ -478,7 +511,9 @@ __global__ void qgd2d_ghost_rows_kernel(QGDParams P,
 }
 
 // Phase 1: y-ghost lanes 0 and ny+1 of every row 0..nx+1 (reads phase 0's
-// ghost rows: the corners).
+// ghost rows: the corners).  A partition side is skipped; at a partition
+// x-edge the lanes of the halo row are overwritten by the row exchange,
+// which brings the neighbour's row with its own lane ghosts.
 __global__ void qgd2d_ghost_lanes_kernel(QGDParams P,
                                          const float* __restrict__ prof,
                                          float* p, float* T, float* ux,
@@ -486,7 +521,7 @@ __global__ void qgd2d_ghost_lanes_kernel(QGDParams P,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
   const int nx = P.nx, ny = P.ny, W = ny + 2;
-  if (r > nx + 1) return;
+  if (r > nx + 1 || !(sd == 0 ? P.edge_lo_y : P.edge_hi_y)) return;
   float* fld = field_ptr(f, p, T, ux, uy);
   const int l1 = sd == 0 ? 1 : ny;
   const int l2 = sd == 0 ? 2 : ny - 1;
@@ -734,7 +769,33 @@ int qgd2d_dt(const QGDParams* prm, const float* T, const float* ux,
   if (e != cudaSuccess) return static_cast<int>(e);
   qgd2d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials,
                                            static_cast<int>(grid.x * grid.y),
-                                           dt_old, dt_new);
+                                           DT_FULL, dt_old, dt_new);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// This block's dt partials folded to the quad (max wave x, max wave y,
+// -min tau, 0): what a MAX all-reduce over the ranks combines.
+int qgd2d_dt_fold(const QGDParams* prm, const float* T, const float* ux,
+                  const float* uy, float* partials, float* quad,
+                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 block(BX, BY);
+  const dim3 grid((prm->ny + 1 + BX - 1) / BX, (prm->nx + 1 + BY - 1) / BY);
+  qgd2d_dt_partial_kernel<<<grid, block, 0, st>>>(*prm, T, ux, uy, partials);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  qgd2d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials,
+                                           static_cast<int>(grid.x * grid.y),
+                                           DT_FOLD, nullptr, quad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// setDeltaT on a reduced quad of qgd2d_dt_fold.
+int qgd2d_dt_apply(const QGDParams* prm, const float* quad,
+                   const float* dt_old, float* dt_new, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  qgd2d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, quad, 1, DT_APPLY, dt_old,
+                                           dt_new);
   return static_cast<int>(cudaGetLastError());
 }
 

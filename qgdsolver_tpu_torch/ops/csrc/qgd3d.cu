@@ -20,6 +20,17 @@
 //                 over every x, then z-ghost lanes over every x and y (three
 //                 launches: the sequential-axis padding, edges included).
 //
+// The x-ring decomposition K5 (build_sharded_fused_step_3d, :930) runs the
+// same kernels on each rank's x-slab, whose x ends may be partition planes:
+// there the halo plane holds the neighbour's true cells, and the flags
+// edge_lo / edge_hi of QGD3DParams (1: a physical boundary) make the
+// kernels read it as it is: no zero-gradient coefficient ghost, no tau
+// clamp in qgd3d_dt, no qgdFlux side plane, no x-ghost plane (the plane
+// exchange fills it), and the sensor's x-gradient reads the exchanged
+// plane (qgd3d_sensor runs after the exchange).  The serial builders set
+// both flags to 1.  dt over the ranks: qgd3d_dt_fold, a MAX all-reduce of
+// its quad (max wave x, y, z, -min tau), then qgd3d_dt_apply.
+//
 // Frames are contiguous (nx+2, ny+2, nz+2) float32 with z the fast axis, so a
 // warp reads 32 neighbouring z cells of one (x, y) line.  What bounds the
 // step is memory and registers: at least 5 frames in and 5 out (+ the sensor
@@ -56,6 +67,7 @@ struct BCEntry3 {
 // Step constants, passed by value.  Mirrored by ops/_build.py::QGD3DParams.
 struct QGD3DParams {
   int nx, ny, nz, varsc, mu_const0, adjust_dt;
+  int edge_lo, edge_hi;  // 1 where an x end is a physical boundary
   float d[3], inv_d[3], inv_2d[3], area[3];
   float inv_vol, R, Cv, inv_Cv, CvR, gammaR, gamma, alpha, k_mu, k_muv;
   float inv_Pr_tau, mu0, mu0_Pr_th, max_co, max_dt, c_tau;
@@ -257,8 +269,11 @@ qgd3d_dt_partial_kernel(QGD3DParams P, const float* __restrict__ T,
     const long i = r * sx + s * sy + t;
     if (s >= 1 && t >= 1) {
       m[0] = wave(P, ux[i], ux[i + sx], T[i], T[i + sx]);
-      const long ac = clampi(r, 1, nx) * sx + s * sy + t;
-      const long bc = clampi(r + 1, 1, nx) * sx + s * sy + t;
+      // zero-gradient coefficient ghosts at physical x ends only
+      const long ra = r < 1 && P.edge_lo ? 1 : r;
+      const long rb = r + 1 > nx && P.edge_hi ? nx : r + 1;
+      const long ac = ra * sx + s * sy + t;
+      const long bc = rb * sx + s * sy + t;
       tmin = face_tau(P, tau_coef(P, T[ac]), tau_coef(P, T[bc]), 0);
     }
     if (r >= 1 && t >= 1) {
@@ -299,19 +314,24 @@ qgd3d_dt_partial_kernel(QGD3DParams P, const float* __restrict__ T,
 }
 
 // Pass 2: one block folds the partials and applies setDeltaT (immediate
-// reduction, damped increase, cTau*min(tau_f) and maxDeltaT caps).
+// reduction, damped increase, cTau*min(tau_f) and maxDeltaT caps).  Mode
+// DT_FOLD writes the fold as the quad (max wave x, y, z, -min tau) to out
+// instead; mode DT_APPLY applies setDeltaT to one reduced quad (n = 1).
+enum { DT_FULL = 0, DT_FOLD = 1, DT_APPLY = 2 };
+
 __global__ void __launch_bounds__(RED)
 qgd3d_dt_final_kernel(QGD3DParams P, const float* __restrict__ partials,
-                      long n, const float* __restrict__ dt_old,
-                      float* __restrict__ dt_new) {
+                      long n, int mode, const float* __restrict__ dt_old,
+                      float* __restrict__ out) {
   __shared__ float sm[4][RED];
   const int tid = threadIdx.x;
+  const float tsign = mode == DT_APPLY ? -1.0f : 1.0f;
   float m[3] = {-INFINITY, -INFINITY, -INFINITY};
   float tmin = INFINITY;
   for (long i = tid; i < n; i += RED) {
 #pragma unroll
     for (int a = 0; a < 3; ++a) m[a] = fmaxf(m[a], partials[4 * i + a]);
-    tmin = fminf(tmin, partials[4 * i + 3]);
+    tmin = fminf(tmin, tsign * partials[4 * i + 3]);
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) sm[a][tid] = m[a];
@@ -327,9 +347,15 @@ qgd3d_dt_final_kernel(QGD3DParams P, const float* __restrict__ partials,
     __syncthreads();
   }
   if (tid == 0) {
+    if (mode == DT_FOLD) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) out[a] = sm[a][0];
+      out[3] = -sm[3][0];
+      return;
+    }
     const float dtv = dt_old[0];
     if (!P.adjust_dt) {
-      dt_new[0] = dtv;
+      out[0] = dtv;
       return;
     }
     // explicit roundings: no FMA contraction in the controller
@@ -341,7 +367,7 @@ qgd3d_dt_final_kernel(QGD3DParams P, const float* __restrict__ partials,
     const float fact = fminf(
         fminf(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
     const float max_dt1 = fminf(P.max_dt, __fmul_rn(P.c_tau, sm[3][0]));
-    dt_new[0] = fminf(__fmul_rn(fact, dtv), max_dt1);
+    out[0] = fminf(__fmul_rn(fact, dtv), max_dt1);
   }
 }
 
@@ -363,8 +389,11 @@ qgd3d_update_kernel(QGD3DParams P, Frames F, const float* __restrict__ sc,
   const int pos[3] = {r, s, t};
   const int n[3] = {nx, ny, nz};
 
-  // coefficient fields take zero-gradient ghosts: a neighbour outside the
-  // interior is the centre cell itself
+  // coefficient fields take zero-gradient ghosts at physical boundaries: a
+  // neighbour outside the interior is the centre cell itself; across a
+  // partition plane it is the halo cell
+  const int open_lo[3] = {!P.edge_lo, 0, 0};
+  const int open_hi[3] = {!P.edge_hi, 0, 0};
   const float p0 = F.p[i0];
   const Coef k0 = cell_coef(P, p0, F.T[i0], P.varsc ? sc[i0] : 0.0f);
   float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -372,9 +401,9 @@ qgd3d_update_kernel(QGD3DParams P, Frames F, const float* __restrict__ sc,
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const long im = i0 - st[a], ip = i0 + st[a];
-    const Coef km = pos[a] > 1
+    const Coef km = pos[a] > 1 || open_lo[a]
         ? cell_coef(P, F.p[im], F.T[im], P.varsc ? sc[im] : 0.0f) : k0;
-    const Coef kp = pos[a] < n[a]
+    const Coef kp = pos[a] < n[a] || open_hi[a]
         ? cell_coef(P, F.p[ip], F.T[ip], P.varsc ? sc[ip] : 0.0f) : k0;
     Flux lo, hi;
     if (a == 0) {
@@ -415,15 +444,17 @@ qgd3d_update_kernel(QGD3DParams P, Frames F, const float* __restrict__ sc,
   uxn[i0] = un[0];
   uyn[i0] = un[1];
   uzn[i0] = un[2];
-  // ws/tau_f on the x-boundary faces: the qgdFlux p ghost of this step
+  // ws/tau_f on the physical x-boundary faces: the qgdFlux p ghost of this
+  // step
   const long j = (long)(s - 1) * nz + (t - 1);
-  if (r == 1) side[j] = ws_lo / tau_lo;
-  if (r == nx) side[(long)ny * nz + j] = ws_hi / tau_hi;
+  if (r == 1 && P.edge_lo) side[j] = ws_lo / tau_lo;
+  if (r == nx && P.edge_hi) side[(long)ny * nz + j] = ws_hi / tau_hi;
 }
 
 // The raw varScModel5 sensor of the fresh frames at each interior cell: rho
-// from the stored p, T; zero-gradient ghosts (clamped neighbours); relaxed
-// against the current smoothed sensor.  Output (nx, ny, nz).
+// from the stored p, T; zero-gradient ghosts (clamped neighbours) at
+// physical boundaries, the exchanged halo plane across a partition plane;
+// relaxed against the current smoothed sensor.  Output (nx, ny, nz).
 __global__ void __launch_bounds__(BX * BY)
 qgd3d_sensor_kernel(QGD3DParams P, const float* __restrict__ p,
                     const float* __restrict__ T, const float* __restrict__ sc,
@@ -441,8 +472,8 @@ qgd3d_sensor_kernel(QGD3DParams P, const float* __restrict__ p,
     return p[i] * (1.0f / (P.R * T[i]));
   };
   const float r0 = rho_at(false, 0);
-  const float gx =
-      (rho_at(r < nx, st[0]) - rho_at(r > 1, -st[0])) * P.inv_2d[0];
+  const float gx = (rho_at(r < nx || !P.edge_hi, st[0]) -
+                    rho_at(r > 1 || !P.edge_lo, -st[0])) * P.inv_2d[0];
   const float gy =
       (rho_at(s < ny, st[1]) - rho_at(s > 1, -st[1])) * P.inv_2d[1];
   const float gz = (rho_at(t < nz, 1) - rho_at(t > 1, -1)) * P.inv_2d[2];
@@ -491,7 +522,9 @@ __device__ __forceinline__ float* field_ptr(const OutFrames& O, int f) {
 }
 
 // Phase 0: x-ghost planes 0 and nx+1 at (s, t) in 1..ny x 1..nz.
-// blockIdx.y = 2*field + side.
+// blockIdx.y = 2*field + side.  A partition end is skipped: the plane
+// exchange fills it (y and z ghosts included, so phases 1-2 on a halo plane
+// compute values the exchange overwrites).
 __global__ void qgd3d_ghost_x_kernel(QGD3DParams P,
                                      const float* __restrict__ planes,
                                      const float* __restrict__ side,
@@ -500,7 +533,7 @@ __global__ void qgd3d_ghost_x_kernel(QGD3DParams P,
   const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const long plane = (long)ny * nz;
-  if (k >= plane) return;
+  if (k >= plane || !(sd == 0 ? P.edge_lo : P.edge_hi)) return;
   const int s = 1 + (int)(k / nz), t = 1 + (int)(k % nz);
   const long sx = (long)(ny + 2) * (nz + 2);
   const long c = s * (long)(nz + 2) + t;
@@ -586,7 +619,34 @@ int qgd3d_dt(const QGD3DParams* prm, const float* T, const float* ux,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long n = (long)grid.x * grid.y * grid.z;
-  qgd3d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials, n, dt_old, dt_new);
+  qgd3d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials, n, DT_FULL, dt_old,
+                                           dt_new);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// This slab's dt partials folded to the quad (max wave x, y, z, -min tau):
+// what a MAX all-reduce over the ranks combines.
+int qgd3d_dt_fold(const QGD3DParams* prm, const float* T, const float* ux,
+                  const float* uy, const float* uz, float* partials,
+                  float* quad, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = cell_grid(*prm, 1);
+  qgd3d_dt_partial_kernel<<<grid, dim3(BX, BY), 0, st>>>(*prm, T, ux, uy, uz,
+                                                         partials);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long n = (long)grid.x * grid.y * grid.z;
+  qgd3d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials, n, DT_FOLD,
+                                           nullptr, quad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// setDeltaT on a reduced quad of qgd3d_dt_fold.
+int qgd3d_dt_apply(const QGD3DParams* prm, const float* quad,
+                   const float* dt_old, float* dt_new, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  qgd3d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, quad, 1, DT_APPLY, dt_old,
+                                           dt_new);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,14 @@ One step of `build_fused_step` (K1):
   3. `qgd2d_update`: the fluxes and the explicit update into new frames;
   4. `qgd2d_ghosts`: BC ghost rows, then ghost lanes of every row.
 
+`build_sharded_fused_step` (K3) runs K1's kernels on each rank's block of
+a domain-decomposed run: the frame of a block carries a one-cell halo, and
+the edge flags of QGDParams say which frame edges are partition edges (the
+halo holds the neighbour's cells) and which are physical boundaries.  dt
+is `qgd2d_dt_fold` per block, one MAX all-reduce, `qgd2d_dt_apply`; after
+`qgd2d_ghosts` (physical sides only) the halo rows, then the halo lanes,
+are exchanged with the neighbour ranks.
+
 `build_tiled_fused_step` (K2) shares 3-4 and ends each step with
 `qgd2d_emit`, which reads from the fresh frames what the next step needs:
 its Courant/tau rates (so setDeltaT reads no frame) and, for varScModel5,
@@ -24,7 +32,8 @@ frames are whole, so none of the reference's slab strip fixes exist here;
 K2's VMEM slab sizing is TPU-only and is not ported.
 
 Each kernel call is a wrapper: for CPU tensors it runs the plain torch
-version beside it (`dt_reference`, `update_reference`, `ghosts_reference`,
+version beside it (`dt_reference`, `dt_fold_reference`,
+`dt_apply_reference`, `update_reference`, `ghosts_reference`,
 `emit_reference`); for CUDA tensors it launches the kernel from
 csrc/qgd2d.cu or raises.  Each wrapper counts its launches in a plain
 integer attribute (`qgd2d_dt.launches`, ...).  The plain versions composed
@@ -48,6 +57,7 @@ from ..core import bc as bcm
 from ..physics.qgdcoeffs import (ConstScPrModel1, VarScModel5,
                                  _neighbour_max, fvc_smooth_continue)
 from ..physics.thermo import ConstTransport, PerfectGasThermo
+from ..parallel import sharding, spmd
 from ..solvers import common
 from . import _build, fvsc
 
@@ -242,6 +252,7 @@ def make_params(solver) -> tuple:
     varsc = isinstance(tm, VarScModel5)
     prm = _build.QGDParams(
         nx=nx, ny=ny, varsc=int(varsc),
+        edge_lo=1, edge_hi=1, edge_lo_y=1, edge_hi_y=1,
         mu_const0=int(th.transport.mu0 == 0.0),
         adjust_dt=int(tc.adjust_time_step),
         dx=dx, dy=dy, inv_dx=1.0 / dx, inv_dy=1.0 / dy,
@@ -274,12 +285,22 @@ def make_params(solver) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _zg(f):
+def _zg(f, edges=()):
     """Coefficient ghosts: zero-gradient copies of the edge cells (any
-    number of axes)."""
+    number of axes).  edges[a] = (lo, hi) are the physical-boundary flags of
+    axis a (axes past the tuple are physical on both sides); a partition
+    side keeps its halo cell."""
     for a, n in enumerate(f.shape):
-        f = f.index_select(a, torch.arange(n, device=f.device).clamp(1, n - 2))
+        lo, hi = edges[a] if a < len(edges) else (1, 1)
+        idx = torch.arange(n, device=f.device).clamp(1 if lo else 0,
+                                                     n - 2 if hi else n - 1)
+        f = f.index_select(a, idx)
     return f
+
+
+def _edges(prm):
+    """The physical-boundary flags of a 2D block, per axis."""
+    return ((prm.edge_lo, prm.edge_hi), (prm.edge_lo_y, prm.edge_hi_y))
 
 
 def _xi(a, b):
@@ -296,9 +317,11 @@ def _face_tau(prm, coef):
     return cx * prm.hfx, cy * prm.hfy
 
 
-def dt_reference(prm, T, ux, uy, dt):
-    """Plain version of `qgd2d_dt`: setDeltaT from the max acoustic wave
-    speed per axis and min tau_f over the live faces."""
+def dt_fold_reference(prm, T, ux, uy):
+    """Plain version of `qgd2d_dt_fold`: the quad (max acoustic wave speed
+    along x, along y, -min tau_f, 0) over the block's live faces; the
+    partition faces of a block count on both ranks, which max and min do
+    not mind."""
     gRT = prm.gammaR * T
     rcs = torch.rsqrt(gRT)
     c = gRT * rcs
@@ -306,21 +329,37 @@ def dt_reference(prm, T, ux, uy, dt):
         + _xi(c[:-1, 1:-1], c[1:, 1:-1])
     wave_y = torch.abs(_xi(uy[1:-1, :-1], uy[1:-1, 1:])) \
         + _xi(c[1:-1, :-1], c[1:-1, 1:])
-    co = torch.maximum(torch.max(wave_x) * dt / prm.hfx,
-                       torch.max(wave_y) * dt / prm.hfy)
-    taux, tauy = _face_tau(prm, _zg(c if prm.varsc else prm.alpha * rcs))
+    taux, tauy = _face_tau(prm, _zg(c if prm.varsc else prm.alpha * rcs,
+                                    _edges(prm)))
     tau_min = torch.minimum(torch.min(taux), torch.min(tauy))
-    tc = common.TimeControls(adjust_time_step=bool(prm.adjust_dt),
-                             max_co=prm.max_co, max_dt=prm.max_dt,
-                             c_tau=prm.c_tau)
-    return common.set_delta_t(dt, co, tau_min, tc)
+    return torch.stack([torch.max(wave_x), torch.max(wave_y), -tau_min,
+                        torch.zeros_like(tau_min)])
+
+
+def _time_controls(prm):
+    return common.TimeControls(adjust_time_step=bool(prm.adjust_dt),
+                               max_co=prm.max_co, max_dt=prm.max_dt,
+                               c_tau=prm.c_tau)
+
+
+def dt_apply_reference(prm, quad, dt):
+    """Plain version of `qgd2d_dt_apply`: setDeltaT from a (reduced) quad of
+    `dt_fold_reference`."""
+    co = torch.maximum(quad[0] * dt / prm.hfx, quad[1] * dt / prm.hfy)
+    return common.set_delta_t(dt, co, -quad[2], _time_controls(prm))
+
+
+def dt_reference(prm, T, ux, uy, dt):
+    """Plain version of `qgd2d_dt`: setDeltaT from the max acoustic wave
+    speed per axis and min tau_f over the live faces."""
+    return dt_apply_reference(prm, dt_fold_reference(prm, T, ux, uy), dt)
 
 
 def update_reference(prm, p, T, ux, uy, sc, dt):
     """Plain version of `qgd2d_update`: the QGD fluxes and the explicit
     update.  Returns (new frames p, T, ux, uy with the interior filled and
     zero ghosts, side) where side[0 / 1, 1:ny+1] = ws0/tau_f on the x-low /
-    x-high boundary faces."""
+    x-high boundary faces (read only where that side is physical)."""
     rho = p / (prm.R * T)
     e = prm.Cv * T
     gRT = prm.gammaR * T
@@ -330,17 +369,19 @@ def update_reference(prm, p, T, ux, uy, sc, dt):
     ruy = rho * uy
     ke = ux * ux + uy * uy
     H = prm.CvR * T + 0.5 * ke
-    # coefficient fields with zero-gradient ghosts
+    # coefficient fields with zero-gradient ghosts at physical edges
+    edges = _edges(prm)
     if prm.varsc:
         mu_eff = sc * ((prm.k_muv * p) * rcs)
     else:
         mu_eff = (prm.k_mu * p) * rcs
     alphau = None
     if not prm.mu_const0:
-        alphau = _zg(mu_eff / prm.Pr_tau + prm.mu0 / prm.Pr_th)
+        alphau = _zg(mu_eff / prm.Pr_tau + prm.mu0 / prm.Pr_th, edges)
         mu_eff = mu_eff + prm.mu0
-    mu_eff = _zg(mu_eff)
-    taufx, taufy = _face_tau(prm, _zg(c if prm.varsc else prm.alpha * rcs))
+    mu_eff = _zg(mu_eff, edges)
+    taufx, taufy = _face_tau(prm, _zg(c if prm.varsc else prm.alpha * rcs,
+                                      edges))
     C = slice(1, -1)
 
     # x-faces: face r+1/2 at row r (rows 0..nx), lanes 1..ny
@@ -486,12 +527,16 @@ def ghosts_reference(prm, frames, side, profiles):
     x-ghost rows from the interior rows (qgdFlux p: interior +- side*dx),
     then the y-ghost lanes of every row, corners included.  inletOutlet
     switches on the fresh adjacent-cell outward velocity; on the ghost rows
-    it takes the edge interior row's."""
+    it takes the edge interior row's.  Partition sides are left as they
+    are: the halo exchange fills them."""
     nr, w = frames[0].shape
     nx, ny = nr - 2, w - 2
     ux, uy = frames[2], frames[3]
+    (x_lo, x_hi), (y_lo, y_hi) = _edges(prm)
     for f, fld in enumerate(frames):
         for sd in (0, 1):
+            if not (x_lo if sd == 0 else x_hi):
+                continue
             e = prm.bc[f][0][sd]
             r1, r2, rg = (1, 2, 0) if sd == 0 else (nx, nx - 1, nx + 1)
             in1 = fld[r1, 1:-1]
@@ -506,6 +551,8 @@ def ghosts_reference(prm, frames, side, profiles):
     rows = torch.arange(nr, device=uy.device).clamp(1, nx)
     for f, fld in enumerate(frames):
         for sd in (0, 1):
+            if not (y_lo if sd == 0 else y_hi):
+                continue
             e = prm.bc[f][1][sd]
             l1, l2, lg = (1, 2, 0) if sd == 0 else (ny, ny - 1, ny + 1)
             v = profiles[e.prof, :nr] if e.prof >= 0 else e.value
@@ -624,6 +671,42 @@ def qgd2d_dt(prm, T, ux, uy, dt):
     return out
 
 
+def qgd2d_dt_fold(prm, T, ux, uy):
+    """This block's dt quad (4,) on T's device - see `dt_fold_reference`."""
+    on_card = _check(prm, "qgd2d_dt_fold", T, ux, uy)
+    if not on_card:
+        return dt_fold_reference(prm, T, ux, uy)
+    lib = _build.load()
+    with torch.cuda.device(T.device):
+        n = lib.qgd2d_dt_partials(prm.nx, prm.ny)
+        partials = torch.empty((n, 4), dtype=T.dtype, device=T.device)
+        quad = torch.empty(4, dtype=T.dtype, device=T.device)
+        stream = torch.cuda.current_stream(T.device).cuda_stream
+        code = lib.qgd2d_dt_fold(prm, _ptr(T), _ptr(ux), _ptr(uy),
+                                 _ptr(partials), _ptr(quad), stream)
+    _build.check(lib, code, "qgd2d_dt_fold")
+    qgd2d_dt_fold.launches += 1
+    return quad
+
+
+def qgd2d_dt_apply(prm, quad, dt):
+    """New dt (0-dim tensor) from a reduced quad of `qgd2d_dt_fold` and the
+    previous dt - see `dt_apply_reference`."""
+    on_card = check_tensors("qgd2d_dt_apply", (4,), quad)
+    _scalar("qgd2d_dt_apply", dt, quad)
+    if not on_card:
+        return dt_apply_reference(prm, quad, dt)
+    lib = _build.load()
+    with torch.cuda.device(quad.device):
+        out = torch.empty((), dtype=quad.dtype, device=quad.device)
+        stream = torch.cuda.current_stream(quad.device).cuda_stream
+        code = lib.qgd2d_dt_apply(prm, _ptr(quad), _ptr(dt), _ptr(out),
+                                  stream)
+    _build.check(lib, code, "qgd2d_dt_apply")
+    qgd2d_dt_apply.launches += 1
+    return out
+
+
 def qgd2d_update(prm, p, T, ux, uy, sc, dt):
     """(new frames, side) — see `update_reference`.  The kernel leaves the
     new frames' ghosts unset; `qgd2d_ghosts` fills them."""
@@ -702,10 +785,14 @@ def qgd2d_emit(prm, p, T, ux, uy, sc):
 
 
 qgd2d_dt.launches = 0
+qgd2d_dt_fold.launches = 0
+qgd2d_dt_apply.launches = 0
 qgd2d_update.launches = 0
 qgd2d_ghosts.launches = 0
 qgd2d_emit.launches = 0
 KERNELS = (qgd2d_dt, qgd2d_update, qgd2d_ghosts, qgd2d_emit)
+# the flagged kernels of the decomposed step (K3)
+SHARDED_KERNELS = (qgd2d_dt_fold, qgd2d_dt_apply, qgd2d_update, qgd2d_ghosts)
 
 
 # ---------------------------------------------------------------------------
@@ -814,6 +901,115 @@ def build_fused_step(solver, plain: bool = False):
 
     to_fused, from_fused = _state_io(solver)
     return step, to_fused, from_fused
+
+
+# ---------------------------------------------------------------------------
+# K3: K1 on each block of a domain-decomposed run
+# ---------------------------------------------------------------------------
+
+
+def sharded_supported(solver, grid) -> bool:
+    """True if `build_sharded_fused_step` takes this config on `grid`: the
+    fused gate, and blocks that divide both axes."""
+    nx, ny = solver.mesh.shape[:2]
+    return (supported(solver) and nx % grid.px == 0 and ny % grid.py == 0)
+
+
+def block_params(solver, ctx):
+    """(QGDParams, profile table) of this rank's block: the global step
+    constants with the block's shape and edge flags, and each array-valued
+    BC profile windowed to the block's range plus its two ghosts (the
+    serial table's entries there, not edge copies of the block's own)."""
+    prm_g, prof_g = make_params(solver)
+    prm = _build.QGDParams.from_buffer_copy(prm_g)
+    nxl, nyl = (ax.n_local if ax is not None else n
+                for ax, n in zip(ctx.axes, solver.mesh.shape))
+    prm.nx, prm.ny = nxl, nyl
+    prm.prof_len = max(nxl, nyl) + 2
+    prm.edge_lo, prm.edge_hi = int(ctx.is_lo(0)), int(ctx.is_hi(0))
+    prm.edge_lo_y, prm.edge_hi_y = int(ctx.is_lo(1)), int(ctx.is_hi(1))
+    prof = np.zeros((prof_g.shape[0], prm.prof_len), dtype=np.float32)
+    for f in range(4):
+        for a in range(2):
+            for side in (0, 1):
+                k = prm.bc[f][a][side].prof
+                if k >= 0:  # x sides run over lanes, y sides over rows
+                    start, n = ((ctx.start(1), nyl) if a == 0
+                                else (ctx.start(0), nxl))
+                    prof[k, :n + 2] = prof_g[k, start:start + n + 2]
+    return prm, prof
+
+
+def build_sharded_fused_step(solver, grid):
+    """(step, to_sharded, from_sharded): K1's kernels on this rank's block
+    of a `grid` decomposition, inside a launched world of grid.size ranks
+    (the port of the reference's shard_map step K3).
+
+    Each rank carries its block with a one-cell halo frame, contiguous
+    (nxl+2, nyl+2) float32.  A step: the block's dt quad
+    (`qgd2d_dt_fold`), one MAX all-reduce, setDeltaT (`qgd2d_dt_apply`);
+    for varScModel5 the sensor pre-pass `VarScModel5.sc_update` under the
+    spmd context (its gradient ghosts and fvc::smooth rings cross the
+    partitions); `qgd2d_update`; `qgd2d_ghosts` on the physical sides; then
+    the halo exchange in two phases: rows over X at full width, then lanes
+    over Y including the fresh halo rows, so the corners come from the
+    diagonal neighbour in two hops.  The result is the serial K1 step's,
+    bit for bit on an x-ring.
+
+    to_sharded cuts this rank's overlapped block out of the frames of a
+    global State; from_sharded gathers the blocks (a collective: every rank
+    calls it) and returns the global State on every rank.  Raises
+    ValueError for a config the kernels do not take or a grid that does not
+    divide the mesh.
+    """
+    from ..ops.pad import ghost_pad
+
+    if not supported(solver):
+        raise ValueError("solver config not supported by the fused step")
+    mesh = solver.mesh
+    th = solver.thermo
+    tm = solver.tau_model
+    varsc = isinstance(tm, VarScModel5)
+    ctx = sharding.block_context(mesh, grid)
+    local_mesh = sharding.block_mesh(ctx)
+    prm, prof_np = block_params(solver, ctx)
+    profiles = mesh.tensor(prof_np).contiguous()
+    zg2 = bcm.FieldBCs.uniform(bcm.ZeroGradient(), 2)
+
+    def local_step(fs: FusedState) -> FusedState:
+        quad = spmd.all_max(qgd2d_dt_fold(prm, fs.T, fs.ux, fs.uy))
+        dt_new = qgd2d_dt_apply(prm, quad, fs.dt)
+        sc = None
+        if varsc:
+            rho_int = th.rho_from_p_T(fs.p[1:-1, 1:-1], fs.T[1:-1, 1:-1])
+            sc = ghost_pad(tm.sc_update(local_mesh, rho_int,
+                                        fs.sc[1:-1, 1:-1]),
+                           zg2, local_mesh).contiguous()
+        frames, side = qgd2d_update(prm, fs.p, fs.T, fs.ux, fs.uy, sc, dt_new)
+        p, T, ux, uy = spmd.exchange_frames(
+            qgd2d_ghosts(prm, list(frames), side, profiles))
+        return FusedState(p=p, T=T, ux=ux, uy=uy, t=fs.t + dt_new, dt=dt_new,
+                          sc=sc)
+
+    def step(fs: FusedState) -> FusedState:
+        with spmd.active(ctx):
+            return local_step(fs)
+
+    to_frames, from_fused = _state_io(solver)
+    win = spmd.frame_window(ctx)
+
+    def to_sharded(s) -> FusedState:
+        fs = to_frames(s)
+        return fs._replace(**{k: getattr(fs, k)[win].contiguous()
+                              for k in FIELDS},
+                           sc=fs.sc[win].contiguous() if varsc else None)
+
+    def from_sharded(fs):
+        return from_fused(fs._replace(
+            **{k: spmd.join_frames(getattr(fs, k), ctx) for k in FIELDS},
+            sc=spmd.join_frames(fs.sc, ctx) if varsc else None))
+
+    return step, to_sharded, from_sharded
 
 
 # ---------------------------------------------------------------------------

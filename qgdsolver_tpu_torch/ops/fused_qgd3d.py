@@ -25,6 +25,13 @@ version beside it (`dt_reference_3d`, `update_reference_3d`,
 the kernel from csrc/qgd3d.cu or raises.  Each wrapper counts its launches in
 a plain integer attribute (`qgd3d_dt.launches`, ...).
 
+`build_sharded_fused_step_3d` (K5) runs the same kernels on each rank's
+x-slab of an x-ring decomposition: the slab's frame carries the
+neighbours' planes as its x halo, the flags edge_lo / edge_hi of
+QGD3DParams mark the physical x ends, dt is `qgd3d_dt_fold` per slab, one
+MAX all-reduce and `qgd3d_dt_apply`, and the fresh edge planes are
+exchanged after `qgd3d_ghosts`, before the sensor reads them.
+
 Restrictions (`supported()`): 3D uniform f32 mesh, PerfectGasThermo with
 constant transport, the constScPrModel1 family or varScModel5 (scalar cqSc),
 explicit diffusion, the `full` stencil for every gradient, qgdFlux p only on
@@ -41,10 +48,12 @@ import torch
 
 from ..core import bc as bcm
 from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5, fvc_smooth
+from ..parallel import sharding, spmd
 from ..solvers import common
 from . import _build
 from .fused_qgd2d import (KINDS, _bc_ghost, _edge_frame, _ptr, _raw_value,
-                          _scalar, _zg, check_tensors, common_gate)
+                          _scalar, _time_controls, _zg, check_tensors,
+                          common_gate)
 from .fvsc import _hi, _lo
 from .pad import _sl
 
@@ -212,7 +221,7 @@ def make_params(solver) -> tuple:
     varsc = isinstance(tm, VarScModel5)
     f3 = ctypes.c_float * 3
     prm = _build.QGD3DParams(
-        nx=nx, ny=ny, nz=nz, varsc=int(varsc),
+        nx=nx, ny=ny, nz=nz, varsc=int(varsc), edge_lo=1, edge_hi=1,
         mu_const0=int(th.transport.mu0 == 0.0),
         adjust_dt=int(tc.adjust_time_step),
         d=f3(*d), inv_d=f3(*(1.0 / x for x in d)),
@@ -266,25 +275,44 @@ def _tan(xf, a, b, prm):
     return _sl(g, c, slice(1, -1))
 
 
-def dt_reference_3d(prm, T, ux, uy, uz, dt):
-    """Plain version of `qgd3d_dt`: setDeltaT from the max acoustic wave
-    speed per axis and the min tau_f over the live faces (faces against the
-    ghost layers included; coefficient ghosts zero-gradient)."""
+def _edges(prm):
+    """The physical-boundary flags of a 3D slab: the two x ends."""
+    return ((prm.edge_lo, prm.edge_hi),)
+
+
+def dt_fold_reference_3d(prm, T, ux, uy, uz):
+    """Plain version of `qgd3d_dt_fold`: the quad (max acoustic wave speed
+    along x, y, z, -min tau_f) over the slab's live faces (faces against
+    the ghost layers included; coefficient ghosts zero-gradient at physical
+    boundaries, the halo plane across a partition plane)."""
     gRT = prm.gammaR * T
     c = gRT * torch.rsqrt(gRT)
-    coef = _zg(c if prm.varsc else prm.alpha / c)
-    co = torch.zeros((), dtype=T.dtype, device=T.device)
+    coef = _zg(c if prm.varsc else prm.alpha / c, _edges(prm))
+    waves = []
     tau_min = torch.full((), float("inf"), dtype=T.dtype, device=T.device)
     for a, u in enumerate((ux, uy, uz)):
         wave = torch.abs(_trim(_aint(u, a), a)) + _trim(_aint(c, a), a)
-        co = torch.maximum(co, torch.max(wave) * dt / prm.d[a])
+        waves.append(torch.max(wave))
         cf = _trim(_aint(coef, a), a)
         tauf = (prm.alpha / cf) * prm.d[a] if prm.varsc else cf * prm.d[a]
         tau_min = torch.minimum(tau_min, torch.min(tauf))
-    tc = common.TimeControls(adjust_time_step=bool(prm.adjust_dt),
-                             max_co=prm.max_co, max_dt=prm.max_dt,
-                             c_tau=prm.c_tau)
-    return common.set_delta_t(dt, co, tau_min, tc)
+    return torch.stack(waves + [-tau_min])
+
+
+def dt_apply_reference_3d(prm, quad, dt):
+    """Plain version of `qgd3d_dt_apply`: setDeltaT from a (reduced) quad
+    of `dt_fold_reference_3d`."""
+    co = torch.zeros((), dtype=quad.dtype, device=quad.device)
+    for a in range(3):
+        co = torch.maximum(co, quad[a] * dt / prm.d[a])
+    return common.set_delta_t(dt, co, -quad[3], _time_controls(prm))
+
+
+def dt_reference_3d(prm, T, ux, uy, uz, dt):
+    """Plain version of `qgd3d_dt`: setDeltaT from the max acoustic wave
+    speed per axis and the min tau_f over the live faces."""
+    return dt_apply_reference_3d(
+        prm, dt_fold_reference_3d(prm, T, ux, uy, uz), dt)
 
 
 def _axis_fluxes(prm, a, cell, coef):
@@ -371,18 +399,19 @@ def update_reference_3d(prm, p, T, ux, uy, uz, sc, dt):
     ru = tuple(rho * u for u in u3)
     ke = ux * ux + uy * uy + uz * uz
     H = prm.CvR * T + 0.5 * ke
-    # coefficient fields with zero-gradient ghosts
+    # coefficient fields with zero-gradient ghosts at physical boundaries
+    edges = _edges(prm)
     if prm.varsc:
         mu_qgd = ((prm.k_muv * sc) * p) * rcs
-        tcoef = _zg(gRT * rcs)
+        tcoef = _zg(gRT * rcs, edges)
     else:
         mu_qgd = (prm.k_mu * p) * rcs
-        tcoef = _zg(prm.alpha * rcs)
+        tcoef = _zg(prm.alpha * rcs, edges)
     if prm.mu_const0:
-        mu_eff, alphau = _zg(mu_qgd), None
+        mu_eff, alphau = _zg(mu_qgd, edges), None
     else:
-        mu_eff = _zg(mu_qgd + prm.mu0)
-        alphau = _zg(mu_qgd * prm.inv_Pr_tau + prm.mu0_Pr_th)
+        mu_eff = _zg(mu_qgd + prm.mu0, edges)
+        alphau = _zg(mu_qgd * prm.inv_Pr_tau + prm.mu0_Pr_th, edges)
     cell = (p, rho, e, H, u3, ru)
     acc = None
     for a in range(3):
@@ -415,11 +444,13 @@ def update_reference_3d(prm, p, T, ux, uy, uz, sc, dt):
 
 def sensor_reference_3d(prm, p, T, sc):
     """Plain version of `qgd3d_sensor`: the raw varScModel5 sensor of the
-    fresh frames (rho from the stored p, T; zero-gradient ghosts), relaxed
-    against the current smoothed sensor `sc`.  Returns (nx, ny, nz)."""
+    fresh frames (rho from the stored p, T; zero-gradient ghosts at
+    physical boundaries, the exchanged halo plane across a partition
+    plane), relaxed against the current smoothed sensor `sc`.  Returns
+    (nx, ny, nz)."""
     C = (slice(1, -1),) * 3
-    r = p[C] * (1.0 / (prm.R * T[C]))
-    rg = _edge_frame(r)
+    rg = _zg(p * (1.0 / (prm.R * T)), _edges(prm))
+    r = rg[C]
     g = [(_sl(rg, a, slice(2, None)) - _sl(rg, a, slice(None, -2)))
          * prm.inv_2d[a] for a in range(3)]
     g = [_trim(x, a) for a, x in enumerate(g)]
@@ -435,12 +466,15 @@ def ghosts_reference_3d(prm, frames, side, planes):
     the y-ghost rows over every x, then the z-ghost lanes over every x and
     y, so edges and corners see the earlier axes.  inletOutlet switches on
     the fresh adjacent-cell outward velocity (on ghost layers of earlier
-    axes, the nearest interior cell's)."""
+    axes, the nearest interior cell's).  A partition x end is left as it
+    is: the plane exchange fills it."""
     nx, ny, nz = prm.nx, prm.ny, prm.nz
     ux, uy, uz = frames[2], frames[3], frames[4]
     I = slice(1, -1)
     for f, fld in enumerate(frames):
         for sd in (0, 1):
+            if not _edges(prm)[0][sd]:
+                continue
             e = prm.bc[f][0][sd]
             r1, r2, rg = (1, 2, 0) if sd == 0 else (nx, nx - 1, nx + 1)
             in1 = fld[r1, I, I]
@@ -498,6 +532,41 @@ def qgd3d_dt(prm, T, ux, uy, uz, dt):
                             _ptr(dt), _ptr(partials), _ptr(out), _stream(T))
     _build.check(lib, code, "qgd3d_dt")
     qgd3d_dt.launches += 1
+    return out
+
+
+def qgd3d_dt_fold(prm, T, ux, uy, uz):
+    """This slab's dt quad (4,) on T's device - see
+    `dt_fold_reference_3d`."""
+    on_card = _check(prm, "qgd3d_dt_fold", T, ux, uy, uz)
+    if not on_card:
+        return dt_fold_reference_3d(prm, T, ux, uy, uz)
+    lib = _build.load()
+    with torch.cuda.device(T.device):
+        n = lib.qgd3d_dt_partials(prm)
+        partials = torch.empty((n, 4), dtype=T.dtype, device=T.device)
+        quad = torch.empty(4, dtype=T.dtype, device=T.device)
+        code = lib.qgd3d_dt_fold(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
+                                 _ptr(partials), _ptr(quad), _stream(T))
+    _build.check(lib, code, "qgd3d_dt_fold")
+    qgd3d_dt_fold.launches += 1
+    return quad
+
+
+def qgd3d_dt_apply(prm, quad, dt):
+    """New dt (0-dim tensor) from a reduced quad of `qgd3d_dt_fold` - see
+    `dt_apply_reference_3d`."""
+    on_card = check_tensors("qgd3d_dt_apply", (4,), quad)
+    _scalar("qgd3d_dt_apply", dt, quad)
+    if not on_card:
+        return dt_apply_reference_3d(prm, quad, dt)
+    lib = _build.load()
+    with torch.cuda.device(quad.device):
+        out = torch.empty((), dtype=quad.dtype, device=quad.device)
+        code = lib.qgd3d_dt_apply(prm, _ptr(quad), _ptr(dt), _ptr(out),
+                                  _stream(quad))
+    _build.check(lib, code, "qgd3d_dt_apply")
+    qgd3d_dt_apply.launches += 1
     return out
 
 
@@ -562,10 +631,15 @@ def qgd3d_ghosts(prm, frames, side, planes):
 
 
 qgd3d_dt.launches = 0
+qgd3d_dt_fold.launches = 0
+qgd3d_dt_apply.launches = 0
 qgd3d_update.launches = 0
 qgd3d_sensor.launches = 0
 qgd3d_ghosts.launches = 0
 KERNELS = (qgd3d_dt, qgd3d_update, qgd3d_sensor, qgd3d_ghosts)
+# the flagged kernels of the decomposed step (K5)
+SHARDED_KERNELS = (qgd3d_dt_fold, qgd3d_dt_apply, qgd3d_update, qgd3d_sensor,
+                   qgd3d_ghosts)
 
 
 # ---------------------------------------------------------------------------
@@ -658,3 +732,100 @@ def build_fused_step_3d(solver, plain: bool = False):
                      sc=sc, t=fs.t, dt=fs.dt, pbc=tuple(pbc))
 
     return step, to_fused, from_fused
+
+
+# ---------------------------------------------------------------------------
+# K5: the step over an x-ring of ranks
+# ---------------------------------------------------------------------------
+
+
+def sharded_supported(solver, grid) -> bool:
+    """True if `build_sharded_fused_step_3d` takes this config on `grid`:
+    the fused gate, an x-ring (py == 1) and slabs that divide nx."""
+    return (supported(solver) and grid.py == 1
+            and solver.mesh.shape[0] % grid.px == 0)
+
+
+def block_params(solver, ctx):
+    """(QGD3DParams, plane table) of this rank's x-slab: the global step
+    constants with the slab's nx and x-end flags.  The x-side planes span
+    (ny, nz), which an x-ring does not split."""
+    prm_g, planes = make_params(solver)
+    prm = _build.QGD3DParams.from_buffer_copy(prm_g)
+    prm.nx = solver.mesh.shape[0] // ctx.grid.px
+    prm.edge_lo, prm.edge_hi = int(ctx.is_lo(0)), int(ctx.is_hi(0))
+    return prm, planes
+
+
+def build_sharded_fused_step_3d(solver, grid):
+    """(step, to_sharded, from_sharded): the 3D kernels on this rank's
+    x-slab of an x-ring decomposition (grid.py must be 1), inside a
+    launched world of grid.px ranks (the port of the reference's K5).
+
+    Each rank holds an (nxl+2, ny+2, nz+2) frame whose x halo planes are
+    the neighbours' edge planes.  A step: the slab's dt quad
+    (`qgd3d_dt_fold`), one MAX all-reduce, setDeltaT (`qgd3d_dt_apply`);
+    for varScModel5 `fvc_smooth` of the carried raw sensor under the spmd
+    context (its rings and termination test cross the slabs), padded with
+    the neighbours' planes; `qgd3d_update`; `qgd3d_ghosts` at the physical
+    x ends; the exchange of the fresh planes 1 and nxl; then, for
+    varScModel5, `qgd3d_sensor` on the exchanged frames, so its x-gradient
+    at a partition plane reads the neighbour's true plane and no strip fix
+    is needed.  The result is the serial 3D step's.  to_sharded /
+    from_sharded as in `fused_qgd2d.build_sharded_fused_step`.
+    """
+    from ..ops.pad import ghost_pad
+
+    if not supported(solver):
+        raise ValueError("solver config not supported by the fused 3D step")
+    if grid.py != 1:
+        raise NotImplementedError("the decomposed fused 3D step is an "
+                                  "x-ring only (py must be 1)")
+    mesh = solver.mesh
+    tm = solver.tau_model
+    varsc = isinstance(tm, VarScModel5)
+    ctx = sharding.block_context(mesh, grid)
+    local_mesh = sharding.block_mesh(ctx)
+    prm, planes_np = block_params(solver, ctx)
+    nxl = prm.nx
+    planes = mesh.tensor(planes_np).contiguous()
+    zg3 = bcm.FieldBCs.uniform(bcm.ZeroGradient(), 3)
+
+    def local_step(fs: Fused3DState) -> Fused3DState:
+        quad = spmd.all_max(qgd3d_dt_fold(prm, fs.T, fs.ux, fs.uy, fs.uz))
+        dt_new = qgd3d_dt_apply(prm, quad, fs.dt)
+        sc = sc_raw = None
+        if varsc:
+            sc = ghost_pad(fvc_smooth(fs.sc_raw, tm.smoothCoeff), zg3,
+                           local_mesh).contiguous()
+        frames, side = qgd3d_update(prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc,
+                                    dt_new)
+        p, T, ux, uy, uz = spmd.exchange_frames(
+            qgd3d_ghosts(prm, list(frames), side, planes))
+        if varsc:
+            sc_raw = qgd3d_sensor(prm, p, T, sc)
+        return Fused3DState(p=p, T=T, ux=ux, uy=uy, uz=uz, t=fs.t + dt_new,
+                            dt=dt_new, sc=sc, sc_raw=sc_raw)
+
+    def step(fs: Fused3DState) -> Fused3DState:
+        with spmd.active(ctx):
+            return local_step(fs)
+
+    _, to_fused, from_fused = build_fused_step_3d(solver, plain=True)
+    framed = FIELDS + (("sc",) if varsc else ())
+    win, xs = spmd.frame_window(ctx), ctx.start(0)
+
+    def to_sharded(s) -> Fused3DState:
+        fs = to_fused(s)
+        cut = {k: getattr(fs, k)[win].contiguous() for k in framed}
+        if varsc:  # the raw sensor has no halo
+            cut["sc_raw"] = fs.sc_raw[xs:xs + nxl].contiguous()
+        return fs._replace(**cut)
+
+    def from_sharded(fs):
+        full = {k: spmd.join_frames(getattr(fs, k), ctx) for k in framed}
+        if varsc:
+            full["sc_raw"] = torch.cat(spmd.all_gather(fs.sc_raw))
+        return from_fused(fs._replace(**full))
+
+    return step, to_sharded, from_sharded

@@ -1,9 +1,15 @@
 """Ghost-cell padding of cell fields under boundary conditions (PyTorch port
-of `qgdsolver_tpu.ops.pad`, single device).
+of `qgdsolver_tpu.ops.pad`).
 
 Corner/edge ghosts come from padding the axes sequentially: the layer fed to
 a later axis' BC already contains the earlier axes' ghosts, so the diagonal
 ghost cells the vertex ("full") gradient stencil needs are consistent.
+
+Under an active `parallel.spmd` context (a decomposed step) the ghost layer
+of a decomposed axis at a partition edge comes from the neighbour rank, and
+the physical BC layer is built only by the rank at the global boundary; the
+sequential axis order then carries the diagonal corner ghosts across block
+corners in two hops, as the serial construction makes them.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ import torch
 
 from ..core import bc as bcm
 from ..core.mesh import Mesh
+from ..parallel import spmd
 
 
 def _spatial_axis(arr_ndim: int, mesh_ndim: int, a: int) -> int:
@@ -53,14 +60,24 @@ def _eval_bc_value(v, t, coords, vector, ncomp, like):
 
 
 def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
-    """(lo, hi) ghost layers (size 1 along the padded axis) for mesh axis a."""
+    """(lo, hi) ghost layers (size 1 along the padded axis) for mesh axis a.
+
+    With an active spmd context and axis `a` decomposed, a block edge that
+    is a partition edge takes the neighbour rank's edge layer, and only a
+    block at the global boundary builds that side's BC layer."""
     nd = mesh.ndim
     ax = _spatial_axis(arr.ndim, nd, a)
     ncomp = arr.shape[0] if vector else 0
+    ctx = spmd.current()
+    # BC value callables see the GLOBAL boundary coordinates; the layer is
+    # then windowed to the block
+    cmesh = ctx.global_mesh if ctx is not None else mesh
 
     def extend_prior(v):
-        """Edge-replicate a BC layer along the already-padded axes b < a so
-        it matches the interior layer's ghosted extent."""
+        """Extend a BC layer along the already-padded axes b < a to the
+        interior layer's ghosted extent: neighbour values across partition
+        edges, edge replication at physical boundaries (the construction
+        the interior ghosts got)."""
         if not torch.is_tensor(v) or v.ndim < nd:
             return v
         for b in range(a):
@@ -69,13 +86,17 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
                 continue
             first = v.narrow(axb, 0, 1)
             last = v.narrow(axb, v.shape[axb] - 1, 1)
+            if ctx is not None and ctx.sharded(b):
+                prev_l, next_l, b_lo, b_hi = spmd.halo_layers(v, axb, b)
+                first = first if b_lo else prev_l
+                last = last if b_hi else next_l
             v = torch.cat([first, v, last], dim=axb)
         return v
 
     def ev(raw, side, interior):
-        coords = _layer_coords(mesh, a, side)
-        return extend_prior(
-            _eval_bc_value(raw, t, coords, vector, ncomp, interior))
+        coords = _layer_coords(cmesh, a, side)
+        v = _eval_bc_value(raw, t, coords, vector, ncomp, interior)
+        return extend_prior(spmd.localize_layer(v, a, nd))
 
     def one(bc, side, interior, other_interior, dx, near2):
         if isinstance(bc, bcm.FixedValue):
@@ -98,7 +119,7 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
             return 2.0 * interior - near2
         if isinstance(bc, bcm.FluxSwitched):
             v = ev(bc.value, side, interior)
-            mask = extend_prior(bc.outflow)
+            mask = extend_prior(spmd.localize_layer(bc.outflow, a, nd))
             return torch.where(mask, interior, 2.0 * v - interior)
         if isinstance(bc, bcm.InletOutlet):
             raise TypeError(
@@ -109,9 +130,18 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
     n = arr.shape[ax]
     i_lo = _sl(arr, ax, slice(0, 1))
     i_hi = _sl(arr, ax, slice(n - 1, n))
-    lo = one(bc_lo, 0, i_lo, i_hi, mesh.dx[a][0], _sl(arr, ax, slice(1, 2)))
+    is_lo = is_hi = True
+    if ctx is not None and ctx.sharded(a):
+        periodic = isinstance(bc_lo, bcm.Periodic)
+        from_prev, from_next, is_lo, is_hi = spmd.halo_layers(
+            arr, ax, a, periodic=periodic)
+        if periodic:
+            # the global wraparound is the neighbour exchange
+            return from_prev, from_next, ax
+    lo = one(bc_lo, 0, i_lo, i_hi, mesh.dx[a][0],
+             _sl(arr, ax, slice(1, 2))) if is_lo else from_prev
     hi = one(bc_hi, 1, i_hi, i_lo, mesh.dx[a][-1],
-             _sl(arr, ax, slice(n - 2, n - 1)))
+             _sl(arr, ax, slice(n - 2, n - 1))) if is_hi else from_next
     return lo, hi, ax
 
 

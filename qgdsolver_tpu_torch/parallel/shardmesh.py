@@ -1,0 +1,53 @@
+"""A block's window of the global mesh geometry (PyTorch port of
+`qgdsolver_tpu.parallel.shardmesh`).
+
+The reference's decomposition is mesh-agnostic: decomposePar hands every
+rank its own cell geometry, graded spacings included.  Here the global
+`core.mesh.Mesh` holds every separable 1-D geometry array in float64 numpy,
+and a `ShardMesh` is a `Mesh` over the block's faces whose arrays that reach
+past the block (ghost widths, face weights, centre distances, QGD face
+lengths, mirrored ghost centres) are windows of the global ones.  At a
+partition face they therefore carry the true neighbour-side spacings, the
+same numbers the serial mesh has for that interior face, so the decomposed
+step is the serial discretization with no geometry exchange.  Each process
+is one block, so the windows start at plain integer offsets.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import cached_property
+
+from ..core.mesh import Mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMesh(Mesh):
+    """The block of `global_mesh` whose first cell along axis a is
+    `starts[a]`; x_faces are the block's own face coordinates."""
+
+    global_mesh: Mesh = None
+    starts: tuple = ()
+
+    @staticmethod
+    def window(global_mesh: Mesh, starts, shape) -> "ShardMesh":
+        faces = tuple(xf[s:s + n + 1] for xf, s, n
+                      in zip(global_mesh.x_faces, starts, shape))
+        return ShardMesh(x_faces=faces, dtype=global_mesh.dtype,
+                         device=global_mesh.device, global_mesh=global_mesh,
+                         starts=tuple(int(s) for s in starts))
+
+    def _win(self, arrs, extra: int) -> tuple:
+        return tuple(arr[s:s + n + extra] for arr, s, n
+                     in zip(arrs, self.starts, self.shape))
+
+    @cached_property
+    def _pdx(self) -> tuple:
+        return self._win(self.global_mesh._pdx, 2)
+
+    @cached_property
+    def ext_centers(self) -> tuple:
+        return self._win(self.global_mesh.ext_centers, 2)
+
+    @cached_property
+    def h_face_1d(self) -> tuple:
+        return self._win(self.global_mesh.h_face_1d, 1)

@@ -19,6 +19,7 @@ from ..core import bc as bcm
 from ..core.mesh import Mesh
 from ..core.registry import register, register_missing
 from ..ops import fvsc
+from ..parallel import spmd
 
 
 def _zg(ndim):
@@ -88,12 +89,19 @@ class ConstScPrModel2(ConstScPrModel1):
 
 def _neighbour_max(field):
     """Max over the face neighbours of each cell (edge-replicated at the
-    boundaries, a no-op for the smoothing update)."""
+    boundaries, a no-op for the smoothing update).  Under an spmd context
+    the neighbours across a partition edge come from the neighbour rank
+    (the FaceCellWave crossing processor patches)."""
+    ctx = spmd.current()
     nb = field
     for a in range(field.ndim):
         n = field.shape[a]
         first = field.narrow(a, 0, 1)
         last = field.narrow(a, n - 1, 1)
+        if ctx is not None and ctx.sharded(a):
+            prev_l, next_l, is_lo, is_hi = spmd.halo_layers(field, a, a)
+            first = first if is_lo else prev_l
+            last = last if is_hi else next_l
         lo = torch.cat([first, field.narrow(a, 0, n - 1)], dim=a)
         hi = torch.cat([field.narrow(a, 1, n - 1), last], dim=a)
         nb = torch.maximum(nb, torch.maximum(lo, hi))
@@ -108,17 +116,19 @@ def fvc_smooth(field, coeff, max_iters: int = 10_000):
     The first test runs after one ring, so an already-smooth field costs one
     ring; then four rings per test.  Each test reads a flag back to the host
     (one device sync per four rings); the iteration is monotone and
-    idempotent at the fixed point, so the chunking changes no value.
+    idempotent at the fixed point, so the chunking changes no value.  Under
+    an spmd context the test is global (one collective per test), so every
+    rank runs the same rings.
     """
     max_ratio = 1.0 + coeff
     f = torch.maximum(field, _neighbour_max(field) / max_ratio)
-    changed = bool(torch.any(f > field))
+    changed = bool(spmd.all_any(torch.any(f > field)))
     it = 1
     while changed and it < max_iters:
         fn = f
         for _ in range(4):
             fn = torch.maximum(fn, _neighbour_max(fn) / max_ratio)
-        changed = bool(torch.any(fn > f))
+        changed = bool(spmd.all_any(torch.any(fn > f)))
         f = fn
         it += 4
     return f
@@ -142,7 +152,7 @@ def fvc_smooth_continue(f1, changed, coeff, max_iters: int = 10_000):
         for _ in range(4):
             fn = torch.maximum(fn, _neighbour_max(fn) / max_ratio)
         fvc_smooth_continue.rings += 4
-        changed = bool(torch.any(fn > f))
+        changed = bool(spmd.all_any(torch.any(fn > f)))
         f = fn
         it += 4
     return f
@@ -174,7 +184,8 @@ class VarScModel5(TauModel):
         sc = self.rC * (mag_grad * mesh.h_cell / rho) \
             + (1.0 - self.rC) * sc_prev
         sc = torch.clamp(sc, self.minSc, self.maxSc)
-        return torch.maximum(sc, bcm.as_value(self.cqSc, sc))
+        return torch.maximum(
+            sc, bcm.as_value(spmd.localize_cells(self.cqSc, mesh.ndim), sc))
 
     def sc_update(self, mesh: Mesh, rho, sc_prev):
         """The full relaxed sensor update (raw + fvc::smooth), shared by

@@ -1,5 +1,5 @@
 """Shared solver building blocks: time-step control, Courant numbers, runner
-(PyTorch port of `qgdsolver_tpu.solvers.common`, single device).
+(PyTorch port of `qgdsolver_tpu.solvers.common`).
 
 The adaptive dt is a 0-dim tensor in the solver state, so a run never reads
 it back to the host.
@@ -12,6 +12,7 @@ import typing as tp
 import torch
 
 from ..core.mesh import Mesh
+from ..parallel import spmd
 
 SMALL = 1e-30
 
@@ -39,18 +40,21 @@ def set_delta_t(dt, co_num, tau_f_min, tc: TimeControls):
 
 
 def courant_acoustic(Uf, cf, dt, mesh: Mesh):
-    """QGD acoustic Courant: max over faces of max(|Un+c|,|Un-c|)*dt/h_f."""
+    """QGD acoustic Courant: max over faces of max(|Un+c|,|Un-c|)*dt/h_f,
+    global under an spmd context (the reference's gMax; a partition face is
+    counted by both its blocks, which max does not mind)."""
     co = None
     for a in range(mesh.ndim):
         un = Uf[a][a]
         wave = torch.maximum(torch.abs(un + cf[a]), torch.abs(un - cf[a]))
         m = torch.max(wave * dt / mesh.h_face(a))
         co = m if co is None else torch.maximum(co, m)
-    return co
+    return spmd.all_max(co)
 
 
 def tau_f_min(tau_f):
-    return torch.min(torch.stack([torch.min(tf) for tf in tau_f]))
+    return spmd.all_min(torch.min(torch.stack([torch.min(tf)
+                                               for tf in tau_f])))
 
 
 class NonphysicalStateError(RuntimeError):

@@ -18,6 +18,10 @@ once and reused by all four fvsc gradients.
 Not in the port yet (raise NotImplementedError): implicit diffusion, the
 qgdFlux limiter and relaxation.  Stairstep solids, waveTransmissive and
 axisymmetric meshes have no representation in this package yet.
+
+The step runs decomposed as it is: `parallel.sharding.build_spmd_step`
+builds it on a block mesh under an spmd context, which `ghost_pad` and the
+reductions consult.
 """
 from __future__ import annotations
 
@@ -236,7 +240,11 @@ class QGDFoam:
             rhoU_new = rhoU - dt_new * fvsc.div_flux(tuple(mom_flux), mesh)
             rhoE_new = rhoE - dt_new * fvsc.div_flux(tuple(e_flux), mesh)
 
-            # the lagged qgdFlux gradients from this step's phiwStar
+            # the lagged qgdFlux gradients from this step's phiwStar.  Under
+            # decomposition every rank computes rows at its block edge, but
+            # only the rank at the physical side reads them (its ghost_pad
+            # alone builds that BC layer): no broadcast is made, and
+            # parallel.sharding's from_spmd takes the owner's rows
             pbc_new = []
             for a, side in flux_sides:
                 ax = phiwStar[a].ndim - nd + a

@@ -1,0 +1,135 @@
+"""What each rank of the decomposed-run tests runs.
+
+`parallel.distributed.spawn` starts fresh processes that import a rank's
+function by name, so the bodies live here, in a module that imports the
+port and no JAX (the JAX references run in the pytest process).  A job is
+(kind, case, shape, dtype, (px, py), steps, initial State with numpy
+leaves): kind "spmd" is the decomposed composable step, "k3" and "k5" the
+decomposed fused steps, "scaling" a `measure_scaling` call (shape: its
+base tile; no state).  `run_jobs` runs the jobs in turn on this rank and
+returns, per job, the gathered global State (numpy leaves) and the launch
+counts of the flagged kernel wrappers over its steps.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+from qgdsolver_tpu_torch import cases, interop
+from qgdsolver_tpu_torch.core import bc as bcm
+from qgdsolver_tpu_torch.core.mesh import Mesh
+from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+from qgdsolver_tpu_torch.parallel import distributed, sharding
+from qgdsolver_tpu_torch.physics.qgdcoeffs import ConstScPrModel1
+from qgdsolver_tpu_torch.physics.thermo import PerfectGasThermo
+from qgdsolver_tpu_torch.solvers.common import TimeControls
+from qgdsolver_tpu_torch.solvers.qgd import QGDFoam
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def graded_faces(n, length, ratio, origin=0.0):
+    """simpleGrading-style geometric spacing with total expansion `ratio`
+    (tests/test_spmd.py's helper)."""
+    r = ratio ** (1.0 / max(n - 1, 1))
+    w = r ** np.arange(n)
+    w = w / w.sum() * length
+    return origin + np.concatenate([[0.0], np.cumsum(w)])
+
+
+def periodic_y(solver, bcm_mod):
+    """`solver` with Periodic y sides for U, p and T (either package)."""
+
+    def per(b):
+        return bcm_mod.FieldBCs((b.bcs[0],
+                                 (bcm_mod.Periodic(), bcm_mod.Periodic())))
+
+    return dataclasses.replace(solver, bc_U=per(solver.bc_U),
+                               bc_p=per(solver.bc_p), bc_T=per(solver.bc_T))
+
+
+def graded_jet(dtype, device):
+    """The graded jet of tests/test_spmd.py::test_qgd_graded_jet_parity_2x2
+    on the port (48x32 cells)."""
+    nx, ny = 48, 32
+    mesh = Mesh(x_faces=(graded_faces(nx, 4.0, 3.0),
+                         graded_faces(ny, 2.0, 0.4)),
+                dtype=dtype, device=device)
+    th = PerfectGasThermo(R=287.0, Cp=1004.5)
+    u_jet = 2.0 * float(th.c(torch.tensor(300.0, dtype=torch.float64)))
+    delta = 3.0 * float(mesh.dx[1][0])
+
+    def inlet_u(t, coords):
+        yy = coords[1]
+        ux = u_jet * 0.5 * (torch.tanh((0.3 - torch.abs(yy - 1.0)) / delta)
+                            + 1.0) * torch.ones_like(yy)
+        return torch.stack(torch.broadcast_tensors(ux, torch.zeros_like(ux)))
+
+    solver = QGDFoam(
+        mesh=mesh, thermo=th, tau_model=ConstScPrModel1(alpha=0.5, Sc=1.0),
+        bc_U=bcm.FieldBCs(((bcm.FixedValue(inlet_u), bcm.ZeroGradient()),
+                           (bcm.ZeroGradient(), bcm.ZeroGradient()))),
+        bc_p=bcm.FieldBCs(((bcm.ZeroGradient(), bcm.FixedValue(1e5)),
+                           (bcm.FixedValue(1e5), bcm.FixedValue(1e5)))),
+        bc_T=bcm.FieldBCs(((bcm.FixedValue(300.0), bcm.ZeroGradient()),
+                           (bcm.ZeroGradient(), bcm.ZeroGradient()))),
+        time=TimeControls(max_co=0.3, max_dt=1e-4, dt0=1e-7))
+    return solver
+
+
+def port_case(name, shape, dtype, device="cpu"):
+    """The port's solver for a test case name."""
+    if name == "graded_jet":
+        return graded_jet(dtype, device)
+    base = {"periodic_jet": "supersonic_jet",
+            "inlet_outlet_jet": "supersonic_jet"}.get(name, name)
+    solver, _ = getattr(cases, base)(shape=shape, dtype=dtype, device=device)
+    if name == "periodic_jet":
+        solver = periodic_y(solver, bcm)
+    elif name == "inlet_outlet_jet":
+        solver = dataclasses.replace(
+            solver,
+            bc_U=solver.bc_U.replace(1, 1, bcm.InletOutlet(np.zeros(2))),
+            bc_T=solver.bc_T.replace(0, 1, bcm.InletOutlet(300.0)))
+    return solver
+
+
+def builder(kind):
+    return {"spmd": sharding.build_spmd_step,
+            "k3": F.build_sharded_fused_step,
+            "k5": F3.build_sharded_fused_step_3d}[kind]
+
+
+def fail(msg):
+    """A rank body that raises: a failing rank must fail `spawn`."""
+    raise RuntimeError(msg)
+
+
+def run_jobs(jobs, device="cpu"):
+    """Run each job on this rank; [(global State with numpy leaves,
+    {wrapper: launches}), ...]."""
+    dev = distributed.rank_device(device)
+    kernels = F.SHARDED_KERNELS + F3.SHARDED_KERNELS
+    out = []
+    for kind, name, shape, dtype, (px, py), steps, state_np in jobs:
+        dtype = DTYPES[dtype]
+        if kind == "scaling":
+            out.append((distributed.measure_scaling(
+                lambda shp: getattr(cases, name)(shape=shp, dtype=dtype,
+                                                 device=dev),
+                sharding.ProcessGrid(px, py), n_steps=steps, repeats=1,
+                base=shape), {}))
+            continue
+        solver = port_case(name, shape, dtype, dev)
+        step, to_blocks, from_blocks = builder(kind)(
+            solver, sharding.ProcessGrid(px, py))
+        s = to_blocks(interop.state_from_numpy(state_np, device=dev,
+                                               dtype=dtype))
+        for k in kernels:
+            k.launches = 0
+        for _ in range(steps):
+            s = step(s)
+        launches = {k.__name__: k.launches for k in kernels if k.launches}
+        out.append((interop.state_to_numpy(from_blocks(s)), launches))
+    return out

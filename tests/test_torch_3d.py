@@ -112,7 +112,7 @@ def test_composable_step_matches_jax_3d(name):
     """10 f64 steps of the composable 3D step against the JAX package's."""
     jsolver, js = getattr(jcases, name)(shape=(16, 10, 10), dtype=np.float64)
     tsolver, _ = getattr(tcases, name)(shape=(16, 10, 10),
-                                       dtype=torch.float64)
+                                       dtype=torch.float64, device="cpu")
     ts = interop.state_from_numpy(jax.tree.map(np.asarray, js),
                                   dtype=torch.float64)
     rho0 = np.asarray(js.rho)
@@ -132,7 +132,7 @@ def test_composable_step_matches_jax_3d(name):
 def test_model1_variants_step_as_model1():
     """ConstScPrModel1n and ConstScPrModel2 compute what model1 does."""
     tsolver, s = tcases.supersonic_duct_3d(shape=(8, 6, 6),
-                                           dtype=torch.float64)
+                                           dtype=torch.float64, device="cpu")
     ref = tsolver.make_step()(s)
     for cls in (tcoeffs.ConstScPrModel1n, tcoeffs.ConstScPrModel2):
         other = dataclasses.replace(tsolver,

@@ -63,7 +63,7 @@ def test_cli_runs_writes_and_resumes(tmp_path):
     assert any("writing fields" in ln for ln in logs)
     assert _time_dirs(case), "no time directory written"
     _edit(case, ("startFrom       startTime;", "startFrom       latestTime;"))
-    _, state = foam_case.build_case(str(case))
+    _, state = foam_case.build_case(str(case), device="cpu")
     assert float(state.t) > 0.0
     assert bool(torch.isfinite(state.rho).all())
 
@@ -118,7 +118,7 @@ def test_cli_matches_jax_cli(tmp_path):
         _edit(case, ("startFrom       startTime;",
                      "startFrom       latestTime;"))
     _, a = jfc.build_case(str(jcase))
-    _, b = foam_case.build_case(str(tcase))
+    _, b = foam_case.build_case(str(tcase), device="cpu")
     b = interop.state_to_numpy(b)
     for name in ("rho", "rhoU", "rhoE"):
         x = np.asarray(getattr(a, name), dtype=np.float64)
@@ -161,7 +161,7 @@ def test_cli_fused_path_tracks_composable(tmp_path):
         np.testing.assert_allclose(tdirs, [w, end], rtol=5e-6)
         _edit(case, ("startFrom       startTime;",
                      "startFrom       latestTime;"))
-        states.append(foam_case.build_case(str(case))[1])
+        states.append(foam_case.build_case(str(case), device="cpu")[1])
     a, b = states
     for name in ("rho", "rhoU", "rhoE"):
         x, y = getattr(b, name), getattr(a, name)
@@ -182,11 +182,30 @@ def test_cli_main_and_device_errors(tmp_path, monkeypatch, capsys):
         cli.main([str(case), "--devices", "2x2"])
 
 
+@pytest.mark.parametrize("entry", [
+    "supersonic_jet", "supersonic_jet_varsc", "supersonic_duct_3d",
+    "supersonic_jet_3d_varsc", "build_case"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """The case builders and case ingestion run on the card unless asked
+    for the CPU: without a card their default raises, never falling back."""
+    def build(**kw):
+        if entry == "build_case":
+            return foam_case.build_case(CASE, **kw)
+        shape = (8, 4, 4) if "3d" in entry else (8, 4)
+        return getattr(cases, entry)(shape=shape, **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    _, state = build(device="cpu")
+    assert state.rho.device.type == "cpu"
+
+
 def test_checkpoint_crosses_packages(tmp_path):
     """A checkpoint written by either package restores into the other."""
     js, jst = jfc.build_case(CASE)
     jst = jax.jit(js.make_step())(jst)
-    ts, tst = foam_case.build_case(CASE)
+    ts, tst = foam_case.build_case(CASE, device="cpu")
     tst = ts.make_step()(tst)
     jcheckpoint.save(jst, str(tmp_path / "jax"), 7)
     got, step = checkpoint.restore_latest(tst, str(tmp_path / "jax"))
@@ -211,7 +230,7 @@ def test_checkpoint_crosses_packages(tmp_path):
 def test_run_steps_dumps_nonphysical_state(tmp_path):
     """The checked runner writes the bad state before it raises, and the
     dump restores to the planted state."""
-    solver, state = cases.supersonic_jet(shape=(16, 8))
+    solver, state = cases.supersonic_jet(shape=(16, 8), device="cpu")
     rho = state.rho.clone()
     rho[3, 4] = -1.0
     planted = state._replace(rho=rho)
@@ -230,7 +249,7 @@ def test_run_steps_dumps_nonphysical_state(tmp_path):
 
 
 def test_observability(tmp_path):
-    solver, state = cases.supersonic_jet(shape=(16, 8))
+    solver, state = cases.supersonic_jet(shape=(16, 8), device="cpu")
     lines = []
     log = observability.StepLogger(solver.mesh.shape, every=1,
                                    fields=("rho",), out=lines.append)

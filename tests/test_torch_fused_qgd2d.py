@@ -30,9 +30,10 @@ BOUNDS = {"supersonic_jet": (1e-6, 1e-3), "supersonic_jet_varsc": (1e-5, 2e-3),
           "every_bc_kind": (1e-6, 1e-3)}
 
 
-def _every_bc_kind(pkg_cases, bcm, dtype, xp):
+def _every_bc_kind(pkg_cases, bcm, dtype, xp, **device):
     """The jet with every BC kind the kernels take on some side."""
-    solver, state = pkg_cases.supersonic_jet(shape=SHAPE, dtype=dtype)
+    solver, state = pkg_cases.supersonic_jet(shape=SHAPE, dtype=dtype,
+                                             **device)
     nx = SHAPE[0]
     solver = dataclasses.replace(
         solver,
@@ -53,13 +54,15 @@ def _build(name):
     """(jax solver, jax f32 state, port solver, port state from the JAX one)."""
     if name == "every_bc_kind":
         js, jst = _every_bc_kind(jcases, jbc, np.float32, jnp.asarray)
-        ts, _ = _every_bc_kind(tcases, tbc, torch.float32, np.asarray)
+        ts, _ = _every_bc_kind(tcases, tbc, torch.float32, np.asarray,
+                               device="cpu")
         rng = np.random.default_rng(0)
         kick = (20.0 * rng.standard_normal(jst.rhoU.shape)).astype(np.float32)
         jst = jst._replace(rhoU=jst.rhoU + kick * jst.rho[None])
     else:
         js, jst = getattr(jcases, name)(shape=SHAPE, dtype=np.float32)
-        ts, _ = getattr(tcases, name)(shape=SHAPE, dtype=torch.float32)
+        ts, _ = getattr(tcases, name)(shape=SHAPE, dtype=torch.float32,
+                                      device="cpu")
     st = interop.state_from_numpy(jax.tree.map(np.asarray, jst),
                                   dtype=torch.float32)
     return js, jst, ts, st
@@ -103,12 +106,12 @@ def test_fused_step_matches_jax_fused(name):
 
 def test_supported():
     for name in ("supersonic_jet", "supersonic_jet_varsc"):
-        ts, _ = getattr(tcases, name)(shape=SHAPE)
+        ts, _ = getattr(tcases, name)(shape=SHAPE, device="cpu")
         assert F.supported(ts) and ts.fused_supported()
 
 
 def test_unsupported_configs():
-    ts, _ = tcases.supersonic_jet(shape=SHAPE)
+    ts, _ = tcases.supersonic_jet(shape=SHAPE, device="cpu")
     assert not F.supported(dataclasses.replace(ts, fvsc_scheme="reduced"))
     assert not F.supported(dataclasses.replace(ts, implicit_diffusion=True))
 
@@ -117,7 +120,8 @@ def test_unsupported_configs():
 
     assert not F.supported(dataclasses.replace(ts, tau_model=OtherTau()))
     assert not F.supported(dataclasses.replace(ts, qgdflux_relax=0.5))
-    t64, _ = tcases.supersonic_jet(shape=SHAPE, dtype=torch.float64)
+    t64, _ = tcases.supersonic_jet(shape=SHAPE, dtype=torch.float64,
+                                   device="cpu")
     assert not F.supported(t64)
     # qgdFlux p on a y side
     bc_p = ts.bc_p.replace(1, 1, tbc.QGDFluxP())
@@ -127,7 +131,7 @@ def test_unsupported_configs():
 
 
 def test_time_dependent_bc_rejected():
-    ts, _ = tcases.supersonic_jet(shape=SHAPE)
+    ts, _ = tcases.supersonic_jet(shape=SHAPE, device="cpu")
 
     def oscillating(t, coords):
         yy = coords[1]
@@ -142,7 +146,7 @@ def test_time_dependent_bc_rejected():
 
 def test_roundtrip_state():
     for name in ("supersonic_jet", "supersonic_jet_varsc"):
-        ts, s = getattr(tcases, name)(shape=SHAPE)
+        ts, s = getattr(tcases, name)(shape=SHAPE, device="cpu")
         s = ts.make_step()(s)  # populate sc and pbc
         _, to_f, from_f = ts.make_fused_step()
         s2 = from_f(to_f(s))
@@ -218,7 +222,7 @@ def test_ghosts_reference_matches_jax_ghost_pad(name):
 
 
 def test_wrappers_check_their_inputs():
-    ts, s = tcases.supersonic_jet(shape=SHAPE)
+    ts, s = tcases.supersonic_jet(shape=SHAPE, device="cpu")
     _, to_f, _ = ts.make_fused_step()
     fs = to_f(s)
     prm, _ = F.make_params(ts)

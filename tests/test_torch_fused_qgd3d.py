@@ -34,11 +34,12 @@ CASES = ["supersonic_duct_3d", "supersonic_jet_3d_varsc"]
 C = (slice(1, -1),) * 3
 
 
-def _flagship(pkg_cases, shape, dtype, xp):
+def _flagship(pkg_cases, shape, dtype, xp, **device):
     """The varsc jet with the jet reaching the outlet and a pressure bump
     near it, so the qgdFlux dp/dn signal is far above f32 ulp(p) (mirrors
     tests/test_fused_qgd3d.py::_flagship_case)."""
-    solver, _ = pkg_cases.supersonic_jet_3d_varsc(shape=shape, dtype=dtype)
+    solver, _ = pkg_cases.supersonic_jet_3d_varsc(shape=shape, dtype=dtype,
+                                                  **device)
     mesh = solver.mesh
     xc = np.asarray(mesh.centers[0])[:, None, None]
     yc = np.asarray(mesh.centers[1])[None, :, None]
@@ -63,10 +64,12 @@ def _build(name, shape=SHAPE):
     one)."""
     if name == "flagship":
         js, jst = _flagship(jcases, shape, np.float32, jnp.asarray)
-        ts, _ = _flagship(tcases, shape, torch.float32, torch.as_tensor)
+        ts, _ = _flagship(tcases, shape, torch.float32, torch.as_tensor,
+                          device="cpu")
     else:
         js, jst = getattr(jcases, name)(shape=shape, dtype=np.float32)
-        ts, _ = getattr(tcases, name)(shape=shape, dtype=torch.float32)
+        ts, _ = getattr(tcases, name)(shape=shape, dtype=torch.float32,
+                                      device="cpu")
     st = interop.state_from_numpy(jax.tree.map(np.asarray, jst),
                                   dtype=torch.float32)
     return js, jst, ts, st
@@ -85,7 +88,8 @@ def _rel(a, b):
 def test_case_builders_match_jax(name):
     """Both packages build the same initial State, bit for bit, in f64."""
     _, js = getattr(jcases, name)(shape=SHAPE, dtype=np.float64)
-    _, ts = getattr(tcases, name)(shape=SHAPE, dtype=torch.float64)
+    _, ts = getattr(tcases, name)(shape=SHAPE, dtype=torch.float64,
+                                  device="cpu")
     out = interop.state_to_numpy(ts)
     for f in ("rho", "rhoU", "rhoE", "sc", "t", "dt"):
         np.testing.assert_array_equal(np.asarray(getattr(js, f)),
@@ -96,14 +100,14 @@ class _OtherTransport(tthermo.Transport):
     pass
 
 
-def _variant(kind, pkg, cases_mod, bcm, coeffs, thermo, xp):
+def _variant(kind, pkg, cases_mod, bcm, coeffs, thermo, xp, **device):
     """A 3D config per gate case, built the same way in either package."""
     nx, ny, nz = SHAPE
     if kind in ("duct", "model1n", "model2", "transport", "y_array",
                 "y_qgdflux"):
-        solver, _ = cases_mod.supersonic_duct_3d(shape=SHAPE)
+        solver, _ = cases_mod.supersonic_duct_3d(shape=SHAPE, **device)
     else:
-        solver, _ = cases_mod.supersonic_jet_3d_varsc(shape=SHAPE)
+        solver, _ = cases_mod.supersonic_jet_3d_varsc(shape=SHAPE, **device)
     if kind in ("model1n", "model2"):
         cls = (coeffs.ConstScPrModel1n if kind == "model1n"
                else coeffs.ConstScPrModel2)
@@ -139,7 +143,7 @@ GATE = {"duct": True, "varsc_jet": True, "model1n": True, "model2": True,
 def test_gate_agrees_with_jax(kind):
     js = _variant(kind, "jax", jcases, jbc, jcoeffs, jthermo, jnp.asarray)
     ts = _variant(kind, "torch", tcases, tbc, tcoeffs, tthermo,
-                  torch.as_tensor)
+                  torch.as_tensor, device="cpu")
     assert JF.supported(js) == GATE[kind]
     assert F.supported(ts) == GATE[kind]
     assert ts.fused_supported() == GATE[kind]
@@ -149,7 +153,7 @@ def test_gate_agrees_with_jax(kind):
 
 
 def test_gate_rejects_time_dependent_inlet():
-    ts, _ = tcases.supersonic_duct_3d(shape=SHAPE)
+    ts, _ = tcases.supersonic_duct_3d(shape=SHAPE, device="cpu")
 
     def pulsed(t, coords):
         yy = coords[1]
@@ -168,7 +172,7 @@ def test_gate_rejects_time_dependent_inlet():
 
 @pytest.mark.parametrize("name", CASES)
 def test_roundtrip_state(name):
-    ts, s = getattr(tcases, name)(shape=SHAPE)
+    ts, s = getattr(tcases, name)(shape=SHAPE, device="cpu")
     s = ts.make_step()(s)  # populate sc and pbc
     _, to_f, from_f = ts.make_fused_step()
     fs = to_f(s)
@@ -226,7 +230,7 @@ def test_every_bc_kind_matches_jax_composable():
 
     js, jst = every_bc_kind_3d(jcases, jbc, SHAPE, np.float32, jnp.asarray)
     ts, _ = every_bc_kind_3d(tcases, tbc, SHAPE, torch.float32,
-                             torch.as_tensor)
+                             torch.as_tensor, device="cpu")
     assert JF.supported(js) and F.supported(ts)
     # the inlet velocity (3 planes) and the p gradient on x-low
     assert F.make_params(ts)[1].shape == (4,) + SHAPE[1:]
@@ -390,7 +394,7 @@ def test_sod_tube_vs_exact(varsc):
 
 
 def test_wrappers_check_their_inputs():
-    ts, s = tcases.supersonic_jet_3d_varsc(shape=SHAPE)
+    ts, s = tcases.supersonic_jet_3d_varsc(shape=SHAPE, device="cpu")
     fs = ts.make_fused_step()[1](s)
     prm, planes = F.make_params(ts)
     with pytest.raises(TypeError):
@@ -403,7 +407,7 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         F.qgd3d_ghosts(prm, [fs.p, fs.T, fs.ux, fs.uy, fs.uz],
                        torch.zeros((2, 6, 5)), torch.as_tensor(planes))
-    duct, _ = tcases.supersonic_duct_3d(shape=SHAPE)
+    duct, _ = tcases.supersonic_duct_3d(shape=SHAPE, device="cpu")
     with pytest.raises(ValueError):
         F.qgd3d_sensor(F.make_params(duct)[0], fs.p, fs.T, fs.sc)
     launches = [k.launches for k in F.KERNELS]

@@ -8,7 +8,9 @@ Bounds: dt, ghosts, the emitted rates and the 3D sensor rtol 1e-6 (a
 reduction of exact max/min; selects plus one FMA; rsqrtf-free pointwise
 arithmetic); the 2D emitted sensor bitwise; one update step within 1e-5 of
 each field's max (rsqrtf and FMA contraction); 10 lock-step steps within
-the JAX fused tests' bounds.
+the JAX fused tests' bounds.  The decomposed steps K3 and K5 run on two
+ranks that share cuda:0 over gloo and must equal the serial kernel path
+bit for bit (the same kernels on the same cells; max/min folds are exact).
 """
 import dataclasses
 
@@ -269,3 +271,36 @@ def test_3d_main_path_launches_each_kernel_once_per_step(name, device):
     assert [k.launches for k in F3.KERNELS] == [10, 10, 10 if varsc else 0,
                                                 10]
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
+
+
+@pytest.mark.parametrize("kind,name,shape", [
+    ("k3", "supersonic_jet", (256, 128)),
+    ("k5", "supersonic_duct_3d", (64, 30, 30))])
+def test_sharded_kernels_on_two_ranks_match_serial_kernels(kind, name, shape,
+                                                           device):
+    """K3 / K5 on two ranks sharing cuda:0 (gloo, halos through pinned host
+    memory), 10 steps: bitwise the serial kernel path's, with every flagged
+    kernel launched once per step on each rank."""
+    import _torch_rank_bodies as bodies
+    from qgdsolver_tpu_torch import interop
+    from qgdsolver_tpu_torch.ops import _build
+    from qgdsolver_tpu_torch.parallel import distributed
+
+    _build.load()  # here, once: the ranks only load the library
+    _, state = getattr(cases, name)(shape=shape, device="cpu")
+    job = (kind, name, shape, "float32", (2, 1), 10,
+           interop.state_to_numpy(state))
+    ranks = distributed.spawn(bodies.run_jobs, 2, [job], "cuda",
+                              device="cuda", timeout=300)
+    solver, state = getattr(cases, name)(shape=shape, device=device)
+    build = F.build_fused_step if kind == "k3" else F3.build_fused_step_3d
+    step, to_f, from_f = build(solver)
+    ref = interop.state_to_numpy(from_f(common.run_steps(step, to_f(state),
+                                                         10)))
+    kernels = F.SHARDED_KERNELS if kind == "k3" else F3.SHARDED_KERNELS
+    for got, launches in (r[0] for r in ranks):
+        for f in ("rho", "rhoU", "rhoE", "t", "dt"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(ref, f),
+                                          err_msg=f)
+        assert launches == {k.__name__: 10 for k in kernels
+                            if k.__name__ != "qgd3d_sensor"}

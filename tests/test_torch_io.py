@@ -136,7 +136,7 @@ def test_build_case_matches_jax():
     """Same mesh, BCs and initial State as the JAX build_case, then 10
     composable steps of both."""
     js, jst = jfc.build_case(CASE)
-    ts, tst = foam_case.build_case(CASE)
+    ts, tst = foam_case.build_case(CASE, device="cpu")
     assert isinstance(ts, QGDFoam)
     for a in range(2):
         np.testing.assert_array_equal(ts.mesh.x_faces[a], js.mesh.x_faces[a])
@@ -174,7 +174,7 @@ def test_ingested_jet_rides_fused_step():
     """Mirror of test_fused_qgd2d.py::test_fused_matches_composable_ingested
     _case: the ingested jet (per-term fvsc dict, slip + inletOutlet +
     qgdFlux) runs on the fused step and tracks the composable step."""
-    solver, state = foam_case.build_case(CASE)
+    solver, state = foam_case.build_case(CASE, device="cpu")
     assert fused_qgd2d.supported(solver) and solver.fused_supported()
     step_ref = solver.make_step()
     fstep, to_fused, from_fused = solver.make_fused_step()
@@ -201,7 +201,7 @@ def test_build_case_resume_latest_time(tmp_path):
         "outlet { type zeroGradient; } bottom { type zeroGradient; } "
         "top { type zeroGradient; } frontAndBack { type empty; } }\n")
     _latest(case)
-    solver, state = foam_case.build_case(str(case))
+    solver, state = foam_case.build_case(str(case), device="cpu")
     U, e, T, p = solver.primitives(state)
     np.testing.assert_allclose(T.numpy(), 450.0, rtol=1e-6)
     np.testing.assert_allclose(p.numpy(), 101325.0, rtol=1e-6)
@@ -270,12 +270,12 @@ def test_dead_cell_and_wedge_meshes_raise():
 
 def test_write_time_dir_roundtrip(tmp_path):
     case = _copy(tmp_path)
-    solver, state = foam_case.build_case(str(case))
+    solver, state = foam_case.build_case(str(case), device="cpu")
     s = common.run_steps(solver.make_step(), state, 5)
     tdir = foam_write.write_state(str(case), solver, s)
     assert os.path.basename(tdir) == "%.6g" % float(s.t)
     _latest(case)
-    _, s2 = foam_case.build_case(str(case))
+    _, s2 = foam_case.build_case(str(case), device="cpu")
     # the time directory's name holds t to six digits
     np.testing.assert_allclose(float(s2.t), float(s.t), rtol=1e-6)
     np.testing.assert_allclose(s2.rho.numpy(), s.rho.numpy(), rtol=1e-6)
@@ -288,12 +288,12 @@ def test_write_time_dir_roundtrip(tmp_path):
 def test_write_time_dir_roundtrip_3d(tmp_path):
     case = _copy(tmp_path, "box3d")
     (case / "system" / "blockMeshDict").write_text(BOX3D % (8, 4, 4))
-    solver, state = foam_case.build_case(str(case))
+    solver, state = foam_case.build_case(str(case), device="cpu")
     assert solver.mesh.ndim == 3 and state.rhoU.shape == (3, 8, 4, 4)
     s = common.run_steps(solver.make_step(), state, 4)
     foam_write.write_state(str(case), solver, s)
     _latest(case)
-    _, s2 = foam_case.build_case(str(case))
+    _, s2 = foam_case.build_case(str(case), device="cpu")
     np.testing.assert_allclose(s2.rho.numpy(), s.rho.numpy(), rtol=1e-6)
     np.testing.assert_allclose(s2.rhoU.numpy(), s.rhoU.numpy(), rtol=1e-6,
                                atol=1e-4)
@@ -304,7 +304,7 @@ def test_nonuniform_lists_read_as_the_parser_reads_them(tmp_path):
     """The numpy reader of `nonuniform List<...>` gives the values the
     dictionary parser gives (scalar and vector files)."""
     case = _copy(tmp_path)
-    solver, state = foam_case.build_case(str(case))
+    solver, state = foam_case.build_case(str(case), device="cpu")
     s = common.run_steps(solver.make_step(), state, 3)
     tdir = foam_write.write_state(str(case), solver, s)
     mesh, patch_map, kept = load_block_mesh(str(case))
@@ -334,9 +334,10 @@ def test_split_sides(tmp_path):
         "    inlet2       { type fixedValue; value uniform (0 0 0); }")
     (case / "0" / "U").write_text(u)
     with pytest.raises(ValueError, match="several patches"):
-        foam_case.build_case(str(case))
+        foam_case.build_case(str(case), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        foam_case.build_case(os.path.join(FIX, "jet_coflow_case"))
+        foam_case.build_case(os.path.join(FIX, "jet_coflow_case"),
+                             device="cpu")
 
 
 def test_build_case_3d_flagship_rides_fused_kernel(tmp_path):
@@ -367,7 +368,7 @@ def test_build_case_3d_flagship_rides_fused_kernel(tmp_path):
           {"inlet": "type fixedValue; value uniform (500 0 0);"})
     field("volScalarField", "T", "300",
           {"inlet": "type fixedValue; value uniform 300;"})
-    solver, state = foam_case.build_case(str(case))
+    solver, state = foam_case.build_case(str(case), device="cpu")
     assert solver.mesh.ndim == 3
     assert isinstance(solver.tau_model, VarScModel5)
     assert solver._flux_sides() == ((0, 1),)
@@ -398,7 +399,7 @@ def test_unported_words_raise(tmp_path):
         "application     QGDFoam;", "application     QHDFoam;")
     (case / "system" / "controlDict").write_text(ctrl)
     with pytest.raises(NotImplementedError, match="item 8"):
-        foam_case.build_case(str(case))
+        foam_case.build_case(str(case), device="cpu")
 
 
 # ---------------------------------------------------------------------------

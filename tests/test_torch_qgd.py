@@ -28,7 +28,8 @@ def _rel(a, b):
 @pytest.mark.parametrize("name", CASES)
 def test_composable_step_matches_jax(name):
     jsolver, js = getattr(jcases, name)(shape=(32, 16), dtype=np.float64)
-    tsolver, _ = getattr(tcases, name)(shape=(32, 16), dtype=torch.float64)
+    tsolver, _ = getattr(tcases, name)(shape=(32, 16), dtype=torch.float64,
+                                       device="cpu")
     ts = interop.state_from_numpy(jax.tree.map(np.asarray, js),
                                   dtype=torch.float64)
     rho0 = np.asarray(js.rho)
@@ -49,7 +50,8 @@ def test_case_builders_match_jax():
     """Both packages build the same initial state from the same arguments."""
     for name in CASES:
         _, js = getattr(jcases, name)(shape=(32, 16), dtype=np.float64)
-        _, ts = getattr(tcases, name)(shape=(32, 16), dtype=torch.float64)
+        _, ts = getattr(tcases, name)(shape=(32, 16), dtype=torch.float64,
+                                      device="cpu")
         out = interop.state_to_numpy(ts)
         for f in ("rho", "rhoU", "rhoE", "sc", "t", "dt"):
             assert _rel(getattr(js, f), getattr(out, f)) < 1e-12, (name, f)
@@ -71,7 +73,7 @@ def test_varsc_sensor_and_smooth_match_jax():
     jsolver, _ = jcases.supersonic_jet_varsc(shape=(32, 16),
                                              dtype=np.float64)
     tsolver, _ = tcases.supersonic_jet_varsc(shape=(32, 16),
-                                             dtype=torch.float64)
+                                             dtype=torch.float64, device="cpu")
     rho = 1.0 + 0.05 * rng.standard_normal((32, 16))
     rho[10:12, 5:7] *= 3.0
     sc_prev = rng.uniform(0.05, 0.5, (32, 16))
@@ -90,7 +92,8 @@ def test_varsc_sensor_and_smooth_match_jax():
 
 
 def test_run_steps_checks_state(tmp_path):
-    tsolver, ts = tcases.supersonic_jet(shape=(16, 8), dtype=torch.float64)
+    tsolver, ts = tcases.supersonic_jet(shape=(16, 8), dtype=torch.float64,
+                                        device="cpu")
     bad = ts._replace(rho=-ts.rho)
     with pytest.raises(common.NonphysicalStateError):
         common.run_steps(lambda s: s, bad, 2, check_every=1,
@@ -104,7 +107,8 @@ def test_run_steps_checks_state(tmp_path):
 def test_unported_branches_raise():
     import dataclasses
 
-    tsolver, _ = tcases.supersonic_jet(shape=(16, 8), dtype=torch.float64)
+    tsolver, _ = tcases.supersonic_jet(shape=(16, 8), dtype=torch.float64,
+                                       device="cpu")
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tsolver, implicit_diffusion=True).make_step()
     with pytest.raises(NotImplementedError):

@@ -46,7 +46,7 @@ def _perturbed(case, width, centre_row):
     """Both packages' solvers and the JAX state, with rho and rhoE scaled
     by 1 + `width`-wide x-band of amplitude (bump 0.35, spike 2.5)."""
     js, jst = getattr(jcases, NAMES[case])(shape=SHAPE, dtype=np.float32)
-    ts, _ = getattr(tcases, NAMES[case])(shape=SHAPE)
+    ts, _ = getattr(tcases, NAMES[case])(shape=SHAPE, device="cpu")
     if width is not None:
         amp, cells = width
         x = np.asarray(js.mesh.centers[0])
@@ -211,8 +211,8 @@ def test_fvc_smooth_continue_is_bitwise_fvc_smooth(field):
 def test_routing_and_gate():
     """make_fused_step: 2D varScModel5 with a scalar cqSc takes K2's
     builder, every other 2D config K1's, 3D meshes the 3D builder."""
-    plain, _ = tcases.supersonic_jet(shape=SHAPE)
-    varsc, _ = tcases.supersonic_jet_varsc(shape=SHAPE)
+    plain, _ = tcases.supersonic_jet(shape=SHAPE, device="cpu")
+    varsc, _ = tcases.supersonic_jet_varsc(shape=SHAPE, device="cpu")
     assert plain.fused_builder() is F.build_fused_step
     assert varsc.fused_builder() is F.build_tiled_fused_step
     cq = dataclasses.replace(varsc.tau_model,
@@ -222,7 +222,7 @@ def test_routing_and_gate():
     assert per_cell.fused_builder() is F.build_fused_step
     with pytest.raises(ValueError):
         F.build_tiled_fused_step(per_cell)
-    duct, _ = tcases.supersonic_duct_3d(shape=(8, 6, 6))
+    duct, _ = tcases.supersonic_duct_3d(shape=(8, 6, 6), device="cpu")
     assert duct.fused_builder() is F3.build_fused_step_3d
     step, to_f, from_f = varsc.make_fused_step()
     assert isinstance(to_f(varsc.init(
@@ -233,7 +233,7 @@ def test_routing_and_gate():
 def test_tiled_step_on_cpu_is_no_launch():
     """On CPU tensors every wrapper takes its plain version: a tiled run
     adds no launch to any kernel count."""
-    ts, st = tcases.supersonic_jet_varsc(shape=SHAPE)
+    ts, st = tcases.supersonic_jet_varsc(shape=SHAPE, device="cpu")
     step, to_f, from_f = F.build_tiled_fused_step(ts)
     before = [k.launches for k in F.KERNELS]
     s = from_f(common.run_steps(step, to_f(st), 3))
