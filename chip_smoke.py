@@ -417,6 +417,11 @@ def phase_kernels3(warm, stats):
 
     C = (slice(1, -1),) * 3
     jobs = {}
+    shape = F3.update_launch_shape(warm[CASES3[0]][1].p.device)
+    launch = (f"qgd3d_update tile {shape['tile'][0]}x{shape['tile'][1]} "
+              f"(y x z), chunk {shape['chunk']} x-planes, dynamic shared "
+              f"memory {shape['smem_bytes']} B/block, "
+              f"{shape['blocks_per_sm']} blocks/SM")
     for name in CASES3:
         solver, fs = warm[name]
         prm, planes = F3.make_params(solver)
@@ -486,7 +491,7 @@ def phase_kernels3(warm, stats):
                 lambda: F3.qgd3d_ghosts(prm, fb, side_ref, planes),
                 lambda: F3.ghosts_reference_3d(prm, fa, side_ref, planes))
         print(f"phase 7 3D kernels vs plain, {name} {SHAPE3}: ok "
-              + ", ".join(msgs), flush=True)
+              + ", ".join(msgs) + f" | {launch}", flush=True)
     return [(k,) + jobs[k] for k in ("qgd3d_dt", "qgd3d_update",
                                      "qgd3d_sensor", "qgd3d_ghosts")]
 

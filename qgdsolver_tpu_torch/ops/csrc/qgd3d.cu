@@ -9,9 +9,9 @@
 //
 //   qgd3d_dt      two-pass reduction: per-block max wave speed per axis and
 //                 min face tau, then one block applies setDeltaT;
-//   qgd3d_update  one thread per interior cell rebuilds its six face fluxes
-//                 (jm, Pi, q with the `full` tangential differences) and
-//                 writes fresh p, T, ux, uy, uz into NEW frames, plus
+//   qgd3d_update  the face fluxes (jm, Pi, q with the `full` tangential
+//                 differences), each face once, and the explicit update of
+//                 every interior cell into NEW frames p, T, ux, uy, uz, plus
 //                 ws/tau_f on the two x-boundary faces (the qgdFlux ghost);
 //   qgd3d_sensor  varScModel5 only: the raw sensor over the fresh frames.  A
 //                 launch of its own, because it reads fresh rho at cells that
@@ -32,14 +32,38 @@
 // its quad (max wave x, y, z, -min tau), then qgd3d_dt_apply.
 //
 // Frames are contiguous (nx+2, ny+2, nz+2) float32 with z the fast axis, so a
-// warp reads 32 neighbouring z cells of one (x, y) line.  What bounds the
-// step is memory and registers: at least 5 frames in and 5 out (+ the sensor
-// frame for varScModel5), ~40-44 B per cell, and a face body three times
-// the 2D one.  This first version reads each face's ten cells straight from
-// global memory (L1/L2 absorb the re-reads) and computes every face twice,
-// once for each cell beside it; shared-memory plane tiles, a column march
-// along x and single evaluation of faces come in a later change.
+// warp reads 32 neighbouring z cells of one (x, y) line.
+//
+// qgd3d_update replaces the stencil body of the TPU kernel
+// (fused_qgd3d.py:400-521), which computes the thermo and coefficient fields
+// once per cell over a window resident in VMEM and builds each axis's faces
+// once.  On this card the update moves at least 5 frames in and 5 out (+ the
+// sensor frame for varScModel5), ~40-44 B per cell, but each cell also needs
+// ~3 faces of ~250 float operations over ten cells each: what bounds it is
+// issuing those operations and their operand loads, and keeping enough warps
+// resident to hide the waits.  Its design:
+//   - a block owns a TY x TZ tile of (y, z) cells and marches along x over a
+//     chunk of CX planes (many chunks per column, so the card gets several
+//     waves of blocks);
+//   - a ring of NSLOT plane slots in shared memory holds planes x-1, x, x+1,
+//     each with its y and z halo, and the plane in flight, which cp.async
+//     brings in while plane x is computed (4-byte copies: any nz);
+//   - when a plane lands, each staged cell's rho and coefficients are
+//     computed once, with the zero-gradient coefficient ghosts;
+//   - each face is computed once: a thread keeps the x-face x+1/2 of its cell
+//     in registers as the next plane's low face, and the tile's y- and
+//     z-faces of plane x go to shared memory;
+//   - the march starts one plane before the chunk, and that pass computes
+//     only the first x-face, so every face comes from one code site and its
+//     bits do not depend on where a chunk or a slab starts: K5's update on a
+//     slab is the serial update's window bit for bit.
+// TY = 8, TZ = 32, CX = 16: 256 threads and 65,440 bytes of dynamic shared
+// memory per block, and registers capped so that three blocks (24 warps) fit
+// on an SM.  Each face is a long chain of shared loads and float
+// operations; the time follows that chain's latency more than the tile, the
+// chunk or the blocks per SM.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -52,6 +76,22 @@ constexpr int BX = 32;   // threads along z
 constexpr int BY = 8;    // threads along y
 constexpr int RED = 256; // threads of the final dt reduction
 constexpr int GT = 128;  // threads of a ghost launch
+
+// qgd3d_update's tile, chunk and plane ring
+constexpr int TZ = 32;               // tile cells along z: one warp per row
+constexpr int TY = 8;                // tile rows along y
+constexpr int CX = 16;               // planes one block marches along x
+constexpr int NT = TZ * TY;          // threads of an update block
+constexpr int WZ = TZ + 2;           // a staged row: its lanes and two halo
+constexpr int TILE = (TY + 2) * WZ;  // staged cells of one plane
+constexpr int NSLOT = 4;             // planes x-1, x, x+1 and the one in flight
+// the fields of a ring slot: the frames' values, then what derive computes
+enum { S_P, S_T, S_UX, S_UY, S_UZ, S_SC, S_RHO, S_MU, S_AU, S_TC, S_NF };
+constexpr int SLOT = S_NF * TILE;
+constexpr int YF = (TY + 1) * TZ;    // the y-faces of one plane's tile
+constexpr int ZF = TY * (TZ + 1);    // its z-faces
+constexpr int UPDATE_SMEM =
+    static_cast<int>(sizeof(float)) * (NSLOT * SLOT + 5 * (YF + ZF));
 
 }  // namespace
 
@@ -100,15 +140,27 @@ struct Flux {
 
 __device__ __forceinline__ float xi(float a, float b) { return 0.5f * (a + b); }
 
-__device__ __forceinline__ Cell load_cell(const QGD3DParams& P,
-                                          const Frames& F, long i) {
+// Frame f of p, T, ux, uy, uz.
+__device__ __forceinline__ const float* frame_of(const Frames& F, int f) {
+  return f == 0 ? F.p : (f == 1 ? F.T : F.u[f - 2]);
+}
+
+// The step between neighbouring staged cells along an axis of a ring slot:
+// 0 along x, whose neighbours lie in the next or previous slot.
+__host__ __device__ constexpr int tile_step(int ax) {
+  return ax == 1 ? WZ : (ax == 2 ? 1 : 0);
+}
+
+// Staged cell i of ring slot S: the frame values and the derived rho.
+__device__ __forceinline__ Cell tile_cell(const QGD3DParams& P,
+                                          const float* S, int i) {
   Cell c;
-  c.p = F.p[i];
-  c.T = F.T[i];
-  c.rho = c.p / (P.R * c.T);
+  c.p = S[S_P * TILE + i];
+  c.T = S[S_T * TILE + i];
+  c.rho = S[S_RHO * TILE + i];
   c.e = P.Cv * c.T;
 #pragma unroll
-  for (int j = 0; j < 3; ++j) c.u[j] = F.u[j][i];
+  for (int j = 0; j < 3; ++j) c.u[j] = S[(S_UX + j) * TILE + i];
   return c;
 }
 
@@ -130,17 +182,22 @@ __device__ __forceinline__ Coef cell_coef(const QGD3DParams& P, float p,
   return k;
 }
 
-// The face between cell A (index ia) and B = A + e_AX, whose coefficients
-// are kA, kB.  st[] are the index strides of the three axes.  Mirrors the
-// per-axis body of the reference kernel (fused_qgd3d.py:446-521).
+// The face between staged cell A (index ia of ring slot S0) and B = A +
+// e_AX: B lies in Sp, the next plane's slot, for AX = 0 and in S0
+// otherwise.  Sm and Sp are the slots of the planes before and after S0,
+// which the x-differences of y- and z-faces read.  The rho, coefficient and
+// frame values all come from the ring.  Mirrors the per-axis body of the
+// reference kernel (fused_qgd3d.py:446-521).
 template <int AX>
-__device__ Flux face_flux(const QGD3DParams& P, const Frames& F, long ia,
-                          const long st[3], const Coef& kA, const Coef& kB) {
+__device__ __forceinline__ Flux face_flux(const QGD3DParams& P,
+                                          const float* Sm, const float* S0,
+                                          const float* Sp, int ia) {
   constexpr int B1 = AX == 0 ? 1 : 0;
   constexpr int B2 = AX == 2 ? 1 : 2;
-  const long ib = ia + st[AX];
-  const Cell A = load_cell(P, F, ia);
-  const Cell B = load_cell(P, F, ib);
+  const float* SB = AX == 0 ? Sp : S0;
+  const int ib = ia + tile_step(AX);
+  const Cell A = tile_cell(P, S0, ia);
+  const Cell B = tile_cell(P, SB, ib);
 
   const float pf = xi(A.p, B.p);
   const float rf = xi(A.rho, B.rho);
@@ -156,10 +213,12 @@ __device__ Flux face_flux(const QGD3DParams& P, const Frames& F, long ia,
   const float keA = A.u[0] * A.u[0] + A.u[1] * A.u[1] + A.u[2] * A.u[2];
   const float keB = B.u[0] * B.u[0] + B.u[1] * B.u[1] + B.u[2] * B.u[2];
   const float Hf = xi(P.CvR * A.T + 0.5f * keA, P.CvR * B.T + 0.5f * keB);
-  const float muf = xi(kA.mu, kB.mu);
-  const float af = P.mu_const0 ? muf * P.inv_Pr_tau : xi(kA.au, kB.au);
-  const float tauf = P.varsc ? (P.alpha / xi(kA.tc, kB.tc)) * P.d[AX]
-                             : xi(kA.tc, kB.tc) * P.d[AX];
+  const float muf = xi(S0[S_MU * TILE + ia], SB[S_MU * TILE + ib]);
+  const float af = P.mu_const0
+                       ? muf * P.inv_Pr_tau
+                       : xi(S0[S_AU * TILE + ia], SB[S_AU * TILE + ib]);
+  const float tcf = xi(S0[S_TC * TILE + ia], SB[S_TC * TILE + ib]);
+  const float tauf = P.varsc ? (P.alpha / tcf) * P.d[AX] : tcf * P.d[AX];
 
   // gradients at the face: gU[i][j] = dU_j/dx_i
   float gU[3][3], gR[3], gP[3], ge[3];
@@ -170,13 +229,15 @@ __device__ Flux face_flux(const QGD3DParams& P, const Frames& F, long ia,
   gP[AX] = (B.p - A.p) * ia_d;
   ge[AX] = (B.e - A.e) * ia_d;
   // tangential: central difference of the face values along each other axis
+  // (along x the neighbours lie in the slots Sp and Sm)
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
     const int b = n == 0 ? B1 : B2;
-    const Cell Ap = load_cell(P, F, ia + st[b]);
-    const Cell Bp = load_cell(P, F, ib + st[b]);
-    const Cell Am = load_cell(P, F, ia - st[b]);
-    const Cell Bm = load_cell(P, F, ib - st[b]);
+    const int o = tile_step(b);
+    const Cell Ap = tile_cell(P, b == 0 ? Sp : S0, ia + o);
+    const Cell Bp = tile_cell(P, b == 0 ? Sp : SB, ib + o);
+    const Cell Am = tile_cell(P, b == 0 ? Sm : S0, ia - o);
+    const Cell Bm = tile_cell(P, b == 0 ? Sm : SB, ib - o);
     const float h = P.inv_2d[b];
 #pragma unroll
     for (int j = 0; j < 3; ++j)
@@ -371,84 +432,169 @@ qgd3d_dt_final_kernel(QGD3DParams P, const float* __restrict__ partials,
   }
 }
 
-// One thread per interior cell (r, s, t): blockIdx.z + 1 = r, y and z from
-// the block's (BY, BX) tile.
-__global__ void __launch_bounds__(BX * BY)
+__device__ __forceinline__ void store_face(float* buf, int n, int w,
+                                           const Flux& fl) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) buf[k * n + w] = fl.f[k];
+}
+
+// The x-march (see the note at the top).  Block (bx, by, bz) owns the cells
+// t0 = 1 + TZ*bx .. +TZ-1, s0 = 1 + TY*by .. +TY-1 of the planes r0 = 1 +
+// CX*bz .. re; thread (tz, ty) owns the cell (s0 + ty, t0 + tz) of each.
+// Staged cell i of a slot is the frame cell (s0 - 1 + i / WZ, t0 - 1 + i %
+// WZ) of its plane; staged rows and lanes beyond the frame repeat its last
+// one, so every staged value is finite, and no live cell reads them.
+__global__ void __launch_bounds__(NT, 3)
 qgd3d_update_kernel(QGD3DParams P, Frames F, const float* __restrict__ sc,
                     const float* __restrict__ dt, float* __restrict__ pn,
                     float* __restrict__ Tn, float* __restrict__ uxn,
                     float* __restrict__ uyn, float* __restrict__ uzn,
                     float* __restrict__ side) {
-  const int t = 1 + blockIdx.x * BX + threadIdx.x;
-  const int s = 1 + blockIdx.y * BY + threadIdx.y;
-  const int r = 1 + blockIdx.z;
+  extern __shared__ float smem[];   // the ring, then the y- and z-faces
+  float* const yfl = smem + NSLOT * SLOT;  // [5][TY + 1][TZ]
+  float* const zfl = yfl + 5 * YF;         // [5][TY][TZ + 1]
+  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
   const int nx = P.nx, ny = P.ny, nz = P.nz;
-  if (s > ny || t > nz) return;
-  const long st[3] = {(long)(ny + 2) * (nz + 2), nz + 2, 1};
-  const long i0 = r * st[0] + s * st[1] + t;
-  const int pos[3] = {r, s, t};
-  const int n[3] = {nx, ny, nz};
+  const long sy = nz + 2, sx = (long)(ny + 2) * sy;
+  const int s0 = 1 + blockIdx.y * TY, t0 = 1 + blockIdx.x * TZ;
+  const int r0 = 1 + blockIdx.z * CX;
+  const int re = r0 + CX - 1 < nx ? r0 + CX - 1 : nx;
 
-  // coefficient fields take zero-gradient ghosts at physical boundaries: a
-  // neighbour outside the interior is the centre cell itself; across a
-  // partition plane it is the halo cell
-  const int open_lo[3] = {!P.edge_lo, 0, 0};
-  const int open_hi[3] = {!P.edge_hi, 0, 0};
-  const float p0 = F.p[i0];
-  const Coef k0 = cell_coef(P, p0, F.T[i0], P.varsc ? sc[i0] : 0.0f);
-  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float ws_lo = 0.0f, ws_hi = 0.0f, tau_lo = 1.0f, tau_hi = 1.0f;
+  auto slot = [&](int q) { return smem + (q & (NSLOT - 1)) * SLOT; };
+  auto staged = [&](int i, int& s, int& t) {
+    s = s0 - 1 + i / WZ;
+    t = t0 - 1 + i % WZ;
+    if (s > ny + 1) s = ny + 1;
+    if (t > nz + 1) t = nz + 1;
+  };
+  // plane q's frame values into its slot, by cp.async; this thread copies
+  // the staged cells tid, tid + NT, ...
+  auto stage = [&](int q) {
+    float* S = slot(q);
+    for (int i = tid; i < TILE; i += NT) {
+      int s, t;
+      staged(i, s, t);
+      const long g = q * sx + s * sy + t;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const long im = i0 - st[a], ip = i0 + st[a];
-    const Coef km = pos[a] > 1 || open_lo[a]
-        ? cell_coef(P, F.p[im], F.T[im], P.varsc ? sc[im] : 0.0f) : k0;
-    const Coef kp = pos[a] < n[a] || open_hi[a]
-        ? cell_coef(P, F.p[ip], F.T[ip], P.varsc ? sc[ip] : 0.0f) : k0;
-    Flux lo, hi;
-    if (a == 0) {
-      lo = face_flux<0>(P, F, im, st, km, k0);
-      hi = face_flux<0>(P, F, i0, st, k0, kp);
-      ws_lo = lo.ws; tau_lo = lo.tau; ws_hi = hi.ws; tau_hi = hi.tau;
-    } else if (a == 1) {
-      lo = face_flux<1>(P, F, im, st, km, k0);
-      hi = face_flux<1>(P, F, i0, st, k0, kp);
-    } else {
-      lo = face_flux<2>(P, F, im, st, km, k0);
-      hi = face_flux<2>(P, F, i0, st, k0, kp);
+      for (int f = 0; f < 5; ++f)
+        __pipeline_memcpy_async(S + f * TILE + i, frame_of(F, f) + g,
+                                sizeof(float));
+      if (P.varsc)
+        __pipeline_memcpy_async(S + S_SC * TILE + i, sc + g, sizeof(float));
     }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      const float dfl = hi.f[k] - lo.f[k];
-      acc[k] = a == 0 ? dfl : acc[k] + dfl;
+  };
+  // rho and the coefficient fields of plane q's staged cells: the cells this
+  // thread staged, so its own wait for the copies suffices.  The
+  // coefficients take zero-gradient ghosts at physical boundaries: a y-ghost
+  // row, a z-ghost lane and an x-ghost plane take the value of the interior
+  // cell beside them (read from the frame); a halo plane across a partition
+  // keeps its own.
+  auto derive = [&](int q) {
+    float* S = slot(q);
+    const int rc =
+        q == 0 && P.edge_lo ? 1 : (q == nx + 1 && P.edge_hi ? nx : q);
+    for (int i = tid; i < TILE; i += NT) {
+      int s, t;
+      staged(i, s, t);
+      const float p = S[S_P * TILE + i], T = S[S_T * TILE + i];
+      S[S_RHO * TILE + i] = p / (P.R * T);
+      const int cs = clampi(s, 1, ny), ct = clampi(t, 1, nz);
+      float cp = p, cT = T, csc = P.varsc ? S[S_SC * TILE + i] : 0.0f;
+      if (rc != q || cs != s || ct != t) {
+        const long g = rc * sx + cs * sy + ct;
+        cp = F.p[g];
+        cT = F.T[g];
+        csc = P.varsc ? sc[g] : 0.0f;
+      }
+      const Coef k = cell_coef(P, cp, cT, csc);
+      S[S_MU * TILE + i] = k.mu;
+      S[S_AU * TILE + i] = k.au;
+      S[S_TC * TILE + i] = k.tc;
     }
-  }
+  };
 
-  const Cell o = load_cell(P, F, i0);
-  const float sdt = dt[0] * P.inv_vol;
-  const float rho = o.rho;
-  const float ke = o.u[0] * o.u[0] + o.u[1] * o.u[1] + o.u[2] * o.u[2];
-  const float rhoE = rho * (o.e + 0.5f * ke);
-  const float rhon = rho - sdt * acc[0];
-  const float inv_rhon = 1.0f / rhon;
-  float un[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    un[j] = (rho * o.u[j] - sdt * acc[1 + j]) * inv_rhon;
-  const float rhoEn = rhoE - sdt * acc[4];
-  const float en =
-      rhoEn * inv_rhon - 0.5f * (un[0] * un[0] + un[1] * un[1] + un[2] * un[2]);
-  const float Tv = en * P.inv_Cv;
-  pn[i0] = rhon * P.R * Tv;
-  Tn[i0] = Tv;
-  uxn[i0] = un[0];
-  uyn[i0] = un[1];
-  uzn[i0] = un[2];
-  // ws/tau_f on the physical x-boundary faces: the qgdFlux p ghost of this
-  // step
+  const int ic = (ty + 1) * WZ + tz + 1;  // this thread's cell in a slot
+  const int s = s0 + ty, t = t0 + tz;
+  const bool live = s <= ny && t <= nz;
   const long j = (long)(s - 1) * nz + (t - 1);
-  if (r == 1 && P.edge_lo) side[j] = ws_lo / tau_lo;
-  if (r == nx && P.edge_hi) side[(long)ny * nz + j] = ws_hi / tau_hi;
+  const float sdt = dt[0] * P.inv_vol;
+  float xlo[5];
+
+  stage(r0 - 1);
+  __pipeline_commit();
+  stage(r0);
+  __pipeline_commit();
+  // pass r computes the x-face r+1/2 and, from r0 on, updates plane r; the
+  // pass r0 - 1 only gives the chunk's first x-face
+#pragma unroll 1
+  for (int r = r0 - 1; r <= re; ++r) {
+    // plane r+2 goes to the slot of plane r-2, which no thread reads since
+    // the last barrier
+    if (r + 2 <= re + 1) stage(r + 2);
+    __pipeline_commit();          // a group per pass, empty at the end
+    __pipeline_wait_prior(1);     // this thread's copies of plane r+1
+#pragma unroll 1
+    for (int q = r == r0 - 1 ? r : r + 1; q <= r + 1; ++q) derive(q);
+    __syncthreads();  // plane r+1 complete; the last pass's faces read
+    const float* Sm = slot(r - 1);
+    const float* S0 = slot(r);
+    const float* Sp = slot(r + 1);
+    const Flux hi = face_flux<0>(P, Sm, S0, Sp, ic);
+    // ws/tau_f on the physical x-boundary faces: the qgdFlux p ghost of this
+    // step
+    if (live && ((r == 0 && P.edge_lo) || (r == nx && P.edge_hi)))
+      side[(r == 0 ? 0 : (long)ny * nz) + j] = hi.ws / hi.tau;
+    if (r >= r0) {
+      // the tile's y-faces (row w / TZ of YF: between staged rows w / TZ and
+      // w / TZ + 1) and z-faces of plane r, each once
+#pragma unroll 1
+      for (int w = tid; w < YF + ZF; w += NT) {
+        if (w < YF) {
+          store_face(yfl, YF, w, face_flux<1>(P, Sm, S0, Sp,
+                                              (w / TZ) * WZ + w % TZ + 1));
+        } else {
+          const int v = w - YF;
+          store_face(zfl, ZF, v,
+                     face_flux<2>(P, Sm, S0, Sp,
+                                  (v / (TZ + 1) + 1) * WZ + v % (TZ + 1)));
+        }
+      }
+    }
+    __syncthreads();  // the faces of plane r
+    if (r >= r0 && live) {
+      float acc[5];
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        const float* yk = yfl + k * YF + ty * TZ + tz;
+        const float* zk = zfl + k * ZF + ty * (TZ + 1) + tz;
+        acc[k] = hi.f[k] - xlo[k];
+        acc[k] = acc[k] + (yk[TZ] - yk[0]);
+        acc[k] = acc[k] + (zk[1] - zk[0]);
+      }
+      const Cell o = tile_cell(P, S0, ic);
+      const float rho = o.rho;
+      const float ke = o.u[0] * o.u[0] + o.u[1] * o.u[1] + o.u[2] * o.u[2];
+      const float rhoE = rho * (o.e + 0.5f * ke);
+      const float rhon = rho - sdt * acc[0];
+      const float inv_rhon = 1.0f / rhon;
+      float un[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        un[k] = (rho * o.u[k] - sdt * acc[1 + k]) * inv_rhon;
+      const float rhoEn = rhoE - sdt * acc[4];
+      const float en = rhoEn * inv_rhon -
+                       0.5f * (un[0] * un[0] + un[1] * un[1] + un[2] * un[2]);
+      const float Tv = en * P.inv_Cv;
+      const long i0 = r * sx + s * sy + t;
+      pn[i0] = rhon * P.R * Tv;
+      Tn[i0] = Tv;
+      uxn[i0] = un[0];
+      uyn[i0] = un[1];
+      uzn[i0] = un[2];
+    }
+#pragma unroll
+    for (int k = 0; k < 5; ++k) xlo[k] = hi.f[k];
+  }
 }
 
 // The raw varScModel5 sensor of the fresh frames at each interior cell: rho
@@ -600,6 +746,20 @@ dim3 cell_grid(const QGD3DParams& P, int extra) {
               P.nx + extra);
 }
 
+// The update's dynamic shared memory is above the 48 KB a launch gets
+// without asking: allow it once on each device.
+cudaError_t allow_update_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  e = cudaFuncSetAttribute(qgd3d_update_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           UPDATE_SMEM);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -662,9 +822,29 @@ int qgd3d_update(const QGD3DParams* prm, const float* p, const float* T,
   F.u[0] = ux;
   F.u[1] = uy;
   F.u[2] = uz;
-  qgd3d_update_kernel<<<cell_grid(*prm, 0), dim3(BX, BY), 0, st>>>(
+  const cudaError_t e = allow_update_smem();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((prm->nz + TZ - 1) / TZ, (prm->ny + TY - 1) / TY,
+                  (prm->nx + CX - 1) / CX);
+  qgd3d_update_kernel<<<grid, dim3(TZ, TY), UPDATE_SMEM, st>>>(
       *prm, F, sc, dt, pn, Tn, uxn, uyn, uzn, side);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The update's launch shape on the current device: out = {TY, TZ, CX,
+// dynamic shared bytes per block, resident blocks per SM}.
+int qgd3d_update_shape(int* out) {
+  cudaError_t e = allow_update_smem();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, qgd3d_update_kernel, NT, UPDATE_SMEM);
+  out[0] = TY;
+  out[1] = TZ;
+  out[2] = CX;
+  out[3] = UPDATE_SMEM;
+  out[4] = blocks;
+  return static_cast<int>(e);
 }
 
 int qgd3d_sensor(const QGD3DParams* prm, const float* p, const float* T,

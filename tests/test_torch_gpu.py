@@ -198,12 +198,12 @@ def test_tiled_main_path_launches_emit_once_per_step(device):
     assert bool(torch.isfinite(s.sc).all()) and float(s.sc.min()) >= 0.05
 
 
-def _warm3(name, device):
+def _warm3(name, device, shape=SHAPE3):
     if name == "every_bc_kind_3d":
-        solver, state = every_bc_kind_3d(cases, bc, SHAPE3, torch.float32,
+        solver, state = every_bc_kind_3d(cases, bc, shape, torch.float32,
                                          torch.as_tensor, device=device)
     else:
-        solver, state = getattr(cases, name)(shape=SHAPE3, device=device)
+        solver, state = getattr(cases, name)(shape=shape, device=device)
     step, to_f, _ = F3.build_fused_step_3d(solver, plain=True)
     fs = to_f(state)
     for _ in range(20):
@@ -241,6 +241,47 @@ def test_3d_kernels_match_plain_versions(name, device):
     F3.qgd3d_ghosts(prm, fb, side_ref, planes)
     for k in range(5):
         assert _rel(fa[k], fb[k]) <= 1e-6, F3.FIELDS[k]
+
+
+@pytest.mark.parametrize("name,shape", [("supersonic_duct_3d", (37, 13, 45)),
+                                        ("every_bc_kind_3d", (20, 10, 9))])
+def test_3d_update_on_ragged_shapes(name, shape, device):
+    """qgd3d_update where the mesh is no multiple of the kernel's (8, 32)
+    tile or of its 16-plane chunk, and a frame row (nz + 2 floats) is no
+    multiple of 16 bytes: within 1e-5 of each field's max of the plain
+    version; and on x-slabs whose offsets are no multiple of the chunk,
+    flagged at their partition planes, bit for bit the serial kernel's
+    window (the qgdFlux side rows too where a slab end is physical)."""
+    from qgdsolver_tpu_torch.ops import _build
+
+    solver, fs = _warm3(name, device, shape)
+    prm, _ = F3.make_params(solver)
+    sc = None
+    if prm.varsc:
+        sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
+                                          solver.tau_model.smoothCoeff))
+    frames = (fs.p, fs.T, fs.ux, fs.uy, fs.uz)
+    ref, side_ref = F3.update_reference_3d(prm, *frames, sc, fs.dt)
+    new, side = F3.qgd3d_update(prm, *frames, sc, fs.dt)
+    C = (slice(1, -1),) * 3
+    for k in range(5):
+        assert _rel(ref[k][C], new[k][C]) <= 1e-5, F3.FIELDS[k]
+    if solver._flux_sides():
+        assert _rel(side_ref, side) <= 1e-5
+    nx = prm.nx
+    half = nx // 2 + 3
+    for off, n in ((0, half), (half, nx - half), (5, nx // 2)):
+        blk = _build.QGD3DParams.from_buffer_copy(prm)
+        blk.nx, blk.edge_lo, blk.edge_hi = n, int(off == 0), int(off + n == nx)
+        win = (slice(off, off + n + 2),)
+        cut = [f[win].contiguous() for f in frames]
+        got, got_side = F3.qgd3d_update(blk, *cut, None if sc is None
+                                        else sc[win].contiguous(), fs.dt)
+        for k in range(5):
+            assert torch.equal(new[k][win][C], got[k][C]), (off, F3.FIELDS[k])
+        for sd, phys in ((0, blk.edge_lo), (1, blk.edge_hi)):
+            if phys:
+                assert torch.equal(side[sd], got_side[sd]), (off, sd)
 
 
 @pytest.mark.parametrize("name,dt_tol,f_tol",
