@@ -12,19 +12,20 @@ Then the 4096x2048 varScModel5 + qgdFlux jet (phases 11-14): `qgd2d_emit`
 against its plain version, K2's path in lock-step with its plain path and
 with K1's, the case CLI (`python -m qgdsolver_tpu_torch <case>`) on an
 OpenFOAM case directory with a write and a resume, and the times of the
-three 2D paths.  Phases 15-19 run the domain-decomposed steps K3 (2D) and
-K5 (3D x-ring) on ranks started by `parallel.distributed.spawn`: ranks that
-share this one card talk over gloo with halos through pinned host memory,
-so their times are not a scaling figure.  15: K3 on the 1024x512 jet over
-2x1 and 2x2 ranks against the serial kernel path, and each flagged kernel
-against its flagged plain version on every block; 16: K3 on the varsc +
-qgdFlux jet with a density bump, 2x2; 17: K5 on the 3D duct and varsc jet
-over an x-ring of 2, and the flagged 3D kernels on each slab; 18: K3 in a
-one-rank NCCL world, and the case CLI with --devices 2x1; 19: the times.
-One line per phase; any failure exits non-zero.  The last line is
-{"ok": true, "device": {...}}.  Without a CUDA device it fails before
-printing any result.  It imports nothing of JAX.
-"""
+three 2D paths; phase 14 also holds `qgd2d_smooth`'s continuation (the
+fvc::smooth rings on the card) bitwise against its plain loop on the case's
+active sensor and times it. Phases 15-19 run the domain-decomposed steps K3
+(2D) and K5 (3D x-ring) on ranks started by `parallel.distributed.spawn`:
+ranks that share this one card talk over gloo with halos through pinned
+host memory, so their times are not a scaling figure. 15: K3 on the
+1024x512 jet over 2x1 and 2x2 ranks against the serial kernel path, and
+each flagged kernel against its flagged plain version on every block; 16:
+K3 on the varsc + qgdFlux jet with a density bump, 2x2; 17: K5 on the 3D
+duct and varsc jet over an x-ring of 2, and the flagged 3D kernels on each
+slab; 18: K3 in a one-rank NCCL world, and the case CLI with --devices 2x1;
+19: the times. One line per phase; any failure exits non-zero. The last
+line is {"ok": true, "device": {...}}. Without a CUDA device it fails
+before printing any result. It imports nothing of JAX."""
 from __future__ import annotations
 
 import contextlib
@@ -52,6 +53,9 @@ KERNELS = {
     **{k: (CSRC + "qgd2d.cu", "qgdsolver_tpu/ops/fused_qgd2d.py:1000")
        for k in ("qgd2d_dt", "qgd2d_update", "qgd2d_ghosts")},
     "qgd2d_emit": (CSRC + "qgd2d.cu", "qgdsolver_tpu/ops/fused_qgd2d.py:1609"),
+    # replaces XLA, not Pallas: the reference's smoothing loop
+    "qgd2d_smooth": (CSRC + "qgd2d.cu",
+                     "qgdsolver_tpu/physics/qgdcoeffs.py:254"),
     **{k: (CSRC + "qgd3d.cu", "qgdsolver_tpu/ops/fused_qgd3d.py:349")
        for k in ("qgd3d_dt", "qgd3d_update", "qgd3d_sensor",
                  "qgd3d_ghosts")},
@@ -75,7 +79,9 @@ def work_bytes(name, shape, varsc=False) -> int:
         io = {"qgd2d_dt": 3 * frame, "qgd2d_dt_fold": 3 * frame,
               "qgd2d_update": (4 + varsc) * frame + 4 * cells,
               "qgd2d_ghosts": 4 * 3 * ghosts,
-              "qgd2d_emit": 5 * frame + 2 * cells}
+              "qgd2d_emit": 5 * frame + 2 * cells,
+              # per launch: one frame in, one out
+              "qgd2d_smooth": 2 * frame}
     else:
         nx, ny, nz = shape
         ghosts = 2 * (ny * nz + (nx + 2) * nz + (nx + 2) * (ny + 2))
@@ -152,28 +158,111 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / n
 
 
-def device_ms(fn, n: int, warmup: int = 3) -> float:
-    """Mean device milliseconds of fn() over n calls: the summed durations
-    of the CUDA kernels it launched, from the profiler (host gaps between
-    launches excluded)."""
+def device_events(fn, n: int, sessions: int = 3) -> list:
+    """(name, microseconds) of each CUDA kernel, copy and fill that n calls
+    of fn() ran, from the profiler.  It loses some events at the start of a
+    session, so n calls run first and a marker kernel (`torch.cuda._sleep`,
+    named spin_kernel) after them; only the events after the marker count.
+    Now and then a session loses the marker too: then the measurement is
+    taken again in a new session, at most `sessions` in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for half in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                if half == 0:
+                    torch.cuda._sleep(1000)
+                    torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+        if marks:
+            return [(e.name, e.time_range.elapsed_us()) for e in events
+                    if e.time_range.start >= marks[0]
+                    and "spin_kernel" not in e.name]
+    raise AssertionError(f"the profiler lost the marker kernel in {sessions} "
+                         "sessions")
+
+
+def device_ms(fn, n: int, warmup: int = 3, same: bool = True,
+              match: str = "") -> float:
+    """Mean device milliseconds of fn() over n calls: the durations of the
+    CUDA kernels it launched whose names hold `match`, from the profiler
+    (host gaps between launches excluded; `device_events`).  same: every call
+    launches the same kernels, and each kernel name is priced at its mean
+    duration times its launches per call, which a lost event does not
+    move; else (a step whose smoothing rings depend on the data) the
+    durations are summed."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    # a profiler session now and then returns no device events at all: take
-    # the measurement again in a new session (at most three)
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / n / 1e3
-    raise AssertionError("the profiler saw no device time")
+    by_name = {}
+    for name, us in device_events(fn, n):
+        if match in name:
+            by_name.setdefault(name, []).append(us)
+    if not by_name:
+        raise AssertionError("the profiler saw no device time")
+    if not same:
+        return sum(sum(v) for v in by_name.values()) / n / 1e3
+    return sum(max(1, round(len(v) / n)) * sum(v) / len(v)
+               for v in by_name.values()) / 1e3
+
+
+def time_kernel(stats, kname, shape, kern, plain, n, n_plain, warmup=3):
+    """Device ms per call of a kernel and of its plain version at `shape`
+    cells, and the plain version's operations (`count_ops`), into
+    stats[kname]["by_shape"][shape].  The kernel's time is that of the
+    port's kernels it launched, not of its fills."""
+    stats[kname].setdefault("by_shape", {})[tuple(shape)] = {
+        "ms": device_ms(kern, n, warmup=warmup, match="qgd"),
+        "plain_ms": device_ms(plain, n_plain, warmup=1),
+        "ops": count_ops(plain)}
+    return stats[kname]["by_shape"][tuple(shape)]
+
+
+def recorded(build, solver, fs, steps):
+    """{"update": args, "emit": args}: what the last of `steps` steps of the
+    2D path that `build` makes, from the carry fs, passed to `qgd2d_update`
+    and `qgd2d_emit`."""
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+
+    got = {}
+    saved = F.qgd2d_update, F.qgd2d_emit
+
+    def recorder(key, fn):
+        def call(*args):
+            got[key] = args
+            return fn(*args)
+        call.launches = 0  # the wrapper counts on the module's name
+        return call
+
+    F.qgd2d_update = recorder("update", saved[0])
+    F.qgd2d_emit = recorder("emit", saved[1])
+    try:
+        step = build(solver)[0]
+        for _ in range(steps):
+            fs = step(fs)
+        torch.cuda.synchronize()
+    finally:
+        F.qgd2d_update, F.qgd2d_emit = saved
+    return got
+
+
+def step_parts(advance, n: int) -> dict:
+    """Device ms per call of `advance` (a step) by what ran: each of the
+    port's kernels by name, PyTorch's own kernels, and copies and fills."""
+    advance()
+    parts = {}
+    for name, us in device_events(advance, n):
+        found = re.search(r"(qgd\dd_\w+?)_kernel", name)
+        key = (found.group(1) if found else "copies and fills"
+               if name.startswith(("Memcpy", "Memset")) else "torch ops")
+        parts[key] = parts.get(key, 0.0) + us / n / 1e3
+    return dict(sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
 def rel_err(a, b) -> float:
@@ -236,7 +325,9 @@ def warm_state(name, shape, build, dev):
 
 def phase_kernels(warm, stats):
     """Each kernel against its plain version on the same inputs.  Returns
-    (name, kernel call, plain call) at the plain jet's inputs, for timing."""
+    (name, kernel call, plain call) at the plain jet's inputs (qgd2d_emit's
+    at the varsc jet's), for timing."""
+    from qgdsolver_tpu_torch.ops import _build
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 
     jobs = []
@@ -292,14 +383,40 @@ def phase_kernels(warm, stats):
                 stats["qgd2d_ghosts"]["err"], float((a - b).abs().max()))
         msgs.append(f"ghosts rel {worst:.2e}")
 
+        if prm.varsc:
+            # qgd2d_emit at this shape too (K2's path runs it here)
+            em = (prm, fs.p, fs.T, fs.ux, fs.uy, sc)
+            ref_e, got_e = F.emit_reference(*em), F.qgd2d_emit(*em)
+            torch.cuda.synchronize()
+            r = max(rel_err(a, b) for a, b in zip(ref_e[:4], got_e[:4]))
+            check(r <= 1e-6 and float(ref_e[4]) == float(got_e[4]),
+                  f"{name} qgd2d_emit rel {r:.2e}")
+            msgs.append(f"emit rel {r:.2e}")
+            jobs.append(("qgd2d_emit", lambda em=em: F.qgd2d_emit(*em),
+                         lambda em=em: F.emit_reference(*em)))
         if name == "supersonic_jet":
-            jobs = [("qgd2d_dt", lambda: F.qgd2d_dt(prm, *args),
-                     lambda: F.dt_reference(prm, *args)),
-                    ("qgd2d_update", lambda: F.qgd2d_update(prm, *upd),
-                     lambda: F.update_reference(prm, *upd)),
-                    ("qgd2d_ghosts",
-                     lambda: F.qgd2d_ghosts(prm, fb, side_ref, prof),
-                     lambda: F.ghosts_reference(prm, fa, side_ref, prof))]
+            at = {sh: F.update_launch_shape(_build.QGDParams(nx=sh[0],
+                                                             ny=sh[1]),
+                                            fs.p.device)
+                  for sh in (SHAPE, BIG)}
+            msgs.append(
+                f"qgd2d_update strip {at[SHAPE]['strip']} lanes, "
+                f"{at[SHAPE]['smem_bytes']} B shared/block, "
+                f"{at[SHAPE]['blocks_per_sm']} blocks/SM, " + ", ".join(
+                    f"chunk {v['chunk']} rows ({v['blocks']} blocks) at "
+                    f"{sh[0]}x{sh[1]}" for sh, v in at.items()))
+            # the calls bind this case's inputs (the loop rebinds the names)
+            jobs += [("qgd2d_dt", lambda prm=prm, args=args:
+                      F.qgd2d_dt(prm, *args),
+                      lambda prm=prm, args=args: F.dt_reference(prm, *args)),
+                     ("qgd2d_update", lambda prm=prm, upd=upd:
+                      F.qgd2d_update(prm, *upd),
+                      lambda prm=prm, upd=upd: F.update_reference(prm, *upd)),
+                     ("qgd2d_ghosts",
+                      lambda prm=prm, fb=fb, side=side_ref, prof=prof:
+                      F.qgd2d_ghosts(prm, fb, side, prof),
+                      lambda prm=prm, fa=fa, side=side_ref, prof=prof:
+                      F.ghosts_reference(prm, fa, side, prof))]
         print(f"phase 3 kernels vs plain, {name} {SHAPE}: ok "
               + ", ".join(msgs), flush=True)
     return jobs
@@ -339,12 +456,14 @@ def check_physical(name, solver, s) -> str:
     return f"t={float(s.t):.4e} max Mach {mach:.3f}"
 
 
-def phase_main_path(num, dev, shape, runs, kernels, want):
+def phase_main_path(num, dev, shape, runs, kernels, want, least=()):
     """cases -> make_fused_step -> common.run_steps, as a user calls it, for
     each (case, steps) of `runs`.  The launch counts of `kernels` are set to
     0 just before and read just after; each must equal want[name] (the
     steps of the runs whose builder launches it, plus one per to_fused for
-    qgd2d_emit)."""
+    qgd2d_emit), or for the kernels named in `least` be at least that
+    (qgd2d_smooth: once per step and per to_fused, more on an active
+    sensor)."""
     from qgdsolver_tpu_torch import cases
     from qgdsolver_tpu_torch.solvers import common
 
@@ -362,7 +481,8 @@ def phase_main_path(num, dev, shape, runs, kernels, want):
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     for k, v in launches.items():
-        check(v == want[k], f"{k} launched {v} times, expected {want[k]}")
+        check(v >= want[k] if k in least else v == want[k],
+              f"{k} launched {v} times, expected {want[k]}")
     msgs = [f"{name} ({solver.fused_builder().__name__}) {n} steps "
             + check_physical(name, solver, s) for name, n, solver, s in outs]
     print(f"phase {num} main path {shape}: ok " + "; ".join(msgs)
@@ -396,18 +516,18 @@ def phase_time(dev, card, jobs, stats):
         ms = cuda_ms(advance, steps)
         rates[label] = (pts / (ms * 1e-3), ms)
         advances.append((label, steps, advance))
-    idle = {label: 1.0 - device_ms(advance, min(steps, 50)) / rates[label][1]
-            for label, steps, advance in advances}
+    idle = {label: 1.0 - device_ms(advance, min(steps, 50), same=False)
+            / rates[label][1] for label, steps, advance in advances}
     for kname, kern, plain in jobs:
-        stats[kname]["ms"] = device_ms(kern, 50)
-        stats[kname]["plain_ms"] = device_ms(plain, 20)
-        stats[kname]["ops"] = count_ops(plain)
+        time_kernel(stats, kname, SHAPE, kern, plain, 50, 20)
     print("phase 6 time, supersonic_jet " + f"{SHAPE}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
-        + " | device ms/call kernel vs plain: " + ", ".join(
-            f"{k} {stats[k]['ms']:.4f} vs {stats[k]['plain_ms']:.4f}"
-            for k, _, _ in jobs) + f" | card: {card}", flush=True)
+        + " | device ms/call kernel vs plain (emit on the varsc jet): "
+        + ", ".join(f"{k} {stats[k]['by_shape'][SHAPE]['ms']:.4f} vs "
+                    f"{stats[k]['by_shape'][SHAPE]['plain_ms']:.4f}"
+                    for k, _, _ in jobs) + f" | card: {card}", flush=True)
+
 
 def phase_kernels3(warm, stats):
     """Each 3D kernel against its plain version on the same inputs.
@@ -483,13 +603,18 @@ def phase_kernels3(warm, stats):
         msgs.append(f"ghosts rel {worst:.2e}")
 
         if name == "supersonic_duct_3d":
-            jobs["qgd3d_dt"] = (lambda: F3.qgd3d_dt(prm, *dts),
-                                lambda: F3.dt_reference_3d(prm, *dts))
-            jobs["qgd3d_update"] = (lambda: F3.qgd3d_update(prm, *upd),
-                                    lambda: F3.update_reference_3d(prm, *upd))
+            # the calls bind the duct's inputs (the loop rebinds the names)
+            jobs["qgd3d_dt"] = (
+                lambda prm=prm, dts=dts: F3.qgd3d_dt(prm, *dts),
+                lambda prm=prm, dts=dts: F3.dt_reference_3d(prm, *dts))
+            jobs["qgd3d_update"] = (
+                lambda prm=prm, upd=upd: F3.qgd3d_update(prm, *upd),
+                lambda prm=prm, upd=upd: F3.update_reference_3d(prm, *upd))
             jobs["qgd3d_ghosts"] = (
-                lambda: F3.qgd3d_ghosts(prm, fb, side_ref, planes),
-                lambda: F3.ghosts_reference_3d(prm, fa, side_ref, planes))
+                lambda prm=prm, fb=fb, sd=side_ref, pl=planes:
+                F3.qgd3d_ghosts(prm, fb, sd, pl),
+                lambda prm=prm, fa=fa, sd=side_ref, pl=planes:
+                F3.ghosts_reference_3d(prm, fa, sd, pl))
         print(f"phase 7 3D kernels vs plain, {name} {SHAPE3}: ok "
               + ", ".join(msgs) + f" | {launch}", flush=True)
     return [(k,) + jobs[k] for k in ("qgd3d_dt", "qgd3d_update",
@@ -525,17 +650,17 @@ def phase_time3(dev, card, jobs, stats):
         ms = cuda_ms(advance, steps, warmup=2)
         rates[label] = (pts / (ms * 1e-3), ms)
         advances.append((label, steps, advance))
-    idle = {label: 1.0 - device_ms(advance, min(steps, 20), warmup=1)
+    idle = {label: 1.0 - device_ms(advance, min(steps, 20), warmup=1,
+                                   same=False)
             / rates[label][1] for label, steps, advance in advances}
     for kname, kern, plain in jobs:
-        stats[kname]["ms"] = device_ms(kern, 20, warmup=2)
-        stats[kname]["plain_ms"] = device_ms(plain, 3, warmup=1)
-        stats[kname]["ops"] = count_ops(plain)
+        time_kernel(stats, kname, SHAPE3, kern, plain, 20, 3, warmup=2)
     print(f"phase 10 time 3D {SHAPE3}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
         + " | device ms/call kernel vs plain: " + ", ".join(
-            f"{k} {stats[k]['ms']:.4f} vs {stats[k]['plain_ms']:.4f}"
+            f"{k} {stats[k]['by_shape'][SHAPE3]['ms']:.4f} vs "
+            f"{stats[k]['by_shape'][SHAPE3]['plain_ms']:.4f}"
             for k, _, _ in jobs) + f" | card: {card}", flush=True)
 
 
@@ -661,21 +786,25 @@ def phase_cli(dev, root):
     the written fields read back through build_case, then a resume from
     that time for 10 more steps.  Each run's launches must be K2's path:
     qgd2d_emit once per step plus once for to_fused, qgd2d_update and
-    qgd2d_ghosts once per step, qgd2d_dt never."""
+    qgd2d_ghosts once per step, qgd2d_smooth at least as often as
+    qgd2d_emit, qgd2d_dt never."""
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
-    from qgdsolver_tpu_torch.physics import qgdcoeffs
 
     case = write_case(root, "jet_varsc_%dx%d" % BIG, BIG, varsc=True)
     msgs, total = [], {}
     for n in (50, 10):
-        rings = qgdcoeffs.fvc_smooth_continue.rings
+        rings, reads = F.qgd2d_smooth.rings, F.smooth_sensor.reads
         log, secs, launches = run_cli(
             [case, "--max-steps", str(n), "--device", "cuda"], F.KERNELS)
         check("fused kernel path engaged: build_tiled_fused_step" in log,
               f"the CLI did not take K2's builder:\n{log}")
         want = {"qgd2d_dt": 0, "qgd2d_update": n, "qgd2d_ghosts": n,
                 "qgd2d_emit": n + 1}
-        check(launches == want, f"CLI launches {launches}, expected {want}")
+        smooth = launches.pop("qgd2d_smooth")
+        check(launches == want and smooth >= n + 1,
+              f"CLI launches {launches}, qgd2d_smooth {smooth}, expected "
+              f"{want}, qgd2d_smooth >= {n + 1}")
+        launches["qgd2d_smooth"] = smooth
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         writes = re.findall(r"writing fields to (\S+)", log)
@@ -683,9 +812,11 @@ def phase_cli(dev, root):
         t0 = time.perf_counter()
         solver, state = latest_state(case, dev)
         read = time.perf_counter() - t0
-        rings = (qgdcoeffs.fvc_smooth_continue.rings - rings) / n
-        msgs.append(f"{n} steps in {secs:.1f} s, {rings:.2f} "
-                    f"fvc_smooth_continue rings/step (wrote "
+        rings = (F.qgd2d_smooth.rings - rings) / n
+        reads = (F.smooth_sensor.reads - reads) / n
+        msgs.append(f"{n} steps in {secs:.1f} s, {rings:.2f} qgd2d_smooth "
+                    f"rings/step in {smooth} launches, {reads:.2f} host flag "
+                    f"reads/step (wrote "
                     f"{os.path.basename(writes[0])}; read back in "
                     f"{read:.1f} s: "
                     + check_physical("written case", solver, state) + ")")
@@ -697,15 +828,18 @@ def phase_cli(dev, root):
 def phase_time_big(solver, state, card, emit_jobs, stats):
     """Phase 14, on the CLI's case at the time it wrote last (an impulsive
     start, so the sensor is active): qgd2d_emit against emit_reference once
-    more (the change flag set); grid points per second, ms/step and device
-    idle share at 4096x2048 for K2's path, K1's path with the plain sensor
-    pre-pass and K2's plain frame path; qgd2d_emit's device ms per call
-    against emit_reference's (on phase 11's frames); the
-    fvc_smooth_continue rings per step of the timed K2 steps, and the
-    step's parts: qgd2d_update and qgd2d_ghosts (device ms) and the
-    continuation from the emitted ring 1 (wall ms)."""
+    more (the change flag set); the smoothing continuation from the emitted
+    ring 1 on qgd2d_smooth against the same loop on its plain version, bit
+    for bit, with both ring counts; three K2 steps with the plain
+    neighbour max and edge framing made to raise, so K2's path on the card
+    reaches neither; grid points per second, ms/step and device idle share
+    at 4096x2048 for K2's path, K1's path with the plain sensor pre-pass and
+    K2's plain frame path, with K2's qgd2d_smooth rings, launches and host
+    flag reads per step; device ms per call of qgd2d_update (on the inputs
+    of a K2 step from the case), qgd2d_emit (on phase 11's frames) and one
+    qgd2d_smooth launch of SMOOTH_RINGS rings against their plain versions,
+    of qgd2d_ghosts, and the continuation's device and wall ms per step."""
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
-    from qgdsolver_tpu_torch.physics import qgdcoeffs
 
     pts = BIG[0] * BIG[1]
     k_step, k_to, _ = F.build_tiled_fused_step(solver)
@@ -718,7 +852,34 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
                            "flag"), ref, ts[7:]):
         r = rel_err(a, b)
         check(r <= 1e-6, f"qgd2d_emit on the case, {name} rel {r:.2e}")
-    checked = f"qgd2d_emit vs plain on the case ok, flag {float(ts[11]):.0f}"
+    check(float(ts.sc_chg) == 1.0, "the case's sensor must be active")
+    before = F.smooth_sensor.rings
+    got = F.smooth_sensor(prm, ts.sc_s1, ts.sc_chg)
+    k_rings = F.smooth_sensor.rings - before
+    ref_sc = F.smooth_sensor(prm, ts.sc_s1, ts.sc_chg, smooth=F._smooth_plain)
+    p_rings = F.smooth_sensor.rings - before - k_rings
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref_sc), "qgd2d_smooth's continuation is not "
+          "bitwise its plain loop")
+    stats["qgd2d_smooth"]["err"] = float((got - ref_sc).abs().max())
+
+    def refuse(*_):
+        raise AssertionError("K2's path on the card reached a plain ring")
+
+    plain_fns = (F._neighbour_max, F._edge_frame)
+    F._neighbour_max = F._edge_frame = refuse
+    try:
+        probe = ts
+        for _ in range(3):
+            probe = k_step(probe)
+        torch.cuda.synchronize()
+    finally:
+        F._neighbour_max, F._edge_frame = plain_fns
+    checked = (f"qgd2d_emit vs plain on the case ok, flag "
+               f"{float(ts.sc_chg):.0f}; qgd2d_smooth continuation bitwise "
+               f"its plain loop ({k_rings} rings on the kernel, {p_rings} on "
+               f"the plain version); 3 K2 steps without _neighbour_max or "
+               f"_edge_frame")
     paths = [("K2", 30, k_step, ts), ("K1+pre-pass", 20, w_step, w_to(state)),
              ("plain", 3, p_step, p_to(state))]
     rates, advances = {}, []
@@ -728,40 +889,63 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
         def advance(box=box, step=step):
             box[0] = step(box[0])
 
-        rings = qgdcoeffs.fvc_smooth_continue.rings
+        counts = (F.smooth_sensor.rings, F.smooth_sensor.reads,
+                  F.qgd2d_smooth.launches)
         ms = cuda_ms(advance, steps, warmup=2)
         if label == "K2":
-            ring_rate = (qgdcoeffs.fvc_smooth_continue.rings - rings) \
-                / (steps + 2)
+            per_step = [(now - was) / (steps + 2) for now, was in zip(
+                (F.smooth_sensor.rings, F.smooth_sensor.reads,
+                 F.qgd2d_smooth.launches), counts)]
         rates[label] = (pts / (ms * 1e-3), ms)
         advances.append((label, steps, advance))
-    idle = {label: 1.0 - device_ms(advance, min(steps, 10), warmup=1)
+    idle = {label: 1.0 - device_ms(advance, min(steps, 10), warmup=1,
+                                   same=False)
             / rates[label][1] for label, steps, advance in advances}
-    kern, plain = emit_jobs
-    stats["qgd2d_emit"]["ms"] = device_ms(kern, 20)
-    stats["qgd2d_emit"]["plain_ms"] = device_ms(plain, 5)
-    stats["qgd2d_emit"]["ops"] = count_ops(plain)
-    # the step's parts at this size: the two shared K1 kernels (device
-    # time) and the smoothing continuation from the emitted ring (wall)
+    parts = step_parts(advances[0][2], 10)
+    # the step's parts at this size (device time): each kernel against its
+    # plain version (the update on what a K2 step from ts hands it: the
+    # smoothed sensor and the step's dt), and the continuation from the
+    # case's ring 1
     prof = solver.mesh.tensor(F.make_params(solver)[1]).contiguous()
-    upd = (prm, ts.p, ts.T, ts.ux, ts.uy, ts.sc, ts.dt)
+    upd = recorded(F.build_tiled_fused_step, solver, ts, 1)["update"]
+    u = time_kernel(stats, "qgd2d_update", BIG, lambda: F.qgd2d_update(*upd),
+                    lambda: F.update_reference(*upd), 10, 2)
+    kern, plain = emit_jobs
+    e = time_kernel(stats, "qgd2d_emit", BIG, kern, plain, 20, 5)
+    k = F.SMOOTH_RINGS
+    out, flag = torch.empty_like(ts.p), torch.empty_like(ts.dt)
+    sm = time_kernel(stats, "qgd2d_smooth", BIG,
+                     lambda: F.qgd2d_smooth(prm, ts.sc_s1, k, out, flag),
+                     lambda: F._smooth_plain(prm, ts.sc_s1, k, out, flag),
+                     20, 3)
     new, side = F.qgd2d_update(*upd)
-    parts = {"qgd2d_update": device_ms(lambda: F.qgd2d_update(*upd), 10),
-             "qgd2d_ghosts": device_ms(
-                 lambda: F.qgd2d_ghosts(prm, new, side, prof), 10),
-             "fvc_smooth_continue (wall)": cuda_ms(
-                 lambda: qgdcoeffs.fvc_smooth_continue(
-                     ts.sc_s1, ts.sc_chg, solver.tau_model.smoothCoeff),
-                 5, warmup=1)}
+    ghosts = device_ms(lambda: F.qgd2d_ghosts(prm, new, side, prof), 10,
+                       match="qgd")
+
+    def cont():
+        F.smooth_sensor(prm, ts.sc_s1, ts.sc_chg)
+
+    extra = {"rings_per_launch": k,
+             "ms_per_step": device_ms(cont, 5, same=False),
+             "wall_ms_per_step": cuda_ms(cont, 5, warmup=1),
+             "rings_per_step": per_step[0], "reads_per_step": per_step[1],
+             "launches_per_step": per_step[2]}
+    stats["qgd2d_smooth"]["extra"] = extra
     print(f"phase 14 time, the CLI's case {BIG}: {checked} | "
           + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
-        + f" | timed K2 rings/step {ring_rate:.2f} | ms per call: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
-        + " | device ms/call qgd2d_emit vs emit_reference "
-        f"{stats['qgd2d_emit']['ms']:.4f} vs "
-        f"{stats['qgd2d_emit']['plain_ms']:.4f} | card: {card}", flush=True)
+        + f" | timed K2 steps: {per_step[0]:.2f} qgd2d_smooth rings/step in "
+        f"{per_step[2]:.2f} launches, {per_step[1]:.2f} host flag reads/step"
+        + "; device ms per K2 step by kernel: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in parts.items())
+        + " | device ms/call kernel vs plain: "
+        + ", ".join(f"{n} {x['ms']:.4f} vs {x['plain_ms']:.4f}" for n, x in
+                    (("qgd2d_update", u), ("qgd2d_emit", e),
+                     (f"qgd2d_smooth ({k} rings)", sm)))
+        + f", qgd2d_ghosts {ghosts:.4f} | the continuation from this ring 1 "
+        f"({k_rings} rings): device {extra['ms_per_step']:.4f} ms, wall "
+        f"{extra['wall_ms_per_step']:.4f} ms | card: {card}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1202,7 +1386,8 @@ def phases_sharded(dev, card):
         entries.append({
             "name": label, "route": "cuda", "source": src, "replaces": repl,
             "launches": sum(v for k, v in total.items() if k in names),
-            "max_abs_err": kstats["err"], "ms": device_ms(kern, 20),
+            "max_abs_err": kstats["err"],
+            "ms": device_ms(kern, 20, match="qgd"),
             "plain_ms": device_ms(plain, 5), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "ops": ops,
             "kernels": names, "block": list(shape)})
@@ -1277,7 +1462,10 @@ def main() -> int:
                                F.KERNELS, {"qgd2d_dt": 500,
                                            "qgd2d_update": 600,
                                            "qgd2d_ghosts": 600,
-                                           "qgd2d_emit": 101})
+                                           "qgd2d_emit": 101,
+                                           "qgd2d_smooth": 101},
+                               least=("qgd2d_smooth",))
+    by_shape = {k: {SHAPE: v} for k, v in launches.items()}
     phase_time(dev, card, jobs, stats)
 
     warm = {n: warm_state(n, SHAPE3, F3.build_fused_step_3d, dev)
@@ -1298,20 +1486,35 @@ def main() -> int:
         cli_launches, solver, state = phase_cli(dev, root)
     for k, v in cli_launches.items():
         launches[k] += v
+        by_shape[k][BIG] = v
     phase_time_big(solver, state, card, emit_jobs, stats)
     sharded = phases_sharded(dev, card)
     entries = []
     for k, v in stats.items():
-        # each kernel's bound at the shape its time was taken
-        shape = BIG if k == "qgd2d_emit" else (
+        # each kernel's bound at the shape its time was taken; the 2D update
+        # and emit at each shape the main path runs them (the update at
+        # 4096x2048 on the varsc case, with its sensor frame)
+        shape = BIG if k in ("qgd2d_emit", "qgd2d_smooth") else (
             SHAPE if k.startswith("qgd2d") else SHAPE3)
-        b_ms, b_by = bound(work_bytes(k, shape), v["ops"])
-        entries.append({
+        top = v["by_shape"][shape]
+        b_ms, b_by = bound(work_bytes(k, shape), top["ops"])
+        entry = {
             "name": k, "route": "cuda", "source": KERNELS[k][0],
             "replaces": KERNELS[k][1], "launches": launches[k],
-            "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "ops": v["ops"], "shape": list(shape)})
+            "max_abs_err": v["err"], "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "ops": top["ops"], "shape": list(shape)}
+        if len(v["by_shape"]) > 1:
+            entry["by_shape"] = [
+                {"shape": list(sh), "launches": by_shape[k].get(sh, 0),
+                 "ms": x["ms"], "plain_ms": x["plain_ms"],
+                 "bound_ms": bound(work_bytes(k, sh, varsc=(sh == BIG)),
+                                   x["ops"])[0]}
+                for sh, x in v["by_shape"].items()]
+        if k == "qgd2d_smooth":
+            entry["note"] = "replaces XLA (lax.while_loop), not Pallas"
+            entry.update(v["extra"])
+        entries.append(entry)
     # no single PyTorch call computes any of these functions: library_ms null
     print(json.dumps({"kernels": entries + sharded}))
     print(card)

@@ -157,8 +157,12 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd2d_dt_fold", [p2] + [_ptr] * 6)
     _bind(lib, "qgd2d_dt_apply", [p2] + [_ptr] * 4)
     _bind(lib, "qgd2d_update", [p2] + [_ptr] * 12)
+    _bind(lib, "qgd2d_update_shape", [_c_int, _c_int,
+                                      ctypes.POINTER(_c_int)])
     _bind(lib, "qgd2d_ghosts", [p2] + [_ptr] * 7)
+    _bind(lib, "qgd2d_emit_partials", [_c_int, _c_int])
     _bind(lib, "qgd2d_emit", [p2] + [_ptr] * 11)
+    _bind(lib, "qgd2d_smooth", [p2, _ptr, _c_int, _c_int, _ptr, _ptr, _ptr])
     _bind(lib, "qgd3d_dt_partials", [p3])
     _bind(lib, "qgd3d_dt", [p3] + [_ptr] * 8)
     _bind(lib, "qgd3d_dt_fold", [p3] + [_ptr] * 7)

@@ -8,20 +8,27 @@
 //
 //   qgd2d_dt      two-pass reduction: per-block max wave speed per axis and
 //                 min face tau, then one block applies setDeltaT;
-//   qgd2d_update  one thread per interior cell rebuilds its four face fluxes
-//                 from the 3x3 cell ring and writes fresh p, T, ux, uy into
-//                 NEW frames (plus ws0/tau_f on the x-boundary faces, which
-//                 the qgdFlux ghost needs);
+//   qgd2d_update  the face fluxes, each face once, and the explicit update
+//                 into NEW frames p, T, ux, uy (plus ws0/tau_f on the
+//                 x-boundary faces, which the qgdFlux ghost needs);
 //   qgd2d_ghosts  x-ghost rows from the fresh interior, then y-ghost lanes of
 //                 every row (corners included): the sequential-axis padding.
 //
 // The x-slab kernel K2 (build_tiled_fused_step, :1609) runs the same physics
 // and also reads, over the fresh fields, the next step's rates and the
 // varScModel5 sensor's raw value and first smoothing ring.  Here that is one
-// more kernel on the fresh frames, after qgd2d_ghosts:
+// more kernel on the fresh frames, after qgd2d_ghosts, and the rest of the
+// smoothing runs on the card too:
 //
 //   qgd2d_emit    two-pass reduction of the Courant and tau rates, plus the
-//                 raw sensor, ring 1 and the change flag (see its section).
+//                 raw sensor, ring 1 and the change flag (see its section);
+//   qgd2d_smooth  k more fvc::smooth rings per launch on a shared-memory
+//                 tile, into the sensor frame with edge-replicated ghosts,
+//                 and a flag set when the last ring raised a cell.  It
+//                 replaces the XLA loop the reference runs between steps
+//                 (qgdsolver_tpu/physics/qgdcoeffs.py:254,
+//                 fvc_smooth_continue); the host reads its flag once per
+//                 launch to decide whether to launch again.
 //
 // The domain-decomposed step K3 (build_sharded_fused_step, :1166) runs the
 // same kernels on each rank's block, whose frame edges may be partition
@@ -39,11 +46,31 @@
 // Frames are contiguous (nx+2, ny+2) float32 with y the fast axis, so a warp
 // reads 32 neighbouring lanes of one row.  What bounds the step on the card
 // is memory: about 4 frames in and 4 out per step (plus the sensor frame for
-// varScModel5), ~32-40 B per cell.  This first version reads the 3x3 ring
-// straight from global memory and recomputes each face twice (once per
-// adjacent cell); L1/L2 absorb the re-reads.  Shared-memory tiling of the
-// ring and single-evaluation of faces come in a later change.
+// varScModel5), ~32-40 B per cell, but each face is ~150 float operations
+// over six cells, so the update must not compute a face twice.
+//
+// qgd2d_update is the 2D form of qgd3d_update's x-march:
+//   - a block of 64 threads owns a strip of 63 y-lanes and marches along x
+//     over a chunk of rows (per launch, the longest of 32, 16, 8 and 4 rows
+//     whose grid fills the card's resident blocks four times over, else 4:
+//     16 at 4096x2048, 4 at 1024x512, where the grid is ~1.2 waves and
+//     each block's chain of row passes bounds the time);
+//   - a ring of NSLOT row slots in shared memory holds rows r-1, r, r+1,
+//     each with its two halo lanes, and the row in flight, which cp.async
+//     brings in while row r is computed (4-byte copies: any ny);
+//   - when a row lands, each staged cell's rho and coefficients are derived
+//     once, with the zero-gradient coefficient ghosts;
+//   - a thread computes two faces a row, in one stretch of code the
+//     compiler may interleave: the x-face r+1/2 of its lane, which it keeps
+//     in registers as the next row's low face, and the y-face below its
+//     lane, which goes to shared memory (the 64th thread's lane is the next
+//     strip's first: its y-face closes the strip, its x-face is not used);
+//   - the march starts one row before the chunk, and that pass computes only
+//     the first x-face, so each face kind comes from one code site and its
+//     bits do not depend on where a chunk or a block starts: K3's update on
+//     a block is the serial update's window bit for bit.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -55,6 +82,18 @@ enum { BC_ZG = 0, BC_FIXED = 1, BC_GRAD = 2, BC_SYM = 3, BC_EXTRAP = 4,
 constexpr int BX = 32;   // threads along y (lanes)
 constexpr int BY = 8;    // threads along x (rows)
 constexpr int RED = 256; // threads of the final dt reduction
+
+// qgd2d_update's strip and row ring
+constexpr int UT = 64;               // threads of an update block
+constexpr int UL = UT - 1;           // lanes of its strip
+constexpr int UW = UT + 2;           // a staged row: the strip, its two halo
+                                     // lanes and the lane past them
+constexpr int NSLOT = 4;             // rows r-1, r, r+1 and the one in flight
+// the fields of a ring slot: the frames' values, then what derive computes
+enum { S_P, S_T, S_UX, S_UY, S_SC, S_RHO, S_MU, S_AU, S_TC, S_NF };
+constexpr int SLOT = S_NF * UW;
+constexpr int UYF = UL + 1;          // the y-faces of one row's strip: one
+                                     // per thread
 
 }  // namespace
 
@@ -96,22 +135,6 @@ struct Coef {
 struct Flux {
   float rho, m0, m1, E, ws, tau;
 };
-
-__device__ __forceinline__ Cell load_cell(const QGDParams& P,
-                                          const float* __restrict__ p,
-                                          const float* __restrict__ T,
-                                          const float* __restrict__ ux,
-                                          const float* __restrict__ uy,
-                                          int i) {
-  Cell c;
-  c.p = p[i];
-  c.T = T[i];
-  c.ux = ux[i];
-  c.uy = uy[i];
-  c.rho = c.p / (P.R * c.T);
-  c.e = P.Cv * c.T;
-  return c;
-}
 
 // Coefficient fields of one cell; c = gRT * rsqrt(gRT) (one rsqrt feeds c,
 // alpha/c and mu).
@@ -385,73 +408,171 @@ qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
   }
 }
 
-// One thread per interior cell (r, s), r in 1..nx, s in 1..ny.
-__global__ void __launch_bounds__(BX * BY)
+// The x-march (see the note at the top).  Block (bx, bz) owns the lanes
+// s0 = 1 + UL*bx .. s0+UL-1 of the rows r0 = 1 + cx*bz .. re; thread t
+// computes the faces of lane s0 + t and, for t < UL, updates it.  Staged
+// lane i of a slot is frame lane s0 - 1 + i; staged lanes beyond the frame
+// repeat its last one, so every staged value is finite, and no live cell
+// reads them.
+
+// Staged cell i of ring slot S: the frame values and the derived rho.
+__device__ __forceinline__ Cell slot_cell(const QGDParams& P, const float* S,
+                                          int i) {
+  Cell c;
+  c.p = S[S_P * UW + i];
+  c.T = S[S_T * UW + i];
+  c.ux = S[S_UX * UW + i];
+  c.uy = S[S_UY * UW + i];
+  c.rho = S[S_RHO * UW + i];
+  c.e = P.Cv * c.T;
+  return c;
+}
+
+__device__ __forceinline__ Coef slot_coef(const float* S, int i) {
+  Coef k;
+  k.mu = S[S_MU * UW + i];
+  k.au = S[S_AU * UW + i];
+  k.tc = S[S_TC * UW + i];
+  return k;
+}
+
+__global__ void __launch_bounds__(UT, 8)
 qgd2d_update_kernel(QGDParams P, const float* __restrict__ p,
                     const float* __restrict__ T, const float* __restrict__ ux,
                     const float* __restrict__ uy, const float* __restrict__ sc,
                     const float* __restrict__ dt, float* __restrict__ pn,
                     float* __restrict__ Tn, float* __restrict__ uxn,
-                    float* __restrict__ uyn, float* __restrict__ side) {
-  const int s = 1 + blockIdx.x * BX + threadIdx.x;
-  const int r = 1 + blockIdx.y * BY + threadIdx.y;
+                    float* __restrict__ uyn, float* __restrict__ side,
+                    int cx) {
+  __shared__ float ring[NSLOT * SLOT];
+  __shared__ float yfl[4 * UYF];  // rho, m0, m1, E of the strip's y-faces
+  const int tid = threadIdx.x;
   const int nx = P.nx, ny = P.ny, W = ny + 2;
-  if (r > nx || s > ny) return;
-  const int i0 = r * W + s;
+  const int s0 = 1 + blockIdx.x * UL;
+  const int r0 = 1 + blockIdx.y * cx;
+  const int re = r0 + cx - 1 < nx ? r0 + cx - 1 : nx;
 
-  Cell c[3][3];  // c[dr + 1][ds + 1]
-#pragma unroll
-  for (int dr = -1; dr <= 1; ++dr) {
-#pragma unroll
-    for (int ds = -1; ds <= 1; ++ds) {
-      c[dr + 1][ds + 1] = load_cell(P, p, T, ux, uy, i0 + dr * W + ds);
+  auto slot = [&](int q) { return ring + (q & (NSLOT - 1)) * SLOT; };
+  auto lane_of = [&](int i) {
+    const int s = s0 - 1 + i;
+    return s > ny + 1 ? ny + 1 : s;
+  };
+  // row q's frame values into its slot, by cp.async; this thread copies the
+  // staged lanes tid, tid + UT
+  auto stage = [&](int q) {
+    float* S = slot(q);
+    for (int i = tid; i < UW; i += UT) {
+      const long g = (long)q * W + lane_of(i);
+      __pipeline_memcpy_async(S + S_P * UW + i, p + g, sizeof(float));
+      __pipeline_memcpy_async(S + S_T * UW + i, T + g, sizeof(float));
+      __pipeline_memcpy_async(S + S_UX * UW + i, ux + g, sizeof(float));
+      __pipeline_memcpy_async(S + S_UY * UW + i, uy + g, sizeof(float));
+      if (P.varsc)
+        __pipeline_memcpy_async(S + S_SC * UW + i, sc + g, sizeof(float));
     }
-  }
-  // coefficient fields take zero-gradient ghosts at physical edges: a
-  // neighbour outside the interior is the centre cell itself; across a
-  // partition edge it is the halo cell
-  const Coef k0 = cell_coef(P, c[1][1].p, c[1][1].T, P.varsc ? sc[i0] : 0.0f);
-  const Coef kN = r > 1 || !P.edge_lo
-      ? cell_coef(P, c[0][1].p, c[0][1].T, P.varsc ? sc[i0 - W] : 0.0f) : k0;
-  const Coef kS = r < nx || !P.edge_hi
-      ? cell_coef(P, c[2][1].p, c[2][1].T, P.varsc ? sc[i0 + W] : 0.0f) : k0;
-  const Coef kW = s > 1 || !P.edge_lo_y
-      ? cell_coef(P, c[1][0].p, c[1][0].T, P.varsc ? sc[i0 - 1] : 0.0f) : k0;
-  const Coef kE = s < ny || !P.edge_hi_y
-      ? cell_coef(P, c[1][2].p, c[1][2].T, P.varsc ? sc[i0 + 1] : 0.0f) : k0;
+  };
+  // rho and the coefficient fields of row q's staged cells: the cells this
+  // thread staged, so its own wait for the copies suffices.  The
+  // coefficients take zero-gradient ghosts at physical edges: a ghost lane
+  // and a ghost row take the value of the interior cell beside them (read
+  // from the frame); a halo across a partition edge keeps its own.
+  auto derive = [&](int q) {
+    float* S = slot(q);
+    const int rc =
+        q == 0 && P.edge_lo ? 1 : (q == nx + 1 && P.edge_hi ? nx : q);
+    for (int i = tid; i < UW; i += UT) {
+      const int s = lane_of(i);
+      const float pv = S[S_P * UW + i], Tv = S[S_T * UW + i];
+      S[S_RHO * UW + i] = pv / (P.R * Tv);
+      const int cs =
+          s == 0 && P.edge_lo_y ? 1 : (s == ny + 1 && P.edge_hi_y ? ny : s);
+      float cp = pv, cT = Tv, csc = P.varsc ? S[S_SC * UW + i] : 0.0f;
+      if (rc != q || cs != s) {
+        const long g = (long)rc * W + cs;
+        cp = p[g];
+        cT = T[g];
+        csc = P.varsc ? sc[g] : 0.0f;
+      }
+      const Coef k = cell_coef(P, cp, cT, csc);
+      S[S_MU * UW + i] = k.mu;
+      S[S_AU * UW + i] = k.au;
+      S[S_TC * UW + i] = k.tc;
+    }
+  };
 
-  const Flux xl = xface(P, c[0][1], c[1][1], c[0][0], c[0][2], c[1][0],
-                        c[1][2], kN, k0);
-  const Flux xh = xface(P, c[1][1], c[2][1], c[1][0], c[1][2], c[2][0],
-                        c[2][2], k0, kS);
-  const Flux yl = yface(P, c[1][0], c[1][1], c[0][0], c[2][0], c[0][1],
-                        c[2][1], kW, k0);
-  const Flux yh = yface(P, c[1][1], c[1][2], c[0][1], c[2][1], c[0][2],
-                        c[2][2], k0, kE);
-
-  const Cell& o = c[1][1];
+  const int s = s0 + tid;
+  const bool live = tid < UL && s <= ny;
+  const int ic = tid + 1;  // this thread's lane in a slot
   const float sdt = dt[0] * P.inv_vol;
-  const float rho = o.rho;
-  const float rux = rho * o.ux, ruy = rho * o.uy;
-  const float ke = o.ux * o.ux + o.uy * o.uy;
-  const float rhoE = rho * (o.e + 0.5f * ke);
-  const float rhon = rho - sdt * ((xh.rho - xl.rho) + (yh.rho - yl.rho));
-  const float rux_n = rux - sdt * ((xh.m0 - xl.m0) + (yh.m0 - yl.m0));
-  const float ruy_n = ruy - sdt * ((xh.m1 - xl.m1) + (yh.m1 - yl.m1));
-  const float rhoEn = rhoE - sdt * ((xh.E - xl.E) + (yh.E - yl.E));
-  const float inv_rhon = 1.0f / rhon;
-  const float uxv = rux_n * inv_rhon;
-  const float uyv = ruy_n * inv_rhon;
-  const float en = rhoEn * inv_rhon - 0.5f * (uxv * uxv + uyv * uyv);
-  const float Tv = en * P.inv_Cv;
-  pn[i0] = rhon * P.R * Tv;
-  Tn[i0] = Tv;
-  uxn[i0] = uxv;
-  uyn[i0] = uyv;
-  // ws0/tau_f on the physical x-boundary faces: the qgdFlux p ghost of this
-  // step
-  if (r == 1 && P.edge_lo) side[s] = xl.ws / xl.tau;
-  if (r == nx && P.edge_hi) side[W + s] = xh.ws / xh.tau;
+  Flux xlo = {}, hi = {};
+
+  stage(r0 - 1);
+  __pipeline_commit();
+  stage(r0);
+  __pipeline_commit();
+  // pass r computes the x-face r+1/2 and, from r0 on, updates row r; the
+  // pass r0 - 1 only gives the chunk's first x-face
+#pragma unroll 1
+  for (int r = r0 - 1; r <= re; ++r) {
+    // row r+2 goes to the slot of row r-2, which no thread reads since the
+    // last barrier
+    if (r + 2 <= re + 1) stage(r + 2);
+    __pipeline_commit();          // a group per pass, empty at the end
+    __pipeline_wait_prior(1);     // this thread's copies of row r+1
+#pragma unroll 1
+    for (int q = r == r0 - 1 ? r : r + 1; q <= r + 1; ++q) derive(q);
+    __syncthreads();  // row r+1 complete; the last pass's faces read
+    const float* S0 = slot(r);
+    const float* Sp = slot(r + 1);
+    hi = xface(P, slot_cell(P, S0, ic), slot_cell(P, Sp, ic),
+               slot_cell(P, S0, ic - 1), slot_cell(P, S0, ic + 1),
+               slot_cell(P, Sp, ic - 1), slot_cell(P, Sp, ic + 1),
+               slot_coef(S0, ic), slot_coef(Sp, ic));
+    // ws0/tau_f on the physical x-boundary faces: the qgdFlux p ghost of
+    // this step
+    if (live && r == 0 && P.edge_lo) side[s] = hi.ws / hi.tau;
+    if (live && r == nx && P.edge_hi) side[W + s] = hi.ws / hi.tau;
+    if (r >= r0) {
+      const float* Sm = slot(r - 1);
+      const Flux yf = yface(P, slot_cell(P, S0, tid), slot_cell(P, S0, ic),
+                            slot_cell(P, Sm, tid), slot_cell(P, Sp, tid),
+                            slot_cell(P, Sm, ic), slot_cell(P, Sp, ic),
+                            slot_coef(S0, tid), slot_coef(S0, ic));
+      yfl[0 * UYF + tid] = yf.rho;
+      yfl[1 * UYF + tid] = yf.m0;
+      yfl[2 * UYF + tid] = yf.m1;
+      yfl[3 * UYF + tid] = yf.E;
+    }
+    __syncthreads();  // the y-faces of row r
+    if (r >= r0 && live) {
+      const Cell o = slot_cell(P, S0, ic);
+      const float* yl = yfl + tid;
+      const float* yh = yfl + tid + 1;
+      const float rho = o.rho;
+      const float rux = rho * o.ux, ruy = rho * o.uy;
+      const float ke = o.ux * o.ux + o.uy * o.uy;
+      const float rhoE = rho * (o.e + 0.5f * ke);
+      const float rhon =
+          rho - sdt * ((hi.rho - xlo.rho) + (yh[0] - yl[0]));
+      const float rux_n =
+          rux - sdt * ((hi.m0 - xlo.m0) + (yh[UYF] - yl[UYF]));
+      const float ruy_n =
+          ruy - sdt * ((hi.m1 - xlo.m1) + (yh[2 * UYF] - yl[2 * UYF]));
+      const float rhoEn =
+          rhoE - sdt * ((hi.E - xlo.E) + (yh[3 * UYF] - yl[3 * UYF]));
+      const float inv_rhon = 1.0f / rhon;
+      const float uxv = rux_n * inv_rhon;
+      const float uyv = ruy_n * inv_rhon;
+      const float en = rhoEn * inv_rhon - 0.5f * (uxv * uxv + uyv * uyv);
+      const float Tv = en * P.inv_Cv;
+      const long i0 = (long)r * W + s;
+      pn[i0] = rhon * P.R * Tv;
+      Tn[i0] = Tv;
+      uxn[i0] = uxv;
+      uyn[i0] = uyv;
+    }
+    xlo = hi;
+  }
 }
 
 __device__ __forceinline__ float bc_ghost(const BCEntry& b, float in1,
@@ -549,17 +670,22 @@ __global__ void qgd2d_ghost_lanes_kernel(QGDParams P,
 // (~20 B/cell in, 8 B/cell out).  Ring 1 at a block edge needs raw values of
 // the neighbouring block's cells; rather than reading them back (a second
 // launch) or repairing them afterwards (the reference's strip fixes), each
-// block stages rho over its tile plus two rings and sc over its tile plus
-// one ring in shared memory, computes raw over tile + 1, then ring 1 over
-// the tile.  The sensor's arithmetic uses explicit roundings (no FMA
+// block stages rho over its ETR x ETL tile plus two rings (1.2x the tile's
+// cells) and sc over the tile plus one ring in shared memory, computes raw
+// over tile + 1, then ring 1 over the tile.  Each thread owns 8 cells of the
+// tile.  The block's five partials fold by warp shuffles, one slot per warp
+// and one barrier.  The sensor's arithmetic uses explicit roundings (no FMA
 // contraction), so raw, ring 1 and the flag are those of the plain torch
 // version bit for bit; the rates use rsqrtf like qgd2d_dt.
 
-constexpr int EMIT_NP = 8;   // floats per block partial (5 used)
-constexpr int ER = BY + 4;   // staged rho rows: the tile and two rings
-constexpr int EL = BX + 4;   // staged rho lanes
-constexpr int SR = BY + 2;   // raw sensor rows: the tile and one ring
-constexpr int SL = BX + 2;   // raw sensor lanes
+constexpr int EMIT_NP = 8;      // floats per block partial (5 used)
+constexpr int ETR = 32;         // tile rows of an emit block (4 per thread)
+constexpr int ETL = 64;         // tile lanes (2 per thread)
+constexpr int ER = ETR + 4;     // staged rho rows: the tile and two rings
+constexpr int EL = ETL + 4;     // staged rho lanes
+constexpr int SR = ETR + 2;     // raw sensor rows: the tile and one ring
+constexpr int SL = ETL + 2;     // raw sensor lanes
+constexpr int NWARP = BX * BY / 32;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -593,11 +719,54 @@ __device__ __forceinline__ float raw_sensor(const QGDParams& P,
   return fmaxf(fminf(fmaxf(v, P.minSc), P.maxSc), P.cqSc);
 }
 
-// Pass 1: thread (r, s), r in 0..nx, s in 0..ny, owns the x-face r+1/2 at
-// lane s (s >= 1), the y-face s+1/2 at row r (r >= 1) — the live face sets
-// of qgd2d_dt — and, for varScModel5, the sensor of cell (r, s) when it is
-// an interior cell.  Per-block partials: max wave x, max wave y, the tau
-// coefficient face extreme per axis (max c_f, or min (alpha/c)_f), the flag.
+// One fvc::smooth ring at a cell: max(f, nb/maxRatio), nb the max of its
+// face neighbours (a cell beyond a physical edge is the cell itself, as the
+// plain version's edge replication).  Max is exact and the division is
+// correctly rounded, so the ring equals the plain version's bit for bit.
+__device__ __forceinline__ float smooth_ring(const QGDParams& P, float f,
+                                             float nb) {
+  return fmaxf(f, __fdiv_rn(nb, P.smooth_ratio));
+}
+
+// Fold the emit partials v[0..4] (wave x, wave y, tau coefficient x and y,
+// flag) over the block: maxima, except the tau coefficient folds under
+// constScPr, which are minima.  Warp shuffles, one slot per warp, one
+// barrier; thread 0 holds the result.
+template <int NW>
+__device__ __forceinline__ void fold_emit(float v[5], bool vs,
+                                          float (*slots)[NW]) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    const bool mx = (q == 2 || q == 3) ? vs : true;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float u = __shfl_xor_sync(0xffffffffu, v[q], o);
+      v[q] = mx ? fmaxf(v[q], u) : fminf(v[q], u);
+    }
+  }
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int q = 0; q < 5; ++q) slots[q][tid >> 5] = v[q];
+  }
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      const bool mx = (q == 2 || q == 3) ? vs : true;
+      for (int w = 1; w < NW; ++w)
+        v[q] = mx ? fmaxf(v[q], slots[q][w]) : fminf(v[q], slots[q][w]);
+    }
+  }
+}
+
+// Pass 1: thread (tx, ty) of block (bx, by) owns the frame cells (r, s) =
+// (ETR*by + ty + BY*m, ETL*bx + tx + BX*n), m < 4, n < 2.  For r in 0..nx,
+// s in 0..ny it owns the x-face r+1/2 at lane s (s >= 1), the y-face s+1/2
+// at row r (r >= 1) — the live face sets of qgd2d_dt — and, for
+// varScModel5, the sensor of cell (r, s) when it is an interior cell.
+// Per-block partials: max wave x, max wave y, the tau coefficient face
+// extreme per axis (max c_f, or min (alpha/c)_f), the flag.
 __global__ void __launch_bounds__(BX * BY)
 qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
                           const float* __restrict__ T,
@@ -607,35 +776,43 @@ qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
                           float* __restrict__ partials,
                           float* __restrict__ sc_raw,
                           float* __restrict__ sc_s1) {
-  __shared__ float red[5][BX * BY];
+  __shared__ float slots[5][NWARP];
   __shared__ float rho_t[ER][EL];
   __shared__ float sc_t[SR][SL];
   __shared__ float raw_t[SR][SL];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * BX + tx;
-  const int s0 = blockIdx.x * BX, r0 = blockIdx.y * BY;
-  const int s = s0 + tx, r = r0 + ty;
+  const int s0 = blockIdx.x * ETL, r0 = blockIdx.y * ETR;
   const int nx = P.nx, ny = P.ny, W = ny + 2;
   const bool vs = P.varsc != 0;
   const float c_id = vs ? -INFINITY : INFINITY;  // identity of the tau fold
-  float wx = -INFINITY, wy = -INFINITY, cx = c_id, cy = c_id, chg = 0.0f;
-  if (r <= nx && s <= ny) {
-    if (s >= 1) {
-      const int a = r * W + s, b = a + W;
-      wx = wave(P, ux[a], ux[b], T[a], T[b]);
-      // coefficient ghosts are zero-gradient: clamp to the interior rows
-      cx = xi(tau_coef(P, T[clampi(r, 1, nx) * W + s]),
-              tau_coef(P, T[clampi(r + 1, 1, nx) * W + s]));
-    }
-    if (r >= 1) {
-      const int a = r * W + s, b = a + 1;
-      wy = wave(P, uy[a], uy[b], T[a], T[b]);
-      cy = xi(tau_coef(P, T[r * W + clampi(s, 1, ny)]),
-              tau_coef(P, T[r * W + clampi(s + 1, 1, ny)]));
+  float v[5] = {-INFINITY, -INFINITY, c_id, c_id, 0.0f};
+#pragma unroll
+  for (int m = 0; m < ETR / BY; ++m) {
+#pragma unroll
+    for (int n = 0; n < ETL / BX; ++n) {
+      const int r = r0 + ty + BY * m, s = s0 + tx + BX * n;
+      if (r > nx || s > ny) continue;
+      if (s >= 1) {
+        const int a = r * W + s, b = a + W;
+        v[0] = fmaxf(v[0], wave(P, ux[a], ux[b], T[a], T[b]));
+        // coefficient ghosts are zero-gradient: clamp to the interior rows
+        const float cx = xi(tau_coef(P, T[clampi(r, 1, nx) * W + s]),
+                            tau_coef(P, T[clampi(r + 1, 1, nx) * W + s]));
+        v[2] = vs ? fmaxf(v[2], cx) : fminf(v[2], cx);
+      }
+      if (r >= 1) {
+        const int a = r * W + s, b = a + 1;
+        v[1] = fmaxf(v[1], wave(P, uy[a], uy[b], T[a], T[b]));
+        const float cy = xi(tau_coef(P, T[r * W + clampi(s, 1, ny)]),
+                            tau_coef(P, T[r * W + clampi(s + 1, 1, ny)]));
+        v[3] = vs ? fmaxf(v[3], cy) : fminf(v[3], cy);
+      }
     }
   }
   if (vs) {
-    // rho = p*(1/(R*T)) over the tile and two rings, zero-gradient ghosts
+    // rho = p*(1/(R*T)) once per staged cell: the tile and two rings, with
+    // zero-gradient ghosts
     for (int k = tid; k < ER * EL; k += BX * BY) {
       const int i = k / EL, j = k % EL;
       const int g = clampi(r0 - 2 + i, 1, nx) * W + clampi(s0 - 2 + j, 1, ny);
@@ -656,42 +833,31 @@ qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
       }
     }
     __syncthreads();
-    if (r >= 1 && r <= nx && s >= 1 && s <= ny) {
-      const int i = ty + 1, j = tx + 1;
-      const float f = raw_t[i][j];
-      const float up = r < nx ? raw_t[i + 1][j] : f;
-      const float dn = r > 1 ? raw_t[i - 1][j] : f;
-      const float le = s < ny ? raw_t[i][j + 1] : f;
-      const float ri = s > 1 ? raw_t[i][j - 1] : f;
-      const float nb = fmaxf(fmaxf(up, dn), fmaxf(le, ri));
-      const float s1 = fmaxf(f, __fdiv_rn(nb, P.smooth_ratio));
-      const int o = (r - 1) * ny + (s - 1);
-      sc_raw[o] = f;
-      sc_s1[o] = s1;
-      chg = s1 > f ? 1.0f : 0.0f;
+#pragma unroll
+    for (int m = 0; m < ETR / BY; ++m) {
+#pragma unroll
+      for (int n = 0; n < ETL / BX; ++n) {
+        const int r = r0 + ty + BY * m, s = s0 + tx + BX * n;
+        if (r < 1 || r > nx || s < 1 || s > ny) continue;
+        const int i = ty + BY * m + 1, j = tx + BX * n + 1;
+        const float f = raw_t[i][j];
+        const float up = r < nx ? raw_t[i + 1][j] : f;
+        const float dn = r > 1 ? raw_t[i - 1][j] : f;
+        const float le = s < ny ? raw_t[i][j + 1] : f;
+        const float ri = s > 1 ? raw_t[i][j - 1] : f;
+        const float s1 =
+            smooth_ring(P, f, fmaxf(fmaxf(up, dn), fmaxf(le, ri)));
+        const int o = (r - 1) * ny + (s - 1);
+        sc_raw[o] = f;
+        sc_s1[o] = s1;
+        if (s1 > f) v[4] = 1.0f;
+      }
     }
   }
-  red[0][tid] = wx;
-  red[1][tid] = wy;
-  red[2][tid] = cx;
-  red[3][tid] = cy;
-  red[4][tid] = chg;
-  __syncthreads();
-  for (int k = BX * BY / 2; k > 0; k >>= 1) {
-    if (tid < k) {
-      red[0][tid] = fmaxf(red[0][tid], red[0][tid + k]);
-      red[1][tid] = fmaxf(red[1][tid], red[1][tid + k]);
-      red[2][tid] = vs ? fmaxf(red[2][tid], red[2][tid + k])
-                       : fminf(red[2][tid], red[2][tid + k]);
-      red[3][tid] = vs ? fmaxf(red[3][tid], red[3][tid + k])
-                       : fminf(red[3][tid], red[3][tid + k]);
-      red[4][tid] = fmaxf(red[4][tid], red[4][tid + k]);
-    }
-    __syncthreads();
-  }
+  fold_emit<NWARP>(v, vs, slots);
   if (tid == 0) {
     float* out = partials + EMIT_NP * (blockIdx.y * gridDim.x + blockIdx.x);
-    for (int q = 0; q < 5; ++q) out[q] = red[q][0];
+    for (int q = 0; q < 5; ++q) out[q] = v[q];
   }
 }
 
@@ -702,54 +868,165 @@ __global__ void __launch_bounds__(RED)
 qgd2d_emit_final_kernel(QGDParams P, const float* __restrict__ partials,
                         int n, float* __restrict__ rates,
                         float* __restrict__ chg) {
-  __shared__ float red[5][RED];
+  __shared__ float slots[5][RED / 32];
   const int tid = threadIdx.x;
   const bool vs = P.varsc != 0;
   const float c_id = vs ? -INFINITY : INFINITY;
-  float wx = -INFINITY, wy = -INFINITY, cx = c_id, cy = c_id, f = 0.0f;
+  float v[5] = {-INFINITY, -INFINITY, c_id, c_id, 0.0f};
   for (int i = tid; i < n; i += RED) {
     const float* q = partials + EMIT_NP * i;
-    wx = fmaxf(wx, q[0]);
-    wy = fmaxf(wy, q[1]);
-    cx = vs ? fmaxf(cx, q[2]) : fminf(cx, q[2]);
-    cy = vs ? fmaxf(cy, q[3]) : fminf(cy, q[3]);
-    f = fmaxf(f, q[4]);
+    v[0] = fmaxf(v[0], q[0]);
+    v[1] = fmaxf(v[1], q[1]);
+    v[2] = vs ? fmaxf(v[2], q[2]) : fminf(v[2], q[2]);
+    v[3] = vs ? fmaxf(v[3], q[3]) : fminf(v[3], q[3]);
+    v[4] = fmaxf(v[4], q[4]);
   }
-  red[0][tid] = wx;
-  red[1][tid] = wy;
-  red[2][tid] = cx;
-  red[3][tid] = cy;
-  red[4][tid] = f;
-  __syncthreads();
-  for (int k = RED / 2; k > 0; k >>= 1) {
-    if (tid < k) {
-      red[0][tid] = fmaxf(red[0][tid], red[0][tid + k]);
-      red[1][tid] = fmaxf(red[1][tid], red[1][tid + k]);
-      red[2][tid] = vs ? fmaxf(red[2][tid], red[2][tid + k])
-                       : fminf(red[2][tid], red[2][tid + k]);
-      red[3][tid] = vs ? fmaxf(red[3][tid], red[3][tid + k])
-                       : fminf(red[3][tid], red[3][tid + k]);
-      red[4][tid] = fmaxf(red[4][tid], red[4][tid + k]);
-    }
-    __syncthreads();
-  }
+  fold_emit<RED / 32>(v, vs, slots);
   if (tid == 0) {
-    rates[0] = fmaxf(__fmul_rn(red[0][0], P.inv_hfx),
-                     __fmul_rn(red[1][0], P.inv_hfy));
-    rates[1] = vs ? fminf(__fmul_rn(__fdiv_rn(P.alpha, red[2][0]), P.hfx),
-                          __fmul_rn(__fdiv_rn(P.alpha, red[3][0]), P.hfy))
-                  : fminf(__fmul_rn(red[2][0], P.hfx),
-                          __fmul_rn(red[3][0], P.hfy));
-    if (vs) chg[0] = red[4][0];
+    rates[0] = fmaxf(__fmul_rn(v[0], P.inv_hfx), __fmul_rn(v[1], P.inv_hfy));
+    rates[1] = vs ? fminf(__fmul_rn(__fdiv_rn(P.alpha, v[2]), P.hfx),
+                          __fmul_rn(__fdiv_rn(P.alpha, v[3]), P.hfy))
+                  : fminf(__fmul_rn(v[2], P.hfx), __fmul_rn(v[3], P.hfy));
+    if (vs) chg[0] = v[4];
   }
+}
+
+// ---------------------------------------------------------------------------
+// qgd2d_smooth: the rest of fvc::smooth, k rings per launch
+// ---------------------------------------------------------------------------
+//
+// Replaces the XLA loop qgdsolver_tpu/physics/qgdcoeffs.py:254
+// (fvc_smooth_continue, a lax.while_loop of rings) that carries the
+// emitted ring 1 to the fixed point of f <- max(f, nbr_max(f)/maxRatio).
+// A ring on its own is bounded by memory (one frame in, one out, ~0.02 ms
+// at 4096x2048) but ~20 of them run per step on an active sensor.  So a
+// block stages an SMR x SML tile of the input once, runs k rings on it in
+// shared memory (ring j is valid on the tile shrunk by j cells, so the
+// block writes the (SMR - 2k) x (SML - 2k) cells in the middle) and writes
+// them into the sensor frame with edge-replicated ghosts: k rings for the
+// bytes of one.  The flag is set when the last ring raised a cell: if it
+// raised none, the frame is at the fixed point, and the host stops.  Every
+// ring is the same deterministic map and the fixed point is idempotent, so
+// the result does not depend on k or on how the rings are grouped: it is
+// the plain version's fvc_smooth bit for bit.  Each thread owns 16 cells; a
+// ring reads them and their neighbours, waits for the block, then writes
+// the new values (one buffer, two barriers a ring).
+
+constexpr int SMR = 64;          // staged rows of a smooth block
+constexpr int SML = 128;         // staged lanes
+constexpr int SMTY = 16;         // thread rows: 32 x 16 threads
+constexpr int SMOOTH_KMAX = 16;  // rings a launch may run
+
+__global__ void __launch_bounds__(BX * SMTY)
+qgd2d_smooth_kernel(QGDParams P, const float* __restrict__ in, int pitch,
+                    int k, float* __restrict__ out, float* __restrict__ chg) {
+  __shared__ float t[SMR][SML];
+  constexpr int MR = SMR / SMTY, ML = SML / BX;  // cells a thread owns
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nx = P.nx, ny = P.ny;
+  const long W = ny + 2;
+  // the interior cell of staged cell (0, 0)
+  const int i0 = blockIdx.y * (SMR - 2 * k) - k;
+  const int j0 = blockIdx.x * (SML - 2 * k) - k;
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+#pragma unroll
+    for (int n = 0; n < ML; ++n) {
+      const int a = ty + SMTY * m, b = tx + BX * n;
+      const int gi = i0 + a, gj = j0 + b;
+      t[a][b] = gi >= 0 && gi < nx && gj >= 0 && gj < ny
+                    ? in[(long)gi * pitch + gj] : 0.0f;
+    }
+  }
+  __syncthreads();
+  bool raised = false;
+#pragma unroll 1
+  for (int j = 1; j <= k; ++j) {
+    float v[MR][ML];
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+#pragma unroll
+      for (int n = 0; n < ML; ++n) {
+        const int a = ty + SMTY * m, b = tx + BX * n;
+        const int gi = i0 + a, gj = j0 + b;
+        const float f = t[a][b];
+        v[m][n] = f;
+        if (a < j || a >= SMR - j || b < j || b >= SML - j || gi < 0 ||
+            gi >= nx || gj < 0 || gj >= ny)
+          continue;
+        float nb = f;
+        if (gi > 0) nb = fmaxf(nb, t[a - 1][b]);
+        if (gi < nx - 1) nb = fmaxf(nb, t[a + 1][b]);
+        if (gj > 0) nb = fmaxf(nb, t[a][b - 1]);
+        if (gj < ny - 1) nb = fmaxf(nb, t[a][b + 1]);
+        v[m][n] = smooth_ring(P, f, nb);
+        if (j == k && v[m][n] > f) raised = true;
+      }
+    }
+    __syncthreads();  // every read of ring j - 1
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+#pragma unroll
+      for (int n = 0; n < ML; ++n) t[ty + SMTY * m][tx + BX * n] = v[m][n];
+    }
+    __syncthreads();  // ring j
+  }
+  if (__syncthreads_or(raised) && tx == 0 && ty == 0) chg[0] = 1.0f;
+  // the cells in the middle, and the ghosts beside the edge cells
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+#pragma unroll
+    for (int n = 0; n < ML; ++n) {
+      const int a = ty + SMTY * m, b = tx + BX * n;
+      const int gi = i0 + a, gj = j0 + b;
+      if (a < k || a >= SMR - k || b < k || b >= SML - k || gi < 0 ||
+          gi >= nx || gj < 0 || gj >= ny)
+        continue;
+      const float f = t[a][b];
+      const long rows[2] = {gi == 0 ? 0 : -1, gi == nx - 1 ? nx + 1 : -1};
+      const long lanes[2] = {gj == 0 ? 0 : -1, gj == ny - 1 ? ny + 1 : -1};
+      out[(gi + 1) * W + gj + 1] = f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (rows[e] >= 0) out[rows[e] * W + gj + 1] = f;
+        if (lanes[e] >= 0) out[(gi + 1) * W + lanes[e]] = f;
+#pragma unroll
+        for (int g = 0; g < 2; ++g)
+          if (rows[e] >= 0 && lanes[g] >= 0) out[rows[e] * W + lanes[g]] = f;
+      }
+    }
+  }
+}
+
+// The update's chunk of rows at this shape on the current device: the
+// longest of 32, 16, 8, 4 rows whose grid still gives every SM four waves
+// of resident blocks (or 4).
+int update_chunk(int nx, int ny, int* blocks_per_sm) {
+  static int sms[64] = {}, bps[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -1;
+  if (sms[dev] == 0) {
+    if (cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &bps[dev], qgd2d_update_kernel, UT, 0) != cudaSuccess) {
+      sms[dev] = 0;
+      return -1;
+    }
+  }
+  if (blocks_per_sm) *blocks_per_sm = bps[dev];
+  const long strips = (ny + UL - 1) / UL;
+  const long want = 4L * sms[dev] * bps[dev];
+  int cx = 32;
+  while (cx > 4 && strips * ((nx + cx - 1) / cx) < want) cx /= 2;
+  return cx;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks of the face-owning grid of qgd2d_dt and qgd2d_emit: the length of
-// their partials.
+// Blocks of the face-owning grid of qgd2d_dt: the length of its partials.
 int qgd2d_dt_partials(int nx, int ny) {
   return ((ny + 1 + BX - 1) / BX) * ((nx + 1 + BY - 1) / BY);
 }
@@ -804,11 +1081,27 @@ int qgd2d_update(const QGDParams* prm, const float* p, const float* T,
                  const float* dt, float* pn, float* Tn, float* uxn, float* uyn,
                  float* side, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(BX, BY);
-  const dim3 grid((prm->ny + BX - 1) / BX, (prm->nx + BY - 1) / BY);
-  qgd2d_update_kernel<<<grid, block, 0, st>>>(*prm, p, T, ux, uy, sc, dt, pn,
-                                              Tn, uxn, uyn, side);
+  const int cx = update_chunk(prm->nx, prm->ny, nullptr);
+  if (cx < 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((prm->ny + UL - 1) / UL, (prm->nx + cx - 1) / cx);
+  qgd2d_update_kernel<<<grid, UT, 0, st>>>(*prm, p, T, ux, uy, sc, dt, pn, Tn,
+                                           uxn, uyn, side, cx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The update's launch shape at (nx, ny) on the current device: out =
+// {strip lanes, chunk rows, static shared bytes per block, resident blocks
+// per SM, blocks of the grid}.
+int qgd2d_update_shape(int nx, int ny, int* out) {
+  int bps = 0;
+  const int cx = update_chunk(nx, ny, &bps);
+  if (cx < 0) return static_cast<int>(cudaGetLastError());
+  out[0] = UL;
+  out[1] = cx;
+  out[2] = static_cast<int>(sizeof(float)) * (NSLOT * SLOT + 4 * UYF);
+  out[3] = bps;
+  out[4] = ((ny + UL - 1) / UL) * ((nx + cx - 1) / cx);
+  return 0;
 }
 
 int qgd2d_ghosts(const QGDParams* prm, const float* prof, const float* side,
@@ -826,19 +1119,40 @@ int qgd2d_ghosts(const QGDParams* prm, const float* prof, const float* side,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of qgd2d_emit's tile grid: the length of its partials.
+int qgd2d_emit_partials(int nx, int ny) {
+  return ((ny + 1 + ETL - 1) / ETL) * ((nx + 1 + ETR - 1) / ETR);
+}
+
 int qgd2d_emit(const QGDParams* prm, const float* p, const float* T,
                const float* ux, const float* uy, const float* sc,
                float* partials, float* rates, float* sc_raw, float* sc_s1,
                float* chg, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(BX, BY);
-  const dim3 grid((prm->ny + 1 + BX - 1) / BX, (prm->nx + 1 + BY - 1) / BY);
+  const dim3 grid((prm->ny + 1 + ETL - 1) / ETL, (prm->nx + 1 + ETR - 1) / ETR);
   qgd2d_emit_partial_kernel<<<grid, block, 0, st>>>(*prm, p, T, ux, uy, sc,
                                                     partials, sc_raw, sc_s1);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   qgd2d_emit_final_kernel<<<1, RED, 0, st>>>(
       *prm, partials, static_cast<int>(grid.x * grid.y), rates, chg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k fvc::smooth rings (0 <= k <= SMOOTH_KMAX) of the (nx, ny) cells at in
+// (cell (i, j) at in[i * pitch + j]) into the frame out, ghosts
+// edge-replicated; chg <- 1 if the last ring raised a cell, else 0.
+int qgd2d_smooth(const QGDParams* prm, const float* in, int pitch, int k,
+                 float* out, float* chg, void* stream) {
+  if (k < 0 || k > SMOOTH_KMAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(chg, 0, sizeof(float), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((prm->ny + SML - 2 * k - 1) / (SML - 2 * k),
+                  (prm->nx + SMR - 2 * k - 1) / (SMR - 2 * k));
+  qgd2d_smooth_kernel<<<grid, dim3(BX, SMTY), 0, st>>>(*prm, in, pitch, k, out,
+                                                       chg);
   return static_cast<int>(cudaGetLastError());
 }
 

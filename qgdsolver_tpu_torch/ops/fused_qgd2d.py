@@ -26,18 +26,23 @@ are exchanged with the neighbour ranks.
 `build_tiled_fused_step` (K2) shares 3-4 and ends each step with
 `qgd2d_emit`, which reads from the fresh frames what the next step needs:
 its Courant/tau rates (so setDeltaT reads no frame) and, for varScModel5,
-the raw sensor, its first smoothing ring and a change flag (so the sensor
-costs nothing more unless the flag fired: `fvc_smooth_continue`).  The
-frames are whole, so none of the reference's slab strip fixes exist here;
-K2's VMEM slab sizing is TPU-only and is not ported.
+the raw sensor, its first smoothing ring and a change flag.  The next step
+carries ring 1 to the fvc::smooth fixed point on the card
+(`smooth_sensor`: `qgd2d_smooth` launches of k rings each, the host reading
+one flag per launch), straight into the sensor frame.  An active sensor
+(the flagship 4096x2048 case: ~20 rings a step) costs a few launches; an
+inactive one a single launch that frames ring 1.  The frames are whole, so
+none of the reference's slab strip fixes exist here; K2's VMEM slab sizing
+is TPU-only and is not ported.
 
 Each kernel call is a wrapper: for CPU tensors it runs the plain torch
 version beside it (`dt_reference`, `dt_fold_reference`,
 `dt_apply_reference`, `update_reference`, `ghosts_reference`,
-`emit_reference`); for CUDA tensors it launches the kernel from
-csrc/qgd2d.cu or raises.  Each wrapper counts its launches in a plain
-integer attribute (`qgd2d_dt.launches`, ...).  The plain versions composed
-are the reference's `frame_fn`.
+`emit_reference`, `smooth_reference`); for CUDA tensors it launches the
+kernel from csrc/qgd2d.cu or raises.  Each wrapper counts its launches in a
+plain integer attribute (`qgd2d_dt.launches`, ...; `qgd2d_smooth.rings`
+counts its rings too).  The plain versions composed are the reference's
+`frame_fn`.
 
 Restrictions (`supported()`): 2D uniform f32 mesh, PerfectGasThermo with
 constant transport, constScPrModel1 or varScModel5,
@@ -48,14 +53,14 @@ needs a scalar cqSc (`tiled_supported()`).
 """
 from __future__ import annotations
 
+import ctypes
 import typing as tp
 
 import numpy as np
 import torch
 
 from ..core import bc as bcm
-from ..physics.qgdcoeffs import (ConstScPrModel1, VarScModel5,
-                                 _neighbour_max, fvc_smooth_continue)
+from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5, _neighbour_max
 from ..physics.thermo import ConstTransport, PerfectGasThermo
 from ..parallel import sharding, spmd
 from ..solvers import common
@@ -614,6 +619,23 @@ def emit_reference(prm, p, T, ux, uy, sc):
     return co_rate, tau_rate, raw, s1, chg
 
 
+def smooth_reference(prm, f, k):
+    """Plain version of `qgd2d_smooth`'s rings: k fvc::smooth rings
+    f <- max(f, nbr_max(f)/maxRatio) of the (nx, ny) sensor cells f
+    (edge-replicated neighbours at the boundary).  Returns (the cells after
+    k rings, flag): flag is a 0-dim 1.0 if the last ring raised any cell,
+    else 0.0 (0.0 for k = 0).  maxRatio is a tensor on f's device, so the
+    division is a correctly rounded one on the card too, as the kernel's
+    (a Python scalar divisor may become a reciprocal product there)."""
+    ratio = torch.tensor(prm.smooth_ratio, dtype=f.dtype, device=f.device)
+    flag = torch.zeros((), dtype=f.dtype, device=f.device)
+    for _ in range(k):
+        fn = torch.maximum(f, _neighbour_max(f) / ratio)
+        flag = torch.any(fn > f).to(f.dtype)
+        f = fn
+    return f, flag
+
+
 # ---------------------------------------------------------------------------
 # the wrappers: plain version for CPU tensors, the CUDA kernel otherwise
 # ---------------------------------------------------------------------------
@@ -766,7 +788,7 @@ def qgd2d_emit(prm, p, T, ux, uy, sc):
     lib = _build.load()
     dev = p.device
     with torch.cuda.device(dev):
-        n = lib.qgd2d_dt_partials(prm.nx, prm.ny)  # the same face grid
+        n = lib.qgd2d_emit_partials(prm.nx, prm.ny)
         partials = torch.empty((n, 8), dtype=p.dtype, device=dev)
         rates = torch.empty(2, dtype=p.dtype, device=dev)
         raw = s1 = chg = None
@@ -784,13 +806,127 @@ def qgd2d_emit(prm, p, T, ux, uy, sc):
     return rates[0], rates[1], raw, s1, chg
 
 
+# rings one qgd2d_smooth launch may run (the kernel's halo), and the rings
+# per launch on K2's path
+SMOOTH_KMAX = 16
+SMOOTH_RINGS = 8
+
+
+def _smooth_plain(prm, f, k, out, flag):
+    """What `qgd2d_smooth` computes, in plain torch: `smooth_reference` on
+    the cells of f, edge-framed into out; the flag into flag."""
+    cells, fl = smooth_reference(
+        prm, f if tuple(f.shape) == (prm.nx, prm.ny) else f[1:-1, 1:-1], k)
+    out.copy_(_edge_frame(cells))
+    flag.copy_(fl)
+    return out, flag
+
+
+def qgd2d_smooth(prm, f, k, out=None, flag=None):
+    """(out, flag): k fvc::smooth rings (0 <= k <= SMOOTH_KMAX) of the
+    sensor cells f - an (nx, ny) tensor, or the interior of an
+    (nx+2, ny+2) frame - into the frame `out` (new if None) with
+    edge-replicated ghosts, and a 0-dim flag (new if None), 1.0 if the last
+    ring raised any cell, else 0.0 - see `smooth_reference`.  k = 0 only
+    frames the cells.  Each launch adds one to `launches` and k to
+    `rings`."""
+    frame = (prm.nx + 2, prm.ny + 2)
+    cells = tuple(f.shape) == (prm.nx, prm.ny)
+    on_card = check_tensors("qgd2d_smooth", (prm.nx, prm.ny) if cells
+                            else frame, f)
+    if not 0 <= k <= SMOOTH_KMAX:
+        raise ValueError(f"qgd2d_smooth: k={k} outside 0..{SMOOTH_KMAX}")
+    out = torch.empty(frame, dtype=f.dtype, device=f.device) \
+        if out is None else out
+    flag = torch.empty((), dtype=f.dtype, device=f.device) \
+        if flag is None else flag
+    check_tensors("qgd2d_smooth", frame, out)
+    check_tensors("qgd2d_smooth", (), flag)
+    if out.device != f.device or flag.device != f.device:
+        raise ValueError("qgd2d_smooth: out and flag must lie beside f")
+    if not on_card:
+        return _smooth_plain(prm, f, k, out, flag)
+    lib = _build.load()
+    # cell (0, 0) of a frame is its element (1, 1)
+    base, pitch = ((f.data_ptr(), prm.ny) if cells
+                   else (f.data_ptr() + 4 * (prm.ny + 3), prm.ny + 2))
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        code = lib.qgd2d_smooth(prm, base, pitch, k, _ptr(out), _ptr(flag),
+                                stream)
+    _build.check(lib, code, "qgd2d_smooth")
+    qgd2d_smooth.launches += 1
+    qgd2d_smooth.rings += k
+    return out, flag
+
+
+def smooth_sensor(prm, s1, chg, k=SMOOTH_RINGS, smooth=qgd2d_smooth,
+                  bufs=None, max_iters=10_000):
+    """The sensor frame of a K2 step: the emitted first fvc::smooth ring s1
+    ((nx, ny) cells) and its change flag `chg` carried to the fixed point,
+    edge-framed - bitwise `fvc_smooth` of the raw sensor, whatever k.
+
+    The host reads the emitted flag; if it is 0, ring 1 is the fixed point
+    and one launch of 0 rings frames it.  Otherwise it launches `smooth`
+    (the `qgd2d_smooth` signature) with k rings at a time, reading each
+    launch's last-ring flag, until a launch's last ring raised no cell or
+    the `fvc_smooth` cap of max_iters rings is reached.  The launches
+    alternate between the returned frame, which is new, and a scratch
+    frame; the last one lands in the returned frame when the call takes as
+    many launches as the call before it, else one copy moves it there.
+    bufs = [scratch frame, flag, launches of the last call] is kept across
+    calls (new if None).  Counts its host flag reads in `reads` and its
+    rings in `rings`."""
+    out = torch.empty((prm.nx + 2, prm.ny + 2), dtype=s1.dtype,
+                      device=s1.device)
+    if bufs is None:
+        bufs = [torch.empty_like(out), torch.empty((), dtype=s1.dtype,
+                                                   device=s1.device), 1]
+    scratch, flag, last = bufs
+    smooth_sensor.reads += 1
+    if not bool(chg):
+        return smooth(prm, s1, 0, out, flag)[0]
+    src, dst, it, n = s1, (out if last % 2 else scratch), 1, 0
+    while True:
+        smooth(prm, src, k, dst, flag)
+        smooth_sensor.rings += k
+        it, n = it + k, n + 1
+        smooth_sensor.reads += 1
+        if not bool(flag) or it >= max_iters:
+            break
+        src, dst = dst, (scratch if dst is out else out)
+    bufs[2] = n
+    if dst is not out:
+        out.copy_(dst)
+    return out
+
+
+smooth_sensor.reads = 0
+smooth_sensor.rings = 0
+
+
+def update_launch_shape(prm, device) -> dict:
+    """`qgd2d_update`'s launch at prm's shape on a card: strip lanes, chunk
+    rows, static shared bytes per block, resident blocks per SM and blocks
+    of the grid."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _build.check(lib, lib.qgd2d_update_shape(prm.nx, prm.ny, out),
+                     "qgd2d_update_shape")
+    return dict(zip(("strip", "chunk", "smem_bytes", "blocks_per_sm",
+                     "blocks"), out))
+
+
 qgd2d_dt.launches = 0
 qgd2d_dt_fold.launches = 0
 qgd2d_dt_apply.launches = 0
 qgd2d_update.launches = 0
 qgd2d_ghosts.launches = 0
 qgd2d_emit.launches = 0
-KERNELS = (qgd2d_dt, qgd2d_update, qgd2d_ghosts, qgd2d_emit)
+qgd2d_smooth.launches = 0
+qgd2d_smooth.rings = 0
+KERNELS = (qgd2d_dt, qgd2d_update, qgd2d_ghosts, qgd2d_emit, qgd2d_smooth)
 # the flagged kernels of the decomposed step (K3)
 SHARDED_KERNELS = (qgd2d_dt_fold, qgd2d_dt_apply, qgd2d_update, qgd2d_ghosts)
 
@@ -810,10 +946,11 @@ def _edge_frame(interior):
     return f.contiguous()
 
 
-def _state_io(solver):
+def _state_io(solver, frame_sc=_edge_frame):
     """(to_frames, from_fused) between the composable State and the
     ghost-padded frames, shared by both 2D fused steps: to_frames gives a
-    FusedState, from_fused reads any carry with FusedState's fields."""
+    FusedState (the sensor cells framed by `frame_sc`), from_fused reads
+    any carry with FusedState's fields."""
     from ..ops.pad import ghost_pad
     from ..solvers.qgd import State
 
@@ -839,7 +976,7 @@ def _state_io(solver):
             T=ghost_pad(T, bc_Tr, mesh, t=s.t).contiguous(),
             ux=Upad[0].contiguous(), uy=Upad[1].contiguous(),
             t=s.t, dt=s.dt,
-            sc=_edge_frame(s.sc) if varsc else None)
+            sc=frame_sc(s.sc) if varsc else None)
 
     def from_fused(fs) -> State:
         p = fs.p[1:-1, 1:-1]
@@ -1070,13 +1207,17 @@ def build_tiled_fused_step(solver, plain: bool = False):
 
       1. setDeltaT from the carried rates (dt = co_rate*dt-controlled, with
          cTau*tau_rate and maxDeltaT caps), no frame read;
-      2. varScModel5: sc = fvc_smooth_continue(sc_s1, sc_chg), which runs
-         rings only when the carried flag fired;
+      2. varScModel5: the sensor frame from the carried ring 1 and flag,
+         `smooth_sensor` on `qgd2d_smooth` (one launch of no ring when the
+         flag is 0, else SMOOTH_RINGS rings a launch to the fixed point; one
+         host flag read per launch; its scratch frame and flag allocated
+         once per builder and device);
       3. `qgd2d_update`;  4. `qgd2d_ghosts`;  5. `qgd2d_emit`.
 
-    to_fused converts a State and calls `qgd2d_emit` once on its frames,
-    so the first dt is the K1 path's.  With plain=True every kernel is its
-    plain torch version, on any device.
+    to_fused converts a State (the sensor framed by `qgd2d_smooth` with no
+    ring) and calls `qgd2d_emit` once on its frames, so the first dt is the
+    K1 path's.  With plain=True every kernel is its plain torch version, on
+    any device.
     """
     if not tiled_supported(solver):
         raise ValueError("solver config not supported by the tiled fused "
@@ -1088,24 +1229,39 @@ def build_tiled_fused_step(solver, plain: bool = False):
     prm, profiles_np = make_params(solver)
     profiles = mesh.tensor(profiles_np).contiguous()
     if plain:
-        k_update, k_ghosts, k_emit = update_reference, ghosts_reference, \
-            emit_reference
+        k_update, k_ghosts, k_emit, k_smooth = update_reference, \
+            ghosts_reference, emit_reference, _smooth_plain
     else:
-        k_update, k_ghosts, k_emit = qgd2d_update, qgd2d_ghosts, qgd2d_emit
+        k_update, k_ghosts, k_emit, k_smooth = qgd2d_update, qgd2d_ghosts, \
+            qgd2d_emit, qgd2d_smooth
+    scratch = {}  # device -> the bufs of smooth_sensor
+
+    def sensor(ts):
+        dev = ts.sc_s1.device
+        if dev not in scratch:
+            frame = torch.empty((prm.nx + 2, prm.ny + 2),
+                                dtype=ts.sc_s1.dtype, device=dev)
+            scratch[dev] = [frame, torch.empty((), dtype=frame.dtype,
+                                               device=dev), 1]
+        return smooth_sensor(prm, ts.sc_s1, ts.sc_chg, smooth=k_smooth,
+                             bufs=scratch[dev])
 
     def step(ts: TiledState) -> TiledState:
         dt_new = common.set_delta_t(ts.dt, ts.co_rate * ts.dt, ts.tau_rate,
                                     tc)
-        sc = None
-        if varsc:
-            sc = _edge_frame(fvc_smooth_continue(ts.sc_s1, ts.sc_chg,
-                                                 tm.smoothCoeff))
+        sc = sensor(ts) if varsc else None
         frames, side = k_update(prm, ts.p, ts.T, ts.ux, ts.uy, sc, dt_new)
         p, T, ux, uy = k_ghosts(prm, frames, side, profiles)
         return TiledState(p, T, ux, uy, ts.t + dt_new, dt_new, sc,
                           *k_emit(prm, p, T, ux, uy, sc))
 
-    to_frames, from_fused = _state_io(solver)
+    def frame_sc(cells):
+        out = torch.empty((prm.nx + 2, prm.ny + 2), dtype=cells.dtype,
+                          device=cells.device)
+        flag = torch.empty((), dtype=cells.dtype, device=cells.device)
+        return k_smooth(prm, cells.contiguous(), 0, out, flag)[0]
+
+    to_frames, from_fused = _state_io(solver, frame_sc)
 
     def to_fused(s) -> TiledState:
         fs = to_frames(s)

@@ -1,14 +1,16 @@
-"""The port of K2 (`ops.fused_qgd2d.build_tiled_fused_step`, `qgd2d_emit`)
-and `fvc_smooth_continue` against the JAX package.
+"""The port of K2 (`ops.fused_qgd2d.build_tiled_fused_step`, `qgd2d_emit`,
+the smoothing continuation `smooth_sensor` on `qgd2d_smooth`) and
+`fvc_smooth_continue` against the JAX package.
 
-On the CPU `qgd2d_emit` runs its plain version, `emit_reference`; the CUDA
-kernel is held against it on the card (tests/test_torch_gpu.py,
-chip_smoke.py).  The JAX tiled step runs its Pallas slab kernel in interpret
-mode, as tests/test_fused_qgd2d.py runs it.  Bounds are those JAX tests'
-own: dt rtol 1e-6; rho/rhoU/rhoE within 1e-5 of their max (2e-5 with the
-density bump across a slab boundary); sc rtol 1e-4 with atol 1e-5 (bump)
-or 1e-4 (spike).  The emitted rates and sensor fields match one JAX tiled
-step to rtol 1e-6 (f32 round-off of the same expressions), and the smoothing
+On the CPU `qgd2d_emit` and `qgd2d_smooth` run their plain versions,
+`emit_reference` and `smooth_reference`; the CUDA kernels are held against
+them on the card (tests/test_torch_gpu.py, chip_smoke.py). The JAX tiled
+step runs its Pallas slab kernel in interpret mode, as
+tests/test_fused_qgd2d.py runs it. Bounds are those JAX tests' own: dt rtol
+1e-6; rho/rhoU/rhoE within 1e-5 of their max (2e-5 with the density bump
+across a slab boundary); sc rtol 1e-4 with atol 1e-5 (bump) or 1e-4
+(spike). The emitted rates and sensor fields match one JAX tiled step to
+rtol 1e-6 (f32 round-off of the same expressions), and the smoothing
 continuation is bitwise `fvc_smooth`.
 """
 import dataclasses
@@ -122,11 +124,11 @@ def test_tiled_varsc_smooth_continuation_fires_and_matches():
     kernel (slab_rows=8), 4 steps."""
     js, jst, ts = _perturbed("varsc", (2.5, 1.1), 24)
     s, st = _seeded(js, jst)
-    rings = tcoeffs.fvc_smooth_continue.rings
+    rings = F.smooth_sensor.rings
     jt, a, _, b, fired = _run_both(js, ts, s, st, 4, slab_rows=8)
     assert fired[0], "the JAX ring-1 change partial never fired"
     assert fired[1], "the port's change flag never fired"
-    assert tcoeffs.fvc_smooth_continue.rings > rings
+    assert F.smooth_sensor.rings > rings
     step_c = jax.jit(js.make_step())
     ref = s
     for _ in range(4):
@@ -208,6 +210,63 @@ def test_fvc_smooth_continue_is_bitwise_fvc_smooth(field):
     assert tcoeffs.fvc_smooth_continue.rings == rings + 4
 
 
+def _smooth_field(field):
+    rng = np.random.default_rng(3)
+    if field == "random":
+        return rng.uniform(0.05, 1.0, size=(40, 24)).astype(np.float32)
+    raw = np.full((40, 24), 0.05, dtype=np.float32)
+    if field == "spike":
+        raw[17, 5] = 1.0
+    return raw
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("field", ["random", "spike", "smooth"])
+def test_grouped_smoothing_is_bitwise_fvc_smooth(field, k):
+    """K2's continuation (`smooth_sensor`: k rings per `qgd2d_smooth` call,
+    its plain version here, one host flag read per call) from ring 1 and
+    its flag, also with a flag that fires when nothing changed: the sensor
+    frame is the port's fvc_smooth edge-framed, bit for bit, whatever k;
+    against the JAX package's fvc_smooth and fvc_smooth_continue rtol 1e-6
+    (jit rounds the ring's division otherwise, as in the test above).  From
+    k = 4 on, the flag reads stay within those of `fvc_smooth_continue`,
+    which tests every fourth ring: 1 + rings/4."""
+    raw = _smooth_field(field)
+    prm = _build_prm(raw.shape)
+    f = torch.as_tensor(raw)
+    s1, chg = F.smooth_reference(prm, f, 1)
+    ref = tcoeffs.fvc_smooth(f, 0.1)
+    for flag in (chg, torch.tensor(1.0)):
+        reads, rings = F.smooth_sensor.reads, F.smooth_sensor.rings
+        out = F.smooth_sensor(prm, s1, flag, k=k)
+        reads = F.smooth_sensor.reads - reads
+        rings = F.smooth_sensor.rings - rings
+        assert torch.equal(out, F._edge_frame(ref))
+        assert rings % k == 0
+        # the host loop that tests every fourth ring reads 1 + rings/4
+        before = tcoeffs.fvc_smooth_continue.rings
+        tcoeffs.fvc_smooth_continue(s1, flag, 0.1)
+        if k >= 4:
+            assert reads <= 1 + (tcoeffs.fvc_smooth_continue.rings
+                                 - before) // 4
+    assert (float(chg) == 0.0) == (field == "smooth")
+    j1 = jnp.asarray(s1.numpy())
+    for jref in (jcoeffs.fvc_smooth(jnp.asarray(raw), 0.1),
+                 jcoeffs.fvc_smooth_continue(j1, True, 0.1)):
+        np.testing.assert_allclose(out[1:-1, 1:-1].numpy(), np.asarray(jref),
+                                   rtol=1e-6)
+    # one call of k rings: the plain loop's cells, ghosts and last flag
+    frame, last = F.qgd2d_smooth(prm, F._edge_frame(s1), k)
+    cells, ref_last = F.smooth_reference(prm, s1, k)
+    assert torch.equal(frame, F._edge_frame(cells))
+    assert float(last) == float(ref_last)
+
+
+def _build_prm(shape):
+    from qgdsolver_tpu_torch.ops import _build
+    return _build.QGDParams(nx=shape[0], ny=shape[1], smooth_ratio=1.1)
+
+
 def test_routing_and_gate():
     """make_fused_step: 2D varScModel5 with a scalar cqSc takes K2's
     builder, every other 2D config K1's, 3D meshes the 3D builder."""
@@ -235,9 +294,9 @@ def test_tiled_step_on_cpu_is_no_launch():
     adds no launch to any kernel count."""
     ts, st = tcases.supersonic_jet_varsc(shape=SHAPE, device="cpu")
     step, to_f, from_f = F.build_tiled_fused_step(ts)
-    before = [k.launches for k in F.KERNELS]
+    before = [k.launches for k in F.KERNELS] + [F.qgd2d_smooth.rings]
     s = from_f(common.run_steps(step, to_f(st), 3))
-    assert [k.launches for k in F.KERNELS] == before
+    assert [k.launches for k in F.KERNELS] + [F.qgd2d_smooth.rings] == before
     assert bool(torch.isfinite(s.rho).all())
     prm, _ = F.make_params(ts)
     fs = to_f(st)
