@@ -1,28 +1,39 @@
-"""Device times of `qgd2d_update` and `qgd2d_emit` from two or more builds
-of `qgd2d.cu`, on the same inputs, in one process on one card.
+"""Device times of the port's 2D kernels `qgd2d_update`, `qgd2d_emit` and
+`qgd2d_smooth`, and of the 3D `qgd3d_smooth`, from two or more builds of
+their source, on the same inputs, in one process on one card.
 
-    python3 ab_kernels.py NAME=PATH/qgd2d.cu [NAME=PATH/qgd2d.cu ...]
+    python3 ab_kernels.py NAME=PATH/qgd2d.cu [NAME=PATH/qgd3d.cu ...]
 
 Each PATH (another revision's source, unpacked with `git archive`, or a
-variant of it) is compiled alone with the port's nvcc flags into
-`build/ab_kernels/`; the checkout's own kernels are the build "this".  The
-inputs are those the port's steps hand the two kernels, recorded in a step:
+variant of it, beside the headers it includes) is compiled alone with the
+port's nvcc flags into `build/ab_kernels/`; the checkout's own kernels are
+the build "this".  A `qgd2d.cu` build runs the 2D inputs, a `qgd3d.cu`
+build the 3D ones.  The inputs are those the port's steps hand the
+kernels, recorded in a step:
 
 - the 1024x512 jet after 20 plain steps, on K1's path (`qgd2d_update`);
 - the 1024x512 varsc + qgdFlux jet after 20 plain steps, on K2's path;
 - the 4096x2048 varsc + qgdFlux jet with a density bump (its sensor
   active), after 3 steps of K2's path;
 - block 0 of a 2x2 split of the warm 1024x512 jet, flagged at its
-  partition edges, as K3 updates it (`qgd2d_update`).
+  partition edges, as K3 updates it (`qgd2d_update`);
+- the first smoothing ring that K2's emit hands the next step on the
+  4096x2048 jet with the bump (`qgd2d_smooth`: one launch of 8 and of 16
+  rings, and K2's whole continuation to the fixed point at 8 and at 16
+  rings a launch, `fused_qgd2d.smooth_sensor`);
+- the raw sensor of the 256x126x126 varsc jet after 20 plain steps, with a
+  density bump (`qgd3d_smooth`: one launch of 1 and of 4 rings, and the 3D
+  step's loop from the raw sensor to the fixed point).
 
 For each input and kernel every build runs in the order given, then in the
 reverse order (A B B A), timed by the profiler's device time of the port's
 kernels (`chip_smoke.device_ms`), and each build's output is held against
 "this" build's (the update's fields within 1e-5 of their max, as phase 3 of
-`chip_smoke.py`; the emitted rates rel 1e-6, the sensor fields bitwise).  It
-prints each build's `qgd2d_update_kernel` registers from ptxas, one line per
-input and kernel, and the card's name and power limit.  It needs a card and
-imports nothing of JAX.
+`chip_smoke.py`; the emitted rates rel 1e-6, the sensor fields bitwise;
+the smoothed frames and flags bitwise).  It prints each build's
+registers and spills of the kernels it times from ptxas, one line per
+input and kernel, and the card's name and power limit.  It needs a card
+and imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -36,11 +47,14 @@ import torch
 import chip_smoke as cs
 
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ab_kernels"
+# the kernels whose ptxas lines are printed, by source
+PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel"),
+         "qgd3d": ("qgd3d_smooth_kernel",)}
 
 
 def build_other(name: str, src: pathlib.Path):
-    """(library, ptxas report) of one qgd2d.cu built alone, with the entry
-    points the wrappers of `qgd2d_update` and `qgd2d_emit` call bound."""
+    """(library, ptxas report) of one qgd2d.cu or qgd3d.cu built alone, with
+    the entry points the timed wrappers call bound."""
     from qgdsolver_tpu_torch.ops import _build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -52,11 +66,18 @@ def build_other(name: str, src: pathlib.Path):
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(out))
     p2 = ctypes.POINTER(_build.QGDParams)
+    p3 = ctypes.POINTER(_build.QGD3DParams)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    if src.name.startswith("qgd3d"):
+        _build._bind(lib, "qgd3d_smooth", [p3, ptr, ctypes.c_long,
+                                           ctypes.c_long, c_int, ptr, ptr,
+                                           ptr])
+        return lib, proc.stderr
     _build._bind(lib, "qgd2d_error_string", [c_int], ctypes.c_char_p)
     _build._bind(lib, "qgd2d_dt_partials", [c_int, c_int])
     _build._bind(lib, "qgd2d_update", [p2] + [ptr] * 12)
     _build._bind(lib, "qgd2d_emit", [p2] + [ptr] * 11)
+    _build._bind(lib, "qgd2d_smooth", [p2, ptr, c_int, c_int, ptr, ptr, ptr])
     if hasattr(lib, "qgd2d_emit_partials"):
         _build._bind(lib, "qgd2d_emit_partials", [c_int, c_int])
     else:
@@ -65,14 +86,16 @@ def build_other(name: str, src: pathlib.Path):
     return lib, proc.stderr
 
 
-def update_registers(report: str) -> str:
-    """ptxas's registers line of qgd2d_update_kernel in a -v report."""
+def registers(report: str, kernel: str) -> str:
+    """ptxas's spill and registers lines of `kernel` (its first instance) in
+    a -v report."""
     lines = report.splitlines()
     for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and "qgd2d_update_kernel" in ln:
-            for nxt in lines[i + 1:i + 4]:
-                if "registers" in nxt:
-                    return nxt.split(":", 1)[1].strip()
+        if "Compiling entry" in ln and kernel in ln:
+            got = [nxt.split(":", 1)[-1].strip() for nxt in lines[i + 1:i + 3]
+                   if "registers" in nxt or "spill" in nxt]
+            if got:
+                return "; ".join(got)
     return "not reported"
 
 
@@ -89,7 +112,7 @@ def on_library(lib, fn):
 
 
 def inputs(dev):
-    """(label, kernel, args) of every timed call."""
+    """(label, kernel, args) of every timed 2D call."""
     from qgdsolver_tpu_torch import cases
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.parallel import sharding, spmd
@@ -117,7 +140,49 @@ def inputs(dev):
     got = cs.recorded(F.build_tiled_fused_step, solver, fs, 3)
     for k in ("update", "emit"):
         out.append((f"varsc jet {big} with a bump, K2", k, got[k]))
+    prm = got["emit"][0]
+    _, _, _, s1, chg = F.qgd2d_emit(*got["emit"])
+    cs.check(float(chg) == 1.0, "the bump's sensor must be active")
+    for k in (8, 16):
+        out.append((f"ring 1 of the varsc jet {big} with a bump, {k} rings",
+                    "smooth", (prm, s1, k)))
+    for k in (8, 16):
+        out.append((f"K2's continuation from that ring 1, {k} rings a launch",
+                    "continuation", (prm, s1, chg, k)))
     return out
+
+
+def inputs3(dev):
+    """(label, kernel, args) of every timed 3D call."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    shape = "x".join(map(str, cs.SHAPE3))
+    solver, fs = cs.warm_state(cs.CASES3[1], cs.SHAPE3, F3.build_fused_step_3d,
+                               dev)
+    _, to_f, from_f = F3.build_fused_step_3d(solver)
+    raw = to_f(cs.with_bump(solver, from_f(fs))).sc_raw
+    prm, _ = F3.make_params(solver)
+    out = [(f"the varsc jet {shape}'s raw sensor with a bump, {k} rings",
+            "smooth3", (prm, raw, k)) for k in (1, F3.SMOOTH3_RINGS)]
+    out.append(("the 3D step's loop from that raw sensor, ring 1, then "
+                f"{F3.SMOOTH3_RINGS} rings a launch", "continuation3",
+                (prm, raw)))
+    return out
+
+
+def continuation(prm, s1, chg, k):
+    """K2's smoothing continuation to the fixed point, k rings a launch."""
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+
+    return F.smooth_sensor(prm, s1, chg, k=k)
+
+
+def continuation3(prm, raw):
+    """The 3D step's smoothing loop from the raw sensor."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    return F3.smooth_sensor(prm, raw, None, k=F3.SMOOTH3_RINGS,
+                            smooth=F3.qgd3d_smooth)
 
 
 def agree(kernel, ref, got) -> None:
@@ -127,6 +192,10 @@ def agree(kernel, ref, got) -> None:
         for a, b in zip(ref[0], got[0]):
             cs.check(cs.rel_err(a[C], b[C]) <= 1e-5,
                      f"qgd2d_update differs by {cs.rel_err(a[C], b[C]):.2e}")
+        return
+    if kernel != "emit":
+        cs.check(all(torch.equal(a, b) for a, b in zip(ref, got)),
+                 f"the smoothing ({kernel}) differs")
         return
     for i, (a, b) in enumerate(zip(ref, got)):
         if a is None:
@@ -140,28 +209,54 @@ def main(argv) -> int:
         raise RuntimeError("no CUDA device: this comparison needs the card")
     from qgdsolver_tpu_torch.ops import _build
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
 
-    builds = {"this": (_build.load(), _build.ptxas_report())}
+    this = (_build.load(), _build.ptxas_report())
+    builds = {"qgd2d": {"this": this}, "qgd3d": {"this": this}}
     for arg in argv:
         name, _, path = arg.partition("=")
-        if not path or name in builds:
-            raise SystemExit(f"usage: ab_kernels.py NAME=PATH ... ({arg!r})")
-        builds[name] = build_other(name, pathlib.Path(path))
+        kind = pathlib.Path(path).name[:5]
+        if not path or kind not in builds or name in builds[kind]:
+            raise SystemExit("usage: ab_kernels.py NAME=PATH/qgd2d.cu|"
+                             f"qgd3d.cu ... ({arg!r})")
+        builds[kind][name] = build_other(name, pathlib.Path(path))
     card = cs.card_line()
-    print("qgd2d_update_kernel: " + "; ".join(
-        f"{n} {update_registers(rep)}" for n, (_, rep) in builds.items()),
-        flush=True)
-    fns = {"update": F.qgd2d_update, "emit": F.qgd2d_emit}
-    order = list(builds) + list(builds)[::-1]
-    for label, kernel, args in inputs("cuda"):
+    for kind, kernels in PTXAS.items():
+        for kern in kernels:
+            print(f"{kern}: " + " | ".join(
+                f"{n} {registers(rep, kern)}"
+                for n, (_, rep) in builds[kind].items()), flush=True)
+    fns = {"update": F.qgd2d_update, "emit": F.qgd2d_emit,
+           "smooth": F.qgd2d_smooth, "continuation": continuation,
+           "smooth3": F3.qgd3d_smooth, "continuation3": continuation3}
+    # the smoothing loops return one frame; their launches depend on the
+    # data, so their device time is the sum of what they ran
+    loops = ("continuation", "continuation3")
+    runs = [("qgd2d", job) for job in inputs("cuda")]
+    if len(builds["qgd3d"]) > 1:
+        runs += [("qgd3d", job) for job in inputs3("cuda")]
+    for kind, (label, kernel, args) in runs:
+        these = builds[kind]
+        order = list(these) + list(these)[::-1]
         ref = fns[kernel](*args)
-        for name, (lib, _) in builds.items():
-            agree(kernel, ref, on_library(lib, lambda: fns[kernel](*args)))
-        times = [(name, on_library(builds[name][0], lambda: cs.device_ms(
-            lambda: fns[kernel](*args), 20, match="qgd"))) for name in order]
-        print(f"qgd2d_{kernel}, {label}: device ms per call "
+        if kernel in loops:
+            ref = (ref.clone(),)
+        for name, (lib, _) in these.items():
+            got = on_library(lib, lambda: fns[kernel](*args))
+            agree(kernel, ref, (got,) if kernel in loops else got)
+        extra = ""
+        if kernel in loops:
+            smooth = F.qgd2d_smooth if kind == "qgd2d" else F3.qgd3d_smooth
+            rings, launches = smooth.rings, smooth.launches
+            fns[kernel](*args)
+            extra = (f" ({smooth.rings - rings} rings in "
+                     f"{smooth.launches - launches} launches a call)")
+        times = [(name, on_library(these[name][0], lambda: cs.device_ms(
+            lambda: fns[kernel](*args), 20, match="qgd",
+            same=kernel not in loops))) for name in order]
+        print(f"{kind}_{kernel.rstrip('3')}, {label}: device ms per call "
               + " | ".join(f"{n} {ms:.4f}" for n, ms in times)
-              + f" | card: {card}", flush=True)
+              + extra + f" | card: {card}", flush=True)
     print(card)
     return 0
 

@@ -7,7 +7,12 @@ sources in the checkout, and for each dimension checks each kernel against
 its plain PyTorch version at the production size (1024x512 and 256x126x126
 f32), runs the kernel path in lock-step with the plain path, drives the
 library's main path (cases -> make_fused_step -> common.run_steps) for both
-cases of that dimension, and times the kernel, plain and composable paths.
+cases of that dimension, and times the kernel, plain and composable paths;
+phase 7 also holds `qgd3d_smooth` (the 3D step's fvc::smooth rings on the
+card) bitwise against its plain version on the 3D varsc jet's active raw
+sensor, and each of 10 kernel-path steps' sensor frames against
+fvc_smooth of that step's raw sensor, and phase 10 counts its rings,
+launches and host flag reads per step and times it.
 Then the 4096x2048 varScModel5 + qgdFlux jet (phases 11-14): `qgd2d_emit`
 against its plain version, K2's path in lock-step with its plain path and
 with K1's, the case CLI (`python -m qgdsolver_tpu_torch <case>`) on an
@@ -23,7 +28,10 @@ each flagged kernel against its flagged plain version on every block; 16:
 K3 on the varsc + qgdFlux jet with a density bump, 2x2; 17: K5 on the 3D
 duct and varsc jet over an x-ring of 2, and the flagged 3D kernels on each
 slab; 18: K3 in a one-rank NCCL world, and the case CLI with --devices 2x1;
-19: the times. One line per phase; any failure exits non-zero. The last
+19: the times.  Phase 20 holds the smoothing kernels' division-free ring to
+a correctly rounded division on every float of its check's ranges, for the
+cases' maxRatio and a sweep.  One line per phase; any failure exits
+non-zero. The last
 line is {"ok": true, "device": {...}}. Without a CUDA device it fails
 before printing any result. It imports nothing of JAX."""
 from __future__ import annotations
@@ -59,6 +67,9 @@ KERNELS = {
     **{k: (CSRC + "qgd3d.cu", "qgdsolver_tpu/ops/fused_qgd3d.py:349")
        for k in ("qgd3d_dt", "qgd3d_update", "qgd3d_sensor",
                  "qgd3d_ghosts")},
+    # replaces XLA, not Pallas: the fvc_smooth between K4's calls
+    "qgd3d_smooth": (CSRC + "qgd3d.cu",
+                     "qgdsolver_tpu/ops/fused_qgd3d.py:841"),
 }
 
 
@@ -88,7 +99,9 @@ def work_bytes(name, shape, varsc=False) -> int:
         io = {"qgd3d_dt": 4 * frame, "qgd3d_dt_fold": 4 * frame,
               "qgd3d_update": (5 + varsc) * frame + 5 * cells,
               "qgd3d_sensor": 3 * frame + cells,
-              "qgd3d_ghosts": 5 * 3 * ghosts}
+              "qgd3d_ghosts": 5 * 3 * ghosts,
+              # per launch from the raw sensor: its cells in, a frame out
+              "qgd3d_smooth": cells + frame}
     return 4 * io[name]
 
 
@@ -463,7 +476,7 @@ def phase_main_path(num, dev, shape, runs, kernels, want, least=()):
     steps of the runs whose builder launches it, plus one per to_fused for
     qgd2d_emit), or for the kernels named in `least` be at least that
     (qgd2d_smooth: once per step and per to_fused, more on an active
-    sensor)."""
+    sensor; qgd3d_smooth: once per varsc step or more)."""
     from qgdsolver_tpu_torch import cases
     from qgdsolver_tpu_torch.solvers import common
 
@@ -617,8 +630,86 @@ def phase_kernels3(warm, stats):
                 F3.ghosts_reference_3d(prm, fa, sd, pl))
         print(f"phase 7 3D kernels vs plain, {name} {SHAPE3}: ok "
               + ", ".join(msgs) + f" | {launch}", flush=True)
+    jobs["qgd3d_smooth"] = smooth3_checks(*warm[CASES3[1]], stats)
     return [(k,) + jobs[k] for k in ("qgd3d_dt", "qgd3d_update",
-                                     "qgd3d_sensor", "qgd3d_ghosts")]
+                                     "qgd3d_sensor", "qgd3d_ghosts",
+                                     "qgd3d_smooth")]
+
+
+def smooth3_counts():
+    """The counts of the 3D smoothing: qgd3d_smooth's rings and launches and
+    the host flag reads of smooth_sensor."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    return (F3.qgd3d_smooth.rings, F3.qgd3d_smooth.launches,
+            F3.smooth_sensor.reads)
+
+
+def smooth3_checks(solver, fs, stats):
+    """Phase 7's check of qgd3d_smooth on the varsc jet's raw sensor (with a
+    density bump when the warm sensor is at its fixed point after one ring,
+    so that the rings are active): one launch of k rings, k = 1, 4 and the
+    step's, bitwise smooth_reference_3d (cells, ghosts, edges, corners and
+    the last-ring flag); the step's loop from the raw sensor bitwise
+    fvc_smooth edge-framed; then 10 steps of the kernel path, each step's
+    sensor frame bitwise `_edge_frame(fvc_smooth(...))` of the raw sensor
+    that step carried.  Returns (kernel call, plain call) of the step's
+    first launch (ring 1 alone) on that raw sensor, for timing, and
+    keeps a call of one launch of SMOOTH3_RINGS rings in
+    stats["qgd3d_smooth"]["rings_call"]."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    coeff = solver.tau_model.smoothCoeff
+    prm, _ = F3.make_params(solver)
+    k_step, to_f, from_f = F3.build_fused_step_3d(solver)
+    bumped = float(F3.smooth_reference_3d(prm, fs.sc_raw, 2)[1]) == 0.0
+    if bumped:
+        fs = to_f(with_bump(solver, from_f(fs)))
+    raw = fs.sc_raw
+    check(float(F3.smooth_reference_3d(prm, raw, 2)[1]) == 1.0,
+          "the 3D raw sensor must be active after its first ring")
+    ks = sorted({1, 4, F3.SMOOTH3_RINGS})
+    for k in ks:
+        out, flag = F3.qgd3d_smooth(prm, raw, k)
+        cells, ref_flag = F3.smooth_reference_3d(prm, raw, k)
+        check(torch.equal(out, F3._edge_frame(cells))
+              and float(flag) == float(ref_flag),
+              f"qgd3d_smooth, {k} rings, is not bitwise its plain version")
+    was = smooth3_counts()
+    got = F3.smooth_sensor(prm, raw, None, k=F3.SMOOTH3_RINGS,
+                           smooth=F3.qgd3d_smooth)
+    rings = smooth3_counts()[0] - was[0]
+    check(torch.equal(got, F3._edge_frame(F3.fvc_smooth(raw, coeff))),
+          "the 3D smoothing loop on qgd3d_smooth is not bitwise fvc_smooth")
+    stats["qgd3d_smooth"]["err"] = float((got - F3._edge_frame(
+        F3.fvc_smooth(raw, coeff))).abs().max())
+    was = smooth3_counts()
+    for i in range(10):
+        new = k_step(fs)
+        check(torch.equal(new.sc, F3._edge_frame(
+            F3.fvc_smooth(fs.sc_raw, coeff))), f"kernel-path step {i}: the "
+              "sensor frame is not fvc_smooth of the step's raw sensor")
+        fs = new
+    per = [(a - b) / 10 for a, b in zip(smooth3_counts(), was)]
+    k = F3.SMOOTH3_RINGS
+    at = F3.smooth_launch_shape(prm, k, raw.device)
+    print(f"phase 7 qgd3d_smooth vs plain, {CASES3[1]} {SHAPE3}"
+          + (" with a density bump" if bumped else "") + ": ok, "
+          f"k = {', '.join(map(str, ks))} bitwise (cells, ghosts, flag); "
+          f"the loop from the raw sensor ({rings} rings) bitwise fvc_smooth; "
+          f"10 kernel-path steps, each step's sensor frame bitwise "
+          f"fvc_smooth of its raw sensor ({per[0]:.2f} rings in "
+          f"{per[1]:.2f} launches, {per[2]:.2f} host flag reads per step) | "
+          f"qgd3d_smooth tile {at['tile'][0]}x{at['tile'][1]} (y x z), "
+          f"chunk {at['chunk']} x-planes, dynamic shared memory "
+          f"{at['smem_bytes']} B/block, {at['blocks_per_sm']} blocks/SM",
+          flush=True)
+    out = torch.empty_like(fs.p)
+    flag = torch.empty((), dtype=raw.dtype, device=raw.device)
+    stats["qgd3d_smooth"]["rings_call"] = (
+        lambda: F3.qgd3d_smooth(prm, raw, k, out, flag))
+    return (lambda: F3.qgd3d_smooth(prm, raw, 1, out, flag),
+            lambda: F3._smooth_plain(prm, raw, 1, out, flag))
 
 
 def phase_time3(dev, card, jobs, stats):
@@ -647,21 +738,44 @@ def phase_time3(dev, card, jobs, stats):
         def advance(box=box, step=step):
             box[0] = step(box[0])
 
+        was = smooth3_counts()
         ms = cuda_ms(advance, steps, warmup=2)
+        if label == "varsc kernel":
+            per_step = [(a - b) / (steps + 2)
+                        for a, b in zip(smooth3_counts(), was)]
         rates[label] = (pts / (ms * 1e-3), ms)
         advances.append((label, steps, advance))
     idle = {label: 1.0 - device_ms(advance, min(steps, 20), warmup=1,
                                    same=False)
             / rates[label][1] for label, steps, advance in advances}
+    parts = step_parts(advances[-1][2], 10)
     for kname, kern, plain in jobs:
         time_kernel(stats, kname, SHAPE3, kern, plain, 20, 3, warmup=2)
+    sm = stats["qgd3d_smooth"]["by_shape"][SHAPE3]
+    sm_bound = bound(work_bytes("qgd3d_smooth", SHAPE3), sm["ops"])
+    rings_ms = device_ms(stats["qgd3d_smooth"].pop("rings_call"), 20,
+                         warmup=2, match="qgd")
+    stats["qgd3d_smooth"]["extra"] = {
+        "rings_first_launch": 1,
+        "rings_per_launch": F3.SMOOTH3_RINGS, "rings_per_step": per_step[0],
+        "launches_per_step": per_step[1], "reads_per_step": per_step[2],
+        "ms_per_step": parts.get("qgd3d_smooth", 0.0),
+        f"ms_{F3.SMOOTH3_RINGS}_rings": rings_ms}
     print(f"phase 10 time 3D {SHAPE3}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
+        + f" | timed varsc jet steps: {per_step[0]:.2f} qgd3d_smooth "
+        f"rings/step in {per_step[1]:.2f} launches, {per_step[2]:.2f} host "
+        f"flag reads/step; device ms per varsc step by kernel: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in parts.items())
         + " | device ms/call kernel vs plain: " + ", ".join(
             f"{k} {stats[k]['by_shape'][SHAPE3]['ms']:.4f} vs "
             f"{stats[k]['by_shape'][SHAPE3]['plain_ms']:.4f}"
-            for k, _, _ in jobs) + f" | card: {card}", flush=True)
+            for k, _, _ in jobs)
+        + " (qgd3d_smooth: the step's first launch, of ring 1, on the "
+        f"active raw sensor, bound {sm_bound[0]:.4f} ms by {sm_bound[1]}; "
+        f"of {F3.SMOOTH3_RINGS} rings {rings_ms:.4f} ms) | card: {card}",
+        flush=True)
 
 
 def phase_emit(dev, stats):
@@ -1052,11 +1166,12 @@ def serial_kernel_state(solver, state, build, steps=10):
 
 
 def held(ref, got, bitwise, f_tol=None, split=False) -> str:
-    """Check a gathered State against the serial one: bitwise; or dt equal
+    """Check a gathered State against the serial one: bitwise (the sensor
+    too); or dt equal
     and the JAX 2D-split bounds (rho, rhoE rtol 1e-6; rhoU rtol 1e-5 atol
     0.05); or dt equal and fields within f_tol of their max."""
     if bitwise:
-        for f in ("rho", "rhoU", "rhoE", "t", "dt"):
+        for f in ("rho", "rhoU", "rhoE", "sc", "t", "dt"):
             check(np.array_equal(getattr(ref, f), getattr(got, f)),
                   f"{f} not bitwise")
         return "bitwise"
@@ -1262,8 +1377,8 @@ def with_bump(solver, state):
     x = torch.as_tensor(np.asarray(solver.mesh.centers[0]),
                         device=state.rho.device)
     bump = 1.0 + 0.4 * (torch.abs(x - x[len(x) // 2]) < 0.1).float()
-    return state._replace(rho=state.rho * bump[:, None],
-                          rhoE=state.rhoE * bump[:, None])
+    bump = bump.reshape((-1,) + (1,) * (state.rho.ndim - 1))
+    return state._replace(rho=state.rho * bump, rhoE=state.rhoE * bump)
 
 
 def summed(results, key="launches"):
@@ -1341,8 +1456,8 @@ def phases_sharded(dev, card):
     msgs17, k5_calls = [], None
     for i, n in enumerate(CASES3):
         got = world2[0][1 + i]["state"]
-        msg = held(ref[n], got, bitwise=(n == "supersonic_duct_3d"),
-                   f_tol=2e-5)
+        # the varsc jet too: its rings divide exactly on both sides
+        msg = held(ref[n], got, bitwise=True)
         solver, fs, _ = warm3[n]
         slab_msg, calls = flagged_slabs_3d(solver, fs,
                                            sharding.ProcessGrid(2, 1),
@@ -1443,6 +1558,34 @@ def phase_cli_devices(dev, root) -> str:
             f"the serial CLI's rel {worst:.2e} at t={float(b.t):.4e}")
 
 
+# maxRatio of fvc::smooth beyond the cases' 1 + smoothCoeff that the
+# division-free ring is held to
+RATIOS = (1.01, 1.05, 1.2, 1.5, 2.0)
+
+
+def phase_ring_check(dev, card):
+    """Phase 20: the smoothing kernels' division-free ring against a
+    correctly rounded division on every float of `smooth_ring_check`'s
+    ranges, for each case's maxRatio and RATIOS: no mismatch."""
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+
+    ratios = set()
+    for name in CASES + CASES3:
+        shape = (8, 6, 6) if name in CASES3 else (8, 6)
+        tm = getattr(cases, name)(shape=shape, device=dev)[0].tau_model
+        if hasattr(tm, "smoothCoeff"):
+            ratios.add(1.0 + tm.smoothCoeff)
+    for r in sorted(ratios) + list(RATIOS):
+        bad = F.smooth_ring_check(r, dev)
+        check(not any(bad.values()), f"the division-free ring is not exact "
+              f"for maxRatio {r}: {bad}")
+    print(f"phase 20 division-free ring vs __fdiv_rn on every float of "
+          f"{'; '.join(F.RING_RANGES)}: 0 mismatches for the cases' maxRatio "
+          f"{', '.join(f'{r:g}' for r in sorted(ratios))} and for "
+          f"{', '.join(f'{r:g}' for r in RATIOS)} | card: {card}", flush=True)
+
+
 def main() -> int:
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
@@ -1473,11 +1616,17 @@ def main() -> int:
     jobs3 = phase_kernels3(warm, stats)
     phase_lockstep(8, warm, F3.build_fused_step_3d, dict(zip(CASES3, tols)))
     del warm
+    reads = F3.smooth_sensor.reads
     launches.update(phase_main_path(9, dev, SHAPE3, zip(CASES3, (100, 40)),
                                     F3.KERNELS, {"qgd3d_dt": 140,
                                                  "qgd3d_update": 140,
                                                  "qgd3d_sensor": 40,
-                                                 "qgd3d_ghosts": 140}))
+                                                 "qgd3d_ghosts": 140,
+                                                 "qgd3d_smooth": 40},
+                                    least=("qgd3d_smooth",)))
+    reads = F3.smooth_sensor.reads - reads
+    check(reads == launches["qgd3d_smooth"], f"the 3D main path read "
+          f"{reads} smoothing flags in {launches['qgd3d_smooth']} launches")
     phase_time3(dev, card, jobs3, stats)
 
     solver, ts, emit_jobs = phase_emit(dev, stats)
@@ -1489,6 +1638,7 @@ def main() -> int:
         by_shape[k][BIG] = v
     phase_time_big(solver, state, card, emit_jobs, stats)
     sharded = phases_sharded(dev, card)
+    phase_ring_check(dev, card)
     entries = []
     for k, v in stats.items():
         # each kernel's bound at the shape its time was taken; the 2D update
@@ -1513,6 +1663,10 @@ def main() -> int:
                 for sh, x in v["by_shape"].items()]
         if k == "qgd2d_smooth":
             entry["note"] = "replaces XLA (lax.while_loop), not Pallas"
+            entry.update(v["extra"])
+        if k == "qgd3d_smooth":
+            entry["note"] = ("replaces XLA (fvc_smooth between K4's calls), "
+                             "not Pallas")
             entry.update(v["extra"])
         entries.append(entry)
     # no single PyTorch call computes any of these functions: library_ms null

@@ -2,7 +2,8 @@
 
 `load()` compiles every `csrc/*.cu` into one shared library with a plain C
 interface at first use, under `build/qgd_kernels/` at the repository root,
-keyed by a hash of all the sources and the flags, and loads it.  Each source
+keyed by a hash of all the sources, the headers they share (`csrc/*.cuh`)
+and the flags, and loads it.  Each source
 is compiled by its own nvcc process, all started together, and the objects
 are then linked.  Nothing is built or loaded at import: importing this
 module needs neither nvcc nor a card.  `QGDParams`, `QGD3DParams` and
@@ -50,6 +51,9 @@ class QGDParams(ctypes.Structure):
             "max_dt", "c_tau", "inv_hfx", "inv_hfy", "h_cell", "rC",
             "one_m_rC", "minSc", "maxSc", "cqSc", "smooth_ratio")]
         + [("bc", BCEntry * 2 * 2 * 4)]  # [field p, T, ux, uy][axis][side]
+        # RN(1/smooth_ratio), the ring's reciprocal; last, so that builds of
+        # earlier revisions read the same leading fields
+        + [("smooth_inv", _c_float)]
     )
 
 
@@ -69,6 +73,7 @@ class QGD3DParams(ctypes.Structure):
             "h_cell")]
         # [field p, T, ux, uy, uz][axis][side]
         + [("bc", BCEntry * 2 * 3 * 5)]
+        + [(n, _c_float) for n in ("smooth_ratio", "smooth_inv")]
     )
 
 
@@ -89,8 +94,10 @@ def sources() -> list:
 
 
 def _library_path() -> pathlib.Path:
+    """The library's path, keyed by the flags and the bytes of every source
+    and shared header: editing either builds anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"qgd_{h.hexdigest()[:16]}.so"
 
@@ -163,6 +170,7 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd2d_emit_partials", [_c_int, _c_int])
     _bind(lib, "qgd2d_emit", [p2] + [_ptr] * 11)
     _bind(lib, "qgd2d_smooth", [p2, _ptr, _c_int, _c_int, _ptr, _ptr, _ptr])
+    _bind(lib, "smooth_ring_check", [_c_float, _c_float, _ptr, _ptr])
     _bind(lib, "qgd3d_dt_partials", [p3])
     _bind(lib, "qgd3d_dt", [p3] + [_ptr] * 8)
     _bind(lib, "qgd3d_dt_fold", [p3] + [_ptr] * 7)
@@ -171,6 +179,9 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd3d_update_shape", [ctypes.POINTER(_c_int)])
     _bind(lib, "qgd3d_sensor", [p3] + [_ptr] * 5)
     _bind(lib, "qgd3d_ghosts", [p3] + [_ptr] * 8)
+    _bind(lib, "qgd3d_smooth", [p3, _ptr, ctypes.c_long, ctypes.c_long,
+                                _c_int, _ptr, _ptr, _ptr])
+    _bind(lib, "qgd3d_smooth_shape", [p3, _c_int, ctypes.POINTER(_c_int)])
     return lib
 
 

@@ -72,7 +72,10 @@
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
+
+#include "smooth_ring.cuh"
 
 namespace {
 
@@ -118,6 +121,9 @@ struct QGDParams {
   float inv_hfx, inv_hfy, h_cell, rC, one_m_rC, minSc, maxSc, cqSc,
       smooth_ratio;
   BCEntry bc[4][2][2];  // [field p, T, ux, uy][axis][side]
+  // RN(1 / smooth_ratio), for the division-free ring (smooth_ring.cuh); last,
+  // so that builds of earlier revisions read the same leading fields
+  float smooth_inv;
 };
 
 namespace {
@@ -719,15 +725,6 @@ __device__ __forceinline__ float raw_sensor(const QGDParams& P,
   return fmaxf(fminf(fmaxf(v, P.minSc), P.maxSc), P.cqSc);
 }
 
-// One fvc::smooth ring at a cell: max(f, nb/maxRatio), nb the max of its
-// face neighbours (a cell beyond a physical edge is the cell itself, as the
-// plain version's edge replication).  Max is exact and the division is
-// correctly rounded, so the ring equals the plain version's bit for bit.
-__device__ __forceinline__ float smooth_ring(const QGDParams& P, float f,
-                                             float nb) {
-  return fmaxf(f, __fdiv_rn(nb, P.smooth_ratio));
-}
-
 // Fold the emit partials v[0..4] (wave x, wave y, tau coefficient x and y,
 // flag) over the block: maxima, except the tau coefficient folds under
 // constScPr, which are minima.  Warp shuffles, one slot per warp, one
@@ -845,8 +842,9 @@ qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
         const float dn = r > 1 ? raw_t[i - 1][j] : f;
         const float le = s < ny ? raw_t[i][j + 1] : f;
         const float ri = s > 1 ? raw_t[i][j - 1] : f;
-        const float s1 =
-            smooth_ring(P, f, fmaxf(fmaxf(up, dn), fmaxf(le, ri)));
+        const float s1 = smooth_ring<true>(
+            f, fmaxf(fmaxf(f, fmaxf(up, dn)), fmaxf(le, ri)), P.smooth_ratio,
+            P.smooth_inv);
         const int o = (r - 1) * ny + (s - 1);
         sc_raw[o] = f;
         sc_s1[o] = s1;
@@ -899,93 +897,169 @@ qgd2d_emit_final_kernel(QGDParams P, const float* __restrict__ partials,
 // (fvc_smooth_continue, a lax.while_loop of rings) that carries the
 // emitted ring 1 to the fixed point of f <- max(f, nbr_max(f)/maxRatio).
 // A ring on its own is bounded by memory (one frame in, one out, ~0.02 ms
-// at 4096x2048) but ~20 of them run per step on an active sensor.  So a
-// block stages an SMR x SML tile of the input once, runs k rings on it in
-// shared memory (ring j is valid on the tile shrunk by j cells, so the
-// block writes the (SMR - 2k) x (SML - 2k) cells in the middle) and writes
-// them into the sensor frame with edge-replicated ghosts: k rings for the
-// bytes of one.  The flag is set when the last ring raised a cell: if it
+// at 4096x2048) but ~16 of them run per step on an active sensor.  So a
+// block loads an SMRN x SMLN tile of the input once, runs k rings on it in
+// registers (ring j is valid on the tile shrunk by j cells, so the block
+// writes the (SMRN - 2k) x (SMLN - 2k) cells in the middle) and writes them
+// into the sensor frame with edge-replicated ghosts: k rings for the bytes
+// of one.  The flag is set when the last ring raised a written cell: if it
 // raised none, the frame is at the fixed point, and the host stops.  Every
 // ring is the same deterministic map and the fixed point is idempotent, so
 // the result does not depend on k or on how the rings are grouped: it is
-// the plain version's fvc_smooth bit for bit.  Each thread owns 16 cells; a
-// ring reads them and their neighbours, waits for the block, then writes
-// the new values (one buffer, two barriers a ring).
+// the plain version's fvc_smooth bit for bit.
+//
+// A ring is a handful of instructions a cell (smooth_ring.cuh: no division),
+// so the layout keeps everything else off its path:
+//   - a warp spans the tile's 128 lanes, 4 to a thread, and each of its
+//     SMW warps owns SMRW rows: a thread's 32 cells stay in registers over
+//     all k rings; neighbours within its rows are registers, across lanes
+//     warp shuffles, and only the first and last row of each warp cross
+//     warps, through shared memory in two buffers used in turn: one barrier
+//     a ring;
+//   - cells beyond a physical edge hold -FLT_MAX and keep it, so the max
+//     ignores them, which is the plain version's edge replication; only
+//     blocks whose tile crosses an edge (EDGE) pay that select;
+//   - a tile whose cells all are at least SMOOTH_TINY (every sensor tile)
+//     takes the ring without its underflow test (GUARD = false).
 
-constexpr int SMR = 64;          // staged rows of a smooth block
-constexpr int SML = 128;         // staged lanes
-constexpr int SMTY = 16;         // thread rows: 32 x 16 threads
-constexpr int SMOOTH_KMAX = 16;  // rings a launch may run
+constexpr int SMV = 4;               // lanes a thread owns
+constexpr int SMLN = 32 * SMV;       // lanes of a tile
+constexpr int SMRW = 8;              // rows a thread owns
+constexpr int SMW = 16;              // warps of a block, stacked along x
+constexpr int SMRN = SMRW * SMW;     // rows of a tile
+constexpr int SMOOTH_KMAX = 16;      // rings a launch may run
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(BX * SMTY)
+// One ring over a thread's cells v: up / dn are the rows above and below
+// its first and last row.  Cells beyond a physical edge (EDGE: rin / lin
+// false) stay -FLT_MAX.  LAST: return whether the ring raised a cell of the
+// tile's middle that lies in the mesh.
+template <bool EDGE, bool GUARD, bool LAST>
+__device__ __forceinline__ bool smooth_pass(float (&v)[SMRW][SMV],
+                                            const float (&up)[SMV],
+                                            const float (&dn)[SMV], float r,
+                                            float y, const bool (&rin)[SMRW],
+                                            const bool (&lin)[SMV], int a0,
+                                            int b0, int k) {
+  bool raised = false;
+  float prev[SMV];
+#pragma unroll
+  for (int c = 0; c < SMV; ++c) prev[c] = up[c];
+#pragma unroll
+  for (int i = 0; i < SMRW; ++i) {
+    float cur[SMV], nxt[SMV];
+#pragma unroll
+    for (int c = 0; c < SMV; ++c) {
+      cur[c] = v[i][c];
+      nxt[c] = i + 1 < SMRW ? v[i + 1][c] : dn[c];
+    }
+    // lane 0's left and lane 31's right are outside the tile: any value
+    const float le = __shfl_up_sync(FULL, cur[SMV - 1], 1);
+    const float ri = __shfl_down_sync(FULL, cur[0], 1);
+#pragma unroll
+    for (int c = 0; c < SMV; ++c) {
+      float nb = fmaxf(fmaxf(cur[c], prev[c]), nxt[c]);
+      nb = fmaxf(nb, fmaxf(c > 0 ? cur[c - 1] : le,
+                           c + 1 < SMV ? cur[c + 1] : ri));
+      float nv = smooth_ring<GUARD>(cur[c], nb, r, y);
+      if (EDGE && !(rin[i] && lin[c])) nv = -FLT_MAX;
+      if (LAST && nv > cur[c] && a0 + i >= k && a0 + i < SMRN - k &&
+          b0 + c >= k && b0 + c < SMLN - k && (!EDGE || (rin[i] && lin[c])))
+        raised = true;
+      v[i][c] = nv;
+    }
+#pragma unroll
+    for (int c = 0; c < SMV; ++c) prev[c] = cur[c];
+  }
+  return raised;
+}
+
+// k rings over the tile; whether the last raised a written cell.  xr: the
+// first and last rows of every warp, [buffer][first/last][warp][lane].
+template <bool EDGE, bool GUARD>
+__device__ __forceinline__ bool smooth_rings(float (&v)[SMRW][SMV], int k,
+                                             float r, float y,
+                                             const bool (&rin)[SMRW],
+                                             const bool (&lin)[SMV],
+                                             float4 (*xr)[2][SMW][32]) {
+  const int tx = threadIdx.x, w = threadIdx.y;
+  const int a0 = w * SMRW, b0 = tx * SMV;
+  for (int j = 1; j <= k; ++j) {
+    float4(*x)[SMW][32] = xr[j & 1];
+    x[0][w][tx] = make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+    x[1][w][tx] = make_float4(v[SMRW - 1][0], v[SMRW - 1][1],
+                              v[SMRW - 1][2], v[SMRW - 1][3]);
+    __syncthreads();
+    // the tile's first and last rows: any value (their own)
+    const float4 u = w > 0 ? x[1][w - 1][tx] : x[0][w][tx];
+    const float4 d = w + 1 < SMW ? x[0][w + 1][tx] : x[1][w][tx];
+    const float up[SMV] = {u.x, u.y, u.z, u.w};
+    const float dn[SMV] = {d.x, d.y, d.z, d.w};
+    if (j < k) {
+      smooth_pass<EDGE, GUARD, false>(v, up, dn, r, y, rin, lin, a0, b0, k);
+    } else {
+      return smooth_pass<EDGE, GUARD, true>(v, up, dn, r, y, rin, lin, a0,
+                                            b0, k);
+    }
+  }
+  return false;
+}
+
+__global__ void __launch_bounds__(32 * SMW, 2)
 qgd2d_smooth_kernel(QGDParams P, const float* __restrict__ in, int pitch,
                     int k, float* __restrict__ out, float* __restrict__ chg) {
-  __shared__ float t[SMR][SML];
-  constexpr int MR = SMR / SMTY, ML = SML / BX;  // cells a thread owns
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  __shared__ float4 xr[2][2][SMW][32];
+  const int tx = threadIdx.x, w = threadIdx.y;
   const int nx = P.nx, ny = P.ny;
   const long W = ny + 2;
-  // the interior cell of staged cell (0, 0)
-  const int i0 = blockIdx.y * (SMR - 2 * k) - k;
-  const int j0 = blockIdx.x * (SML - 2 * k) - k;
+  // the interior cell of tile cell (0, 0), and of this thread's first cell
+  const int i0 = blockIdx.y * (SMRN - 2 * k) - k;
+  const int j0 = blockIdx.x * (SMLN - 2 * k) - k;
+  const int gi0 = i0 + w * SMRW, gj0 = j0 + tx * SMV;
+  // the tile crosses a physical edge, or (k = 0) ends on one: its cells
+  // there need their ghosts
+  const bool edge = i0 <= 0 || j0 <= 0 || i0 + SMRN >= nx || j0 + SMLN >= ny;
+  bool rin[SMRW], lin[SMV];
 #pragma unroll
-  for (int m = 0; m < MR; ++m) {
+  for (int i = 0; i < SMRW; ++i) rin[i] = gi0 + i >= 0 && gi0 + i < nx;
 #pragma unroll
-    for (int n = 0; n < ML; ++n) {
-      const int a = ty + SMTY * m, b = tx + BX * n;
-      const int gi = i0 + a, gj = j0 + b;
-      t[a][b] = gi >= 0 && gi < nx && gj >= 0 && gj < ny
-                    ? in[(long)gi * pitch + gj] : 0.0f;
+  for (int c = 0; c < SMV; ++c) lin[c] = gj0 + c >= 0 && gj0 + c < ny;
+  float v[SMRW][SMV];
+  bool big = true;
+#pragma unroll
+  for (int i = 0; i < SMRW; ++i) {
+#pragma unroll
+    for (int c = 0; c < SMV; ++c) {
+      const bool inside = !edge || (rin[i] && lin[c]);
+      v[i][c] = inside ? in[(long)(gi0 + i) * pitch + gj0 + c] : -FLT_MAX;
+      if (inside) big = big && v[i][c] >= SMOOTH_TINY;
     }
   }
-  __syncthreads();
-  bool raised = false;
-#pragma unroll 1
-  for (int j = 1; j <= k; ++j) {
-    float v[MR][ML];
-#pragma unroll
-    for (int m = 0; m < MR; ++m) {
-#pragma unroll
-      for (int n = 0; n < ML; ++n) {
-        const int a = ty + SMTY * m, b = tx + BX * n;
-        const int gi = i0 + a, gj = j0 + b;
-        const float f = t[a][b];
-        v[m][n] = f;
-        if (a < j || a >= SMR - j || b < j || b >= SML - j || gi < 0 ||
-            gi >= nx || gj < 0 || gj >= ny)
-          continue;
-        float nb = f;
-        if (gi > 0) nb = fmaxf(nb, t[a - 1][b]);
-        if (gi < nx - 1) nb = fmaxf(nb, t[a + 1][b]);
-        if (gj > 0) nb = fmaxf(nb, t[a][b - 1]);
-        if (gj < ny - 1) nb = fmaxf(nb, t[a][b + 1]);
-        v[m][n] = smooth_ring(P, f, nb);
-        if (j == k && v[m][n] > f) raised = true;
-      }
-    }
-    __syncthreads();  // every read of ring j - 1
-#pragma unroll
-    for (int m = 0; m < MR; ++m) {
-#pragma unroll
-      for (int n = 0; n < ML; ++n) t[ty + SMTY * m][tx + BX * n] = v[m][n];
-    }
-    __syncthreads();  // ring j
+  big = __syncthreads_and(big);
+  const float r = P.smooth_ratio, y = P.smooth_inv;
+  bool raised;
+  if (edge) {
+    raised = big ? smooth_rings<true, false>(v, k, r, y, rin, lin, xr)
+                 : smooth_rings<true, true>(v, k, r, y, rin, lin, xr);
+  } else {
+    raised = big ? smooth_rings<false, false>(v, k, r, y, rin, lin, xr)
+                 : smooth_rings<false, true>(v, k, r, y, rin, lin, xr);
   }
-  if (__syncthreads_or(raised) && tx == 0 && ty == 0) chg[0] = 1.0f;
+  if (__syncthreads_or(raised) && tx == 0 && w == 0) chg[0] = 1.0f;
   // the cells in the middle, and the ghosts beside the edge cells
 #pragma unroll
-  for (int m = 0; m < MR; ++m) {
+  for (int i = 0; i < SMRW; ++i) {
+    const int a = w * SMRW + i, gi = gi0 + i;
+    if (a < k || a >= SMRN - k || !rin[i]) continue;
 #pragma unroll
-    for (int n = 0; n < ML; ++n) {
-      const int a = ty + SMTY * m, b = tx + BX * n;
-      const int gi = i0 + a, gj = j0 + b;
-      if (a < k || a >= SMR - k || b < k || b >= SML - k || gi < 0 ||
-          gi >= nx || gj < 0 || gj >= ny)
-        continue;
-      const float f = t[a][b];
+    for (int c = 0; c < SMV; ++c) {
+      const int b = tx * SMV + c, gj = gj0 + c;
+      if (b < k || b >= SMLN - k || !lin[c]) continue;
+      const float f = v[i][c];
+      out[(gi + 1) * W + gj + 1] = f;
+      if (!edge) continue;
       const long rows[2] = {gi == 0 ? 0 : -1, gi == nx - 1 ? nx + 1 : -1};
       const long lanes[2] = {gj == 0 ? 0 : -1, gj == ny - 1 ? ny + 1 : -1};
-      out[(gi + 1) * W + gj + 1] = f;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         if (rows[e] >= 0) out[rows[e] * W + gj + 1] = f;
@@ -996,6 +1070,26 @@ qgd2d_smooth_kernel(QGDParams P, const float* __restrict__ in, int pitch,
       }
     }
   }
+}
+
+// Counts, in bad[0..4], the floats nb of five ranges where smooth_div<true>
+// and __fdiv_rn give different bits: [1, 2), the binade at SMOOTH_TINY
+// (the fast formula's lowest), the lowest normal binade, the subnormals
+// (and +0) and the top binade.  blockIdx.y picks the range.
+__global__ void smooth_ring_check_kernel(float r, float y,
+                                         unsigned* __restrict__ bad) {
+  const unsigned first[5] = {0x3F800000u, 0u, 0x00800000u, 0u, 0x7F000000u};
+  const unsigned start = blockIdx.y == 1 ? __float_as_uint(SMOOTH_TINY)
+                                         : first[blockIdx.y];
+  unsigned count = 0;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < (1u << 23);
+       i += gridDim.x * blockDim.x) {
+    const float nb = __uint_as_float(start + i);
+    count += __float_as_uint(smooth_div<true>(nb, r, y)) !=
+             __float_as_uint(__fdiv_rn(nb, r));
+  }
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_xor_sync(FULL, count, o);
+  if ((threadIdx.x & 31) == 0 && count) atomicAdd(bad + blockIdx.y, count);
 }
 
 // The update's chunk of rows at this shape on the current device: the
@@ -1149,10 +1243,21 @@ int qgd2d_smooth(const QGDParams* prm, const float* in, int pitch, int k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(chg, 0, sizeof(float), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((prm->ny + SML - 2 * k - 1) / (SML - 2 * k),
-                  (prm->nx + SMR - 2 * k - 1) / (SMR - 2 * k));
-  qgd2d_smooth_kernel<<<grid, dim3(BX, SMTY), 0, st>>>(*prm, in, pitch, k, out,
-                                                       chg);
+  const dim3 grid((prm->ny + SMLN - 2 * k - 1) / (SMLN - 2 * k),
+                  (prm->nx + SMRN - 2 * k - 1) / (SMRN - 2 * k));
+  qgd2d_smooth_kernel<<<grid, dim3(32, SMW), 0, st>>>(*prm, in, pitch, k, out,
+                                                      chg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The division-free ring against __fdiv_rn for maxRatio r and y = RN(1/r):
+// bad[0..4] (device, zeroed here) <- the mismatches in each range of
+// smooth_ring_check_kernel.
+int smooth_ring_check(float r, float y, unsigned* bad, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(bad, 0, 5 * sizeof(unsigned), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  smooth_ring_check_kernel<<<dim3(512, 5), 256, 0, st>>>(r, y, bad);
   return static_cast<int>(cudaGetLastError());
 }
 

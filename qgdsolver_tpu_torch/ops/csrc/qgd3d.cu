@@ -65,7 +65,10 @@
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
+
+#include "smooth_ring.cuh"
 
 namespace {
 
@@ -113,6 +116,8 @@ struct QGD3DParams {
   float inv_Pr_tau, mu0, mu0_Pr_th, max_co, max_dt, c_tau;
   float rC, one_m_rC, minSc, maxSc, cqSc, h_cell;
   BCEntry3 bc[5][3][2];  // [field p, T, ux, uy, uz][axis][side]
+  // qgd3d_smooth: maxRatio and RN(1 / maxRatio) (smooth_ring.cuh)
+  float smooth_ratio, smooth_inv;
 };
 
 namespace {
@@ -760,6 +765,312 @@ cudaError_t allow_update_smem() {
   return e;
 }
 
+
+// ---------------------------------------------------------------------------
+// qgd3d_smooth: fvc::smooth of the raw sensor, k rings per launch
+// ---------------------------------------------------------------------------
+//
+// Replaces the XLA fvc_smooth the reference runs between K4's calls
+// (qgdsolver_tpu/ops/fused_qgd3d.py:841-844): rings of
+// f <- max(f, nbr_max(f)/maxRatio) over the six face neighbours (a cell
+// beyond a physical edge is the cell itself) to the fixed point.  A launch
+// runs k rings of the (nx, ny, nz) cells it reads into the sensor frame,
+// ghosts edge-replicated, and sets the flag when the last ring raised a
+// written cell; the host launches again while it is set.  As in
+// qgd2d_smooth, ring j is valid on the block's region shrunk by j cells, the
+// ring is smooth_ring.cuh's, and the result is the plain loop's bit for bit
+// whatever k.
+//
+// The halo costs more in 3D (a cube with a k-cell halo stages
+// (T / (T - 2k))^3 of what it writes), so a block owns a (y, z) tile with a
+// k-cell halo in y and z and marches along x over a chunk of planes (and k
+// planes before and after it), keeping the k levels of the ring pipeline in
+// registers: when raw plane s arrives, level j (ring j) computes plane s - j
+// from level j - 1's planes s - j - 1, s - j, s - j + 1.  Each level keeps
+// its last three planes of the thread's cells in registers, for the x
+// neighbours; the in-plane neighbours come from shared memory, where every
+// level publishes its newest plane, in two buffers used in turn (by plane
+// parity), so one barrier per plane serves all k levels.  A thread owns
+// S3R rows of one z-lane: its y neighbours but the first and last are its
+// own registers.  Cells beyond a physical edge hold -FLT_MAX and keep it,
+// as in qgd2d_smooth.  A step is short next to a load from memory, and a
+// block's 16 warps are all an SM holds, so each thread copies its raw
+// cells S3D planes ahead (cp.async) into a ring of shared planes that only
+// it reads.
+
+constexpr int S3Z = 64;                     // tile lanes (z), one per thread
+constexpr int S3T = 8;                      // thread rows
+constexpr int S3R = 4;                      // tile rows a thread owns
+constexpr int S3Y = S3T * S3R;              // tile rows (y)
+constexpr int S3W = S3Z + 2;                // a published row, with pads
+constexpr int S3P = (S3Y + 2) * S3W;        // a published plane
+constexpr int S3D = 4;                      // raw planes in flight
+constexpr int SMOOTH3_KMAX = 4;             // rings a launch may run
+
+// the published planes of the K levels, then the ring of raw planes
+template <int K>
+constexpr int smooth3_smem() {
+  return static_cast<int>(sizeof(float)) *
+         (2 * S3P * (K > 0 ? K : 1) + S3D * S3Y * S3Z);
+}
+
+struct Smooth3 {
+  const float* __restrict__ in;  // cell (0, 0, 0)
+  long sx, sy;                   // its x and y strides (z: 1)
+  float* __restrict__ out;       // the (nx+2, ny+2, nz+2) frame
+  float* __restrict__ chg;
+  int cx;                        // planes a block writes
+};
+
+// v into the frame at cell (x, y, z), and into the ghosts beside it: along
+// z, then the rows of those along y, then the planes of those along x (a
+// ghost of an edge or a corner too).  Straight-line predicated stores: a
+// warp whose lanes include one boundary cell pays a few instructions, not a
+// loop over the 26 directions.
+__device__ __forceinline__ void smooth3_put(const QGD3DParams& P, float* out,
+                                            int x, int y, int z, float v) {
+  const long wy = P.nz + 2, wx = (long)(P.ny + 2) * wy;
+  const bool zl = z == 0, zh = z == P.nz - 1;
+  const bool yl = y == 0, yh = y == P.ny - 1;
+  const bool xl = x == 0, xh = x == P.nx - 1;
+  const auto row = [&](float* q) {
+    *q = v;
+    if (zl) q[-1] = v;
+    if (zh) q[1] = v;
+  };
+  const auto plane = [&](float* q) {
+    row(q);
+    if (yl) row(q - wy);
+    if (yh) row(q + wy);
+  };
+  float* o = out + (x + 1) * wx + (y + 1) * wy + z + 1;
+  plane(o);
+  if (xl) plane(o - wx);
+  if (xh) plane(o + wx);
+}
+
+// This thread's cells of raw plane s in the ring of raw planes (slot s mod
+// S3D).
+__device__ __forceinline__ float* smooth3_raw(float* ring, int s) {
+  return ring + (s & (S3D - 1)) * S3Y * S3Z + threadIdx.y * S3R * S3Z +
+         threadIdx.x;
+}
+
+// Copies this thread's cells of raw plane s into the ring as one cp.async
+// group (-FLT_MAX beyond the mesh).
+template <bool EDGE>
+__device__ __forceinline__ void smooth3_fetch(const QGD3DParams& P,
+                                              const Smooth3& A, float* ring,
+                                              int s, int y0, int z0,
+                                              const bool (&yin)[S3R],
+                                              bool zin) {
+  const int tz = threadIdx.x, a0 = threadIdx.y * S3R;
+  const bool xin = s >= 0 && s < P.nx;
+  float* dst = smooth3_raw(ring, s);
+#pragma unroll
+  for (int i = 0; i < S3R; ++i) {
+    if (xin && (!EDGE || (yin[i] && zin)))
+      __pipeline_memcpy_async(
+          dst + i * S3Z, A.in + s * A.sx + (y0 + a0 + i) * A.sy + z0 + tz,
+          sizeof(float));
+    else
+      dst[i * S3Z] = -FLT_MAX;
+  }
+  __pipeline_commit();
+}
+
+// One step of the march with raw plane s arriving (fetched S3D - 1 steps
+// ahead; plane s + S3D - 1 is fetched now); U = (s - first step) mod 3
+// names the register slots: plane q of any level sits in slot
+// (q - first step) mod 3.
+template <int K, bool EDGE, int U>
+__device__ __forceinline__ void smooth3_step(
+    const QGD3DParams& P, const Smooth3& A, float (&pl)[K][3][S3R],
+    float* __restrict__ ring, float* __restrict__ sp, int s, int x0, int y0,
+    int z0, const bool (&yin)[S3R], bool zin, bool& raised) {
+  const int tz = threadIdx.x, a0 = threadIdx.y * S3R;
+  const int nx = P.nx;
+  const float r = P.smooth_ratio, y = P.smooth_inv;
+  smooth3_fetch<EDGE>(P, A, ring, s + S3D - 1, y0, z0, yin, zin);
+  __pipeline_wait_prior(S3D - 1);  // this thread's copies of plane s
+  const float* raw = smooth3_raw(ring, s);
+#pragma unroll
+  for (int i = 0; i < S3R; ++i) pl[0][U][i] = raw[i * S3Z];
+#pragma unroll
+  for (int j = 1; j <= K; ++j) {
+    const int p = s - j;
+    const bool pin = p >= 0 && p < nx;
+    constexpr int B = 3 * (K + 2);  // keeps the slot arithmetic positive
+    const int lo = (U - j - 1 + B) % 3, mid = (U - j + B) % 3,
+              hi = (U - j + 1 + B) % 3;
+    const float(&f)[3][S3R] = pl[j - 1];
+    const float* q = sp + ((j - 1) * 2 + (p & 1)) * S3P + (a0 + 1) * S3W + tz +
+                     1;
+    const bool write = j == K && pin && p >= x0 && p < x0 + A.cx &&
+                       tz >= K && tz < S3Z - K;
+#pragma unroll
+    for (int i = 0; i < S3R; ++i) {
+      const float c = f[mid][i];
+      const float yl = i > 0 ? f[mid][i - 1] : q[(i - 1) * S3W];
+      const float yh = i + 1 < S3R ? f[mid][i + 1] : q[(i + 1) * S3W];
+      float nb = fmaxf(fmaxf(c, f[lo][i]), f[hi][i]);
+      nb = fmaxf(nb, fmaxf(fmaxf(yl, yh),
+                           fmaxf(q[i * S3W - 1], q[i * S3W + 1])));
+      float v = smooth_ring<true>(c, nb, r, y);
+      const bool in = pin && (!EDGE || (yin[i] && zin));
+      if (!in) v = -FLT_MAX;
+      if (j < K) {
+        pl[j][mid][i] = v;
+      } else if (write && in && a0 + i >= K && a0 + i < S3Y - K) {
+        smooth3_put(P, A.out, p, y0 + a0 + i, z0 + tz, v);
+        if (v > c) raised = true;
+      }
+    }
+  }
+  // publish each level's newest plane (level l's plane s - l), then wait
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    float* q = sp + (l * 2 + ((s - l) & 1)) * S3P + (a0 + 1) * S3W + tz + 1;
+#pragma unroll
+    for (int i = 0; i < S3R; ++i) q[i * S3W] = pl[l][(U - l + 3 * K) % 3][i];
+  }
+  __syncthreads();
+}
+
+template <int K, bool EDGE>
+__device__ __forceinline__ bool smooth3_march(const QGD3DParams& P,
+                                              const Smooth3& A, float* sp,
+                                              int x0, int y0, int z0,
+                                              const bool (&yin)[S3R],
+                                              bool zin) {
+  float pl[K][3][S3R];
+#pragma unroll
+  for (int l = 0; l < K; ++l)
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int i = 0; i < S3R; ++i) pl[l][u][i] = -FLT_MAX;
+  bool raised = false;
+  const int first = x0 - K, steps = A.cx + 2 * K;
+  float* ring = sp + 2 * S3P * K;
+  for (int d = 0; d < S3D - 1; ++d)
+    smooth3_fetch<EDGE>(P, A, ring, first + d, y0, z0, yin, zin);
+  for (int n = 0; n < steps; n += 3) {
+    smooth3_step<K, EDGE, 0>(P, A, pl, ring, sp, first + n, x0, y0, z0, yin,
+                             zin, raised);
+    if (n + 1 < steps)
+      smooth3_step<K, EDGE, 1>(P, A, pl, ring, sp, first + n + 1, x0, y0, z0,
+                               yin, zin, raised);
+    if (n + 2 < steps)
+      smooth3_step<K, EDGE, 2>(P, A, pl, ring, sp, first + n + 2, x0, y0, z0,
+                               yin, zin, raised);
+  }
+  __pipeline_wait_prior(0);  // the fetches past the chunk
+  return raised;
+}
+
+template <int K>
+__global__ void __launch_bounds__(S3Z * S3T)
+qgd3d_smooth_kernel(QGD3DParams P, Smooth3 A) {
+  extern __shared__ float sp[];
+  const int x0 = blockIdx.z * A.cx;
+  const int y0 = blockIdx.y * (S3Y - 2 * K) - K;
+  const int z0 = blockIdx.x * (S3Z - 2 * K) - K;
+  const int tz = threadIdx.x, a0 = threadIdx.y * S3R;
+  bool yin[S3R];
+#pragma unroll
+  for (int i = 0; i < S3R; ++i)
+    yin[i] = y0 + a0 + i >= 0 && y0 + a0 + i < P.ny;
+  const bool zin = z0 + tz >= 0 && z0 + tz < P.nz;
+  if constexpr (K == 0) {
+    // no ring: the cells framed
+    for (int x = x0; x < x0 + A.cx && x < P.nx; ++x)
+#pragma unroll
+      for (int i = 0; i < S3R; ++i)
+        if (yin[i] && zin)
+          smooth3_put(P, A.out, x, y0 + a0 + i, z0 + tz,
+                      A.in[x * A.sx + (y0 + a0 + i) * A.sy + z0 + tz]);
+  } else {
+    const bool edge =
+        y0 < 0 || z0 < 0 || y0 + S3Y > P.ny || z0 + S3Z > P.nz;
+    const bool raised =
+        edge ? smooth3_march<K, true>(P, A, sp, x0, y0, z0, yin, zin)
+             : smooth3_march<K, false>(P, A, sp, x0, y0, z0, yin, zin);
+    if (__syncthreads_or(raised) && tz == 0 && threadIdx.y == 0)
+      A.chg[0] = 1.0f;
+  }
+}
+
+// The launch of K rings: its chunk of planes, which a block marches with K
+// planes before and after it, chosen for the fewest planes marched by the
+// busiest SM (waves of resident blocks times planes a block marches), and
+// its grid.
+template <int K>
+cudaError_t smooth3_launch(const QGD3DParams& P, Smooth3 A, cudaStream_t st,
+                           int* shape) {
+  static int sms[64] = {}, bps[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  constexpr int smem = smooth3_smem<K>();
+  if (sms[dev] == 0) {
+    e = cudaFuncSetAttribute(qgd3d_smooth_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &bps[dev], qgd3d_smooth_kernel<K>, S3Z * S3T, smem);
+    if (e != cudaSuccess) {
+      sms[dev] = 0;
+      return e;
+    }
+  }
+  const long tiles = (long)((P.nz + S3Z - 2 * K - 1) / (S3Z - 2 * K)) *
+                     ((P.ny + S3Y - 2 * K - 1) / (S3Y - 2 * K));
+  const long slots = (long)sms[dev] * (bps[dev] > 0 ? bps[dev] : 1);
+  int cx = P.nx;
+  long best = -1;
+  for (int chunks = 1; chunks <= P.nx; ++chunks) {
+    const int c = (P.nx + chunks - 1) / chunks;
+    if ((P.nx + c - 1) / c != chunks) continue;  // the same c as fewer
+    const long cost = (tiles * chunks + slots - 1) / slots * (c + 2 * K);
+    if (best < 0 || cost < best) {
+      best = cost;
+      cx = c;
+    }
+  }
+  A.cx = cx;
+  const dim3 grid((P.nz + S3Z - 2 * K - 1) / (S3Z - 2 * K),
+                  (P.ny + S3Y - 2 * K - 1) / (S3Y - 2 * K),
+                  (P.nx + cx - 1) / cx);
+  if (shape) {
+    shape[0] = S3Y;
+    shape[1] = S3Z;
+    shape[2] = cx;
+    shape[3] = smem;
+    shape[4] = bps[dev];
+    return cudaSuccess;
+  }
+  qgd3d_smooth_kernel<K><<<grid, dim3(S3Z, S3T), smem, st>>>(P, A);
+  return cudaGetLastError();
+}
+
+cudaError_t smooth3_dispatch(int k, const QGD3DParams& P, const Smooth3& A,
+                             cudaStream_t st, int* shape) {
+  switch (k) {
+    case 0: return smooth3_launch<0>(P, A, st, shape);
+    case 1: return smooth3_launch<1>(P, A, st, shape);
+    case 2: return smooth3_launch<2>(P, A, st, shape);
+    case 3: return smooth3_launch<3>(P, A, st, shape);
+    case 4: return smooth3_launch<4>(P, A, st, shape);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -877,6 +1188,34 @@ int qgd3d_ghosts(const QGD3DParams* prm, const float* planes,
   const dim3 gz((unsigned)(((nx + 2) * (ny + 2) + GT - 1) / GT), 10);
   qgd3d_ghost_z_kernel<<<gz, GT, 0, st>>>(*prm, O);
   return static_cast<int>(cudaGetLastError());
+}
+
+// k fvc::smooth rings (0 <= k <= SMOOTH3_KMAX) of the (nx, ny, nz) cells at
+// in (cell (x, y, z) at in[x * sx + y * sy + z]) into the frame out, ghosts
+// edge-replicated; chg <- 1 if the last ring raised a cell, else 0.
+int qgd3d_smooth(const QGD3DParams* prm, const float* in, long sx, long sy,
+                 int k, float* out, float* chg, void* stream) {
+  if (k < 0 || k > SMOOTH3_KMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(chg, 0, sizeof(float), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Smooth3 A;
+  A.in = in;
+  A.sx = sx;
+  A.sy = sy;
+  A.out = out;
+  A.chg = chg;
+  A.cx = 0;
+  return static_cast<int>(smooth3_dispatch(k, *prm, A, st, nullptr));
+}
+
+// qgd3d_smooth's launch of k rings at prm's shape on the current device:
+// out = {tile rows (y), tile lanes (z), chunk planes, dynamic shared bytes
+// per block, resident blocks per SM}.
+int qgd3d_smooth_shape(const QGD3DParams* prm, int k, int* out) {
+  Smooth3 A = {};
+  return static_cast<int>(smooth3_dispatch(k, *prm, A, nullptr, out));
 }
 
 }  // extern "C"

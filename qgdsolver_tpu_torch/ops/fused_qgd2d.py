@@ -245,6 +245,14 @@ def _compile_bcs(solver, params: _build.QGDParams) -> np.ndarray:
     return np.stack(profiles)
 
 
+def set_smooth_ratio(prm, coeff) -> None:
+    """maxRatio = 1 + coeff of the smoothing rings into prm (QGDParams or
+    QGD3DParams), rounded to float32 once, and its reciprocal rounded from
+    that float32: the constants of the division-free ring."""
+    prm.smooth_ratio = 1.0 + coeff
+    prm.smooth_inv = float(np.float32(1.0) / np.float32(prm.smooth_ratio))
+
+
 def make_params(solver) -> tuple:
     """(QGDParams, profile table) for a supported solver."""
     mesh = solver.mesh
@@ -280,7 +288,7 @@ def make_params(solver) -> tuple:
         prm.minSc = tm.minSc
         prm.maxSc = tm.maxSc
         prm.cqSc = float(tm.cqSc)
-        prm.smooth_ratio = 1.0 + tm.smoothCoeff
+        set_smooth_ratio(prm, tm.smoothCoeff)
     profiles = _compile_bcs(solver, prm)
     return prm, profiles
 
@@ -614,9 +622,16 @@ def emit_reference(prm, p, T, ux, uy, sc):
     raw = prm.rC * (mag * prm.h_cell / rho[C, C]) + prm.one_m_rC * sc[C, C]
     raw = torch.clamp(raw, prm.minSc, prm.maxSc)
     raw = torch.clamp(raw, min=prm.cqSc).contiguous()
-    s1 = torch.maximum(raw, _neighbour_max(raw) / prm.smooth_ratio)
+    s1 = torch.maximum(raw, _neighbour_max(raw) / _ratio(prm, raw))
     chg = torch.any(s1 > raw).to(raw.dtype)
     return co_rate, tau_rate, raw, s1, chg
+
+
+def _ratio(prm, like):
+    """maxRatio of the smoothing rings, a 0-dim tensor on `like`'s device
+    (see `qgdcoeffs.smooth_ratio`)."""
+    return torch.full((), prm.smooth_ratio, dtype=like.dtype,
+                      device=like.device)
 
 
 def smooth_reference(prm, f, k):
@@ -624,10 +639,11 @@ def smooth_reference(prm, f, k):
     f <- max(f, nbr_max(f)/maxRatio) of the (nx, ny) sensor cells f
     (edge-replicated neighbours at the boundary).  Returns (the cells after
     k rings, flag): flag is a 0-dim 1.0 if the last ring raised any cell,
-    else 0.0 (0.0 for k = 0).  maxRatio is a tensor on f's device, so the
-    division is a correctly rounded one on the card too, as the kernel's
-    (a Python scalar divisor may become a reciprocal product there)."""
-    ratio = torch.tensor(prm.smooth_ratio, dtype=f.dtype, device=f.device)
+    else 0.0 (0.0 for k = 0).  Any number of axes: it is
+    `qgd3d_smooth`'s plain version too.  maxRatio is a tensor on f's
+    device, so the division is a correctly rounded one on the card too, as
+    the kernel's."""
+    ratio = _ratio(prm, f)
     flag = torch.zeros((), dtype=f.dtype, device=f.device)
     for _ in range(k):
         fn = torch.maximum(f, _neighbour_max(f) / ratio)
@@ -809,17 +825,41 @@ def qgd2d_emit(prm, p, T, ux, uy, sc):
 # rings one qgd2d_smooth launch may run (the kernel's halo), and the rings
 # per launch on K2's path
 SMOOTH_KMAX = 16
-SMOOTH_RINGS = 8
+SMOOTH_RINGS = 16
 
 
 def _smooth_plain(prm, f, k, out, flag):
-    """What `qgd2d_smooth` computes, in plain torch: `smooth_reference` on
-    the cells of f, edge-framed into out; the flag into flag."""
-    cells, fl = smooth_reference(
-        prm, f if tuple(f.shape) == (prm.nx, prm.ny) else f[1:-1, 1:-1], k)
-    out.copy_(_edge_frame(cells))
+    """What `qgd2d_smooth` and `qgd3d_smooth` compute, in plain torch:
+    `smooth_reference` on the cells of f (the cells, or the interior of a
+    frame shaped as out), edge-framed into out; the flag into flag."""
+    cells = tuple(n - 2 for n in out.shape)
+    if tuple(f.shape) != cells:
+        f = f[(slice(1, -1),) * f.ndim]
+    got, fl = smooth_reference(prm, f, k)
+    out.copy_(_edge_frame(got))
     flag.copy_(fl)
     return out, flag
+
+
+def smooth_args(name, cells, kmax, f, k, out, flag):
+    """The checks and defaults the smoothing wrappers share: f the `cells`
+    shaped sensor or the frame around them, 0 <= k <= kmax, out a frame
+    (new if None) and flag a 0-dim tensor (new if None) beside f.  Returns
+    (on_card, f holds bare cells, out, flag)."""
+    frame = tuple(n + 2 for n in cells)
+    bare = tuple(f.shape) == tuple(cells)
+    on_card = check_tensors(name, cells if bare else frame, f)
+    if not 0 <= k <= kmax:
+        raise ValueError(f"{name}: k={k} outside 0..{kmax}")
+    out = torch.empty(frame, dtype=f.dtype, device=f.device) \
+        if out is None else out
+    flag = torch.empty((), dtype=f.dtype, device=f.device) \
+        if flag is None else flag
+    check_tensors(name, frame, out)
+    check_tensors(name, (), flag)
+    if out.device != f.device or flag.device != f.device:
+        raise ValueError(f"{name}: out and flag must lie beside f")
+    return on_card, bare, out, flag
 
 
 def qgd2d_smooth(prm, f, k, out=None, flag=None):
@@ -830,25 +870,13 @@ def qgd2d_smooth(prm, f, k, out=None, flag=None):
     ring raised any cell, else 0.0 - see `smooth_reference`.  k = 0 only
     frames the cells.  Each launch adds one to `launches` and k to
     `rings`."""
-    frame = (prm.nx + 2, prm.ny + 2)
-    cells = tuple(f.shape) == (prm.nx, prm.ny)
-    on_card = check_tensors("qgd2d_smooth", (prm.nx, prm.ny) if cells
-                            else frame, f)
-    if not 0 <= k <= SMOOTH_KMAX:
-        raise ValueError(f"qgd2d_smooth: k={k} outside 0..{SMOOTH_KMAX}")
-    out = torch.empty(frame, dtype=f.dtype, device=f.device) \
-        if out is None else out
-    flag = torch.empty((), dtype=f.dtype, device=f.device) \
-        if flag is None else flag
-    check_tensors("qgd2d_smooth", frame, out)
-    check_tensors("qgd2d_smooth", (), flag)
-    if out.device != f.device or flag.device != f.device:
-        raise ValueError("qgd2d_smooth: out and flag must lie beside f")
+    on_card, bare, out, flag = smooth_args(
+        "qgd2d_smooth", (prm.nx, prm.ny), SMOOTH_KMAX, f, k, out, flag)
     if not on_card:
         return _smooth_plain(prm, f, k, out, flag)
     lib = _build.load()
     # cell (0, 0) of a frame is its element (1, 1)
-    base, pitch = ((f.data_ptr(), prm.ny) if cells
+    base, pitch = ((f.data_ptr(), prm.ny) if bare
                    else (f.data_ptr() + 4 * (prm.ny + 3), prm.ny + 2))
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
@@ -860,15 +888,58 @@ def qgd2d_smooth(prm, f, k, out=None, flag=None):
     return out, flag
 
 
+# the ranges smooth_ring_check holds the division-free ring to __fdiv_rn on
+RING_RANGES = ("[1, 2)", "the binade at SMOOTH_TINY", "the lowest normal "
+               "binade", "the subnormals", "the top binade")
+
+
+def smooth_ring_check(ratio: float, device) -> dict:
+    """{range: mismatches}: the kernels' division-free ring against a
+    correctly rounded division by float32 `ratio` on every float of each of
+    RING_RANGES, on a card (`smooth_ring_check` in qgd2d.cu)."""
+    r = np.float32(ratio)
+    lib = _build.load()
+    dev = torch.device(device)
+    bad = torch.zeros(len(RING_RANGES), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.smooth_ring_check(float(r), float(np.float32(1.0) / r),
+                                     _ptr(bad), stream)
+    _build.check(lib, code, "smooth_ring_check")
+    return dict(zip(RING_RANGES, bad.tolist()))
+
+
+_RINGS_CHECKED = set()
+
+
+def require_exact_ring(prm, device) -> None:
+    """Raise unless the division-free ring is exact for prm's maxRatio on
+    every float `smooth_ring_check` tries, checked once per ratio and card
+    before a step builder hands the ratio to the smoothing kernels."""
+    key = (prm.smooth_ratio, str(device))
+    if key in _RINGS_CHECKED:
+        return
+    bad = smooth_ring_check(prm.smooth_ratio, device)
+    if any(bad.values()):
+        raise RuntimeError(
+            f"the division-free smoothing ring is not exact for maxRatio "
+            f"{prm.smooth_ratio!r}: {sum(bad.values())} mismatches ({bad})")
+    _RINGS_CHECKED.add(key)
+
+
 def smooth_sensor(prm, s1, chg, k=SMOOTH_RINGS, smooth=qgd2d_smooth,
                   bufs=None, max_iters=10_000):
-    """The sensor frame of a K2 step: the emitted first fvc::smooth ring s1
-    ((nx, ny) cells) and its change flag `chg` carried to the fixed point,
-    edge-framed - bitwise `fvc_smooth` of the raw sensor, whatever k.
+    """The sensor frame of a step: fvc::smooth carried to its fixed point
+    and edge-framed - bitwise `fvc_smooth` of the raw sensor, whatever k -
+    on `smooth` (the signature of `qgd2d_smooth` and `qgd3d_smooth`), in
+    any number of axes.
 
-    The host reads the emitted flag; if it is 0, ring 1 is the fixed point
-    and one launch of 0 rings frames it.  Otherwise it launches `smooth`
-    (the `qgd2d_smooth` signature) with k rings at a time, reading each
+    With a flag `chg` (K2), s1 is the emitted first ring ((nx, ny) cells)
+    and chg its change flag: the host reads it, and if it is 0, ring 1 is
+    the fixed point and one launch of 0 rings frames it.  With chg None
+    (the 3D step), s1 is the raw sensor and the first launch runs ring 1
+    alone, as `fvc_smooth` tests after its first ring: an inactive sensor
+    costs one ring.  Then it launches k rings at a time, reading each
     launch's last-ring flag, until a launch's last ring raised no cell or
     the `fvc_smooth` cap of max_iters rings is reached.  The launches
     alternate between the returned frame, which is new, and a scratch
@@ -877,24 +948,27 @@ def smooth_sensor(prm, s1, chg, k=SMOOTH_RINGS, smooth=qgd2d_smooth,
     bufs = [scratch frame, flag, launches of the last call] is kept across
     calls (new if None).  Counts its host flag reads in `reads` and its
     rings in `rings`."""
-    out = torch.empty((prm.nx + 2, prm.ny + 2), dtype=s1.dtype,
+    out = torch.empty(tuple(n + 2 for n in s1.shape), dtype=s1.dtype,
                       device=s1.device)
     if bufs is None:
         bufs = [torch.empty_like(out), torch.empty((), dtype=s1.dtype,
                                                    device=s1.device), 1]
     scratch, flag, last = bufs
-    smooth_sensor.reads += 1
-    if not bool(chg):
-        return smooth(prm, s1, 0, out, flag)[0]
-    src, dst, it, n = s1, (out if last % 2 else scratch), 1, 0
+    it, rings = 0, 1
+    if chg is not None:
+        smooth_sensor.reads += 1
+        if not bool(chg):
+            return smooth(prm, s1, 0, out, flag)[0]
+        it, rings = 1, k
+    src, dst, n = s1, (out if last % 2 else scratch), 0
     while True:
-        smooth(prm, src, k, dst, flag)
-        smooth_sensor.rings += k
-        it, n = it + k, n + 1
+        smooth(prm, src, rings, dst, flag)
+        smooth_sensor.rings += rings
+        it, n = it + rings, n + 1
         smooth_sensor.reads += 1
         if not bool(flag) or it >= max_iters:
             break
-        src, dst = dst, (scratch if dst is out else out)
+        src, dst, rings = dst, (scratch if dst is out else out), k
     bufs[2] = n
     if dst is not out:
         out.copy_(dst)
@@ -1211,7 +1285,9 @@ def build_tiled_fused_step(solver, plain: bool = False):
          `smooth_sensor` on `qgd2d_smooth` (one launch of no ring when the
          flag is 0, else SMOOTH_RINGS rings a launch to the fixed point; one
          host flag read per launch; its scratch frame and flag allocated
-         once per builder and device);
+         once per builder and device; on a card the builder first requires
+         the kernels' division-free ring exact for the case's maxRatio,
+         `require_exact_ring`);
       3. `qgd2d_update`;  4. `qgd2d_ghosts`;  5. `qgd2d_emit`.
 
     to_fused converts a State (the sensor framed by `qgd2d_smooth` with no
@@ -1228,6 +1304,8 @@ def build_tiled_fused_step(solver, plain: bool = False):
     varsc = isinstance(tm, VarScModel5)
     prm, profiles_np = make_params(solver)
     profiles = mesh.tensor(profiles_np).contiguous()
+    if varsc and not plain and mesh.device.type == "cuda":
+        require_exact_ring(prm, mesh.device)
     if plain:
         k_update, k_ghosts, k_emit, k_smooth = update_reference, \
             ghosts_reference, emit_reference, _smooth_plain

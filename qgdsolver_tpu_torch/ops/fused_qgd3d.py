@@ -12,25 +12,31 @@ current fields (interior cells only, (nx, ny, nz)).
 One step:
   1. `qgd3d_dt`: acoustic Courant number and min tau_f over the exact live
      face sets, then setDeltaT - a one-element tensor on the device;
-  2. varScModel5 only: `fvc_smooth` of `sc_raw` (plain torch, as XLA does
-     it in the reference) -> this step's sensor;
+  2. varScModel5 only: fvc::smooth of `sc_raw` -> this step's sensor
+     frame: `fused_qgd2d.smooth_sensor` on `qgd3d_smooth` from the raw
+     sensor to the fixed point, ring 1 alone in the first launch and
+     SMOOTH3_RINGS rings in each after it, one host flag read a launch
+     (XLA's `fvc_smooth` between the kernel's calls in the reference);
   3. `qgd3d_update`: the six face fluxes of each cell and the explicit
      update into new frames, plus ws/tau_f on the two x-boundary faces;
   4. varScModel5 only: `qgd3d_sensor`, the raw sensor over the fresh frames;
   5. `qgd3d_ghosts`: BC ghost planes along x, then y over every x, then z.
 
-Each of 1 and 3-5 is a wrapper: for CPU tensors it runs the plain torch
-version beside it (`dt_reference_3d`, `update_reference_3d`,
-`sensor_reference_3d`, `ghosts_reference_3d`); for CUDA tensors it launches
-the kernel from csrc/qgd3d.cu or raises.  Each wrapper counts its launches in
-a plain integer attribute (`qgd3d_dt.launches`, ...).
+Each kernel call is a wrapper: for CPU tensors it runs the plain torch
+version beside it (`dt_reference_3d`, `smooth_reference_3d`,
+`update_reference_3d`, `sensor_reference_3d`, `ghosts_reference_3d`); for
+CUDA tensors it launches the kernel from csrc/qgd3d.cu or raises.  Each
+wrapper counts its launches in a plain integer attribute
+(`qgd3d_dt.launches`, ...; `qgd3d_smooth.rings` counts its rings too).
 
 `build_sharded_fused_step_3d` (K5) runs the same kernels on each rank's
 x-slab of an x-ring decomposition: the slab's frame carries the
 neighbours' planes as its x halo, the flags edge_lo / edge_hi of
 QGD3DParams mark the physical x ends, dt is `qgd3d_dt_fold` per slab, one
 MAX all-reduce and `qgd3d_dt_apply`, and the fresh edge planes are
-exchanged after `qgd3d_ghosts`, before the sensor reads them.
+exchanged after `qgd3d_ghosts`, before the sensor reads them.  Its rings
+stay the plain `fvc_smooth` under the spmd context (a launch of k rings
+would need a k-plane halo exchange).
 
 Restrictions (`supported()`): 3D uniform f32 mesh, PerfectGasThermo with
 constant transport, the constScPrModel1 family or varScModel5 (scalar cqSc),
@@ -52,8 +58,10 @@ from ..parallel import sharding, spmd
 from ..solvers import common
 from . import _build
 from .fused_qgd2d import (KINDS, _bc_ghost, _edge_frame, _ptr, _raw_value,
-                          _scalar, _time_controls, _zg, check_tensors,
-                          common_gate)
+                          _scalar, _smooth_plain, _time_controls, _zg,
+                          check_tensors, common_gate, require_exact_ring,
+                          set_smooth_ratio, smooth_args, smooth_reference,
+                          smooth_sensor)
 from .fvsc import _hi, _lo
 from .pad import _sl
 
@@ -237,6 +245,8 @@ def make_params(solver) -> tuple:
         minSc=tm.minSc if varsc else 0.0, maxSc=tm.maxSc if varsc else 1.0,
         cqSc=float(tm.cqSc) if varsc else 0.0, h_cell=h_cell,
     )
+    if varsc:
+        set_smooth_ratio(prm, tm.smoothCoeff)
     specs, planes = _bc_specs(solver)
     for f, rows in enumerate(specs):
         for a in range(3):
@@ -460,6 +470,14 @@ def sensor_reference_3d(prm, p, T, sc):
     return torch.clamp(s, min=prm.cqSc)
 
 
+def smooth_reference_3d(prm, f, k):
+    """Plain version of `qgd3d_smooth`'s rings: k fvc::smooth rings of the
+    (nx, ny, nz) sensor cells f over the six face neighbours
+    (edge-replicated at the boundary), dividing by a tensor maxRatio;
+    (cells, last-ring flag) as `fused_qgd2d.smooth_reference`."""
+    return smooth_reference(prm, f, k)
+
+
 def ghosts_reference_3d(prm, frames, side, planes):
     """Plain version of `qgd3d_ghosts`, in place on the fresh frames: the
     x-ghost planes from the interior (qgdFlux p: interior +- side*dx), then
@@ -643,13 +661,62 @@ def qgd3d_ghosts(prm, frames, side, planes):
     return frames
 
 
+# rings one qgd3d_smooth launch may run (its x-march keeps one register
+# level per ring), and the rings per launch after the 3D step's first
+SMOOTH3_KMAX = 4
+SMOOTH3_RINGS = 4
+
+
+def qgd3d_smooth(prm, f, k, out=None, flag=None):
+    """(out, flag): k fvc::smooth rings (0 <= k <= SMOOTH3_KMAX) of the
+    sensor cells f - an (nx, ny, nz) tensor, or the interior of a frame -
+    into the frame `out` (new if None) with edge-replicated ghosts, and a
+    0-dim flag (new if None), 1.0 if the last ring raised any cell, else
+    0.0 - see `smooth_reference_3d`.  Each launch adds one to `launches`
+    and k to `rings`."""
+    nx, ny, nz = prm.nx, prm.ny, prm.nz
+    on_card, bare, out, flag = smooth_args(
+        "qgd3d_smooth", (nx, ny, nz), SMOOTH3_KMAX, f, k, out, flag)
+    if not on_card:
+        return _smooth_plain(prm, f, k, out, flag)
+    lib = _build.load()
+    # cell (0, 0, 0) of a frame is its element (1, 1, 1)
+    if bare:
+        base, sx, sy = f.data_ptr(), ny * nz, nz
+    else:
+        sx, sy = (ny + 2) * (nz + 2), nz + 2
+        base = f.data_ptr() + 4 * (sx + sy + 1)
+    with torch.cuda.device(f.device):
+        code = lib.qgd3d_smooth(prm, base, sx, sy, k, _ptr(out), _ptr(flag),
+                                _stream(f))
+    _build.check(lib, code, "qgd3d_smooth")
+    qgd3d_smooth.launches += 1
+    qgd3d_smooth.rings += k
+    return out, flag
+
+
+def smooth_launch_shape(prm, k, device) -> dict:
+    """`qgd3d_smooth`'s launch of k rings at prm's shape on a card: its
+    (y, z) tile, the x-planes a block writes, the dynamic shared memory of
+    a block and the blocks resident on one SM."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        code = lib.qgd3d_smooth_shape(prm, k, out)
+    _build.check(lib, code, "qgd3d_smooth_shape")
+    return {"tile": (out[0], out[1]), "chunk": out[2], "smem_bytes": out[3],
+            "blocks_per_sm": out[4]}
+
+
 qgd3d_dt.launches = 0
 qgd3d_dt_fold.launches = 0
 qgd3d_dt_apply.launches = 0
 qgd3d_update.launches = 0
 qgd3d_sensor.launches = 0
 qgd3d_ghosts.launches = 0
-KERNELS = (qgd3d_dt, qgd3d_update, qgd3d_sensor, qgd3d_ghosts)
+qgd3d_smooth.launches = 0
+qgd3d_smooth.rings = 0
+KERNELS = (qgd3d_dt, qgd3d_update, qgd3d_sensor, qgd3d_ghosts, qgd3d_smooth)
 # the flagged kernels of the decomposed step (K5)
 SHARDED_KERNELS = (qgd3d_dt_fold, qgd3d_dt_apply, qgd3d_update, qgd3d_sensor,
                    qgd3d_ghosts)
@@ -666,6 +733,9 @@ def build_fused_step_3d(solver, plain: bool = False):
     step: Fused3DState -> Fused3DState.  With plain=True the step calls the
     plain torch versions directly on any device (the comparison path for
     the kernels on the card); the default goes through the kernel wrappers.
+    The varScModel5 sensor frame is `smooth_sensor` on `qgd3d_smooth` (or
+    its plain version) from the carried raw sensor; on a card the builder
+    first requires the division-free ring exact for the case's maxRatio.
     """
     from ..ops.pad import ghost_pad
     from ..solvers.qgd import State
@@ -679,17 +749,29 @@ def build_fused_step_3d(solver, plain: bool = False):
     prm, planes_np = make_params(solver)
     planes = mesh.tensor(planes_np).contiguous()
     if plain:
-        k_dt, k_update, k_sensor, k_ghosts = (
+        k_dt, k_update, k_sensor, k_ghosts, k_smooth = (
             dt_reference_3d, update_reference_3d, sensor_reference_3d,
-            ghosts_reference_3d)
+            ghosts_reference_3d, _smooth_plain)
     else:
-        k_dt, k_update, k_sensor, k_ghosts = KERNELS
+        k_dt, k_update, k_sensor, k_ghosts, k_smooth = KERNELS
+        if varsc and mesh.device.type == "cuda":
+            require_exact_ring(prm, mesh.device)
+    scratch = {}  # device -> the bufs of smooth_sensor
+
+    def smoothed(raw):
+        if raw.device not in scratch:
+            scratch[raw.device] = [
+                torch.empty(tuple(n + 2 for n in raw.shape), dtype=raw.dtype,
+                            device=raw.device),
+                torch.empty((), dtype=raw.dtype, device=raw.device), 1]
+        return smooth_sensor(prm, raw, None, k=SMOOTH3_RINGS, smooth=k_smooth,
+                             bufs=scratch[raw.device])
 
     def step(fs: Fused3DState) -> Fused3DState:
         dt_new = k_dt(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
         sc = sc_raw = None
         if varsc:
-            sc = _edge_frame(fvc_smooth(fs.sc_raw, tm.smoothCoeff))
+            sc = smoothed(fs.sc_raw)
         frames, side = k_update(prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc,
                                 dt_new)
         if varsc:

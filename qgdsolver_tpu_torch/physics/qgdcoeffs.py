@@ -108,6 +108,15 @@ def _neighbour_max(field):
     return nb
 
 
+def smooth_ratio(coeff, like):
+    """maxRatio = 1 + coeff as a 0-dim tensor of `like`'s dtype on its
+    device.  The smoothing rings divide by it: PyTorch's CUDA division by a
+    Python scalar multiplies by the scalar's reciprocal, which moves about
+    one ring value in six by an ulp; by a tensor it divides.  Filled on the
+    device: a tensor copied from the host would wait for the stream."""
+    return torch.full((), 1.0 + coeff, dtype=like.dtype, device=like.device)
+
+
 def fvc_smooth(field, coeff, max_iters: int = 10_000):
     """OpenFOAM fvc::smooth: the fixed point of
     field <- max(field, nbr_max(field)/maxRatio), maxRatio = 1 + coeff, so a
@@ -118,9 +127,11 @@ def fvc_smooth(field, coeff, max_iters: int = 10_000):
     (one device sync per four rings); the iteration is monotone and
     idempotent at the fixed point, so the chunking changes no value.  Under
     an spmd context the test is global (one collective per test), so every
-    rank runs the same rings.
+    rank runs the same rings.  maxRatio divides as a tensor on the field's
+    device (`smooth_ratio`), so each ring is a correctly rounded division
+    on the card as on the CPU.
     """
-    max_ratio = 1.0 + coeff
+    max_ratio = smooth_ratio(coeff, field)
     f = torch.maximum(field, _neighbour_max(field) / max_ratio)
     changed = bool(spmd.all_any(torch.any(f > field)))
     it = 1
@@ -143,7 +154,7 @@ def fvc_smooth_continue(f1, changed, coeff, max_iters: int = 10_000):
     it = 1 and runs four rings per host test, as `fvc_smooth` does after
     its first ring.  Every ring it runs adds one to
     `fvc_smooth_continue.rings`."""
-    max_ratio = 1.0 + coeff
+    max_ratio = smooth_ratio(coeff, f1)
     f = f1
     changed = bool(changed)
     it = 1

@@ -415,3 +415,87 @@ def test_wrappers_check_their_inputs():
     F.qgd3d_sensor(prm, fs.p, fs.T, fs.sc)
     assert [k.launches for k in F.KERNELS] == launches, \
         "the plain version on the CPU is not a launch"
+
+
+RAGGED = (13, 9, 7)
+
+
+def _smooth_field3(field):
+    rng = np.random.default_rng(7)
+    if field == "random":
+        return rng.uniform(0.05, 1.0, size=RAGGED).astype(np.float32)
+    raw = np.full(RAGGED, 0.05, dtype=np.float32)
+    if field == "spike":
+        raw[6, 2, 5] = 1.0
+    return raw
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("field", ["random", "spike", "smooth"])
+def test_grouped_smoothing_3d_is_bitwise_fvc_smooth(field, k):
+    """The 3D step's smoothing (`smooth_sensor` from the raw sensor: ring 1
+    alone, then k rings a call of `qgd3d_smooth`'s plain version, one host
+    flag read a call) is the port's fvc_smooth edge-framed, bit for bit,
+    whatever k, and so through the wrapper where k rings fit one launch;
+    against the JAX package's fvc_smooth rtol 1e-6 (jit rounds the ring's
+    division otherwise, as in tests/test_torch_tiled.py)."""
+    raw = _smooth_field3(field)
+    ts, _ = tcases.supersonic_jet_3d_varsc(shape=RAGGED, device="cpu")
+    prm, _ = F.make_params(ts)
+    f = torch.as_tensor(raw)
+    ref = F._edge_frame(tcoeffs.fvc_smooth(f, 0.1))
+    smooths = [F._smooth_plain]
+    if k <= F.SMOOTH3_KMAX:
+        smooths.append(F.qgd3d_smooth)
+    for smooth in smooths:
+        reads, rings = F.smooth_sensor.reads, F.smooth_sensor.rings
+        out = F.smooth_sensor(prm, f, None, k=k, smooth=smooth)
+        reads = F.smooth_sensor.reads - reads
+        rings = F.smooth_sensor.rings - rings
+        assert torch.equal(out, ref)
+        # ring 1 alone, then k rings a call
+        assert reads >= 1 and rings == 1 + k * (reads - 1)
+        if field == "smooth":
+            assert reads == 1, "a field at its fixed point takes one call"
+    np.testing.assert_allclose(
+        out[C].numpy(), np.asarray(jcoeffs.fvc_smooth(jnp.asarray(raw), 0.1)),
+        rtol=1e-6)
+    if field == "spike":
+        assert float(out[C][6, 2, 0]) > 0.05, "the smoothing wave must spread"
+    # one call of k rings: the plain loop's cells, ghosts and last flag
+    for smooth in smooths:
+        frame, last = smooth(prm, F._edge_frame(f), k,
+                             torch.empty_like(ref), torch.empty(()))
+        cells, ref_last = F.smooth_reference_3d(prm, f, k)
+        assert torch.equal(frame, F._edge_frame(cells))
+        assert float(last) == float(ref_last)
+
+
+def test_3d_step_on_cpu_is_no_launch():
+    """On CPU tensors the 3D varsc step's wrappers take their plain
+    versions: no launch and no ring counted by any kernel, while the
+    smoothing loop counts one host flag read a call and one ring in a
+    step's first call, SMOOTH3_RINGS in each after it, and the step's
+    sensor is fvc_smooth of the raw sensor it carried.  `qgd3d_smooth`
+    checks its inputs."""
+    ts, s = tcases.supersonic_jet_3d_varsc(shape=RAGGED, device="cpu")
+    step, to_f, _ = ts.make_fused_step()
+    fs = to_f(ts.make_step()(s))
+    before = [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings]
+    reads, rings = F.smooth_sensor.reads, F.smooth_sensor.rings
+    for _ in range(3):
+        new = step(fs)
+        assert torch.equal(new.sc, F._edge_frame(
+            tcoeffs.fvc_smooth(fs.sc_raw, ts.tau_model.smoothCoeff)))
+        fs = new
+    assert [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings] == before
+    reads = F.smooth_sensor.reads - reads
+    assert reads >= 3
+    assert F.smooth_sensor.rings - rings == 3 + F.SMOOTH3_RINGS * (reads - 3)
+    prm, _ = F.make_params(ts)
+    with pytest.raises(ValueError):
+        F.qgd3d_smooth(prm, fs.sc_raw, F.SMOOTH3_KMAX + 1)
+    with pytest.raises(ValueError):
+        F.qgd3d_smooth(prm, fs.sc_raw[:-1], 1)
+    with pytest.raises(TypeError):
+        F.qgd3d_smooth(prm, fs.sc_raw.double(), 1)

@@ -1,7 +1,10 @@
 """CUDA kernels of the fused 2D (K1, K2's `qgd2d_emit` and `qgd2d_smooth`)
-and 3D steps
-against their plain torch versions, on the card, at the production sizes
-(1024x512 and 256x126x126 f32), from a state after 20 plain steps.
+and 3D steps (with `qgd3d_smooth`) against their plain torch versions, on
+the card, at the production sizes (1024x512 and 256x126x126 f32), from a
+state after 20 plain steps, and the smoothing kernels on ragged shapes;
+the division-free ring against a correctly rounded division
+(`smooth_ring_check`), and the plain `fvc_smooth` on the card against the
+CPU's.
 Marked `gpu`: they skip where no CUDA device exists.  Run them on the card
 with `python -m pytest tests/test_torch_gpu.py -m gpu -q`.
 
@@ -202,13 +205,15 @@ def test_tiled_main_path_launches_emit_once_per_step(device):
     assert bool(torch.isfinite(s.sc).all()) and float(s.sc.min()) >= 0.05
 
 
-@pytest.mark.parametrize("k", [1, F.SMOOTH_RINGS])
-@pytest.mark.parametrize("shape", [(100, 261), (37, 13), (130, 131)])
+@pytest.mark.parametrize("k", sorted({0, 1, F.SMOOTH_RINGS, F.SMOOTH_KMAX}))
+@pytest.mark.parametrize("shape", [(100, 261), (37, 13), (130, 131),
+                                   (256, 128)])
 def test_smooth_kernel_on_ragged_shapes(shape, k, device):
-    """qgd2d_smooth where (nx, ny) are no multiples of its tile, on cells
-    and on a frame, bitwise its plain version (cells, ghosts and the
-    last-ring flag); and the K2 continuation on it bitwise the same loop on
-    the plain version, to the fixed point."""
+    """qgd2d_smooth where (nx, ny) are no multiples of its tile (and where
+    they are: a tile of no ring then ends on the edge), on cells and on a
+    frame, bitwise its plain version (cells, ghosts and the last-ring
+    flag); and the K2 continuation on it bitwise the same loop on the plain
+    version, to the fixed point."""
     prm = F.make_params(cases.supersonic_jet_varsc(shape=shape,
                                                    device=device)[0])[0]
     rng = np.random.default_rng(11)
@@ -400,15 +405,24 @@ def test_3d_kernel_path_tracks_plain_path(name, dt_tol, f_tol, device):
 
 @pytest.mark.parametrize("name", CASES3)
 def test_3d_main_path_launches_each_kernel_once_per_step(name, device):
+    """dt, update, ghosts once per step; for the varsc jet the sensor once
+    and `qgd3d_smooth` once or more per step, with one host flag read per
+    launch (the duct launches neither)."""
     solver, state = getattr(cases, name)(shape=SHAPE3, device=device)
     step, to_f, from_f = solver.make_fused_step()
     fs = to_f(state)
     for k in F3.KERNELS:
         k.launches = 0
+    reads = F.smooth_sensor.reads
     s = from_f(common.run_steps(step, fs, 10))
+    reads = F.smooth_sensor.reads - reads
     varsc = F3.make_params(solver)[0].varsc
-    assert [k.launches for k in F3.KERNELS] == [10, 10, 10 if varsc else 0,
-                                                10]
+    got = {k.__name__: k.launches for k in F3.KERNELS}
+    smooth = got.pop("qgd3d_smooth")
+    assert got == {"qgd3d_dt": 10, "qgd3d_update": 10,
+                   "qgd3d_sensor": 10 if varsc else 0, "qgd3d_ghosts": 10}
+    assert smooth >= 10 if varsc else smooth == 0
+    assert reads == smooth
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
 
 
@@ -443,3 +457,62 @@ def test_sharded_kernels_on_two_ranks_match_serial_kernels(kind, name, shape,
                                           err_msg=f)
         assert launches == {k.__name__: 10 for k in kernels
                             if k.__name__ != "qgd3d_sensor"}
+
+
+@pytest.mark.parametrize("k", sorted({0, 1, 2, F3.SMOOTH3_RINGS,
+                                      F3.SMOOTH3_KMAX}))
+@pytest.mark.parametrize("shape", [(37, 13, 45), (20, 70, 9), (9, 30, 130)])
+def test_smooth3_kernel_on_ragged_shapes(shape, k, device):
+    """qgd3d_smooth where (nx, ny, nz) are no multiples of its (y, z) tile
+    or its x chunk, on cells and on a frame, bitwise its plain version
+    (cells, ghosts, edges and corners, and the last-ring flag); and the 3D
+    step's smoothing loop on it, from the raw sensor, bitwise the same loop
+    on the plain version and `fvc_smooth` edge-framed."""
+    prm = F3.make_params(cases.supersonic_jet_3d_varsc(shape=shape,
+                                                       device=device)[0])[0]
+    rng = np.random.default_rng(11)
+    raw = rng.uniform(0.05, 1.0, shape).astype(np.float32)
+    for _ in range(4):
+        raw[tuple(rng.integers(0, n) for n in shape)] = 5.0
+    f = torch.as_tensor(raw, device=device)
+    for src in (f, F._edge_frame(f)):
+        out, flag = F3.qgd3d_smooth(prm, src, k)
+        cells, ref_flag = F3.smooth_reference_3d(prm, f, k)
+        assert torch.equal(out, F._edge_frame(cells))
+        assert float(flag) == float(ref_flag)
+    if k == 0:
+        return
+    got = F.smooth_sensor(prm, f, None, k=k, smooth=F3.qgd3d_smooth)
+    ref = F.smooth_sensor(prm, f, None, k=k, smooth=F._smooth_plain)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, F._edge_frame(F3.fvc_smooth(f, 0.1)))
+
+
+@pytest.mark.parametrize("ratio", [1.1, 1.01, 1.05, 1.2, 1.3, 1.5, 2.0])
+def test_smooth_ring_check_is_exact(ratio, device):
+    """The kernels' division-free ring equals __fdiv_rn on every float of
+    the ranges `smooth_ring_check` sweeps, for the cases' maxRatio (1.1)
+    and a sweep of others."""
+    bad = F.smooth_ring_check(ratio, device)
+    assert list(bad) == list(F.RING_RANGES)
+    assert not any(bad.values()), bad
+
+
+@pytest.mark.parametrize("shape", [(257, 131), (40, 17, 23)])
+@pytest.mark.parametrize("field", ["random", "spike"])
+def test_fvc_smooth_on_card_equals_cpu(shape, field, device):
+    """The plain rings divide by a tensor maxRatio, so `fvc_smooth` on the
+    card is the CPU's bit for bit (a Python scalar divisor would become a
+    product by its reciprocal there)."""
+    rng = np.random.default_rng(5)
+    if field == "random":
+        raw = rng.uniform(0.05, 1.0, shape).astype(np.float32)
+    else:
+        raw = np.full(shape, 0.05, np.float32)
+        raw[tuple(n // 3 for n in shape)] = 1.0
+    cpu = torch.as_tensor(raw)
+    from qgdsolver_tpu_torch.physics import qgdcoeffs
+
+    got = qgdcoeffs.fvc_smooth(cpu.to(device), 0.1).cpu()
+    assert torch.equal(got, qgdcoeffs.fvc_smooth(cpu, 0.1))
+    assert not torch.equal(got, cpu)

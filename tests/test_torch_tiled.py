@@ -267,6 +267,53 @@ def _build_prm(shape):
     return _build.QGDParams(nx=shape[0], ny=shape[1], smooth_ratio=1.1)
 
 
+def _fma32(a, b, c):
+    """fmaf(a, b, c) on float32 arrays, rounded once: a*b is exact in
+    float64 and TwoSum gives p + c = s + e exactly; s rounds to the float32
+    nearest p + c unless it is a float32 midpoint, where e decides."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    d = s - r.astype(np.float64)
+    toward = np.nextafter(r, np.where(d > 0, np.float32(np.inf),
+                                      np.float32(-np.inf)))
+    mid = (d != 0) & (2 * np.abs(d) == np.abs(toward.astype(np.float64)
+                                               - r.astype(np.float64)))
+    return np.where(mid & (e != 0) & (np.sign(e) == np.sign(d)), toward, r)
+
+
+@pytest.mark.parametrize("ratio", [1.1, 1.01, 1.05, 1.2, 1.5, 2.0])
+def test_division_free_ring_is_exact_in_numpy(ratio):
+    """The smoothing kernels' division-free quotient (smooth_ring.cuh):
+    q = RN(nb*y), rem = fmaf(-q, r, nb), q' = fmaf(rem, y, q) with
+    y = RN(1/r), as the step builders' params round r and y, equals the
+    correctly rounded nb / r on every float32 of [1, 2) (scaling by 2 is
+    exact, so this binade decides every normal one above the kernels'
+    underflow guard), while q alone misses on many.  The card repeats this
+    sweep with its own fmaf (`smooth_ring_check`)."""
+    from qgdsolver_tpu_torch.ops import _build
+
+    prm = _build.QGDParams()
+    F.set_smooth_ratio(prm, ratio - 1.0)
+    r, y = np.float32(prm.smooth_ratio), np.float32(prm.smooth_inv)
+    assert r == np.float32(ratio) and y == np.float32(1.0) / r
+    first = int(np.float32(1.0).view(np.uint32))
+    q_misses = 0
+    for lo in range(first, first + (1 << 23), 1 << 21):
+        nb = np.arange(lo, lo + (1 << 21), dtype=np.uint32).view(np.float32)
+        want = nb / r
+        q = nb * y
+        q_misses += int(np.count_nonzero(q != want))
+        rem = _fma32(-q, np.full_like(q, r), nb)
+        got = _fma32(rem, np.full_like(q, y), q)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    # q alone is exact only where 1/r is (a power of two)
+    assert (q_misses == 0) == (float(r) * float(y) == 1.0)
+
+
 def test_routing_and_gate():
     """make_fused_step: 2D varScModel5 with a scalar cqSc takes K2's
     builder, every other 2D config K1's, 3D meshes the 3D builder."""
