@@ -20,7 +20,7 @@ kernels, recorded in a step:
 - the first smoothing ring that K2's emit hands the next step on the
   4096x2048 jet with the bump (`qgd2d_smooth`: one launch of 8 and of 16
   rings, and K2's whole continuation to the fixed point at 8 and at 16
-  rings a launch, `fused_qgd2d.smooth_sensor`);
+  rings a launch, `smoothing.smooth_sensor`);
 - the raw sensor of the 256x126x126 varsc jet after 20 plain steps, with a
   density bump (`qgd3d_smooth`: one launch of 1 and of 4 rings, and the 3D
   step's loop from the raw sensor to the fixed point).
@@ -173,16 +173,17 @@ def inputs3(dev):
 def continuation(prm, s1, chg, k):
     """K2's smoothing continuation to the fixed point, k rings a launch."""
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
-    return F.smooth_sensor(prm, s1, chg, k=k)
+    return S.smooth_sensor(prm, s1, chg, F.qgd2d_smooth, k)
 
 
 def continuation3(prm, raw):
     """The 3D step's smoothing loop from the raw sensor."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
-    return F3.smooth_sensor(prm, raw, None, k=F3.SMOOTH3_RINGS,
-                            smooth=F3.qgd3d_smooth)
+    return S.smooth_sensor(prm, raw, None, F3.qgd3d_smooth, F3.SMOOTH3_RINGS)
 
 
 def agree(kernel, ref, got) -> None:

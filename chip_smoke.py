@@ -640,9 +640,10 @@ def smooth3_counts():
     """The counts of the 3D smoothing: qgd3d_smooth's rings and launches and
     the host flag reads of smooth_sensor."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
     return (F3.qgd3d_smooth.rings, F3.qgd3d_smooth.launches,
-            F3.smooth_sensor.reads)
+            S.smooth_sensor.reads)
 
 
 def smooth3_checks(solver, fs, stats):
@@ -658,6 +659,7 @@ def smooth3_checks(solver, fs, stats):
     keeps a call of one launch of SMOOTH3_RINGS rings in
     stats["qgd3d_smooth"]["rings_call"]."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
     coeff = solver.tau_model.smoothCoeff
     prm, _ = F3.make_params(solver)
@@ -676,8 +678,7 @@ def smooth3_checks(solver, fs, stats):
               and float(flag) == float(ref_flag),
               f"qgd3d_smooth, {k} rings, is not bitwise its plain version")
     was = smooth3_counts()
-    got = F3.smooth_sensor(prm, raw, None, k=F3.SMOOTH3_RINGS,
-                           smooth=F3.qgd3d_smooth)
+    got = S.smooth_sensor(prm, raw, None, F3.qgd3d_smooth, F3.SMOOTH3_RINGS)
     rings = smooth3_counts()[0] - was[0]
     check(torch.equal(got, F3._edge_frame(F3.fvc_smooth(raw, coeff))),
           "the 3D smoothing loop on qgd3d_smooth is not bitwise fvc_smooth")
@@ -709,7 +710,7 @@ def smooth3_checks(solver, fs, stats):
     stats["qgd3d_smooth"]["rings_call"] = (
         lambda: F3.qgd3d_smooth(prm, raw, k, out, flag))
     return (lambda: F3.qgd3d_smooth(prm, raw, 1, out, flag),
-            lambda: F3._smooth_plain(prm, raw, 1, out, flag))
+            lambda: S._smooth_plain(prm, raw, 1, out, flag))
 
 
 def phase_time3(dev, card, jobs, stats):
@@ -749,6 +750,8 @@ def phase_time3(dev, card, jobs, stats):
                                    same=False)
             / rates[label][1] for label, steps, advance in advances}
     parts = step_parts(advances[-1][2], 10)
+    check("qgd3d_smooth" in parts, "the profiler saw no qgd3d_smooth in the "
+          f"varsc jet's steps: {sorted(parts)}")
     for kname, kern, plain in jobs:
         time_kernel(stats, kname, SHAPE3, kern, plain, 20, 3, warmup=2)
     sm = stats["qgd3d_smooth"]["by_shape"][SHAPE3]
@@ -759,7 +762,7 @@ def phase_time3(dev, card, jobs, stats):
         "rings_first_launch": 1,
         "rings_per_launch": F3.SMOOTH3_RINGS, "rings_per_step": per_step[0],
         "launches_per_step": per_step[1], "reads_per_step": per_step[2],
-        "ms_per_step": parts.get("qgd3d_smooth", 0.0),
+        "ms_per_step": parts["qgd3d_smooth"],
         f"ms_{F3.SMOOTH3_RINGS}_rings": rings_ms}
     print(f"phase 10 time 3D {SHAPE3}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
@@ -903,11 +906,12 @@ def phase_cli(dev, root):
     qgd2d_ghosts once per step, qgd2d_smooth at least as often as
     qgd2d_emit, qgd2d_dt never."""
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
     case = write_case(root, "jet_varsc_%dx%d" % BIG, BIG, varsc=True)
     msgs, total = [], {}
     for n in (50, 10):
-        rings, reads = F.qgd2d_smooth.rings, F.smooth_sensor.reads
+        rings, reads = F.qgd2d_smooth.rings, S.smooth_sensor.reads
         log, secs, launches = run_cli(
             [case, "--max-steps", str(n), "--device", "cuda"], F.KERNELS)
         check("fused kernel path engaged: build_tiled_fused_step" in log,
@@ -927,7 +931,7 @@ def phase_cli(dev, root):
         solver, state = latest_state(case, dev)
         read = time.perf_counter() - t0
         rings = (F.qgd2d_smooth.rings - rings) / n
-        reads = (F.smooth_sensor.reads - reads) / n
+        reads = (S.smooth_sensor.reads - reads) / n
         msgs.append(f"{n} steps in {secs:.1f} s, {rings:.2f} qgd2d_smooth "
                     f"rings/step in {smooth} launches, {reads:.2f} host flag "
                     f"reads/step (wrote "
@@ -954,6 +958,7 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
     qgd2d_smooth launch of SMOOTH_RINGS rings against their plain versions,
     of qgd2d_ghosts, and the continuation's device and wall ms per step."""
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
     pts = BIG[0] * BIG[1]
     k_step, k_to, _ = F.build_tiled_fused_step(solver)
@@ -967,11 +972,12 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
         r = rel_err(a, b)
         check(r <= 1e-6, f"qgd2d_emit on the case, {name} rel {r:.2e}")
     check(float(ts.sc_chg) == 1.0, "the case's sensor must be active")
-    before = F.smooth_sensor.rings
-    got = F.smooth_sensor(prm, ts.sc_s1, ts.sc_chg)
-    k_rings = F.smooth_sensor.rings - before
-    ref_sc = F.smooth_sensor(prm, ts.sc_s1, ts.sc_chg, smooth=F._smooth_plain)
-    p_rings = F.smooth_sensor.rings - before - k_rings
+    k = F.SMOOTH_RINGS
+    before = S.smooth_sensor.rings
+    got = S.smooth_sensor(prm, ts.sc_s1, ts.sc_chg, F.qgd2d_smooth, k)
+    k_rings = S.smooth_sensor.rings - before
+    ref_sc = S.smooth_sensor(prm, ts.sc_s1, ts.sc_chg, S._smooth_plain, k)
+    p_rings = S.smooth_sensor.rings - before - k_rings
     torch.cuda.synchronize()
     check(torch.equal(got, ref_sc), "qgd2d_smooth's continuation is not "
           "bitwise its plain loop")
@@ -980,15 +986,18 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
     def refuse(*_):
         raise AssertionError("K2's path on the card reached a plain ring")
 
-    plain_fns = (F._neighbour_max, F._edge_frame)
-    F._neighbour_max = F._edge_frame = refuse
+    plain_fns = [(m, n, getattr(m, n)) for m, n in (
+        (S, "_neighbour_max"), (S, "_edge_frame"), (F, "_edge_frame"))]
+    for m, n, _ in plain_fns:
+        setattr(m, n, refuse)
     try:
         probe = ts
         for _ in range(3):
             probe = k_step(probe)
         torch.cuda.synchronize()
     finally:
-        F._neighbour_max, F._edge_frame = plain_fns
+        for m, n, fn in plain_fns:
+            setattr(m, n, fn)
     checked = (f"qgd2d_emit vs plain on the case ok, flag "
                f"{float(ts.sc_chg):.0f}; qgd2d_smooth continuation bitwise "
                f"its plain loop ({k_rings} rings on the kernel, {p_rings} on "
@@ -1003,12 +1012,12 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
         def advance(box=box, step=step):
             box[0] = step(box[0])
 
-        counts = (F.smooth_sensor.rings, F.smooth_sensor.reads,
+        counts = (S.smooth_sensor.rings, S.smooth_sensor.reads,
                   F.qgd2d_smooth.launches)
         ms = cuda_ms(advance, steps, warmup=2)
         if label == "K2":
             per_step = [(now - was) / (steps + 2) for now, was in zip(
-                (F.smooth_sensor.rings, F.smooth_sensor.reads,
+                (S.smooth_sensor.rings, S.smooth_sensor.reads,
                  F.qgd2d_smooth.launches), counts)]
         rates[label] = (pts / (ms * 1e-3), ms)
         advances.append((label, steps, advance))
@@ -1026,18 +1035,17 @@ def phase_time_big(solver, state, card, emit_jobs, stats):
                     lambda: F.update_reference(*upd), 10, 2)
     kern, plain = emit_jobs
     e = time_kernel(stats, "qgd2d_emit", BIG, kern, plain, 20, 5)
-    k = F.SMOOTH_RINGS
     out, flag = torch.empty_like(ts.p), torch.empty_like(ts.dt)
     sm = time_kernel(stats, "qgd2d_smooth", BIG,
                      lambda: F.qgd2d_smooth(prm, ts.sc_s1, k, out, flag),
-                     lambda: F._smooth_plain(prm, ts.sc_s1, k, out, flag),
+                     lambda: S._smooth_plain(prm, ts.sc_s1, k, out, flag),
                      20, 3)
     new, side = F.qgd2d_update(*upd)
     ghosts = device_ms(lambda: F.qgd2d_ghosts(prm, new, side, prof), 10,
                        match="qgd")
 
     def cont():
-        F.smooth_sensor(prm, ts.sc_s1, ts.sc_chg)
+        S.smooth_sensor(prm, ts.sc_s1, ts.sc_chg, F.qgd2d_smooth, k)
 
     extra = {"rings_per_launch": k,
              "ms_per_step": device_ms(cont, 5, same=False),
@@ -1568,7 +1576,7 @@ def phase_ring_check(dev, card):
     correctly rounded division on every float of `smooth_ring_check`'s
     ranges, for each case's maxRatio and RATIOS: no mismatch."""
     from qgdsolver_tpu_torch import cases
-    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
     ratios = set()
     for name in CASES + CASES3:
@@ -1577,11 +1585,11 @@ def phase_ring_check(dev, card):
         if hasattr(tm, "smoothCoeff"):
             ratios.add(1.0 + tm.smoothCoeff)
     for r in sorted(ratios) + list(RATIOS):
-        bad = F.smooth_ring_check(r, dev)
+        bad = S.smooth_ring_check(r, dev)
         check(not any(bad.values()), f"the division-free ring is not exact "
               f"for maxRatio {r}: {bad}")
     print(f"phase 20 division-free ring vs __fdiv_rn on every float of "
-          f"{'; '.join(F.RING_RANGES)}: 0 mismatches for the cases' maxRatio "
+          f"{'; '.join(S.RING_RANGES)}: 0 mismatches for the cases' maxRatio "
           f"{', '.join(f'{r:g}' for r in sorted(ratios))} and for "
           f"{', '.join(f'{r:g}' for r in RATIOS)} | card: {card}", flush=True)
 
@@ -1589,6 +1597,7 @@ def phase_ring_check(dev, card):
 def main() -> int:
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import smoothing as S
 
     card = phase_env()
     dev = torch.device("cuda", 0)
@@ -1616,7 +1625,7 @@ def main() -> int:
     jobs3 = phase_kernels3(warm, stats)
     phase_lockstep(8, warm, F3.build_fused_step_3d, dict(zip(CASES3, tols)))
     del warm
-    reads = F3.smooth_sensor.reads
+    reads = S.smooth_sensor.reads
     launches.update(phase_main_path(9, dev, SHAPE3, zip(CASES3, (100, 40)),
                                     F3.KERNELS, {"qgd3d_dt": 140,
                                                  "qgd3d_update": 140,
@@ -1624,7 +1633,7 @@ def main() -> int:
                                                  "qgd3d_ghosts": 140,
                                                  "qgd3d_smooth": 40},
                                     least=("qgd3d_smooth",)))
-    reads = F3.smooth_sensor.reads - reads
+    reads = S.smooth_sensor.reads - reads
     check(reads == launches["qgd3d_smooth"], f"the 3D main path read "
           f"{reads} smoothing flags in {launches['qgd3d_smooth']} launches")
     phase_time3(dev, card, jobs3, stats)

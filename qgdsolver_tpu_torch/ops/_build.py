@@ -51,9 +51,6 @@ class QGDParams(ctypes.Structure):
             "max_dt", "c_tau", "inv_hfx", "inv_hfy", "h_cell", "rC",
             "one_m_rC", "minSc", "maxSc", "cqSc", "smooth_ratio")]
         + [("bc", BCEntry * 2 * 2 * 4)]  # [field p, T, ux, uy][axis][side]
-        # RN(1/smooth_ratio), the ring's reciprocal; last, so that builds of
-        # earlier revisions read the same leading fields
-        + [("smooth_inv", _c_float)]
     )
 
 
@@ -73,7 +70,7 @@ class QGD3DParams(ctypes.Structure):
             "h_cell")]
         # [field p, T, ux, uy, uz][axis][side]
         + [("bc", BCEntry * 2 * 3 * 5)]
-        + [(n, _c_float) for n in ("smooth_ratio", "smooth_inv")]
+        + [("smooth_ratio", _c_float)]
     )
 
 
@@ -170,7 +167,7 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd2d_emit_partials", [_c_int, _c_int])
     _bind(lib, "qgd2d_emit", [p2] + [_ptr] * 11)
     _bind(lib, "qgd2d_smooth", [p2, _ptr, _c_int, _c_int, _ptr, _ptr, _ptr])
-    _bind(lib, "smooth_ring_check", [_c_float, _c_float, _ptr, _ptr])
+    _bind(lib, "smooth_ring_check", [_c_float, _ptr, _ptr])
     _bind(lib, "qgd3d_dt_partials", [p3])
     _bind(lib, "qgd3d_dt", [p3] + [_ptr] * 8)
     _bind(lib, "qgd3d_dt_fold", [p3] + [_ptr] * 7)

@@ -121,9 +121,6 @@ struct QGDParams {
   float inv_hfx, inv_hfy, h_cell, rC, one_m_rC, minSc, maxSc, cqSc,
       smooth_ratio;
   BCEntry bc[4][2][2];  // [field p, T, ux, uy][axis][side]
-  // RN(1 / smooth_ratio), for the division-free ring (smooth_ring.cuh); last,
-  // so that builds of earlier revisions read the same leading fields
-  float smooth_inv;
 };
 
 namespace {
@@ -830,6 +827,7 @@ qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
       }
     }
     __syncthreads();
+    const float inv = smooth_inverse(P.smooth_ratio);
 #pragma unroll
     for (int m = 0; m < ETR / BY; ++m) {
 #pragma unroll
@@ -844,7 +842,7 @@ qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
         const float ri = s > 1 ? raw_t[i][j - 1] : f;
         const float s1 = smooth_ring<true>(
             f, fmaxf(fmaxf(f, fmaxf(up, dn)), fmaxf(le, ri)), P.smooth_ratio,
-            P.smooth_inv);
+            inv);
         const int o = (r - 1) * ny + (s - 1);
         sc_raw[o] = f;
         sc_s1[o] = s1;
@@ -919,8 +917,11 @@ qgd2d_emit_final_kernel(QGDParams P, const float* __restrict__ partials,
 //   - cells beyond a physical edge hold -FLT_MAX and keep it, so the max
 //     ignores them, which is the plain version's edge replication; only
 //     blocks whose tile crosses an edge (EDGE) pay that select;
-//   - a tile whose cells all are at least SMOOTH_TINY (every sensor tile)
-//     takes the ring without its underflow test (GUARD = false).
+//   - a tile whose cells all are at least SMOOTH_TINY (every sensor tile:
+//     the sensor is clamped at cqSc or above) takes the ring without its
+//     underflow test (GUARD = false); on the 4096x2048 case's sensor the
+//     guarded ring in every tile took 1.14x (8 rings) and 1.23x (16 rings)
+//     the time, with more spills (ab_kernels.py, PERF.md).
 
 constexpr int SMV = 4;               // lanes a thread owns
 constexpr int SMLN = 32 * SMV;       // lanes of a tile
@@ -1036,7 +1037,7 @@ qgd2d_smooth_kernel(QGDParams P, const float* __restrict__ in, int pitch,
     }
   }
   big = __syncthreads_and(big);
-  const float r = P.smooth_ratio, y = P.smooth_inv;
+  const float r = P.smooth_ratio, y = smooth_inverse(r);
   bool raised;
   if (edge) {
     raised = big ? smooth_rings<true, false>(v, k, r, y, rin, lin, xr)
@@ -1075,12 +1076,13 @@ qgd2d_smooth_kernel(QGDParams P, const float* __restrict__ in, int pitch,
 // Counts, in bad[0..4], the floats nb of five ranges where smooth_div<true>
 // and __fdiv_rn give different bits: [1, 2), the binade at SMOOTH_TINY
 // (the fast formula's lowest), the lowest normal binade, the subnormals
-// (and +0) and the top binade.  blockIdx.y picks the range.
-__global__ void smooth_ring_check_kernel(float r, float y,
-                                         unsigned* __restrict__ bad) {
+// (and +0) and the top binade.  blockIdx.y picks the range.  y is derived
+// from r as the smoothing kernels derive it.
+__global__ void smooth_ring_check_kernel(float r, unsigned* __restrict__ bad) {
   const unsigned first[5] = {0x3F800000u, 0u, 0x00800000u, 0u, 0x7F000000u};
   const unsigned start = blockIdx.y == 1 ? __float_as_uint(SMOOTH_TINY)
                                          : first[blockIdx.y];
+  const float y = smooth_inverse(r);
   unsigned count = 0;
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < (1u << 23);
        i += gridDim.x * blockDim.x) {
@@ -1250,14 +1252,14 @@ int qgd2d_smooth(const QGDParams* prm, const float* in, int pitch, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The division-free ring against __fdiv_rn for maxRatio r and y = RN(1/r):
-// bad[0..4] (device, zeroed here) <- the mismatches in each range of
+// The division-free ring against __fdiv_rn for maxRatio r: bad[0..4]
+// (device, zeroed here) <- the mismatches in each range of
 // smooth_ring_check_kernel.
-int smooth_ring_check(float r, float y, unsigned* bad, void* stream) {
+int smooth_ring_check(float r, unsigned* bad, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(bad, 0, 5 * sizeof(unsigned), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  smooth_ring_check_kernel<<<dim3(512, 5), 256, 0, st>>>(r, y, bad);
+  smooth_ring_check_kernel<<<dim3(512, 5), 256, 0, st>>>(r, bad);
   return static_cast<int>(cudaGetLastError());
 }
 

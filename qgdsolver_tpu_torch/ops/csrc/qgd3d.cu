@@ -116,8 +116,8 @@ struct QGD3DParams {
   float inv_Pr_tau, mu0, mu0_Pr_th, max_co, max_dt, c_tau;
   float rC, one_m_rC, minSc, maxSc, cqSc, h_cell;
   BCEntry3 bc[5][3][2];  // [field p, T, ux, uy, uz][axis][side]
-  // qgd3d_smooth: maxRatio and RN(1 / maxRatio) (smooth_ring.cuh)
-  float smooth_ratio, smooth_inv;
+  // qgd3d_smooth: maxRatio (smooth_ring.cuh)
+  float smooth_ratio;
 };
 
 namespace {
@@ -887,10 +887,9 @@ template <int K, bool EDGE, int U>
 __device__ __forceinline__ void smooth3_step(
     const QGD3DParams& P, const Smooth3& A, float (&pl)[K][3][S3R],
     float* __restrict__ ring, float* __restrict__ sp, int s, int x0, int y0,
-    int z0, const bool (&yin)[S3R], bool zin, bool& raised) {
+    int z0, const bool (&yin)[S3R], bool zin, float inv, bool& raised) {
   const int tz = threadIdx.x, a0 = threadIdx.y * S3R;
   const int nx = P.nx;
-  const float r = P.smooth_ratio, y = P.smooth_inv;
   smooth3_fetch<EDGE>(P, A, ring, s + S3D - 1, y0, z0, yin, zin);
   __pipeline_wait_prior(S3D - 1);  // this thread's copies of plane s
   const float* raw = smooth3_raw(ring, s);
@@ -916,7 +915,7 @@ __device__ __forceinline__ void smooth3_step(
       float nb = fmaxf(fmaxf(c, f[lo][i]), f[hi][i]);
       nb = fmaxf(nb, fmaxf(fmaxf(yl, yh),
                            fmaxf(q[i * S3W - 1], q[i * S3W + 1])));
-      float v = smooth_ring<true>(c, nb, r, y);
+      float v = smooth_ring<true>(c, nb, P.smooth_ratio, inv);
       const bool in = pin && (!EDGE || (yin[i] && zin));
       if (!in) v = -FLT_MAX;
       if (j < K) {
@@ -952,18 +951,19 @@ __device__ __forceinline__ bool smooth3_march(const QGD3DParams& P,
       for (int i = 0; i < S3R; ++i) pl[l][u][i] = -FLT_MAX;
   bool raised = false;
   const int first = x0 - K, steps = A.cx + 2 * K;
+  const float inv = smooth_inverse(P.smooth_ratio);
   float* ring = sp + 2 * S3P * K;
   for (int d = 0; d < S3D - 1; ++d)
     smooth3_fetch<EDGE>(P, A, ring, first + d, y0, z0, yin, zin);
   for (int n = 0; n < steps; n += 3) {
     smooth3_step<K, EDGE, 0>(P, A, pl, ring, sp, first + n, x0, y0, z0, yin,
-                             zin, raised);
+                             zin, inv, raised);
     if (n + 1 < steps)
       smooth3_step<K, EDGE, 1>(P, A, pl, ring, sp, first + n + 1, x0, y0, z0,
-                               yin, zin, raised);
+                               yin, zin, inv, raised);
     if (n + 2 < steps)
       smooth3_step<K, EDGE, 2>(P, A, pl, ring, sp, first + n + 2, x0, y0, z0,
-                               yin, zin, raised);
+                               yin, zin, inv, raised);
   }
   __pipeline_wait_prior(0);  // the fetches past the chunk
   return raised;

@@ -17,8 +17,9 @@
 // smooth_ring_check (qgd2d.cu) compares it with __fdiv_rn on every float of
 // [1, 2), of the binade at SMOOTH_TINY, of the lowest normal binade, of the
 // subnormals and of the top binade, and the step builders refuse a ratio
-// with any mismatch.  Both constants travel in the params structs, rounded
-// to float32 once on the host (y from the float32 maxRatio).
+// with any mismatch.  Only maxRatio travels in the params structs, rounded
+// to float32 once on the host; every kernel, the check's included, derives
+// y from it with smooth_inverse.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,22 +27,21 @@
 // Below this |nb| the remainder may underflow: the ring divides.
 #define SMOOTH_TINY 0x1p-96f
 
-// nb / r, correctly rounded, for |nb| >= SMOOTH_TINY (y = RN(1 / r)).
-static __device__ __forceinline__ float smooth_quotient(float nb, float r,
-                                                        float y) {
-  const float q = __fmul_rn(nb, y);
-  const float rem = __fmaf_rn(-q, r, nb);
-  return __fmaf_rn(rem, y, q);
+// y = RN(1 / r), the reciprocal the ring multiplies by.
+static __device__ __forceinline__ float smooth_inverse(float r) {
+  return __frcp_rn(r);
 }
 
-// nb / r, correctly rounded, for any nb.  GUARD = false only where every
-// |nb| is known to be at least SMOOTH_TINY (a tile whose cells all are: the
-// rings only raise them, and nb is at least the cell).
+// nb / r, correctly rounded (y = smooth_inverse(r)).  GUARD = false only
+// where every |nb| is known to be at least SMOOTH_TINY (a tile whose cells
+// all are: the rings only raise them, and nb is at least the cell).
 template <bool GUARD>
 static __device__ __forceinline__ float smooth_div(float nb, float r,
                                                    float y) {
   if (GUARD && !(fabsf(nb) >= SMOOTH_TINY)) return __fdiv_rn(nb, r);
-  return smooth_quotient(nb, r, y);
+  const float q = __fmul_rn(nb, y);
+  const float rem = __fmaf_rn(-q, r, nb);
+  return __fmaf_rn(rem, y, q);
 }
 
 // The ring at a cell from its value f and nb (which includes f).

@@ -28,21 +28,21 @@ are exchanged with the neighbour ranks.
 its Courant/tau rates (so setDeltaT reads no frame) and, for varScModel5,
 the raw sensor, its first smoothing ring and a change flag.  The next step
 carries ring 1 to the fvc::smooth fixed point on the card
-(`smooth_sensor`: `qgd2d_smooth` launches of k rings each, the host reading
-one flag per launch), straight into the sensor frame.  An active sensor
-(the flagship 4096x2048 case: ~20 rings a step) costs a few launches; an
-inactive one a single launch that frames ring 1.  The frames are whole, so
-none of the reference's slab strip fixes exist here; K2's VMEM slab sizing
-is TPU-only and is not ported.
+(`smoothing.smooth_sensor`: `qgd2d_smooth` launches of k rings each, the
+host reading one flag per launch), straight into the sensor frame.  An
+active sensor (the flagship 4096x2048 case: ~20 rings a step) costs a few
+launches; an inactive one a single launch that frames ring 1.  The frames
+are whole, so none of the reference's slab strip fixes exist here; K2's
+VMEM slab sizing is TPU-only and is not ported.
 
 Each kernel call is a wrapper: for CPU tensors it runs the plain torch
 version beside it (`dt_reference`, `dt_fold_reference`,
 `dt_apply_reference`, `update_reference`, `ghosts_reference`,
-`emit_reference`, `smooth_reference`); for CUDA tensors it launches the
-kernel from csrc/qgd2d.cu or raises.  Each wrapper counts its launches in a
-plain integer attribute (`qgd2d_dt.launches`, ...; `qgd2d_smooth.rings`
-counts its rings too).  The plain versions composed are the reference's
-`frame_fn`.
+`emit_reference`, `smoothing.smooth_reference`); for CUDA tensors it
+launches the kernel from csrc/qgd2d.cu or raises.  Each wrapper counts its
+launches in a plain integer attribute (`qgd2d_dt.launches`, ...;
+`qgd2d_smooth.rings` counts its rings too).  The plain versions composed
+are the reference's `frame_fn`.
 
 Restrictions (`supported()`): 2D uniform f32 mesh, PerfectGasThermo with
 constant transport, constScPrModel1 or varScModel5,
@@ -60,11 +60,13 @@ import numpy as np
 import torch
 
 from ..core import bc as bcm
-from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5, _neighbour_max
+from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5
 from ..physics.thermo import ConstTransport, PerfectGasThermo
 from ..parallel import sharding, spmd
 from ..solvers import common
 from . import _build, fvsc
+from .smoothing import (_edge_frame, _smooth_plain, require_exact_ring,
+                        smooth_args, smooth_reference, smooth_sensor)
 
 FIELDS = ("p", "T", "ux", "uy")
 KINDS = {"zg": 0, "fixed": 1, "grad": 2, "sym": 3, "extrap": 4, "io": 5,
@@ -245,14 +247,6 @@ def _compile_bcs(solver, params: _build.QGDParams) -> np.ndarray:
     return np.stack(profiles)
 
 
-def set_smooth_ratio(prm, coeff) -> None:
-    """maxRatio = 1 + coeff of the smoothing rings into prm (QGDParams or
-    QGD3DParams), rounded to float32 once, and its reciprocal rounded from
-    that float32: the constants of the division-free ring."""
-    prm.smooth_ratio = 1.0 + coeff
-    prm.smooth_inv = float(np.float32(1.0) / np.float32(prm.smooth_ratio))
-
-
 def make_params(solver) -> tuple:
     """(QGDParams, profile table) for a supported solver."""
     mesh = solver.mesh
@@ -288,7 +282,7 @@ def make_params(solver) -> tuple:
         prm.minSc = tm.minSc
         prm.maxSc = tm.maxSc
         prm.cqSc = float(tm.cqSc)
-        set_smooth_ratio(prm, tm.smoothCoeff)
+        prm.smooth_ratio = 1.0 + tm.smoothCoeff
     profiles = _compile_bcs(solver, prm)
     return prm, profiles
 
@@ -622,34 +616,8 @@ def emit_reference(prm, p, T, ux, uy, sc):
     raw = prm.rC * (mag * prm.h_cell / rho[C, C]) + prm.one_m_rC * sc[C, C]
     raw = torch.clamp(raw, prm.minSc, prm.maxSc)
     raw = torch.clamp(raw, min=prm.cqSc).contiguous()
-    s1 = torch.maximum(raw, _neighbour_max(raw) / _ratio(prm, raw))
-    chg = torch.any(s1 > raw).to(raw.dtype)
+    s1, chg = smooth_reference(prm, raw, 1)
     return co_rate, tau_rate, raw, s1, chg
-
-
-def _ratio(prm, like):
-    """maxRatio of the smoothing rings, a 0-dim tensor on `like`'s device
-    (see `qgdcoeffs.smooth_ratio`)."""
-    return torch.full((), prm.smooth_ratio, dtype=like.dtype,
-                      device=like.device)
-
-
-def smooth_reference(prm, f, k):
-    """Plain version of `qgd2d_smooth`'s rings: k fvc::smooth rings
-    f <- max(f, nbr_max(f)/maxRatio) of the (nx, ny) sensor cells f
-    (edge-replicated neighbours at the boundary).  Returns (the cells after
-    k rings, flag): flag is a 0-dim 1.0 if the last ring raised any cell,
-    else 0.0 (0.0 for k = 0).  Any number of axes: it is
-    `qgd3d_smooth`'s plain version too.  maxRatio is a tensor on f's
-    device, so the division is a correctly rounded one on the card too, as
-    the kernel's."""
-    ratio = _ratio(prm, f)
-    flag = torch.zeros((), dtype=f.dtype, device=f.device)
-    for _ in range(k):
-        fn = torch.maximum(f, _neighbour_max(f) / ratio)
-        flag = torch.any(fn > f).to(f.dtype)
-        f = fn
-    return f, flag
 
 
 # ---------------------------------------------------------------------------
@@ -828,40 +796,6 @@ SMOOTH_KMAX = 16
 SMOOTH_RINGS = 16
 
 
-def _smooth_plain(prm, f, k, out, flag):
-    """What `qgd2d_smooth` and `qgd3d_smooth` compute, in plain torch:
-    `smooth_reference` on the cells of f (the cells, or the interior of a
-    frame shaped as out), edge-framed into out; the flag into flag."""
-    cells = tuple(n - 2 for n in out.shape)
-    if tuple(f.shape) != cells:
-        f = f[(slice(1, -1),) * f.ndim]
-    got, fl = smooth_reference(prm, f, k)
-    out.copy_(_edge_frame(got))
-    flag.copy_(fl)
-    return out, flag
-
-
-def smooth_args(name, cells, kmax, f, k, out, flag):
-    """The checks and defaults the smoothing wrappers share: f the `cells`
-    shaped sensor or the frame around them, 0 <= k <= kmax, out a frame
-    (new if None) and flag a 0-dim tensor (new if None) beside f.  Returns
-    (on_card, f holds bare cells, out, flag)."""
-    frame = tuple(n + 2 for n in cells)
-    bare = tuple(f.shape) == tuple(cells)
-    on_card = check_tensors(name, cells if bare else frame, f)
-    if not 0 <= k <= kmax:
-        raise ValueError(f"{name}: k={k} outside 0..{kmax}")
-    out = torch.empty(frame, dtype=f.dtype, device=f.device) \
-        if out is None else out
-    flag = torch.empty((), dtype=f.dtype, device=f.device) \
-        if flag is None else flag
-    check_tensors(name, frame, out)
-    check_tensors(name, (), flag)
-    if out.device != f.device or flag.device != f.device:
-        raise ValueError(f"{name}: out and flag must lie beside f")
-    return on_card, bare, out, flag
-
-
 def qgd2d_smooth(prm, f, k, out=None, flag=None):
     """(out, flag): k fvc::smooth rings (0 <= k <= SMOOTH_KMAX) of the
     sensor cells f - an (nx, ny) tensor, or the interior of an
@@ -886,97 +820,6 @@ def qgd2d_smooth(prm, f, k, out=None, flag=None):
     qgd2d_smooth.launches += 1
     qgd2d_smooth.rings += k
     return out, flag
-
-
-# the ranges smooth_ring_check holds the division-free ring to __fdiv_rn on
-RING_RANGES = ("[1, 2)", "the binade at SMOOTH_TINY", "the lowest normal "
-               "binade", "the subnormals", "the top binade")
-
-
-def smooth_ring_check(ratio: float, device) -> dict:
-    """{range: mismatches}: the kernels' division-free ring against a
-    correctly rounded division by float32 `ratio` on every float of each of
-    RING_RANGES, on a card (`smooth_ring_check` in qgd2d.cu)."""
-    r = np.float32(ratio)
-    lib = _build.load()
-    dev = torch.device(device)
-    bad = torch.zeros(len(RING_RANGES), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.smooth_ring_check(float(r), float(np.float32(1.0) / r),
-                                     _ptr(bad), stream)
-    _build.check(lib, code, "smooth_ring_check")
-    return dict(zip(RING_RANGES, bad.tolist()))
-
-
-_RINGS_CHECKED = set()
-
-
-def require_exact_ring(prm, device) -> None:
-    """Raise unless the division-free ring is exact for prm's maxRatio on
-    every float `smooth_ring_check` tries, checked once per ratio and card
-    before a step builder hands the ratio to the smoothing kernels."""
-    key = (prm.smooth_ratio, str(device))
-    if key in _RINGS_CHECKED:
-        return
-    bad = smooth_ring_check(prm.smooth_ratio, device)
-    if any(bad.values()):
-        raise RuntimeError(
-            f"the division-free smoothing ring is not exact for maxRatio "
-            f"{prm.smooth_ratio!r}: {sum(bad.values())} mismatches ({bad})")
-    _RINGS_CHECKED.add(key)
-
-
-def smooth_sensor(prm, s1, chg, k=SMOOTH_RINGS, smooth=qgd2d_smooth,
-                  bufs=None, max_iters=10_000):
-    """The sensor frame of a step: fvc::smooth carried to its fixed point
-    and edge-framed - bitwise `fvc_smooth` of the raw sensor, whatever k -
-    on `smooth` (the signature of `qgd2d_smooth` and `qgd3d_smooth`), in
-    any number of axes.
-
-    With a flag `chg` (K2), s1 is the emitted first ring ((nx, ny) cells)
-    and chg its change flag: the host reads it, and if it is 0, ring 1 is
-    the fixed point and one launch of 0 rings frames it.  With chg None
-    (the 3D step), s1 is the raw sensor and the first launch runs ring 1
-    alone, as `fvc_smooth` tests after its first ring: an inactive sensor
-    costs one ring.  Then it launches k rings at a time, reading each
-    launch's last-ring flag, until a launch's last ring raised no cell or
-    the `fvc_smooth` cap of max_iters rings is reached.  The launches
-    alternate between the returned frame, which is new, and a scratch
-    frame; the last one lands in the returned frame when the call takes as
-    many launches as the call before it, else one copy moves it there.
-    bufs = [scratch frame, flag, launches of the last call] is kept across
-    calls (new if None).  Counts its host flag reads in `reads` and its
-    rings in `rings`."""
-    out = torch.empty(tuple(n + 2 for n in s1.shape), dtype=s1.dtype,
-                      device=s1.device)
-    if bufs is None:
-        bufs = [torch.empty_like(out), torch.empty((), dtype=s1.dtype,
-                                                   device=s1.device), 1]
-    scratch, flag, last = bufs
-    it, rings = 0, 1
-    if chg is not None:
-        smooth_sensor.reads += 1
-        if not bool(chg):
-            return smooth(prm, s1, 0, out, flag)[0]
-        it, rings = 1, k
-    src, dst, n = s1, (out if last % 2 else scratch), 0
-    while True:
-        smooth(prm, src, rings, dst, flag)
-        smooth_sensor.rings += rings
-        it, n = it + rings, n + 1
-        smooth_sensor.reads += 1
-        if not bool(flag) or it >= max_iters:
-            break
-        src, dst, rings = dst, (scratch if dst is out else out), k
-    bufs[2] = n
-    if dst is not out:
-        out.copy_(dst)
-    return out
-
-
-smooth_sensor.reads = 0
-smooth_sensor.rings = 0
 
 
 def update_launch_shape(prm, device) -> dict:
@@ -1008,16 +851,6 @@ SHARDED_KERNELS = (qgd2d_dt_fold, qgd2d_dt_apply, qgd2d_update, qgd2d_ghosts)
 # ---------------------------------------------------------------------------
 # the step and its State conversions
 # ---------------------------------------------------------------------------
-
-
-def _edge_frame(interior):
-    """Interior cells -> frame with edge-replicated ghosts (any number of
-    axes)."""
-    f = interior
-    for a, n in enumerate(interior.shape):
-        idx = (torch.arange(n + 2, device=f.device) - 1).clamp(0, n - 1)
-        f = f.index_select(a, idx)
-    return f.contiguous()
 
 
 def _state_io(solver, frame_sc=_edge_frame):
@@ -1312,17 +1145,11 @@ def build_tiled_fused_step(solver, plain: bool = False):
     else:
         k_update, k_ghosts, k_emit, k_smooth = qgd2d_update, qgd2d_ghosts, \
             qgd2d_emit, qgd2d_smooth
-    scratch = {}  # device -> the bufs of smooth_sensor
+    scratch = {}  # the cache of smooth_sensor
 
     def sensor(ts):
-        dev = ts.sc_s1.device
-        if dev not in scratch:
-            frame = torch.empty((prm.nx + 2, prm.ny + 2),
-                                dtype=ts.sc_s1.dtype, device=dev)
-            scratch[dev] = [frame, torch.empty((), dtype=frame.dtype,
-                                               device=dev), 1]
-        return smooth_sensor(prm, ts.sc_s1, ts.sc_chg, smooth=k_smooth,
-                             bufs=scratch[dev])
+        return smooth_sensor(prm, ts.sc_s1, ts.sc_chg, k_smooth, SMOOTH_RINGS,
+                             cache=scratch)
 
     def step(ts: TiledState) -> TiledState:
         dt_new = common.set_delta_t(ts.dt, ts.co_rate * ts.dt, ts.tau_rate,

@@ -13,7 +13,7 @@ One step:
   1. `qgd3d_dt`: acoustic Courant number and min tau_f over the exact live
      face sets, then setDeltaT - a one-element tensor on the device;
   2. varScModel5 only: fvc::smooth of `sc_raw` -> this step's sensor
-     frame: `fused_qgd2d.smooth_sensor` on `qgd3d_smooth` from the raw
+     frame: `smoothing.smooth_sensor` on `qgd3d_smooth` from the raw
      sensor to the fixed point, ring 1 alone in the first launch and
      SMOOTH3_RINGS rings in each after it, one host flag read a launch
      (XLA's `fvc_smooth` between the kernel's calls in the reference);
@@ -57,13 +57,12 @@ from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5, fvc_smooth
 from ..parallel import sharding, spmd
 from ..solvers import common
 from . import _build
-from .fused_qgd2d import (KINDS, _bc_ghost, _edge_frame, _ptr, _raw_value,
-                          _scalar, _smooth_plain, _time_controls, _zg,
-                          check_tensors, common_gate, require_exact_ring,
-                          set_smooth_ratio, smooth_args, smooth_reference,
-                          smooth_sensor)
+from .fused_qgd2d import (KINDS, _bc_ghost, _ptr, _raw_value, _scalar,
+                          _time_controls, _zg, check_tensors, common_gate)
 from .fvsc import _hi, _lo
 from .pad import _sl
+from .smoothing import (_edge_frame, _smooth_plain, require_exact_ring,
+                        smooth_args, smooth_reference, smooth_sensor)
 
 FIELDS = ("p", "T", "ux", "uy", "uz")
 _CONST_SC_PR = ("ConstScPrModel1", "ConstScPrModel1n", "ConstScPrModel2")
@@ -244,9 +243,8 @@ def make_params(solver) -> tuple:
         rC=tm.rC if varsc else 0.0, one_m_rC=1.0 - tm.rC if varsc else 0.0,
         minSc=tm.minSc if varsc else 0.0, maxSc=tm.maxSc if varsc else 1.0,
         cqSc=float(tm.cqSc) if varsc else 0.0, h_cell=h_cell,
+        smooth_ratio=1.0 + tm.smoothCoeff if varsc else 0.0,
     )
-    if varsc:
-        set_smooth_ratio(prm, tm.smoothCoeff)
     specs, planes = _bc_specs(solver)
     for f, rows in enumerate(specs):
         for a in range(3):
@@ -470,12 +468,8 @@ def sensor_reference_3d(prm, p, T, sc):
     return torch.clamp(s, min=prm.cqSc)
 
 
-def smooth_reference_3d(prm, f, k):
-    """Plain version of `qgd3d_smooth`'s rings: k fvc::smooth rings of the
-    (nx, ny, nz) sensor cells f over the six face neighbours
-    (edge-replicated at the boundary), dividing by a tensor maxRatio;
-    (cells, last-ring flag) as `fused_qgd2d.smooth_reference`."""
-    return smooth_reference(prm, f, k)
+# plain version of `qgd3d_smooth`'s rings: the rings of any number of axes
+smooth_reference_3d = smooth_reference
 
 
 def ghosts_reference_3d(prm, frames, side, planes):
@@ -756,22 +750,14 @@ def build_fused_step_3d(solver, plain: bool = False):
         k_dt, k_update, k_sensor, k_ghosts, k_smooth = KERNELS
         if varsc and mesh.device.type == "cuda":
             require_exact_ring(prm, mesh.device)
-    scratch = {}  # device -> the bufs of smooth_sensor
-
-    def smoothed(raw):
-        if raw.device not in scratch:
-            scratch[raw.device] = [
-                torch.empty(tuple(n + 2 for n in raw.shape), dtype=raw.dtype,
-                            device=raw.device),
-                torch.empty((), dtype=raw.dtype, device=raw.device), 1]
-        return smooth_sensor(prm, raw, None, k=SMOOTH3_RINGS, smooth=k_smooth,
-                             bufs=scratch[raw.device])
+    scratch = {}  # the cache of smooth_sensor
 
     def step(fs: Fused3DState) -> Fused3DState:
         dt_new = k_dt(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
         sc = sc_raw = None
         if varsc:
-            sc = smoothed(fs.sc_raw)
+            sc = smooth_sensor(prm, fs.sc_raw, None, k_smooth, SMOOTH3_RINGS,
+                               cache=scratch)
         frames, side = k_update(prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc,
                                 dt_new)
         if varsc:

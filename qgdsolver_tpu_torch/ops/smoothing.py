@@ -1,0 +1,174 @@
+"""fvc::smooth of the varScModel5 sensor on the card, shared by the 2D and
+3D fused steps (`fused_qgd2d.qgd2d_smooth`, `fused_qgd3d.qgd3d_smooth`).
+
+A ring is f <- max(f, nbr_max(f)/maxRatio) over the face neighbours, a
+cell beyond a physical edge being the cell itself; fvc::smooth carries the
+rings to their fixed point.  This module holds what does not depend on the
+number of axes: the plain version of a launch of k rings
+(`smooth_reference`, `_smooth_plain`), the checks both wrappers share
+(`smooth_args`), the host loop that groups the rings into launches
+(`smooth_sensor`), and the card's check of the kernels' division-free ring
+(`smooth_ring_check`, `require_exact_ring`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..physics.qgdcoeffs import _neighbour_max, smooth_ratio
+from . import _build
+
+
+def _edge_frame(interior):
+    """Interior cells -> frame with edge-replicated ghosts (any number of
+    axes)."""
+    f = interior
+    for a, n in enumerate(interior.shape):
+        idx = (torch.arange(n + 2, device=f.device) - 1).clamp(0, n - 1)
+        f = f.index_select(a, idx)
+    return f.contiguous()
+
+
+def smooth_reference(prm, f, k):
+    """Plain version of the smoothing kernels' rings: k fvc::smooth rings
+    of the sensor cells f (any number of axes; edge-replicated neighbours
+    at the boundary).  Returns (the cells after k rings, flag): flag is a
+    0-dim 1.0 if the last ring raised any cell, else 0.0 (0.0 for k = 0).
+    maxRatio is a tensor on f's device (`qgdcoeffs.smooth_ratio` of the
+    coefficient, prm holding 1 + coefficient), so the division is a
+    correctly rounded one on the card too, as the kernels'."""
+    ratio = smooth_ratio(prm.smooth_ratio - 1.0, f)
+    flag = torch.zeros((), dtype=f.dtype, device=f.device)
+    for _ in range(k):
+        fn = torch.maximum(f, _neighbour_max(f) / ratio)
+        flag = torch.any(fn > f).to(f.dtype)
+        f = fn
+    return f, flag
+
+
+def _smooth_plain(prm, f, k, out, flag):
+    """What `qgd2d_smooth` and `qgd3d_smooth` compute, in plain torch:
+    `smooth_reference` on the cells of f (the cells, or the interior of a
+    frame shaped as out), edge-framed into out; the flag into flag."""
+    cells = tuple(n - 2 for n in out.shape)
+    if tuple(f.shape) != cells:
+        f = f[(slice(1, -1),) * f.ndim]
+    got, fl = smooth_reference(prm, f, k)
+    out.copy_(_edge_frame(got))
+    flag.copy_(fl)
+    return out, flag
+
+
+def smooth_args(name, cells, kmax, f, k, out, flag):
+    """The checks and defaults the smoothing wrappers share: f the `cells`
+    shaped sensor or the frame around them, 0 <= k <= kmax, out a frame
+    (new if None) and flag a 0-dim tensor (new if None) beside f.  Returns
+    (on_card, f holds bare cells, out, flag)."""
+    from .fused_qgd2d import check_tensors  # fused_qgd2d imports this module
+
+    frame = tuple(n + 2 for n in cells)
+    bare = tuple(f.shape) == tuple(cells)
+    on_card = check_tensors(name, cells if bare else frame, f)
+    if not 0 <= k <= kmax:
+        raise ValueError(f"{name}: k={k} outside 0..{kmax}")
+    out = torch.empty(frame, dtype=f.dtype, device=f.device) \
+        if out is None else out
+    flag = torch.empty((), dtype=f.dtype, device=f.device) \
+        if flag is None else flag
+    check_tensors(name, frame, out)
+    check_tensors(name, (), flag)
+    if out.device != f.device or flag.device != f.device:
+        raise ValueError(f"{name}: out and flag must lie beside f")
+    return on_card, bare, out, flag
+
+
+def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
+    """The sensor frame of a step: fvc::smooth carried to its fixed point
+    and edge-framed - bitwise `fvc_smooth` of the raw sensor, whatever k -
+    on `smooth` (the signature of `qgd2d_smooth` and `qgd3d_smooth`, or
+    `_smooth_plain`), in any number of axes.
+
+    With a flag `chg` (K2), s1 is the emitted first ring (the cells) and
+    chg its change flag: the host reads it, and if it is 0, ring 1 is the
+    fixed point and one launch of 0 rings frames it.  With chg None (the 3D
+    step), s1 is the raw sensor and the first launch runs ring 1 alone, as
+    `fvc_smooth` tests after its first ring: an inactive sensor costs one
+    ring.  Then it launches k rings at a time, reading each launch's
+    last-ring flag, until a launch's last ring raised no cell or the
+    `fvc_smooth` cap of max_iters rings is reached.  The launches alternate
+    between the returned frame, which is new, and a scratch frame; the last
+    one lands in the returned frame when the call takes as many launches as
+    the call before it, else one copy moves it there.  `cache` (a dict a
+    step builder keeps) holds the scratch frame, the flag and the launches
+    of the last call per device across calls.  Counts its host flag reads
+    in `reads` and its rings in `rings`."""
+    out = torch.empty(tuple(n + 2 for n in s1.shape), dtype=s1.dtype,
+                      device=s1.device)
+    bufs = None if cache is None else cache.get(s1.device)
+    if bufs is None:
+        bufs = [torch.empty_like(out), torch.empty((), dtype=s1.dtype,
+                                                   device=s1.device), 1]
+        if cache is not None:
+            cache[s1.device] = bufs
+    scratch, flag, last = bufs
+    it, rings = 0, 1
+    if chg is not None:
+        smooth_sensor.reads += 1
+        if not bool(chg):
+            return smooth(prm, s1, 0, out, flag)[0]
+        it, rings = 1, k
+    src, dst, n = s1, (out if last % 2 else scratch), 0
+    while True:
+        smooth(prm, src, rings, dst, flag)
+        smooth_sensor.rings += rings
+        it, n = it + rings, n + 1
+        smooth_sensor.reads += 1
+        if not bool(flag) or it >= max_iters:
+            break
+        src, dst, rings = dst, (scratch if dst is out else out), k
+    bufs[2] = n
+    if dst is not out:
+        out.copy_(dst)
+    return out
+
+
+smooth_sensor.reads = 0
+smooth_sensor.rings = 0
+
+# the ranges smooth_ring_check holds the division-free ring to __fdiv_rn on
+RING_RANGES = ("[1, 2)", "the binade at SMOOTH_TINY", "the lowest normal "
+               "binade", "the subnormals", "the top binade")
+
+
+def smooth_ring_check(ratio: float, device) -> dict:
+    """{range: mismatches}: the kernels' division-free ring against a
+    correctly rounded division by float32 `ratio` on every float of each of
+    RING_RANGES, on a card (`smooth_ring_check` in qgd2d.cu, which derives
+    the reciprocal from the ratio as the smoothing kernels do)."""
+    lib = _build.load()
+    dev = torch.device(device)
+    bad = torch.zeros(len(RING_RANGES), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.smooth_ring_check(float(np.float32(ratio)), bad.data_ptr(),
+                                     stream)
+    _build.check(lib, code, "smooth_ring_check")
+    return dict(zip(RING_RANGES, bad.tolist()))
+
+
+_RINGS_CHECKED = set()
+
+
+def require_exact_ring(prm, device) -> None:
+    """Raise unless the division-free ring is exact for prm's maxRatio on
+    every float `smooth_ring_check` tries, checked once per ratio and card
+    before a step builder hands the ratio to the smoothing kernels."""
+    key = (prm.smooth_ratio, str(device))
+    if key in _RINGS_CHECKED:
+        return
+    bad = smooth_ring_check(prm.smooth_ratio, device)
+    if any(bad.values()):
+        raise RuntimeError(
+            f"the division-free smoothing ring is not exact for maxRatio "
+            f"{prm.smooth_ratio!r}: {sum(bad.values())} mismatches ({bad})")
+    _RINGS_CHECKED.add(key)

@@ -26,6 +26,7 @@ from qgdsolver_tpu_torch import cases as tcases
 from qgdsolver_tpu_torch import interop
 from qgdsolver_tpu_torch.core import bc as tbc
 from qgdsolver_tpu_torch.ops import fused_qgd3d as F
+from qgdsolver_tpu_torch.ops import smoothing as S
 from qgdsolver_tpu_torch.physics import qgdcoeffs as tcoeffs
 from qgdsolver_tpu_torch.physics import thermo as tthermo
 
@@ -444,14 +445,14 @@ def test_grouped_smoothing_3d_is_bitwise_fvc_smooth(field, k):
     prm, _ = F.make_params(ts)
     f = torch.as_tensor(raw)
     ref = F._edge_frame(tcoeffs.fvc_smooth(f, 0.1))
-    smooths = [F._smooth_plain]
+    smooths = [S._smooth_plain]
     if k <= F.SMOOTH3_KMAX:
         smooths.append(F.qgd3d_smooth)
     for smooth in smooths:
-        reads, rings = F.smooth_sensor.reads, F.smooth_sensor.rings
-        out = F.smooth_sensor(prm, f, None, k=k, smooth=smooth)
-        reads = F.smooth_sensor.reads - reads
-        rings = F.smooth_sensor.rings - rings
+        reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
+        out = S.smooth_sensor(prm, f, None, smooth, k)
+        reads = S.smooth_sensor.reads - reads
+        rings = S.smooth_sensor.rings - rings
         assert torch.equal(out, ref)
         # ring 1 alone, then k rings a call
         assert reads >= 1 and rings == 1 + k * (reads - 1)
@@ -482,16 +483,16 @@ def test_3d_step_on_cpu_is_no_launch():
     step, to_f, _ = ts.make_fused_step()
     fs = to_f(ts.make_step()(s))
     before = [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings]
-    reads, rings = F.smooth_sensor.reads, F.smooth_sensor.rings
+    reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
     for _ in range(3):
         new = step(fs)
         assert torch.equal(new.sc, F._edge_frame(
             tcoeffs.fvc_smooth(fs.sc_raw, ts.tau_model.smoothCoeff)))
         fs = new
     assert [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings] == before
-    reads = F.smooth_sensor.reads - reads
+    reads = S.smooth_sensor.reads - reads
     assert reads >= 3
-    assert F.smooth_sensor.rings - rings == 3 + F.SMOOTH3_RINGS * (reads - 3)
+    assert S.smooth_sensor.rings - rings == 3 + F.SMOOTH3_RINGS * (reads - 3)
     prm, _ = F.make_params(ts)
     with pytest.raises(ValueError):
         F.qgd3d_smooth(prm, fs.sc_raw, F.SMOOTH3_KMAX + 1)

@@ -27,6 +27,7 @@ from qgdsolver_tpu_torch import cases
 from qgdsolver_tpu_torch.core import bc
 from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+from qgdsolver_tpu_torch.ops import smoothing as S
 from qgdsolver_tpu_torch.solvers import common
 
 pytestmark = pytest.mark.gpu
@@ -205,7 +206,8 @@ def test_tiled_main_path_launches_emit_once_per_step(device):
     assert bool(torch.isfinite(s.sc).all()) and float(s.sc.min()) >= 0.05
 
 
-@pytest.mark.parametrize("k", sorted({0, 1, F.SMOOTH_RINGS, F.SMOOTH_KMAX}))
+@pytest.mark.parametrize("k", sorted({0, 1, 3, 8, F.SMOOTH_RINGS,
+                                      F.SMOOTH_KMAX}))
 @pytest.mark.parametrize("shape", [(100, 261), (37, 13), (130, 131),
                                    (256, 128)])
 def test_smooth_kernel_on_ragged_shapes(shape, k, device):
@@ -213,7 +215,9 @@ def test_smooth_kernel_on_ragged_shapes(shape, k, device):
     they are: a tile of no ring then ends on the edge), on cells and on a
     frame, bitwise its plain version (cells, ghosts and the last-ring
     flag); and the K2 continuation on it bitwise the same loop on the plain
-    version, to the fixed point."""
+    version, to the fixed point.  k covers every ring count that is timed
+    (8 and SMOOTH_RINGS) and odd counts (1, 3), on which the kernel's two
+    shared row buffers end on the other buffer."""
     prm = F.make_params(cases.supersonic_jet_varsc(shape=shape,
                                                    device=device)[0])[0]
     rng = np.random.default_rng(11)
@@ -222,12 +226,12 @@ def test_smooth_kernel_on_ragged_shapes(shape, k, device):
     f = torch.as_tensor(raw, device=device)
     for src in (f, F._edge_frame(f)):
         out, flag = F.qgd2d_smooth(prm, src, k)
-        cells, ref_flag = F.smooth_reference(prm, f, k)
+        cells, ref_flag = S.smooth_reference(prm, f, k)
         assert torch.equal(out, F._edge_frame(cells))
         assert float(flag) == float(ref_flag)
-    s1, chg = F.smooth_reference(prm, f, 1)
-    got = F.smooth_sensor(prm, s1, chg, k=k)
-    ref = F.smooth_sensor(prm, s1, chg, k=k, smooth=F._smooth_plain)
+    s1, chg = S.smooth_reference(prm, f, 1)
+    got = S.smooth_sensor(prm, s1, chg, F.qgd2d_smooth, k)
+    ref = S.smooth_sensor(prm, s1, chg, S._smooth_plain, k)
     assert torch.equal(got, ref)
 
 
@@ -284,16 +288,16 @@ def test_k2_main_path_counts_rings_and_launches(device):
     ts = to_f(state)
     for k in F.KERNELS:
         k.launches = 0
-    F.qgd2d_smooth.rings = F.smooth_sensor.rings = F.smooth_sensor.reads = 0
+    F.qgd2d_smooth.rings = S.smooth_sensor.rings = S.smooth_sensor.reads = 0
     n = 10
     s = from_f(common.run_steps(step, ts, n))
     launches = {k.__name__: k.launches for k in F.KERNELS}
     assert launches["qgd2d_update"] == launches["qgd2d_ghosts"] == n
     assert launches["qgd2d_emit"] == n and launches["qgd2d_dt"] == 0
-    assert F.qgd2d_smooth.rings == F.smooth_sensor.rings > 0
+    assert F.qgd2d_smooth.rings == S.smooth_sensor.rings > 0
     # one read of the emitted flag a step, one per launch of rings: at most
     # the 1 + rings/4 of a host loop testing every fourth ring
-    assert n < F.smooth_sensor.reads <= n + F.smooth_sensor.rings // 4
+    assert n < S.smooth_sensor.reads <= n + S.smooth_sensor.rings // 4
     assert F.qgd2d_smooth.rings <= F.SMOOTH_RINGS * launches["qgd2d_smooth"]
     p_step, p_to, p_from = F.build_tiled_fused_step(solver, plain=True)
     b = p_from(common.run_steps(p_step, p_to(state), n))
@@ -413,9 +417,9 @@ def test_3d_main_path_launches_each_kernel_once_per_step(name, device):
     fs = to_f(state)
     for k in F3.KERNELS:
         k.launches = 0
-    reads = F.smooth_sensor.reads
+    reads = S.smooth_sensor.reads
     s = from_f(common.run_steps(step, fs, 10))
-    reads = F.smooth_sensor.reads - reads
+    reads = S.smooth_sensor.reads - reads
     varsc = F3.make_params(solver)[0].varsc
     got = {k.__name__: k.launches for k in F3.KERNELS}
     smooth = got.pop("qgd3d_smooth")
@@ -482,10 +486,45 @@ def test_smooth3_kernel_on_ragged_shapes(shape, k, device):
         assert float(flag) == float(ref_flag)
     if k == 0:
         return
-    got = F.smooth_sensor(prm, f, None, k=k, smooth=F3.qgd3d_smooth)
-    ref = F.smooth_sensor(prm, f, None, k=k, smooth=F._smooth_plain)
+    got = S.smooth_sensor(prm, f, None, F3.qgd3d_smooth, k)
+    ref = S.smooth_sensor(prm, f, None, S._smooth_plain, k)
     assert torch.equal(got, ref)
     assert torch.equal(got, F._edge_frame(F3.fvc_smooth(f, 0.1)))
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_smooth_kernels_below_the_underflow_guard(dims, device):
+    """Both smoothing kernels on sensors whose first x-rows lie below the
+    division-free ring's guard (2^-96: the ring divides there), across it,
+    among subnormals and zeros, with a normal spike, and whose other rows
+    hold sensor values: bitwise their plain versions for one launch of 1
+    and of the most rings, and to the fixed point.  In 2D this runs tiles
+    with the guard (those holding a tiny value) beside tiles without it."""
+    if dims == 2:
+        shape, kmax, smooth = (150, 140), F.SMOOTH_KMAX, F.qgd2d_smooth
+        prm = F.make_params(cases.supersonic_jet_varsc(
+            shape=shape, device=device)[0])[0]
+    else:
+        shape, kmax, smooth = (20, 40, 70), F3.SMOOTH3_KMAX, F3.qgd3d_smooth
+        prm = F3.make_params(cases.supersonic_jet_3d_varsc(
+            shape=shape, device=device)[0])[0]
+    rng = np.random.default_rng(13)
+    raw = rng.uniform(0.05, 1.0, shape).astype(np.float32)
+    tiny = (shape[0] * 2 // 5,) + shape[1:]
+    raw[:tiny[0]] = np.ldexp(rng.uniform(0.5, 1.0, tiny),
+                             rng.integers(-150, -80, tiny))
+    raw[:tiny[0]][rng.random(tiny) < 0.05] = 0.0
+    raw[(tiny[0] // 2,) + tuple(n // 2 for n in shape[1:])] = 1.0
+    assert np.count_nonzero((raw > 0) & (raw < np.float32(2.0 ** -126))) > 0
+    f = torch.as_tensor(raw, device=device)
+    for k in (1, kmax):
+        out, flag = smooth(prm, f, k)
+        cells, ref_flag = S.smooth_reference(prm, f, k)
+        assert torch.equal(out, F._edge_frame(cells))
+        assert float(flag) == float(ref_flag)
+    got = S.smooth_sensor(prm, f, None, smooth, kmax)
+    assert torch.equal(got, S.smooth_sensor(prm, f, None, S._smooth_plain,
+                                            kmax))
 
 
 @pytest.mark.parametrize("ratio", [1.1, 1.01, 1.05, 1.2, 1.3, 1.5, 2.0])
@@ -493,8 +532,8 @@ def test_smooth_ring_check_is_exact(ratio, device):
     """The kernels' division-free ring equals __fdiv_rn on every float of
     the ranges `smooth_ring_check` sweeps, for the cases' maxRatio (1.1)
     and a sweep of others."""
-    bad = F.smooth_ring_check(ratio, device)
-    assert list(bad) == list(F.RING_RANGES)
+    bad = S.smooth_ring_check(ratio, device)
+    assert list(bad) == list(S.RING_RANGES)
     assert not any(bad.values()), bad
 
 

@@ -28,6 +28,7 @@ from qgdsolver_tpu_torch import cases as tcases
 from qgdsolver_tpu_torch import interop
 from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+from qgdsolver_tpu_torch.ops import smoothing as S
 from qgdsolver_tpu_torch.physics import qgdcoeffs as tcoeffs
 from qgdsolver_tpu_torch.solvers import common
 
@@ -124,11 +125,11 @@ def test_tiled_varsc_smooth_continuation_fires_and_matches():
     kernel (slab_rows=8), 4 steps."""
     js, jst, ts = _perturbed("varsc", (2.5, 1.1), 24)
     s, st = _seeded(js, jst)
-    rings = F.smooth_sensor.rings
+    rings = S.smooth_sensor.rings
     jt, a, _, b, fired = _run_both(js, ts, s, st, 4, slab_rows=8)
     assert fired[0], "the JAX ring-1 change partial never fired"
     assert fired[1], "the port's change flag never fired"
-    assert F.smooth_sensor.rings > rings
+    assert S.smooth_sensor.rings > rings
     step_c = jax.jit(js.make_step())
     ref = s
     for _ in range(4):
@@ -234,13 +235,13 @@ def test_grouped_smoothing_is_bitwise_fvc_smooth(field, k):
     raw = _smooth_field(field)
     prm = _build_prm(raw.shape)
     f = torch.as_tensor(raw)
-    s1, chg = F.smooth_reference(prm, f, 1)
+    s1, chg = S.smooth_reference(prm, f, 1)
     ref = tcoeffs.fvc_smooth(f, 0.1)
     for flag in (chg, torch.tensor(1.0)):
-        reads, rings = F.smooth_sensor.reads, F.smooth_sensor.rings
-        out = F.smooth_sensor(prm, s1, flag, k=k)
-        reads = F.smooth_sensor.reads - reads
-        rings = F.smooth_sensor.rings - rings
+        reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
+        out = S.smooth_sensor(prm, s1, flag, F.qgd2d_smooth, k)
+        reads = S.smooth_sensor.reads - reads
+        rings = S.smooth_sensor.rings - rings
         assert torch.equal(out, F._edge_frame(ref))
         assert rings % k == 0
         # the host loop that tests every fourth ring reads 1 + rings/4
@@ -257,7 +258,7 @@ def test_grouped_smoothing_is_bitwise_fvc_smooth(field, k):
                                    rtol=1e-6)
     # one call of k rings: the plain loop's cells, ghosts and last flag
     frame, last = F.qgd2d_smooth(prm, F._edge_frame(s1), k)
-    cells, ref_last = F.smooth_reference(prm, s1, k)
+    cells, ref_last = S.smooth_reference(prm, s1, k)
     assert torch.equal(frame, F._edge_frame(cells))
     assert float(last) == float(ref_last)
 
@@ -288,18 +289,18 @@ def _fma32(a, b, c):
 @pytest.mark.parametrize("ratio", [1.1, 1.01, 1.05, 1.2, 1.5, 2.0])
 def test_division_free_ring_is_exact_in_numpy(ratio):
     """The smoothing kernels' division-free quotient (smooth_ring.cuh):
-    q = RN(nb*y), rem = fmaf(-q, r, nb), q' = fmaf(rem, y, q) with
-    y = RN(1/r), as the step builders' params round r and y, equals the
-    correctly rounded nb / r on every float32 of [1, 2) (scaling by 2 is
-    exact, so this binade decides every normal one above the kernels'
-    underflow guard), while q alone misses on many.  The card repeats this
-    sweep with its own fmaf (`smooth_ring_check`)."""
+    q = RN(nb*y), rem = fmaf(-q, r, nb), q' = fmaf(rem, y, q) with r the
+    params' float32 maxRatio and y = RN(1/r), as the kernels derive it
+    (`smooth_inverse`), equals the correctly rounded nb / r on every
+    float32 of [1, 2) (scaling by 2 is exact, so this binade decides every
+    normal one above the kernels' underflow guard), while q alone misses on
+    many.  The card repeats this sweep with its own fmaf
+    (`smooth_ring_check`)."""
     from qgdsolver_tpu_torch.ops import _build
 
-    prm = _build.QGDParams()
-    F.set_smooth_ratio(prm, ratio - 1.0)
-    r, y = np.float32(prm.smooth_ratio), np.float32(prm.smooth_inv)
-    assert r == np.float32(ratio) and y == np.float32(1.0) / r
+    r = np.float32(_build.QGDParams(smooth_ratio=ratio).smooth_ratio)
+    assert r == np.float32(ratio)
+    y = np.float32(1.0) / r
     first = int(np.float32(1.0).view(np.uint32))
     q_misses = 0
     for lo in range(first, first + (1 << 23), 1 << 21):
