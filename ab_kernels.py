@@ -1,6 +1,7 @@
 """Device times of the port's 2D kernels `qgd2d_update`, `qgd2d_emit` and
-`qgd2d_smooth`, and of the 3D `qgd3d_smooth`, from two or more builds of
-their source, on the same inputs, in one process on one card.
+`qgd2d_smooth`, and of the 3D `qgd3d_smooth`, `qgd3d_dt`, `qgd3d_dt_fold`
+and `qgd3d_ghosts`, from two or more builds of their source, on the same
+inputs, in one process on one card.
 
     python3 ab_kernels.py NAME=PATH/qgd2d.cu [NAME=PATH/qgd3d.cu ...]
 
@@ -8,8 +9,8 @@ Each PATH (another revision's source, unpacked with `git archive`, or a
 variant of it, beside the headers it includes) is compiled alone with the
 port's nvcc flags into `build/ab_kernels/`; the checkout's own kernels are
 the build "this".  A `qgd2d.cu` build runs the 2D inputs, a `qgd3d.cu`
-build the 3D ones.  The inputs are those the port's steps hand the
-kernels, recorded in a step:
+build the 3D ones (a kind with no other build is not run).  The inputs
+are those the port's steps hand the kernels, recorded in a step:
 
 - the 1024x512 jet after 20 plain steps, on K1's path (`qgd2d_update`);
 - the 1024x512 varsc + qgdFlux jet after 20 plain steps, on K2's path;
@@ -23,14 +24,19 @@ kernels, recorded in a step:
   rings a launch, `smoothing.smooth_sensor`);
 - the raw sensor of the 256x126x126 varsc jet after 20 plain steps, with a
   density bump (`qgd3d_smooth`: one launch of 1 and of 4 rings, and the 3D
-  step's loop from the raw sensor to the fixed point).
+  step's loop from the raw sensor to the fixed point);
+- the 256x126x126 duct and varsc jet after 20 plain steps (`qgd3d_dt`;
+  `qgd3d_ghosts` on the frames the plain update makes from them), and
+  slab 0 of the duct's x-ring of 2, flagged at its partition plane, as K5
+  hands it `qgd3d_dt_fold` and `qgd3d_ghosts`.
 
 For each input and kernel every build runs in the order given, then in the
 reverse order (A B B A), timed by the profiler's device time of the port's
 kernels (`chip_smoke.device_ms`), and each build's output is held against
 "this" build's (the update's fields within 1e-5 of their max, as phase 3 of
 `chip_smoke.py`; the emitted rates rel 1e-6, the sensor fields bitwise;
-the smoothed frames and flags bitwise).  It prints each build's
+the smoothed frames and flags, the 3D dt, its quad and the ghost-filled
+frames bitwise).  It prints each build's
 registers and spills of the kernels it times from ptxas, one line per
 input and kernel, and the card's name and power limit.  It needs a card
 and imports nothing of JAX.
@@ -49,7 +55,7 @@ import chip_smoke as cs
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ab_kernels"
 # the kernels whose ptxas lines are printed, by source
 PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel"),
-         "qgd3d": ("qgd3d_smooth_kernel",)}
+         "qgd3d": ("qgd3d_smooth_kernel", "qgd3d_dt_", "qgd3d_ghost")}
 
 
 def build_other(name: str, src: pathlib.Path):
@@ -72,6 +78,10 @@ def build_other(name: str, src: pathlib.Path):
         _build._bind(lib, "qgd3d_smooth", [p3, ptr, ctypes.c_long,
                                            ctypes.c_long, c_int, ptr, ptr,
                                            ptr])
+        _build._bind(lib, "qgd3d_dt_partials", [p3])
+        _build._bind(lib, "qgd3d_dt", [p3] + [ptr] * 8)
+        _build._bind(lib, "qgd3d_dt_fold", [p3] + [ptr] * 7)
+        _build._bind(lib, "qgd3d_ghosts", [p3] + [ptr] * 8)
         return lib, proc.stderr
     _build._bind(lib, "qgd2d_error_string", [c_int], ctypes.c_char_p)
     _build._bind(lib, "qgd2d_dt_partials", [c_int, c_int])
@@ -99,16 +109,25 @@ def registers(report: str, kernel: str) -> str:
     return "not reported"
 
 
+# the printed names of the 3D kernels
+NAMES = {"dt3": "dt", "fold3": "dt_fold", "ghosts3": "ghosts"}
+# each build's qgd3d_dt workspaces: a build of another design lays the
+# workspace out otherwise
+WORKSPACES = {}
+
+
 def on_library(lib, fn):
     """fn() with the wrappers launching lib's kernels."""
     from qgdsolver_tpu_torch.ops import _build
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
 
-    saved = _build.load
+    saved = _build.load, F3._DT_WORK
     _build.load = lambda: lib
+    F3._DT_WORK = WORKSPACES.setdefault(id(lib), {})
     try:
         return fn()
     finally:
-        _build.load = saved
+        _build.load, F3._DT_WORK = saved
 
 
 def inputs(dev):
@@ -155,6 +174,7 @@ def inputs(dev):
 def inputs3(dev):
     """(label, kernel, args) of every timed 3D call."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.parallel import sharding, spmd
 
     shape = "x".join(map(str, cs.SHAPE3))
     solver, fs = cs.warm_state(cs.CASES3[1], cs.SHAPE3, F3.build_fused_step_3d,
@@ -167,7 +187,39 @@ def inputs3(dev):
     out.append(("the 3D step's loop from that raw sensor, ring 1, then "
                 f"{F3.SMOOTH3_RINGS} rings a launch", "continuation3",
                 (prm, raw)))
+    for name in cs.CASES3:
+        solver, fs = cs.warm_state(name, cs.SHAPE3, F3.build_fused_step_3d,
+                                   dev)
+        prm, planes = F3.make_params(solver)
+        planes = solver.mesh.tensor(planes).contiguous()
+        frames = (fs.p, fs.T, fs.ux, fs.uy, fs.uz)
+        sc = None
+        if prm.varsc:
+            sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
+                                              solver.tau_model.smoothCoeff))
+        out.append((f"{name} {shape}", "dt3", (prm,) + frames[1:] + (fs.dt,)))
+        fresh, side = F3.update_reference_3d(prm, *frames, sc, fs.dt)
+        out.append((f"{name} {shape}, the plain update's frames", "ghosts3",
+                    (prm, fresh, side, planes)))
+        if name != cs.CASES3[0]:
+            continue
+        ctx = sharding.block_context(solver.mesh, sharding.ProcessGrid(2, 1), 0)
+        prm, _ = F3.block_params(solver, ctx)
+        win = spmd.frame_window(ctx)
+        blk = [f[win].contiguous() for f in frames]
+        label = f"{name} slab 0 of an x-ring of 2 ({prm.nx}x126x126), K5"
+        out.append((label, "fold3", (prm,) + tuple(blk[1:])))
+        fresh, side = F3.update_reference_3d(prm, *blk, None, fs.dt)
+        out.append((label + ", the plain update's frames", "ghosts3",
+                    (prm, fresh, side, planes)))
     return out
+
+
+def ghosts3(prm, frames, side, planes):
+    """qgd3d_ghosts on fresh copies of the frames (it fills them in place)."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    return F3.qgd3d_ghosts(prm, [f.clone() for f in frames], side, planes)
 
 
 def continuation(prm, s1, chg, k):
@@ -194,9 +246,13 @@ def agree(kernel, ref, got) -> None:
             cs.check(cs.rel_err(a[C], b[C]) <= 1e-5,
                      f"qgd2d_update differs by {cs.rel_err(a[C], b[C]):.2e}")
         return
+    if kernel in ("dt3", "fold3"):
+        cs.check(torch.equal(ref, got), f"{kernel}: {ref.tolist()} against "
+                 f"this build's {got.tolist()}")
+        return
     if kernel != "emit":
         cs.check(all(torch.equal(a, b) for a, b in zip(ref, got)),
-                 f"the smoothing ({kernel}) differs")
+                 f"{kernel} differs")
         return
     for i, (a, b) in enumerate(zip(ref, got)):
         if a is None:
@@ -229,19 +285,25 @@ def main(argv) -> int:
                 for n, (_, rep) in builds[kind].items()), flush=True)
     fns = {"update": F.qgd2d_update, "emit": F.qgd2d_emit,
            "smooth": F.qgd2d_smooth, "continuation": continuation,
-           "smooth3": F3.qgd3d_smooth, "continuation3": continuation3}
+           "smooth3": F3.qgd3d_smooth, "continuation3": continuation3,
+           "dt3": F3.qgd3d_dt, "fold3": F3.qgd3d_dt_fold,
+           "ghosts3": ghosts3}
     # the smoothing loops return one frame; their launches depend on the
     # data, so their device time is the sum of what they ran
     loops = ("continuation", "continuation3")
-    runs = [("qgd2d", job) for job in inputs("cuda")]
+    runs = []
+    if len(builds["qgd2d"]) > 1:
+        runs += [("qgd2d", job) for job in inputs("cuda")]
     if len(builds["qgd3d"]) > 1:
         runs += [("qgd3d", job) for job in inputs3("cuda")]
     for kind, (label, kernel, args) in runs:
         these = builds[kind]
         order = list(these) + list(these)[::-1]
         ref = fns[kernel](*args)
+        if kernel in loops or kernel in ("dt3", "fold3"):
+            ref = ref.clone()
         if kernel in loops:
-            ref = (ref.clone(),)
+            ref = (ref,)
         for name, (lib, _) in these.items():
             got = on_library(lib, lambda: fns[kernel](*args))
             agree(kernel, ref, (got,) if kernel in loops else got)
@@ -255,7 +317,10 @@ def main(argv) -> int:
         times = [(name, on_library(these[name][0], lambda: cs.device_ms(
             lambda: fns[kernel](*args), 20, match="qgd",
             same=kernel not in loops))) for name in order]
-        print(f"{kind}_{kernel.rstrip('3')}, {label}: device ms per call "
+        name = NAMES.get(kernel, kernel.rstrip("3"))
+        held = " (bitwise)" if kernel not in ("update", "emit") else ""
+        print(f"{kind}_{name}, {label}: held against this build{held}; "
+              "device ms per call "
               + " | ".join(f"{n} {ms:.4f}" for n, ms in times)
               + extra + f" | card: {card}", flush=True)
     print(card)

@@ -7,8 +7,11 @@ sources in the checkout, and for each dimension checks each kernel against
 its plain PyTorch version at the production size (1024x512 and 256x126x126
 f32), runs the kernel path in lock-step with the plain path, drives the
 library's main path (cases -> make_fused_step -> common.run_steps) for both
-cases of that dimension, and times the kernel, plain and composable paths;
-phase 7 also holds `qgd3d_smooth` (the 3D step's fvc::smooth rings on the
+cases of that dimension, and times the kernel, plain and composable paths
+(each kernel's launches per call in the kernels line, and printed by phase
+10 for the 3D kernels); phase 7 also holds
+`qgd3d_dt` and `qgd3d_dt_fold` to a NaN dt where the plain versions give
+one (a NaN T cell), and `qgd3d_smooth` (the 3D step's fvc::smooth rings on the
 card) bitwise against its plain version on the 3D varsc jet's active raw
 sensor, and each of 10 kernel-path steps' sensor frames against
 fvc_smooth of that step's raw sensor, and phase 10 counts its rings,
@@ -103,6 +106,17 @@ def work_bytes(name, shape, varsc=False) -> int:
               # per launch from the raw sensor: its cells in, a frame out
               "qgd3d_smooth": cells + frame}
     return 4 * io[name]
+
+
+def ghost_sector_bytes(shape) -> int:
+    """What qgd3d_ghosts must move in whole 32-byte sectors: each z-ghost
+    row's two end sectors of all five fields, read and written, and the x-
+    and y-ghosts' values as work_bytes counts them (their rows run along
+    z, whole sectors)."""
+    nx, ny, nz = shape
+    z_rows = (nx + 2) * (ny + 2)
+    xy = 2 * ny * nz + 2 * (nx + 2) * nz
+    return 5 * z_rows * 2 * 32 * 2 + 4 * 5 * 3 * xy
 
 
 # what count_ops counts: one operation per output element of an elementwise
@@ -225,13 +239,21 @@ def device_ms(fn, n: int, warmup: int = 3, same: bool = True,
                for v in by_name.values()) / 1e3
 
 
+def launches_per_call(fn, n: int = 5) -> float:
+    """The port's kernel launches per call of fn(), from the profiler."""
+    fn()
+    return sum("qgd" in name for name, _ in device_events(fn, n)) / n
+
+
 def time_kernel(stats, kname, shape, kern, plain, n, n_plain, warmup=3):
     """Device ms per call of a kernel and of its plain version at `shape`
-    cells, and the plain version's operations (`count_ops`), into
-    stats[kname]["by_shape"][shape].  The kernel's time is that of the
-    port's kernels it launched, not of its fills."""
+    cells, the kernel's launches per call and the plain version's
+    operations (`count_ops`), into stats[kname]["by_shape"][shape].  The
+    kernel's time is that of the port's kernels it launched, not of its
+    fills."""
     stats[kname].setdefault("by_shape", {})[tuple(shape)] = {
         "ms": device_ms(kern, n, warmup=warmup, match="qgd"),
+        "launches_per_call": launches_per_call(kern),
         "plain_ms": device_ms(plain, n_plain, warmup=1),
         "ops": count_ops(plain)}
     return stats[kname]["by_shape"][tuple(shape)]
@@ -551,10 +573,15 @@ def phase_kernels3(warm, stats):
     C = (slice(1, -1),) * 3
     jobs = {}
     shape = F3.update_launch_shape(warm[CASES3[0]][1].p.device)
+    dts = F3.dt_launch_shape(F3.make_params(warm[CASES3[0]][0])[0],
+                             warm[CASES3[0]][1].p.device)
     launch = (f"qgd3d_update tile {shape['tile'][0]}x{shape['tile'][1]} "
               f"(y x z), chunk {shape['chunk']} x-planes, dynamic shared "
               f"memory {shape['smem_bytes']} B/block, "
-              f"{shape['blocks_per_sm']} blocks/SM")
+              f"{shape['blocks_per_sm']} blocks/SM; qgd3d_dt tile "
+              f"{dts['tile'][0]}x{dts['tile'][1]}, chunk {dts['chunk']} "
+              f"x-planes, {dts['blocks']} blocks, {dts['blocks_per_sm']} "
+              "blocks/SM")
     for name in CASES3:
         solver, fs = warm[name]
         prm, planes = F3.make_params(solver)
@@ -569,7 +596,7 @@ def phase_kernels3(warm, stats):
         err = abs(float(dt_k) - float(dt_ref))
         check(err <= 1e-6 * abs(float(dt_ref)),
               f"{name} qgd3d_dt {float(dt_k)!r} vs {float(dt_ref)!r}")
-        msgs = [f"dt rel {err / float(dt_ref):.2e}"]
+        msgs = [f"dt rel {err / float(dt_ref):.2e}", nan_dt_check(prm, dts)]
         stats["qgd3d_dt"]["err"] = max(stats["qgd3d_dt"]["err"], err)
 
         upd = (fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc, dt_ref)
@@ -634,6 +661,32 @@ def phase_kernels3(warm, stats):
     return [(k,) + jobs[k] for k in ("qgd3d_dt", "qgd3d_update",
                                      "qgd3d_sensor", "qgd3d_ghosts",
                                      "qgd3d_smooth")]
+
+
+def nan_dt_check(prm, dts) -> str:
+    """qgd3d_dt and qgd3d_dt_fold on the frames with one NaN T cell: NaN
+    where the plain versions give NaN (an interior cell, an x-ghost cell
+    that a boundary face reads), finite where they stay finite (an edge
+    ghost no face reads)."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    T, rest = dts[0], dts[1:]
+    cells = {"interior": (prm.nx // 2, prm.ny // 2, prm.nz // 2),
+             "x-ghost": (0, prm.ny // 2, prm.nz // 3),
+             "edge ghost": (0, 0, prm.nz // 2)}
+    for label, idx in cells.items():
+        bad = T.clone()
+        bad[idx] = float("nan")
+        ref = F3.dt_reference_3d(prm, bad, *rest)
+        got = F3.qgd3d_dt(prm, bad, *rest)
+        quad_ref = F3.dt_fold_reference_3d(prm, bad, *rest[:-1])
+        quad = F3.qgd3d_dt_fold(prm, bad, *rest[:-1])
+        check(bool(torch.isnan(ref)) == (label != "edge ghost")
+              and bool(torch.isnan(got)) == bool(torch.isnan(ref))
+              and torch.equal(torch.isnan(quad), torch.isnan(quad_ref)),
+              f"qgd3d_dt with a NaN T at the {label} cell {idx}: "
+              f"{float(got)} vs plain {float(ref)}")
+    return "a NaN T gives a NaN dt and quad where the plain versions do"
 
 
 def smooth3_counts():
@@ -771,8 +824,10 @@ def phase_time3(dev, card, jobs, stats):
         f"rings/step in {per_step[1]:.2f} launches, {per_step[2]:.2f} host "
         f"flag reads/step; device ms per varsc step by kernel: " + ", ".join(
             f"{n} {v:.4f}" for n, v in parts.items())
-        + " | device ms/call kernel vs plain: " + ", ".join(
-            f"{k} {stats[k]['by_shape'][SHAPE3]['ms']:.4f} vs "
+        + " | device ms/call kernel (launches per call) vs plain: "
+        + ", ".join(
+            f"{k} {stats[k]['by_shape'][SHAPE3]['ms']:.4f} "
+            f"({stats[k]['by_shape'][SHAPE3]['launches_per_call']:g}) vs "
             f"{stats[k]['by_shape'][SHAPE3]['plain_ms']:.4f}"
             for k, _, _ in jobs)
         + " (qgd3d_smooth: the step's first launch, of ring 1, on the "
@@ -1662,7 +1717,12 @@ def main() -> int:
             "replaces": KERNELS[k][1], "launches": launches[k],
             "max_abs_err": v["err"], "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "ops": top["ops"], "shape": list(shape)}
+            "library_ms": None, "ops": top["ops"], "shape": list(shape),
+            "launches_per_call": top["launches_per_call"]}
+        if k == "qgd3d_ghosts":
+            # the z lanes' end sectors: the floor any design of it meets
+            entry["sector_floor_ms"] = (ghost_sector_bytes(shape)
+                                        / HBM_BYTES_PER_S * 1e3)
         if len(v["by_shape"]) > 1:
             entry["by_shape"] = [
                 {"shape": list(sh), "launches": by_shape[k].get(sh, 0),

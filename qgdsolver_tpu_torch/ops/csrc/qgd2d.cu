@@ -75,6 +75,7 @@
 #include <float.h>
 #include <math.h>
 
+#include "nan_fold.cuh"
 #include "smooth_ring.cuh"
 
 namespace {
@@ -330,7 +331,7 @@ qgd2d_dt_partial_kernel(QGDParams P, const float* __restrict__ T,
       my = wave(P, uy[a], uy[b], T[a], T[b]);
       const int ac = r * W + (s < 1 && P.edge_lo_y ? 1 : s);
       const int bc = r * W + (s + 1 > ny && P.edge_hi_y ? ny : s + 1);
-      tmin = fminf(tmin, tau_from_T(P, T[ac], T[bc], P.hfy));
+      tmin = nan_min(tmin, tau_from_T(P, T[ac], T[bc], P.hfy));
     }
   }
   smx[tid] = mx;
@@ -339,9 +340,9 @@ qgd2d_dt_partial_kernel(QGDParams P, const float* __restrict__ T,
   __syncthreads();
   for (int k = BX * BY / 2; k > 0; k >>= 1) {
     if (tid < k) {
-      smx[tid] = fmaxf(smx[tid], smx[tid + k]);
-      smy[tid] = fmaxf(smy[tid], smy[tid + k]);
-      stau[tid] = fminf(stau[tid], stau[tid + k]);
+      smx[tid] = nan_max(smx[tid], smx[tid + k]);
+      smy[tid] = nan_max(smy[tid], smy[tid + k]);
+      stau[tid] = nan_min(stau[tid], stau[tid + k]);
     }
     __syncthreads();
   }
@@ -371,9 +372,9 @@ qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
   const float tsign = mode == DT_APPLY ? -1.0f : 1.0f;
   float mx = -INFINITY, my = -INFINITY, tmin = INFINITY;
   for (int i = tid; i < n; i += RED) {
-    mx = fmaxf(mx, partials[4 * i + 0]);
-    my = fmaxf(my, partials[4 * i + 1]);
-    tmin = fminf(tmin, tsign * partials[4 * i + 2]);
+    mx = nan_max(mx, partials[4 * i + 0]);
+    my = nan_max(my, partials[4 * i + 1]);
+    tmin = nan_min(tmin, tsign * partials[4 * i + 2]);
   }
   smx[tid] = mx;
   smy[tid] = my;
@@ -381,9 +382,9 @@ qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
   __syncthreads();
   for (int k = RED / 2; k > 0; k >>= 1) {
     if (tid < k) {
-      smx[tid] = fmaxf(smx[tid], smx[tid + k]);
-      smy[tid] = fmaxf(smy[tid], smy[tid + k]);
-      stau[tid] = fminf(stau[tid], stau[tid + k]);
+      smx[tid] = nan_max(smx[tid], smx[tid + k]);
+      smy[tid] = nan_max(smy[tid], smy[tid + k]);
+      stau[tid] = nan_min(stau[tid], stau[tid + k]);
     }
     __syncthreads();
   }
@@ -401,13 +402,13 @@ qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
       return;
     }
     // explicit roundings: no FMA contraction in the controller
-    const float co = fmaxf(__fdiv_rn(__fmul_rn(smx[0], dtv), P.hfx),
+    const float co = nan_max(__fdiv_rn(__fmul_rn(smx[0], dtv), P.hfx),
                            __fdiv_rn(__fmul_rn(smy[0], dtv), P.hfy));
     const float max_fact = __fdiv_rn(P.max_co, __fadd_rn(co, 1e-30f));
-    const float fact = fminf(
-        fminf(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
-    const float max_dt1 = fminf(P.max_dt, __fmul_rn(P.c_tau, stau[0]));
-    out[0] = fminf(__fmul_rn(fact, dtv), max_dt1);
+    const float fact = nan_min(
+        nan_min(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
+    const float max_dt1 = nan_min(P.max_dt, __fmul_rn(P.c_tau, stau[0]));
+    out[0] = nan_min(__fmul_rn(fact, dtv), max_dt1);
   }
 }
 
@@ -736,7 +737,7 @@ __device__ __forceinline__ void fold_emit(float v[5], bool vs,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const float u = __shfl_xor_sync(0xffffffffu, v[q], o);
-      v[q] = mx ? fmaxf(v[q], u) : fminf(v[q], u);
+      v[q] = mx ? nan_max(v[q], u) : nan_min(v[q], u);
     }
   }
   if ((tid & 31) == 0) {
@@ -749,7 +750,7 @@ __device__ __forceinline__ void fold_emit(float v[5], bool vs,
     for (int q = 0; q < 5; ++q) {
       const bool mx = (q == 2 || q == 3) ? vs : true;
       for (int w = 1; w < NW; ++w)
-        v[q] = mx ? fmaxf(v[q], slots[q][w]) : fminf(v[q], slots[q][w]);
+        v[q] = mx ? nan_max(v[q], slots[q][w]) : nan_min(v[q], slots[q][w]);
     }
   }
 }
@@ -789,18 +790,18 @@ qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
       if (r > nx || s > ny) continue;
       if (s >= 1) {
         const int a = r * W + s, b = a + W;
-        v[0] = fmaxf(v[0], wave(P, ux[a], ux[b], T[a], T[b]));
+        v[0] = nan_max(v[0], wave(P, ux[a], ux[b], T[a], T[b]));
         // coefficient ghosts are zero-gradient: clamp to the interior rows
         const float cx = xi(tau_coef(P, T[clampi(r, 1, nx) * W + s]),
                             tau_coef(P, T[clampi(r + 1, 1, nx) * W + s]));
-        v[2] = vs ? fmaxf(v[2], cx) : fminf(v[2], cx);
+        v[2] = vs ? nan_max(v[2], cx) : nan_min(v[2], cx);
       }
       if (r >= 1) {
         const int a = r * W + s, b = a + 1;
-        v[1] = fmaxf(v[1], wave(P, uy[a], uy[b], T[a], T[b]));
+        v[1] = nan_max(v[1], wave(P, uy[a], uy[b], T[a], T[b]));
         const float cy = xi(tau_coef(P, T[r * W + clampi(s, 1, ny)]),
                             tau_coef(P, T[r * W + clampi(s + 1, 1, ny)]));
-        v[3] = vs ? fmaxf(v[3], cy) : fminf(v[3], cy);
+        v[3] = vs ? nan_max(v[3], cy) : nan_min(v[3], cy);
       }
     }
   }
@@ -871,18 +872,18 @@ qgd2d_emit_final_kernel(QGDParams P, const float* __restrict__ partials,
   float v[5] = {-INFINITY, -INFINITY, c_id, c_id, 0.0f};
   for (int i = tid; i < n; i += RED) {
     const float* q = partials + EMIT_NP * i;
-    v[0] = fmaxf(v[0], q[0]);
-    v[1] = fmaxf(v[1], q[1]);
-    v[2] = vs ? fmaxf(v[2], q[2]) : fminf(v[2], q[2]);
-    v[3] = vs ? fmaxf(v[3], q[3]) : fminf(v[3], q[3]);
-    v[4] = fmaxf(v[4], q[4]);
+    v[0] = nan_max(v[0], q[0]);
+    v[1] = nan_max(v[1], q[1]);
+    v[2] = vs ? nan_max(v[2], q[2]) : nan_min(v[2], q[2]);
+    v[3] = vs ? nan_max(v[3], q[3]) : nan_min(v[3], q[3]);
+    v[4] = nan_max(v[4], q[4]);
   }
   fold_emit<RED / 32>(v, vs, slots);
   if (tid == 0) {
-    rates[0] = fmaxf(__fmul_rn(v[0], P.inv_hfx), __fmul_rn(v[1], P.inv_hfy));
-    rates[1] = vs ? fminf(__fmul_rn(__fdiv_rn(P.alpha, v[2]), P.hfx),
+    rates[0] = nan_max(__fmul_rn(v[0], P.inv_hfx), __fmul_rn(v[1], P.inv_hfy));
+    rates[1] = vs ? nan_min(__fmul_rn(__fdiv_rn(P.alpha, v[2]), P.hfx),
                           __fmul_rn(__fdiv_rn(P.alpha, v[3]), P.hfy))
-                  : fminf(__fmul_rn(v[2], P.hfx), __fmul_rn(v[3], P.hfy));
+                  : nan_min(__fmul_rn(v[2], P.hfx), __fmul_rn(v[3], P.hfy));
     if (vs) chg[0] = v[4];
   }
 }

@@ -7,8 +7,9 @@
 // in no order and cannot wait for each other, so the step is four launches
 // on the caller's stream, with dt kept on the device:
 //
-//   qgd3d_dt      two-pass reduction: per-block max wave speed per axis and
-//                 min face tau, then one block applies setDeltaT;
+//   qgd3d_dt      an x-march over (y, z) tiles: per-block max wave speed per
+//                 axis and tau coefficient extremes, folded by the last
+//                 block to finish, which applies setDeltaT (one launch);
 //   qgd3d_update  the face fluxes (jm, Pi, q with the `full` tangential
 //                 differences), each face once, and the explicit update of
 //                 every interior cell into NEW frames p, T, ux, uy, uz, plus
@@ -16,9 +17,9 @@
 //   qgd3d_sensor  varScModel5 only: the raw sensor over the fresh frames.  A
 //                 launch of its own, because it reads fresh rho at cells that
 //                 other blocks of the update write;
-//   qgd3d_ghosts  x-ghost planes from the fresh interior, then y-ghost rows
-//                 over every x, then z-ghost lanes over every x and y (three
-//                 launches: the sequential-axis padding, edges included).
+//   qgd3d_ghosts  every ghost of the fresh frames, x planes, y rows over
+//                 every x and z lanes over every x and y, each computed from
+//                 interior cells (one launch).
 //
 // The x-ring decomposition K5 (build_sharded_fused_step_3d, :930) runs the
 // same kernels on each rank's x-slab, whose x ends may be partition planes:
@@ -28,8 +29,9 @@
 // clamp in qgd3d_dt, no qgdFlux side plane, no x-ghost plane (the plane
 // exchange fills it), and the sensor's x-gradient reads the exchanged
 // plane (qgd3d_sensor runs after the exchange).  The serial builders set
-// both flags to 1.  dt over the ranks: qgd3d_dt_fold, a MAX all-reduce of
-// its quad (max wave x, y, z, -min tau), then qgd3d_dt_apply.
+// both flags to 1.  dt over the ranks: qgd3d_dt_fold (qgd3d_dt's launch,
+// writing the quad), a MAX all-reduce of its quad (max wave x, y, z, -min
+// tau), then qgd3d_dt_apply.
 //
 // Frames are contiguous (nx+2, ny+2, nz+2) float32 with z the fast axis, so a
 // warp reads 32 neighbouring z cells of one (x, y) line.
@@ -68,6 +70,7 @@
 #include <float.h>
 #include <math.h>
 
+#include "nan_fold.cuh"
 #include "smooth_ring.cuh"
 
 namespace {
@@ -75,10 +78,9 @@ namespace {
 enum { BC_ZG = 0, BC_FIXED = 1, BC_GRAD = 2, BC_SYM = 3, BC_EXTRAP = 4,
        BC_IO = 5, BC_QGDFLUX = 6 };
 
-constexpr int BX = 32;   // threads along z
+constexpr int BX = 32;   // threads along z (qgd3d_sensor)
 constexpr int BY = 8;    // threads along y
-constexpr int RED = 256; // threads of the final dt reduction
-constexpr int GT = 128;  // threads of a ghost launch
+constexpr int GT = 128;  // threads of a ghost block
 
 // qgd3d_update's tile, chunk and plane ring
 constexpr int TZ = 32;               // tile cells along z: one warp per row
@@ -290,151 +292,302 @@ __device__ __forceinline__ Flux face_flux(const QGD3DParams& P,
   return fl;
 }
 
-// The face tau coefficient of one cell from its T: alpha/c or c.
-__device__ __forceinline__ float tau_coef(const QGD3DParams& P, float T) {
-  const float g = P.gammaR * T;
-  const float c = g * rsqrtf(g);
-  return P.varsc ? c : P.alpha / c;
-}
-
-__device__ __forceinline__ float face_tau(const QGD3DParams& P, float ta,
-                                          float tb, int ax) {
-  return P.varsc ? (P.alpha / xi(ta, tb)) * P.d[ax] : xi(ta, tb) * P.d[ax];
-}
-
-__device__ __forceinline__ float wave(const QGD3DParams& P, float uA,
-                                      float uB, float TA, float TB) {
-  const float gA = P.gammaR * TA, gB = P.gammaR * TB;
-  return fabsf(xi(uA, uB)) + xi(gA * rsqrtf(gA), gB * rsqrtf(gB));
-}
-
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Pass 1: thread (r, s, t), each in 0..n, owns the x-face r+1/2 at (s, t)
-// when s, t >= 1, the y-face s+1/2 at (r, t) when r, t >= 1 and the z-face
-// t+1/2 at (r, s) when r, s >= 1: exactly the live face sets of the
-// reference's pre-pass.  Per-block partials: max wave x, y, z; min tau_f.
-__global__ void __launch_bounds__(BX * BY)
-qgd3d_dt_partial_kernel(QGD3DParams P, const float* __restrict__ T,
-                        const float* __restrict__ ux,
-                        const float* __restrict__ uy,
-                        const float* __restrict__ uz,
-                        float* __restrict__ partials) {
-  __shared__ float sm[4][BX * BY];
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  const int t = blockIdx.x * BX + threadIdx.x;
-  const int s = blockIdx.y * BY + threadIdx.y;
-  const int r = blockIdx.z;
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const long sy = nz + 2, sx = (long)(ny + 2) * (nz + 2);
-  float m[3] = {-INFINITY, -INFINITY, -INFINITY};
-  float tmin = INFINITY;
-  if (s <= ny && t <= nz) {
-    const long i = r * sx + s * sy + t;
-    if (s >= 1 && t >= 1) {
-      m[0] = wave(P, ux[i], ux[i + sx], T[i], T[i + sx]);
-      // zero-gradient coefficient ghosts at physical x ends only
-      const long ra = r < 1 && P.edge_lo ? 1 : r;
-      const long rb = r + 1 > nx && P.edge_hi ? nx : r + 1;
-      const long ac = ra * sx + s * sy + t;
-      const long bc = rb * sx + s * sy + t;
-      tmin = face_tau(P, tau_coef(P, T[ac]), tau_coef(P, T[bc]), 0);
-    }
-    if (r >= 1 && t >= 1) {
-      m[1] = wave(P, uy[i], uy[i + sy], T[i], T[i + sy]);
-      const long ac = r * sx + clampi(s, 1, ny) * sy + t;
-      const long bc = r * sx + clampi(s + 1, 1, ny) * sy + t;
-      tmin = fminf(tmin, face_tau(P, tau_coef(P, T[ac]), tau_coef(P, T[bc]),
-                                  1));
-    }
-    if (r >= 1 && s >= 1) {
-      m[2] = wave(P, uz[i], uz[i + 1], T[i], T[i + 1]);
-      const long ac = r * sx + s * sy + clampi(t, 1, nz);
-      const long bc = r * sx + s * sy + clampi(t + 1, 1, nz);
-      tmin = fminf(tmin, face_tau(P, tau_coef(P, T[ac]), tau_coef(P, T[bc]),
-                                  2));
-    }
+// ---------------------------------------------------------------------------
+// qgd3d_dt: the acoustic Courant number and min tau_f, then setDeltaT
+// ---------------------------------------------------------------------------
+//
+// Replaces the reference's XLA dt pre-pass (`_dt_prepass`,
+// qgdsolver_tpu/ops/fused_qgd3d.py:664): over the live faces of each axis,
+// the max acoustic wave |u_f| + c_f and the min tau_f with zero-gradient
+// coefficient ghosts at physical boundaries, then setDeltaT.  It reads four
+// frames once (T, ux, uy, uz) and does ~10 operations a cell, so bytes
+// bound it.  A block owns a DY x DZ tile of frame (y, z) cells, ghost rows
+// and lanes included, and marches a chunk of x-planes: each cell's T and
+// velocity are loaded once, coalesced along z, the next plane's ahead of
+// the current one's faces, and its c = gRT*rsqrt(gRT) and tau coefficient
+// are computed once; the x-face takes the previous plane from registers,
+// the z-face its neighbour by warp shuffle, the y-face its neighbour from
+// shared memory, with one barrier a plane.  The halo cells (the next
+// tile's first row, which warp 0 computes, and the next tile's first lane
+// of each row, which DY lanes of warp 1 compute) go through shared memory
+// too, so no warp runs a cell alone for one lane.  The tau
+// coefficient of a face is folded per axis (max c_f for varScModel5, min
+// (alpha/c)_f otherwise) and divided once per axis at the end: RN(alpha/x)
+// and RN(x*d) are monotone, so the min over faces of tau_f is the same
+// float.  Each block writes its partial and the last block to finish
+// (a ticket in the workspace, which that block sets back to 0) folds them
+// and applies setDeltaT (DT_FULL) or writes the quad (DT_FOLD), so a call
+// is one launch.  The face formulas write out nvcc's contraction of the
+// face expressions (c_A + c_B as fma(g_A, rsqrt(g_A), c_B)) and max and
+// min are exact in any order, so the tile, the chunk and the fold order
+// do not move a bit.
+
+constexpr int DZ = 32;             // tile lanes (z): one warp a row
+constexpr int DY = 8;              // tile rows (y)
+constexpr int DT_NT = DZ * DY;     // threads of a dt block
+constexpr int DT_NQ = 6;           // a partial: 3 max waves, 3 tau extremes
+constexpr int DT_HEAD = 4;         // the workspace's ticket, padded
+
+enum { DT_FULL = 0, DT_FOLD = 1 };
+
+// What a face needs of its cell: the velocity along the face's axis, g =
+// gammaR*T, r = rsqrt(g), c = RN(g*r) and the tau coefficient (c, or
+// alpha/c under the constScPr family).
+struct DtCell {
+  float u, g, r, c, tc;
+};
+
+__device__ __forceinline__ DtCell dt_cell(const QGD3DParams& P, float T,
+                                          float u) {
+  DtCell k;
+  k.u = u;
+  k.g = __fmul_rn(P.gammaR, T);
+  k.r = rsqrtf(k.g);
+  k.c = __fmul_rn(k.g, k.r);
+  k.tc = P.varsc ? k.c : __fdiv_rn(P.alpha, k.c);
+  return k;
+}
+
+// |u_f| + c_f of the face between A (low) and B (high).
+__device__ __forceinline__ float dt_wave(const DtCell& A, float uB,
+                                         float cB) {
+  return __fadd_rn(fabsf(__fmul_rn(0.5f, __fadd_rn(A.u, uB))),
+                   __fmul_rn(0.5f, __fmaf_rn(A.g, A.r, cB)));
+}
+
+// the face's tau coefficient, from its two (clamped) cells
+__device__ __forceinline__ float dt_coef(float ta, float tb) {
+  return __fmul_rn(0.5f, __fadd_rn(ta, tb));
+}
+
+// The fold of one partial entry: waves (a < 3) and varScModel5's c_f take
+// the max, the constScPr family's (alpha/c)_f the min.
+__device__ __forceinline__ float dt_fold(float v, float w, int a, bool vs) {
+  return a < 3 || vs ? nan_max(v, w) : nan_min(v, w);
+}
+
+// v over the block (warp shuffles, one slot a warp, one barrier); thread
+// 0 holds the result.
+__device__ __forceinline__ void dt_fold_block(float (&v)[DT_NQ], bool vs,
+                                              float (*slots)[DT_NT / 32]) {
+  const int tid = threadIdx.y * DZ + threadIdx.x;
+#pragma unroll
+  for (int a = 0; a < DT_NQ; ++a)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[a] = dt_fold(v[a], __shfl_xor_sync(0xffffffffu, v[a], o), a, vs);
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int a = 0; a < DT_NQ; ++a) slots[a][tid >> 5] = v[a];
   }
-  sm[0][tid] = m[0];
-  sm[1][tid] = m[1];
-  sm[2][tid] = m[2];
-  sm[3][tid] = tmin;
   __syncthreads();
-  for (int k = BX * BY / 2; k > 0; k >>= 1) {
-    if (tid < k) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        sm[a][tid] = fmaxf(sm[a][tid], sm[a][tid + k]);
-      sm[3][tid] = fminf(sm[3][tid], sm[3][tid + k]);
-    }
-    __syncthreads();
-  }
   if (tid == 0) {
-    const long bid =
-        ((long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) partials[4 * bid + a] = sm[a][0];
+    for (int a = 0; a < DT_NQ; ++a)
+      for (int w = 1; w < DT_NT / 32; ++w) v[a] = dt_fold(v[a], slots[a][w], a, vs);
   }
 }
 
-// Pass 2: one block folds the partials and applies setDeltaT (immediate
-// reduction, damped increase, cTau*min(tau_f) and maxDeltaT caps).  Mode
-// DT_FOLD writes the fold as the quad (max wave x, y, z, -min tau) to out
-// instead; mode DT_APPLY applies setDeltaT to one reduced quad (n = 1).
-enum { DT_FULL = 0, DT_FOLD = 1, DT_APPLY = 2 };
+// setDeltaT (immediate reduction, damped increase, cTau*min(tau_f) and
+// maxDeltaT caps) with explicit roundings: no FMA contraction.
+__device__ __forceinline__ float set_delta_t(const QGD3DParams& P,
+                                             const float (&m)[3], float tmin,
+                                             float dtv) {
+  if (!P.adjust_dt) return dtv;
+  float co = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    co = nan_max(co, __fdiv_rn(__fmul_rn(m[a], dtv), P.d[a]));
+  const float max_fact = __fdiv_rn(P.max_co, __fadd_rn(co, 1e-30f));
+  const float fact = nan_min(
+      nan_min(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
+  const float max_dt1 = nan_min(P.max_dt, __fmul_rn(P.c_tau, tmin));
+  return nan_min(__fmul_rn(fact, dtv), max_dt1);
+}
 
-__global__ void __launch_bounds__(RED)
-qgd3d_dt_final_kernel(QGD3DParams P, const float* __restrict__ partials,
-                      long n, int mode, const float* __restrict__ dt_old,
-                      float* __restrict__ out) {
-  __shared__ float sm[4][RED];
-  const int tid = threadIdx.x;
-  const float tsign = mode == DT_APPLY ? -1.0f : 1.0f;
-  float m[3] = {-INFINITY, -INFINITY, -INFINITY};
-  float tmin = INFINITY;
-  for (long i = tid; i < n; i += RED) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) m[a] = fmaxf(m[a], partials[4 * i + a]);
-    tmin = fminf(tmin, tsign * partials[4 * i + 3]);
+// One plane's loads of a thread: its cell's T and velocity, and the halo
+// cell it loads for its tile (warp 0: the next tile's first row, for the
+// y-face; lane i < DY of warp 1: the next tile's first lane of row i, for
+// the z-face).  Values a thread does not need are 1.0, and no face reads
+// them.
+struct DtRaw {
+  float T, ux, uy, uz, Ty, uyy, Tz, uzz;
+};
+
+// Block (bx, by, bz) owns the frame cells (s, t) = (DY*by + ty, DZ*bx + tz)
+// of the planes q = cx*bz .. min(cx*bz + cx - 1, nx + 1); the pass of plane
+// q computes the x-face q-1/2 (q >= 1) and, for 1 <= q <= nx, the y-face
+// s+1/2 (1 <= t <= nz, s <= ny) and the z-face t+1/2 (1 <= s <= ny, t <=
+// nz): exactly the live face sets of the reference's pre-pass, each once.
+// A chunk that starts past plane 0 first loads the plane before it.
+__global__ void __launch_bounds__(DT_NT)
+qgd3d_dt_kernel(QGD3DParams P, const float* __restrict__ T,
+                const float* __restrict__ ux, const float* __restrict__ uy,
+                const float* __restrict__ uz, int cx, int mode,
+                const float* __restrict__ dt_old, float* __restrict__ work,
+                float* __restrict__ out) {
+  __shared__ float yb[2][3][DY + 1][DZ];  // c, tc, uy of a plane's rows
+  __shared__ float zb[2][3][DY];          // c, tc, uz of its z-halo lane
+  __shared__ float slots[DT_NQ][DT_NT / 32];
+  __shared__ bool last;
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const long sy = nz + 2, sx = (long)(ny + 2) * sy;
+  const int t = blockIdx.x * DZ + tz, s = blockIdx.y * DY + ty;
+  const int r0 = blockIdx.z * cx;
+  const int re = r0 + cx - 1 < nx + 1 ? r0 + cx - 1 : nx + 1;
+  const bool vs = P.varsc != 0;
+  const bool si = s >= 1 && s <= ny, ti = t >= 1 && t <= nz;
+  const bool yf = ti && s <= ny;      // owns a y-face s+1/2
+  const bool zf = si && t <= nz;      // owns a z-face t+1/2
+  const int sh = blockIdx.y * DY + DY;  // the halo row
+  const bool hy = ty == 0 && ti && sh <= ny + 1;
+  // lane tz < DY of warp 1: the z-halo cell (s0 + tz, t0 + DZ) of row tz
+  const int zs = blockIdx.y * DY + tz, zt = blockIdx.x * DZ + DZ;
+  const bool hz = ty == 1 && tz < DY && zs >= 1 && zs <= ny && zt <= nz + 1;
+  const long cell = s * sy + t;
+
+  auto load = [&](int q, bool full) {
+    DtRaw a = {1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
+    const long i = q * sx + cell;
+    const bool in = full && q >= 1 && q <= nx;  // a plane with y/z faces
+    const bool yc = in && ti && s <= ny + 1;    // a cell of a y-face
+    const bool zc = in && si && t <= nz + 1;    // a cell of a z-face
+    if ((si && ti) || yc || zc) a.T = T[i];
+    if (si && ti) a.ux = ux[i];
+    if (yc) a.uy = uy[i];
+    if (zc) a.uz = uz[i];
+    if (in && hy) {
+      a.Ty = T[q * sx + sh * sy + t];
+      a.uyy = uy[q * sx + sh * sy + t];
+    }
+    if (in && hz) {
+      a.Tz = T[q * sx + zs * sy + zt];
+      a.uzz = uz[q * sx + zs * sy + zt];
+    }
+    return a;
+  };
+
+  const float kid = vs ? -INFINITY : INFINITY;
+  float v[DT_NQ] = {-INFINITY, -INFINITY, -INFINITY, kid, kid, kid};
+  DtCell prev = {};
+  const int qs = r0 > 0 ? r0 - 1 : r0;
+  DtRaw cur = load(qs, qs == r0);
+#pragma unroll 1
+  for (int q = qs; q <= re; ++q) {
+    const DtRaw nxt = q < re ? load(q + 1, true) : cur;
+    const DtCell o = dt_cell(P, cur.T, cur.ux);
+    if (q >= r0 && q >= 1 && si && ti) {
+      // x-face q-1/2; coefficient ghosts zero-gradient at physical x ends
+      const float ta = q == 1 && P.edge_lo ? o.tc : prev.tc;
+      const float tb = q == nx + 1 && P.edge_hi ? prev.tc : o.tc;
+      v[0] = nan_max(v[0], dt_wave(prev, o.u, o.c));
+      v[3] = dt_fold(v[3], dt_coef(ta, tb), 3, vs);
+    }
+    if (q >= r0 && q >= 1 && q <= nx) {  // uniform in the block
+      DtCell oy = o, oz = o;
+      oy.u = cur.uy;
+      oz.u = cur.uz;
+      const int b = q & 1;
+      yb[b][0][ty][tz] = o.c;
+      yb[b][1][ty][tz] = o.tc;
+      yb[b][2][ty][tz] = cur.uy;
+      if (hy) {
+        const DtCell h = dt_cell(P, cur.Ty, cur.uyy);
+        yb[b][0][DY][tz] = h.c;
+        yb[b][1][DY][tz] = h.tc;
+        yb[b][2][DY][tz] = h.u;
+      }
+      if (hz) {
+        const DtCell h = dt_cell(P, cur.Tz, cur.uzz);
+        zb[b][0][tz] = h.c;
+        zb[b][1][tz] = h.tc;
+        zb[b][2][tz] = h.u;
+      }
+      // the z neighbour t+1: the next lane's, lane 31's the halo cell's
+      float zc = __shfl_down_sync(0xffffffffu, o.c, 1);
+      float ztc = __shfl_down_sync(0xffffffffu, o.tc, 1);
+      float zu = __shfl_down_sync(0xffffffffu, cur.uz, 1);
+      __syncthreads();
+      if (tz == DZ - 1) {
+        zc = zb[b][0][ty];
+        ztc = zb[b][1][ty];
+        zu = zb[b][2][ty];
+      }
+      if (yf) {
+        const float yc = yb[b][0][ty + 1][tz], ytc = yb[b][1][ty + 1][tz];
+        const float yu = yb[b][2][ty + 1][tz];
+        const float ta = s == 0 ? ytc : o.tc;
+        const float tb = s == ny ? o.tc : ytc;
+        v[1] = nan_max(v[1], dt_wave(oy, yu, yc));
+        v[4] = dt_fold(v[4], dt_coef(ta, tb), 4, vs);
+      }
+      if (zf) {
+        const float ta = t == 0 ? ztc : o.tc;
+        const float tb = t == nz ? o.tc : ztc;
+        v[2] = nan_max(v[2], dt_wave(oz, zu, zc));
+        v[5] = dt_fold(v[5], dt_coef(ta, tb), 5, vs);
+      }
+    }
+    prev = o;
+    cur = nxt;
   }
+
+  dt_fold_block(v, vs, slots);
+  const unsigned nb = gridDim.x * gridDim.y * gridDim.z;
+  unsigned* ticket = reinterpret_cast<unsigned*>(work);
+  float* parts = work + DT_HEAD;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    const unsigned bid =
+        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) sm[a][tid] = m[a];
-  sm[3][tid] = tmin;
+    for (int a = 0; a < DT_NQ; ++a) parts[DT_NQ * bid + a] = v[a];
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == nb - 1;
+  }
   __syncthreads();
-  for (int k = RED / 2; k > 0; k >>= 1) {
-    if (tid < k) {
+  if (!last) return;
+  __threadfence();
+  // the last block: every block's partial (from L2), then the result
+  const int tid = ty * DZ + tz;
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
-        sm[a][tid] = fmaxf(sm[a][tid], sm[a][tid + k]);
-      sm[3][tid] = fminf(sm[3][tid], sm[3][tid + k]);
-    }
-    __syncthreads();
+  for (int a = 0; a < DT_NQ; ++a) v[a] = a < 3 ? -INFINITY : kid;
+  for (unsigned i = tid; i < nb; i += DT_NT)
+#pragma unroll
+    for (int a = 0; a < DT_NQ; ++a)
+      v[a] = dt_fold(v[a], __ldcg(parts + DT_NQ * i + a), a, vs);
+  dt_fold_block(v, vs, slots);
+  if (tid != 0) return;
+  *ticket = 0u;  // the next launch on this workspace starts from 0
+  float tmin = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float k = v[3 + a];
+    tmin = nan_min(tmin, vs ? __fmul_rn(__fdiv_rn(P.alpha, k), P.d[a])
+                            : __fmul_rn(k, P.d[a]));
   }
-  if (tid == 0) {
-    if (mode == DT_FOLD) {
+  const float m[3] = {v[0], v[1], v[2]};
+  if (mode == DT_FOLD) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) out[a] = sm[a][0];
-      out[3] = -sm[3][0];
-      return;
-    }
-    const float dtv = dt_old[0];
-    if (!P.adjust_dt) {
-      out[0] = dtv;
-      return;
-    }
-    // explicit roundings: no FMA contraction in the controller
-    float co = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      co = fmaxf(co, __fdiv_rn(__fmul_rn(sm[a][0], dtv), P.d[a]));
-    const float max_fact = __fdiv_rn(P.max_co, __fadd_rn(co, 1e-30f));
-    const float fact = fminf(
-        fminf(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
-    const float max_dt1 = fminf(P.max_dt, __fmul_rn(P.c_tau, sm[3][0]));
-    out[0] = fminf(__fmul_rn(fact, dtv), max_dt1);
+    for (int a = 0; a < 3; ++a) out[a] = m[a];
+    out[3] = -tmin;
+    return;
   }
+  out[0] = set_delta_t(P, m, tmin, dt_old[0]);
+}
+
+// setDeltaT on one reduced quad of qgd3d_dt_fold (max wave x, y, z, -min
+// tau): one thread.
+__global__ void qgd3d_dt_apply_kernel(QGD3DParams P,
+                                      const float* __restrict__ quad,
+                                      const float* __restrict__ dt_old,
+                                      float* __restrict__ out) {
+  const float m[3] = {quad[0], quad[1], quad[2]};
+  out[0] = set_delta_t(P, m, -quad[3], dt_old[0]);
 }
 
 __device__ __forceinline__ void store_face(float* buf, int n, int w,
@@ -634,24 +787,53 @@ qgd3d_sensor_kernel(QGD3DParams P, const float* __restrict__ p,
   out[((long)(r - 1) * ny + (s - 1)) * nz + (t - 1)] = fmaxf(v, P.cqSc);
 }
 
+// ---------------------------------------------------------------------------
+// qgd3d_ghosts: every BC ghost of the five fresh frames in one launch
+// ---------------------------------------------------------------------------
+//
+// The semantics are the sequential-axis padding of the reference kernel
+// (qgdsolver_tpu/ops/fused_qgd3d.py:563-632) and of ghosts_reference_3d:
+// x-ghost planes from the fresh interior (qgdFlux p from `side`, array
+// values from `planes`), then y-ghost rows over every x, then z-ghost lanes
+// over every x and y, so an edge or a corner takes the earlier axes' ghosts;
+// inletOutlet switches on the nearest interior cell's outward velocity; a
+// partition x end is left to the plane exchange.  Blocks never wait for each
+// other, so each ghost cell is computed from interior cells alone: an x-y
+// edge is the y-formula of two x-ghost values that its thread computes
+// itself, a corner composes all three axes, and no ghost that the launch
+// writes is read.  The ghosts are a few percent of the frames' cells, and
+// what bounds the launch is the sectors it touches and the latency of its
+// few threads: a thread owns both ends of one line (x: (s, t), y: (r, t),
+// z: (r, s)) of one field, so the x- and y-ghosts are written as rows
+// along z and each z-line's two end sectors are touched by one thread; it
+// loads everything its ghosts read before it uses any (a line on an x- or
+// y-ghost plane takes a code path of its own, whose loads do not wait on a
+// branch).  PERF.md has its time beside a design of one launch an axis.
+// An extrapolated ghost reads
+// the second interior layer; the wrapper refuses an axis of one cell whose
+// two ends are physical, where that layer is a ghost this launch writes.
+
 __device__ __forceinline__ float bc_ghost(const BCEntry3& b, float in1,
                                           float in2, float d, float v,
                                           float un, int sd) {
+  // nvcc's contraction of these formulas written out (a product added to a
+  // loaded operand is one fma), so that a ghost rounds the same whether its
+  // operands were loaded or composed in registers
   switch (b.kind) {
     case BC_SYM:
-      return b.value * in1;
+      return __fmul_rn(b.value, in1);
     case BC_EXTRAP:
-      return 2.0f * in1 - in2;
+      return __fmaf_rn(2.0f, in1, -in2);
     case BC_FIXED:
-      return 2.0f * v - in1;
+      return __fmaf_rn(2.0f, v, -in1);
     case BC_IO: {
       // inletOutlet: zeroGradient where the flow leaves, fixedValue where
       // it enters
       const bool outflow = sd == 0 ? (un < 0.0f) : (un > 0.0f);
-      return outflow ? in1 : 2.0f * v - in1;
+      return outflow ? in1 : __fmaf_rn(2.0f, v, -in1);
     }
     case BC_GRAD:
-      return in1 + v * d;
+      return __fmaf_rn(v, d, in1);
     default:  // BC_ZG
       return in1;
   }
@@ -672,83 +854,274 @@ __device__ __forceinline__ float* field_ptr(const OutFrames& O, int f) {
   }
 }
 
-// Phase 0: x-ghost planes 0 and nx+1 at (s, t) in 1..ny x 1..nz.
-// blockIdx.y = 2*field + side.  A partition end is skipped: the plane
-// exchange fills it (y and z ghosts included, so phases 1-2 on a halo plane
-// compute values the exchange overwrites).
-__global__ void qgd3d_ghost_x_kernel(QGD3DParams P,
-                                     const float* __restrict__ planes,
-                                     const float* __restrict__ side,
-                                     OutFrames O) {
-  const long k = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const long plane = (long)ny * nz;
-  if (k >= plane || !(sd == 0 ? P.edge_lo : P.edge_hi)) return;
-  const int s = 1 + (int)(k / nz), t = 1 + (int)(k % nz);
-  const long sx = (long)(ny + 2) * (nz + 2);
-  const long c = s * (long)(nz + 2) + t;
-  float* fld = field_ptr(O, f);
-  const int r1 = sd == 0 ? 1 : nx;
-  const int r2 = sd == 0 ? 2 : nx - 1;
-  const int rg = sd == 0 ? 0 : nx + 1;
-  const BCEntry3 b = P.bc[f][0][sd];
-  const float in1 = fld[r1 * sx + c];
-  float g;
-  if (b.kind == BC_QGDFLUX) {
-    const float q = side[sd * plane + k] * P.d[0];
-    g = sd == 0 ? in1 + q : in1 - q;
-  } else {
-    const float v = b.prof >= 0 ? planes[b.prof * plane + k] : b.value;
-    g = bc_ghost(b, in1, fld[r2 * sx + c], P.d[0], v, O.f[2][r1 * sx + c], sd);
+struct Ghosts3 {
+  const float* __restrict__ planes;  // (n, ny, nz) x-side profiles
+  const float* __restrict__ side;    // (2, ny, nz) ws/tau_f of the x ends
+  OutFrames O;
+};
+
+// The x-ghost at end sd from its line's cells: in1, in2 the first and
+// second interior layers, pv the end's plane value (b.prof >= 0), q the
+// qgdFlux side value, un the line's x-velocity at the first layer.
+__device__ __forceinline__ float x_formula(const BCEntry3& b, int sd,
+                                           float in1, float in2, float pv,
+                                           float q, float d, float un) {
+  if (b.kind == BC_QGDFLUX)
+    return sd == 0 ? __fmaf_rn(q, d, in1) : __fmaf_rn(-q, d, in1);
+  return bc_ghost(b, in1, in2, d, b.prof >= 0 ? pv : b.value, un, sd);
+}
+
+// One end's BC entry of field f along axis a: sd is not a constant here,
+// and indexing the params with it would copy them to local memory.
+__device__ __forceinline__ BCEntry3 bc_at(const QGD3DParams& P, int f, int a,
+                                          int sd) {
+  return sd == 0 ? P.bc[f][a][0] : P.bc[f][a][1];
+}
+
+// The ghosts of both ends of one line of field F (a frame line along axis
+// AX at offset c, stride st), where each ghost comes from the line itself:
+// an x-line (s, t) with s, t interior, a y-line (r, t) and a z-line (r, s)
+// with r (and s) interior.  Every value the ghosts read is loaded before
+// any is used: the second layer whatever the kind, the plane and qgdFlux
+// values of an x-line, and the inletOutlet switch, the velocity along AX
+// of the line's first layers.  k indexes the (ny, nz) planes of an x-line.
+template <int AX, int F>
+__device__ __forceinline__ void line_ghosts(const QGD3DParams& P,
+                                            const Ghosts3& G, long c,
+                                            long st, long k) {
+  const int n = AX == 0 ? P.nx : (AX == 1 ? P.ny : P.nz);
+  const long plane = (long)P.ny * P.nz;
+  float* fld = field_ptr(G.O, F);
+  const float* u = field_ptr(G.O, 2 + AX);
+  const float in1[2] = {fld[c + st], fld[c + n * st]};
+  const float in2[2] = {fld[c + 2 * st], fld[c + (n - 1) * st]};
+  const float un[2] = {u[c + st], u[c + n * st]};
+  float pv[2] = {0.0f, 0.0f}, sv[2] = {0.0f, 0.0f};
+  if (AX == 0) {
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd) {
+      const int prof = P.bc[F][0][sd].prof;
+      pv[sd] = G.planes[(prof > 0 ? prof : 0) * plane + k];
+      sv[sd] = G.side[sd * plane + k];
+    }
   }
-  fld[rg * sx + c] = g;
+  float g[2];
+#pragma unroll
+  for (int sd = 0; sd < 2; ++sd) {
+    const BCEntry3 b = P.bc[F][AX][sd];
+    g[sd] = AX == 0 ? x_formula(b, sd, in1[sd], in2[sd], pv[sd], sv[sd],
+                                P.d[0], un[sd])
+                    : bc_ghost(b, in1[sd], in2[sd], P.d[AX], b.value, un[sd],
+                               sd);
+  }
+  if (AX != 0 || P.edge_lo) fld[c] = g[0];
+  if (AX != 0 || P.edge_hi) fld[c + (n + 1) * st] = g[1];
 }
 
-// Phase 1: y-ghost rows 0 and ny+1 at (r, t) in 0..nx+1 x 1..nz (reads the
-// x-ghost planes of phase 0: the x-y edges).
-__global__ void qgd3d_ghost_y_kernel(QGD3DParams P, OutFrames O) {
-  const long k = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  if (k >= (long)(nx + 2) * nz) return;
-  const int r = (int)(k / nz), t = 1 + (int)(k % nz);
-  const long sx = (long)(ny + 2) * (nz + 2), sy = nz + 2;
-  float* fld = field_ptr(O, f);
+// Field F at frame cell (r, s, t), s and t interior, after the x phase:
+// with XG, r is a physical x end's ghost plane and the value is its
+// x-ghost, computed here from the interior; else the frame's own
+// (interior, or a partition's halo plane).  Its loads do not depend on a
+// branch, so they are issued together.
+template <bool XG, int F>
+__device__ __forceinline__ float x_phase(const QGD3DParams& P,
+                                         const Ghosts3& G, int r, int s,
+                                         int t) {
+  const long sy = P.nz + 2, sx = (long)(P.ny + 2) * sy;
+  const long c = s * sy + t;
+  const float* fld = field_ptr(G.O, F);
+  if (!XG) return fld[r * sx + c];
+  const int sd = r == 0 ? 0 : 1;
+  const long r1 = sd == 0 ? 1 : P.nx, r2 = sd == 0 ? 2 : P.nx - 1;
+  const long plane = (long)P.ny * P.nz, k = (long)(s - 1) * P.nz + (t - 1);
+  const BCEntry3 b = bc_at(P, F, 0, sd);
+  const float in1 = fld[r1 * sx + c], in2 = fld[r2 * sx + c];
+  const float un = G.O.f[2][r1 * sx + c];
+  const float pv = G.planes[(b.prof > 0 ? b.prof : 0) * plane + k];
+  const float q = G.side[sd * plane + k];
+  return x_formula(b, sd, in1, in2, pv, q, P.d[0], un);
+}
+
+// Field F at (r, s, t), t interior, after the y phase: with YG, s is a
+// y-ghost row and the value is its y-ghost, from two x-phase values.  The
+// second layer of an axis of one cell is the first (it is read only by an
+// extrapolated ghost, which the wrapper refuses there).
+template <bool YG, bool XG, int F>
+__device__ __forceinline__ float y_phase(const QGD3DParams& P,
+                                         const Ghosts3& G, int r, int s,
+                                         int t) {
+  if (!YG) return x_phase<XG, F>(P, G, r, s, t);
+  const int ny = P.ny, sd = s == 0 ? 0 : 1;
+  const long sy = P.nz + 2, sx = (long)(ny + 2) * sy;
   const int l1 = sd == 0 ? 1 : ny;
-  const int l2 = sd == 0 ? 2 : ny - 1;
-  const int lg = sd == 0 ? 0 : ny + 1;
-  const BCEntry3 b = P.bc[f][1][sd];
-  const long row = r * sx + t;
-  // inletOutlet on the x-ghost planes switches on the edge interior plane
-  const float un = O.f[3][clampi(r, 1, nx) * sx + l1 * sy + t];
-  fld[row + lg * sy] = bc_ghost(b, fld[row + l1 * sy], fld[row + l2 * sy],
-                                P.d[1], b.value, un, sd);
+  const int l2 = ny < 2 ? 1 : (sd == 0 ? 2 : ny - 1);
+  const float a = x_phase<XG, F>(P, G, r, l1, t);
+  const float b = x_phase<XG, F>(P, G, r, l2, t);
+  // inletOutlet on an x-ghost plane switches on the edge interior plane
+  const float un = G.O.f[3][clampi(r, 1, P.nx) * sx + l1 * sy + t];
+  const BCEntry3 e = bc_at(P, F, 1, sd);
+  return bc_ghost(e, a, b, P.d[1], e.value, un, sd);
 }
 
-// Phase 2: z-ghost lanes 0 and nz+1 at (r, s) in 0..nx+1 x 0..ny+1 (reads
-// phases 0 and 1: the x-z and y-z edges and the corners).
-__global__ void qgd3d_ghost_z_kernel(QGD3DParams P, OutFrames O) {
-  const long k = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
+// Both ends of a line of field F that its own cells do not give: a y-line
+// (r, t) (AX = 1) on an x-ghost or halo plane, a z-line (r, s) (AX = 2) on
+// one or on a y-ghost row.  YG and XG say which (AX = 1: YG false).
+template <int AX, bool YG, bool XG, int F>
+__device__ __forceinline__ void edge_line(const QGD3DParams& P,
+                                          const Ghosts3& G, int r, int i) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const long sy = nz + 2, sx = (long)(ny + 2) * sy;
+  const int n = AX == 1 ? ny : nz;
+  const int l2lo = n < 2 ? 1 : 2, l2hi = n < 2 ? 1 : n - 1;
+  float in1[2], in2[2], un[2];
+  if (AX == 1) {
+    in1[0] = x_phase<XG, F>(P, G, r, 1, i);
+    in2[0] = x_phase<XG, F>(P, G, r, l2lo, i);
+    in1[1] = x_phase<XG, F>(P, G, r, ny, i);
+    in2[1] = x_phase<XG, F>(P, G, r, l2hi, i);
+    un[0] = G.O.f[3][clampi(r, 1, nx) * sx + sy + i];
+    un[1] = G.O.f[3][clampi(r, 1, nx) * sx + ny * sy + i];
+  } else {
+    in1[0] = y_phase<YG, XG, F>(P, G, r, i, 1);
+    in2[0] = y_phase<YG, XG, F>(P, G, r, i, l2lo);
+    in1[1] = y_phase<YG, XG, F>(P, G, r, i, nz);
+    in2[1] = y_phase<YG, XG, F>(P, G, r, i, l2hi);
+    const long u = clampi(r, 1, nx) * sx + clampi(i, 1, ny) * sy;
+    un[0] = G.O.f[4][u + 1];
+    un[1] = G.O.f[4][u + nz];
+  }
+  float g[2];
+#pragma unroll
+  for (int sd = 0; sd < 2; ++sd) {
+    const BCEntry3 b = P.bc[F][AX][sd];
+    g[sd] = bc_ghost(b, in1[sd], in2[sd], P.d[AX], b.value, un[sd], sd);
+  }
+  const long c = AX == 1 ? r * sx + i : r * sx + i * sy;
+  const long st = AX == 1 ? sy : 1;
+  float* fld = field_ptr(G.O, F);
+  fld[c] = g[0];
+  fld[c + (n + 1) * st] = g[1];
+}
+
+// Block (b, f): field f; blocks b in [0, nbx) own the x-lines (s, t),
+// [nbx, nbx + nby) the y-lines (r, t), the rest the z-lines (r, s);
+// consecutive threads take consecutive t (x, y) or s (z), so the x- and
+// y-ghosts are written as rows along z.
+template <int F>
+__device__ __forceinline__ void ghosts_of(const QGD3DParams& P,
+                                          const Ghosts3& G, int nbx,
+                                          int nby) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const long sy = nz + 2, sx = (long)(ny + 2) * sy;
+  int b = blockIdx.x;
+  if (b < nbx) {
+    const long k = (long)b * GT + threadIdx.x;
+    if (k < (long)ny * nz)
+      line_ghosts<0, F>(P, G, (1 + k / nz) * sy + 1 + k % nz, sx, k);
+    return;
+  }
+  b -= nbx;
+  if (b < nby) {
+    const long k = (long)b * GT + threadIdx.x;
+    if (k >= (long)(nx + 2) * nz) return;
+    const int r = (int)(k / nz), t = 1 + (int)(k % nz);
+    if (r >= 1 && r <= nx)
+      line_ghosts<1, F>(P, G, r * sx + t, sy, 0);
+    else if ((r == 0 && P.edge_lo) || (r == nx + 1 && P.edge_hi))
+      edge_line<1, false, true, F>(P, G, r, t);
+    else
+      edge_line<1, false, false, F>(P, G, r, t);
+    return;
+  }
+  b -= nby;
+  const long k = (long)b * GT + threadIdx.x;
   if (k >= (long)(nx + 2) * (ny + 2)) return;
   const int r = (int)(k / (ny + 2)), s = (int)(k % (ny + 2));
-  const long sx = (long)(ny + 2) * (nz + 2), sy = nz + 2;
-  float* fld = field_ptr(O, f);
-  const int l1 = sd == 0 ? 1 : nz;
-  const int l2 = sd == 0 ? 2 : nz - 1;
-  const int lg = sd == 0 ? 0 : nz + 1;
-  const BCEntry3 b = P.bc[f][2][sd];
-  const long lane = r * sx + s * sy;
-  const float un = O.f[4][clampi(r, 1, nx) * sx + clampi(s, 1, ny) * sy + l1];
-  fld[lane + lg] = bc_ghost(b, fld[lane + l1], fld[lane + l2], P.d[2],
-                            b.value, un, sd);
+  const bool xg = (r == 0 && P.edge_lo) || (r == nx + 1 && P.edge_hi);
+  const bool yg = s == 0 || s == ny + 1;
+  if (yg) {
+    if (xg)
+      edge_line<2, true, true, F>(P, G, r, s);
+    else
+      edge_line<2, true, false, F>(P, G, r, s);
+  } else if (xg) {
+    edge_line<2, false, true, F>(P, G, r, s);
+  } else if (r >= 1 && r <= nx) {
+    line_ghosts<2, F>(P, G, r * sx + s * sy, 1, 0);
+  } else {
+    edge_line<2, false, false, F>(P, G, r, s);  // a halo plane
+  }
+}
+
+__global__ void __launch_bounds__(GT)
+qgd3d_ghosts_kernel(QGD3DParams P, Ghosts3 G, int nbx, int nby) {
+  switch (blockIdx.y) {
+    case 0: ghosts_of<0>(P, G, nbx, nby); break;
+    case 1: ghosts_of<1>(P, G, nbx, nby); break;
+    case 2: ghosts_of<2>(P, G, nbx, nby); break;
+    case 3: ghosts_of<3>(P, G, nbx, nby); break;
+    default: ghosts_of<4>(P, G, nbx, nby);
+  }
 }
 
 dim3 cell_grid(const QGD3DParams& P, int extra) {
   return dim3((P.nz + extra + BX - 1) / BX, (P.ny + extra + BY - 1) / BY,
               P.nx + extra);
+}
+
+// qgd3d_dt's chunk of x-planes and grid on the current device: the chunk
+// for the fewest planes marched by the busiest SM (waves of resident blocks
+// times the planes a block loads, its plane before the chunk included).
+// bps (optional) receives the resident blocks per SM.
+cudaError_t dt3_grid(const QGD3DParams& P, dim3* grid, int* cx,
+                     int* bps_out = nullptr) {
+  static int sms[64] = {}, bps[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &bps[dev], qgd3d_dt_kernel, DT_NT, 0);
+    if (e != cudaSuccess) {
+      sms[dev] = 0;
+      return e;
+    }
+  }
+  const int gx = (P.nz + 2 + DZ - 1) / DZ, gy = (P.ny + 2 + DY - 1) / DY;
+  const int planes = P.nx + 2;
+  const long slots = (long)sms[dev] * (bps[dev] > 0 ? bps[dev] : 1);
+  int best_c = planes;
+  long best = -1;
+  for (int chunks = 1; chunks <= planes; ++chunks) {
+    const int c = (planes + chunks - 1) / chunks;
+    if ((planes + c - 1) / c != chunks) continue;  // the same c as fewer
+    const long cost = ((long)gx * gy * chunks + slots - 1) / slots * (c + 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      best_c = c;
+    }
+  }
+  *cx = best_c;
+  *grid = dim3(gx, gy, (planes + best_c - 1) / best_c);
+  if (bps_out) *bps_out = bps[dev];
+  return cudaSuccess;
+}
+
+cudaError_t dt3_launch(const QGD3DParams& P, const float* T, const float* ux,
+                       const float* uy, const float* uz, int mode,
+                       const float* dt_old, float* work, float* out,
+                       cudaStream_t st) {
+  dim3 grid;
+  int cx = 0;
+  const cudaError_t e = dt3_grid(P, &grid, &cx);
+  if (e != cudaSuccess) return e;
+  qgd3d_dt_kernel<<<grid, dim3(DZ, DY), 0, st>>>(P, T, ux, uy, uz, cx, mode,
+                                                 dt_old, work, out);
+  return cudaGetLastError();
 }
 
 // The update's dynamic shared memory is above the 48 KB a launch gets
@@ -1075,50 +1448,53 @@ cudaError_t smooth3_dispatch(int k, const QGD3DParams& P, const Smooth3& A,
 
 extern "C" {
 
+// The dt workspace's partial quads: one per block of the launch on the
+// current device (-1 on a CUDA error).  The workspace holds DT_HEAD floats
+// (the ticket, 0 before the first launch) and DT_NQ per partial.
 int qgd3d_dt_partials(const QGD3DParams* prm) {
-  const dim3 g = cell_grid(*prm, 1);
+  dim3 g;
+  int cx = 0;
+  if (dt3_grid(*prm, &g, &cx) != cudaSuccess) return -1;
   return static_cast<int>(g.x * g.y * g.z);
 }
 
 int qgd3d_dt(const QGD3DParams* prm, const float* T, const float* ux,
              const float* uy, const float* uz, const float* dt_old,
-             float* partials, float* dt_new, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = cell_grid(*prm, 1);
-  qgd3d_dt_partial_kernel<<<grid, dim3(BX, BY), 0, st>>>(*prm, T, ux, uy, uz,
-                                                         partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long n = (long)grid.x * grid.y * grid.z;
-  qgd3d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials, n, DT_FULL, dt_old,
-                                           dt_new);
-  return static_cast<int>(cudaGetLastError());
+             float* work, float* dt_new, void* stream) {
+  return static_cast<int>(dt3_launch(*prm, T, ux, uy, uz, DT_FULL, dt_old,
+                                     work, dt_new,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
-// This slab's dt partials folded to the quad (max wave x, y, z, -min tau):
-// what a MAX all-reduce over the ranks combines.
+// This slab's dt folded to the quad (max wave x, y, z, -min tau): what a
+// MAX all-reduce over the ranks combines.
 int qgd3d_dt_fold(const QGD3DParams* prm, const float* T, const float* ux,
-                  const float* uy, const float* uz, float* partials,
-                  float* quad, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = cell_grid(*prm, 1);
-  qgd3d_dt_partial_kernel<<<grid, dim3(BX, BY), 0, st>>>(*prm, T, ux, uy, uz,
-                                                         partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long n = (long)grid.x * grid.y * grid.z;
-  qgd3d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials, n, DT_FOLD,
-                                           nullptr, quad);
-  return static_cast<int>(cudaGetLastError());
+                  const float* uy, const float* uz, float* work, float* quad,
+                  void* stream) {
+  return static_cast<int>(dt3_launch(*prm, T, ux, uy, uz, DT_FOLD, nullptr,
+                                     work, quad,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 // setDeltaT on a reduced quad of qgd3d_dt_fold.
 int qgd3d_dt_apply(const QGD3DParams* prm, const float* quad,
                    const float* dt_old, float* dt_new, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  qgd3d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, quad, 1, DT_APPLY, dt_old,
-                                           dt_new);
+  qgd3d_dt_apply_kernel<<<1, 1, 0, st>>>(*prm, quad, dt_old, dt_new);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dt launch's shape on the current device: out = {tile rows (y), tile
+// lanes (z), chunk planes, blocks, resident blocks per SM}.
+int qgd3d_dt_shape(const QGD3DParams* prm, int* out) {
+  dim3 g;
+  int cx = 0;
+  const cudaError_t e = dt3_grid(*prm, &g, &cx, &out[4]);
+  out[0] = DY;
+  out[1] = DZ;
+  out[2] = cx;
+  out[3] = static_cast<int>(g.x * g.y * g.z);
+  return static_cast<int>(e);
 }
 
 int qgd3d_update(const QGD3DParams* prm, const float* p, const float* T,
@@ -1166,27 +1542,26 @@ int qgd3d_sensor(const QGD3DParams* prm, const float* p, const float* T,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every ghost of the five fresh frames (qgd3d_ghosts_kernel), one launch.
 int qgd3d_ghosts(const QGD3DParams* prm, const float* planes,
                  const float* side, float* p, float* T, float* ux, float* uy,
                  float* uz, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  OutFrames O;
-  O.f[0] = p;
-  O.f[1] = T;
-  O.f[2] = ux;
-  O.f[3] = uy;
-  O.f[4] = uz;
+  Ghosts3 G;
+  G.planes = planes;
+  G.side = side;
+  G.O.f[0] = p;
+  G.O.f[1] = T;
+  G.O.f[2] = ux;
+  G.O.f[3] = uy;
+  G.O.f[4] = uz;
   const long nx = prm->nx, ny = prm->ny, nz = prm->nz;
-  const dim3 gx((unsigned)((ny * nz + GT - 1) / GT), 10);
-  qgd3d_ghost_x_kernel<<<gx, GT, 0, st>>>(*prm, planes, side, O);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 gy((unsigned)(((nx + 2) * nz + GT - 1) / GT), 10);
-  qgd3d_ghost_y_kernel<<<gy, GT, 0, st>>>(*prm, O);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 gz((unsigned)(((nx + 2) * (ny + 2) + GT - 1) / GT), 10);
-  qgd3d_ghost_z_kernel<<<gz, GT, 0, st>>>(*prm, O);
+  const long nbx =
+      prm->edge_lo || prm->edge_hi ? (ny * nz + GT - 1) / GT : 0;
+  const long nby = ((nx + 2) * nz + GT - 1) / GT;
+  const long nbz = ((nx + 2) * (ny + 2) + GT - 1) / GT;
+  qgd3d_ghosts_kernel<<<dim3((unsigned)(nbx + nby + nbz), 5), GT, 0, st>>>(
+      *prm, G, (int)nbx, (int)nby);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,8 @@ current fields (interior cells only, (nx, ny, nz)).
 
 One step:
   1. `qgd3d_dt`: acoustic Courant number and min tau_f over the exact live
-     face sets, then setDeltaT - a one-element tensor on the device;
+     face sets, then setDeltaT - a one-element tensor on the device, in one
+     launch;
   2. varScModel5 only: fvc::smooth of `sc_raw` -> this step's sensor
      frame: `smoothing.smooth_sensor` on `qgd3d_smooth` from the raw
      sensor to the fixed point, ring 1 alone in the first launch and
@@ -20,7 +21,8 @@ One step:
   3. `qgd3d_update`: the six face fluxes of each cell and the explicit
      update into new frames, plus ws/tau_f on the two x-boundary faces;
   4. varScModel5 only: `qgd3d_sensor`, the raw sensor over the fresh frames;
-  5. `qgd3d_ghosts`: BC ghost planes along x, then y over every x, then z.
+  5. `qgd3d_ghosts`: BC ghost planes along x, then y over every x, then z,
+     in one launch that computes each ghost from interior cells.
 
 Each kernel call is a wrapper: for CPU tensors it runs the plain torch
 version beside it (`dt_reference_3d`, `smooth_reference_3d`,
@@ -145,8 +147,11 @@ def _plane_value(b, mesh, side, comp=None):
         v = _to_numpy(raw)
         if comp is not None and v.ndim >= 1 and v.shape[0] >= comp + 1:
             v = v[comp]
+    # drop the leading axes of one (a squeeze would also drop ny or nz = 1)
+    while v.ndim > 2 and v.shape[0] == 1:
+        v = v[0]
     try:
-        return np.broadcast_to(np.squeeze(v), (ny, nz)).astype(np.float64)
+        return np.broadcast_to(v, (ny, nz)).astype(np.float64)
     except ValueError:
         return None
 
@@ -529,19 +534,42 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# qgd3d_dt's workspace on each (device, stream): the ticket its last block
+# sets back to 0, then one partial per block.  Launches on one stream run in
+# turn, so they share it; another stream gets its own.
+_DT_WORK = {}
+_DT_HEAD, _DT_NQ = 4, 6
+
+
+def _dt_work(lib, prm, x):
+    """The dt workspace for the launch at prm's shape on x's device and the
+    current stream: zeros when made, and the kernel leaves its ticket 0."""
+    n = lib.qgd3d_dt_partials(prm)
+    if n < 1:
+        raise RuntimeError(f"qgd3d_dt: no launch shape ({n})")
+    key = (x.device, _stream(x))
+    work = _DT_WORK.get(key)
+    if work is None or work.numel() < _DT_HEAD + _DT_NQ * n:
+        work = torch.zeros(_DT_HEAD + _DT_NQ * n, dtype=torch.float32,
+                           device=x.device)
+        _DT_WORK[key] = work
+    return work
+
+
 def qgd3d_dt(prm, T, ux, uy, uz, dt):
-    """New dt (0-dim tensor) from the current frames and the previous dt."""
+    """New dt (0-dim tensor) from the current frames and the previous dt.
+    One launch: the blocks' partials and, in the last block, the fold and
+    setDeltaT."""
     on_card = _check(prm, "qgd3d_dt", T, ux, uy, uz)
     _scalar("qgd3d_dt", dt, T)
     if not on_card:
         return dt_reference_3d(prm, T, ux, uy, uz, dt)
     lib = _build.load()
     with torch.cuda.device(T.device):
-        n = lib.qgd3d_dt_partials(prm)
-        partials = torch.empty((n, 4), dtype=T.dtype, device=T.device)
+        work = _dt_work(lib, prm, T)
         out = torch.empty((), dtype=T.dtype, device=T.device)
         code = lib.qgd3d_dt(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
-                            _ptr(dt), _ptr(partials), _ptr(out), _stream(T))
+                            _ptr(dt), _ptr(work), _ptr(out), _stream(T))
     _build.check(lib, code, "qgd3d_dt")
     qgd3d_dt.launches += 1
     return out
@@ -549,20 +577,32 @@ def qgd3d_dt(prm, T, ux, uy, uz, dt):
 
 def qgd3d_dt_fold(prm, T, ux, uy, uz):
     """This slab's dt quad (4,) on T's device - see
-    `dt_fold_reference_3d`."""
+    `dt_fold_reference_3d`.  One launch, as `qgd3d_dt`."""
     on_card = _check(prm, "qgd3d_dt_fold", T, ux, uy, uz)
     if not on_card:
         return dt_fold_reference_3d(prm, T, ux, uy, uz)
     lib = _build.load()
     with torch.cuda.device(T.device):
-        n = lib.qgd3d_dt_partials(prm)
-        partials = torch.empty((n, 4), dtype=T.dtype, device=T.device)
+        work = _dt_work(lib, prm, T)
         quad = torch.empty(4, dtype=T.dtype, device=T.device)
         code = lib.qgd3d_dt_fold(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
-                                 _ptr(partials), _ptr(quad), _stream(T))
+                                 _ptr(work), _ptr(quad), _stream(T))
     _build.check(lib, code, "qgd3d_dt_fold")
     qgd3d_dt_fold.launches += 1
     return quad
+
+
+def dt_launch_shape(prm, device) -> dict:
+    """`qgd3d_dt`'s launch at prm's shape on a card: its (y, z) tile, the
+    x-planes a block marches, its blocks and the blocks resident on one
+    SM."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        code = lib.qgd3d_dt_shape(prm, out)
+    _build.check(lib, code, "qgd3d_dt_shape")
+    return {"tile": (out[0], out[1]), "chunk": out[2], "blocks": out[3],
+            "blocks_per_sm": out[4]}
 
 
 def qgd3d_dt_apply(prm, quad, dt):
@@ -635,15 +675,32 @@ def qgd3d_sensor(prm, p, T, sc):
     return out
 
 
+def _check_extrap(prm):
+    """Raise where an extrapolated ghost would read a ghost that the same
+    call writes: an axis of one cell whose other end is a physical
+    boundary (its second interior layer is that end's ghost)."""
+    n = (prm.nx, prm.ny, prm.nz)
+    phys = ((prm.edge_lo, prm.edge_hi), (1, 1), (1, 1))
+    for f in range(5):
+        for a in range(3):
+            for sd in (0, 1):
+                if prm.bc[f][a][sd].kind == KINDS["extrap"] and n[a] < 2 \
+                        and phys[a][sd] and phys[a][1 - sd]:
+                    raise ValueError(
+                        f"qgd3d_ghosts: {FIELDS[f]} is extrapolated along "
+                        f"an axis of one cell ({'xyz'[a]})")
+
+
 def qgd3d_ghosts(prm, frames, side, planes):
     """Fill the ghosts of the fresh frames in place - see
-    `ghosts_reference_3d`.  Three launches: x planes, y rows, z lanes."""
+    `ghosts_reference_3d`.  One launch: each ghost from interior cells."""
     on_card = _check(prm, "qgd3d_ghosts", *frames)
     check_tensors("qgd3d_ghosts", (2, prm.ny, prm.nz), side)
     check_tensors("qgd3d_ghosts", (planes.shape[0], prm.ny, prm.nz), planes)
     if side.device != frames[0].device or planes.device != side.device:
         raise ValueError("qgd3d_ghosts: side and planes must lie beside the "
                          "frames")
+    _check_extrap(prm)
     if not on_card:
         return ghosts_reference_3d(prm, frames, side, planes)
     lib = _build.load()

@@ -236,3 +236,30 @@ def test_wrappers_check_their_inputs():
     F.qgd2d_dt(prm, fs.T, fs.ux, fs.uy, fs.dt)
     assert [k.launches for k in F.KERNELS] == launches, \
         "the plain version on the CPU is not a launch"
+
+
+@pytest.mark.parametrize("name", ["supersonic_jet", "supersonic_jet_varsc"])
+def test_nan_T_cell_gives_nan_dt_like_jax(name):
+    """One cell's energy NaN, so its T in the frame: the port's plain dt,
+    its dt quad and both of `emit_reference`'s rates are NaN, as is the
+    JAX package's dt from its fused step and from its composable step
+    (both fold with jnp.max).  The kernels' folds follow the plain versions
+    (a `gpu` test)."""
+    js, jst, ts, st = _build(name)
+    idx = (7, 5)
+    jst = jst._replace(rhoE=jst.rhoE.at[idx].set(jnp.nan))
+    rhoE = st.rhoE.clone()
+    rhoE[idx] = float("nan")
+    fs = F.build_fused_step(ts)[1](st._replace(rhoE=rhoE))
+    assert bool(torch.isnan(fs.T[idx[0] + 1, idx[1] + 1]))
+    assert int(torch.isnan(fs.T).sum()) == 1
+    prm, _ = F.make_params(ts)
+    assert bool(torch.isnan(F.dt_reference(prm, fs.T, fs.ux, fs.uy, fs.dt)))
+    assert bool(torch.isnan(F.dt_fold_reference(prm, fs.T, fs.ux,
+                                                fs.uy)).any())
+    sc = F._edge_frame(fs.sc[1:-1, 1:-1]) if prm.varsc else None
+    rates = F.emit_reference(prm, fs.p, fs.T, fs.ux, fs.uy, sc)[:2]
+    assert all(bool(torch.isnan(r)) for r in rates)
+    jstep, jto, jfrom = js.make_fused_step()
+    assert np.isnan(float(jfrom(jax.jit(jstep)(jto(jst))).dt))
+    assert np.isnan(float(jax.jit(js.make_step())(jst).dt))

@@ -500,3 +500,177 @@ def test_3d_step_on_cpu_is_no_launch():
         F.qgd3d_smooth(prm, fs.sc_raw[:-1], 1)
     with pytest.raises(TypeError):
         F.qgd3d_smooth(prm, fs.sc_raw.double(), 1)
+
+
+@pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship"])
+def test_nan_T_cell_gives_nan_dt_like_jax(name):
+    """One cell's energy NaN, so its T in the frame: the port's plain dt
+    and its dt quad are NaN, as are the JAX package's dt from its fused 3D
+    step (the pre-pass folds with jnp.max; Pallas in interpret mode) and
+    from its composable step.  The kernels' folds follow the plain
+    versions (a `gpu` test)."""
+    js, jst, ts, st = _build(name)
+    idx = (3, 2, 4)
+    jst = jst._replace(rhoE=jst.rhoE.at[idx].set(jnp.nan))
+    rhoE = st.rhoE.clone()
+    rhoE[idx] = float("nan")
+    fs = ts.make_fused_step()[1](st._replace(rhoE=rhoE))
+    assert bool(torch.isnan(fs.T[tuple(i + 1 for i in idx)]))
+    assert int(torch.isnan(fs.T).sum()) == 1
+    prm, _ = F.make_params(ts)
+    assert bool(torch.isnan(F.dt_reference_3d(prm, fs.T, fs.ux, fs.uy,
+                                              fs.uz, fs.dt)))
+    assert bool(torch.isnan(F.dt_fold_reference_3d(prm, fs.T, fs.ux, fs.uy,
+                                                   fs.uz)).any())
+    jstep, jto, jfrom = JF.build_fused_step_3d(js, interpret=True)
+    assert np.isnan(float(jfrom(jax.jit(jstep)(jto(jst))).dt))
+    assert np.isnan(float(jax.jit(js.make_step())(jst).dt))
+
+
+def _ghosts_one_launch_model(prm, frames, side, planes):
+    """A model of `qgd3d_ghosts`' one launch: every ghost cell of copies of
+    the frames computed by the kernel's composition from the input's
+    interior cells (and a partition's halo plane) alone: an x-ghost from
+    the interior, a y-ghost from two values after the x phase (x-ghosts
+    computed on the spot at an x-ghost plane), a z-ghost from two values
+    after the y phase.  No ghost of the input, and none that the model
+    writes, is read."""
+    nx, ny, nz = prm.nx, prm.ny, prm.nz
+    src = [f.clone() for f in frames]
+    out = [f.clone() for f in frames]
+    ux, uy, uz = src[2], src[3], src[4]
+    extrap = F.KINDS["extrap"]
+
+    def clamp(v, n):
+        return min(max(v, 1), n)
+
+    def ghost(e, in1, in2, d, v, un, sd):
+        # in2 is read only by an extrapolated ghost
+        return F._bc_ghost(e, in1, in2() if e.kind == extrap else None, d,
+                           v, un, sd)
+
+    def x_ghost(f, sd, s, t):
+        e = prm.bc[f][0][sd]
+        r1, r2 = (1, 2) if sd == 0 else (nx, nx - 1)
+        in1 = src[f][r1, s, t]
+        if e.kind == F.KINDS["qgdflux"]:
+            q = side[sd, s - 1, t - 1] * prm.d[0]
+            return in1 + q if sd == 0 else in1 - q
+        v = planes[e.prof, s - 1, t - 1] if e.prof >= 0 else e.value
+        return ghost(e, in1, lambda: src[f][r2, s, t], prm.d[0], v,
+                     ux[r1, s, t], sd)
+
+    def x_value(f, r, s, t):
+        if r == 0 and prm.edge_lo:
+            return x_ghost(f, 0, s, t)
+        if r == nx + 1 and prm.edge_hi:
+            return x_ghost(f, 1, s, t)
+        return src[f][r, s, t]
+
+    def y_ghost(f, sd, r, t):
+        e = prm.bc[f][1][sd]
+        l1, l2 = (1, 2) if sd == 0 else (ny, ny - 1)
+        return ghost(e, x_value(f, r, l1, t), lambda: x_value(f, r, l2, t),
+                     prm.d[1], e.value, uy[clamp(r, nx), l1, t], sd)
+
+    def y_value(f, r, s, t):
+        if s in (0, ny + 1):
+            return y_ghost(f, int(s > 0), r, t)
+        return x_value(f, r, s, t)
+
+    def z_ghost(f, sd, r, s):
+        e = prm.bc[f][2][sd]
+        l1, l2 = (1, 2) if sd == 0 else (nz, nz - 1)
+        return ghost(e, y_value(f, r, s, l1), lambda: y_value(f, r, s, l2),
+                     prm.d[2], e.value, uz[clamp(r, nx), clamp(s, ny), l1],
+                     sd)
+
+    for f in range(5):
+        for s in range(1, ny + 1):
+            for t in range(1, nz + 1):
+                if prm.edge_lo:
+                    out[f][0, s, t] = x_ghost(f, 0, s, t)
+                if prm.edge_hi:
+                    out[f][nx + 1, s, t] = x_ghost(f, 1, s, t)
+        for r in range(nx + 2):
+            for t in range(1, nz + 1):
+                out[f][r, 0, t] = y_ghost(f, 0, r, t)
+                out[f][r, ny + 1, t] = y_ghost(f, 1, r, t)
+            for s in range(ny + 2):
+                out[f][r, s, 0] = z_ghost(f, 0, r, s)
+                out[f][r, s, nz + 1] = z_ghost(f, 1, r, s)
+    return out
+
+
+@pytest.mark.parametrize("edges", [(1, 1), (0, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("kind", ["duct", "flagship", "zg", "fixed", "grad",
+                                  "sym", "extrap", "io"])
+def test_ghosts_one_launch_model_equals_ghosts_reference(kind, edges):
+    """The one-launch composition of `qgd3d_ghosts` (each ghost from
+    interior cells: `_ghosts_one_launch_model`) equals
+    `ghosts_reference_3d` (x planes, then y rows, then z lanes) bit for
+    bit, for the duct's and the varsc jet's BCs (qgdFlux, the array inlet)
+    and for each BC kind on every side (the varsc jet's x sides keep theirs),
+    under every (edge_lo, edge_hi).  The input's ghost cells hold NaN, and
+    neither reads them: no NaN comes out."""
+    from test_torch_gpu import one_kind_on_sides, random_frames
+
+    shape = (3, 4, 5)
+    base = "supersonic_duct_3d" if kind == "duct" else \
+        "supersonic_jet_3d_varsc"
+    ts, _ = getattr(tcases, base)(shape=shape, device="cpu")
+    if kind not in ("duct", "flagship"):
+        ts = one_kind_on_sides(ts, tbc, kind, (1, 2))
+    prm, planes = F.make_params(ts)
+    prm.edge_lo, prm.edge_hi = edges
+    planes = torch.as_tensor(planes)
+    frames = random_frames(shape, 9)
+    rng = np.random.default_rng(9)
+    side = torch.as_tensor(rng.uniform(-5.0, 5.0, (2,) + shape[1:])
+                           .astype(np.float32))
+    nx = shape[0]
+    for f in frames:
+        f[:, 0], f[:, -1], f[:, :, 0], f[:, :, -1] = (float("nan"),) * 4
+        for r, phys in ((0, edges[0]), (nx + 1, edges[1])):
+            if phys:
+                f[r] = float("nan")
+    model = _ghosts_one_launch_model(prm, frames, side, planes)
+    ref = F.ghosts_reference_3d(prm, [f.clone() for f in frames], side,
+                                planes)
+    for k in range(5):
+        assert not bool(torch.isnan(ref[k]).any()), F.FIELDS[k]
+        assert torch.equal(model[k], ref[k]), F.FIELDS[k]
+
+
+def test_ghosts_refuse_extrapolation_along_one_cell():
+    """An extrapolated ghost reads the second interior layer; along an axis
+    of one cell with both ends physical that layer is the other end's
+    ghost, which the same call writes, so `qgd3d_ghosts` refuses it (the
+    composable padding has no second layer there either).  A slab of one
+    plane with a partition end reads the halo plane and is taken."""
+    from test_torch_gpu import one_kind_on_sides, random_frames
+
+    for shape, axes in (((4, 1, 5), (1, 2)), ((1, 4, 5), (0, 1, 2))):
+        ts, _ = tcases.supersonic_duct_3d(shape=shape, device="cpu")
+        ts = one_kind_on_sides(ts, tbc, "extrap", axes)
+        prm, planes = F.make_params(ts)
+        frames = random_frames(shape, 10)
+        side = torch.zeros((2,) + shape[1:])
+        with pytest.raises(ValueError, match="one cell"):
+            F.qgd3d_ghosts(prm, frames, side, torch.as_tensor(planes))
+    prm.edge_hi = 0
+    out = F.qgd3d_ghosts(prm, [f.clone() for f in frames], side,
+                         torch.as_tensor(planes))
+    assert torch.equal(out[0][0, 1:-1, 1:-1],
+                       2.0 * frames[0][1, 1:-1, 1:-1]
+                       - frames[0][2, 1:-1, 1:-1])
+
+
+def test_x_side_planes_on_a_y_or_z_of_one_cell():
+    """The varsc jet's (3, 1, ny, nz) array inlet becomes a (ny, nz) plane
+    when ny or nz is 1, so the 3D step takes such meshes."""
+    for shape in ((6, 4, 1), (6, 1, 4)):
+        ts, _ = tcases.supersonic_jet_3d_varsc(shape=shape, device="cpu")
+        assert F.supported(ts)
+        _, planes = F.make_params(ts)
+        assert planes.shape[1:] == shape[1:]

@@ -65,6 +65,61 @@ def every_bc_kind_3d(cases_mod, bcm, shape, dtype, xp, **kw):
     return solver, state
 
 
+# the BC kinds the 3D ghosts take on a y or z side
+YZ_KINDS = ("zg", "fixed", "grad", "sym", "extrap", "io")
+
+
+def one_kind_on_sides(solver, bcm, kind, axes=(1, 2), xp=torch.as_tensor):
+    """The solver with BC `kind` on both sides of each axis in `axes`, for
+    every field (values that differ by side, so a ghost shows which side
+    it came from; inletOutlet switches both ways on random velocities)."""
+    vals = {"U": ([20.0, -10.0, 5.0], [-5.0, 30.0, -15.0]),
+            "p": (1.01e5, 0.99e5), "T": (310.0, 290.0)}
+    grads = {"U": ([1.0, -2.0, 3.0], [-3.0, 2.0, 1.0]), "p": (50.0, -30.0),
+             "T": (2.0, -1.5)}
+
+    def wrap(x):
+        return xp(np.asarray(x, np.float32)) if np.ndim(x) else float(x)
+
+    def make(field, sd):
+        if kind in ("zg", "sym", "extrap"):
+            return {"zg": bcm.ZeroGradient, "sym": bcm.Symmetry,
+                    "extrap": bcm.Extrapolated}[kind]()
+        v = wrap(vals[field][sd])
+        return {"fixed": lambda: bcm.FixedValue(v),
+                "grad": lambda: bcm.FixedGradient(wrap(grads[field][sd])),
+                "io": lambda: bcm.InletOutlet(v)}[kind]()
+
+    def sides(old, field):
+        return bcm.FieldBCs(tuple(
+            (make(field, 0), make(field, 1)) if a in axes
+            else (old[a, 0], old[a, 1]) for a in range(3)))
+
+    return dataclasses.replace(solver, bc_U=sides(solver.bc_U, "U"),
+                               bc_p=sides(solver.bc_p, "p"),
+                               bc_T=sides(solver.bc_T, "T"))
+
+
+def random_frames(shape, seed, device="cpu"):
+    """Ghost-padded f32 frames p, T, ux, uy, uz of plausible magnitudes
+    (velocities of either sign), made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    fs = tuple(n + 2 for n in shape)
+    lims = ((0.9e5, 1.1e5), (250.0, 350.0)) + ((-60.0, 60.0),) * 3
+    return [torch.as_tensor(rng.uniform(lo, hi, fs).astype(np.float32),
+                            device=device) for lo, hi in lims]
+
+
+def extrap_on_one_cell(prm):
+    """True where qgd3d_ghosts must refuse the BCs: an extrapolated side on
+    an axis of one cell whose two ends are physical."""
+    n = (prm.nx, prm.ny, prm.nz)
+    both = (prm.edge_lo and prm.edge_hi, True, True)
+    return any(prm.bc[f][a][sd].kind == F.KINDS["extrap"] and n[a] < 2
+               and both[a] for f in range(5) for a in range(3)
+               for sd in (0, 1))
+
+
 @pytest.fixture(scope="module")
 def device():
     if not torch.cuda.is_available():
@@ -461,6 +516,139 @@ def test_sharded_kernels_on_two_ranks_match_serial_kernels(kind, name, shape,
                                           err_msg=f)
         assert launches == {k.__name__: 10 for k in kernels
                             if k.__name__ != "qgd3d_sensor"}
+
+
+@pytest.mark.parametrize("kind", ("case",) + YZ_KINDS)
+@pytest.mark.parametrize("shape", [(1, 9, 126), (2, 1, 33), (17, 2, 31),
+                                   (17, 9, 1), (2, 2, 126), (1, 1, 31),
+                                   (17, 9, 33)])
+def test_3d_dt_and_ghosts_on_ragged_shapes(shape, kind, device):
+    """qgd3d_dt, qgd3d_dt_fold and qgd3d_ghosts where nx is 1, 2 or 17, ny
+    1, 2 or 9 and nz 1, 31, 33 or 126 (none a multiple of the dt kernel's
+    8x32 tile), on random frames, for the duct and the varsc jet (qgdFlux
+    and the array inlet on x), each with its own BCs or with one BC kind
+    on all four y and z sides of every field (and on x for the duct), under
+    every (edge_lo, edge_hi): dt and the quad within rtol 1e-6 of the plain
+    versions, the ghost-filled frames within 1e-6 of each field's max.
+    Extrapolation along an axis of one cell is refused by both."""
+    for base, seed in (("supersonic_duct_3d", 1), ("supersonic_jet_3d_varsc",
+                                                   2)):
+        solver, _ = getattr(cases, base)(shape=shape, device=device)
+        if kind != "case":
+            axes = (0, 1, 2) if base == "supersonic_duct_3d" else (1, 2)
+            solver = one_kind_on_sides(solver, bc, kind, axes)
+        prm, planes = F3.make_params(solver)
+        planes = solver.mesh.tensor(planes).contiguous()
+        frames = random_frames(shape, seed, device)
+        rng = np.random.default_rng(seed)
+        side = torch.as_tensor(rng.uniform(-5.0, 5.0, (2,) + shape[1:])
+                               .astype(np.float32), device=device)
+        dt = torch.tensor(1e-7, dtype=torch.float32, device=device)
+        for lo, hi in ((1, 1), (0, 1), (1, 0), (0, 0)):
+            prm.edge_lo, prm.edge_hi = lo, hi
+            where = (base, kind, lo, hi)
+            torch.testing.assert_close(
+                F3.qgd3d_dt(prm, *frames[1:], dt),
+                F3.dt_reference_3d(prm, *frames[1:], dt), rtol=1e-6,
+                atol=0.0, msg=lambda m: f"{where}: {m}")
+            quad = F3.dt_fold_reference_3d(prm, *frames[1:])
+            got = F3.qgd3d_dt_fold(prm, *frames[1:])
+            assert float(((got - quad).abs() / quad.abs()).max()) <= 1e-6, \
+                (where, got, quad)
+            if extrap_on_one_cell(prm):
+                with pytest.raises(ValueError):
+                    F3.qgd3d_ghosts(prm, [f.clone() for f in frames], side,
+                                    planes)
+                continue
+            a = F3.qgd3d_ghosts(prm, [f.clone() for f in frames], side,
+                                planes)
+            b = F3.ghosts_reference_3d(prm, [f.clone() for f in frames],
+                                       side, planes)
+            for k in range(5):
+                assert _rel(b[k], a[k]) <= 1e-6, (where, F3.FIELDS[k])
+
+
+def test_3d_dt_calls_back_to_back_are_each_their_own(device):
+    """Three qgd3d_dt and qgd3d_dt_fold calls on different frames, launched
+    back to back (and three more on a second stream beside them), each
+    bitwise the same call made alone: the kernel's ticket starts each call
+    from 0 and no two streams share a workspace."""
+    shape = (40, 30, 50)
+    solver, _ = cases.supersonic_jet_3d_varsc(shape=shape, device=device)
+    prm, _ = F3.make_params(solver)
+    frames = [random_frames(shape, seed, device) for seed in (3, 4, 5)]
+    dt = torch.tensor(1e-7, dtype=torch.float32, device=device)
+    other = torch.cuda.Stream(device)
+    other.wait_stream(torch.cuda.current_stream(device))
+    together = []
+    for fr in frames:
+        together.append((F3.qgd3d_dt(prm, *fr[1:], dt),
+                         F3.qgd3d_dt_fold(prm, *fr[1:])))
+    with torch.cuda.stream(other):
+        beside = [(F3.qgd3d_dt(prm, *fr[1:], dt),
+                   F3.qgd3d_dt_fold(prm, *fr[1:])) for fr in frames[::-1]]
+    torch.cuda.synchronize()
+    beside = beside[::-1]
+    for fr, got, got2 in zip(frames, together, beside):
+        alone = F3.qgd3d_dt(prm, *fr[1:], dt)
+        torch.cuda.synchronize()
+        quad = F3.qgd3d_dt_fold(prm, *fr[1:])
+        torch.cuda.synchronize()
+        for g in (got, got2):
+            assert torch.equal(g[0], alone) and torch.equal(g[1], quad)
+    assert len({tuple(g[1].tolist()) for g in together}) == 3
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_dt_kernels_give_nan_where_plain_versions_do(dims, device):
+    """Each dt kernel (qgd2d_dt, qgd2d_dt_fold and qgd2d_emit's rates;
+    qgd3d_dt and qgd3d_dt_fold) on frames with one NaN T cell: NaN exactly
+    where its plain version gives NaN - a NaN in an interior cell or in a
+    ghost cell that a boundary face reads - and finite where the plain
+    version stays finite (an edge ghost that no face reads)."""
+    shape = (20, 12) if dims == 2 else (12, 10, 9)
+    names = (CASES if dims == 2 else CASES3)
+    cells = {"interior": tuple(n // 2 for n in shape),
+             "x-ghost": (0,) + tuple(n // 2 for n in shape[1:]),
+             "y-ghost": (shape[0] // 2, shape[1] + 1) + tuple(
+                 n // 2 for n in shape[2:]),
+             "edge ghost": (0, 0) + tuple(n // 2 for n in shape[2:])}
+    for name in names:
+        solver, _ = getattr(cases, name)(shape=shape, device=device)
+        dt = torch.tensor(1e-7, dtype=torch.float32, device=device)
+        frames = random_frames(shape + (1,) if dims == 2 else shape, 6,
+                               device)
+        if dims == 2:
+            frames = [f[..., 1].contiguous() for f in frames[:4]]
+            prm, _ = F.make_params(solver)
+            sc = F._edge_frame(torch.full(shape, 0.2, device=device)) \
+                if prm.varsc else None
+
+            def pairs(p, T, ux, uy):
+                e, er = F.qgd2d_emit(prm, p, T, ux, uy, sc), \
+                    F.emit_reference(prm, p, T, ux, uy, sc)
+                return [(F.qgd2d_dt(prm, T, ux, uy, dt),
+                         F.dt_reference(prm, T, ux, uy, dt)),
+                        (F.qgd2d_dt_fold(prm, T, ux, uy),
+                         F.dt_fold_reference(prm, T, ux, uy)),
+                        (e[0], er[0]), (e[1], er[1])]
+        else:
+            prm, _ = F3.make_params(solver)
+
+            def pairs(p, T, ux, uy, uz):
+                return [(F3.qgd3d_dt(prm, T, ux, uy, uz, dt),
+                         F3.dt_reference_3d(prm, T, ux, uy, uz, dt)),
+                        (F3.qgd3d_dt_fold(prm, T, ux, uy, uz),
+                         F3.dt_fold_reference_3d(prm, T, ux, uy, uz))]
+        for label, idx in cells.items():
+            bad = [f.clone() for f in frames]
+            bad[1][idx] = float("nan")
+            outs = pairs(*bad)
+            # the plain dt: NaN unless no face reads the cell
+            assert bool(torch.isnan(outs[0][1])) == (label != "edge ghost")
+            for i, (got, ref) in enumerate(outs):
+                assert torch.equal(torch.isnan(got), torch.isnan(ref)), \
+                    (name, label, i, got, ref)
 
 
 @pytest.mark.parametrize("k", sorted({0, 1, 2, F3.SMOOTH3_RINGS,
