@@ -102,7 +102,7 @@ def registers(report: str, kernel: str) -> str:
     lines = report.splitlines()
     for i, ln in enumerate(lines):
         if "Compiling entry" in ln and kernel in ln:
-            got = [nxt.split(":", 1)[-1].strip() for nxt in lines[i + 1:i + 3]
+            got = [nxt.split(":", 1)[-1].strip() for nxt in lines[i + 1:i + 4]
                    if "registers" in nxt or "spill" in nxt]
             if got:
                 return "; ".join(got)

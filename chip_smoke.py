@@ -832,7 +832,10 @@ def phase_time3(dev, card, jobs, stats):
             for k, _, _ in jobs)
         + " (qgd3d_smooth: the step's first launch, of ring 1, on the "
         f"active raw sensor, bound {sm_bound[0]:.4f} ms by {sm_bound[1]}; "
-        f"of {F3.SMOOTH3_RINGS} rings {rings_ms:.4f} ms) | card: {card}",
+        f"of {F3.SMOOTH3_RINGS} rings {rings_ms:.4f} ms; qgd3d_ghosts: "
+        f"computed z-lane sector floor "
+        f"{ghost_sector_bytes(SHAPE3) / HBM_BYTES_PER_S * 1e3:.4f} ms, not "
+        f"measured) | card: {card}",
         flush=True)
 
 
@@ -1719,10 +1722,6 @@ def main() -> int:
             "plain_ms": top["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "ops": top["ops"], "shape": list(shape),
             "launches_per_call": top["launches_per_call"]}
-        if k == "qgd3d_ghosts":
-            # the z lanes' end sectors: the floor any design of it meets
-            entry["sector_floor_ms"] = (ghost_sector_bytes(shape)
-                                        / HBM_BYTES_PER_S * 1e3)
         if len(v["by_shape"]) > 1:
             entry["by_shape"] = [
                 {"shape": list(sh), "launches": by_shape[k].get(sh, 0),

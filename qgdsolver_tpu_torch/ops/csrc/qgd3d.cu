@@ -80,7 +80,7 @@ enum { BC_ZG = 0, BC_FIXED = 1, BC_GRAD = 2, BC_SYM = 3, BC_EXTRAP = 4,
 
 constexpr int BX = 32;   // threads along z (qgd3d_sensor)
 constexpr int BY = 8;    // threads along y
-constexpr int GT = 128;  // threads of a ghost block
+constexpr int GT = 256;  // threads of a ghost block
 
 // qgd3d_update's tile, chunk and plane ring
 constexpr int TZ = 32;               // tile cells along z: one warp per row
@@ -801,17 +801,15 @@ qgd3d_sensor_kernel(QGD3DParams P, const float* __restrict__ p,
 // other, so each ghost cell is computed from interior cells alone: an x-y
 // edge is the y-formula of two x-ghost values that its thread computes
 // itself, a corner composes all three axes, and no ghost that the launch
-// writes is read.  The ghosts are a few percent of the frames' cells, and
-// what bounds the launch is the sectors it touches and the latency of its
-// few threads: a thread owns both ends of one line (x: (s, t), y: (r, t),
-// z: (r, s)) of one field, so the x- and y-ghosts are written as rows
-// along z and each z-line's two end sectors are touched by one thread; it
-// loads everything its ghosts read before it uses any (a line on an x- or
-// y-ghost plane takes a code path of its own, whose loads do not wait on a
-// branch).  PERF.md has its time beside a design of one launch an axis.
-// An extrapolated ghost reads
-// the second interior layer; the wrapper refuses an axis of one cell whose
-// two ends are physical, where that layer is a ghost this launch writes.
+// writes is read.  A thread owns one ghost cell of one field, so as many
+// loads are in flight as in one launch an axis (PERF.md has both designs'
+// times); consecutive threads take consecutive z along an x- or y-ghost
+// row, which is written whole, and the two ends of a z-line.  A
+// ghost none of whose inputs is an earlier axis's ghost (all but the edges
+// and corners) loads them in straight-line code.  An extrapolated ghost
+// reads the second interior layer: along an axis of one cell whose two
+// ends are physical that layer is a ghost this launch writes, and
+// supported() refuses the config.
 
 __device__ __forceinline__ float bc_ghost(const BCEntry3& b, float in1,
                                           float in2, float d, float v,
@@ -878,61 +876,19 @@ __device__ __forceinline__ BCEntry3 bc_at(const QGD3DParams& P, int f, int a,
   return sd == 0 ? P.bc[f][a][0] : P.bc[f][a][1];
 }
 
-// The ghosts of both ends of one line of field F (a frame line along axis
-// AX at offset c, stride st), where each ghost comes from the line itself:
-// an x-line (s, t) with s, t interior, a y-line (r, t) and a z-line (r, s)
-// with r (and s) interior.  Every value the ghosts read is loaded before
-// any is used: the second layer whatever the kind, the plane and qgdFlux
-// values of an x-line, and the inletOutlet switch, the velocity along AX
-// of the line's first layers.  k indexes the (ny, nz) planes of an x-line.
-template <int AX, int F>
-__device__ __forceinline__ void line_ghosts(const QGD3DParams& P,
-                                            const Ghosts3& G, long c,
-                                            long st, long k) {
-  const int n = AX == 0 ? P.nx : (AX == 1 ? P.ny : P.nz);
-  const long plane = (long)P.ny * P.nz;
-  float* fld = field_ptr(G.O, F);
-  const float* u = field_ptr(G.O, 2 + AX);
-  const float in1[2] = {fld[c + st], fld[c + n * st]};
-  const float in2[2] = {fld[c + 2 * st], fld[c + (n - 1) * st]};
-  const float un[2] = {u[c + st], u[c + n * st]};
-  float pv[2] = {0.0f, 0.0f}, sv[2] = {0.0f, 0.0f};
-  if (AX == 0) {
-#pragma unroll
-    for (int sd = 0; sd < 2; ++sd) {
-      const int prof = P.bc[F][0][sd].prof;
-      pv[sd] = G.planes[(prof > 0 ? prof : 0) * plane + k];
-      sv[sd] = G.side[sd * plane + k];
-    }
-  }
-  float g[2];
-#pragma unroll
-  for (int sd = 0; sd < 2; ++sd) {
-    const BCEntry3 b = P.bc[F][AX][sd];
-    g[sd] = AX == 0 ? x_formula(b, sd, in1[sd], in2[sd], pv[sd], sv[sd],
-                                P.d[0], un[sd])
-                    : bc_ghost(b, in1[sd], in2[sd], P.d[AX], b.value, un[sd],
-                               sd);
-  }
-  if (AX != 0 || P.edge_lo) fld[c] = g[0];
-  if (AX != 0 || P.edge_hi) fld[c + (n + 1) * st] = g[1];
-}
-
-// Field F at frame cell (r, s, t), s and t interior, after the x phase:
-// with XG, r is a physical x end's ghost plane and the value is its
-// x-ghost, computed here from the interior; else the frame's own
-// (interior, or a partition's halo plane).  Its loads do not depend on a
-// branch, so they are issued together.
-template <bool XG, int F>
-__device__ __forceinline__ float x_phase(const QGD3DParams& P,
+// Field F at frame cell (r, s, t), s and t interior, after the x phase: on
+// a physical x end's ghost plane its x-ghost, from the interior; else the
+// frame's own value (interior, or a partition's halo plane).
+template <int F>
+__device__ __forceinline__ float x_value(const QGD3DParams& P,
                                          const Ghosts3& G, int r, int s,
                                          int t) {
-  const long sy = P.nz + 2, sx = (long)(P.ny + 2) * sy;
-  const long c = s * sy + t;
+  const long sy = P.nz + 2, sx = (long)(P.ny + 2) * sy, c = s * sy + t;
   const float* fld = field_ptr(G.O, F);
-  if (!XG) return fld[r * sx + c];
-  const int sd = r == 0 ? 0 : 1;
-  const long r1 = sd == 0 ? 1 : P.nx, r2 = sd == 0 ? 2 : P.nx - 1;
+  const bool lo = r == 0 && P.edge_lo;
+  if (!lo && !(r == P.nx + 1 && P.edge_hi)) return fld[r * sx + c];
+  const int sd = lo ? 0 : 1;
+  const long r1 = lo ? 1 : P.nx, r2 = lo ? 2 : P.nx - 1;
   const long plane = (long)P.ny * P.nz, k = (long)(s - 1) * P.nz + (t - 1);
   const BCEntry3 b = bc_at(P, F, 0, sd);
   const float in1 = fld[r1 * sx + c], in2 = fld[r2 * sx + c];
@@ -942,125 +898,103 @@ __device__ __forceinline__ float x_phase(const QGD3DParams& P,
   return x_formula(b, sd, in1, in2, pv, q, P.d[0], un);
 }
 
-// Field F at (r, s, t), t interior, after the y phase: with YG, s is a
-// y-ghost row and the value is its y-ghost, from two x-phase values.  The
-// second layer of an axis of one cell is the first (it is read only by an
-// extrapolated ghost, which the wrapper refuses there).
-template <bool YG, bool XG, int F>
-__device__ __forceinline__ float y_phase(const QGD3DParams& P,
-                                         const Ghosts3& G, int r, int s,
+// Field F's y-ghost on side sd at (r, t), t interior: the y-formula of two
+// values after the x phase.  The second layer of an axis of one cell is
+// the first (only an extrapolated ghost reads it).
+template <int F>
+__device__ __forceinline__ float y_ghost(const QGD3DParams& P,
+                                         const Ghosts3& G, int r, int sd,
                                          int t) {
-  if (!YG) return x_phase<XG, F>(P, G, r, s, t);
-  const int ny = P.ny, sd = s == 0 ? 0 : 1;
+  const int nx = P.nx, ny = P.ny;
   const long sy = P.nz + 2, sx = (long)(ny + 2) * sy;
   const int l1 = sd == 0 ? 1 : ny;
   const int l2 = ny < 2 ? 1 : (sd == 0 ? 2 : ny - 1);
-  const float a = x_phase<XG, F>(P, G, r, l1, t);
-  const float b = x_phase<XG, F>(P, G, r, l2, t);
+  const float* fld = field_ptr(G.O, F);
   // inletOutlet on an x-ghost plane switches on the edge interior plane
-  const float un = G.O.f[3][clampi(r, 1, P.nx) * sx + l1 * sy + t];
+  const float un = G.O.f[3][clampi(r, 1, nx) * sx + l1 * sy + t];
+  float a, b;
+  if ((r == 0 && P.edge_lo) || (r == nx + 1 && P.edge_hi)) {
+    a = x_value<F>(P, G, r, l1, t);
+    b = x_value<F>(P, G, r, l2, t);
+  } else {
+    a = fld[r * sx + l1 * sy + t];
+    b = fld[r * sx + l2 * sy + t];
+  }
   const BCEntry3 e = bc_at(P, F, 1, sd);
   return bc_ghost(e, a, b, P.d[1], e.value, un, sd);
 }
 
-// Both ends of a line of field F that its own cells do not give: a y-line
-// (r, t) (AX = 1) on an x-ghost or halo plane, a z-line (r, s) (AX = 2) on
-// one or on a y-ghost row.  YG and XG say which (AX = 1: YG false).
-template <int AX, bool YG, bool XG, int F>
-__device__ __forceinline__ void edge_line(const QGD3DParams& P,
-                                          const Ghosts3& G, int r, int i) {
+// Field F's z-ghost on side sd at (r, s): the z-formula of two values after
+// the y phase.
+template <int F>
+__device__ __forceinline__ float z_ghost(const QGD3DParams& P,
+                                         const Ghosts3& G, int r, int s,
+                                         int sd) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const long sy = nz + 2, sx = (long)(ny + 2) * sy;
-  const int n = AX == 1 ? ny : nz;
-  const int l2lo = n < 2 ? 1 : 2, l2hi = n < 2 ? 1 : n - 1;
-  float in1[2], in2[2], un[2];
-  if (AX == 1) {
-    in1[0] = x_phase<XG, F>(P, G, r, 1, i);
-    in2[0] = x_phase<XG, F>(P, G, r, l2lo, i);
-    in1[1] = x_phase<XG, F>(P, G, r, ny, i);
-    in2[1] = x_phase<XG, F>(P, G, r, l2hi, i);
-    un[0] = G.O.f[3][clampi(r, 1, nx) * sx + sy + i];
-    un[1] = G.O.f[3][clampi(r, 1, nx) * sx + ny * sy + i];
+  const int l1 = sd == 0 ? 1 : nz;
+  const int l2 = nz < 2 ? 1 : (sd == 0 ? 2 : nz - 1);
+  const float* fld = field_ptr(G.O, F);
+  const float un =
+      G.O.f[4][clampi(r, 1, nx) * sx + clampi(s, 1, ny) * sy + l1];
+  float a, b;
+  if (s == 0 || s == ny + 1) {
+    a = y_ghost<F>(P, G, r, s == 0 ? 0 : 1, l1);
+    b = y_ghost<F>(P, G, r, s == 0 ? 0 : 1, l2);
+  } else if ((r == 0 && P.edge_lo) || (r == nx + 1 && P.edge_hi)) {
+    a = x_value<F>(P, G, r, s, l1);
+    b = x_value<F>(P, G, r, s, l2);
   } else {
-    in1[0] = y_phase<YG, XG, F>(P, G, r, i, 1);
-    in2[0] = y_phase<YG, XG, F>(P, G, r, i, l2lo);
-    in1[1] = y_phase<YG, XG, F>(P, G, r, i, nz);
-    in2[1] = y_phase<YG, XG, F>(P, G, r, i, l2hi);
-    const long u = clampi(r, 1, nx) * sx + clampi(i, 1, ny) * sy;
-    un[0] = G.O.f[4][u + 1];
-    un[1] = G.O.f[4][u + nz];
+    a = fld[r * sx + s * sy + l1];
+    b = fld[r * sx + s * sy + l2];
   }
-  float g[2];
-#pragma unroll
-  for (int sd = 0; sd < 2; ++sd) {
-    const BCEntry3 b = P.bc[F][AX][sd];
-    g[sd] = bc_ghost(b, in1[sd], in2[sd], P.d[AX], b.value, un[sd], sd);
-  }
-  const long c = AX == 1 ? r * sx + i : r * sx + i * sy;
-  const long st = AX == 1 ? sy : 1;
-  float* fld = field_ptr(G.O, F);
-  fld[c] = g[0];
-  fld[c + (n + 1) * st] = g[1];
+  const BCEntry3 e = bc_at(P, F, 2, sd);
+  return bc_ghost(e, a, b, P.d[2], e.value, un, sd);
 }
 
-// Block (b, f): field f; blocks b in [0, nbx) own the x-lines (s, t),
-// [nbx, nbx + nby) the y-lines (r, t), the rest the z-lines (r, s);
-// consecutive threads take consecutive t (x, y) or s (z), so the x- and
-// y-ghosts are written as rows along z.
+// Thread k of field F's ghost cells: the x-ghosts (sd, s, t), then the
+// y-ghosts (r, sd, t), then the z-ghosts (r, s, sd), the last index
+// fastest.  A partition x end's threads return: the exchange fills it.
 template <int F>
-__device__ __forceinline__ void ghosts_of(const QGD3DParams& P,
-                                          const Ghosts3& G, int nbx,
-                                          int nby) {
+__device__ __forceinline__ void ghost_cell(const QGD3DParams& P,
+                                           const Ghosts3& G, long k) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const long sy = nz + 2, sx = (long)(ny + 2) * sy;
-  int b = blockIdx.x;
-  if (b < nbx) {
-    const long k = (long)b * GT + threadIdx.x;
-    if (k < (long)ny * nz)
-      line_ghosts<0, F>(P, G, (1 + k / nz) * sy + 1 + k % nz, sx, k);
+  const long plane = (long)ny * nz;
+  float* fld = field_ptr(G.O, F);
+  if (k < 2 * plane) {
+    const int sd = k < plane ? 0 : 1;
+    if (!(sd == 0 ? P.edge_lo : P.edge_hi)) return;
+    const long j = k - sd * plane;
+    const int s = 1 + (int)(j / nz), t = 1 + (int)(j % nz);
+    const int r = sd == 0 ? 0 : nx + 1;
+    fld[r * sx + s * sy + t] = x_value<F>(P, G, r, s, t);
     return;
   }
-  b -= nbx;
-  if (b < nby) {
-    const long k = (long)b * GT + threadIdx.x;
-    if (k >= (long)(nx + 2) * nz) return;
-    const int r = (int)(k / nz), t = 1 + (int)(k % nz);
-    if (r >= 1 && r <= nx)
-      line_ghosts<1, F>(P, G, r * sx + t, sy, 0);
-    else if ((r == 0 && P.edge_lo) || (r == nx + 1 && P.edge_hi))
-      edge_line<1, false, true, F>(P, G, r, t);
-    else
-      edge_line<1, false, false, F>(P, G, r, t);
+  k -= 2 * plane;
+  if (k < 2L * (nx + 2) * nz) {
+    const long q = k / nz;
+    const int t = 1 + (int)(k - q * nz), sd = (int)(q & 1), r = (int)(q >> 1);
+    fld[r * sx + (sd == 0 ? 0 : ny + 1) * sy + t] = y_ghost<F>(P, G, r, sd, t);
     return;
   }
-  b -= nby;
-  const long k = (long)b * GT + threadIdx.x;
-  if (k >= (long)(nx + 2) * (ny + 2)) return;
-  const int r = (int)(k / (ny + 2)), s = (int)(k % (ny + 2));
-  const bool xg = (r == 0 && P.edge_lo) || (r == nx + 1 && P.edge_hi);
-  const bool yg = s == 0 || s == ny + 1;
-  if (yg) {
-    if (xg)
-      edge_line<2, true, true, F>(P, G, r, s);
-    else
-      edge_line<2, true, false, F>(P, G, r, s);
-  } else if (xg) {
-    edge_line<2, false, true, F>(P, G, r, s);
-  } else if (r >= 1 && r <= nx) {
-    line_ghosts<2, F>(P, G, r * sx + s * sy, 1, 0);
-  } else {
-    edge_line<2, false, false, F>(P, G, r, s);  // a halo plane
-  }
+  k -= 2L * (nx + 2) * nz;
+  if (k >= 2L * (nx + 2) * (ny + 2)) return;
+  const long q = k >> 1;
+  const int sd = (int)(k & 1), r = (int)(q / (ny + 2));
+  const int s = (int)(q - (long)r * (ny + 2));
+  fld[r * sx + s * sy + (sd == 0 ? 0 : nz + 1)] = z_ghost<F>(P, G, r, s, sd);
 }
 
 __global__ void __launch_bounds__(GT)
-qgd3d_ghosts_kernel(QGD3DParams P, Ghosts3 G, int nbx, int nby) {
+qgd3d_ghosts_kernel(QGD3DParams P, Ghosts3 G) {
+  const long k = (long)blockIdx.x * GT + threadIdx.x;
   switch (blockIdx.y) {
-    case 0: ghosts_of<0>(P, G, nbx, nby); break;
-    case 1: ghosts_of<1>(P, G, nbx, nby); break;
-    case 2: ghosts_of<2>(P, G, nbx, nby); break;
-    case 3: ghosts_of<3>(P, G, nbx, nby); break;
-    default: ghosts_of<4>(P, G, nbx, nby);
+    case 0: ghost_cell<0>(P, G, k); break;
+    case 1: ghost_cell<1>(P, G, k); break;
+    case 2: ghost_cell<2>(P, G, k); break;
+    case 3: ghost_cell<3>(P, G, k); break;
+    default: ghost_cell<4>(P, G, k);
   }
 }
 
@@ -1556,12 +1490,9 @@ int qgd3d_ghosts(const QGD3DParams* prm, const float* planes,
   G.O.f[3] = uy;
   G.O.f[4] = uz;
   const long nx = prm->nx, ny = prm->ny, nz = prm->nz;
-  const long nbx =
-      prm->edge_lo || prm->edge_hi ? (ny * nz + GT - 1) / GT : 0;
-  const long nby = ((nx + 2) * nz + GT - 1) / GT;
-  const long nbz = ((nx + 2) * (ny + 2) + GT - 1) / GT;
-  qgd3d_ghosts_kernel<<<dim3((unsigned)(nbx + nby + nbz), 5), GT, 0, st>>>(
-      *prm, G, (int)nbx, (int)nby);
+  const long cells = 2 * (ny * nz + (nx + 2) * nz + (nx + 2) * (ny + 2));
+  qgd3d_ghosts_kernel<<<dim3((unsigned)((cells + GT - 1) / GT), 5), GT, 0,
+                        st>>>(*prm, G);
   return static_cast<int>(cudaGetLastError());
 }
 

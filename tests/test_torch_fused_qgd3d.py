@@ -645,19 +645,26 @@ def test_ghosts_one_launch_model_equals_ghosts_reference(kind, edges):
 def test_ghosts_refuse_extrapolation_along_one_cell():
     """An extrapolated ghost reads the second interior layer; along an axis
     of one cell with both ends physical that layer is the other end's
-    ghost, which the same call writes, so `qgd3d_ghosts` refuses it (the
-    composable padding has no second layer there either).  A slab of one
-    plane with a partition end reads the halo plane and is taken."""
+    ghost, which `qgd3d_ghosts` writes in the same launch, so the fused 3D
+    step refuses the config (`supported`, checked once when a step is
+    built; the composable padding has no second layer there either).  A
+    slab of one plane with a partition end reads the halo plane and is
+    taken."""
     from test_torch_gpu import one_kind_on_sides, random_frames
 
     for shape, axes in (((4, 1, 5), (1, 2)), ((1, 4, 5), (0, 1, 2))):
         ts, _ = tcases.supersonic_duct_3d(shape=shape, device="cpu")
+        assert F.supported(ts)
         ts = one_kind_on_sides(ts, tbc, "extrap", axes)
-        prm, planes = F.make_params(ts)
-        frames = random_frames(shape, 10)
-        side = torch.zeros((2,) + shape[1:])
-        with pytest.raises(ValueError, match="one cell"):
-            F.qgd3d_ghosts(prm, frames, side, torch.as_tensor(planes))
+        assert not F.supported(ts)
+        with pytest.raises(ValueError, match="not supported"):
+            F.build_fused_step_3d(ts)
+    assert F.supported(one_kind_on_sides(
+        tcases.supersonic_duct_3d(shape=(4, 2, 5), device="cpu")[0], tbc,
+        "extrap", (0, 1, 2)))
+    prm, planes = F.make_params(ts)
+    frames = random_frames(shape, 10)
+    side = torch.zeros((2,) + shape[1:])
     prm.edge_hi = 0
     out = F.qgd3d_ghosts(prm, [f.clone() for f in frames], side,
                          torch.as_tensor(planes))

@@ -111,8 +111,8 @@ def random_frames(shape, seed, device="cpu"):
 
 
 def extrap_on_one_cell(prm):
-    """True where qgd3d_ghosts must refuse the BCs: an extrapolated side on
-    an axis of one cell whose two ends are physical."""
+    """True where the fused 3D step must refuse the BCs: an extrapolated
+    side on an axis of one cell whose two ends are physical."""
     n = (prm.nx, prm.ny, prm.nz)
     both = (prm.edge_lo and prm.edge_hi, True, True)
     return any(prm.bc[f][a][sd].kind == F.KINDS["extrap"] and n[a] < 2
@@ -530,7 +530,7 @@ def test_3d_dt_and_ghosts_on_ragged_shapes(shape, kind, device):
     on all four y and z sides of every field (and on x for the duct), under
     every (edge_lo, edge_hi): dt and the quad within rtol 1e-6 of the plain
     versions, the ghost-filled frames within 1e-6 of each field's max.
-    Extrapolation along an axis of one cell is refused by both."""
+    Extrapolation along an axis of one cell is refused by `supported`."""
     for base, seed in (("supersonic_duct_3d", 1), ("supersonic_jet_3d_varsc",
                                                    2)):
         solver, _ = getattr(cases, base)(shape=shape, device=device)
@@ -556,9 +556,7 @@ def test_3d_dt_and_ghosts_on_ragged_shapes(shape, kind, device):
             assert float(((got - quad).abs() / quad.abs()).max()) <= 1e-6, \
                 (where, got, quad)
             if extrap_on_one_cell(prm):
-                with pytest.raises(ValueError):
-                    F3.qgd3d_ghosts(prm, [f.clone() for f in frames], side,
-                                    planes)
+                assert not F3.supported(solver), where
                 continue
             a = F3.qgd3d_ghosts(prm, [f.clone() for f in frames], side,
                                 planes)
