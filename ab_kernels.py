@@ -1,7 +1,8 @@
-"""Device times of the port's 2D kernels `qgd2d_update`, `qgd2d_emit` and
-`qgd2d_smooth`, and of the 3D `qgd3d_smooth`, `qgd3d_dt`, `qgd3d_dt_fold`
-and `qgd3d_ghosts`, from two or more builds of their source, on the same
-inputs, in one process on one card.
+"""Device times of the port's 2D kernels `qgd2d_update`, `qgd2d_emit`,
+`qgd2d_smooth`, `qgd2d_dt`, `qgd2d_dt_fold` and `qgd2d_ghosts`, and of the
+3D `qgd3d_smooth`, `qgd3d_dt`, `qgd3d_dt_fold` and `qgd3d_ghosts`, from two
+or more builds of their source, on the same inputs, in one process on one
+card.
 
     python3 ab_kernels.py NAME=PATH/qgd2d.cu [NAME=PATH/qgd3d.cu ...]
 
@@ -12,12 +13,18 @@ the build "this".  A `qgd2d.cu` build runs the 2D inputs, a `qgd3d.cu`
 build the 3D ones (a kind with no other build is not run).  The inputs
 are those the port's steps hand the kernels, recorded in a step:
 
-- the 1024x512 jet after 20 plain steps, on K1's path (`qgd2d_update`);
-- the 1024x512 varsc + qgdFlux jet after 20 plain steps, on K2's path;
+- the 1024x512 jet after 20 plain steps, on K1's path (`qgd2d_update`,
+  `qgd2d_dt`, and `qgd2d_ghosts` on the frames the plain update makes
+  from it);
+- the 1024x512 varsc + qgdFlux jet after 20 plain steps, on K2's path
+  (and `qgd2d_dt` on its frames);
 - the 4096x2048 varsc + qgdFlux jet with a density bump (its sensor
   active), after 3 steps of K2's path;
 - block 0 of a 2x2 split of the warm 1024x512 jet, flagged at its
-  partition edges, as K3 updates it (`qgd2d_update`);
+  partition edges, as K3 hands it `qgd2d_update`, `qgd2d_dt_fold` and
+  `qgd2d_ghosts` (on the frames the plain update makes from it);
+- the 4096x2048 jet's frames after the plain update of that K2 step
+  (`qgd2d_ghosts`);
 - the first smoothing ring that K2's emit hands the next step on the
   4096x2048 jet with the bump (`qgd2d_smooth`: one launch of 8 and of 16
   rings, and K2's whole continuation to the fixed point at 8 and at 16
@@ -35,8 +42,12 @@ reverse order (A B B A), timed by the profiler's device time of the port's
 kernels (`chip_smoke.device_ms`), and each build's output is held against
 "this" build's (the update's fields within 1e-5 of their max, as phase 3 of
 `chip_smoke.py`; the emitted rates rel 1e-6, the sensor fields bitwise;
-the smoothed frames and flags, the 3D dt, its quad and the ghost-filled
-frames bitwise).  It prints each build's
+the smoothed frames and flags, the 2D and 3D dt, their quads and the
+ghost-filled frames bitwise).  Before the timed 2D inputs, each other
+2D build's `qgd2d_dt`, `qgd2d_dt_fold` and `qgd2d_ghosts` are held to this
+build's bit for bit on small random frames (`sweep_2d`: both jets, every
+BC kind, all 16 edge-flag sets), where a few faces decide each max and
+min.  It prints each build's
 registers and spills of the kernels it times from ptxas, one line per
 input and kernel, and the card's name and power limit.  It needs a card
 and imports nothing of JAX.
@@ -53,8 +64,11 @@ import torch
 import chip_smoke as cs
 
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ab_kernels"
-# the kernels whose ptxas lines are printed, by source
-PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel"),
+# the kernels whose ptxas lines are printed, by source: a name, or the
+# names one kernel has had (the first a build has is printed)
+PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel",
+                   ("qgd2d_dt_kernel", "qgd2d_dt_partial_kernel"),
+                   ("qgd2d_ghosts_kernel", "qgd2d_ghost_rows_kernel")),
          "qgd3d": ("qgd3d_smooth_kernel", "qgd3d_dt_", "qgd3d_ghost")}
 
 
@@ -85,6 +99,9 @@ def build_other(name: str, src: pathlib.Path):
         return lib, proc.stderr
     _build._bind(lib, "qgd2d_error_string", [c_int], ctypes.c_char_p)
     _build._bind(lib, "qgd2d_dt_partials", [c_int, c_int])
+    _build._bind(lib, "qgd2d_dt", [p2] + [ptr] * 7)
+    _build._bind(lib, "qgd2d_dt_fold", [p2] + [ptr] * 6)
+    _build._bind(lib, "qgd2d_ghosts", [p2] + [ptr] * 7)
     _build._bind(lib, "qgd2d_update", [p2] + [ptr] * 12)
     _build._bind(lib, "qgd2d_emit", [p2] + [ptr] * 11)
     _build._bind(lib, "qgd2d_smooth", [p2, ptr, c_int, c_int, ptr, ptr, ptr])
@@ -96,38 +113,41 @@ def build_other(name: str, src: pathlib.Path):
     return lib, proc.stderr
 
 
-def registers(report: str, kernel: str) -> str:
-    """ptxas's spill and registers lines of `kernel` (its first instance) in
-    a -v report."""
+def registers(report: str, kernel) -> str:
+    """ptxas's spill and registers lines of `kernel` (its first instance;
+    of a tuple of names, the first found) in a -v report."""
     lines = report.splitlines()
-    for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and kernel in ln:
-            got = [nxt.split(":", 1)[-1].strip() for nxt in lines[i + 1:i + 4]
-                   if "registers" in nxt or "spill" in nxt]
-            if got:
-                return "; ".join(got)
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        for i, ln in enumerate(lines):
+            if "Compiling entry" in ln and name in ln:
+                got = [nxt.split(":", 1)[-1].strip()
+                       for nxt in lines[i + 1:i + 4]
+                       if "registers" in nxt or "spill" in nxt]
+                if got:
+                    return f"({name}) " + "; ".join(got)
     return "not reported"
 
 
-# the printed names of the 3D kernels
-NAMES = {"dt3": "dt", "fold3": "dt_fold", "ghosts3": "ghosts"}
-# each build's qgd3d_dt workspaces: a build of another design lays the
-# workspace out otherwise
+# the printed names of the dt and ghost kernels
+NAMES = {"dt3": "dt", "fold3": "dt_fold", "ghosts3": "ghosts",
+         "fold": "dt_fold"}
+# each build's dt workspaces: a build of another design lays the workspace
+# out otherwise
 WORKSPACES = {}
 
 
 def on_library(lib, fn):
     """fn() with the wrappers launching lib's kernels."""
     from qgdsolver_tpu_torch.ops import _build
-    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 
-    saved = _build.load, F3._DT_WORK
+    saved = _build.load, F._DT_WORK
     _build.load = lambda: lib
-    F3._DT_WORK = WORKSPACES.setdefault(id(lib), {})
+    F._DT_WORK = WORKSPACES.setdefault(id(lib), {})
     try:
         return fn()
     finally:
-        _build.load, F3._DT_WORK = saved
+        _build.load, F._DT_WORK = saved
 
 
 def inputs(dev):
@@ -136,29 +156,49 @@ def inputs(dev):
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.parallel import sharding, spmd
 
+    def ghost_args(prm, frames, prof, dt):
+        """qgd2d_ghosts' inputs: the frames and side that the plain update
+        makes from `frames`, and the profile table on the card."""
+        fresh, side = F.update_reference(prm, *frames, None, dt)
+        return (prm, fresh, side, torch.as_tensor(prof, device=dev))
+
     out = []
     small, big = ("x".join(map(str, sh)) for sh in (cs.SHAPE, cs.BIG))
     solver, fs = cs.warm_state("supersonic_jet", cs.SHAPE, F.build_fused_step,
                                dev)
     got = cs.recorded(F.build_fused_step, solver, fs, 1)
     out.append((f"jet {small}, K1", "update", got["update"]))
+    prm, prof = F.make_params(solver)
+    frames = (fs.p, fs.T, fs.ux, fs.uy)
+    out.append((f"jet {small}, K1", "dt", (prm, fs.T, fs.ux, fs.uy, fs.dt)))
+    out.append((f"jet {small}, the plain update's frames", "ghosts",
+                ghost_args(prm, frames, prof, fs.dt)))
     grid = sharding.ProcessGrid(2, 2)
     ctx = sharding.block_context(solver.mesh, grid, 0)
-    prm, _ = F.block_params(solver, ctx)
+    prm, prof = F.block_params(solver, ctx)
     win = spmd.frame_window(ctx)
-    blk = [f[win].contiguous() for f in (fs.p, fs.T, fs.ux, fs.uy)]
-    out.append((f"jet block 0 of 2x2 ({prm.nx}x{prm.ny}), K3", "update",
-                (prm, *blk, None, fs.dt)))
+    blk = [f[win].contiguous() for f in frames]
+    label = f"jet block 0 of 2x2 ({prm.nx}x{prm.ny}), K3"
+    out.append((label, "update", (prm, *blk, None, fs.dt)))
+    out.append((label, "fold", (prm, *blk[1:])))
+    out.append((label + ", the plain update's frames", "ghosts",
+                ghost_args(prm, blk, prof, fs.dt)))
     solver, fs = cs.warm_state("supersonic_jet_varsc", cs.SHAPE,
                                F.build_tiled_fused_step, dev)
     got = cs.recorded(F.build_tiled_fused_step, solver, fs, 1)
     for k in ("update", "emit"):
         out.append((f"varsc jet {small}, K2", k, got[k]))
+    out.append((f"varsc jet {small}", "dt",
+                (got["update"][0], fs.T, fs.ux, fs.uy, fs.dt)))
     solver, state = cases.supersonic_jet_varsc(shape=cs.BIG, device=dev)
     fs = F.build_tiled_fused_step(solver)[1](cs.with_bump(solver, state))
     got = cs.recorded(F.build_tiled_fused_step, solver, fs, 3)
     for k in ("update", "emit"):
         out.append((f"varsc jet {big} with a bump, K2", k, got[k]))
+    fresh, side = F.update_reference(*got["update"])
+    out.append((f"varsc jet {big} with a bump, the plain update's frames",
+                "ghosts", (got["update"][0], fresh, side, torch.as_tensor(
+                    F.make_params(solver)[1], device=dev))))
     prm = got["emit"][0]
     _, _, _, s1, chg = F.qgd2d_emit(*got["emit"])
     cs.check(float(chg) == 1.0, "the bump's sensor must be active")
@@ -215,6 +255,83 @@ def inputs3(dev):
     return out
 
 
+def ghosts(prm, frames, side, profiles):
+    """qgd2d_ghosts on fresh copies of the frames (it fills them in place)."""
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+
+    return F.qgd2d_ghosts(prm, [f.clone() for f in frames], side, profiles)
+
+
+def sweep_2d(builds, dev) -> str:
+    """Each other 2D build's qgd2d_dt, qgd2d_dt_fold and qgd2d_ghosts held
+    to this build's bit for bit on small random frames: the jet and the
+    varsc jet at (nx, ny) in 1, 2, 3 and 40 (extrapolation only where
+    supported() takes it), with their own BCs and with each BC kind on
+    every side, under all 16 edge-flag sets.  On a few cells each face is
+    often the one whose value is the max or the min."""
+    import dataclasses
+    import itertools
+
+    import numpy as np
+
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.core import bc
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+
+    def with_kind(solver, kind):
+        make = {"zg": bc.ZeroGradient, "sym": bc.Symmetry,
+                "extrap": bc.Extrapolated,
+                "fixed": lambda: bc.FixedValue(301.0),
+                "grad": lambda: bc.FixedGradient(-2.5),
+                "io": lambda: bc.InletOutlet(299.0)}[kind]
+        rows = tuple((make(), make()) for _ in range(2))
+        return dataclasses.replace(solver, bc_T=bc.FieldBCs(rows),
+                                   bc_p=bc.FieldBCs(rows))
+
+    rng = np.random.default_rng(7)
+    cases_run = 0
+    for shape in itertools.product((1, 2, 3, 40), repeat=2):
+        for name, kind in itertools.product(
+                ("supersonic_jet", "supersonic_jet_varsc"),
+                ("case", "zg", "sym", "extrap", "fixed", "grad", "io")):
+            solver, _ = getattr(cases, name)(shape=shape, device=dev)
+            if kind != "case":
+                solver = with_kind(solver, kind)
+            if not F.supported(solver):
+                continue
+            prm, prof = F.make_params(solver)
+            prof = torch.as_tensor(prof, device=dev)
+            fs = tuple(n + 2 for n in shape)
+            lims = ((0.9e5, 1.1e5), (250.0, 350.0), (-60.0, 60.0),
+                    (-60.0, 60.0))
+            frames = [torch.as_tensor(rng.uniform(lo, hi, fs)
+                                      .astype(np.float32), device=dev)
+                      for lo, hi in lims]
+            side = torch.as_tensor(rng.uniform(-5.0, 5.0, (2, fs[1]))
+                                   .astype(np.float32), device=dev)
+            dt = torch.tensor(1e-7, dtype=torch.float32, device=dev)
+            for flags in itertools.product((1, 0), repeat=4):
+                (prm.edge_lo, prm.edge_hi, prm.edge_lo_y,
+                 prm.edge_hi_y) = flags
+
+                def run():
+                    return (F.qgd2d_dt(prm, *frames[1:], dt),
+                            F.qgd2d_dt_fold(prm, *frames[1:]),
+                            *ghosts(prm, frames, side, prof))
+
+                ref = run()
+                for bname, (lib, _) in builds.items():
+                    got = on_library(lib, run)
+                    cs.check(all(torch.equal(a, b) for a, b in zip(ref, got)),
+                             f"sweep {shape} {name} {kind} {flags}: build "
+                             f"{bname} differs from this build "
+                             f"(dt {got[0].item()!r} vs {ref[0].item()!r}, "
+                             f"quad {got[1].tolist()} vs {ref[1].tolist()})")
+                cases_run += 1
+    return (f"qgd2d sweep: {cases_run} small random cases, dt, quad and "
+            "ghost-filled frames of every build bitwise this build's")
+
+
 def ghosts3(prm, frames, side, planes):
     """qgd3d_ghosts on fresh copies of the frames (it fills them in place)."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
@@ -246,9 +363,9 @@ def agree(kernel, ref, got) -> None:
             cs.check(cs.rel_err(a[C], b[C]) <= 1e-5,
                      f"qgd2d_update differs by {cs.rel_err(a[C], b[C]):.2e}")
         return
-    if kernel in ("dt3", "fold3"):
-        cs.check(torch.equal(ref, got), f"{kernel}: {ref.tolist()} against "
-                 f"this build's {got.tolist()}")
+    if kernel in ("dt", "fold", "dt3", "fold3"):
+        cs.check(torch.equal(ref, got), f"{kernel}: {got.tolist()} against "
+                 f"this build's {ref.tolist()}")
         return
     if kernel != "emit":
         cs.check(all(torch.equal(a, b) for a, b in zip(ref, got)),
@@ -280,11 +397,13 @@ def main(argv) -> int:
     card = cs.card_line()
     for kind, kernels in PTXAS.items():
         for kern in kernels:
-            print(f"{kern}: " + " | ".join(
+            name = kern if isinstance(kern, str) else kern[0]
+            print(f"{name}: " + " | ".join(
                 f"{n} {registers(rep, kern)}"
                 for n, (_, rep) in builds[kind].items()), flush=True)
     fns = {"update": F.qgd2d_update, "emit": F.qgd2d_emit,
            "smooth": F.qgd2d_smooth, "continuation": continuation,
+           "dt": F.qgd2d_dt, "fold": F.qgd2d_dt_fold, "ghosts": ghosts,
            "smooth3": F3.qgd3d_smooth, "continuation3": continuation3,
            "dt3": F3.qgd3d_dt, "fold3": F3.qgd3d_dt_fold,
            "ghosts3": ghosts3}
@@ -293,6 +412,8 @@ def main(argv) -> int:
     loops = ("continuation", "continuation3")
     runs = []
     if len(builds["qgd2d"]) > 1:
+        others = {n: b for n, b in builds["qgd2d"].items() if n != "this"}
+        print(sweep_2d(others, "cuda"), flush=True)
         runs += [("qgd2d", job) for job in inputs("cuda")]
     if len(builds["qgd3d"]) > 1:
         runs += [("qgd3d", job) for job in inputs3("cuda")]
@@ -300,7 +421,7 @@ def main(argv) -> int:
         these = builds[kind]
         order = list(these) + list(these)[::-1]
         ref = fns[kernel](*args)
-        if kernel in loops or kernel in ("dt3", "fold3"):
+        if kernel in loops or kernel in ("dt", "fold", "dt3", "fold3"):
             ref = ref.clone()
         if kernel in loops:
             ref = (ref,)

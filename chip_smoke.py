@@ -9,9 +9,12 @@ f32), runs the kernel path in lock-step with the plain path, drives the
 library's main path (cases -> make_fused_step -> common.run_steps) for both
 cases of that dimension, and times the kernel, plain and composable paths
 (each kernel's launches per call in the kernels line, and printed by phase
-10 for the 3D kernels); phase 7 also holds
-`qgd3d_dt` and `qgd3d_dt_fold` to a NaN dt where the plain versions give
-one (a NaN T cell), and `qgd3d_smooth` (the 3D step's fvc::smooth rings on the
+10 for the 3D kernels); phases 3 and 7 also hold `qgd2d_dt`,
+`qgd2d_dt_fold`, `qgd3d_dt` and `qgd3d_dt_fold` to a NaN dt where the plain
+versions give one (a NaN T cell) and print each dt kernel's launch shape,
+phase 3 with the launches per call of `qgd2d_dt`, `qgd2d_dt_fold` and
+`qgd2d_ghosts` (one each); phase 7 holds
+`qgd3d_smooth` (the 3D step's fvc::smooth rings on the
 card) bitwise against its plain version on the 3D varsc jet's active raw
 sensor, and each of 10 kernel-path steps' sensor frames against
 fvc_smooth of that step's raw sensor, and phase 10 counts its rings,
@@ -218,13 +221,15 @@ def device_events(fn, n: int, sessions: int = 3) -> list:
 
 def device_ms(fn, n: int, warmup: int = 3, same: bool = True,
               match: str = "") -> float:
-    """Mean device milliseconds of fn() over n calls: the durations of the
-    CUDA kernels it launched whose names hold `match`, from the profiler
-    (host gaps between launches excluded; `device_events`).  same: every call
-    launches the same kernels, and each kernel name is priced at its mean
-    duration times its launches per call, which a lost event does not
-    move; else (a step whose smoothing rings depend on the data) the
-    durations are summed."""
+    """Device milliseconds of fn() per call over n calls: the durations of
+    the CUDA kernels it launched whose names hold `match`, from the
+    profiler (host gaps between launches excluded; `device_events`).
+    same: every call launches the same kernels, and each kernel name is
+    priced at its launches per call times the median of its durations
+    (one launch a call: the port's kernels) or their mean (several, of
+    other sizes: a plain version's elementwise kernels), which a lost
+    event or an outlier does not move; else (a step whose smoothing rings
+    depend on the data) the durations are summed and divided by n."""
     for _ in range(warmup):
         fn()
     by_name = {}
@@ -235,8 +240,12 @@ def device_ms(fn, n: int, warmup: int = 3, same: bool = True,
         raise AssertionError("the profiler saw no device time")
     if not same:
         return sum(sum(v) for v in by_name.values()) / n / 1e3
-    return sum(max(1, round(len(v) / n)) * sum(v) / len(v)
-               for v in by_name.values()) / 1e3
+    total = 0.0
+    for v in by_name.values():
+        per_call = max(1, round(len(v) / n))
+        total += (float(np.median(v)) if per_call == 1
+                  else per_call * sum(v) / len(v))
+    return total / 1e3
 
 
 def launches_per_call(fn, n: int = 5) -> float:
@@ -383,7 +392,13 @@ def phase_kernels(warm, stats):
         err = abs(float(dt_k) - float(dt_ref))
         check(err <= 1e-6 * abs(float(dt_ref)),
               f"{name} qgd2d_dt {float(dt_k)!r} vs {float(dt_ref)!r}")
-        msgs = [f"dt rel {err / float(dt_ref):.2e}"]
+        q_ref = F.dt_fold_reference(prm, *args[:-1])
+        q_k = F.qgd2d_dt_fold(prm, *args[:-1])
+        q_err = entry_err(q_ref, q_k)
+        check(q_err <= 1e-6, f"{name} qgd2d_dt_fold {q_k.tolist()} vs "
+              f"{q_ref.tolist()}")
+        msgs = [f"dt rel {err / float(dt_ref):.2e}, quad rel {q_err:.2e}",
+                nan_dt_check(prm, args)]
         stats["qgd2d_dt"]["err"] = max(stats["qgd2d_dt"]["err"], err)
 
         upd = (fs.p, fs.T, fs.ux, fs.uy, sc, dt_ref)
@@ -440,6 +455,29 @@ def phase_kernels(warm, stats):
                 f"{at[SHAPE]['blocks_per_sm']} blocks/SM, " + ", ".join(
                     f"chunk {v['chunk']} rows ({v['blocks']} blocks) at "
                     f"{sh[0]}x{sh[1]}" for sh, v in at.items()))
+            # the dt launch at this shape and on K3's 2x2 block
+            dts = {sh: F.dt_launch_shape(_build.QGDParams(nx=sh[0],
+                                                          ny=sh[1]),
+                                         fs.p.device)
+                   for sh in (SHAPE, (SHAPE[0] // 2, SHAPE[1] // 2))}
+            d0 = dts[SHAPE]
+            msgs.append(
+                f"qgd2d_dt tile 1 row x {d0['lanes']} lanes a warp (+1 "
+                f"lane loaded), {d0['warps']} warps a block, " + ", ".join(
+                    f"chunk {v['chunk']} rows, {v['blocks']} blocks, "
+                    f"{v['blocks_per_sm']} blocks/SM at {sh[0]}x{sh[1]}"
+                    for sh, v in dts.items()))
+            fresh = [x.clone() for x in ref]
+            per_call = {
+                "qgd2d_dt": launches_per_call(lambda: F.qgd2d_dt(prm, *args)),
+                "qgd2d_dt_fold": launches_per_call(
+                    lambda: F.qgd2d_dt_fold(prm, *args[:-1])),
+                "qgd2d_ghosts": launches_per_call(
+                    lambda: F.qgd2d_ghosts(prm, fresh, side_ref, prof))}
+            check(all(v == 1 for v in per_call.values()),
+                  f"2D launches per call {per_call}, expected 1 each")
+            msgs.append("launches per call " + ", ".join(
+                f"{k} {v:g}" for k, v in per_call.items()))
             # the calls bind this case's inputs (the loop rebinds the names)
             jobs += [("qgd2d_dt", lambda prm=prm, args=args:
                       F.qgd2d_dt(prm, *args),
@@ -528,8 +566,9 @@ def phase_main_path(num, dev, shape, runs, kernels, want, least=()):
 def phase_time(dev, card, jobs, stats):
     """Grid points per second at SHAPE, plain jet: kernel path, plain frame
     path, composable make_step path (CUDA events); then, with the profiler,
-    the device idle share of each path and each kernel's device time
-    against its plain version's."""
+    the device idle share of each path, the kernel path's launches and
+    device time per step by kernel, and each kernel's device time against
+    its plain version's."""
     from qgdsolver_tpu_torch import cases
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 
@@ -553,11 +592,16 @@ def phase_time(dev, card, jobs, stats):
         advances.append((label, steps, advance))
     idle = {label: 1.0 - device_ms(advance, min(steps, 50), same=False)
             / rates[label][1] for label, steps, advance in advances}
+    parts = step_parts(advances[0][2], 20)
+    per_step = launches_per_call(advances[0][2], 20)
     for kname, kern, plain in jobs:
         time_kernel(stats, kname, SHAPE, kern, plain, 50, 20)
     print("phase 6 time, supersonic_jet " + f"{SHAPE}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
+        + f" | kernel path: {per_step:g} launches of the port's kernels a "
+        f"step, device ms per step {sum(parts.values()):.4f} by kernel: "
+        + ", ".join(f"{n} {v:.4f}" for n, v in parts.items())
         + " | device ms/call kernel vs plain (emit on the varsc jet): "
         + ", ".join(f"{k} {stats[k]['by_shape'][SHAPE]['ms']:.4f} vs "
                     f"{stats[k]['by_shape'][SHAPE]['plain_ms']:.4f}"
@@ -664,27 +708,42 @@ def phase_kernels3(warm, stats):
 
 
 def nan_dt_check(prm, dts) -> str:
-    """qgd3d_dt and qgd3d_dt_fold on the frames with one NaN T cell: NaN
-    where the plain versions give NaN (an interior cell, an x-ghost cell
-    that a boundary face reads), finite where they stay finite (an edge
-    ghost no face reads)."""
+    """The dt kernels of either dimension (qgd2d_dt and qgd2d_dt_fold on
+    dts = (T, ux, uy, dt); qgd3d_dt and qgd3d_dt_fold on (T, ux, uy, uz,
+    dt)) on the frames with one NaN T cell: NaN where the plain versions
+    give NaN (an interior cell, an x-ghost cell that a boundary face
+    reads, a y-ghost cell), finite where they stay finite (an edge ghost
+    no face reads)."""
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
 
     T, rest = dts[0], dts[1:]
-    cells = {"interior": (prm.nx // 2, prm.ny // 2, prm.nz // 2),
-             "x-ghost": (0, prm.ny // 2, prm.nz // 3),
-             "edge ghost": (0, 0, prm.nz // 2)}
+    if len(dts) == 4:
+        kern, plain, fold, fold_plain = (F.qgd2d_dt, F.dt_reference,
+                                         F.qgd2d_dt_fold,
+                                         F.dt_fold_reference)
+        cells = {"interior": (prm.nx // 2, prm.ny // 2),
+                 "x-ghost": (0, prm.ny // 3),
+                 "y-ghost": (prm.nx // 2, prm.ny + 1),
+                 "edge ghost": (0, 0)}
+    else:
+        kern, plain, fold, fold_plain = (F3.qgd3d_dt, F3.dt_reference_3d,
+                                         F3.qgd3d_dt_fold,
+                                         F3.dt_fold_reference_3d)
+        cells = {"interior": (prm.nx // 2, prm.ny // 2, prm.nz // 2),
+                 "x-ghost": (0, prm.ny // 2, prm.nz // 3),
+                 "edge ghost": (0, 0, prm.nz // 2)}
     for label, idx in cells.items():
         bad = T.clone()
         bad[idx] = float("nan")
-        ref = F3.dt_reference_3d(prm, bad, *rest)
-        got = F3.qgd3d_dt(prm, bad, *rest)
-        quad_ref = F3.dt_fold_reference_3d(prm, bad, *rest[:-1])
-        quad = F3.qgd3d_dt_fold(prm, bad, *rest[:-1])
+        ref = plain(prm, bad, *rest)
+        got = kern(prm, bad, *rest)
+        quad_ref = fold_plain(prm, bad, *rest[:-1])
+        quad = fold(prm, bad, *rest[:-1])
         check(bool(torch.isnan(ref)) == (label != "edge ghost")
               and bool(torch.isnan(got)) == bool(torch.isnan(ref))
               and torch.equal(torch.isnan(quad), torch.isnan(quad_ref)),
-              f"qgd3d_dt with a NaN T at the {label} cell {idx}: "
+              f"{kern.__name__} with a NaN T at the {label} cell {idx}: "
               f"{float(got)} vs plain {float(ref)}")
     return "a NaN T gives a NaN dt and quad where the plain versions do"
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import bc as bcm
-from .mesh import Mesh
+from .mesh import Mesh, checked_device
 from .registry import create, register, register_missing
 from ..physics import qgdcoeffs, thermo  # noqa: F401 — registers the words
 from ..solvers.common import TimeControls
@@ -60,7 +60,10 @@ def _dtype(word) -> torch.dtype:
     return {"float32": torch.float32, "float64": torch.float64}[str(word)]
 
 
-def build_mesh(cfg: dict, device="cpu") -> Mesh:
+def build_mesh(cfg: dict, device="cuda") -> Mesh:
+    """The mesh of a config on `device` (the card unless the caller asks
+    for the CPU; raises without a card, see `mesh.checked_device`)."""
+    device = checked_device(device)
     dtype = _dtype(cfg.get("dtype", "float32"))
     if "x_faces" in cfg:
         return Mesh(x_faces=tuple(np.asarray(f) for f in cfg["x_faces"]),
@@ -117,9 +120,10 @@ def build_time_controls(cfg: dict) -> TimeControls:
     )
 
 
-def build_solver(cfg: dict, device="cpu"):
+def build_solver(cfg: dict, device="cuda"):
     """Top-level case builder (the solver-main startup equivalent): QGDFoam
-    and rhoQGDFoam's psi-thermo configs."""
+    and rhoQGDFoam's psi-thermo configs, on `device` (the card by default;
+    pass device="cpu" to build on the CPU)."""
     from ..solvers.qgd import QGDFoam
 
     name = cfg["solver"]
@@ -150,8 +154,9 @@ def build_solver(cfg: dict, device="cpu"):
     return QGDFoam(**kw)
 
 
-def load_case(path: str, device="cpu"):
-    """Load a JSON case file and build its solver."""
+def load_case(path: str, device="cuda"):
+    """Load a JSON case file and build its solver on `device` (as
+    `build_solver`)."""
     with open(path) as f:
         return build_solver(json.load(f), device=device)
 

@@ -160,6 +160,7 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd2d_dt", [p2] + [_ptr] * 7)
     _bind(lib, "qgd2d_dt_fold", [p2] + [_ptr] * 6)
     _bind(lib, "qgd2d_dt_apply", [p2] + [_ptr] * 4)
+    _bind(lib, "qgd2d_dt_shape", [_c_int, _c_int, ctypes.POINTER(_c_int)])
     _bind(lib, "qgd2d_update", [p2] + [_ptr] * 12)
     _bind(lib, "qgd2d_update_shape", [_c_int, _c_int,
                                       ctypes.POINTER(_c_int)])

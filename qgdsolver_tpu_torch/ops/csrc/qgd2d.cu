@@ -6,13 +6,15 @@
 // updates any cell.  Blocks on a GPU cannot wait for each other, so the step
 // is three launches on the caller's stream, with dt kept on the device:
 //
-//   qgd2d_dt      two-pass reduction: per-block max wave speed per axis and
-//                 min face tau, then one block applies setDeltaT;
+//   qgd2d_dt      a row march over the frame: per-block max wave speed per
+//                 axis and tau coefficient extremes, then the last block to
+//                 finish folds them and applies setDeltaT (see its section);
 //   qgd2d_update  the face fluxes, each face once, and the explicit update
 //                 into NEW frames p, T, ux, uy (plus ws0/tau_f on the
 //                 x-boundary faces, which the qgdFlux ghost needs);
-//   qgd2d_ghosts  x-ghost rows from the fresh interior, then y-ghost lanes of
-//                 every row (corners included): the sequential-axis padding.
+//   qgd2d_ghosts  x-ghost rows from the fresh interior and y-ghost lanes of
+//                 every row, corners included (the sequential-axis padding),
+//                 each ghost from interior cells (see its section).
 //
 // The x-slab kernel K2 (build_tiled_fused_step, :1609) runs the same physics
 // and also reads, over the fresh fields, the next step's rates and the
@@ -39,9 +41,10 @@
 // qgd2d_dt do not apply, no qgdFlux side row is written and no ghost is
 // built (the halo exchange fills it).  The serial builders set every flag
 // to 1, which is the single-block step.  dt over the ranks is a fold of
-// each block's partials to one (max wave x, max wave y, -min tau) quad, a
-// MAX all-reduce of it, then setDeltaT on the reduced quad (qgd2d_dt_fold,
-// qgd2d_dt_apply): the serial path's dt bit for bit.
+// each block's partials to one (max wave x, max wave y, -min tau) quad (the
+// same launch as qgd2d_dt, qgd2d_dt_fold), a MAX all-reduce of it, then
+// setDeltaT on the reduced quad (qgd2d_dt_apply): the serial path's dt bit
+// for bit.
 //
 // Frames are contiguous (nx+2, ny+2) float32 with y the fast axis, so a warp
 // reads 32 neighbouring lanes of one row.  What bounds the step on the card
@@ -85,7 +88,7 @@ enum { BC_ZG = 0, BC_FIXED = 1, BC_GRAD = 2, BC_SYM = 3, BC_EXTRAP = 4,
 
 constexpr int BX = 32;   // threads along y (lanes)
 constexpr int BY = 8;    // threads along x (rows)
-constexpr int RED = 256; // threads of the final dt reduction
+constexpr int RED = 256; // threads of the final emit reduction
 
 // qgd2d_update's strip and row ring
 constexpr int UT = 64;               // threads of an update block
@@ -286,130 +289,255 @@ __device__ Flux yface(const QGDParams& P, const Cell& C, const Cell& D,
   return f;
 }
 
-// Face tau from the primitive T of its two cells (coefficient ghosts are
-// zero-gradient: the caller passes clamped cells).
-__device__ __forceinline__ float tau_from_T(const QGDParams& P, float TA,
-                                            float TB, float h) {
-  const float gA = P.gammaR * TA, gB = P.gammaR * TB;
-  const float rA = rsqrtf(gA), rB = rsqrtf(gB);
-  return P.varsc ? face_tau(P, gA * rA, gB * rB, h)
-                 : face_tau(P, P.alpha * rA, P.alpha * rB, h);
-}
-
 __device__ __forceinline__ float wave(const QGDParams& P, float uA, float uB,
                                       float TA, float TB) {
   const float gA = P.gammaR * TA, gB = P.gammaR * TB;
   return fabsf(xi(uA, uB)) + xi(gA * rsqrtf(gA), gB * rsqrtf(gB));
 }
 
-// Pass 1: thread (r, s), r in 0..nx, s in 0..ny, owns the x-face r+1/2 at
-// lane s (s >= 1) and the y-face s+1/2 at row r (r >= 1): exactly the live
-// face sets of the reference.  Per-block partials: max wave x, max wave y,
-// min tau_f.  The tau coefficient ghosts are zero-gradient at physical
-// edges; a partition edge's halo cell is used as it is.
-__global__ void __launch_bounds__(BX * BY)
-qgd2d_dt_partial_kernel(QGDParams P, const float* __restrict__ T,
-                        const float* __restrict__ ux,
-                        const float* __restrict__ uy,
-                        float* __restrict__ partials) {
-  __shared__ float smx[BX * BY], smy[BX * BY], stau[BX * BY];
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  const int s = blockIdx.x * BX + threadIdx.x;
-  const int r = blockIdx.y * BY + threadIdx.y;
-  const int nx = P.nx, ny = P.ny, W = ny + 2;
-  float mx = -INFINITY, my = -INFINITY, tmin = INFINITY;
-  if (r <= nx && s <= ny) {
-    if (s >= 1) {
-      const int a = r * W + s, b = a + W;
-      mx = wave(P, ux[a], ux[b], T[a], T[b]);
-      const int ac = (r < 1 && P.edge_lo ? 1 : r) * W + s;
-      const int bc = (r + 1 > nx && P.edge_hi ? nx : r + 1) * W + s;
-      tmin = tau_from_T(P, T[ac], T[bc], P.hfx);
-    }
-    if (r >= 1) {
-      const int a = r * W + s, b = a + 1;
-      my = wave(P, uy[a], uy[b], T[a], T[b]);
-      const int ac = r * W + (s < 1 && P.edge_lo_y ? 1 : s);
-      const int bc = r * W + (s + 1 > ny && P.edge_hi_y ? ny : s + 1);
-      tmin = nan_min(tmin, tau_from_T(P, T[ac], T[bc], P.hfy));
-    }
+// ---------------------------------------------------------------------------
+// qgd2d_dt: the acoustic Courant number and min tau_f, then setDeltaT
+// ---------------------------------------------------------------------------
+//
+// Replaces the Courant and tau pre-pass of the TPU kernel's frame_fn
+// (qgdsolver_tpu/ops/fused_qgd2d.py:736-768): over the live faces of each
+// axis, the max acoustic wave |u_f| + c_f and the min tau_f with
+// zero-gradient coefficient ghosts at physical boundaries, then setDeltaT.
+// It reads three frames once (T, ux, uy) and does ~10 operations a cell,
+// so bytes and latency bound it: a call is one launch.
+//
+// A warp owns 31 consecutive frame lanes of a chunk of 4 rows and loads a
+// 32nd, the next warp's first lane, beside them: every face a warp owns
+// takes both its cells from the warp, so no halo crosses warps and no
+// thread computes a cell alone (1/32 of the loads are repeated).  Each
+// thread loads its lane's T, ux and uy of the chunk's rows and of the row
+// before it, all issued before any face is computed, and computes each
+// cell's g = gammaR*T, r = rsqrt(g), c = RN(g*r) and tau coefficient once;
+// the x-face takes the row before from registers, the y-face the next
+// lane by warp shuffle.  The tau coefficient of a face is folded per axis
+// (max c_f for varScModel5, min (alpha*rsqrt(g))_f otherwise) and divided
+// or scaled once per axis at the end: RN(alpha/x) and RN(x*h) are
+// monotone, so the min over faces of tau_f is the same float.  Each block
+// writes its partial (one float4) and the last block to finish (a ticket
+// in the workspace, which that block sets back to 0) folds them and
+// applies setDeltaT (DT_FULL) or writes the quad (DT_FOLD); unrolling that
+// fold cost the K3 block's call 1 us (PERF.md).  The face formulas write
+// out nvcc's contraction of the face expressions (c_A + c_B as fma(g_A,
+// rsqrt(g_A), c_B), and the constScPr coefficients likewise as fma(alpha,
+// rsqrt(g_A), RN(alpha*rsqrt(g_B)))), and max and min are exact in any
+// order, so the chunk and the fold order do not move a bit.
+
+constexpr int DT_WARPS = 8;             // warps of a dt block
+constexpr int DT_NT = 32 * DT_WARPS;    // threads of a dt block
+constexpr int DT_OWN = 31;              // lanes a warp owns
+constexpr int DT_CX = 4;                // rows a warp takes: chunks of 8
+                                        // took 1.07x the time at 1024x512
+                                        // and 1.15x on K3's 512x256 block
+constexpr int DT_NQ = 4;                // a partial: 2 max waves, 2 tau
+                                        // coefficient extremes
+constexpr int DT_HEAD = 4;              // the workspace's ticket, padded
+
+enum { DT_FULL = 0, DT_FOLD = 1 };
+
+// What a face needs of its cell: the velocity along the face's axis, g =
+// gammaR*T, r = rsqrt(g), c = RN(g*r) and the tau coefficient tc (c, or
+// RN(alpha*r) under constScPrModel1).
+struct DtCell {
+  float u, g, r, c, tc;
+};
+
+__device__ __forceinline__ DtCell dt_cell(const QGDParams& P, float T,
+                                          float u) {
+  DtCell k;
+  k.u = u;
+  k.g = __fmul_rn(P.gammaR, T);
+  k.r = rsqrtf(k.g);
+  k.c = __fmul_rn(k.g, k.r);
+  k.tc = P.varsc ? k.c : __fmul_rn(P.alpha, k.r);
+  return k;
+}
+
+// |u_f| + c_f of the face between A (low) and B (high).
+__device__ __forceinline__ float dt_wave(const DtCell& A, float uB,
+                                         float cB) {
+  return __fadd_rn(fabsf(__fmul_rn(0.5f, __fadd_rn(A.u, uB))),
+                   __fmul_rn(0.5f, __fmaf_rn(A.g, A.r, cB)));
+}
+
+// The tau coefficient of the face between A and B (its two clamped cells):
+// xi(tc_A, tc_B), tc_A's product fused into the sum.
+__device__ __forceinline__ float dt_coef(const QGDParams& P, const DtCell& A,
+                                         float tcB) {
+  return __fmul_rn(0.5f, __fmaf_rn(P.varsc ? A.g : P.alpha, A.r, tcB));
+}
+
+// The fold of one partial entry: waves (a < 2) and varScModel5's c_f take
+// the max, constScPrModel1's coefficient the min.
+__device__ __forceinline__ float dt_fold(float v, float w, int a, bool vs) {
+  return a < 2 || vs ? nan_max(v, w) : nan_min(v, w);
+}
+
+// v over the block (warp shuffles, one slot a warp, one barrier); thread
+// 0 holds the result.
+__device__ __forceinline__ void dt_fold_block(float (&v)[DT_NQ], bool vs,
+                                              float (*slots)[DT_WARPS]) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int a = 0; a < DT_NQ; ++a)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[a] = dt_fold(v[a], __shfl_xor_sync(0xffffffffu, v[a], o), a, vs);
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int a = 0; a < DT_NQ; ++a) slots[a][tid >> 5] = v[a];
   }
-  smx[tid] = mx;
-  smy[tid] = my;
-  stau[tid] = tmin;
   __syncthreads();
-  for (int k = BX * BY / 2; k > 0; k >>= 1) {
-    if (tid < k) {
-      smx[tid] = nan_max(smx[tid], smx[tid + k]);
-      smy[tid] = nan_max(smy[tid], smy[tid + k]);
-      stau[tid] = nan_min(stau[tid], stau[tid + k]);
-    }
-    __syncthreads();
-  }
   if (tid == 0) {
-    const int bid = blockIdx.y * gridDim.x + blockIdx.x;
-    partials[4 * bid + 0] = smx[0];
-    partials[4 * bid + 1] = smy[0];
-    partials[4 * bid + 2] = stau[0];
-    partials[4 * bid + 3] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < DT_NQ; ++a)
+      for (int w = 1; w < DT_WARPS; ++w)
+        v[a] = dt_fold(v[a], slots[a][w], a, vs);
   }
 }
 
-// Pass 2: one block folds the partials and applies setDeltaT (immediate
-// reduction, damped increase, cTau*min(tau_f) and maxDeltaT caps).
-// mode DT_FOLD writes the fold as a quad (max wave x, max wave y, -min tau,
-// 0) to out instead, so that one MAX all-reduce over the ranks folds the
-// blocks; mode DT_APPLY takes one such reduced quad (n = 1) and applies
-// setDeltaT to it.
-enum { DT_FULL = 0, DT_FOLD = 1, DT_APPLY = 2 };
+// setDeltaT (immediate reduction, damped increase, cTau*min(tau_f) and
+// maxDeltaT caps) with explicit roundings: no FMA contraction.
+__device__ __forceinline__ float set_delta_t(const QGDParams& P, float mx,
+                                             float my, float tmin,
+                                             float dtv) {
+  if (!P.adjust_dt) return dtv;
+  const float co = nan_max(__fdiv_rn(__fmul_rn(mx, dtv), P.hfx),
+                           __fdiv_rn(__fmul_rn(my, dtv), P.hfy));
+  const float max_fact = __fdiv_rn(P.max_co, __fadd_rn(co, 1e-30f));
+  const float fact = nan_min(
+      nan_min(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
+  const float max_dt1 = nan_min(P.max_dt, __fmul_rn(P.c_tau, tmin));
+  return nan_min(__fmul_rn(fact, dtv), max_dt1);
+}
 
-__global__ void __launch_bounds__(RED)
-qgd2d_dt_final_kernel(QGDParams P, const float* __restrict__ partials, int n,
-                      int mode, const float* __restrict__ dt_old,
-                      float* __restrict__ out) {
-  __shared__ float smx[RED], smy[RED], stau[RED];
-  const int tid = threadIdx.x;
-  const float tsign = mode == DT_APPLY ? -1.0f : 1.0f;
-  float mx = -INFINITY, my = -INFINITY, tmin = INFINITY;
-  for (int i = tid; i < n; i += RED) {
-    mx = nan_max(mx, partials[4 * i + 0]);
-    my = nan_max(my, partials[4 * i + 1]);
-    tmin = nan_min(tmin, tsign * partials[4 * i + 2]);
+// Warp g = DT_WARPS*blockIdx.x + warp of a block takes strip g % strips and
+// chunk g / strips: the frame lanes s = DT_OWN*strip + lane and the rows
+// q = DT_CX*chunk .. DT_CX*(chunk + 1) - 1 (up to nx+1), after loading the
+// row before them.  Row q's pass computes, for the lanes the warp owns (lane <
+// DT_OWN, s <= ny), the x-face q-1/2 (q >= 1, s >= 1) and, for 1 <= q <=
+// nx, the y-face s+1/2: exactly the live face sets of the reference's
+// pre-pass, each once.  The zero-gradient tau coefficient ghosts make a
+// physical boundary face's coefficient that of its interior cell alone
+// (xi of the cell with itself); the y-face 1/2's is taken by lane 1's
+// thread beside its own face.
+__global__ void __launch_bounds__(DT_NT)
+qgd2d_dt_kernel(QGDParams P, const float* __restrict__ T,
+                const float* __restrict__ ux, const float* __restrict__ uy,
+                int strips, int mode, const float* __restrict__ dt_old,
+                float* __restrict__ work, float* __restrict__ out) {
+  __shared__ float slots[DT_NQ][DT_WARPS];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int nx = P.nx, ny = P.ny, W = ny + 2;
+  const bool vs = P.varsc != 0;
+  const int g = blockIdx.x * DT_WARPS + (threadIdx.x >> 5);
+  const int chunk = g / strips;
+  const int s = (g - chunk * strips) * DT_OWN + lane;
+  const int r0 = chunk * DT_CX;
+  const bool own = lane < DT_OWN && s <= ny;  // owns the y-face s+1/2
+  const bool xo = own && s >= 1;              // and the x-faces at lane s
+
+  // every load first: slot i holds row r0 - 1 + i (the row before the
+  // chunk only gives x-faces: no uy)
+  float Tv[DT_CX + 1], uxv[DT_CX + 1], uyv[DT_CX + 1];
+#pragma unroll
+  for (int i = 0; i <= DT_CX; ++i) {
+    const int q = r0 - 1 + i;
+    const bool in = s <= ny + 1 && q >= 0 && q <= nx + 1;
+    const long a = (long)q * W + s;
+    Tv[i] = in ? T[a] : 1.0f;
+    uxv[i] = in ? ux[a] : 1.0f;
+    uyv[i] = in && i > 0 ? uy[a] : 1.0f;
   }
-  smx[tid] = mx;
-  smy[tid] = my;
-  stau[tid] = tmin;
+
+  const float kid = vs ? -INFINITY : INFINITY;
+  float v[DT_NQ] = {-INFINITY, -INFINITY, kid, kid};
+  DtCell prev = dt_cell(P, Tv[0], uxv[0]);
+#pragma unroll
+  for (int i = 1; i <= DT_CX; ++i) {
+    const int q = r0 - 1 + i;
+    if (q > nx + 1) break;  // uniform in the warp
+    const DtCell o = dt_cell(P, Tv[i], uxv[i]);
+    if (q >= 1 && xo) {
+      // x-face q-1/2; coefficient ghosts zero-gradient at physical x ends
+      v[0] = nan_max(v[0], dt_wave(prev, o.u, o.c));
+      const float k = q == 1 && P.edge_lo        ? dt_coef(P, o, o.tc)
+                      : q == nx + 1 && P.edge_hi ? dt_coef(P, prev, prev.tc)
+                                                 : dt_coef(P, prev, o.tc);
+      v[2] = dt_fold(v[2], k, 2, vs);
+    }
+    if (q >= 1 && q <= nx) {  // uniform in the warp
+      // the y neighbour s+1: the next lane's cell
+      const float nc = __shfl_down_sync(0xffffffffu, o.c, 1);
+      const float ntc = __shfl_down_sync(0xffffffffu, o.tc, 1);
+      const float nu = __shfl_down_sync(0xffffffffu, uyv[i], 1);
+      if (own) {
+        DtCell oy = o;
+        oy.u = uyv[i];
+        v[1] = nan_max(v[1], dt_wave(oy, nu, nc));
+        if (!(s == 0 && P.edge_lo_y)) {
+          const float k = s == ny && P.edge_hi_y ? dt_coef(P, o, o.tc)
+                                                 : dt_coef(P, o, ntc);
+          v[3] = dt_fold(v[3], k, 3, vs);
+        }
+        if (s == 1 && P.edge_lo_y)
+          v[3] = dt_fold(v[3], dt_coef(P, o, o.tc), 3, vs);
+      }
+    }
+    prev = o;
+  }
+
+  dt_fold_block(v, vs, slots);
+  const unsigned nb = gridDim.x;
+  unsigned* ticket = reinterpret_cast<unsigned*>(work);
+  float4* parts = reinterpret_cast<float4*>(work + DT_HEAD);
+  if (threadIdx.x == 0) {
+    parts[blockIdx.x] = make_float4(v[0], v[1], v[2], v[3]);
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == nb - 1;
+  }
   __syncthreads();
-  for (int k = RED / 2; k > 0; k >>= 1) {
-    if (tid < k) {
-      smx[tid] = nan_max(smx[tid], smx[tid + k]);
-      smy[tid] = nan_max(smy[tid], smy[tid + k]);
-      stau[tid] = nan_min(stau[tid], stau[tid + k]);
-    }
-    __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: every block's partial (from L2), then the result
+  v[0] = v[1] = -INFINITY;
+  v[2] = v[3] = kid;
+  for (unsigned i = threadIdx.x; i < nb; i += DT_NT) {
+    const float4 w = __ldcg(parts + i);
+    v[0] = nan_max(v[0], w.x);
+    v[1] = nan_max(v[1], w.y);
+    v[2] = dt_fold(v[2], w.z, 2, vs);
+    v[3] = dt_fold(v[3], w.w, 3, vs);
   }
-  if (tid == 0) {
-    if (mode == DT_FOLD) {
-      out[0] = smx[0];
-      out[1] = smy[0];
-      out[2] = -stau[0];
-      out[3] = 0.0f;
-      return;
-    }
-    const float dtv = dt_old[0];
-    if (!P.adjust_dt) {
-      out[0] = dtv;
-      return;
-    }
-    // explicit roundings: no FMA contraction in the controller
-    const float co = nan_max(__fdiv_rn(__fmul_rn(smx[0], dtv), P.hfx),
-                           __fdiv_rn(__fmul_rn(smy[0], dtv), P.hfy));
-    const float max_fact = __fdiv_rn(P.max_co, __fadd_rn(co, 1e-30f));
-    const float fact = nan_min(
-        nan_min(max_fact, __fadd_rn(1.0f, __fmul_rn(0.1f, max_fact))), 1.2f);
-    const float max_dt1 = nan_min(P.max_dt, __fmul_rn(P.c_tau, stau[0]));
-    out[0] = nan_min(__fmul_rn(fact, dtv), max_dt1);
+  dt_fold_block(v, vs, slots);
+  if (threadIdx.x != 0) return;
+  *ticket = 0u;  // the next launch on this workspace starts from 0
+  const float tmin =
+      vs ? nan_min(__fmul_rn(__fdiv_rn(P.alpha, v[2]), P.hfx),
+                   __fmul_rn(__fdiv_rn(P.alpha, v[3]), P.hfy))
+         : nan_min(__fmul_rn(v[2], P.hfx), __fmul_rn(v[3], P.hfy));
+  if (mode == DT_FOLD) {
+    out[0] = v[0];
+    out[1] = v[1];
+    out[2] = -tmin;
+    out[3] = 0.0f;
+    return;
   }
+  out[0] = set_delta_t(P, v[0], v[1], tmin, dt_old[0]);
+}
+
+// setDeltaT on one reduced quad of qgd2d_dt_fold (max wave x, max wave y,
+// -min tau, 0): one thread.
+__global__ void qgd2d_dt_apply_kernel(QGDParams P,
+                                      const float* __restrict__ quad,
+                                      const float* __restrict__ dt_old,
+                                      float* __restrict__ out) {
+  out[0] = set_delta_t(P, quad[0], quad[1], -quad[2], dt_old[0]);
 }
 
 // The x-march (see the note at the top).  Block (bx, bz) owns the lanes
@@ -579,84 +707,150 @@ qgd2d_update_kernel(QGDParams P, const float* __restrict__ p,
   }
 }
 
+// ---------------------------------------------------------------------------
+// qgd2d_ghosts: every BC ghost of the four fresh frames in one launch
+// ---------------------------------------------------------------------------
+//
+// The semantics are the sequential-axis padding of the reference kernel
+// (qgdsolver_tpu/ops/fused_qgd2d.py:789-856) and of ghosts_reference:
+// x-ghost rows from the fresh interior (qgdFlux p from `side`, array values
+// from the profile table), then y-ghost lanes of every row, so a corner
+// takes the x-ghosts beside it; inletOutlet switches on the nearest
+// interior cell's outward velocity; a partition side is left to the halo
+// exchange (at a partition x-edge the lane ghosts of the halo row are
+// computed from it as it stands, and the row exchange overwrites them).
+// Blocks never wait for each other, so each ghost cell is computed from
+// interior cells alone: a corner is the y-formula of the two x-ghosts at
+// lanes l1 and l2 of its row, which its thread computes itself, and no
+// ghost that the launch writes is read.  A thread owns one ghost cell of
+// one field: consecutive threads take consecutive lanes of an x-ghost row,
+// which is written whole, and the two ends of a row.  An extrapolated
+// ghost reads the second interior layer: along an axis of one cell whose
+// two ends are physical that layer is a ghost this launch writes, and
+// supported() refuses the config.
+
+constexpr int GT = 256;  // threads of a ghost block
+
 __device__ __forceinline__ float bc_ghost(const BCEntry& b, float in1,
                                           float in2, float d, float v,
                                           float un, int sd) {
+  // nvcc's contraction of these formulas written out (a product added to a
+  // loaded operand is one fma), so that a ghost rounds the same whether its
+  // operands were loaded or composed in registers
   switch (b.kind) {
     case BC_SYM:
-      return b.value * in1;
+      return __fmul_rn(b.value, in1);
     case BC_EXTRAP:
-      return 2.0f * in1 - in2;
+      return __fmaf_rn(2.0f, in1, -in2);
     case BC_FIXED:
-      return 2.0f * v - in1;
+      return __fmaf_rn(2.0f, v, -in1);
     case BC_IO: {
       // inletOutlet: zeroGradient where the flow leaves, fixedValue where
       // it enters
       const bool outflow = sd == 0 ? (un < 0.0f) : (un > 0.0f);
-      return outflow ? in1 : 2.0f * v - in1;
+      return outflow ? in1 : __fmaf_rn(2.0f, v, -in1);
     }
     case BC_GRAD:
-      return in1 + v * d;
+      return __fmaf_rn(v, d, in1);
     default:  // BC_ZG
       return in1;
   }
 }
 
-__device__ __forceinline__ float* field_ptr(int f, float* p, float* T,
-                                            float* ux, float* uy) {
-  return f == 0 ? p : f == 1 ? T : f == 2 ? ux : uy;
+struct Ghosts2 {
+  const float* __restrict__ prof;  // (n, prof_len) array BC values
+  const float* __restrict__ side;  // (2, ny+2) ws/tau_f of the x ends
+  float* f[4];                     // p, T, ux, uy
+};
+
+// The frame of field F (a constant: no frame table goes to the stack).
+template <int F>
+__device__ __forceinline__ float* field_of(const Ghosts2& G) {
+  return F == 0 ? G.f[0] : F == 1 ? G.f[1] : F == 2 ? G.f[2] : G.f[3];
 }
 
-// Phase 0: x-ghost rows 0 and nx+1 at lanes 1..ny.  blockIdx.y = 2*field+side.
-// A partition side is skipped: the halo exchange fills it.
-__global__ void qgd2d_ghost_rows_kernel(QGDParams P,
-                                        const float* __restrict__ prof,
-                                        const float* __restrict__ side,
-                                        float* p, float* T, float* ux,
-                                        float* uy) {
-  const int s = 1 + blockIdx.x * blockDim.x + threadIdx.x;
-  const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
-  const int nx = P.nx, ny = P.ny, W = ny + 2;
-  if (s > ny || !(sd == 0 ? P.edge_lo : P.edge_hi)) return;
-  float* fld = field_ptr(f, p, T, ux, uy);
-  const int r1 = sd == 0 ? 1 : nx;
-  const int r2 = sd == 0 ? 2 : nx - 1;
-  const int rg = sd == 0 ? 0 : nx + 1;
-  const BCEntry b = P.bc[f][0][sd];
-  const float in1 = fld[r1 * W + s];
-  float g;
-  if (b.kind == BC_QGDFLUX) {
-    const float q = side[sd * W + s] * P.dx;
-    g = sd == 0 ? in1 + q : in1 - q;
-  } else {
-    const float v = b.prof >= 0 ? prof[b.prof * P.prof_len + s] : b.value;
-    g = bc_ghost(b, in1, fld[r2 * W + s], P.dx, v, ux[r1 * W + s], sd);
-  }
-  fld[rg * W + s] = g;
+// One side's BC entry of field F along axis a: sd is not a constant here,
+// and indexing the params with it would copy them to local memory.
+template <int F>
+__device__ __forceinline__ BCEntry bc_at(const QGDParams& P, int a, int sd) {
+  return sd == 0 ? P.bc[F][a][0] : P.bc[F][a][1];
 }
 
-// Phase 1: y-ghost lanes 0 and ny+1 of every row 0..nx+1 (reads phase 0's
-// ghost rows: the corners).  A partition side is skipped; at a partition
-// x-edge the lanes of the halo row are overwritten by the row exchange,
-// which brings the neighbour's row with its own lane ghosts.
-__global__ void qgd2d_ghost_lanes_kernel(QGDParams P,
-                                         const float* __restrict__ prof,
-                                         float* p, float* T, float* ux,
-                                         float* uy) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int f = blockIdx.y >> 1, sd = blockIdx.y & 1;
+// Field F at frame cell (r, s) after the x phase: on a physical x-edge's
+// ghost row its x-ghost, from the interior rows; else the frame's own value
+// (interior, or a partition's halo row).
+template <int F>
+__device__ __forceinline__ float x_value(const QGDParams& P,
+                                         const Ghosts2& G, int r, int s) {
+  const int nx = P.nx, W = P.ny + 2;
+  const float* fld = field_of<F>(G);
+  const bool lo = r == 0 && P.edge_lo;
+  if (!lo && !(r == nx + 1 && P.edge_hi)) return fld[(long)r * W + s];
+  const int sd = lo ? 0 : 1;
+  const long r1 = lo ? 1 : nx, r2 = lo ? 2 : nx - 1;
+  const BCEntry b = bc_at<F>(P, 0, sd);
+  const float in1 = fld[r1 * W + s], in2 = fld[r2 * W + s];
+  const float un = G.f[2][r1 * W + s];
+  const float pv = G.prof[(b.prof > 0 ? b.prof : 0) * P.prof_len + s];
+  const float q = G.side[sd * W + s];
+  if (b.kind == BC_QGDFLUX)
+    return sd == 0 ? __fmaf_rn(q, P.dx, in1) : __fmaf_rn(-q, P.dx, in1);
+  return bc_ghost(b, in1, in2, P.dx, b.prof >= 0 ? pv : b.value, un, sd);
+}
+
+// Field F's y-ghost on side sd of row r: the y-formula of two values after
+// the x phase.
+template <int F>
+__device__ __forceinline__ float y_ghost(const QGDParams& P,
+                                         const Ghosts2& G, int r, int sd) {
   const int nx = P.nx, ny = P.ny, W = ny + 2;
-  if (r > nx + 1 || !(sd == 0 ? P.edge_lo_y : P.edge_hi_y)) return;
-  float* fld = field_ptr(f, p, T, ux, uy);
-  const int l1 = sd == 0 ? 1 : ny;
-  const int l2 = sd == 0 ? 2 : ny - 1;
-  const int lg = sd == 0 ? 0 : ny + 1;
-  const BCEntry b = P.bc[f][1][sd];
-  const float v = b.prof >= 0 ? prof[b.prof * P.prof_len + r] : b.value;
+  const int l1 = sd == 0 ? 1 : ny, l2 = sd == 0 ? 2 : ny - 1;
+  const float* fld = field_of<F>(G);
   // inletOutlet on the ghost rows switches on the edge interior row
-  const int ru = r < 1 ? 1 : (r > nx ? nx : r);
-  fld[r * W + lg] = bc_ghost(b, fld[r * W + l1], fld[r * W + l2], P.dy, v,
-                             uy[ru * W + l1], sd);
+  const float un = G.f[3][(long)(r < 1 ? 1 : (r > nx ? nx : r)) * W + l1];
+  const BCEntry e = bc_at<F>(P, 1, sd);
+  const float pv = G.prof[(e.prof > 0 ? e.prof : 0) * P.prof_len + r];
+  // on a physical x-ghost row the x phase wrote lanes 1..ny (l2 is a ghost
+  // lane when ny is 1: only an extrapolated ghost reads it)
+  const bool xrow = (r == 0 && P.edge_lo) || (r == nx + 1 && P.edge_hi);
+  const float a = xrow ? x_value<F>(P, G, r, l1) : fld[(long)r * W + l1];
+  const float b = xrow && l2 >= 1 && l2 <= ny ? x_value<F>(P, G, r, l2)
+                                               : fld[(long)r * W + l2];
+  return bc_ghost(e, a, b, P.dy, e.prof >= 0 ? pv : e.value, un, sd);
+}
+
+// Thread k of field F's ghost cells: the x-ghosts (sd, s), then the
+// y-ghosts (r, sd), the last index fastest.  A partition side's threads
+// return: the exchange fills it.
+template <int F>
+__device__ __forceinline__ void ghost_cell(const QGDParams& P,
+                                           const Ghosts2& G, long k) {
+  const int nx = P.nx, ny = P.ny, W = ny + 2;
+  float* fld = field_of<F>(G);
+  if (k < 2L * ny) {
+    const int sd = k < ny ? 0 : 1;
+    if (!(sd == 0 ? P.edge_lo : P.edge_hi)) return;
+    const int s = 1 + (int)(k - (long)sd * ny);
+    const int r = sd == 0 ? 0 : nx + 1;
+    fld[(long)r * W + s] = x_value<F>(P, G, r, s);
+    return;
+  }
+  k -= 2L * ny;
+  if (k >= 2L * (nx + 2)) return;
+  const int r = (int)(k >> 1), sd = (int)(k & 1);
+  if (!(sd == 0 ? P.edge_lo_y : P.edge_hi_y)) return;
+  fld[(long)r * W + (sd == 0 ? 0 : ny + 1)] = y_ghost<F>(P, G, r, sd);
+}
+
+__global__ void __launch_bounds__(GT)
+qgd2d_ghosts_kernel(QGDParams P, Ghosts2 G) {
+  const long k = (long)blockIdx.x * GT + threadIdx.x;
+  switch (blockIdx.y) {
+    case 0: ghost_cell<0>(P, G, k); break;
+    case 1: ghost_cell<1>(P, G, k); break;
+    case 2: ghost_cell<2>(P, G, k); break;
+    default: ghost_cell<3>(P, G, k);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1095,6 +1289,24 @@ __global__ void smooth_ring_check_kernel(float r, unsigned* __restrict__ bad) {
   if ((threadIdx.x & 31) == 0 && count) atomicAdd(bad + blockIdx.y, count);
 }
 
+// qgd2d_dt's grid at (nx, ny): a warp for each strip of DT_OWN lanes and
+// chunk of DT_CX rows, DT_WARPS warps a block; strips receives the strips.
+int dt2_blocks(int nx, int ny, int* strips) {
+  *strips = (ny + 1 + DT_OWN - 1) / DT_OWN;
+  const long warps = (long)*strips * ((nx + 2 + DT_CX - 1) / DT_CX);
+  return static_cast<int>((warps + DT_WARPS - 1) / DT_WARPS);
+}
+
+cudaError_t dt2_launch(const QGDParams& P, const float* T, const float* ux,
+                       const float* uy, int mode, const float* dt_old,
+                       float* work, float* out, cudaStream_t st) {
+  int strips = 0;
+  const int blocks = dt2_blocks(P.nx, P.ny, &strips);
+  qgd2d_dt_kernel<<<blocks, DT_NT, 0, st>>>(P, T, ux, uy, strips, mode,
+                                            dt_old, work, out);
+  return cudaGetLastError();
+}
+
 // The update's chunk of rows at this shape on the current device: the
 // longest of 32, 16, 8, 4 rows whose grid still gives every SM four waves
 // of resident blocks (or 4).
@@ -1123,9 +1335,12 @@ int update_chunk(int nx, int ny, int* blocks_per_sm) {
 
 extern "C" {
 
-// Blocks of the face-owning grid of qgd2d_dt: the length of its partials.
+// The dt workspace's partials: one per block of the launch at (nx, ny).
+// The workspace holds DT_HEAD floats (the ticket, 0 before the first
+// launch) and DT_NQ per partial.
 int qgd2d_dt_partials(int nx, int ny) {
-  return ((ny + 1 + BX - 1) / BX) * ((nx + 1 + BY - 1) / BY);
+  int strips = 0;
+  return dt2_blocks(nx, ny, &strips);
 }
 
 const char* qgd2d_error_string(int code) {
@@ -1133,44 +1348,40 @@ const char* qgd2d_error_string(int code) {
 }
 
 int qgd2d_dt(const QGDParams* prm, const float* T, const float* ux,
-             const float* uy, const float* dt_old, float* partials,
-             float* dt_new, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(BX, BY);
-  const dim3 grid((prm->ny + 1 + BX - 1) / BX, (prm->nx + 1 + BY - 1) / BY);
-  qgd2d_dt_partial_kernel<<<grid, block, 0, st>>>(*prm, T, ux, uy, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  qgd2d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials,
-                                           static_cast<int>(grid.x * grid.y),
-                                           DT_FULL, dt_old, dt_new);
-  return static_cast<int>(cudaGetLastError());
+             const float* uy, const float* dt_old, float* work, float* dt_new,
+             void* stream) {
+  return static_cast<int>(dt2_launch(*prm, T, ux, uy, DT_FULL, dt_old, work,
+                                     dt_new,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
-// This block's dt partials folded to the quad (max wave x, max wave y,
-// -min tau, 0): what a MAX all-reduce over the ranks combines.
+// This block's dt folded to the quad (max wave x, max wave y, -min tau,
+// 0): what a MAX all-reduce over the ranks combines.
 int qgd2d_dt_fold(const QGDParams* prm, const float* T, const float* ux,
-                  const float* uy, float* partials, float* quad,
-                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(BX, BY);
-  const dim3 grid((prm->ny + 1 + BX - 1) / BX, (prm->nx + 1 + BY - 1) / BY);
-  qgd2d_dt_partial_kernel<<<grid, block, 0, st>>>(*prm, T, ux, uy, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  qgd2d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, partials,
-                                           static_cast<int>(grid.x * grid.y),
-                                           DT_FOLD, nullptr, quad);
-  return static_cast<int>(cudaGetLastError());
+                  const float* uy, float* work, float* quad, void* stream) {
+  return static_cast<int>(dt2_launch(*prm, T, ux, uy, DT_FOLD, nullptr, work,
+                                     quad,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 // setDeltaT on a reduced quad of qgd2d_dt_fold.
 int qgd2d_dt_apply(const QGDParams* prm, const float* quad,
                    const float* dt_old, float* dt_new, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  qgd2d_dt_final_kernel<<<1, RED, 0, st>>>(*prm, quad, 1, DT_APPLY, dt_old,
-                                           dt_new);
+  qgd2d_dt_apply_kernel<<<1, 1, 0, st>>>(*prm, quad, dt_old, dt_new);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dt launch's shape at (nx, ny) on the current device: out = {lanes a
+// warp owns, warps a block, chunk rows, blocks, resident blocks per SM}.
+int qgd2d_dt_shape(int nx, int ny, int* out) {
+  int strips = 0;
+  out[0] = DT_OWN;
+  out[1] = DT_WARPS;
+  out[2] = DT_CX;
+  out[3] = dt2_blocks(nx, ny, &strips);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[4], qgd2d_dt_kernel, DT_NT, 0));
 }
 
 int qgd2d_update(const QGDParams* prm, const float* p, const float* T,
@@ -1201,18 +1412,20 @@ int qgd2d_update_shape(int nx, int ny, int* out) {
   return 0;
 }
 
+// Every ghost of the four fresh frames (qgd2d_ghosts_kernel), one launch.
 int qgd2d_ghosts(const QGDParams* prm, const float* prof, const float* side,
                  float* p, float* T, float* ux, float* uy, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const dim3 grid_rows((prm->ny + threads - 1) / threads, 8);
-  qgd2d_ghost_rows_kernel<<<grid_rows, threads, 0, st>>>(*prm, prof, side, p,
-                                                         T, ux, uy);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid_lanes((prm->nx + 2 + threads - 1) / threads, 8);
-  qgd2d_ghost_lanes_kernel<<<grid_lanes, threads, 0, st>>>(*prm, prof, p, T,
-                                                           ux, uy);
+  Ghosts2 G;
+  G.prof = prof;
+  G.side = side;
+  G.f[0] = p;
+  G.f[1] = T;
+  G.f[2] = ux;
+  G.f[3] = uy;
+  const long cells = 2L * prm->ny + 2L * (prm->nx + 2);
+  qgd2d_ghosts_kernel<<<dim3((unsigned)((cells + GT - 1) / GT), 4), GT, 0,
+                        st>>>(*prm, G);
   return static_cast<int>(cudaGetLastError());
 }
 

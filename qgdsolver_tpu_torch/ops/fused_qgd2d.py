@@ -11,9 +11,11 @@ One step of `build_fused_step` (K1):
   1. varScModel5 only: the sensor pre-pass (`VarScModel5.sc_update`, plain
      torch; it is XLA in the reference too);
   2. `qgd2d_dt`: acoustic Courant number and min tau_f over the exact live
-     face sets, then setDeltaT — a one-element tensor on the device;
+     face sets, then setDeltaT — a one-element tensor on the device, one
+     launch;
   3. `qgd2d_update`: the fluxes and the explicit update into new frames;
-  4. `qgd2d_ghosts`: BC ghost rows, then ghost lanes of every row.
+  4. `qgd2d_ghosts`: BC ghost rows and ghost lanes of every row, one
+     launch.
 
 `build_sharded_fused_step` (K3) runs K1's kernels on each rank's block of
 a domain-decomposed run: the frame of a block carries a one-cell halo, and
@@ -145,6 +147,14 @@ def supported(solver) -> bool:
                 if isinstance(b, bcm.QGDFluxP):
                     continue
                 if not isinstance(b, _SIMPLE_BCS):
+                    return False
+                # an extrapolated ghost reads the second interior layer;
+                # along an axis of one cell that is the other side's ghost,
+                # which qgd2d_ghosts writes in the same launch (the
+                # composable padding has no such layer either).  A K3 block
+                # of one row or one lane reads its halo there: its global n
+                # is at least 2.
+                if isinstance(b, bcm.Extrapolated) and mesh.shape[a] < 2:
                     return False
                 raw = _raw_value(b)
                 if raw is not None and not _value_is_static(raw, mesh, a,
@@ -658,38 +668,71 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# The workspace of the one-launch dt kernels (qgd2d_dt and qgd3d_dt, with
+# their _fold forms) on each (device, stream): the ticket that the kernel's
+# last block sets back to 0, then one partial per block.  Launches on one
+# stream run in turn, so they share it; another stream gets its own.
+_DT_WORK = {}
+_DT_HEAD = 4
+
+
+def dt_work(name, blocks, per_block, x):
+    """The dt workspace for a launch of `blocks` blocks of `per_block`
+    floats each on x's device and the current stream: zeros when made, and
+    every launch leaves its ticket 0."""
+    if blocks < 1:
+        raise RuntimeError(f"{name}: no launch shape ({blocks})")
+    key = (x.device, _stream(x))
+    work = _DT_WORK.get(key)
+    if work is None or work.numel() < _DT_HEAD + per_block * blocks:
+        work = torch.zeros(_DT_HEAD + per_block * blocks, dtype=torch.float32,
+                           device=x.device)
+        _DT_WORK[key] = work
+    return work
+
+
+# floats of a qgd2d_dt block's partial: two max waves, two tau coefficient
+# extremes
+_DT_NQ = 4
+
+
 def qgd2d_dt(prm, T, ux, uy, dt):
-    """New dt (0-dim tensor) from the current frames and the previous dt."""
+    """New dt (0-dim tensor) from the current frames and the previous dt.
+    One launch: the blocks' partials and, in the last block, the fold and
+    setDeltaT."""
     on_card = _check(prm, "qgd2d_dt", T, ux, uy)
     _scalar("qgd2d_dt", dt, T)
     if not on_card:
         return dt_reference(prm, T, ux, uy, dt)
     lib = _build.load()
     with torch.cuda.device(T.device):
-        n = lib.qgd2d_dt_partials(prm.nx, prm.ny)
-        partials = torch.empty((n, 4), dtype=T.dtype, device=T.device)
+        work = dt_work("qgd2d_dt", lib.qgd2d_dt_partials(prm.nx, prm.ny),
+                       _DT_NQ, T)
         out = torch.empty((), dtype=T.dtype, device=T.device)
-        stream = torch.cuda.current_stream(T.device).cuda_stream
         code = lib.qgd2d_dt(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(dt),
-                            _ptr(partials), _ptr(out), stream)
+                            _ptr(work), _ptr(out), _stream(T))
     _build.check(lib, code, "qgd2d_dt")
     qgd2d_dt.launches += 1
     return out
 
 
 def qgd2d_dt_fold(prm, T, ux, uy):
-    """This block's dt quad (4,) on T's device - see `dt_fold_reference`."""
+    """This block's dt quad (4,) on T's device - see `dt_fold_reference`.
+    One launch, as `qgd2d_dt`."""
     on_card = _check(prm, "qgd2d_dt_fold", T, ux, uy)
     if not on_card:
         return dt_fold_reference(prm, T, ux, uy)
     lib = _build.load()
     with torch.cuda.device(T.device):
-        n = lib.qgd2d_dt_partials(prm.nx, prm.ny)
-        partials = torch.empty((n, 4), dtype=T.dtype, device=T.device)
+        work = dt_work("qgd2d_dt_fold", lib.qgd2d_dt_partials(prm.nx, prm.ny),
+                       _DT_NQ, T)
         quad = torch.empty(4, dtype=T.dtype, device=T.device)
-        stream = torch.cuda.current_stream(T.device).cuda_stream
         code = lib.qgd2d_dt_fold(prm, _ptr(T), _ptr(ux), _ptr(uy),
-                                 _ptr(partials), _ptr(quad), stream)
+                                 _ptr(work), _ptr(quad), _stream(T))
     _build.check(lib, code, "qgd2d_dt_fold")
     qgd2d_dt_fold.launches += 1
     return quad
@@ -705,9 +748,8 @@ def qgd2d_dt_apply(prm, quad, dt):
     lib = _build.load()
     with torch.cuda.device(quad.device):
         out = torch.empty((), dtype=quad.dtype, device=quad.device)
-        stream = torch.cuda.current_stream(quad.device).cuda_stream
         code = lib.qgd2d_dt_apply(prm, _ptr(quad), _ptr(dt), _ptr(out),
-                                  stream)
+                                  _stream(quad))
     _build.check(lib, code, "qgd2d_dt_apply")
     qgd2d_dt_apply.launches += 1
     return out
@@ -726,10 +768,10 @@ def qgd2d_update(prm, p, T, ux, uy, sc, dt):
     # lanes 0 and ny+1 of side stay unset: no ghost reads them
     side = torch.empty((2, prm.ny + 2), dtype=p.dtype, device=p.device)
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
         code = lib.qgd2d_update(prm, _ptr(p), _ptr(T), _ptr(ux), _ptr(uy),
                                 _ptr(sc if prm.varsc else None), _ptr(dt),
-                                *(_ptr(x) for x in new), _ptr(side), stream)
+                                *(_ptr(x) for x in new), _ptr(side),
+                                _stream(p))
     _build.check(lib, code, "qgd2d_update")
     qgd2d_update.launches += 1
     return new, side
@@ -737,7 +779,8 @@ def qgd2d_update(prm, p, T, ux, uy, sc, dt):
 
 def qgd2d_ghosts(prm, frames, side, profiles):
     """Fill the ghosts of the fresh frames in place — see
-    `ghosts_reference`.  One launch covers both phases (rows, then lanes)."""
+    `ghosts_reference`.  One launch: each ghost cell from interior cells,
+    a corner from the x-ghosts beside it."""
     on_card = _check(prm, "qgd2d_ghosts", *frames)
     if side.shape != (2, prm.ny + 2) or side.device != frames[0].device \
             or side.dtype != torch.float32 or not side.is_contiguous():
@@ -751,9 +794,8 @@ def qgd2d_ghosts(prm, frames, side, profiles):
         return ghosts_reference(prm, frames, side, profiles)
     lib = _build.load()
     with torch.cuda.device(side.device):
-        stream = torch.cuda.current_stream(side.device).cuda_stream
         code = lib.qgd2d_ghosts(prm, _ptr(profiles), _ptr(side),
-                                *(_ptr(x) for x in frames), stream)
+                                *(_ptr(x) for x in frames), _stream(side))
     _build.check(lib, code, "qgd2d_ghosts")
     qgd2d_ghosts.launches += 1
     return frames
@@ -780,11 +822,10 @@ def qgd2d_emit(prm, p, T, ux, uy, sc):
             raw = torch.empty((prm.nx, prm.ny), dtype=p.dtype, device=dev)
             s1 = torch.empty_like(raw)
             chg = torch.empty((), dtype=p.dtype, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.qgd2d_emit(prm, _ptr(p), _ptr(T), _ptr(ux), _ptr(uy),
                               _ptr(sc if prm.varsc else None), _ptr(partials),
                               _ptr(rates), _ptr(raw), _ptr(s1), _ptr(chg),
-                              stream)
+                              _stream(p))
     _build.check(lib, code, "qgd2d_emit")
     qgd2d_emit.launches += 1
     return rates[0], rates[1], raw, s1, chg
@@ -813,9 +854,8 @@ def qgd2d_smooth(prm, f, k, out=None, flag=None):
     base, pitch = ((f.data_ptr(), prm.ny) if bare
                    else (f.data_ptr() + 4 * (prm.ny + 3), prm.ny + 2))
     with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
         code = lib.qgd2d_smooth(prm, base, pitch, k, _ptr(out), _ptr(flag),
-                                stream)
+                                _stream(f))
     _build.check(lib, code, "qgd2d_smooth")
     qgd2d_smooth.launches += 1
     qgd2d_smooth.rings += k
@@ -833,6 +873,19 @@ def update_launch_shape(prm, device) -> dict:
                      "qgd2d_update_shape")
     return dict(zip(("strip", "chunk", "smem_bytes", "blocks_per_sm",
                      "blocks"), out))
+
+
+def dt_launch_shape(prm, device) -> dict:
+    """`qgd2d_dt`'s launch at prm's shape on a card: the frame lanes a warp
+    owns (it loads one more), warps a block, chunk rows, blocks of the grid
+    and resident blocks per SM."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _build.check(lib, lib.qgd2d_dt_shape(prm.nx, prm.ny, out),
+                     "qgd2d_dt_shape")
+    return dict(zip(("lanes", "warps", "chunk", "blocks", "blocks_per_sm"),
+                    out))
 
 
 qgd2d_dt.launches = 0

@@ -60,7 +60,8 @@ from ..parallel import sharding, spmd
 from ..solvers import common
 from . import _build
 from .fused_qgd2d import (KINDS, _bc_ghost, _ptr, _raw_value, _scalar,
-                          _time_controls, _zg, check_tensors, common_gate)
+                          _stream, _time_controls, _zg, check_tensors,
+                          common_gate, dt_work)
 from .fvsc import _hi, _lo
 from .pad import _sl
 from .smoothing import (_edge_frame, _smooth_plain, require_exact_ring,
@@ -537,30 +538,9 @@ def _check(prm, name, *tensors):
     return check_tensors(name, (prm.nx + 2, prm.ny + 2, prm.nz + 2), *tensors)
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-# qgd3d_dt's workspace on each (device, stream): the ticket its last block
-# sets back to 0, then one partial per block.  Launches on one stream run in
-# turn, so they share it; another stream gets its own.
-_DT_WORK = {}
-_DT_HEAD, _DT_NQ = 4, 6
-
-
-def _dt_work(lib, prm, x):
-    """The dt workspace for the launch at prm's shape on x's device and the
-    current stream: zeros when made, and the kernel leaves its ticket 0."""
-    n = lib.qgd3d_dt_partials(prm)
-    if n < 1:
-        raise RuntimeError(f"qgd3d_dt: no launch shape ({n})")
-    key = (x.device, _stream(x))
-    work = _DT_WORK.get(key)
-    if work is None or work.numel() < _DT_HEAD + _DT_NQ * n:
-        work = torch.zeros(_DT_HEAD + _DT_NQ * n, dtype=torch.float32,
-                           device=x.device)
-        _DT_WORK[key] = work
-    return work
+# floats of a qgd3d_dt block's partial: three max waves, three tau
+# coefficient extremes
+_DT_NQ = 6
 
 
 def qgd3d_dt(prm, T, ux, uy, uz, dt):
@@ -573,7 +553,7 @@ def qgd3d_dt(prm, T, ux, uy, uz, dt):
         return dt_reference_3d(prm, T, ux, uy, uz, dt)
     lib = _build.load()
     with torch.cuda.device(T.device):
-        work = _dt_work(lib, prm, T)
+        work = dt_work("qgd3d_dt", lib.qgd3d_dt_partials(prm), _DT_NQ, T)
         out = torch.empty((), dtype=T.dtype, device=T.device)
         code = lib.qgd3d_dt(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
                             _ptr(dt), _ptr(work), _ptr(out), _stream(T))
@@ -590,7 +570,8 @@ def qgd3d_dt_fold(prm, T, ux, uy, uz):
         return dt_fold_reference_3d(prm, T, ux, uy, uz)
     lib = _build.load()
     with torch.cuda.device(T.device):
-        work = _dt_work(lib, prm, T)
+        work = dt_work("qgd3d_dt_fold", lib.qgd3d_dt_partials(prm), _DT_NQ,
+                       T)
         quad = torch.empty(4, dtype=T.dtype, device=T.device)
         code = lib.qgd3d_dt_fold(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
                                  _ptr(work), _ptr(quad), _stream(T))

@@ -201,6 +201,32 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     assert state.rho.device.type == "cpu"
 
 
+@pytest.mark.parametrize("entry", ["build_mesh", "build_solver",
+                                   "load_case"])
+def test_config_entry_points_default_to_the_card(entry, tmp_path,
+                                                 monkeypatch):
+    """`core.config`'s builders run on the card unless asked for the CPU:
+    without a card the default raises (`mesh.checked_device`), and
+    device="cpu" builds there."""
+    cfg = {"solver": "QGDFoam", "mesh": {"shape": [8, 4]},
+           "thermo": {"type": "psiPerfectGas", "R": 287.0, "Cp": 1004.5}}
+    path = tmp_path / "case.json"
+    path.write_text(json.dumps(cfg))
+
+    def build(**kw):
+        if entry == "build_mesh":
+            return config.build_mesh(cfg["mesh"], **kw)
+        if entry == "build_solver":
+            return config.build_solver(cfg, **kw).mesh
+        return config.load_case(str(path), **kw).mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    mesh = build(device="cpu")
+    assert mesh.device.type == "cpu" and mesh.shape == (8, 4)
+
+
 def test_checkpoint_crosses_packages(tmp_path):
     """A checkpoint written by either package restores into the other."""
     js, jst = jfc.build_case(CASE)
@@ -279,7 +305,7 @@ def test_config_builds_solver(tmp_path):
                         "p": {"x_hi": {"type": "qgdFlux"}}}}
     path = tmp_path / "case.json"
     path.write_text(json.dumps(cfg))
-    solver = config.load_case(str(path))
+    solver = config.load_case(str(path), device="cpu")
     assert solver.tau_model.rC == 0.4 and solver.time.max_co == 0.3
     assert solver.bc_U[1, 1].value == [0.0, 0.0]
     assert solver._flux_sides() == ((0, 1),)
@@ -290,8 +316,9 @@ def test_config_builds_solver(tmp_path):
                        ("cosVelocity", "item 7")):
         bad = dict(cfg, boundary={"U": {"x_lo": {"type": word}}})
         with pytest.raises(NotImplementedError, match=item):
-            config.build_solver(bad)
+            config.build_solver(bad, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
-        config.build_solver(dict(cfg, solver="QHDFoam"))
+        config.build_solver(dict(cfg, solver="QHDFoam"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        config.build_solver(dict(cfg, thermo={"type": "janafPerfectGas"}))
+        config.build_solver(dict(cfg, thermo={"type": "janafPerfectGas"}),
+                            device="cpu")

@@ -130,6 +130,36 @@ def test_unsupported_configs():
         F.build_fused_step(dataclasses.replace(ts, bc_p=bc_p))
 
 
+@pytest.mark.parametrize("shape,axis", [((1, 8), 0), ((8, 1), 1)])
+def test_gate_refuses_extrapolation_along_one_cell(shape, axis):
+    """An extrapolated ghost reads the second interior layer; along an axis
+    of one cell with both sides physical that layer is the other side's
+    ghost, which `qgd2d_ghosts` writes in the same launch, so the fused 2D
+    step refuses the config (`supported`, checked once when a step is
+    built; the composable padding has no second layer there either);
+    zeroGradient there is taken.
+    The refusal reads the global mesh, so K3's `sharded_supported` on a 2x1
+    grid of an (8, 4) mesh with extrapolated sides is unchanged."""
+    from qgdsolver_tpu_torch.parallel import sharding
+
+    def on_sides(solver, a, b):
+        return dataclasses.replace(
+            solver, bc_T=solver.bc_T.replace(a, 0, b).replace(a, 1, b))
+
+    ts, _ = tcases.supersonic_jet(shape=shape, device="cpu")
+    zg = on_sides(ts, axis, tbc.ZeroGradient())
+    assert F.supported(zg) and zg.fused_supported()
+    ex = on_sides(ts, axis, tbc.Extrapolated())
+    assert not F.supported(ex) and not ex.fused_supported()
+    with pytest.raises(ValueError, match="not supported"):
+        F.build_fused_step(ex)
+    ts, _ = tcases.supersonic_jet(shape=(8, 4), device="cpu")
+    for a in range(2):
+        ts = on_sides(ts, a, tbc.Extrapolated())
+    assert F.supported(ts)
+    assert F.sharded_supported(ts, sharding.ProcessGrid(2, 1))
+
+
 def test_time_dependent_bc_rejected():
     ts, _ = tcases.supersonic_jet(shape=SHAPE, device="cpu")
 
@@ -263,3 +293,108 @@ def test_nan_T_cell_gives_nan_dt_like_jax(name):
     jstep, jto, jfrom = js.make_fused_step()
     assert np.isnan(float(jfrom(jax.jit(jstep)(jto(jst))).dt))
     assert np.isnan(float(jax.jit(js.make_step())(jst).dt))
+
+
+def _ghosts_one_launch_model(prm, frames, side, profiles):
+    """A model of `qgd2d_ghosts`' one launch: every ghost cell of copies of
+    the frames computed by the kernel's composition from the input's
+    interior cells (and a partition's halo) alone: an x-ghost from the
+    interior rows, a y-ghost from two values after the x phase (on a
+    physical x-ghost row, x-ghosts computed on the spot).  No ghost that
+    the model writes is read."""
+    nx, ny = prm.nx, prm.ny
+    src = [f.clone() for f in frames]
+    out = [f.clone() for f in frames]
+    ux, uy = src[2], src[3]
+    extrap = F.KINDS["extrap"]
+
+    def ghost(e, in1, in2, d, v, un, sd):
+        # in2 is read only by an extrapolated ghost
+        return F._bc_ghost(e, in1, in2() if e.kind == extrap else None, d,
+                           v, un, sd)
+
+    def x_ghost(f, sd, s):
+        e = prm.bc[f][0][sd]
+        r1, r2 = (1, 2) if sd == 0 else (nx, nx - 1)
+        in1 = src[f][r1, s]
+        if e.kind == F.KINDS["qgdflux"]:
+            q = side[sd, s] * prm.dx
+            return in1 + q if sd == 0 else in1 - q
+        v = profiles[e.prof, s] if e.prof >= 0 else e.value
+        return ghost(e, in1, lambda: src[f][r2, s], prm.dx, v, ux[r1, s],
+                     sd)
+
+    def x_value(f, r, s):
+        if r == 0 and prm.edge_lo:
+            return x_ghost(f, 0, s)
+        if r == nx + 1 and prm.edge_hi:
+            return x_ghost(f, 1, s)
+        return src[f][r, s]
+
+    def y_ghost(f, sd, r):
+        e = prm.bc[f][1][sd]
+        l1, l2 = (1, 2) if sd == 0 else (ny, ny - 1)
+        v = profiles[e.prof, r] if e.prof >= 0 else e.value
+        return ghost(e, x_value(f, r, l1), lambda: x_value(f, r, l2), prm.dy,
+                     v, uy[min(max(r, 1), nx), l1], sd)
+
+    for f in range(4):
+        for sd, phys in ((0, prm.edge_lo), (1, prm.edge_hi)):
+            if phys:
+                for s in range(1, ny + 1):
+                    out[f][0 if sd == 0 else nx + 1, s] = x_ghost(f, sd, s)
+        for sd, phys in ((0, prm.edge_lo_y), (1, prm.edge_hi_y)):
+            if phys:
+                for r in range(nx + 2):
+                    out[f][r, 0 if sd == 0 else ny + 1] = y_ghost(f, sd, r)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["jet", "varsc", "every", "zg", "fixed",
+                                  "grad", "sym", "extrap", "io"])
+def test_ghosts_one_launch_model_equals_ghosts_reference(kind):
+    """The one-launch composition of `qgd2d_ghosts` (each ghost from
+    interior cells: `_ghosts_one_launch_model`) equals `ghosts_reference`
+    (x-ghost rows, then y-ghost lanes of every row) bit for bit, for the
+    jet's BCs (the array inlet), the varsc jet's (qgdFlux), every BC kind
+    the kernels take (array values on y sides too) and each BC kind on
+    every side, under all 16 edge-flag sets.  The ghost cells that the
+    launch writes hold NaN in the input, and neither reads them: no NaN
+    comes out."""
+    import itertools
+
+    from test_torch_gpu import one_kind_on_sides, random_frames_2d
+
+    shape = (3, 4)
+    if kind == "every":
+        ts, _ = _every_bc_kind(tcases, tbc, torch.float32, torch.as_tensor,
+                               device="cpu")
+        shape = SHAPE
+    else:
+        base = "supersonic_jet_varsc" if kind == "varsc" else \
+            "supersonic_jet"
+        ts, _ = getattr(tcases, base)(shape=shape, device="cpu")
+        if kind not in ("jet", "varsc"):
+            ts = one_kind_on_sides(ts, tbc, kind, (0, 1))
+    prm, prof = F.make_params(ts)
+    prof = torch.as_tensor(prof)
+    frames = random_frames_2d(shape, 9)
+    rng = np.random.default_rng(9)
+    side = torch.as_tensor(rng.uniform(-5.0, 5.0, (2, shape[1] + 2))
+                           .astype(np.float32))
+    nx = shape[0]
+    for flags in itertools.product((1, 0), repeat=4):
+        (prm.edge_lo, prm.edge_hi, prm.edge_lo_y, prm.edge_hi_y) = flags
+        fr = [f.clone() for f in frames]
+        for f in fr:
+            for r, phys in ((0, flags[0]), (nx + 1, flags[1])):
+                if phys:
+                    f[r, 1:-1] = float("nan")
+            for lane, phys in ((0, flags[2]), (-1, flags[3])):
+                if phys:
+                    f[:, lane] = float("nan")
+        model = _ghosts_one_launch_model(prm, fr, side, prof)
+        ref = F.ghosts_reference(prm, [f.clone() for f in fr], side, prof)
+        for k in range(4):
+            assert not bool(torch.isnan(ref[k]).any()), (flags, F.FIELDS[k])
+            assert torch.equal(model[k], ref[k]), (flags, F.FIELDS[k])

@@ -18,6 +18,7 @@ ranks that share cuda:0 over gloo and must equal the serial kernel path
 bit for bit (the same kernels on the same cells; max/min folds are exact).
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -70,15 +71,18 @@ YZ_KINDS = ("zg", "fixed", "grad", "sym", "extrap", "io")
 
 
 def one_kind_on_sides(solver, bcm, kind, axes=(1, 2), xp=torch.as_tensor):
-    """The solver with BC `kind` on both sides of each axis in `axes`, for
-    every field (values that differ by side, so a ghost shows which side
-    it came from; inletOutlet switches both ways on random velocities)."""
+    """The solver (2D or 3D) with BC `kind` on both sides of each axis in
+    `axes`, for every field (values that differ by side, so a ghost shows
+    which side it came from; inletOutlet switches both ways on random
+    velocities)."""
+    ndim = solver.mesh.ndim
     vals = {"U": ([20.0, -10.0, 5.0], [-5.0, 30.0, -15.0]),
             "p": (1.01e5, 0.99e5), "T": (310.0, 290.0)}
     grads = {"U": ([1.0, -2.0, 3.0], [-3.0, 2.0, 1.0]), "p": (50.0, -30.0),
              "T": (2.0, -1.5)}
 
     def wrap(x):
+        x = x[:ndim] if isinstance(x, list) else x
         return xp(np.asarray(x, np.float32)) if np.ndim(x) else float(x)
 
     def make(field, sd):
@@ -93,7 +97,7 @@ def one_kind_on_sides(solver, bcm, kind, axes=(1, 2), xp=torch.as_tensor):
     def sides(old, field):
         return bcm.FieldBCs(tuple(
             (make(field, 0), make(field, 1)) if a in axes
-            else (old[a, 0], old[a, 1]) for a in range(3)))
+            else (old[a, 0], old[a, 1]) for a in range(ndim)))
 
     return dataclasses.replace(solver, bc_U=sides(solver.bc_U, "U"),
                                bc_p=sides(solver.bc_p, "p"),
@@ -108,6 +112,12 @@ def random_frames(shape, seed, device="cpu"):
     lims = ((0.9e5, 1.1e5), (250.0, 350.0)) + ((-60.0, 60.0),) * 3
     return [torch.as_tensor(rng.uniform(lo, hi, fs).astype(np.float32),
                             device=device) for lo, hi in lims]
+
+
+def random_frames_2d(shape, seed, device="cpu"):
+    """`random_frames`' p, T, ux and uy on a 2D (nx, ny) mesh."""
+    return [f[..., 1].contiguous()
+            for f in random_frames(tuple(shape) + (1,), seed, device)[:4]]
 
 
 def extrap_on_one_cell(prm):
@@ -201,6 +211,82 @@ def test_main_path_launches_each_kernel_once_per_step(name, want, device):
     got = [k.launches for k in F.KERNELS]
     assert got[:4] == want[:4] and got[4] >= want[4], got
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
+
+
+@pytest.mark.parametrize("kind", ("case",) + YZ_KINDS)
+@pytest.mark.parametrize("shape", [(nx, ny) for nx in (2, 3, 17, 33, 130)
+                                   for ny in (2, 3, 17, 33, 130)])
+def test_2d_dt_and_ghosts_on_ragged_shapes(shape, kind, device):
+    """qgd2d_dt, qgd2d_dt_fold and qgd2d_ghosts where nx and ny are 2, 3,
+    17, 33 or 130 (none a multiple of the dt kernel's 31-lane strip or its
+    chunk of rows), on random frames, for the jet (constScPrModel1) and
+    the varsc jet (varScModel5 and qgdFlux), each with its own BCs or with
+    one BC kind on every side of every field (the varsc jet's y sides),
+    under all 16 edge-flag sets (edge_lo, edge_hi, edge_lo_y, edge_hi_y):
+    dt and each quad entry within rtol 1e-6 of the plain versions, the
+    ghost-filled frames within 1e-6 of each field's max, as phase 3 of
+    chip_smoke.py holds them."""
+    for base, seed in (("supersonic_jet", 1), ("supersonic_jet_varsc", 2)):
+        solver, _ = getattr(cases, base)(shape=shape, device=device)
+        if kind != "case":
+            axes = (0, 1) if base == "supersonic_jet" else (1,)
+            solver = one_kind_on_sides(solver, bc, kind, axes)
+        assert F.supported(solver)
+        prm, prof = F.make_params(solver)
+        prof = solver.mesh.tensor(prof).contiguous()
+        frames = random_frames_2d(shape, seed, device)
+        rng = np.random.default_rng(seed)
+        side = torch.as_tensor(rng.uniform(-5.0, 5.0, (2, shape[1] + 2))
+                               .astype(np.float32), device=device)
+        dt = torch.tensor(1e-7, dtype=torch.float32, device=device)
+        for flags in itertools.product((1, 0), repeat=4):
+            (prm.edge_lo, prm.edge_hi, prm.edge_lo_y,
+             prm.edge_hi_y) = flags
+            where = (base, kind, flags)
+            torch.testing.assert_close(
+                F.qgd2d_dt(prm, *frames[1:], dt),
+                F.dt_reference(prm, *frames[1:], dt), rtol=1e-6, atol=0.0,
+                msg=lambda m: f"{where}: {m}")
+            quad = F.dt_fold_reference(prm, *frames[1:])
+            got = F.qgd2d_dt_fold(prm, *frames[1:])
+            assert float(((got - quad).abs() / quad.abs().clamp(min=1e-30))
+                         .max()) <= 1e-6, (where, got, quad)
+            a = F.qgd2d_ghosts(prm, [f.clone() for f in frames], side, prof)
+            b = F.ghosts_reference(prm, [f.clone() for f in frames], side,
+                                   prof)
+            for k in range(4):
+                assert _rel(b[k], a[k]) <= 1e-6, (where, F.FIELDS[k])
+
+
+def test_2d_dt_calls_back_to_back_are_each_their_own(device):
+    """Three qgd2d_dt and qgd2d_dt_fold calls on different frames, launched
+    back to back (and three more on a second stream beside them), each
+    bitwise the same call made alone: the kernel's ticket starts each call
+    from 0 and no two streams share a workspace."""
+    shape = (130, 97)
+    solver, _ = cases.supersonic_jet_varsc(shape=shape, device=device)
+    prm, _ = F.make_params(solver)
+    frames = [random_frames_2d(shape, seed, device) for seed in (3, 4, 5)]
+    dt = torch.tensor(1e-7, dtype=torch.float32, device=device)
+    other = torch.cuda.Stream(device)
+    other.wait_stream(torch.cuda.current_stream(device))
+    together = []
+    for fr in frames:
+        together.append((F.qgd2d_dt(prm, *fr[1:], dt),
+                         F.qgd2d_dt_fold(prm, *fr[1:])))
+    with torch.cuda.stream(other):
+        beside = [(F.qgd2d_dt(prm, *fr[1:], dt),
+                   F.qgd2d_dt_fold(prm, *fr[1:])) for fr in frames[::-1]]
+    torch.cuda.synchronize()
+    beside = beside[::-1]
+    for fr, got, got2 in zip(frames, together, beside):
+        alone = F.qgd2d_dt(prm, *fr[1:], dt)
+        torch.cuda.synchronize()
+        quad = F.qgd2d_dt_fold(prm, *fr[1:])
+        torch.cuda.synchronize()
+        for g in (got, got2):
+            assert torch.equal(g[0], alone) and torch.equal(g[1], quad)
+    assert len({tuple(g[1].tolist()) for g in together}) == 3
 
 
 def _warm_tiled(name, device, shape=SHAPE):
