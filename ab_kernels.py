@@ -1,6 +1,7 @@
 """Device times of the port's 2D kernels `qgd2d_update`, `qgd2d_emit`,
 `qgd2d_smooth`, `qgd2d_dt`, `qgd2d_dt_fold` and `qgd2d_ghosts`, and of the
-3D `qgd3d_smooth`, `qgd3d_dt`, `qgd3d_dt_fold` and `qgd3d_ghosts`, from two
+3D `qgd3d_emit` (or a build's `qgd3d_sensor` and ring 1), `qgd3d_sensor`,
+`qgd3d_smooth`, `qgd3d_dt`, `qgd3d_dt_fold` and `qgd3d_ghosts`, from two
 or more builds of their source, on the same inputs, in one process on one
 card.
 
@@ -29,9 +30,13 @@ are those the port's steps hand the kernels, recorded in a step:
   4096x2048 jet with the bump (`qgd2d_smooth`: one launch of 8 and of 16
   rings, and K2's whole continuation to the fixed point at 8 and at 16
   rings a launch, `smoothing.smooth_sensor`);
-- the raw sensor of the 256x126x126 varsc jet after 20 plain steps, with a
-  density bump (`qgd3d_smooth`: one launch of 1 and of 4 rings, and the 3D
-  step's loop from the raw sensor to the fixed point);
+- the fresh frames of a step of the 256x126x126 varsc jet after 20 plain
+  steps (`qgd3d_emit`: the raw sensor, ring 1 and its flag in one launch,
+  against a build without it, whose step ran `qgd3d_sensor` and a launch
+  of `qgd3d_smooth` of ring 1; and `qgd3d_sensor`, the raw sensor alone);
+- the first ring that the 3D step emits on that jet with a density bump
+  (`qgd3d_smooth`: one launch of 1 and of 4 rings, and the step's
+  continuation from it to the fixed point, 4 rings a launch);
 - the 256x126x126 duct and varsc jet after 20 plain steps (`qgd3d_dt`;
   `qgd3d_ghosts` on the frames the plain update makes from them), and
   slab 0 of the duct's x-ring of 2, flagged at its partition plane, as K5
@@ -42,8 +47,9 @@ reverse order (A B B A), timed by the profiler's device time of the port's
 kernels (`chip_smoke.device_ms`), and each build's output is held against
 "this" build's (the update's fields within 1e-5 of their max, as phase 3 of
 `chip_smoke.py`; the emitted rates rel 1e-6, the sensor fields bitwise;
-the smoothed frames and flags, the 2D and 3D dt, their quads and the
-ghost-filled frames bitwise).  Before the timed 2D inputs, each other
+the 3D raw sensor and its ring 1 rel 1e-6, and the flag equal, since a
+build may round the sensor otherwise; the smoothed frames and flags, the
+2D and 3D dt, their quads and the ghost-filled frames bitwise).  Before the timed 2D inputs, each other
 2D build's `qgd2d_dt`, `qgd2d_dt_fold` and `qgd2d_ghosts` are held to this
 build's bit for bit on small random frames (`sweep_2d`: both jets, every
 BC kind, all 16 edge-flag sets), where a few faces decide each max and
@@ -69,7 +75,8 @@ OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ab_kernels"
 PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel",
                    ("qgd2d_dt_kernel", "qgd2d_dt_partial_kernel"),
                    ("qgd2d_ghosts_kernel", "qgd2d_ghost_rows_kernel")),
-         "qgd3d": ("qgd3d_smooth_kernel", "qgd3d_dt_", "qgd3d_ghost")}
+         "qgd3d": (("qgd3d_emit_kernel", "qgd3d_sensor_kernel"),
+                   "qgd3d_smooth_kernel", "qgd3d_dt_", "qgd3d_ghost")}
 
 
 def build_other(name: str, src: pathlib.Path):
@@ -96,6 +103,9 @@ def build_other(name: str, src: pathlib.Path):
         _build._bind(lib, "qgd3d_dt", [p3] + [ptr] * 8)
         _build._bind(lib, "qgd3d_dt_fold", [p3] + [ptr] * 7)
         _build._bind(lib, "qgd3d_ghosts", [p3] + [ptr] * 8)
+        _build._bind(lib, "qgd3d_sensor", [p3] + [ptr] * 5)
+        if hasattr(lib, "qgd3d_emit"):
+            _build._bind(lib, "qgd3d_emit", [p3] + [ptr] * 7)
         return lib, proc.stderr
     _build._bind(lib, "qgd2d_error_string", [c_int], ctypes.c_char_p)
     _build._bind(lib, "qgd2d_dt_partials", [c_int, c_int])
@@ -130,6 +140,7 @@ def registers(report: str, kernel) -> str:
 
 # the printed names of the dt and ghost kernels
 NAMES = {"dt3": "dt", "fold3": "dt_fold", "ghosts3": "ghosts",
+         "sensor_ring1": "emit (or sensor + ring 1)",
          "fold": "dt_fold"}
 # each build's dt workspaces: a build of another design lays the workspace
 # out otherwise
@@ -219,24 +230,30 @@ def inputs3(dev):
     shape = "x".join(map(str, cs.SHAPE3))
     solver, fs = cs.warm_state(cs.CASES3[1], cs.SHAPE3, F3.build_fused_step_3d,
                                dev)
-    _, to_f, from_f = F3.build_fused_step_3d(solver)
-    raw = to_f(cs.with_bump(solver, from_f(fs))).sc_raw
     prm, _ = F3.make_params(solver)
-    out = [(f"the varsc jet {shape}'s raw sensor with a bump, {k} rings",
-            "smooth3", (prm, raw, k)) for k in (1, F3.SMOOTH3_RINGS)]
-    out.append(("the 3D step's loop from that raw sensor, ring 1, then "
-                f"{F3.SMOOTH3_RINGS} rings a launch", "continuation3",
-                (prm, raw)))
+    step, to_f, from_f = F3.build_fused_step_3d(solver)
+    sc = step(fs).sc
+    fresh, _ = F3.update_reference_3d(prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz,
+                                      sc, fs.dt)
+    out = [(f"the varsc jet {shape}, a step's fresh frames", kind,
+            (prm, fresh[0], fresh[1], sc))
+           for kind in ("sensor_ring1", "sensor3")]
+    bumped = step(to_f(cs.with_bump(solver, from_f(fs))))
+    cs.check(float(bumped.sc_chg) == 1.0, "the bump's sensor must be active")
+    out += [(f"the first ring the varsc jet {shape} with a bump emits, {k} "
+             "rings", "smooth3", (prm, bumped.sc_s1, k))
+            for k in (1, F3.SMOOTH3_RINGS)]
+    out.append(("the 3D step's continuation from that ring, "
+                f"{F3.SMOOTH3_RINGS} rings a launch, the flag read every "
+                f"{F3.SMOOTH3_PER_READ} launches", "continuation3",
+                (prm, bumped.sc_s1, bumped.sc_chg)))
     for name in cs.CASES3:
         solver, fs = cs.warm_state(name, cs.SHAPE3, F3.build_fused_step_3d,
                                    dev)
         prm, planes = F3.make_params(solver)
         planes = solver.mesh.tensor(planes).contiguous()
         frames = (fs.p, fs.T, fs.ux, fs.uy, fs.uz)
-        sc = None
-        if prm.varsc:
-            sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
-                                              solver.tau_model.smoothCoeff))
+        sc = cs.step_sensor(prm, fs) if prm.varsc else None
         out.append((f"{name} {shape}", "dt3", (prm,) + frames[1:] + (fs.dt,)))
         fresh, side = F3.update_reference_3d(prm, *frames, sc, fs.dt)
         out.append((f"{name} {shape}, the plain update's frames", "ghosts3",
@@ -347,12 +364,25 @@ def continuation(prm, s1, chg, k):
     return S.smooth_sensor(prm, s1, chg, F.qgd2d_smooth, k)
 
 
-def continuation3(prm, raw):
-    """The 3D step's smoothing loop from the raw sensor."""
+def continuation3(prm, s1, chg):
+    """The 3D step's smoothing loop from the emitted first ring."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.ops import smoothing as S
 
-    return S.smooth_sensor(prm, raw, None, F3.qgd3d_smooth, F3.SMOOTH3_RINGS)
+    return S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, F3.SMOOTH3_RINGS,
+                           per_read=F3.SMOOTH3_PER_READ)
+
+
+def sensor_ring1(prm, p, T, sc):
+    """(ring 1 frame, flag) of the fresh frames: `qgd3d_emit`'s one launch,
+    or, in a build without it, `qgd3d_sensor` and a `qgd3d_smooth` launch
+    of one ring, as that build's step ran them."""
+    from qgdsolver_tpu_torch.ops import _build
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    if hasattr(_build.load(), "qgd3d_emit"):
+        return F3.qgd3d_emit(prm, p, T, sc)[1:]
+    return F3.qgd3d_smooth(prm, F3.qgd3d_sensor(prm, p, T, sc), 1)
 
 
 def agree(kernel, ref, got) -> None:
@@ -366,6 +396,12 @@ def agree(kernel, ref, got) -> None:
     if kernel in ("dt", "fold", "dt3", "fold3"):
         cs.check(torch.equal(ref, got), f"{kernel}: {got.tolist()} against "
                  f"this build's {ref.tolist()}")
+        return
+    if kernel in ("sensor3", "sensor_ring1"):
+        ref, got = (ref, got) if kernel == "sensor_ring1" else ((ref,), (got,))
+        cs.check(cs.rel_err(ref[0], got[0]) <= 1e-6
+                 and all(float(a) == float(b) for a, b in zip(ref[1:], got[1:])),
+                 f"{kernel} differs by {cs.rel_err(ref[0], got[0]):.2e}")
         return
     if kernel != "emit":
         cs.check(all(torch.equal(a, b) for a, b in zip(ref, got)),
@@ -405,6 +441,7 @@ def main(argv) -> int:
            "smooth": F.qgd2d_smooth, "continuation": continuation,
            "dt": F.qgd2d_dt, "fold": F.qgd2d_dt_fold, "ghosts": ghosts,
            "smooth3": F3.qgd3d_smooth, "continuation3": continuation3,
+           "sensor_ring1": sensor_ring1, "sensor3": F3.qgd3d_sensor,
            "dt3": F3.qgd3d_dt, "fold3": F3.qgd3d_dt_fold,
            "ghosts3": ghosts3}
     # the smoothing loops return one frame; their launches depend on the
@@ -421,8 +458,11 @@ def main(argv) -> int:
         these = builds[kind]
         order = list(these) + list(these)[::-1]
         ref = fns[kernel](*args)
-        if kernel in loops or kernel in ("dt", "fold", "dt3", "fold3"):
+        if kernel in loops or kernel in ("dt", "fold", "dt3", "fold3",
+                                         "sensor3"):
             ref = ref.clone()
+        if kernel == "sensor_ring1":
+            ref = tuple(x.clone() for x in ref)
         if kernel in loops:
             ref = (ref,)
         for name, (lib, _) in these.items():
@@ -439,7 +479,9 @@ def main(argv) -> int:
             lambda: fns[kernel](*args), 20, match="qgd",
             same=kernel not in loops))) for name in order]
         name = NAMES.get(kernel, kernel.rstrip("3"))
-        held = " (bitwise)" if kernel not in ("update", "emit") else ""
+        held = (" (bitwise)" if kernel not in ("update", "emit", "sensor3",
+                                               "sensor_ring1")
+                else " (rel 1e-6)" if kernel.startswith("sensor") else "")
         print(f"{kind}_{name}, {label}: held against this build{held}; "
               "device ms per call "
               + " | ".join(f"{n} {ms:.4f}" for n, ms in times)

@@ -13,12 +13,16 @@ cases of that dimension, and times the kernel, plain and composable paths
 `qgd2d_dt_fold`, `qgd3d_dt` and `qgd3d_dt_fold` to a NaN dt where the plain
 versions give one (a NaN T cell) and print each dt kernel's launch shape,
 phase 3 with the launches per call of `qgd2d_dt`, `qgd2d_dt_fold` and
-`qgd2d_ghosts` (one each); phase 7 holds
-`qgd3d_smooth` (the 3D step's fvc::smooth rings on the
-card) bitwise against its plain version on the 3D varsc jet's active raw
-sensor, and each of 10 kernel-path steps' sensor frames against
-fvc_smooth of that step's raw sensor, and phase 10 counts its rings,
-launches and host flag reads per step and times it.
+`qgd2d_ghosts` (one each); phase 7 holds `qgd3d_emit` (the raw sensor,
+its first fvc::smooth ring and the ring's flag in one launch) and its
+raw-only mode `qgd3d_sensor` against their plain versions, and
+`qgd3d_smooth` (the rest of the 3D step's rings on the card) bitwise
+against its plain version on the ring the varsc jet with a density bump
+emits, and each of 10 kernel-path steps' sensor frames against
+fvc_smooth of the raw sensor the step before emitted; phase 9 drives the
+varsc jet at rest (no `qgd3d_smooth` launch, one host flag read a step)
+and with the bump (the rings active) through the main path, and phase 10
+times both, with their rings, launches and host flag reads per step.
 Then the 4096x2048 varScModel5 + qgdFlux jet (phases 11-14): `qgd2d_emit`
 against its plain version, K2's path in lock-step with its plain path and
 with K1's, the case CLI (`python -m qgdsolver_tpu_torch <case>`) on an
@@ -71,8 +75,11 @@ KERNELS = {
     "qgd2d_smooth": (CSRC + "qgd2d.cu",
                      "qgdsolver_tpu/physics/qgdcoeffs.py:254"),
     **{k: (CSRC + "qgd3d.cu", "qgdsolver_tpu/ops/fused_qgd3d.py:349")
-       for k in ("qgd3d_dt", "qgd3d_update", "qgd3d_sensor",
-                 "qgd3d_ghosts")},
+       for k in ("qgd3d_dt", "qgd3d_update", "qgd3d_ghosts")},
+    # the raw sensor K4 emits in-kernel (and, for qgd3d_emit, the first ring
+    # of the XLA fvc_smooth between K4's calls, :841)
+    **{k: (CSRC + "qgd3d.cu", "qgdsolver_tpu/ops/fused_qgd3d.py:537")
+       for k in ("qgd3d_emit", "qgd3d_sensor")},
     # replaces XLA, not Pallas: the fvc_smooth between K4's calls
     "qgd3d_smooth": (CSRC + "qgd3d.cu",
                      "qgdsolver_tpu/ops/fused_qgd3d.py:841"),
@@ -105,8 +112,10 @@ def work_bytes(name, shape, varsc=False) -> int:
         io = {"qgd3d_dt": 4 * frame, "qgd3d_dt_fold": 4 * frame,
               "qgd3d_update": (5 + varsc) * frame + 5 * cells,
               "qgd3d_sensor": 3 * frame + cells,
+              # p, T, sc in, the ring-1 frame out
+              "qgd3d_emit": 4 * frame,
               "qgd3d_ghosts": 5 * 3 * ghosts,
-              # per launch from the raw sensor: its cells in, a frame out
+              # per launch: the cells of a frame in, a frame out
               "qgd3d_smooth": cells + frame}
     return 4 * io[name]
 
@@ -296,10 +305,12 @@ def recorded(build, solver, fs, steps):
     return got
 
 
-def step_parts(advance, n: int) -> dict:
+def step_parts(advance, n: int, warm: bool = True) -> dict:
     """Device ms per call of `advance` (a step) by what ran: each of the
-    port's kernels by name, PyTorch's own kernels, and copies and fills."""
-    advance()
+    port's kernels by name, PyTorch's own kernels, and copies and fills.
+    warm: one call runs first."""
+    if warm:
+        advance()
     parts = {}
     for name, us in device_events(advance, n):
         found = re.search(r"(qgd\dd_\w+?)_kernel", name)
@@ -307,6 +318,30 @@ def step_parts(advance, n: int) -> dict:
                if name.startswith(("Memcpy", "Memset")) else "torch ops")
         parts[key] = parts.get(key, 0.0) + us / n / 1e3
     return dict(sorted(parts.items(), key=lambda kv: -kv[1]))
+
+
+def window(step, start, n: int) -> dict:
+    """Steps 1..n of `step` from the carry `start`, whose work changes from
+    step to step (a sensor whose rings die out): wall ms per step (CUDA
+    events), device ms per step by kernel (the profiler; `device_events`
+    runs n calls twice a session, and each n calls here start again from
+    `start`), the device idle share and the 3D smoothing's rings, launches
+    and host flag reads per step."""
+    box, calls = [start], [0]
+
+    def advance():
+        if calls[0] % n == 0:
+            box[0] = start
+        calls[0] += 1
+        box[0] = step(box[0])
+
+    was = smooth3_counts()
+    ms = cuda_ms(advance, n, warmup=0)
+    counts = [(a - b) / n for a, b in zip(smooth3_counts(), was)]
+    calls[0] = 0
+    parts = step_parts(advance, n, warm=False)
+    return {"ms": ms, "parts": parts, "counts": counts,
+            "idle": 1.0 - sum(parts.values()) / ms}
 
 
 def rel_err(a, b) -> float:
@@ -531,19 +566,24 @@ def check_physical(name, solver, s) -> str:
 
 def phase_main_path(num, dev, shape, runs, kernels, want, least=()):
     """cases -> make_fused_step -> common.run_steps, as a user calls it, for
-    each (case, steps) of `runs`.  The launch counts of `kernels` are set to
-    0 just before and read just after; each must equal want[name] (the
-    steps of the runs whose builder launches it, plus one per to_fused for
-    qgd2d_emit), or for the kernels named in `least` be at least that
-    (qgd2d_smooth: once per step and per to_fused, more on an active
-    sensor; qgd3d_smooth: once per varsc step or more)."""
+    each (case, steps) of `runs` (or (case, steps, prep): the run starts
+    from prep(solver, state), e.g. `with_bump`).  The launch counts of
+    `kernels` are set to 0 just before and read just after; each must
+    equal want[name] (the steps of the runs whose builder launches it,
+    plus one per to_fused for qgd2d_emit), or for the kernels named in
+    `least` be at least that (qgd2d_smooth: once per step and per
+    to_fused, more on an active sensor; qgd3d_smooth: once or more on the
+    3D varsc jet with a bump)."""
     from qgdsolver_tpu_torch import cases
     from qgdsolver_tpu_torch.solvers import common
 
     built = []
-    for name, n in runs:
+    for name, n, *prep in runs:
         solver, state = getattr(cases, name)(shape=shape, device=dev)
         check(solver.fused_supported(), f"{name} not fused-supported")
+        for fn in prep:
+            state = fn(solver, state)
+            name += f" ({fn.__name__})"
         built.append((name, n, solver, state) + solver.make_fused_step())
     for k in kernels:
         k.launches = 0
@@ -608,10 +648,53 @@ def phase_time(dev, card, jobs, stats):
                     for k, _, _ in jobs) + f" | card: {card}", flush=True)
 
 
+def step_sensor(prm, fs):
+    """The sensor frame the next 3D varsc step uses: fvc_smooth of the raw
+    sensor, from the carried first ring and flag, in plain torch."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import smoothing as S
+
+    return S.smooth_sensor(prm, fs.sc_s1, fs.sc_chg, S._smooth_plain,
+                           F3.SMOOTH3_RINGS)
+
+
+def emit3_checks(prm, p, T, sc, stats) -> str:
+    """qgd3d_emit on fresh frames against its plain version: the raw sensor
+    within rel 1e-6 of sensor_reference_3d, ring 1 and the flag bitwise the
+    plain ring of the kernel's own raw sensor, the same ring and flag when
+    the raw sensor is not asked for, and qgd3d_sensor (the raw-only mode)
+    bitwise the emit's raw sensor."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    raw, s1, chg = F3.qgd3d_emit(prm, p, T, sc, raw=True)
+    _, s1b, chgb = F3.qgd3d_emit(prm, p, T, sc)
+    only = F3.qgd3d_sensor(prm, p, T, sc)
+    ref = F3.sensor_reference_3d(prm, p, T, sc)
+    cells, flag = F3.smooth_reference_3d(prm, raw, 1)
+    torch.cuda.synchronize()
+    r = rel_err(ref, raw)
+    check(r <= 1e-6, f"qgd3d_emit raw sensor rel {r:.2e}")
+    check(torch.equal(s1, F3._edge_frame(cells))
+          and float(chg) == float(flag), "qgd3d_emit's ring 1 and flag are "
+          "not bitwise the plain ring of its raw sensor")
+    check(torch.equal(s1b, s1) and float(chgb) == float(chg),
+          "qgd3d_emit without the raw sensor gives another ring 1 or flag")
+    check(torch.equal(only, raw),
+          "qgd3d_sensor's raw sensor is not qgd3d_emit's")
+    err = float((ref - raw).abs().max())
+    for k in ("qgd3d_emit", "qgd3d_sensor"):
+        stats[k]["err"] = max(stats[k]["err"], err)
+    return (f"emit raw sensor rel {r:.2e}, ring 1 and flag "
+            f"({float(chg):.0f}) bitwise the plain ring of its raw sensor, "
+            "qgd3d_sensor bitwise the emit's raw sensor")
+
+
 def phase_kernels3(warm, stats):
     """Each 3D kernel against its plain version on the same inputs.
     Returns (name, kernel call, plain call) at each case's inputs, for
-    timing (the sensor's at the varsc jet's, the others' at the duct's)."""
+    timing (the sensor's and the emit's at the varsc jet's, qgd3d_smooth's
+    on the ring it emits with a density bump, the others' at the
+    duct's)."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
 
     C = (slice(1, -1),) * 3
@@ -630,10 +713,7 @@ def phase_kernels3(warm, stats):
         solver, fs = warm[name]
         prm, planes = F3.make_params(solver)
         planes = solver.mesh.tensor(planes).contiguous()
-        sc = None
-        if prm.varsc:
-            sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
-                                              solver.tau_model.smoothCoeff))
+        sc = step_sensor(prm, fs) if prm.varsc else None
         dts = (fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
         dt_ref = F3.dt_reference_3d(prm, *dts)
         dt_k = F3.qgd3d_dt(prm, *dts)
@@ -661,16 +741,18 @@ def phase_kernels3(warm, stats):
         msgs.append(f"update rel {worst:.2e}")
 
         if prm.varsc:
-            s_ref = F3.sensor_reference_3d(prm, ref[0], ref[1], sc)
-            s_k = F3.qgd3d_sensor(prm, ref[0], ref[1], sc)
-            torch.cuda.synchronize()
-            r = rel_err(s_ref, s_k)
-            check(r <= 1e-6, f"{name} qgd3d_sensor rel {r:.2e}")
-            stats["qgd3d_sensor"]["err"] = float((s_ref - s_k).abs().max())
-            msgs.append(f"sensor rel {r:.2e}")
+            em = (prm, ref[0], ref[1], sc)
+            msgs.append(emit3_checks(*em, stats))
+            jobs["qgd3d_emit"] = (lambda em=em: F3.qgd3d_emit(*em),
+                                  lambda em=em: F3.emit_reference_3d(*em))
             jobs["qgd3d_sensor"] = (
-                lambda: F3.qgd3d_sensor(prm, ref[0], ref[1], sc),
-                lambda: F3.sensor_reference_3d(prm, ref[0], ref[1], sc))
+                lambda em=em: F3.qgd3d_sensor(*em),
+                lambda em=em: F3.sensor_reference_3d(*em))
+            at = F3.emit_launch_shape(prm, ref[0].device)
+            msgs.append(f"qgd3d_emit tile {at['tile'][0]}x{at['tile'][1]} "
+                        f"(y x z), chunk {at['chunk']} x-planes, "
+                        f"{at['blocks']} blocks, {at['blocks_per_sm']} "
+                        "blocks/SM")
 
         fa = [x.clone() for x in ref]
         fb = [x.clone() for x in ref]
@@ -703,8 +785,8 @@ def phase_kernels3(warm, stats):
               + ", ".join(msgs) + f" | {launch}", flush=True)
     jobs["qgd3d_smooth"] = smooth3_checks(*warm[CASES3[1]], stats)
     return [(k,) + jobs[k] for k in ("qgd3d_dt", "qgd3d_update",
-                                     "qgd3d_sensor", "qgd3d_ghosts",
-                                     "qgd3d_smooth")]
+                                     "qgd3d_emit", "qgd3d_sensor",
+                                     "qgd3d_ghosts", "qgd3d_smooth")]
 
 
 def nan_dt_check(prm, dts) -> str:
@@ -759,77 +841,89 @@ def smooth3_counts():
 
 
 def smooth3_checks(solver, fs, stats):
-    """Phase 7's check of qgd3d_smooth on the varsc jet's raw sensor (with a
-    density bump when the warm sensor is at its fixed point after one ring,
-    so that the rings are active): one launch of k rings, k = 1, 4 and the
-    step's, bitwise smooth_reference_3d (cells, ghosts, edges, corners and
-    the last-ring flag); the step's loop from the raw sensor bitwise
-    fvc_smooth edge-framed; then 10 steps of the kernel path, each step's
-    sensor frame bitwise `_edge_frame(fvc_smooth(...))` of the raw sensor
-    that step carried.  Returns (kernel call, plain call) of the step's
-    first launch (ring 1 alone) on that raw sensor, for timing, and
-    keeps a call of one launch of SMOOTH3_RINGS rings in
-    stats["qgd3d_smooth"]["rings_call"]."""
+    """Phase 7's check of qgd3d_smooth on the first ring that the varsc
+    jet's kernel step emits from its state with a density bump (so that
+    the rings go on past ring 1): one launch of k rings, k = 1..KMAX,
+    bitwise smooth_reference_3d (cells, ghosts, edges, corners and the
+    last-ring flag); the step's continuation from that ring bitwise
+    fvc_smooth of the raw sensor it came from, edge-framed; then 10 steps
+    of the kernel path, each step's sensor frame bitwise
+    `_edge_frame(fvc_smooth(...))` of the raw sensor that the step before
+    emitted.  Returns (kernel call, plain call) of one launch of
+    SMOOTH3_RINGS rings on that ring, the step's continuation launch, for
+    timing, and keeps a call of one ring in stats["qgd3d_smooth"]
+    ["ring_call"]."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.ops import smoothing as S
 
     coeff = solver.tau_model.smoothCoeff
     prm, _ = F3.make_params(solver)
     k_step, to_f, from_f = F3.build_fused_step_3d(solver)
-    bumped = float(F3.smooth_reference_3d(prm, fs.sc_raw, 2)[1]) == 0.0
-    if bumped:
-        fs = to_f(with_bump(solver, from_f(fs)))
-    raw = fs.sc_raw
-    check(float(F3.smooth_reference_3d(prm, raw, 2)[1]) == 1.0,
-          "the 3D raw sensor must be active after its first ring")
-    ks = sorted({1, 4, F3.SMOOTH3_RINGS})
+    fs = k_step(to_f(with_bump(solver, from_f(fs))))
+    raw, s1, chg = F3.qgd3d_emit(prm, fs.p, fs.T, fs.sc, raw=True)
+    check(torch.equal(s1, fs.sc_s1) and float(chg) == float(fs.sc_chg) == 1.0,
+          "the bumped 3D sensor must be active past its first ring")
+    C = (slice(1, -1),) * 3
+    ks = list(range(1, F3.SMOOTH3_KMAX + 1))
     for k in ks:
-        out, flag = F3.qgd3d_smooth(prm, raw, k)
-        cells, ref_flag = F3.smooth_reference_3d(prm, raw, k)
+        out, flag = F3.qgd3d_smooth(prm, s1, k)
+        cells, ref_flag = F3.smooth_reference_3d(prm, s1[C], k)
         check(torch.equal(out, F3._edge_frame(cells))
               and float(flag) == float(ref_flag),
               f"qgd3d_smooth, {k} rings, is not bitwise its plain version")
     was = smooth3_counts()
-    got = S.smooth_sensor(prm, raw, None, F3.qgd3d_smooth, F3.SMOOTH3_RINGS)
+    got = S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, F3.SMOOTH3_RINGS)
     rings = smooth3_counts()[0] - was[0]
-    check(torch.equal(got, F3._edge_frame(F3.fvc_smooth(raw, coeff))),
-          "the 3D smoothing loop on qgd3d_smooth is not bitwise fvc_smooth")
-    stats["qgd3d_smooth"]["err"] = float((got - F3._edge_frame(
-        F3.fvc_smooth(raw, coeff))).abs().max())
+    want = F3._edge_frame(F3.fvc_smooth(raw, coeff))
+    check(torch.equal(got, want), "the 3D continuation on qgd3d_smooth is "
+          "not bitwise fvc_smooth of the raw sensor")
+    stats["qgd3d_smooth"]["err"] = float((got - want).abs().max())
     was = smooth3_counts()
     for i in range(10):
+        raw_i = F3.qgd3d_emit(prm, fs.p, fs.T, fs.sc, raw=True)[0]
         new = k_step(fs)
-        check(torch.equal(new.sc, F3._edge_frame(
-            F3.fvc_smooth(fs.sc_raw, coeff))), f"kernel-path step {i}: the "
-              "sensor frame is not fvc_smooth of the step's raw sensor")
+        check(torch.equal(new.sc, F3._edge_frame(F3.fvc_smooth(raw_i, coeff))),
+              f"kernel-path step {i}: the sensor frame is not fvc_smooth of "
+              "the raw sensor the step before emitted")
         fs = new
     per = [(a - b) / 10 for a, b in zip(smooth3_counts(), was)]
     k = F3.SMOOTH3_RINGS
     at = F3.smooth_launch_shape(prm, k, raw.device)
-    print(f"phase 7 qgd3d_smooth vs plain, {CASES3[1]} {SHAPE3}"
-          + (" with a density bump" if bumped else "") + ": ok, "
-          f"k = {', '.join(map(str, ks))} bitwise (cells, ghosts, flag); "
-          f"the loop from the raw sensor ({rings} rings) bitwise fvc_smooth; "
-          f"10 kernel-path steps, each step's sensor frame bitwise "
-          f"fvc_smooth of its raw sensor ({per[0]:.2f} rings in "
-          f"{per[1]:.2f} launches, {per[2]:.2f} host flag reads per step) | "
-          f"qgd3d_smooth tile {at['tile'][0]}x{at['tile'][1]} (y x z), "
-          f"chunk {at['chunk']} x-planes, dynamic shared memory "
-          f"{at['smem_bytes']} B/block, {at['blocks_per_sm']} blocks/SM",
-          flush=True)
+    print(f"phase 7 qgd3d_smooth vs plain, {CASES3[1]} {SHAPE3} with a "
+          f"density bump, on the emitted ring 1: ok, k = "
+          f"{', '.join(map(str, ks))} bitwise (cells, ghosts, flag); the "
+          f"continuation ({rings} rings) bitwise fvc_smooth of the raw "
+          f"sensor; 10 kernel-path steps, each step's sensor frame bitwise "
+          f"fvc_smooth of the raw sensor emitted the step before "
+          f"({per[0]:.2f} rings in {per[1]:.2f} launches, {per[2]:.2f} host "
+          f"flag reads per step) | qgd3d_smooth tile {at['tile'][0]}x"
+          f"{at['tile'][1]} (y x z), chunk {at['chunk']} x-planes, dynamic "
+          f"shared memory {at['smem_bytes']} B/block, {at['blocks_per_sm']} "
+          "blocks/SM", flush=True)
     out = torch.empty_like(fs.p)
     flag = torch.empty((), dtype=raw.dtype, device=raw.device)
-    stats["qgd3d_smooth"]["rings_call"] = (
-        lambda: F3.qgd3d_smooth(prm, raw, k, out, flag))
-    return (lambda: F3.qgd3d_smooth(prm, raw, 1, out, flag),
-            lambda: S._smooth_plain(prm, raw, 1, out, flag))
+    stats["qgd3d_smooth"]["ring_call"] = (
+        lambda: F3.qgd3d_smooth(prm, s1, 1, out, flag))
+    return (lambda: F3.qgd3d_smooth(prm, s1, k, out, flag),
+            lambda: S._smooth_plain(prm, s1, k, out, flag))
+
+
+def step_bound(kernels, varsc):
+    """(ms, by) of a 3D step that launches each kernel of `kernels` (name:
+    launches per step) at SHAPE3: the sum of their bounds by bytes."""
+    return (sum(n * bound(work_bytes(k, SHAPE3, varsc=varsc), 0)[0]
+                for k, n in kernels.items()), "bytes")
 
 
 def phase_time3(dev, card, jobs, stats):
     """Grid points per second at SHAPE3: the duct's kernel, plain frame and
-    composable paths and the varsc jet's kernel path (CUDA events); then,
-    with the profiler, each path's device idle share and each 3D kernel's
-    device time against its plain version's."""
+    composable paths and the varsc jet's kernel path at rest (CUDA events);
+    the varsc jet over 20 steps from one kernel step after a density bump
+    (`window`), with its flag read every 1, 2 and 4 launches of
+    `qgd3d_smooth`; then, with the profiler, each path's device idle share,
+    the varsc jet's device time per step by kernel beside the step's bound,
+    its launches a step at rest (4: dt, update, emit, ghosts), and each 3D
+    kernel's device time against its plain version's."""
     from qgdsolver_tpu_torch import cases
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
 
@@ -844,7 +938,7 @@ def phase_time3(dev, card, jobs, stats):
     paths.append(("composable", 3, solver.make_step(), state))
     vstep, vto, _ = vsolver.make_fused_step()
     paths.append(("varsc kernel", 20, vstep, vto(vstate)))
-    rates, advances = {}, []
+    rates, advances, per_step = {}, [], {}
     for label, steps, step, s0 in paths:
         box = [s0]
 
@@ -853,45 +947,76 @@ def phase_time3(dev, card, jobs, stats):
 
         was = smooth3_counts()
         ms = cuda_ms(advance, steps, warmup=2)
-        if label == "varsc kernel":
-            per_step = [(a - b) / (steps + 2)
-                        for a, b in zip(smooth3_counts(), was)]
+        per_step[label] = [(a - b) / (steps + 2)
+                           for a, b in zip(smooth3_counts(), was)]
         rates[label] = (pts / (ms * 1e-3), ms)
         advances.append((label, steps, advance))
     idle = {label: 1.0 - device_ms(advance, min(steps, 20), warmup=1,
                                    same=False)
             / rates[label][1] for label, steps, advance in advances}
-    parts = step_parts(advances[-1][2], 10)
-    check("qgd3d_smooth" in parts, "the profiler saw no qgd3d_smooth in the "
-          f"varsc jet's steps: {sorted(parts)}")
+    rest = advances[-1][2]
+    per_call = launches_per_call(rest, 10)
+    check(per_call == 4, f"the 3D varsc step at rest ran {per_call:g} "
+          "launches of the port's kernels a step, expected 4")
+    parts_rest = step_parts(rest, 10)
+    check("qgd3d_smooth" not in parts_rest and per_step["varsc kernel"][1]
+          == 0, "qgd3d_smooth ran in the varsc jet's steps at rest")
+    bumped0 = vstep(vto(with_bump(vsolver, vstate)))
+    every = F3.SMOOTH3_PER_READ
+    bumped = {}
+    for n in (1, 2, 4):
+        F3.SMOOTH3_PER_READ = n
+        bumped[n] = window(vstep, bumped0, 20)
+    F3.SMOOTH3_PER_READ = every
+    ref = bumped[every]
+    check("qgd3d_smooth" in ref["parts"], "the profiler saw no qgd3d_smooth "
+          f"in the bumped varsc jet's steps: {sorted(ref['parts'])}")
+    base = {"qgd3d_dt": 1, "qgd3d_update": 1, "qgd3d_emit": 1,
+            "qgd3d_ghosts": 1}
+    bound_rest = step_bound(base, True)
     for kname, kern, plain in jobs:
         time_kernel(stats, kname, SHAPE3, kern, plain, 20, 3, warmup=2)
+    ring_ms = device_ms(stats["qgd3d_smooth"].pop("ring_call"), 20,
+                        warmup=2, match="qgd")
     sm = stats["qgd3d_smooth"]["by_shape"][SHAPE3]
     sm_bound = bound(work_bytes("qgd3d_smooth", SHAPE3), sm["ops"])
-    rings_ms = device_ms(stats["qgd3d_smooth"].pop("rings_call"), 20,
-                         warmup=2, match="qgd")
     stats["qgd3d_smooth"]["extra"] = {
-        "rings_first_launch": 1,
-        "rings_per_launch": F3.SMOOTH3_RINGS, "rings_per_step": per_step[0],
-        "launches_per_step": per_step[1], "reads_per_step": per_step[2],
-        "ms_per_step": parts["qgd3d_smooth"],
-        f"ms_{F3.SMOOTH3_RINGS}_rings": rings_ms}
+        "rings_per_launch": F3.SMOOTH3_RINGS,
+        "launches_per_read": every,
+        "rings_per_step_bumped": ref["counts"][0],
+        "launches_per_step_bumped": ref["counts"][1],
+        "reads_per_step_bumped": ref["counts"][2],
+        "launches_per_step_at_rest": per_step["varsc kernel"][1],
+        "ms_per_step_bumped": ref["parts"]["qgd3d_smooth"],
+        "ms_1_ring": ring_ms}
     print(f"phase 10 time 3D {SHAPE3}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
         f"{idle[k]:.3f})" for k, (r, ms) in rates.items())
-        + f" | timed varsc jet steps: {per_step[0]:.2f} qgd3d_smooth "
-        f"rings/step in {per_step[1]:.2f} launches, {per_step[2]:.2f} host "
-        f"flag reads/step; device ms per varsc step by kernel: " + ", ".join(
-            f"{n} {v:.4f}" for n, v in parts.items())
+        + f" | varsc jet at rest: {per_step['varsc kernel'][2]:.2f} host "
+        f"flag reads/step, {per_call:g} launches of the port's kernels a "
+        f"step; device ms per step {sum(parts_rest.values()):.4f} (bound "
+        f"{bound_rest[0]:.4f} by {bound_rest[1]}) by kernel: "
+        + ", ".join(f"{n} {x:.4f}" for n, x in parts_rest.items())
+        + "".join(
+            f" | varsc jet, 20 steps after a density bump, the flag read "
+            f"every {n} launch(es): {b['ms']:.4f} ms/step (device idle "
+            f"share {b['idle']:.3f}), {b['counts'][0]:.2f} qgd3d_smooth "
+            f"rings/step in {b['counts'][1]:.2f} launches, "
+            f"{b['counts'][2]:.2f} host flag reads/step; device ms per step "
+            f"{sum(b['parts'].values()):.4f} (bound "
+            f"{step_bound(dict(base, qgd3d_smooth=b['counts'][1]), True)[0]:.4f}"
+            f" by bytes) by kernel: "
+            + ", ".join(f"{k} {x:.4f}" for k, x in b["parts"].items())
+            for n, b in bumped.items())
         + " | device ms/call kernel (launches per call) vs plain: "
         + ", ".join(
             f"{k} {stats[k]['by_shape'][SHAPE3]['ms']:.4f} "
             f"({stats[k]['by_shape'][SHAPE3]['launches_per_call']:g}) vs "
             f"{stats[k]['by_shape'][SHAPE3]['plain_ms']:.4f}"
             for k, _, _ in jobs)
-        + " (qgd3d_smooth: the step's first launch, of ring 1, on the "
-        f"active raw sensor, bound {sm_bound[0]:.4f} ms by {sm_bound[1]}; "
-        f"of {F3.SMOOTH3_RINGS} rings {rings_ms:.4f} ms; qgd3d_ghosts: "
+        + f" (qgd3d_smooth: a launch of {F3.SMOOTH3_RINGS} rings on the "
+        f"bumped jet's emitted ring 1, bound {sm_bound[0]:.4f} ms by "
+        f"{sm_bound[1]}; of 1 ring {ring_ms:.4f} ms; qgd3d_ghosts: "
         f"computed z-lane sector floor "
         f"{ghost_sector_bytes(SHAPE3) / HBM_BYTES_PER_S * 1e3:.4f} ms, not "
         f"measured) | card: {card}",
@@ -1404,20 +1529,18 @@ def flagged_slabs_3d(solver, fs, grid, stats):
     1e-5 of each field's max over the whole mesh, as phase 7; the sensor,
     rel 1e-6, on the fresh frames with the neighbours' planes in the halo),
     and the update and the sensor bit for bit the serial kernels' results
-    on the whole mesh in the slab's window."""
+    on the whole mesh in the slab's window (the serial raw sensor from
+    qgd3d_emit, which the serial step runs)."""
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.parallel import sharding, spmd
 
     prm_g, planes = F3.make_params(solver)
     planes = solver.mesh.tensor(planes).contiguous()
-    sc = None
-    if prm_g.varsc:
-        sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
-                                          solver.tau_model.smoothCoeff))
+    sc = step_sensor(prm_g, fs) if prm_g.varsc else None
     frames = (fs.p, fs.T, fs.ux, fs.uy, fs.uz)
     fresh, _ = F3.update_reference_3d(prm_g, *frames, sc, fs.dt)
     whole_k, _ = F3.qgd3d_update(prm_g, *frames, sc, fs.dt)
-    sensor_k = F3.qgd3d_sensor(prm_g, fresh[0], fresh[1], sc) \
+    sensor_k = F3.qgd3d_emit(prm_g, fresh[0], fresh[1], sc, raw=True)[0] \
         if sc is not None else None
     worst, calls = {"dt": 0.0, "update": 0.0, "sensor": 0.0,
                     "ghosts": 0.0}, None
@@ -1516,10 +1639,12 @@ def summed(results, key="launches"):
     return total
 
 
-def phases_sharded(dev, card):
+def phases_sharded(dev, card, launches):
     """Phases 15-19.  Returns the kernels-line entries of K3 and K5: the
     flagged kernels of one step on rank 0's block (launches summed over the
-    sharded runs' ranks; the CLI's ranks are not counted)."""
+    sharded runs' ranks; the CLI's ranks are not counted).  K5's varsc
+    runs are the path of `qgd3d_sensor`: launches["qgd3d_sensor"] gets
+    their launches."""
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.parallel import sharding
@@ -1623,6 +1748,7 @@ def phases_sharded(dev, card):
                                if k.endswith(("fold", "update", "ghosts"))),
                            ops)
         total = summed(world2 + world4 + world1)
+        launches["qgd3d_sensor"] = total["qgd3d_sensor"]
         entries.append({
             "name": label, "route": "cuda", "source": src, "replaces": repl,
             "launches": sum(v for k, v in total.items() if k in names),
@@ -1742,17 +1868,33 @@ def main() -> int:
     jobs3 = phase_kernels3(warm, stats)
     phase_lockstep(8, warm, F3.build_fused_step_3d, dict(zip(CASES3, tols)))
     del warm
+    # at rest the varsc jet's ring 1 is the fixed point: no qgd3d_smooth
+    # launch, one host flag read a step
     reads = S.smooth_sensor.reads
     launches.update(phase_main_path(9, dev, SHAPE3, zip(CASES3, (100, 40)),
                                     F3.KERNELS, {"qgd3d_dt": 140,
                                                  "qgd3d_update": 140,
-                                                 "qgd3d_sensor": 40,
+                                                 "qgd3d_emit": 40,
                                                  "qgd3d_ghosts": 140,
-                                                 "qgd3d_smooth": 40},
-                                    least=("qgd3d_smooth",)))
+                                                 "qgd3d_smooth": 0}))
     reads = S.smooth_sensor.reads - reads
-    check(reads == launches["qgd3d_smooth"], f"the 3D main path read "
-          f"{reads} smoothing flags in {launches['qgd3d_smooth']} launches")
+    check(reads == 40, f"the 3D main path at rest read {reads} smoothing "
+          "flags in 40 varsc steps")
+    # with a density bump the rings go on: one more read every
+    # SMOOTH3_PER_READ launches
+    reads = S.smooth_sensor.reads
+    bumped = phase_main_path(9, dev, SHAPE3, [(CASES3[1], 20, with_bump)],
+                             F3.KERNELS, {"qgd3d_dt": 20, "qgd3d_update": 20,
+                                          "qgd3d_emit": 20, "qgd3d_ghosts": 20,
+                                          "qgd3d_smooth": 1},
+                             least=("qgd3d_smooth",))
+    reads = S.smooth_sensor.reads - reads
+    check(reads == 20 + bumped["qgd3d_smooth"] // F3.SMOOTH3_PER_READ,
+          f"the bumped 3D main path read {reads} smoothing flags in 20 steps "
+          f"and {bumped['qgd3d_smooth']} launches, {F3.SMOOTH3_PER_READ} a "
+          "read")
+    for k, v in bumped.items():
+        launches[k] += v
     phase_time3(dev, card, jobs3, stats)
 
     solver, ts, emit_jobs = phase_emit(dev, stats)
@@ -1763,7 +1905,7 @@ def main() -> int:
         launches[k] += v
         by_shape[k][BIG] = v
     phase_time_big(solver, state, card, emit_jobs, stats)
-    sharded = phases_sharded(dev, card)
+    sharded = phases_sharded(dev, card, launches)
     phase_ring_check(dev, card)
     entries = []
     for k, v in stats.items():

@@ -177,6 +177,8 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd3d_update", [p3] + [_ptr] * 14)
     _bind(lib, "qgd3d_update_shape", [ctypes.POINTER(_c_int)])
     _bind(lib, "qgd3d_sensor", [p3] + [_ptr] * 5)
+    _bind(lib, "qgd3d_emit", [p3] + [_ptr] * 7)
+    _bind(lib, "qgd3d_emit_shape", [p3, ctypes.POINTER(_c_int)])
     _bind(lib, "qgd3d_ghosts", [p3] + [_ptr] * 8)
     _bind(lib, "qgd3d_smooth", [p3, _ptr, ctypes.c_long, ctypes.c_long,
                                 _c_int, _ptr, _ptr, _ptr])

@@ -14,12 +14,18 @@
 //                 differences), each face once, and the explicit update of
 //                 every interior cell into NEW frames p, T, ux, uy, uz, plus
 //                 ws/tau_f on the two x-boundary faces (the qgdFlux ghost);
-//   qgd3d_sensor  varScModel5 only: the raw sensor over the fresh frames.  A
-//                 launch of its own, because it reads fresh rho at cells that
-//                 other blocks of the update write;
+//   qgd3d_emit    varScModel5 only: the raw sensor over the fresh frames,
+//                 its first fvc::smooth ring as the next sensor frame and
+//                 the ring's change flag (one launch of its own, because it
+//                 reads fresh rho at cells that other blocks of the update
+//                 write); qgd3d_sensor is its mode that writes the raw
+//                 sensor alone;
 //   qgd3d_ghosts  every ghost of the fresh frames, x planes, y rows over
 //                 every x and z lanes over every x and y, each computed from
-//                 interior cells (one launch).
+//                 interior cells (one launch);
+//
+// and, only when the flag is set, qgd3d_smooth carries ring 1 to the fixed
+// point, k rings a launch.
 //
 // The x-ring decomposition K5 (build_sharded_fused_step_3d, :930) runs the
 // same kernels on each rank's x-slab, whose x ends may be partition planes:
@@ -28,7 +34,8 @@
 // kernels read it as it is: no zero-gradient coefficient ghost, no tau
 // clamp in qgd3d_dt, no qgdFlux side plane, no x-ghost plane (the plane
 // exchange fills it), and the sensor's x-gradient reads the exchanged
-// plane (qgd3d_sensor runs after the exchange).  The serial builders set
+// plane (qgd3d_sensor runs after the exchange; its rings run in plain
+// torch, since ring 1 crosses the partition).  The serial builders set
 // both flags to 1.  dt over the ranks: qgd3d_dt_fold (qgd3d_dt's launch,
 // writing the quad), a MAX all-reduce of its quad (max wave x, y, z, -min
 // tau), then qgd3d_dt_apply.
@@ -78,8 +85,6 @@ namespace {
 enum { BC_ZG = 0, BC_FIXED = 1, BC_GRAD = 2, BC_SYM = 3, BC_EXTRAP = 4,
        BC_IO = 5, BC_QGDFLUX = 6 };
 
-constexpr int BX = 32;   // threads along z (qgd3d_sensor)
-constexpr int BY = 8;    // threads along y
 constexpr int GT = 256;  // threads of a ghost block
 
 // qgd3d_update's tile, chunk and plane ring
@@ -755,38 +760,6 @@ qgd3d_update_kernel(QGD3DParams P, Frames F, const float* __restrict__ sc,
   }
 }
 
-// The raw varScModel5 sensor of the fresh frames at each interior cell: rho
-// from the stored p, T; zero-gradient ghosts (clamped neighbours) at
-// physical boundaries, the exchanged halo plane across a partition plane;
-// relaxed against the current smoothed sensor.  Output (nx, ny, nz).
-__global__ void __launch_bounds__(BX * BY)
-qgd3d_sensor_kernel(QGD3DParams P, const float* __restrict__ p,
-                    const float* __restrict__ T, const float* __restrict__ sc,
-                    float* __restrict__ out) {
-  const int t = 1 + blockIdx.x * BX + threadIdx.x;
-  const int s = 1 + blockIdx.y * BY + threadIdx.y;
-  const int r = 1 + blockIdx.z;
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  if (s > ny || t > nz) return;
-  const long st[3] = {(long)(ny + 2) * (nz + 2), nz + 2, 1};
-  const long i0 = r * st[0] + s * st[1] + t;
-  // rho of a neighbour; outside the interior the cell itself
-  auto rho_at = [&](bool inside, long off) {
-    const long i = inside ? i0 + off : i0;
-    return p[i] * (1.0f / (P.R * T[i]));
-  };
-  const float r0 = rho_at(false, 0);
-  const float gx = (rho_at(r < nx || !P.edge_hi, st[0]) -
-                    rho_at(r > 1 || !P.edge_lo, -st[0])) * P.inv_2d[0];
-  const float gy =
-      (rho_at(s < ny, st[1]) - rho_at(s > 1, -st[1])) * P.inv_2d[1];
-  const float gz = (rho_at(t < nz, 1) - rho_at(t > 1, -1)) * P.inv_2d[2];
-  const float g2 = gx * gx + gy * gy + gz * gz;
-  float v = P.rC * ((sqrtf(g2) * P.h_cell) / r0) + P.one_m_rC * sc[i0];
-  v = fminf(fmaxf(v, P.minSc), P.maxSc);
-  out[((long)(r - 1) * ny + (s - 1)) * nz + (t - 1)] = fmaxf(v, P.cqSc);
-}
-
 // ---------------------------------------------------------------------------
 // qgd3d_ghosts: every BC ghost of the five fresh frames in one launch
 // ---------------------------------------------------------------------------
@@ -998,11 +971,6 @@ qgd3d_ghosts_kernel(QGD3DParams P, Ghosts3 G) {
   }
 }
 
-dim3 cell_grid(const QGD3DParams& P, int extra) {
-  return dim3((P.nz + extra + BX - 1) / BX, (P.ny + extra + BY - 1) / BY,
-              P.nx + extra);
-}
-
 // qgd3d_dt's chunk of x-planes and grid on the current device: the chunk
 // for the fewest planes marched by the busiest SM (waves of resident blocks
 // times the planes a block loads, its plane before the chunk included).
@@ -1074,19 +1042,21 @@ cudaError_t allow_update_smem() {
 
 
 // ---------------------------------------------------------------------------
-// qgd3d_smooth: fvc::smooth of the raw sensor, k rings per launch
+// qgd3d_smooth: the continuation of fvc::smooth, k rings per launch
 // ---------------------------------------------------------------------------
 //
 // Replaces the XLA fvc_smooth the reference runs between K4's calls
-// (qgdsolver_tpu/ops/fused_qgd3d.py:841-844): rings of
-// f <- max(f, nbr_max(f)/maxRatio) over the six face neighbours (a cell
-// beyond a physical edge is the cell itself) to the fixed point.  A launch
-// runs k rings of the (nx, ny, nz) cells it reads into the sensor frame,
+// (qgdsolver_tpu/ops/fused_qgd3d.py:841-844), from its second ring on: the
+// step's first ring comes from qgd3d_emit, and this kernel carries it to the
+// fixed point of f <- max(f, nbr_max(f)/maxRatio) over the six face
+// neighbours (a cell beyond a physical edge is the cell itself); it runs
+// only when ring 1 raised a cell.  A launch runs k rings of the (nx, ny, nz)
+// cells it reads (a frame's interior, or bare cells) into the sensor frame,
 // ghosts edge-replicated, and sets the flag when the last ring raised a
 // written cell; the host launches again while it is set.  As in
 // qgd2d_smooth, ring j is valid on the block's region shrunk by j cells, the
 // ring is smooth_ring.cuh's, and the result is the plain loop's bit for bit
-// whatever k.
+// whatever k and however the rings are grouped.
 //
 // The halo costs more in 3D (a cube with a k-cell halo stages
 // (T / (T - 2k))^3 of what it writes), so a block owns a (y, z) tile with a
@@ -1103,7 +1073,15 @@ cudaError_t allow_update_smem() {
 // as in qgd2d_smooth.  A step is short next to a load from memory, and a
 // block's 16 warps are all an SM holds, so each thread copies its raw
 // cells S3D planes ahead (cp.async) into a ring of shared planes that only
-// it reads.
+// it reads.  A warp whose cells of the last k + 1 raw planes all are at
+// least SMOOTH_TINY (every sensor: it is clamped at cqSc or above) takes the
+// ring without its underflow test: the rings only raise a cell, and nb is
+// at least the cell, so only the cell's own value decides whether the test
+// can be skipped.  On the 3D varsc jet's continuation at 256x126x126 on an
+// H100 the split took 0.090 ms for 4 rings against 0.106 with the test
+// everywhere, and a layout of two 256-thread blocks a SM with z-neighbours
+// by warp shuffle and two register planes a level took 0.101
+// (ab_kernels.py, PERF.md).
 
 constexpr int S3Z = 64;                     // tile lanes (z), one per thread
 constexpr int S3T = 8;                      // thread rows
@@ -1186,22 +1164,18 @@ __device__ __forceinline__ void smooth3_fetch(const QGD3DParams& P,
   __pipeline_commit();
 }
 
-// One step of the march with raw plane s arriving (fetched S3D - 1 steps
-// ahead; plane s + S3D - 1 is fetched now); U = (s - first step) mod 3
+// The K levels of one step with raw plane s in level 0's slot U: level j
+// computes plane s - j; level K's cells of the chunk are written, and
+// raised says whether the last ring raised one.  U = (s - first step) mod 3
 // names the register slots: plane q of any level sits in slot
 // (q - first step) mod 3.
-template <int K, bool EDGE, int U>
-__device__ __forceinline__ void smooth3_step(
+template <int K, bool EDGE, int U, bool GUARD>
+__device__ __forceinline__ void smooth3_levels(
     const QGD3DParams& P, const Smooth3& A, float (&pl)[K][3][S3R],
-    float* __restrict__ ring, float* __restrict__ sp, int s, int x0, int y0,
-    int z0, const bool (&yin)[S3R], bool zin, float inv, bool& raised) {
+    const float* __restrict__ sp, int s, int x0, int y0, int z0,
+    const bool (&yin)[S3R], bool zin, float inv, bool& raised) {
   const int tz = threadIdx.x, a0 = threadIdx.y * S3R;
   const int nx = P.nx;
-  smooth3_fetch<EDGE>(P, A, ring, s + S3D - 1, y0, z0, yin, zin);
-  __pipeline_wait_prior(S3D - 1);  // this thread's copies of plane s
-  const float* raw = smooth3_raw(ring, s);
-#pragma unroll
-  for (int i = 0; i < S3R; ++i) pl[0][U][i] = raw[i * S3Z];
 #pragma unroll
   for (int j = 1; j <= K; ++j) {
     const int p = s - j;
@@ -1222,7 +1196,7 @@ __device__ __forceinline__ void smooth3_step(
       float nb = fmaxf(fmaxf(c, f[lo][i]), f[hi][i]);
       nb = fmaxf(nb, fmaxf(fmaxf(yl, yh),
                            fmaxf(q[i * S3W - 1], q[i * S3W + 1])));
-      float v = smooth_ring<true>(c, nb, P.smooth_ratio, inv);
+      float v = smooth_ring<GUARD>(c, nb, P.smooth_ratio, inv);
       const bool in = pin && (!EDGE || (yin[i] && zin));
       if (!in) v = -FLT_MAX;
       if (j < K) {
@@ -1233,6 +1207,38 @@ __device__ __forceinline__ void smooth3_step(
       }
     }
   }
+}
+
+// One step of the march with raw plane s arriving (fetched S3D - 1 steps
+// ahead; plane s + S3D - 1 is fetched now).  run counts the newest raw
+// planes whose cells of this warp all are at least SMOOTH_TINY: when the
+// centres of all K levels' cells are among them, the levels skip the ring's
+// underflow test.
+template <int K, bool EDGE, int U>
+__device__ __forceinline__ void smooth3_step(
+    const QGD3DParams& P, const Smooth3& A, float (&pl)[K][3][S3R],
+    float* __restrict__ ring, float* __restrict__ sp, int s, int x0, int y0,
+    int z0, const bool (&yin)[S3R], bool zin, float inv, bool& raised,
+    int& run) {
+  const int tz = threadIdx.x, a0 = threadIdx.y * S3R;
+  smooth3_fetch<EDGE>(P, A, ring, s + S3D - 1, y0, z0, yin, zin);
+  __pipeline_wait_prior(S3D - 1);  // this thread's copies of plane s
+  const float* raw = smooth3_raw(ring, s);
+  const bool xin = s >= 0 && s < P.nx;
+  bool big = true;
+#pragma unroll
+  for (int i = 0; i < S3R; ++i) {
+    pl[0][U][i] = raw[i * S3Z];
+    if (xin && (!EDGE || (yin[i] && zin)))
+      big = big && pl[0][U][i] >= SMOOTH_TINY;
+  }
+  run = __all_sync(0xffffffffu, big) ? run + 1 : 0;
+  if (run > K)
+    smooth3_levels<K, EDGE, U, false>(P, A, pl, sp, s, x0, y0, z0, yin, zin,
+                                      inv, raised);
+  else
+    smooth3_levels<K, EDGE, U, true>(P, A, pl, sp, s, x0, y0, z0, yin, zin,
+                                     inv, raised);
   // publish each level's newest plane (level l's plane s - l), then wait
 #pragma unroll
   for (int l = 0; l < K; ++l) {
@@ -1257,6 +1263,7 @@ __device__ __forceinline__ bool smooth3_march(const QGD3DParams& P,
 #pragma unroll
       for (int i = 0; i < S3R; ++i) pl[l][u][i] = -FLT_MAX;
   bool raised = false;
+  int run = 0;
   const int first = x0 - K, steps = A.cx + 2 * K;
   const float inv = smooth_inverse(P.smooth_ratio);
   float* ring = sp + 2 * S3P * K;
@@ -1264,13 +1271,13 @@ __device__ __forceinline__ bool smooth3_march(const QGD3DParams& P,
     smooth3_fetch<EDGE>(P, A, ring, first + d, y0, z0, yin, zin);
   for (int n = 0; n < steps; n += 3) {
     smooth3_step<K, EDGE, 0>(P, A, pl, ring, sp, first + n, x0, y0, z0, yin,
-                             zin, inv, raised);
+                             zin, inv, raised, run);
     if (n + 1 < steps)
       smooth3_step<K, EDGE, 1>(P, A, pl, ring, sp, first + n + 1, x0, y0, z0,
-                               yin, zin, inv, raised);
+                               yin, zin, inv, raised, run);
     if (n + 2 < steps)
       smooth3_step<K, EDGE, 2>(P, A, pl, ring, sp, first + n + 2, x0, y0, z0,
-                               yin, zin, inv, raised);
+                               yin, zin, inv, raised, run);
   }
   __pipeline_wait_prior(0);  // the fetches past the chunk
   return raised;
@@ -1308,10 +1315,27 @@ qgd3d_smooth_kernel(QGD3DParams P, Smooth3 A) {
   }
 }
 
+// A launch's chunk of x-planes for a block that writes `tiles` (y, z) tiles
+// and marches `extra` planes beyond its chunk: the fewest planes marched by
+// the busiest SM (waves of resident blocks times the planes a block
+// marches), given `slots` resident blocks on the card.
+int march_chunk(int nx, long tiles, long slots, int extra) {
+  int cx = nx;
+  long best = -1;
+  for (int chunks = 1; chunks <= nx; ++chunks) {
+    const int c = (nx + chunks - 1) / chunks;
+    if ((nx + c - 1) / c != chunks) continue;  // the same c as fewer
+    const long cost = (tiles * chunks + slots - 1) / slots * (c + extra);
+    if (best < 0 || cost < best) {
+      best = cost;
+      cx = c;
+    }
+  }
+  return cx;
+}
+
 // The launch of K rings: its chunk of planes, which a block marches with K
-// planes before and after it, chosen for the fewest planes marched by the
-// busiest SM (waves of resident blocks times planes a block marches), and
-// its grid.
+// planes before and after it, and its grid.
 template <int K>
 cudaError_t smooth3_launch(const QGD3DParams& P, Smooth3 A, cudaStream_t st,
                            int* shape) {
@@ -1336,28 +1360,15 @@ cudaError_t smooth3_launch(const QGD3DParams& P, Smooth3 A, cudaStream_t st,
       return e;
     }
   }
-  const long tiles = (long)((P.nz + S3Z - 2 * K - 1) / (S3Z - 2 * K)) *
-                     ((P.ny + S3Y - 2 * K - 1) / (S3Y - 2 * K));
-  const long slots = (long)sms[dev] * (bps[dev] > 0 ? bps[dev] : 1);
-  int cx = P.nx;
-  long best = -1;
-  for (int chunks = 1; chunks <= P.nx; ++chunks) {
-    const int c = (P.nx + chunks - 1) / chunks;
-    if ((P.nx + c - 1) / c != chunks) continue;  // the same c as fewer
-    const long cost = (tiles * chunks + slots - 1) / slots * (c + 2 * K);
-    if (best < 0 || cost < best) {
-      best = cost;
-      cx = c;
-    }
-  }
-  A.cx = cx;
-  const dim3 grid((P.nz + S3Z - 2 * K - 1) / (S3Z - 2 * K),
-                  (P.ny + S3Y - 2 * K - 1) / (S3Y - 2 * K),
-                  (P.nx + cx - 1) / cx);
+  const dim3 tiles((P.nz + S3Z - 2 * K - 1) / (S3Z - 2 * K),
+                   (P.ny + S3Y - 2 * K - 1) / (S3Y - 2 * K));
+  A.cx = march_chunk(P.nx, (long)tiles.x * tiles.y,
+                     (long)sms[dev] * (bps[dev] > 0 ? bps[dev] : 1), 2 * K);
+  const dim3 grid(tiles.x, tiles.y, (P.nx + A.cx - 1) / A.cx);
   if (shape) {
     shape[0] = S3Y;
     shape[1] = S3Z;
-    shape[2] = cx;
+    shape[2] = A.cx;
     shape[3] = smem;
     shape[4] = bps[dev];
     return cudaSuccess;
@@ -1376,6 +1387,248 @@ cudaError_t smooth3_dispatch(int k, const QGD3DParams& P, const Smooth3& A,
     case 4: return smooth3_launch<4>(P, A, st, shape);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// qgd3d_emit: the raw sensor of the fresh frames, its first fvc::smooth ring
+// and the change flag, in one launch (qgd3d_sensor: the raw sensor alone)
+// ---------------------------------------------------------------------------
+//
+// Replaces the raw sensor that the TPU kernel emits in-kernel
+// (qgdsolver_tpu/ops/fused_qgd3d.py:537-557) and the first ring of the XLA
+// fvc_smooth between its calls (:841-844).  At each interior cell: rho =
+// p*(1/(R*T)) of the fresh frames, zero-gradient beyond a physical boundary
+// (the cell itself) and the exchanged halo plane across a partition x end;
+// the raw varScModel5 sensor clip(rC*|grad rho|*h/rho + (1-rC)*sc, minSc,
+// maxSc) floored at cqSc, relaxed against the current sensor frame sc; and
+// ring 1 of fvc::smooth over the raw sensor (a neighbour beyond a physical
+// edge is the cell itself).  EMIT_S1 writes ring 1 as the sensor frame
+// (ghosts edge-replicated) and sets the flag where it raised a cell, which
+// needs both x ends physical; EMIT_RAW writes the raw cells.  EMIT_RAW alone
+// is qgd3d_sensor: K5's slabs, whose ring 1 crosses the partition, smooth
+// their raw sensor with the plain rings.
+//
+// It reads three frames (p, T, sc) and writes one, so bytes would bound it;
+// on the card its arithmetic does (a thread a cell would compute each rho
+// seven times, and a second launch would read the raw sensor back for ring
+// 1).  A block owns an EY x EZ (y, z) tile and marches a
+// chunk of x-planes: at step s it stages rho of plane s over the tile and
+// two rings in shared memory (each rho once a block), computes the raw
+// sensor of plane s - 2 over the tile and one ring, and ring 1 of plane
+// s - 4 over the tile, each from planes earlier steps wrote, so one barrier
+// a step serves all three (four planes of each in shared memory); p and T
+// of the next plane and sc of the next raw plane are loaded into registers
+// while a plane is computed.  rho = p*(1/(R*T)) rounds as the plain
+// version's; the raw sensor's products and sums too, but its division and
+// square root are the hardware's approximations (a relative error of a few
+// 2^-24): the correctly rounded ones took 0.075 ms a call against
+// 0.051-0.055 at 256x126x126 on an H100 (ab_kernels.py, PERF.md), and the
+// plain version is met within rel 1e-6.  The clamps propagate NaN, as torch.clamp does;
+// the ring is smooth_ring.cuh's, on the kernel's own raw sensor, so ring 1
+// and its flag are the plain ring's of that raw sensor bit for bit.  Both
+// modes run the same code up to the stores, so their raw bits are the
+// same.
+
+constexpr int EZ = 32;                           // tile lanes (z): a warp
+constexpr int EY = 16;                           // tile rows (y)
+constexpr int ENT = EZ * EY;                     // threads of a block
+constexpr int ERW = EZ + 4;                      // staged rho lanes
+constexpr int ERC = (EY + 4) * ERW;              // staged rho cells a plane
+constexpr int ESW = EZ + 2;                      // raw sensor lanes
+constexpr int ESC = (EY + 2) * ESW;              // raw sensor cells a plane
+constexpr int ERS = (ERC + ENT - 1) / ENT;       // rho cells a thread stages
+constexpr int ESS = (ESC + ENT - 1) / ENT;       // raw cells a thread computes
+enum { EMIT_RAW = 1, EMIT_S1 = 2 };
+
+struct Emit3 {
+  const float* __restrict__ p;
+  const float* __restrict__ T;
+  const float* __restrict__ sc;
+  float* __restrict__ raw;  // (nx, ny, nz) (EMIT_RAW)
+  float* __restrict__ s1;   // the (nx+2, ny+2, nz+2) frame (EMIT_S1)
+  float* __restrict__ chg;  // zeroed before the launch (EMIT_S1)
+  int cx;                   // planes a block writes
+};
+
+// sqrt by the hardware's approximation (one instruction, a relative error
+// near 2^-23)
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// The raw sensor from the central rho differences along each axis, the
+// cell's rho and its current sensor.
+__device__ __forceinline__ float raw_sensor3(const QGD3DParams& P, float dx,
+                                             float dy, float dz, float r,
+                                             float sc) {
+  const float gx = __fmul_rn(dx, P.inv_2d[0]);
+  const float gy = __fmul_rn(dy, P.inv_2d[1]);
+  const float gz = __fmul_rn(dz, P.inv_2d[2]);
+  const float g2 = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                             __fmul_rn(gz, gz));
+  const float v = __fadd_rn(
+      __fmul_rn(P.rC, __fdividef(__fmul_rn(sqrt_approx(g2), P.h_cell), r)),
+      __fmul_rn(P.one_m_rC, sc));
+  return nan_max(nan_min(nan_max(v, P.minSc), P.maxSc), P.cqSc);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(ENT, 2)
+qgd3d_emit_kernel(QGD3DParams P, Emit3 A) {
+  __shared__ float rho[4][ERC];
+  __shared__ float raw[4][ESC];
+  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * EZ + tz;
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const int wy = nz + 2;
+  const long wx = (long)(ny + 2) * wy;
+  const int x0 = blockIdx.z * A.cx;
+  const int y0 = blockIdx.y * EY, z0 = blockIdx.x * EZ;
+  // the frame plane of plane r: the edge plane beyond a physical x end (rho
+  // is zero-gradient there), the halo plane across a partition end
+  const int xlo = P.edge_lo ? 1 : 0, xhi = P.edge_hi ? nx : nx + 1;
+  // this thread's staged rho cells and raw cells: their place in a frame
+  // plane (clamped into the interior: zero-gradient along y and z)
+  int roff[ERS], soff[ESS];
+  bool sin[ESS];
+#pragma unroll
+  for (int k = 0; k < ERS; ++k) {
+    const int n = tid + k * ENT, i = n / ERW, j = n % ERW;
+    roff[k] = clampi(y0 - 1 + i, 1, ny) * wy + clampi(z0 - 1 + j, 1, nz);
+  }
+#pragma unroll
+  for (int k = 0; k < ESS; ++k) {
+    const int n = tid + k * ENT, i = n / ESW, j = n % ESW;
+    const int y = y0 - 1 + i, z = z0 - 1 + j;
+    sin[k] = n < ESC && y >= 0 && y < ny && z >= 0 && z < nz;
+    soff[k] = clampi(y + 1, 1, ny) * wy + clampi(z + 1, 1, nz);
+  }
+  const int y = y0 + ty, z = z0 + tz;
+  const bool cin = y < ny && z < nz;
+  const int c = (ty + 1) * ESW + tz + 1;  // this thread's cell in a raw plane
+  const float inv = smooth_inverse(P.smooth_ratio);
+  bool raised = false;
+  float pp[ERS], tt[ERS], ss[ESS];
+  // step s: rho of plane s, the raw sensor of plane s - 2 and ring 1 of
+  // plane s - 4, each from planes that earlier steps wrote, so one barrier
+  // a step serves all three (four slots of each: plane q in slot q & 3)
+  const int first = x0 - 2, top = x0 + A.cx + 1;  // the planes of rho
+  {
+    const long b = clampi(first + 1, xlo, xhi) * wx;
+#pragma unroll
+    for (int k = 0; k < ERS; ++k)
+      if (tid + k * ENT < ERC) {
+        pp[k] = A.p[b + roff[k]];
+        tt[k] = A.T[b + roff[k]];
+      }
+  }
+  for (int s = first; s <= top + 2; ++s) {
+    // rho of plane s, then the loads of plane s + 1
+    if (s <= top) {
+      float* R = rho[s & 3];
+#pragma unroll
+      for (int k = 0; k < ERS; ++k)
+        if (tid + k * ENT < ERC)
+          R[tid + k * ENT] =
+              __fmul_rn(pp[k], __frcp_rn(__fmul_rn(P.R, tt[k])));
+      if (s < top) {
+        const long b = clampi(s + 2, xlo, xhi) * wx;
+#pragma unroll
+        for (int k = 0; k < ERS; ++k)
+          if (tid + k * ENT < ERC) {
+            pp[k] = A.p[b + roff[k]];
+            tt[k] = A.T[b + roff[k]];
+          }
+      }
+    }
+    // the raw sensor of plane r = s - 2 (sc of plane r is in ss)
+    const int r = s - 2;
+    if (r >= x0 - 1 && r >= 0 && r < nx) {
+      const float* Rm = rho[(r - 1) & 3];
+      const float* R0 = rho[r & 3];
+      const float* Rp = rho[(r + 1) & 3];
+#pragma unroll
+      for (int k = 0; k < ESS; ++k) {
+        if (!sin[k]) continue;
+        const int n = tid + k * ENT;
+        const int q = (n / ESW + 1) * ERW + n % ESW + 1;
+        raw[r & 3][n] = raw_sensor3(
+            P, __fsub_rn(Rp[q], Rm[q]), __fsub_rn(R0[q + ERW], R0[q - ERW]),
+            __fsub_rn(R0[q + 1], R0[q - 1]), R0[q], ss[k]);
+      }
+    }
+    // sc of plane s - 1 for the next step's raw sensor
+    {
+      const long b = clampi(s, 1, nx) * wx;
+#pragma unroll
+      for (int k = 0; k < ESS; ++k)
+        if (sin[k]) ss[k] = A.sc[b + soff[k]];
+    }
+    // ring 1 of plane x = s - 4
+    const int x = s - 4;
+    if (x >= x0 && x < x0 + A.cx && x < nx && cin) {
+      const float* F = raw[x & 3];
+      const float f = F[c];
+      if (MODE & EMIT_RAW) A.raw[((long)x * ny + y) * nz + z] = f;
+      if (MODE & EMIT_S1) {
+        const float xl = x > 0 ? raw[(x - 1) & 3][c] : f;
+        const float xh = x < nx - 1 ? raw[(x + 1) & 3][c] : f;
+        const float yl = y > 0 ? F[c - ESW] : f;
+        const float yh = y < ny - 1 ? F[c + ESW] : f;
+        const float zl = z > 0 ? F[c - 1] : f;
+        const float zh = z < nz - 1 ? F[c + 1] : f;
+        const float nb = fmaxf(fmaxf(fmaxf(f, xl), xh),
+                               fmaxf(fmaxf(yl, yh), fmaxf(zl, zh)));
+        const float v = smooth_ring<true>(f, nb, P.smooth_ratio, inv);
+        smooth3_put(P, A.s1, x, y, z, v);
+        if (v > f) raised = true;
+      }
+    }
+    __syncthreads();
+  }
+  if (MODE & EMIT_S1) {
+    if (__syncthreads_or(raised) && tid == 0) A.chg[0] = 1.0f;
+  }
+}
+
+// The emit launch's chunk of x-planes (a block steps over two planes before
+// it and four after it) and grid on the current device; bps (optional)
+// receives the resident blocks per SM.
+template <int MODE>
+cudaError_t emit3_grid(const QGD3DParams& P, dim3* grid, int* cx,
+                       int* bps_out = nullptr) {
+  static int sms[64] = {}, bps[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &bps[dev], qgd3d_emit_kernel<MODE>, ENT, 0);
+    if (e != cudaSuccess) {
+      sms[dev] = 0;
+      return e;
+    }
+  }
+  const long ty = (P.ny + EY - 1) / EY, tz = (P.nz + EZ - 1) / EZ;
+  *cx = march_chunk(P.nx, ty * tz,
+                    (long)sms[dev] * (bps[dev] > 0 ? bps[dev] : 1), 6);
+  *grid = dim3((unsigned)tz, (unsigned)ty, (P.nx + *cx - 1) / *cx);
+  if (bps_out) *bps_out = bps[dev];
+  return cudaSuccess;
+}
+
+template <int MODE>
+cudaError_t emit3_launch(const QGD3DParams& P, Emit3 A, cudaStream_t st) {
+  dim3 grid;
+  const cudaError_t e = emit3_grid<MODE>(P, &grid, &A.cx);
+  if (e != cudaSuccess) return e;
+  qgd3d_emit_kernel<MODE><<<grid, dim3(EZ, EY), 0, st>>>(P, A);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1468,12 +1721,41 @@ int qgd3d_update_shape(int* out) {
   return static_cast<int>(e);
 }
 
+// The raw varScModel5 sensor of the fresh frames alone, (nx, ny, nz) cells
+// (qgd3d_emit_kernel's EMIT_RAW mode; either x end may be a partition).
 int qgd3d_sensor(const QGD3DParams* prm, const float* p, const float* T,
                  const float* sc, float* out, void* stream) {
+  const Emit3 A = {p, T, sc, out, nullptr, nullptr, 0};
+  return static_cast<int>(
+      emit3_launch<EMIT_RAW>(*prm, A, static_cast<cudaStream_t>(stream)));
+}
+
+// The raw sensor (into raw, unless it is null), its first fvc::smooth ring
+// into the frame s1, ghosts edge-replicated, and chg <- 1 if the ring raised
+// a cell, else 0, in one launch.  Both x ends must be physical.
+int qgd3d_emit(const QGD3DParams* prm, const float* p, const float* T,
+               const float* sc, float* raw, float* s1, float* chg,
+               void* stream) {
+  if (!prm->edge_lo || !prm->edge_hi)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  qgd3d_sensor_kernel<<<cell_grid(*prm, 0), dim3(BX, BY), 0, st>>>(*prm, p, T,
-                                                                   sc, out);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaMemsetAsync(chg, 0, sizeof(float), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Emit3 A = {p, T, sc, raw, s1, chg, 0};
+  e = raw ? emit3_launch<EMIT_RAW | EMIT_S1>(*prm, A, st)
+          : emit3_launch<EMIT_S1>(*prm, A, st);
+  return static_cast<int>(e);
+}
+
+// qgd3d_emit's launch at prm's shape on the current device: out = {tile rows
+// (y), tile lanes (z), chunk planes, blocks, resident blocks per SM}.
+int qgd3d_emit_shape(const QGD3DParams* prm, int* out) {
+  dim3 g;
+  const cudaError_t e = emit3_grid<EMIT_S1>(*prm, &g, &out[2], &out[4]);
+  out[0] = EY;
+  out[1] = EZ;
+  out[3] = static_cast<int>(g.x * g.y * g.z);
+  return static_cast<int>(e);
 }
 
 // Every ghost of the five fresh frames (qgd3d_ghosts_kernel), one launch.

@@ -152,8 +152,8 @@ def supported(solver) -> bool:
                 # along an axis of one cell that is the other side's ghost,
                 # which qgd2d_ghosts writes in the same launch (the
                 # composable padding has no such layer either).  A K3 block
-                # of one row or one lane reads its halo there: its global n
-                # is at least 2.
+                # of one row or one lane would read its halo there, before
+                # the exchange fills it: sharded_supported refuses it.
                 if isinstance(b, bcm.Extrapolated) and mesh.shape[a] < 2:
                     return False
                 raw = _raw_value(b)
@@ -1005,11 +1005,26 @@ def build_fused_step(solver, plain: bool = False):
 # ---------------------------------------------------------------------------
 
 
+def one_cell_extrapolation(solver, grid) -> bool:
+    """True if the blocks of `grid` are one cell wide along a partitioned
+    axis on whose sides some field's BC is extrapolated: at a physical side
+    that ghost reads the second layer, the block's halo, which the exchange
+    of a decomposed step fills only after the ghosts (K3, K5)."""
+    return any(p > 1 and n // p == 1 and any(
+        isinstance(bcs[a, side], bcm.Extrapolated)
+        for bcs in solver._bcs() for side in (0, 1))
+        for a, (n, p) in enumerate(zip(solver.mesh.shape,
+                                       (grid.px, grid.py))))
+
+
 def sharded_supported(solver, grid) -> bool:
     """True if `build_sharded_fused_step` takes this config on `grid`: the
-    fused gate, and blocks that divide both axes."""
+    fused gate, blocks that divide both axes, and no block of one cell
+    along a partitioned axis with an extrapolated side there
+    (`one_cell_extrapolation`)."""
     nx, ny = solver.mesh.shape[:2]
-    return (supported(solver) and nx % grid.px == 0 and ny % grid.py == 0)
+    return (supported(solver) and nx % grid.px == 0 and ny % grid.py == 0
+            and not one_cell_extrapolation(solver, grid))
 
 
 def block_params(solver, ctx):
@@ -1061,7 +1076,7 @@ def build_sharded_fused_step(solver, grid):
     """
     from ..ops.pad import ghost_pad
 
-    if not supported(solver):
+    if not supported(solver) or one_cell_extrapolation(solver, grid):
         raise ValueError("solver config not supported by the fused step")
     mesh = solver.mesh
     th = solver.thermo

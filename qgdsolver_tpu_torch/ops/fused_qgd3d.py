@@ -6,39 +6,46 @@ State carried across steps: the ghost-padded primitive frames p, T, ux, uy,
 uz, each a contiguous (nx+2, ny+2, nz+2) float32 tensor with z the fast
 axis; index [r, s, t] holds cell (r-1, s-1, t-1) and index 0 / n+1 of each
 axis is a ghost.  varScModel5 configs also carry the smoothed sensor `sc`
-(a frame, edge-replicated ghosts) and `sc_raw`, the raw sensor of the
-current fields (interior cells only, (nx, ny, nz)).
+(a frame, edge-replicated ghosts) and, from the fresh fields, the first
+fvc::smooth ring of their raw sensor `sc_s1` (a frame too) and its change
+flag `sc_chg` (0-dim, 1.0 if the ring raised a cell).
 
 One step:
   1. `qgd3d_dt`: acoustic Courant number and min tau_f over the exact live
      face sets, then setDeltaT - a one-element tensor on the device, in one
      launch;
-  2. varScModel5 only: fvc::smooth of `sc_raw` -> this step's sensor
-     frame: `smoothing.smooth_sensor` on `qgd3d_smooth` from the raw
-     sensor to the fixed point, ring 1 alone in the first launch and
-     SMOOTH3_RINGS rings in each after it, one host flag read a launch
-     (XLA's `fvc_smooth` between the kernel's calls in the reference);
+  2. varScModel5 only: this step's sensor frame, fvc::smooth of the raw
+     sensor (XLA's `fvc_smooth` between the kernel's calls in the
+     reference): `smoothing.smooth_sensor` reads the carried flag on the
+     host; at 0, ring 1 is the fixed point and `sc_s1` is the frame, with
+     no launch; else `qgd3d_smooth` carries it on, SMOOTH3_RINGS rings a
+     launch, one host flag read every SMOOTH3_PER_READ launches;
   3. `qgd3d_update`: the six face fluxes of each cell and the explicit
      update into new frames, plus ws/tau_f on the two x-boundary faces;
-  4. varScModel5 only: `qgd3d_sensor`, the raw sensor over the fresh frames;
+  4. varScModel5 only: `qgd3d_emit`, the raw sensor over the fresh frames,
+     its first ring as a new frame and the ring's change flag, in one
+     launch;
   5. `qgd3d_ghosts`: BC ghost planes along x, then y over every x, then z,
      in one launch that computes each ghost from interior cells.
 
 Each kernel call is a wrapper: for CPU tensors it runs the plain torch
 version beside it (`dt_reference_3d`, `smooth_reference_3d`,
-`update_reference_3d`, `sensor_reference_3d`, `ghosts_reference_3d`); for
-CUDA tensors it launches the kernel from csrc/qgd3d.cu or raises.  Each
-wrapper counts its launches in a plain integer attribute
-(`qgd3d_dt.launches`, ...; `qgd3d_smooth.rings` counts its rings too).
+`update_reference_3d`, `emit_reference_3d`, `sensor_reference_3d`,
+`ghosts_reference_3d`); for CUDA tensors it launches the kernel from
+csrc/qgd3d.cu or raises.  Each wrapper counts its launches in a plain
+integer attribute (`qgd3d_dt.launches`, ...; `qgd3d_smooth.rings` counts
+its rings too).
 
 `build_sharded_fused_step_3d` (K5) runs the same kernels on each rank's
 x-slab of an x-ring decomposition: the slab's frame carries the
 neighbours' planes as its x halo, the flags edge_lo / edge_hi of
 QGD3DParams mark the physical x ends, dt is `qgd3d_dt_fold` per slab, one
 MAX all-reduce and `qgd3d_dt_apply`, and the fresh edge planes are
-exchanged after `qgd3d_ghosts`, before the sensor reads them.  Its rings
-stay the plain `fvc_smooth` under the spmd context (a launch of k rings
-would need a k-plane halo exchange).
+exchanged after `qgd3d_ghosts`, before `qgd3d_sensor` (the emit's mode that
+writes the raw sensor alone) reads them.  It carries the raw sensor
+`sc_raw` ((nxl, ny, nz) cells) instead of ring 1, whose neighbours cross
+the partition: its rings stay the plain `fvc_smooth` under the spmd
+context (a launch of k rings would need a k-plane halo exchange).
 
 Restrictions (`supported()`): 3D uniform f32 mesh, PerfectGasThermo with
 constant transport, the constScPrModel1 family or varScModel5 (scalar cqSc),
@@ -61,7 +68,8 @@ from ..solvers import common
 from . import _build
 from .fused_qgd2d import (KINDS, _bc_ghost, _ptr, _raw_value, _scalar,
                           _stream, _time_controls, _zg, check_tensors,
-                          common_gate, dt_work)
+                          common_gate, dt_work,
+                          one_cell_extrapolation)
 from .fvsc import _hi, _lo
 from .pad import _sl
 from .smoothing import (_edge_frame, _smooth_plain, require_exact_ring,
@@ -73,7 +81,9 @@ _CONST_SC_PR = ("ConstScPrModel1", "ConstScPrModel1n", "ConstScPrModel2")
 
 class Fused3DState(tp.NamedTuple):
     """Carry of the fused 3D step: ghost-padded primitive frames + time,
-    and for varScModel5 the smoothed sensor frame and the raw sensor."""
+    and for varScModel5 the smoothed sensor frame and what the next step
+    smooths: the first ring of the raw sensor (a frame) and its change flag
+    on the serial step, the raw sensor itself on K5's slabs."""
 
     p: torch.Tensor
     T: torch.Tensor
@@ -84,6 +94,8 @@ class Fused3DState(tp.NamedTuple):
     dt: torch.Tensor
     sc: tp.Optional[torch.Tensor] = None
     sc_raw: tp.Optional[torch.Tensor] = None
+    sc_s1: tp.Optional[torch.Tensor] = None
+    sc_chg: tp.Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +231,8 @@ def supported(solver) -> bool:
     # an extrapolated ghost reads the second interior layer; along an axis
     # of one cell that is the other end's ghost, which qgd3d_ghosts writes
     # in the same launch (the composable padding has no such layer either).
-    # A K5 slab of one plane reads its halo plane there: its global nx is
-    # at least 2.
+    # A K5 slab of one plane would read its halo plane there, before the
+    # exchange fills it: sharded_supported refuses it.
     specs, _ = _bc_specs(solver)
     n = solver.mesh.shape
     return all(e is not None and not (e[0] == "extrap" and n[a] < 2)
@@ -481,6 +493,16 @@ def sensor_reference_3d(prm, p, T, sc):
     return torch.clamp(s, min=prm.cqSc)
 
 
+def emit_reference_3d(prm, p, T, sc):
+    """Plain version of `qgd3d_emit`: (raw, s1, chg) - the raw sensor of the
+    fresh frames (`sensor_reference_3d`), its first fvc::smooth ring as a
+    frame with edge-replicated ghosts, and the ring's change flag (0-dim,
+    1.0 if it raised a cell)."""
+    raw = sensor_reference_3d(prm, p, T, sc)
+    s1, chg = smooth_reference(prm, raw, 1)
+    return raw, _edge_frame(s1), chg
+
+
 # plain version of `qgd3d_smooth`'s rings: the rings of any number of axes
 smooth_reference_3d = smooth_reference
 
@@ -646,7 +668,9 @@ def update_launch_shape(device) -> dict:
 
 def qgd3d_sensor(prm, p, T, sc):
     """The raw varScModel5 sensor of the fresh frames, (nx, ny, nz) - see
-    `sensor_reference_3d`.  Reads only interior cells of p and T."""
+    `sensor_reference_3d`: `qgd3d_emit`'s kernel in the mode that writes
+    the raw sensor alone (the same bits), for K5's slabs.  Reads only
+    interior cells of p and T (and the halo planes at partition ends)."""
     if not prm.varsc:
         raise ValueError("qgd3d_sensor: the config has no varScModel5 sensor")
     on_card = _check(prm, "qgd3d_sensor", p, T, sc)
@@ -661,6 +685,47 @@ def qgd3d_sensor(prm, p, T, sc):
     _build.check(lib, code, "qgd3d_sensor")
     qgd3d_sensor.launches += 1
     return out
+
+
+def qgd3d_emit(prm, p, T, sc, raw=False):
+    """(raw, s1, chg) of the fresh frames - see `emit_reference_3d`: the
+    first fvc::smooth ring of their raw sensor as a new frame and its
+    change flag (0-dim, on the device), in one launch; raw, the raw sensor
+    (nx, ny, nz), only when asked for, else None.  Ring 1 reads the cells
+    beside each cell, so both x ends must be physical (K5's slabs take
+    `qgd3d_sensor`).  Reads only interior cells of p and T."""
+    if not prm.varsc:
+        raise ValueError("qgd3d_emit: the config has no varScModel5 sensor")
+    on_card = _check(prm, "qgd3d_emit", p, T, sc)
+    if not (prm.edge_lo and prm.edge_hi):
+        raise ValueError("qgd3d_emit: ring 1 needs both x ends physical")
+    if not on_card:
+        got, s1, chg = emit_reference_3d(prm, p, T, sc)
+        return (got if raw else None), s1, chg
+    lib = _build.load()
+    with torch.cuda.device(p.device):
+        s1 = torch.empty_like(p)
+        chg = torch.empty((), dtype=p.dtype, device=p.device)
+        got = torch.empty((prm.nx, prm.ny, prm.nz), dtype=p.dtype,
+                          device=p.device) if raw else None
+        code = lib.qgd3d_emit(prm, _ptr(p), _ptr(T), _ptr(sc), _ptr(got),
+                              _ptr(s1), _ptr(chg), _stream(p))
+    _build.check(lib, code, "qgd3d_emit")
+    qgd3d_emit.launches += 1
+    return got, s1, chg
+
+
+def emit_launch_shape(prm, device) -> dict:
+    """`qgd3d_emit`'s launch at prm's shape on a card: its (y, z) tile, the
+    x-planes a block writes, its blocks and the blocks resident on one
+    SM."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        code = lib.qgd3d_emit_shape(prm, out)
+    _build.check(lib, code, "qgd3d_emit_shape")
+    return {"tile": (out[0], out[1]), "chunk": out[2], "blocks": out[3],
+            "blocks_per_sm": out[4]}
 
 
 def qgd3d_ghosts(prm, frames, side, planes):
@@ -684,9 +749,11 @@ def qgd3d_ghosts(prm, frames, side, planes):
 
 
 # rings one qgd3d_smooth launch may run (its x-march keeps one register
-# level per ring), and the rings per launch after the 3D step's first
+# level per ring), the rings per launch after the emitted first ring, and
+# the launches between two host reads of the flag (`smoothing.smooth_sensor`)
 SMOOTH3_KMAX = 4
 SMOOTH3_RINGS = 4
+SMOOTH3_PER_READ = 2
 
 
 def qgd3d_smooth(prm, f, k, out=None, flag=None):
@@ -735,10 +802,12 @@ qgd3d_dt_fold.launches = 0
 qgd3d_dt_apply.launches = 0
 qgd3d_update.launches = 0
 qgd3d_sensor.launches = 0
+qgd3d_emit.launches = 0
 qgd3d_ghosts.launches = 0
 qgd3d_smooth.launches = 0
 qgd3d_smooth.rings = 0
-KERNELS = (qgd3d_dt, qgd3d_update, qgd3d_sensor, qgd3d_ghosts, qgd3d_smooth)
+# the kernels of the serial step
+KERNELS = (qgd3d_dt, qgd3d_update, qgd3d_emit, qgd3d_ghosts, qgd3d_smooth)
 # the flagged kernels of the decomposed step (K5)
 SHARDED_KERNELS = (qgd3d_dt_fold, qgd3d_dt_apply, qgd3d_update, qgd3d_sensor,
                    qgd3d_ghosts)
@@ -756,8 +825,12 @@ def build_fused_step_3d(solver, plain: bool = False):
     plain torch versions directly on any device (the comparison path for
     the kernels on the card); the default goes through the kernel wrappers.
     The varScModel5 sensor frame is `smooth_sensor` on `qgd3d_smooth` (or
-    its plain version) from the carried raw sensor; on a card the builder
-    first requires the division-free ring exact for the case's maxRatio.
+    its plain version) from the carried first ring and flag, which
+    `qgd3d_emit` makes from the fresh frames (a new frame each step, so
+    the carry's `sc` is never written); on a card the builder first
+    requires the division-free ring exact for the case's maxRatio.
+    to_fused makes the first ring and flag of the State's raw sensor with
+    the plain ring.
     """
     from ..ops.pad import ghost_pad
     from ..solvers.qgd import State
@@ -771,28 +844,29 @@ def build_fused_step_3d(solver, plain: bool = False):
     prm, planes_np = make_params(solver)
     planes = mesh.tensor(planes_np).contiguous()
     if plain:
-        k_dt, k_update, k_sensor, k_ghosts, k_smooth = (
-            dt_reference_3d, update_reference_3d, sensor_reference_3d,
+        k_dt, k_update, k_emit, k_ghosts, k_smooth = (
+            dt_reference_3d, update_reference_3d, emit_reference_3d,
             ghosts_reference_3d, _smooth_plain)
     else:
-        k_dt, k_update, k_sensor, k_ghosts, k_smooth = KERNELS
+        k_dt, k_update, k_emit, k_ghosts, k_smooth = KERNELS
         if varsc and mesh.device.type == "cuda":
             require_exact_ring(prm, mesh.device)
     scratch = {}  # the cache of smooth_sensor
 
     def step(fs: Fused3DState) -> Fused3DState:
         dt_new = k_dt(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
-        sc = sc_raw = None
+        sc = s1 = chg = None
         if varsc:
-            sc = smooth_sensor(prm, fs.sc_raw, None, k_smooth, SMOOTH3_RINGS,
-                               cache=scratch)
+            sc = smooth_sensor(prm, fs.sc_s1, fs.sc_chg, k_smooth,
+                               SMOOTH3_RINGS, cache=scratch,
+                               per_read=SMOOTH3_PER_READ)
         frames, side = k_update(prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc,
                                 dt_new)
         if varsc:
-            sc_raw = k_sensor(prm, frames[0], frames[1], sc)
+            _, s1, chg = k_emit(prm, frames[0], frames[1], sc)
         p, T, ux, uy, uz = k_ghosts(prm, frames, side, planes)
         return Fused3DState(p=p, T=T, ux=ux, uy=uy, uz=uz, t=fs.t + dt_new,
-                            dt=dt_new, sc=sc, sc_raw=sc_raw)
+                            dt=dt_new, sc=sc, sc_s1=s1, sc_chg=chg)
 
     flux_sides = solver._flux_sides()
     bc_U, bc_p, bc_T = solver._bcs()
@@ -810,14 +884,15 @@ def build_fused_step_3d(solver, plain: bool = False):
         Upad = ghost_pad(U, bc_Ur, mesh, t=s.t, vector=True)
         pf = ghost_pad(p, bc_pp, mesh, t=s.t).contiguous()
         Tf = ghost_pad(T, bc_Tr, mesh, t=s.t).contiguous()
-        sc = sc_raw = None
+        sc = s1 = chg = None
         if varsc:
             sc = _edge_frame(s.sc)
-            sc_raw = tm.sc_raw_update(mesh, th.rho_from_p_T(pf[C], Tf[C]),
-                                      s.sc).contiguous()
+            s1, chg = smooth_reference(prm, raw_sensor(solver, pf, Tf, s.sc),
+                                       1)
+            s1 = _edge_frame(s1)
         return Fused3DState(p=pf, T=Tf, ux=Upad[0].contiguous(),
                             uy=Upad[1].contiguous(), uz=Upad[2].contiguous(),
-                            t=s.t, dt=s.dt, sc=sc, sc_raw=sc_raw)
+                            t=s.t, dt=s.dt, sc=sc, sc_s1=s1, sc_chg=chg)
 
     def from_fused(fs: Fused3DState) -> State:
         p = fs.p[C]
@@ -848,11 +923,23 @@ def build_fused_step_3d(solver, plain: bool = False):
 # ---------------------------------------------------------------------------
 
 
+def raw_sensor(solver, pf, Tf, sc):
+    """The raw varScModel5 sensor of a State's frames pf, Tf and its sensor
+    cells sc, as the composable step computes it (`sc_raw_update`), for
+    to_fused: (nx, ny, nz) cells."""
+    rho = solver.thermo.rho_from_p_T(pf[(slice(1, -1),) * 3],
+                                     Tf[(slice(1, -1),) * 3])
+    return solver.tau_model.sc_raw_update(solver.mesh, rho, sc).contiguous()
+
+
 def sharded_supported(solver, grid) -> bool:
     """True if `build_sharded_fused_step_3d` takes this config on `grid`:
-    the fused gate, an x-ring (py == 1) and slabs that divide nx."""
+    the fused gate, an x-ring (py == 1), slabs that divide nx, and no slab
+    of one plane with an extrapolated x side (`one_cell_extrapolation`:
+    its ghost reads the halo plane before the exchange fills it)."""
     return (supported(solver) and grid.py == 1
-            and solver.mesh.shape[0] % grid.px == 0)
+            and solver.mesh.shape[0] % grid.px == 0
+            and not one_cell_extrapolation(solver, grid))
 
 
 def block_params(solver, ctx):
@@ -880,7 +967,8 @@ def build_sharded_fused_step_3d(solver, grid):
     x ends; the exchange of the fresh planes 1 and nxl; then, for
     varScModel5, `qgd3d_sensor` on the exchanged frames, so its x-gradient
     at a partition plane reads the neighbour's true plane and no strip fix
-    is needed.  The result is the serial 3D step's.  to_sharded /
+    is needed.  The result is the serial 3D step's: the serial step's
+    sensor frame is fvc_smooth of the same raw sensor.  to_sharded /
     from_sharded as in `fused_qgd2d.build_sharded_fused_step`.
     """
     from ..ops.pad import ghost_pad
@@ -890,6 +978,9 @@ def build_sharded_fused_step_3d(solver, grid):
     if grid.py != 1:
         raise NotImplementedError("the decomposed fused 3D step is an "
                                   "x-ring only (py must be 1)")
+    if one_cell_extrapolation(solver, grid):
+        raise ValueError("solver config not supported by the fused 3D step "
+                         "on slabs of one plane")
     mesh = solver.mesh
     tm = solver.tau_model
     varsc = isinstance(tm, VarScModel5)
@@ -928,13 +1019,12 @@ def build_sharded_fused_step_3d(solver, grid):
         fs = to_fused(s)
         cut = {k: getattr(fs, k)[win].contiguous() for k in framed}
         if varsc:  # the raw sensor has no halo
-            cut["sc_raw"] = fs.sc_raw[xs:xs + nxl].contiguous()
-        return fs._replace(**cut)
+            cut["sc_raw"] = raw_sensor(solver, fs.p, fs.T,
+                                       s.sc)[xs:xs + nxl].contiguous()
+        return fs._replace(sc_s1=None, sc_chg=None, **cut)
 
     def from_sharded(fs):
         full = {k: spmd.join_frames(getattr(fs, k), ctx) for k in framed}
-        if varsc:
-            full["sc_raw"] = torch.cat(spmd.all_gather(fs.sc_raw))
         return from_fused(fs._replace(**full))
 
     return step, to_sharded, from_sharded

@@ -82,27 +82,40 @@ def smooth_args(name, cells, kmax, f, k, out, flag):
     return on_card, bare, out, flag
 
 
-def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
+def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000,
+                  per_read=1):
     """The sensor frame of a step: fvc::smooth carried to its fixed point
     and edge-framed - bitwise `fvc_smooth` of the raw sensor, whatever k -
     on `smooth` (the signature of `qgd2d_smooth` and `qgd3d_smooth`, or
     `_smooth_plain`), in any number of axes.
 
-    With a flag `chg` (K2), s1 is the emitted first ring (the cells) and
-    chg its change flag: the host reads it, and if it is 0, ring 1 is the
-    fixed point and one launch of 0 rings frames it.  With chg None (the 3D
-    step), s1 is the raw sensor and the first launch runs ring 1 alone, as
-    `fvc_smooth` tests after its first ring: an inactive sensor costs one
-    ring.  Then it launches k rings at a time, reading each launch's
-    last-ring flag, until a launch's last ring raised no cell or the
-    `fvc_smooth` cap of max_iters rings is reached.  The launches alternate
-    between the returned frame, which is new, and a scratch frame; the last
-    one lands in the returned frame when the call takes as many launches as
-    the call before it, else one copy moves it there.  `cache` (a dict a
-    step builder keeps) holds the scratch frame, the flag and the launches
-    of the last call per device across calls.  Counts its host flag reads
-    in `reads` and its rings in `rings`."""
-    out = torch.empty(tuple(n + 2 for n in s1.shape), dtype=s1.dtype,
+    With a flag `chg`, s1 is the emitted first ring and chg its change
+    flag: the host reads it, and if it is 0, ring 1 is the fixed point: a
+    frame s1 (the 3D step's) is returned as it is, with no launch, and bare
+    cells (K2's) are framed by one launch of 0 rings.  With chg None, s1 is
+    the raw sensor and the first launch runs ring 1 alone, as `fvc_smooth`
+    tests after its first ring: an inactive sensor costs one ring.  Then it
+    launches k rings at a time, reading the last-ring flag of every
+    `per_read`-th launch, until a read launch's last ring raised no cell or
+    the `fvc_smooth` cap of max_iters rings is reached: a ring at the fixed
+    point changes nothing, so launches past it leave the frame as it is.
+    The launches alternate between the
+    returned frame, which is new, and a scratch frame; the last one lands
+    in the returned frame when the call takes as many launches as the call
+    before it, else one copy moves it there.  `cache` (a dict a step
+    builder keeps) holds the scratch frame, the flag and the launches of
+    the last call per device across calls.  Counts its host flag reads in
+    `reads` and its rings in `rings`."""
+    cells = tuple(getattr(prm, a) for a in ("nx", "ny", "nz")[:s1.ndim])
+    framed = tuple(s1.shape) != cells
+    it, rings, still = 0, 1, False
+    if chg is not None:
+        smooth_sensor.reads += 1
+        still = not bool(chg)
+        if still and framed:
+            return s1
+        it, rings = 1, k
+    out = torch.empty(tuple(n + 2 for n in cells), dtype=s1.dtype,
                       device=s1.device)
     bufs = None if cache is None else cache.get(s1.device)
     if bufs is None:
@@ -111,20 +124,17 @@ def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
         if cache is not None:
             cache[s1.device] = bufs
     scratch, flag, last = bufs
-    it, rings = 0, 1
-    if chg is not None:
-        smooth_sensor.reads += 1
-        if not bool(chg):
-            return smooth(prm, s1, 0, out, flag)[0]
-        it, rings = 1, k
+    if still:
+        return smooth(prm, s1, 0, out, flag)[0]
     src, dst, n = s1, (out if last % 2 else scratch), 0
     while True:
         smooth(prm, src, rings, dst, flag)
         smooth_sensor.rings += rings
         it, n = it + rings, n + 1
-        smooth_sensor.reads += 1
-        if not bool(flag) or it >= max_iters:
-            break
+        if n % per_read == 0 or it >= max_iters:
+            smooth_sensor.reads += 1
+            if not bool(flag) or it >= max_iters:
+                break
         src, dst, rings = dst, (scratch if dst is out else out), k
     bufs[2] = n
     if dst is not out:

@@ -398,3 +398,28 @@ def test_ghosts_one_launch_model_equals_ghosts_reference(kind):
         for k in range(4):
             assert not bool(torch.isnan(ref[k]).any()), (flags, F.FIELDS[k])
             assert torch.equal(model[k], ref[k]), (flags, F.FIELDS[k])
+
+
+@pytest.mark.parametrize("grid,shape,axis,taken", [
+    ((2, 1), (2, 8), 0, False), ((1, 2), (8, 2), 1, False),
+    ((2, 2), (4, 2), 1, False), ((2, 1), (4, 8), 0, True),
+    ((2, 1), (2, 8), 1, True), ((1, 2), (8, 2), 0, True)])
+def test_sharded_gate_refuses_one_cell_blocks_with_extrapolation(
+        grid, shape, axis, taken):
+    """K3's gate: a block of one cell along a partitioned axis with an
+    extrapolated side there reads its halo at ghost time, before the
+    exchange fills it, so `sharded_supported` refuses it (and
+    `build_sharded_fused_step` raises); blocks of two cells, and an
+    extrapolated axis that is not partitioned into one-cell blocks, are
+    taken."""
+    from qgdsolver_tpu_torch.parallel import sharding
+
+    ts, _ = tcases.supersonic_jet(shape=shape, device="cpu")
+    ts = dataclasses.replace(ts, bc_T=ts.bc_T.replace(
+        axis, 0, tbc.Extrapolated()).replace(axis, 1, tbc.Extrapolated()))
+    g = sharding.ProcessGrid(*grid)
+    assert F.supported(ts)
+    assert F.sharded_supported(ts, g) is taken
+    if not taken:
+        with pytest.raises(ValueError, match="not supported"):
+            F.build_sharded_fused_step(ts, g)

@@ -9,6 +9,7 @@ the JAX 3D fused tests' own: dt rtol 1e-6, rho/rhoU/rhoE/sc within 2e-5 of
 their max over 10 steps, pbc within quant + 2e-3*scale.
 """
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -60,10 +61,22 @@ def _flagship(pkg_cases, shape, dtype, xp, **device):
     return solver, state
 
 
+def _bumped(state, mesh):
+    """A density jump across x (as chip_smoke.with_bump), so that the
+    sensor is active past its first smoothing ring."""
+    x = np.asarray(mesh.centers[0])
+    bump = 1.0 + 0.4 * (np.abs(x - x[len(x) // 2]) < 0.1)
+    bump = jnp.asarray(bump.reshape(-1, 1, 1).astype(np.float32))
+    return state._replace(rho=state.rho * bump, rhoE=state.rhoE * bump)
+
+
 def _build(name, shape=SHAPE):
     """(jax solver, jax f32 state, port solver, port state from the JAX
     one)."""
-    if name == "flagship":
+    if name == "flagship_bump":
+        js, jst, ts, _ = _build("flagship", shape)
+        jst = _bumped(jst, js.mesh)
+    elif name == "flagship":
         js, jst = _flagship(jcases, shape, np.float32, jnp.asarray)
         ts, _ = _flagship(tcases, shape, torch.float32, torch.as_tensor,
                           device="cpu")
@@ -188,14 +201,21 @@ def test_roundtrip_state(name):
     for ga, gb in zip(s.pbc, s2.pbc):
         torch.testing.assert_close(gb, ga, rtol=0.0, atol=quant)
     if F.make_params(ts)[0].varsc:
-        assert fs.sc_raw.shape == SHAPE and fs.sc.shape == fs.p.shape
+        assert fs.sc_s1.shape == fs.p.shape and fs.sc.shape == fs.p.shape
+        assert fs.sc_chg.shape == () and fs.sc_raw is None
 
 
-@pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship"])
+@pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship",
+                                  "flagship_bump"])
 def test_fused_step_matches_jax_fused_and_composable(name):
     """10 steps of the port's fused 3D step (the plain versions, on the CPU)
-    against the JAX fused 3D kernel and the JAX composable step."""
+    against the JAX fused 3D kernel and the JAX composable step; with a
+    density bump the smoothing continues past the emitted first ring.
+    There the qgdFlux gradients are held to the composable step's: the JAX
+    fused kernel's own stand 0.16 from its composable step's, most of the
+    f32 quantization bound (~0.27)."""
     js, jst, ts, st = _build(name)
+    rings = S.smooth_sensor.rings
     assert JF.supported(js) and F.supported(ts) and ts.fused_supported()
     jstep, jto, jfrom = JF.build_fused_step_3d(js, interpret=True)
     jstep = jax.jit(jstep)
@@ -206,16 +226,19 @@ def test_fused_step_matches_jax_fused_and_composable(name):
         jfs, tfs, cs = jstep(jfs), tstep(tfs), cstep(cs)
     out = interop.state_to_numpy(tfrom(tfs))
     assert _rel(jst.rho, out.rho) > 1e-6, "the state must evolve"
+    if name == "flagship_bump":
+        assert S.smooth_sensor.rings > rings, "the rings must continue"
     for ref in (jfrom(jfs), cs):
+        with_pbc = name != "flagship_bump" or ref is cs
         np.testing.assert_allclose(out.dt, _f64(ref.dt), rtol=1e-6)
         np.testing.assert_allclose(out.t, _f64(ref.t), rtol=1e-6)
         for f in ("rho", "rhoU", "rhoE", "sc"):
             assert _rel(getattr(ref, f), getattr(out, f)) < 2e-5, f
         assert len(ref.pbc) == len(out.pbc)
         quant = 8.0 * np.float32(1e5) * np.finfo(np.float32).eps / 0.5
-        for ga, gb in zip(ref.pbc, out.pbc):
+        for ga, gb in zip(ref.pbc if with_pbc else (), out.pbc):
             scale = np.abs(_f64(ga)).max()
-            if name == "flagship":
+            if name.startswith("flagship"):
                 assert scale > 50.0 * quant, "qgdFlux signal too small"
             np.testing.assert_allclose(gb, _f64(ga),
                                        atol=quant + 2e-3 * scale)
@@ -411,10 +434,20 @@ def test_wrappers_check_their_inputs():
     duct, _ = tcases.supersonic_duct_3d(shape=SHAPE, device="cpu")
     with pytest.raises(ValueError):
         F.qgd3d_sensor(F.make_params(duct)[0], fs.p, fs.T, fs.sc)
-    launches = [k.launches for k in F.KERNELS]
+    with pytest.raises(ValueError):
+        F.qgd3d_emit(F.make_params(duct)[0], fs.p, fs.T, fs.sc)
+    with pytest.raises(ValueError):
+        F.qgd3d_emit(prm, fs.p, fs.T[:-1], fs.sc)
+    slab = _build_params_copy(prm)
+    slab.edge_hi = 0
+    with pytest.raises(ValueError, match="physical"):
+        F.qgd3d_emit(slab, fs.p, fs.T, fs.sc)
+    kernels = F.KERNELS + (F.qgd3d_sensor,)
+    launches = [k.launches for k in kernels]
     F.qgd3d_dt(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
     F.qgd3d_sensor(prm, fs.p, fs.T, fs.sc)
-    assert [k.launches for k in F.KERNELS] == launches, \
+    F.qgd3d_emit(prm, fs.p, fs.T, fs.sc, raw=True)
+    assert [k.launches for k in kernels] == launches, \
         "the plain version on the CPU is not a launch"
 
 
@@ -475,31 +508,41 @@ def test_grouped_smoothing_3d_is_bitwise_fvc_smooth(field, k):
 def test_3d_step_on_cpu_is_no_launch():
     """On CPU tensors the 3D varsc step's wrappers take their plain
     versions: no launch and no ring counted by any kernel, while the
-    smoothing loop counts one host flag read a call and one ring in a
-    step's first call, SMOOTH3_RINGS in each after it, and the step's
-    sensor is fvc_smooth of the raw sensor it carried.  `qgd3d_smooth`
-    checks its inputs."""
+    smoothing loop counts one host flag read a step (the carried flag) and
+    one more every SMOOTH3_PER_READ calls of SMOOTH3_RINGS rings, and the
+    step's sensor is
+    fvc_smooth of the raw sensor the previous step emitted (to_fused's for
+    the first), its carried ring 1 and flag those of that raw sensor.
+    `qgd3d_smooth` checks its inputs."""
     ts, s = tcases.supersonic_jet_3d_varsc(shape=RAGGED, device="cpu")
+    prm, _ = F.make_params(ts)
     step, to_f, _ = ts.make_fused_step()
-    fs = to_f(ts.make_step()(s))
+    s = ts.make_step()(s)
+    fs = to_f(s)
+    raw = F.raw_sensor(ts, fs.p, fs.T, s.sc)
     before = [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings]
     reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
     for _ in range(3):
         new = step(fs)
         assert torch.equal(new.sc, F._edge_frame(
-            tcoeffs.fvc_smooth(fs.sc_raw, ts.tau_model.smoothCoeff)))
+            tcoeffs.fvc_smooth(raw, ts.tau_model.smoothCoeff)))
+        raw, s1, chg = F.qgd3d_emit(prm, new.p, new.T, new.sc, raw=True)
+        cells, flag = F.smooth_reference_3d(prm, raw, 1)
+        assert torch.equal(new.sc_s1, F._edge_frame(cells)) \
+            and torch.equal(s1, new.sc_s1)
+        assert float(new.sc_chg) == float(flag) == float(chg)
         fs = new
     assert [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings] == before
     reads = S.smooth_sensor.reads - reads
     assert reads >= 3
-    assert S.smooth_sensor.rings - rings == 3 + F.SMOOTH3_RINGS * (reads - 3)
-    prm, _ = F.make_params(ts)
+    assert S.smooth_sensor.rings - rings == \
+        F.SMOOTH3_RINGS * F.SMOOTH3_PER_READ * (reads - 3)
     with pytest.raises(ValueError):
-        F.qgd3d_smooth(prm, fs.sc_raw, F.SMOOTH3_KMAX + 1)
+        F.qgd3d_smooth(prm, fs.sc_s1, F.SMOOTH3_KMAX + 1)
     with pytest.raises(ValueError):
-        F.qgd3d_smooth(prm, fs.sc_raw[:-1], 1)
+        F.qgd3d_smooth(prm, fs.sc_s1[:-1], 1)
     with pytest.raises(TypeError):
-        F.qgd3d_smooth(prm, fs.sc_raw.double(), 1)
+        F.qgd3d_smooth(prm, fs.sc_s1.double(), 1)
 
 
 @pytest.mark.parametrize("name", ["supersonic_duct_3d", "flagship"])
@@ -681,3 +724,132 @@ def test_x_side_planes_on_a_y_or_z_of_one_cell():
         assert F.supported(ts)
         _, planes = F.make_params(ts)
         assert planes.shape[1:] == shape[1:]
+
+
+def _build_params_copy(prm):
+    from qgdsolver_tpu_torch.ops import _build as tbuild
+
+    return tbuild.QGD3DParams.from_buffer_copy(prm)
+
+
+def _fresh_frames(shape, seed):
+    """p, T, sc frames (edge-framed cells) of a spiky density, a random
+    temperature and a random previous sensor, from a seed."""
+    rng = np.random.default_rng(seed)
+    rho = 1.2 * (1.0 + 0.05 * rng.standard_normal(shape))
+    rho[tuple(slice(n // 3, n // 3 + 2) for n in shape)] *= 2.0
+    T = rng.uniform(280.0, 320.0, shape)
+    p = rho * 287.0 * T
+    sc_prev = rng.uniform(0.05, 0.5, shape)
+    return tuple(F._edge_frame(torch.as_tensor(x, dtype=torch.float32))
+                 for x in (p, T, sc_prev))
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 4), (13, 9, 7), (9, 2, 5)])
+def test_emit_reference_matches_jax_sc_raw_update(shape):
+    """`qgd3d_emit`'s plain version on fresh frames: the raw sensor against
+    the JAX sc_raw_update on the same density (rel 1e-5, as the sensor
+    test above); ring 1 and its flag bitwise `smooth_reference` of that raw
+    sensor, with the raw sensor returned only when asked for; and the JAX
+    package's `fvc_smooth_continue` from the port's ring 1 and flag equal to
+    its `fvc_smooth` of the raw sensor (rtol 1e-6: jit rounds the ring's
+    division otherwise, as in tests/test_torch_tiled.py)."""
+    js, _, ts, _ = _build("supersonic_jet_3d_varsc", shape)
+    prm, _ = F.make_params(ts)
+    pf, Tf, scf = _fresh_frames(shape, 3)
+    raw, s1, chg = F.qgd3d_emit(prm, pf, Tf, scf, raw=True)
+    assert raw.shape == shape and s1.shape == pf.shape and chg.shape == ()
+    rho32 = pf[C] * (1.0 / (prm.R * Tf[C]))
+    ref = js.tau_model.sc_raw_update(js.mesh, jnp.asarray(rho32.numpy()),
+                                     jnp.asarray(scf[C].numpy()))
+    assert _rel(ref, raw.numpy()) < 1e-5
+    cells, flag = F.smooth_reference_3d(prm, raw, 1)
+    assert torch.equal(s1, F._edge_frame(cells))
+    assert float(chg) == float(flag) == 1.0, "the spike must raise ring 1"
+    again = F.qgd3d_emit(prm, pf, Tf, scf)
+    assert again[0] is None and torch.equal(again[1], s1)
+    coeff = ts.tau_model.smoothCoeff
+    cont = jcoeffs.fvc_smooth_continue(jnp.asarray(cells.numpy()),
+                                       jnp.asarray(float(chg) > 0.0), coeff)
+    np.testing.assert_allclose(
+        np.asarray(cont),
+        np.asarray(jcoeffs.fvc_smooth(jnp.asarray(raw.numpy()), coeff)),
+        rtol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("field", ["random", "spike", "smooth"])
+def test_emitted_ring_continuation_is_bitwise_fvc_smooth(field, k):
+    """The 3D step's smoothing from the emitted first ring (a frame) and
+    its flag: `smooth_sensor` on `qgd3d_smooth`'s plain version, k rings a
+    call, is the port's fvc_smooth of the raw sensor edge-framed, bit for
+    bit, with one host flag read for the emitted flag and one every call,
+    or every second call (the calls past the fixed point change nothing);
+    at rest (flag 0) it returns the emitted frame itself, with no call."""
+    raw = torch.as_tensor(_smooth_field3(field))
+    ts, _ = tcases.supersonic_jet_3d_varsc(shape=RAGGED, device="cpu")
+    prm, _ = F.make_params(ts)
+    cells, chg = F.smooth_reference_3d(prm, raw, 1)
+    s1 = F._edge_frame(cells)
+    ref = F._edge_frame(tcoeffs.fvc_smooth(raw, 0.1))
+    smooths = [S._smooth_plain]
+    if k <= F.SMOOTH3_KMAX:
+        smooths.append(F.qgd3d_smooth)
+    for smooth, per_read in itertools.product(smooths, (1, 2)):
+        reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
+        out = S.smooth_sensor(prm, s1, chg, smooth, k, per_read=per_read)
+        reads = S.smooth_sensor.reads - reads
+        rings = S.smooth_sensor.rings - rings
+        assert torch.equal(out, ref)
+        assert rings == k * per_read * (reads - 1)
+        if field == "smooth":
+            assert float(chg) == 0.0 and out is s1 and reads == 1
+        else:
+            assert float(chg) == 1.0 and reads >= 2 and out is not s1
+
+
+@pytest.mark.parametrize("name", ["supersonic_jet_3d_varsc", "flagship",
+                                  "flagship_bump"])
+def test_to_fused_carries_ring_1_and_flag(name):
+    """to_fused carries the first ring of the State's raw sensor (as the
+    composable step computes it) as a frame with edge-replicated ghosts,
+    and its flag, both bitwise the plain ring; the first step's sensor
+    frame is fvc_smooth of that raw sensor."""
+    _, _, ts, st = _build(name)
+    prm, _ = F.make_params(ts)
+    step, to_f, _ = ts.make_fused_step()
+    fs = to_f(st)
+    raw = ts.tau_model.sc_raw_update(
+        ts.mesh, ts.thermo.rho_from_p_T(fs.p[C], fs.T[C]), st.sc)
+    cells, flag = F.smooth_reference_3d(prm, raw, 1)
+    assert torch.equal(fs.sc_s1, F._edge_frame(cells))
+    assert float(fs.sc_chg) == float(flag)
+    if name == "flagship_bump":
+        assert float(flag) == 1.0, "the bump must keep the rings going"
+    assert torch.equal(step(fs).sc, F._edge_frame(
+        tcoeffs.fvc_smooth(raw, ts.tau_model.smoothCoeff)))
+
+
+@pytest.mark.parametrize("px,nx,extrap,taken", [
+    (2, 2, True, False), (2, 4, True, True), (2, 2, False, True),
+    (1, 2, True, True)])
+def test_sharded_gate_refuses_one_plane_slabs_with_extrapolation(px, nx,
+                                                                 extrap,
+                                                                 taken):
+    """K5's gate: a slab of one plane whose x ends carry an extrapolated BC
+    reads its halo plane at ghost time, before the exchange fills it, so
+    `sharded_supported` refuses it (and `build_sharded_fused_step_3d`
+    raises); slabs of two planes, one-plane slabs without extrapolation
+    and the serial step on the same mesh are taken."""
+    from qgdsolver_tpu_torch.parallel import sharding
+    from test_torch_gpu import one_kind_on_sides
+
+    ts, _ = tcases.supersonic_duct_3d(shape=(nx, 4, 5), device="cpu")
+    if extrap:
+        ts = one_kind_on_sides(ts, tbc, "extrap", (0,))
+    grid = sharding.ProcessGrid(px, 1)
+    assert F.supported(ts)
+    assert F.sharded_supported(ts, grid) is taken
+    if not taken:
+        with pytest.raises(ValueError, match="not supported"):
+            F.build_sharded_fused_step_3d(ts, grid)

@@ -38,6 +38,7 @@ from qgdsolver_tpu_torch import cli, interop
 from qgdsolver_tpu_torch.io import foam_case
 from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+from qgdsolver_tpu_torch.ops import smoothing as S
 from qgdsolver_tpu_torch.parallel import distributed, sharding
 from test_torch_fused_qgd3d import _flagship as flagship_3d
 
@@ -273,8 +274,10 @@ def test_flagged_plain_versions_3d_match_the_serial_window():
         fs = step(fs)
     prm, planes = F3.make_params(solver)
     planes = torch.as_tensor(planes)
-    sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
-                                      solver.tau_model.smoothCoeff))
+    # the next step's sensor frame: fvc_smooth of the raw sensor, from its
+    # carried first ring and flag
+    sc = S.smooth_sensor(prm, fs.sc_s1, fs.sc_chg, S._smooth_plain,
+                         F3.SMOOTH3_RINGS)
     dt = F3.dt_reference_3d(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)
     args = (fs.p, fs.T, fs.ux, fs.uy, fs.uz)
     new, side = F3.update_reference_3d(prm, *args, sc, dt)

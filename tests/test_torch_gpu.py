@@ -1,5 +1,6 @@
 """CUDA kernels of the fused 2D (K1, K2's `qgd2d_emit` and `qgd2d_smooth`)
-and 3D steps (with `qgd3d_smooth`) against their plain torch versions, on
+and 3D steps (with `qgd3d_emit` and `qgd3d_smooth`) against their plain
+torch versions, on
 the card, at the production sizes (1024x512 and 256x126x126 f32), from a
 state after 20 plain steps, and the smoothing kernels on ragged shapes;
 the division-free ring against a correctly rounded division
@@ -8,9 +9,10 @@ CPU's.
 Marked `gpu`: they skip where no CUDA device exists.  Run them on the card
 with `python -m pytest tests/test_torch_gpu.py -m gpu -q`.
 
-Bounds: dt, ghosts, the emitted rates and the 3D sensor rtol 1e-6 (a
-reduction of exact max/min; selects plus one FMA; rsqrtf-free pointwise
-arithmetic); the 2D emitted sensor and the smoothing rings bitwise; one
+Bounds: dt, ghosts, the emitted rates and the 3D raw sensor rtol 1e-6 (a
+reduction of exact max/min; selects plus one FMA; the CPU's sqrt is not
+always correctly rounded); the 2D emitted sensor, the 3D emitted ring 1
+(of the kernel's own raw sensor) and the smoothing rings bitwise; one
 update step within 1e-5 of
 each field's max (rsqrtf and FMA contraction); 10 lock-step steps within
 the JAX fused tests' bounds.  The decomposed steps K3 and K5 run on two
@@ -446,6 +448,30 @@ def test_k2_main_path_counts_rings_and_launches(device):
         assert _rel(getattr(b, f), getattr(s, f)) <= 2e-3, f
 
 
+def _step_sensor(prm, fs):
+    """The sensor frame the next 3D varsc step uses: fvc_smooth of the raw
+    sensor, from the carried first ring and flag, in plain torch."""
+    return S.smooth_sensor(prm, fs.sc_s1, fs.sc_chg, S._smooth_plain,
+                           F3.SMOOTH3_RINGS)
+
+
+def _check_emit(prm, p, T, sc):
+    """qgd3d_emit against its plain version: the raw sensor within rtol
+    1e-6, ring 1 and the flag bitwise the plain ring of the kernel's own
+    raw sensor, the same ring and flag without the raw sensor, and
+    qgd3d_sensor (the raw-only mode) bitwise the emit's raw sensor."""
+    raw, s1, chg = F3.qgd3d_emit(prm, p, T, sc, raw=True)
+    assert _rel(F3.sensor_reference_3d(prm, p, T, sc), raw) <= 1e-6
+    cells, flag = F3.smooth_reference_3d(prm, raw, 1)
+    assert torch.equal(s1, F._edge_frame(cells))
+    assert float(chg) == float(flag)
+    got = F3.qgd3d_emit(prm, p, T, sc)
+    assert got[0] is None and torch.equal(got[1], s1)
+    assert float(got[2]) == float(chg)
+    assert torch.equal(F3.qgd3d_sensor(prm, p, T, sc), raw)
+    return raw, s1, chg
+
+
 def _warm3(name, device, shape=SHAPE3):
     if name == "every_bc_kind_3d":
         solver, state = every_bc_kind_3d(cases, bc, shape, torch.float32,
@@ -468,10 +494,7 @@ def test_3d_kernels_match_plain_versions(name, device):
     dt_ref = F3.dt_reference_3d(prm, *dts)
     torch.testing.assert_close(F3.qgd3d_dt(prm, *dts), dt_ref, rtol=1e-6,
                                atol=0.0)
-    sc = None
-    if prm.varsc:
-        sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
-                                          solver.tau_model.smoothCoeff))
+    sc = _step_sensor(prm, fs) if prm.varsc else None
     args = (fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc, dt_ref)
     ref, side_ref = F3.update_reference_3d(prm, *args)
     new, side = F3.qgd3d_update(prm, *args)
@@ -481,8 +504,7 @@ def test_3d_kernels_match_plain_versions(name, device):
     if solver._flux_sides():
         assert _rel(side_ref, side) <= 1e-5
     if prm.varsc:
-        s_ref = F3.sensor_reference_3d(prm, ref[0], ref[1], sc)
-        assert _rel(s_ref, F3.qgd3d_sensor(prm, ref[0], ref[1], sc)) <= 1e-6
+        _check_emit(prm, ref[0], ref[1], sc)
     fa = [x.clone() for x in ref]
     fb = [x.clone() for x in ref]
     F3.ghosts_reference_3d(prm, fa, side_ref, planes)
@@ -504,10 +526,7 @@ def test_3d_update_on_ragged_shapes(name, shape, device):
 
     solver, fs = _warm3(name, device, shape)
     prm, _ = F3.make_params(solver)
-    sc = None
-    if prm.varsc:
-        sc = F3._edge_frame(F3.fvc_smooth(fs.sc_raw,
-                                          solver.tau_model.smoothCoeff))
+    sc = _step_sensor(prm, fs) if prm.varsc else None
     frames = (fs.p, fs.T, fs.ux, fs.uy, fs.uz)
     ref, side_ref = F3.update_reference_3d(prm, *frames, sc, fs.dt)
     new, side = F3.qgd3d_update(prm, *frames, sc, fs.dt)
@@ -550,25 +569,120 @@ def test_3d_kernel_path_tracks_plain_path(name, dt_tol, f_tol, device):
 
 @pytest.mark.parametrize("name", CASES3)
 def test_3d_main_path_launches_each_kernel_once_per_step(name, device):
-    """dt, update, ghosts once per step; for the varsc jet the sensor once
-    and `qgd3d_smooth` once or more per step, with one host flag read per
-    launch (the duct launches neither)."""
+    """dt, update, ghosts once per step; for the varsc jet at rest the emit
+    once per step, with one host flag read a step and no `qgd3d_smooth`
+    launch (its ring 1 is the fixed point); the duct launches neither, and
+    no step launches `qgd3d_sensor` (K5's)."""
     solver, state = getattr(cases, name)(shape=SHAPE3, device=device)
     step, to_f, from_f = solver.make_fused_step()
     fs = to_f(state)
-    for k in F3.KERNELS:
+    kernels = F3.KERNELS + (F3.qgd3d_sensor,)
+    for k in kernels:
         k.launches = 0
     reads = S.smooth_sensor.reads
     s = from_f(common.run_steps(step, fs, 10))
     reads = S.smooth_sensor.reads - reads
     varsc = F3.make_params(solver)[0].varsc
-    got = {k.__name__: k.launches for k in F3.KERNELS}
-    smooth = got.pop("qgd3d_smooth")
+    got = {k.__name__: k.launches for k in kernels}
     assert got == {"qgd3d_dt": 10, "qgd3d_update": 10,
-                   "qgd3d_sensor": 10 if varsc else 0, "qgd3d_ghosts": 10}
-    assert smooth >= 10 if varsc else smooth == 0
-    assert reads == smooth
+                   "qgd3d_emit": 10 if varsc else 0, "qgd3d_ghosts": 10,
+                   "qgd3d_smooth": 0, "qgd3d_sensor": 0}
+    assert reads == (10 if varsc else 0)
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
+
+
+def test_3d_main_path_with_a_bump_runs_the_rings(device):
+    """The varsc jet with a density bump through the main path: the emit
+    once a step, `qgd3d_smooth` carrying ring 1 on (4 rings a launch), one
+    host flag read a step and one every SMOOTH3_PER_READ launches, and
+    each step's sensor frame fvc_smooth of the raw sensor the step before
+    emitted."""
+    from chip_smoke import with_bump
+
+    solver, state = cases.supersonic_jet_3d_varsc(shape=SHAPE3, device=device)
+    prm, _ = F3.make_params(solver)
+    step, to_f, from_f = solver.make_fused_step()
+    fs = step(to_f(with_bump(solver, state)))
+    for k in F3.KERNELS:
+        k.launches = 0
+    F3.qgd3d_smooth.rings = 0
+    reads = S.smooth_sensor.reads
+    for _ in range(5):
+        raw = F3.qgd3d_emit(prm, fs.p, fs.T, fs.sc, raw=True)[0]
+        new = step(fs)
+        assert torch.equal(new.sc, F._edge_frame(
+            F3.fvc_smooth(raw, solver.tau_model.smoothCoeff)))
+        fs = new
+    reads = S.smooth_sensor.reads - reads
+    got = {k.__name__: k.launches for k in F3.KERNELS}
+    assert got["qgd3d_emit"] == 10 and got["qgd3d_dt"] == 5
+    assert got["qgd3d_smooth"] >= 1
+    assert F3.qgd3d_smooth.rings == F3.SMOOTH3_RINGS * got["qgd3d_smooth"]
+    assert reads == 5 + got["qgd3d_smooth"] // F3.SMOOTH3_PER_READ
+    s = from_f(fs)
+    assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 126), (2, 1, 33), (17, 2, 31),
+                                   (17, 9, 1), (37, 13, 45), (20, 40, 70)])
+def test_3d_emit_on_ragged_shapes(shape, device):
+    """qgd3d_emit where (nx, ny, nz) are no multiples of its (16, 32) tile
+    or its x chunk (and axes of one cell), on random frames with a spike:
+    as `_check_emit`; and qgd3d_sensor under each partition-edge pair
+    within rtol 1e-6 of the flagged plain version."""
+    from qgdsolver_tpu_torch.ops import _build
+
+    prm = F3.make_params(cases.supersonic_jet_3d_varsc(shape=shape,
+                                                       device=device)[0])[0]
+    p, T = random_frames(shape, 21, device)[:2]
+    p[tuple(n // 2 for n in p.shape)] *= 2.0
+    rng = np.random.default_rng(21)
+    sc = torch.as_tensor(rng.uniform(0.05, 0.5, p.shape).astype(np.float32),
+                         device=device)
+    _check_emit(prm, p, T, sc)
+    for edges in ((0, 1), (1, 0), (0, 0)):
+        blk = _build.QGD3DParams.from_buffer_copy(prm)
+        blk.edge_lo, blk.edge_hi = edges
+        assert _rel(F3.sensor_reference_3d(blk, p, T, sc),
+                    F3.qgd3d_sensor(blk, p, T, sc)) <= 1e-6, edges
+
+
+def test_3d_sensor_path_with_a_nan_cell(device, record_property):
+    """One NaN cell of p in fresh frames (its rho NaN), and one NaN cell of
+    a sensor: what qgd3d_emit and qgd3d_smooth give beside their plain
+    versions.  The raw sensor is NaN exactly where the plain one is (its
+    clamps propagate NaN, as torch.clamp does).  The rings take their max
+    with fmaxf, which drops a NaN operand, while the plain rings'
+    torch.maximum propagates it: where the plain ring 1 or rings are NaN
+    the kernels' may be finite (recorded as properties; ROADMAP queue 3).
+    Everywhere else the kernels equal the plain versions bit for bit."""
+    shape = (20, 40, 70)
+    prm = F3.make_params(cases.supersonic_jet_3d_varsc(shape=shape,
+                                                       device=device)[0])[0]
+    p, T = random_frames(shape, 23, device)[:2]
+    p[5, 7, 9] = float("nan")
+    sc = torch.full_like(p, 0.1)
+    raw, s1, chg = F3.qgd3d_emit(prm, p, T, sc, raw=True)
+    ref = F3.sensor_reference_3d(prm, p, T, sc)
+    assert torch.equal(torch.isnan(raw), torch.isnan(ref))
+    assert int(torch.isnan(ref).sum()) == 7
+    ok = ~torch.isnan(ref)
+    assert _rel(ref[ok], raw[ok]) <= 1e-6
+    cells, _ = F3.smooth_reference_3d(prm, raw, 1)
+    plain = F._edge_frame(cells)
+    bad = torch.isnan(plain)
+    assert torch.equal(s1[~bad], plain[~bad])
+    record_property("emit_ring1_plain_nan_cells", int(bad.sum()))
+    record_property("emit_ring1_kernel_nan_cells", int(torch.isnan(s1).sum()))
+    f = torch.full(shape, 0.1, device=device)
+    f[10, 20, 30] = float("nan")
+    out, _ = F3.qgd3d_smooth(prm, f, F3.SMOOTH3_RINGS)
+    cells, _ = F3.smooth_reference_3d(prm, f, F3.SMOOTH3_RINGS)
+    plain = F._edge_frame(cells)
+    bad = torch.isnan(plain)
+    assert torch.equal(out[~bad], plain[~bad])
+    record_property("smooth_plain_nan_cells", int(bad.sum()))
+    record_property("smooth_kernel_nan_cells", int(torch.isnan(out).sum()))
 
 
 @pytest.mark.parametrize("kind,name,shape", [
@@ -735,15 +849,16 @@ def test_dt_kernels_give_nan_where_plain_versions_do(dims, device):
                     (name, label, i, got, ref)
 
 
-@pytest.mark.parametrize("k", sorted({0, 1, 2, F3.SMOOTH3_RINGS,
+@pytest.mark.parametrize("k", sorted({0, 1, 2, 3, F3.SMOOTH3_RINGS,
                                       F3.SMOOTH3_KMAX}))
 @pytest.mark.parametrize("shape", [(37, 13, 45), (20, 70, 9), (9, 30, 130)])
 def test_smooth3_kernel_on_ragged_shapes(shape, k, device):
     """qgd3d_smooth where (nx, ny, nz) are no multiples of its (y, z) tile
     or its x chunk, on cells and on a frame, bitwise its plain version
-    (cells, ghosts, edges and corners, and the last-ring flag); and the 3D
-    step's smoothing loop on it, from the raw sensor, bitwise the same loop
-    on the plain version and `fvc_smooth` edge-framed."""
+    (cells, ghosts, edges and corners, and the last-ring flag); and the
+    smoothing loop on it, from the raw sensor and from an emitted first
+    ring (a frame) and its flag, bitwise the same loop on the plain
+    version and `fvc_smooth` edge-framed."""
     prm = F3.make_params(cases.supersonic_jet_3d_varsc(shape=shape,
                                                        device=device)[0])[0]
     rng = np.random.default_rng(11)
@@ -762,6 +877,9 @@ def test_smooth3_kernel_on_ragged_shapes(shape, k, device):
     ref = S.smooth_sensor(prm, f, None, S._smooth_plain, k)
     assert torch.equal(got, ref)
     assert torch.equal(got, F._edge_frame(F3.fvc_smooth(f, 0.1)))
+    cells, chg = F3.smooth_reference_3d(prm, f, 1)
+    s1 = F._edge_frame(cells)
+    assert torch.equal(S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, k), ref)
 
 
 @pytest.mark.parametrize("dims", [2, 3])
