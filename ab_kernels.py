@@ -244,8 +244,7 @@ def inputs3(dev):
              "rings", "smooth3", (prm, bumped.sc_s1, k))
             for k in (1, F3.SMOOTH3_RINGS)]
     out.append(("the 3D step's continuation from that ring, "
-                f"{F3.SMOOTH3_RINGS} rings a launch, the flag read every "
-                f"{F3.SMOOTH3_PER_READ} launches", "continuation3",
+                f"{F3.SMOOTH3_RINGS} rings a launch", "continuation3",
                 (prm, bumped.sc_s1, bumped.sc_chg)))
     for name in cs.CASES3:
         solver, fs = cs.warm_state(name, cs.SHAPE3, F3.build_fused_step_3d,
@@ -369,8 +368,7 @@ def continuation3(prm, s1, chg):
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.ops import smoothing as S
 
-    return S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, F3.SMOOTH3_RINGS,
-                           per_read=F3.SMOOTH3_PER_READ)
+    return S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, F3.SMOOTH3_RINGS)
 
 
 def sensor_ring1(prm, p, T, sc):

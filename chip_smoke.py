@@ -919,8 +919,7 @@ def phase_time3(dev, card, jobs, stats):
     """Grid points per second at SHAPE3: the duct's kernel, plain frame and
     composable paths and the varsc jet's kernel path at rest (CUDA events);
     the varsc jet over 20 steps from one kernel step after a density bump
-    (`window`), with its flag read every 1, 2 and 4 launches of
-    `qgd3d_smooth`; then, with the profiler, each path's device idle share,
+    (`window`); then, with the profiler, each path's device idle share,
     the varsc jet's device time per step by kernel beside the step's bound,
     its launches a step at rest (4: dt, update, emit, ghosts), and each 3D
     kernel's device time against its plain version's."""
@@ -961,16 +960,10 @@ def phase_time3(dev, card, jobs, stats):
     parts_rest = step_parts(rest, 10)
     check("qgd3d_smooth" not in parts_rest and per_step["varsc kernel"][1]
           == 0, "qgd3d_smooth ran in the varsc jet's steps at rest")
-    bumped0 = vstep(vto(with_bump(vsolver, vstate)))
-    every = F3.SMOOTH3_PER_READ
-    bumped = {}
-    for n in (1, 2, 4):
-        F3.SMOOTH3_PER_READ = n
-        bumped[n] = window(vstep, bumped0, 20)
-    F3.SMOOTH3_PER_READ = every
-    ref = bumped[every]
-    check("qgd3d_smooth" in ref["parts"], "the profiler saw no qgd3d_smooth "
-          f"in the bumped varsc jet's steps: {sorted(ref['parts'])}")
+    bumped = window(vstep, vstep(vto(with_bump(vsolver, vstate))), 20)
+    check("qgd3d_smooth" in bumped["parts"], "the profiler saw no "
+          f"qgd3d_smooth in the bumped varsc jet's steps: "
+          f"{sorted(bumped['parts'])}")
     base = {"qgd3d_dt": 1, "qgd3d_update": 1, "qgd3d_emit": 1,
             "qgd3d_ghosts": 1}
     bound_rest = step_bound(base, True)
@@ -982,12 +975,11 @@ def phase_time3(dev, card, jobs, stats):
     sm_bound = bound(work_bytes("qgd3d_smooth", SHAPE3), sm["ops"])
     stats["qgd3d_smooth"]["extra"] = {
         "rings_per_launch": F3.SMOOTH3_RINGS,
-        "launches_per_read": every,
-        "rings_per_step_bumped": ref["counts"][0],
-        "launches_per_step_bumped": ref["counts"][1],
-        "reads_per_step_bumped": ref["counts"][2],
+        "rings_per_step_bumped": bumped["counts"][0],
+        "launches_per_step_bumped": bumped["counts"][1],
+        "reads_per_step_bumped": bumped["counts"][2],
         "launches_per_step_at_rest": per_step["varsc kernel"][1],
-        "ms_per_step_bumped": ref["parts"]["qgd3d_smooth"],
+        "ms_per_step_bumped": bumped["parts"]["qgd3d_smooth"],
         "ms_1_ring": ring_ms}
     print(f"phase 10 time 3D {SHAPE3}: " + "; ".join(
         f"{k} {r:.4e} points/s ({ms:.4f} ms/step, device idle share "
@@ -997,17 +989,15 @@ def phase_time3(dev, card, jobs, stats):
         f"step; device ms per step {sum(parts_rest.values()):.4f} (bound "
         f"{bound_rest[0]:.4f} by {bound_rest[1]}) by kernel: "
         + ", ".join(f"{n} {x:.4f}" for n, x in parts_rest.items())
-        + "".join(
-            f" | varsc jet, 20 steps after a density bump, the flag read "
-            f"every {n} launch(es): {b['ms']:.4f} ms/step (device idle "
-            f"share {b['idle']:.3f}), {b['counts'][0]:.2f} qgd3d_smooth "
-            f"rings/step in {b['counts'][1]:.2f} launches, "
-            f"{b['counts'][2]:.2f} host flag reads/step; device ms per step "
-            f"{sum(b['parts'].values()):.4f} (bound "
-            f"{step_bound(dict(base, qgd3d_smooth=b['counts'][1]), True)[0]:.4f}"
-            f" by bytes) by kernel: "
-            + ", ".join(f"{k} {x:.4f}" for k, x in b["parts"].items())
-            for n, b in bumped.items())
+        + f" | varsc jet, 20 steps after a density bump: "
+        f"{bumped['ms']:.4f} ms/step (device idle share "
+        f"{bumped['idle']:.3f}), {bumped['counts'][0]:.2f} qgd3d_smooth "
+        f"rings/step in {bumped['counts'][1]:.2f} launches, "
+        f"{bumped['counts'][2]:.2f} host flag reads/step; device ms per step "
+        f"{sum(bumped['parts'].values()):.4f} (bound "
+        f"{step_bound(dict(base, qgd3d_smooth=bumped['counts'][1]), True)[0]:.4f}"
+        " by bytes) by kernel: "
+        + ", ".join(f"{k} {x:.4f}" for k, x in bumped["parts"].items())
         + " | device ms/call kernel (launches per call) vs plain: "
         + ", ".join(
             f"{k} {stats[k]['by_shape'][SHAPE3]['ms']:.4f} "
@@ -1880,8 +1870,7 @@ def main() -> int:
     reads = S.smooth_sensor.reads - reads
     check(reads == 40, f"the 3D main path at rest read {reads} smoothing "
           "flags in 40 varsc steps")
-    # with a density bump the rings go on: one more read every
-    # SMOOTH3_PER_READ launches
+    # with a density bump the rings go on: one more read a launch
     reads = S.smooth_sensor.reads
     bumped = phase_main_path(9, dev, SHAPE3, [(CASES3[1], 20, with_bump)],
                              F3.KERNELS, {"qgd3d_dt": 20, "qgd3d_update": 20,
@@ -1889,10 +1878,9 @@ def main() -> int:
                                           "qgd3d_smooth": 1},
                              least=("qgd3d_smooth",))
     reads = S.smooth_sensor.reads - reads
-    check(reads == 20 + bumped["qgd3d_smooth"] // F3.SMOOTH3_PER_READ,
-          f"the bumped 3D main path read {reads} smoothing flags in 20 steps "
-          f"and {bumped['qgd3d_smooth']} launches, {F3.SMOOTH3_PER_READ} a "
-          "read")
+    check(reads == 20 + bumped["qgd3d_smooth"], f"the bumped 3D main path "
+          f"read {reads} smoothing flags in 20 steps and "
+          f"{bumped['qgd3d_smooth']} launches")
     for k, v in bumped.items():
         launches[k] += v
     phase_time3(dev, card, jobs3, stats)

@@ -19,7 +19,7 @@ One step:
      reference): `smoothing.smooth_sensor` reads the carried flag on the
      host; at 0, ring 1 is the fixed point and `sc_s1` is the frame, with
      no launch; else `qgd3d_smooth` carries it on, SMOOTH3_RINGS rings a
-     launch, one host flag read every SMOOTH3_PER_READ launches;
+     launch, one host flag read a launch;
   3. `qgd3d_update`: the six face fluxes of each cell and the explicit
      update into new frames, plus ws/tau_f on the two x-boundary faces;
   4. varScModel5 only: `qgd3d_emit`, the raw sensor over the fresh frames,
@@ -749,11 +749,9 @@ def qgd3d_ghosts(prm, frames, side, planes):
 
 
 # rings one qgd3d_smooth launch may run (its x-march keeps one register
-# level per ring), the rings per launch after the emitted first ring, and
-# the launches between two host reads of the flag (`smoothing.smooth_sensor`)
+# level per ring), and the rings per launch after the emitted first ring
 SMOOTH3_KMAX = 4
 SMOOTH3_RINGS = 4
-SMOOTH3_PER_READ = 2
 
 
 def qgd3d_smooth(prm, f, k, out=None, flag=None):
@@ -858,8 +856,7 @@ def build_fused_step_3d(solver, plain: bool = False):
         sc = s1 = chg = None
         if varsc:
             sc = smooth_sensor(prm, fs.sc_s1, fs.sc_chg, k_smooth,
-                               SMOOTH3_RINGS, cache=scratch,
-                               per_read=SMOOTH3_PER_READ)
+                               SMOOTH3_RINGS, cache=scratch)
         frames, side = k_update(prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc,
                                 dt_new)
         if varsc:

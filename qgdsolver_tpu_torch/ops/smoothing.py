@@ -82,8 +82,7 @@ def smooth_args(name, cells, kmax, f, k, out, flag):
     return on_card, bare, out, flag
 
 
-def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000,
-                  per_read=1):
+def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
     """The sensor frame of a step: fvc::smooth carried to its fixed point
     and edge-framed - bitwise `fvc_smooth` of the raw sensor, whatever k -
     on `smooth` (the signature of `qgd2d_smooth` and `qgd3d_smooth`, or
@@ -95,11 +94,9 @@ def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000,
     cells (K2's) are framed by one launch of 0 rings.  With chg None, s1 is
     the raw sensor and the first launch runs ring 1 alone, as `fvc_smooth`
     tests after its first ring: an inactive sensor costs one ring.  Then it
-    launches k rings at a time, reading the last-ring flag of every
-    `per_read`-th launch, until a read launch's last ring raised no cell or
-    the `fvc_smooth` cap of max_iters rings is reached: a ring at the fixed
-    point changes nothing, so launches past it leave the frame as it is.
-    The launches alternate between the
+    launches k rings at a time, reading each launch's last-ring flag, until
+    a launch's last ring raised no cell or the `fvc_smooth` cap of
+    max_iters rings is reached.  The launches alternate between the
     returned frame, which is new, and a scratch frame; the last one lands
     in the returned frame when the call takes as many launches as the call
     before it, else one copy moves it there.  `cache` (a dict a step
@@ -131,10 +128,9 @@ def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000,
         smooth(prm, src, rings, dst, flag)
         smooth_sensor.rings += rings
         it, n = it + rings, n + 1
-        if n % per_read == 0 or it >= max_iters:
-            smooth_sensor.reads += 1
-            if not bool(flag) or it >= max_iters:
-                break
+        smooth_sensor.reads += 1
+        if not bool(flag) or it >= max_iters:
+            break
         src, dst, rings = dst, (scratch if dst is out else out), k
     bufs[2] = n
     if dst is not out:

@@ -9,7 +9,6 @@ the JAX 3D fused tests' own: dt rtol 1e-6, rho/rhoU/rhoE/sc within 2e-5 of
 their max over 10 steps, pbc within quant + 2e-3*scale.
 """
 import dataclasses
-import itertools
 
 import jax
 import jax.numpy as jnp
@@ -509,8 +508,7 @@ def test_3d_step_on_cpu_is_no_launch():
     """On CPU tensors the 3D varsc step's wrappers take their plain
     versions: no launch and no ring counted by any kernel, while the
     smoothing loop counts one host flag read a step (the carried flag) and
-    one more every SMOOTH3_PER_READ calls of SMOOTH3_RINGS rings, and the
-    step's sensor is
+    one more a call of SMOOTH3_RINGS rings, and the step's sensor is
     fvc_smooth of the raw sensor the previous step emitted (to_fused's for
     the first), its carried ring 1 and flag those of that raw sensor.
     `qgd3d_smooth` checks its inputs."""
@@ -535,8 +533,7 @@ def test_3d_step_on_cpu_is_no_launch():
     assert [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings] == before
     reads = S.smooth_sensor.reads - reads
     assert reads >= 3
-    assert S.smooth_sensor.rings - rings == \
-        F.SMOOTH3_RINGS * F.SMOOTH3_PER_READ * (reads - 3)
+    assert S.smooth_sensor.rings - rings == F.SMOOTH3_RINGS * (reads - 3)
     with pytest.raises(ValueError):
         F.qgd3d_smooth(prm, fs.sc_s1, F.SMOOTH3_KMAX + 1)
     with pytest.raises(ValueError):
@@ -783,9 +780,8 @@ def test_emitted_ring_continuation_is_bitwise_fvc_smooth(field, k):
     """The 3D step's smoothing from the emitted first ring (a frame) and
     its flag: `smooth_sensor` on `qgd3d_smooth`'s plain version, k rings a
     call, is the port's fvc_smooth of the raw sensor edge-framed, bit for
-    bit, with one host flag read for the emitted flag and one every call,
-    or every second call (the calls past the fixed point change nothing);
-    at rest (flag 0) it returns the emitted frame itself, with no call."""
+    bit, with one host flag read for the emitted flag and one a call; at
+    rest (flag 0) it returns the emitted frame itself, with no call."""
     raw = torch.as_tensor(_smooth_field3(field))
     ts, _ = tcases.supersonic_jet_3d_varsc(shape=RAGGED, device="cpu")
     prm, _ = F.make_params(ts)
@@ -795,13 +791,13 @@ def test_emitted_ring_continuation_is_bitwise_fvc_smooth(field, k):
     smooths = [S._smooth_plain]
     if k <= F.SMOOTH3_KMAX:
         smooths.append(F.qgd3d_smooth)
-    for smooth, per_read in itertools.product(smooths, (1, 2)):
+    for smooth in smooths:
         reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
-        out = S.smooth_sensor(prm, s1, chg, smooth, k, per_read=per_read)
+        out = S.smooth_sensor(prm, s1, chg, smooth, k)
         reads = S.smooth_sensor.reads - reads
         rings = S.smooth_sensor.rings - rings
         assert torch.equal(out, ref)
-        assert rings == k * per_read * (reads - 1)
+        assert rings == k * (reads - 1)
         if field == "smooth":
             assert float(chg) == 0.0 and out is s1 and reads == 1
         else:
