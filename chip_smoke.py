@@ -40,7 +40,11 @@ duct and varsc jet over an x-ring of 2, and the flagged 3D kernels on each
 slab; 18: K3 in a one-rank NCCL world, and the case CLI with --devices 2x1;
 19: the times.  Phase 20 holds the smoothing kernels' division-free ring to
 a correctly rounded division on every float of its check's ranges, for the
-cases' maxRatio and a sweep.  One line per phase; any failure exits
+cases' maxRatio and a sweep.  Phase 21 runs what QGDFoam does beyond the
+fused kernels on the composable path at 1024x512 f32: the case CLI with
+implicit diffusion (CG Helmholtz solves), a Segmented inlet with a
+waveTransmissive outlet, and a wedge, each against the same run on the
+CPU, with ms/step, CG iterations and host reads per step.  One line per phase; any failure exits
 non-zero. The last
 line is {"ok": true, "device": {...}}. Without a CUDA device it fails
 before printing any result. It imports nothing of JAX."""
@@ -1077,26 +1081,31 @@ def write_case(root: str, name: str, shape, varsc: bool) -> str:
     """An OpenFOAM case directory: tests/fixtures/jet_case (constScPrModel1
     and its qgdFlux outflow) at `shape` cells; with varsc, varScModel5 with
     the coefficients of cases.supersonic_jet_varsc."""
+    edits = [("system/blockMeshDict", r"\(64 32 1\)",
+              "(%d %d 1)" % tuple(shape))]
+    if varsc:
+        edits.append(("constant/thermophysicalProperties", r"QGD\s*\{.*?\}",
+                      "QGD\n{\n    implicitDiffusion false;\n"
+                      "    QGDCoeffs       varScModel5;\n    aQGD 0.5;\n"
+                      "    PrQGD 1.0;\n    rC 0.5;\n    minSc 0.05;\n"
+                      "    maxSc 1.0;\n    smoothCoeff 0.1;\n}"))
+    return fixture_case(root, "jet_case", name, edits)
+
+
+def fixture_case(root: str, fixture: str, name: str, edits) -> str:
+    """A copy of tests/fixtures/<fixture> under root/name with `edits`, a
+    list of (file, regex, replacement), each of which must match."""
     case = os.path.join(root, name)
     here = os.path.dirname(os.path.abspath(__file__))
-    shutil.copytree(os.path.join(here, "tests", "fixtures", "jet_case"), case)
-
-    def edit(rel, old, new):
+    shutil.copytree(os.path.join(here, "tests", "fixtures", fixture), case)
+    for rel, old, new in edits:
         path = os.path.join(case, rel)
         with open(path) as f:
             text = f.read()
         check(re.search(old, text, flags=re.S) is not None,
-              f"{rel}: no {old!r}")
+              f"{fixture}/{rel}: no {old!r}")
         with open(path, "w") as f:
             f.write(re.sub(old, new, text, count=1, flags=re.S))
-
-    edit("system/blockMeshDict", r"\(64 32 1\)", "(%d %d 1)" % tuple(shape))
-    if varsc:
-        edit("constant/thermophysicalProperties", r"QGD\s*\{.*?\}",
-             "QGD\n{\n    implicitDiffusion false;\n"
-             "    QGDCoeffs       varScModel5;\n    aQGD 0.5;\n"
-             "    PrQGD 1.0;\n    rC 0.5;\n    minSc 0.05;\n    maxSc 1.0;\n"
-             "    smoothCoeff 0.1;\n}")
     return case
 
 
@@ -1827,6 +1836,141 @@ def phase_ring_check(dev, card):
           f"{', '.join(f'{r:g}' for r in RATIOS)} | card: {card}", flush=True)
 
 
+def slice_run(label, build, n, card, cpu_steps=3, share=1e-3):
+    """One run of phase 21: build(device) -> (solver, state) on the card
+    and on the CPU (float32 both); the card's first cpu_steps steps held
+    within `share` of each field's max against the CPU's, then n steps on
+    the card, each timed by CUDA events, with the CG's iterations and the
+    host reads a step; check_physical on the end state.  The share is the
+    f32 bound the kernel paths are held to (fields within 1e-3 of their
+    max): a flow starting from rest has momenta of a few steps' pressure
+    differences, ~1e-3 of a pressure of 1e5, so an f32 rounding of p is
+    ~1e-4 of the momentum's max."""
+    from qgdsolver_tpu_torch.ops import linsolve
+    from qgdsolver_tpu_torch.solvers import common
+
+    solver, s0 = build(torch.device("cuda", 0))
+    check(not solver.fused_supported(), f"{label}: a fused gate took it")
+    csolver, c0 = build(torch.device("cpu"))
+    step, cstep = solver.make_step(), csolver.make_step()
+    s, c = s0, c0
+    errs = {}
+    for _ in range(cpu_steps):
+        s, c = step(s), cstep(c)
+    for f in ("rho", "rhoU", "rhoE", "dt"):
+        errs[f] = rel_err(getattr(c, f), getattr(s, f).cpu())
+        check(errs[f] <= share, f"{label}: {f} {errs[f]:.2e} of its max "
+              f"from the CPU's after {cpu_steps} steps (> {share:g})")
+    linsolve.reset_counts()
+    box = [s]
+
+    def one():
+        box[0] = step(box[0])
+
+    ms = cuda_ms(one, n, warmup=0)
+    solves = linsolve.cg.solves
+    iters = (int(linsolve.cg.iterations) / solves) if solves else 0.0
+    reads = linsolve.cg.reads / n
+    # the CG reads its stop test once a group of iterations, plus once
+    if solves:
+        check(linsolve.cg.reads <= int(linsolve.cg.iterations)
+              / linsolve.CG_GROUP + 2 * solves,
+              f"{label}: {linsolve.cg.reads} host reads for {solves} solves")
+    phys = check_physical(label, solver, box[0])
+    return (f"{label}: {ms:.3f} ms/step over {n} steps, "
+            f"{iters:.2f} CG iterations/solve ({solves} solves), "
+            f"{reads:.2f} host reads/step; first {cpu_steps} steps vs the "
+            f"CPU " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+            + f" (share {share:g}); {phys}")
+
+
+def cg_group_ab(build, n):
+    """{group: [ms/step, ...]} of build(card)'s step with the CG's groups
+    of CG_GROUP and of 16 iterations, A B B A (cg's default group set for
+    the other runs): an iteration run frozen past the stop against a host
+    read a group."""
+    from qgdsolver_tpu_torch.ops import linsolve
+
+    solver, s = build(torch.device("cuda", 0))
+    step = solver.make_step()
+    box, out = [s], {}
+
+    def one():
+        box[0] = step(box[0])
+
+    kw = linsolve.cg.__kwdefaults__
+    try:
+        for g in (linsolve.CG_GROUP, 16, 16, linsolve.CG_GROUP):
+            kw["group"] = g
+            out.setdefault(g, []).append(cuda_ms(one, n, warmup=1))
+    finally:
+        kw["group"] = linsolve.CG_GROUP
+    return out
+
+
+def phase_slice(dev, card, root):
+    """Phase 21: QGDFoam beyond the fused kernels, at 1024x512 float32 on
+    the composable path.  (a) the case CLI on tests/fixtures/jet_case with
+    its `implicitDiffusion false;` line removed (the default, implicit
+    diffusion, runs: two CG Helmholtz solves a step), 20 steps, no fused
+    kernel launched; then the case through build_case as (a') below.
+    (b) tests/fixtures/jet_coflow_case (a Segmented inlet side: jet and
+    coflow patches, an inletOutlet top, slip bottom) with a
+    waveTransmissive p outlet; (c) cases.wedge_blob.  Each of (a'), (b)
+    and (c): its first 3 steps against the same run on the CPU, 20 timed
+    steps, check_physical; and (a') timed with the CG's groups of
+    CG_GROUP and of 16 iterations, A B B A."""
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.io import foam_case
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    t0 = time.perf_counter()
+    nx, ny = SHAPE
+    jet = fixture_case(root, "jet_case", "jet_implicit", [
+        ("system/blockMeshDict", r"\(64 32 1\)", "(%d %d 1)" % SHAPE),
+        ("constant/thermophysicalProperties",
+         r"\n\s*implicitDiffusion\s+false;", "")])
+    check(foam_case.build_case(jet, device="cpu")[0].implicit_diffusion,
+          "implicitDiffusion absent must read as true")
+    log, secs, launches = run_cli([jet, "--max-steps", "20", "--device",
+                                   "cuda"], F.KERNELS + F3.KERNELS)
+    check("composable step engaged: make_step" in log,
+          f"the CLI did not take the composable step:\n{log}")
+    check(not any(launches.values()), f"CLI launched kernels {launches}")
+    msgs = [f"(a) CLI 20 steps in {secs:.1f} s"]
+    msgs.append(slice_run("(a') jet_case implicit",
+                          lambda d: foam_case.build_case(jet, device=d),
+                          20, card))
+    ab = cg_group_ab(lambda d: foam_case.build_case(jet, device=d), 10)
+    msgs.append("(a') CG groups A B B A, ms/step: " + "; ".join(
+        f"of {g}: " + ", ".join(f"{t:.3f}" for t in ts)
+        for g, ts in ab.items()))
+    coflow = fixture_case(root, "jet_coflow_case", "coflow_wt", [
+        ("system/blockMeshDict", r"\(64 16 1\)(.*?)\(64 16 1\)",
+         "(%d %d 1)\\1(%d %d 1)" % (nx, ny // 2, nx, ny // 2)),
+        ("0/p", r"outlet\s*\{[^}]*\}",
+         "outlet { type waveTransmissive; fieldInf 101325; lInf 0.5; "
+         "value uniform 101325; }")])
+
+    def build_coflow(d):
+        solver, state = foam_case.build_case(coflow, device=d)
+        check(solver.mesh.shape == SHAPE and len(state.wt) == 1,
+              "coflow case: shape or waveTransmissive carry")
+        return solver, state
+
+    msgs.append(slice_run("(b) jet_coflow_case Segmented + waveTransmissive",
+                          build_coflow, 20, card))
+    msgs.append(slice_run(
+        "(c) wedge_blob",
+        lambda d: cases.wedge_blob(SHAPE, torch.float32, device=d), 20,
+        card))
+    print(f"phase 21 QGDFoam composable slice {SHAPE} f32: ok "
+          + " | ".join(msgs)
+          + f" | {time.perf_counter() - t0:.1f} s | card: {card}",
+          flush=True)
+
+
 def main() -> int:
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
@@ -1895,6 +2039,8 @@ def main() -> int:
     phase_time_big(solver, state, card, emit_jobs, stats)
     sharded = phases_sharded(dev, card, launches)
     phase_ring_check(dev, card)
+    with tempfile.TemporaryDirectory() as root:
+        phase_slice(dev, card, root)
     entries = []
     for k, v in stats.items():
         # each kernel's bound at the shape its time was taken; the 2D update

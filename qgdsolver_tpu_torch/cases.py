@@ -1,5 +1,6 @@
 """Canonical case configurations (PyTorch port of `qgdsolver_tpu.cases`:
-the 2D supersonic jets, the 3D duct and the 3D varsc jet).  Each builder
+the 2D supersonic jets (uniform and graded), the wedge blob, the 3D duct and
+the 3D varsc jet).  Each builder
 returns (solver, initial_state), with every tensor in `dtype` on `device`:
 the card by default (a RuntimeError where there is none; pass device="cpu"
 to run on the CPU).
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from .core import bc as bcm
-from .core.mesh import Mesh, checked_device
+from .core.mesh import AxisymmetricMesh, Mesh, checked_device
 from .physics.qgdcoeffs import ConstScPrModel1, VarScModel5
 from .physics.thermo import PerfectGasThermo
 from .solvers import common
@@ -84,6 +85,56 @@ def supersonic_jet(shape=(512, 256), dtype=torch.float32, mach=2.0,
                       * np.exp(-np.asarray(mesh.centers[0]))[:, None])
     U0 = torch.stack([ux0, torch.zeros_like(ux0)])
     return solver, solver.init(p0=p0, T0=T0, U0=U0)
+
+
+def _geom_faces(n, L, ratio, origin=0.0):
+    """simpleGrading-style geometric face coordinates (total expansion
+    `ratio` across the block)."""
+    r = ratio ** (1.0 / max(n - 1, 1))
+    w = r ** np.arange(n)
+    w = w / w.sum() * L
+    return origin + np.concatenate([[0.0], np.cumsum(w)])
+
+
+def supersonic_jet_graded(shape=(512, 256), dtype=torch.float32, mach=2.0,
+                          device="cuda"):
+    """The supersonic jet on a graded mesh: x expands 3:1 away from the
+    inlet, y contracts toward the centreline and expands again."""
+    nx, ny = shape
+    yh = _geom_faces(ny // 2, 1.0, 2.5, origin=1.0)
+    yl = 2.0 - yh[::-1]
+    yf = np.concatenate([yl[:-1], yh])
+    return supersonic_jet(shape=shape, dtype=dtype, mach=mach,
+                          x_faces=(_geom_faces(nx, 4.0, 3.0), yf),
+                          device=device)
+
+
+def wedge_blob(shape=(128, 64), dtype=torch.float64, device="cuda"):
+    """QGDFoam on an axisymmetric wedge duct (x in [0, 2], r in [0, 0.5])
+    with an off-axis pressure blob at rest: the r-weighted metrics and the
+    hoop sources."""
+    nx, nr = shape
+    mesh = AxisymmetricMesh(
+        x_faces=(np.linspace(0.0, 2.0, nx + 1), np.linspace(0.0, 0.5, nr + 1)),
+        dtype=dtype, device=checked_device(device))
+    th = PerfectGasThermo(R=287.0, Cp=1004.5)
+    solver = QGDFoam(
+        mesh=mesh, thermo=th,
+        tau_model=ConstScPrModel1(alpha=0.5, Sc=1.0, Pr=1.0),
+        bc_U=bcm.FieldBCs(((bcm.ZeroGradient(), bcm.ZeroGradient()),
+                           (bcm.Symmetry(), bcm.FixedValue([0.0, 0.0])))),
+        bc_p=bcm.FieldBCs.uniform(bcm.ZeroGradient(), 2),
+        bc_T=bcm.FieldBCs.uniform(bcm.ZeroGradient(), 2),
+        time=common.TimeControls(max_co=0.2, max_dt=1e-3, dt0=1e-7),
+    )
+    x = np.asarray(mesh.centers[0])[:, None] * np.ones(mesh.shape)
+    r = np.asarray(mesh.centers[1])[None, :] * np.ones(mesh.shape)
+    p0 = 1e5 * (1.0 + 0.2 * np.exp(-((x - 0.6) ** 2 + (r - 0.12) ** 2)
+                                   / 0.02))
+    return solver, solver.init(
+        p0=mesh.tensor(p0),
+        T0=torch.full(mesh.shape, 300.0, dtype=dtype, device=mesh.device),
+        U0=torch.zeros((2,) + mesh.shape, dtype=dtype, device=mesh.device))
 
 
 def supersonic_jet_varsc(shape=(512, 256), dtype=torch.float32, mach=2.0,

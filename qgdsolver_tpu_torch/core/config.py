@@ -41,13 +41,19 @@ register("bc", "inletOutlet")(
 register("bc", "extrapolated")(lambda **_: bcm.Extrapolated())
 register("bc", "noSlip")(lambda ndim=3, **_: bcm.noslip(ndim))
 register("bc", "qgdFlux")(lambda **_: bcm.QGDFluxP())
-register_missing("bc", "ROADMAP queue 1, item 7 (waveTransmissive and "
-                 "time-dependent BCs)", "waveTransmissive", "cosVelocity")
+register("bc", "waveTransmissive")(
+    lambda fieldInf=0.0, lInf=0.0, **_: bcm.WaveTransmissive(
+        field_inf=float(fieldInf), l_inf=float(lInf)))
+register("bc", "cosVelocity")(
+    lambda amplitude, omega0, phi0, height, ndim, **kw: bcm.cos_velocity(
+        amplitude, omega0, phi0, height, ndim,
+        **{k: kw[k] for k in ("flow_axis", "profile_axis") if k in kw}))
 register_missing("bc", "ROADMAP queue 1, items 8-9 (the QHD family)",
                  "qhdFlux", "mQhdFlux")
 
 _NOT_PORTED_SOLVERS = {
-    "zQGDFoam": "ROADMAP queue 1, item 7",
+    "zQGDFoam": "ROADMAP queue 1, item 7 (zQGDFoam and rhoQGDFoam's "
+                "RhoThermo)",
     "QHDFoam": "ROADMAP queue 1, item 8",
     "SRFQHDFoam": "ROADMAP queue 1, item 8",
     "mulesQHDFoam": "ROADMAP queue 1, item 8",
@@ -94,7 +100,8 @@ def build_thermo(cfg: dict):
     if "janaf" in cfg or "eos" in cfg:
         raise NotImplementedError(
             "JANAF and equation-of-state thermo are not in the PyTorch port "
-            "yet: ROADMAP queue 1, item 7")
+            "yet: ROADMAP queue 1, item 7 (rhoQGDFoam's RhoThermo, stiffened "
+            "gas, janaf)")
     kw = {k: v for k, v in cfg.items() if k not in ("type", "transport")}
     if "transport" in cfg:
         tcfg = cfg["transport"]

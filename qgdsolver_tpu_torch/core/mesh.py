@@ -6,6 +6,11 @@ What a solver consumes as a broadcastable field (`h_cell`, `h_face`,
 `face_area`, `cell_volume`) is a torch tensor in the mesh's dtype on the
 mesh's device, built once and cached on the (frozen) mesh.
 
+A mesh may carry a dead-cell (`solid`) mask: True where a cell lies outside
+the flow domain (multi-block unions with dead cells), honoured by QGDFoam's
+stairstep walls (`core.solid`).  `AxisymmetricMesh` is the (x, r) wedge mesh
+with r-weighted volumes and face areas.
+
 Geometry quantities mirror the reference definitions:
   * QGD face length scale  h_f = 2*min(|C_own-C_f|, |C_nei-C_f|)
     (boundary faces: h_f = 2*|C_own-C_f|);
@@ -14,6 +19,7 @@ Geometry quantities mirror the reference definitions:
 from __future__ import annotations
 
 import dataclasses
+import typing as tp
 from functools import cached_property
 
 import numpy as np
@@ -44,11 +50,16 @@ class Mesh:
 
     x_faces: one strictly increasing 1-D array of face coordinates per axis
     (length n_i + 1).  dtype/device: where the mesh's tensor geometry lives.
+    solid: an optional boolean numpy mask over the cells, True outside the
+    flow domain.
     """
 
     x_faces: tuple
     dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cpu")
+    solid: tp.Any = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+    axisymmetric = False
 
     @staticmethod
     def uniform(shape, lengths=None, origin=None, dtype=torch.float32,
@@ -78,6 +89,11 @@ class Mesh:
     @cached_property
     def shape(self) -> tuple:
         return tuple(xf.shape[0] - 1 for xf in self.x_faces)
+
+    def face_shape(self, axis: int) -> tuple:
+        s = list(self.shape)
+        s[axis] += 1
+        return tuple(s)
 
     # -- 1-D geometry (float64 numpy) -------------------------------------------
     @cached_property
@@ -146,6 +162,10 @@ class Mesh:
         """1-D array -> tensor broadcastable along `axis` of a cell field."""
         return self.tensor(_reshape_axis(np.asarray(arr_1d), axis, self.ndim))
 
+    def cell_coords(self, axis: int) -> torch.Tensor:
+        """Cell-centre coordinates along `axis`, broadcastable."""
+        return self.bcast(self.centers[axis], axis)
+
     @cached_property
     def _h_cell_np(self) -> np.ndarray:
         num = 0.0
@@ -198,3 +218,46 @@ class Mesh:
         for a in range(1, self.ndim):
             v = v * _reshape_axis(self.dx[a], a, self.ndim)
         return self.tensor(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisymmetricMesh(Mesh):
+    """2D axisymmetric (x, r) mesh, the structured counterpart of an
+    OpenFOAM wedge (a one-cell sector swept about the x axis).  Metrics are
+    per unit swept angle:
+
+      V      = dx * dr * r_c
+      |S_x|  = dr * r_c        (axial faces)
+      |S_r|  = dx * r_f        (radial faces; zero on the axis r = 0)
+
+    so the face-flux divergence is the cylindrical (1/r) d(r .)/dr, and
+    (|S_r|_hi - |S_r|_lo)/V = 1/r_c balances the solvers' p/r hoop source
+    to rounding.  Axis 0 is x, axis 1 the radius r >= 0; the stencil
+    operators (coordinate derivatives) are those of `Mesh`."""
+
+    axisymmetric = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.ndim != 2:
+            raise ValueError("axisymmetric meshes are 2D (x, r)")
+        if self.x_faces[1][0] < -1e-12:
+            raise ValueError("the radius must be non-negative")
+
+    @cached_property
+    def r_cell(self) -> np.ndarray:
+        """Cell-centre radii, shape (n_r,)."""
+        return self.centers[1]
+
+    @cached_property
+    def cell_volume(self) -> torch.Tensor:
+        v = _reshape_axis(self.dx[0], 0, 2) * _reshape_axis(self.dx[1], 1, 2)
+        return self.tensor(v * _reshape_axis(self.r_cell, 1, 2))
+
+    @cached_property
+    def _face_area_t(self) -> tuple:
+        ax = (_reshape_axis(self.dx[1], 1, 2)
+              * _reshape_axis(self.r_cell, 1, 2))
+        ar = (_reshape_axis(self.dx[0], 0, 2)
+              * _reshape_axis(self.x_faces[1], 1, 2))
+        return self.tensor(ax), self.tensor(ar)

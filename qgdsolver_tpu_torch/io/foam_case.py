@@ -12,8 +12,10 @@ Mirrors the reference's startup reads:
     implicitDiffusion).
 
 `build_case` takes `application QGDFoam` (and rhoQGDFoam with a psi
-thermo) in 2D and 3D; the other applications and the
-janaf/sutherland/powerLaw/rhoConst/heRho thermo words raise
+thermo) in 2D and 3D, with const, sutherland, polynomial (read as powerLaw,
+as the JAX package does) or powerLaw transport, on wedge meshes and on
+multi-block unions with dead cells (stairstep solids); the other
+applications and the janaf/rhoConst/heRho thermo words raise
 NotImplementedError naming the ROADMAP item they wait for.
 """
 from __future__ import annotations
@@ -55,7 +57,8 @@ _TAU_KEYS = {
 
 # applications of the JAX package that the port does not run yet
 _NOT_PORTED_APPS = {
-    "zQGDFoam": "ROADMAP queue 1, item 7",
+    "zQGDFoam": "ROADMAP queue 1, item 7 (zQGDFoam and rhoQGDFoam's "
+                "RhoThermo)",
     "QHDFoam": "ROADMAP queue 1, item 8",
     "SRFQHDFoam": "ROADMAP queue 1, item 8",
     "mulesQHDFoam": "ROADMAP queue 1, item 8",
@@ -127,8 +130,8 @@ _RR = 8314.462618  # universal gas constant [J/(kmol K)], OpenFOAM's RR
 
 def build_foam_thermo(thermo_props: dict):
     """constant/thermophysicalProperties thermoType + mixture dicts -> a
-    thermo instance: hePsiQGDThermo with hConst, const transport and
-    perfectGas."""
+    thermo instance: hePsiQGDThermo with hConst and perfectGas, and const,
+    sutherland or powerLaw transport."""
     from ..physics import thermo as tm
 
     tt = thermo_props.get("thermoType", {})
@@ -141,23 +144,29 @@ def build_foam_thermo(thermo_props: dict):
     thermodyn = mix.get("thermodynamics", {})
     transp = mix.get("transport", {})
 
-    if transport_word in ("sutherland", "polynomial", "powerLaw"):
-        raise NotImplementedError(
-            f"{transport_word} transport is not in the PyTorch port yet: "
-            "ROADMAP queue 1, item 7")
     if caloric == "janaf":
         raise NotImplementedError(
             "janaf thermo is not in the PyTorch port yet: ROADMAP queue 1, "
-            "item 7")
+            "item 7 (janaf, rhoConst and heRho thermo)")
     if (word.startswith("heRho") or word.startswith("rho")
             or eos_word != "perfectGas"):
         raise NotImplementedError(
             f"{word} with {eos_word} is not in the PyTorch port yet: "
-            "ROADMAP queue 1, item 7")
+            "ROADMAP queue 1, item 7 (RhoThermo, rhoConst and stiffened gas)")
+    if transport_word == "sutherland":
+        transport = tm.SutherlandTransport(
+            As=float(transp.get("As", 1.458e-6)),
+            Ts=float(transp.get("Ts", 110.4)))
+    elif transport_word in ("polynomial", "powerLaw"):
+        transport = tm.PowerLawTransport(mu0=float(transp.get("mu0", 1.8e-5)),
+                                         T0=float(transp.get("T0", 273.0)),
+                                         k=float(transp.get("k", 0.7)))
+    else:
+        transport = tm.ConstTransport(mu0=float(transp.get("mu", 0.0)))
     W = float(spec.get("molWeight", 28.96))
     return tm.PerfectGasThermo(
         R=_RR / W, Cp=float(thermodyn.get("Cp", 1004.5)),
-        transport=tm.ConstTransport(mu0=float(transp.get("mu", 0.0))),
+        transport=transport,
         Pr=float(transp.get("Pr", 1.0)))
 
 
@@ -191,6 +200,12 @@ def build_case(case_dir: str, device="cuda", dtype=torch.float32):
         base = load_initial_fields(case_dir, mesh, patch_map, kept_axes)
         for k, v in base.items():
             fields.setdefault(k, v)
+    if mesh.solid is not None and app != "QGDFoam":
+        # as the JAX package: the stairstep walls are QGDFoam's (and the
+        # QHD family's), not rhoQGDFoam's
+        raise NotImplementedError(
+            "dead-cell (L-shaped multi-block) meshes are supported by the "
+            "stairstep-wall QGD/QHD families only; got " + app)
 
     def fld(name):
         if name not in fields:

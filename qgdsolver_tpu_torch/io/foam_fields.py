@@ -6,16 +6,15 @@ Scope — the structured-brick subset:
     brick (per-axis segments that every covering block subdivides alike),
     optional simpleGrading/edgeGrading (geometric per-axis expansion),
     named boundary patches; `empty` patches collapse the normal axis
-    (OpenFOAM's 2D convention) so a 2D case yields a 2D Mesh.
+    (OpenFOAM's 2D convention) so a 2D case yields a 2D Mesh.  A union
+    that leaves segments of the bounding box uncovered gives a Mesh whose
+    `solid` mask marks those dead cells (stairstep walls); a `wedge` pair
+    gives an AxisymmetricMesh over (x, r = hypot(y, z)).
   * `0/<field>` files: `internalField uniform ...` or
     `nonuniform List<...> (...)` (OpenFOAM cell ordering: x fastest), and
     `boundaryField` entries mapped onto (axis, side) through the
-    blockMeshDict patch planes.
-
-Not in the port yet, and raising NotImplementedError rather than being
-approximated: wedge (axisymmetric) meshes, multi-block unions with dead
-cells (stairstep solids) and split sides carrying different BCs (Segmented)
-— all ROADMAP queue 1, item 7.
+    blockMeshDict patch planes; several patches with different BCs on one
+    side become a Segmented BC over their face rectangles.
 
 BC type words resolve through the `core.registry` "bc" table the JSON
 config path uses.  Field arrays come back as float64 numpy arrays; the
@@ -30,12 +29,10 @@ import numpy as np
 import torch
 
 from . import foamdict
-from ..core.mesh import Mesh
+from ..core.mesh import AxisymmetricMesh, Mesh
 from ..core import bc as bcm
 from ..core import config as _config  # noqa: F401 — registers the BC words
 from ..core.registry import create
-
-_ITEM7 = "not in the PyTorch port yet: ROADMAP queue 1, item 7"
 
 
 # ---------------------------------------------------------------------------
@@ -121,8 +118,13 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
     verts = [np.asarray(_as_float_list(v)) * scale for v in bmd["vertices"]]
     specs = _block_specs(bmd["blocks"])
     pairs = _patch_pairs(bmd.get("boundary", []))
-    if any(e.get("type") == "wedge" for _, e in pairs):
-        raise NotImplementedError(f"wedge (axisymmetric) meshes are {_ITEM7}")
+    # a wedge (a one-cell sector about the x axis, vertices rotated by
+    # +-theta/2) unrolls to the (x, r) half-plane: r = hypot(y, z), and the
+    # swept axis z collapses as an `empty` pair would
+    wedge = any(e.get("type") == "wedge" for _, e in pairs)
+    if wedge:
+        verts = [np.asarray([v[0], float(np.hypot(v[1], v[2])), 0.0])
+                 for v in verts]
 
     # per-block brick validation + extents
     block_ext = []  # (lo3, hi3, counts, grading) per block
@@ -130,7 +132,7 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
         vs = np.stack([verts[i] for i in hv])  # (8, 3)
         for ax in range(3):
             vals = np.unique(np.round(vs[:, ax], 12))
-            if len(vals) != 2:
+            if len(vals) != 2 and not (wedge and ax == 2 and len(vals) == 1):
                 raise ValueError(
                     "blockMeshDict hex is not an axis-aligned brick "
                     f"(axis {ax} vertex coords {vals})")
@@ -141,9 +143,10 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
     # multi-block rectilinear composition: per axis, the union splits into
     # segments at the block extents; every block covering a segment must
     # subdivide it identically, and every cell of the segment grid must be
-    # covered by exactly one block
+    # covered by at most one block (uncovered ones are dead cells)
     seg_pts = []
     seg_faces = []  # per axis: list of per-segment face arrays
+    seg_counts = []
     tol = 1e-12 + 1e-9 * np.max(np.abs(hi - lo))
 
     def _seg_index(pts, v):
@@ -163,6 +166,8 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
         faces_ax = [None] * (len(pts) - 1)
         counts_ax = [None] * (len(pts) - 1)
         for blo, bhi, cnt, grd in block_ext:
+            if wedge and ax == 2:
+                continue  # the collapsed swept axis has no face grid
             k0 = _seg_index(pts, blo[ax])
             k1 = _seg_index(pts, bhi[ax])
             if k1 - k0 != 1:
@@ -184,20 +189,30 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
                 f"multi-block blockMeshDict: axis-{ax} segment grid has "
                 "uncovered intervals")
         seg_faces.append(faces_ax)
-        counts[ax] = int(sum(counts_ax))
+        seg_counts.append(counts_ax)
+        counts[ax] = int(sum(counts_ax)) if counts_ax else 1
 
+    solid = None
     if len(block_ext) > 1:
-        covered = np.zeros([len(p) - 1 for p in seg_pts], dtype=int)
+        # coverage of the segment grid (the collapsed wedge axis counts as
+        # one segment); uncovered segments are dead cells, run as
+        # stairstep walls
+        covered = np.zeros([max(len(p) - 1, 1) for p in seg_pts], dtype=int)
         for blo, bhi, _, _ in block_ext:
-            covered[tuple(slice(_seg_index(seg_pts[ax], blo[ax]),
-                                _seg_index(seg_pts[ax], bhi[ax]))
-                          for ax in range(3))] += 1
+            covered[tuple(
+                slice(0, 1) if wedge and ax == 2 else
+                slice(_seg_index(seg_pts[ax], blo[ax]),
+                      _seg_index(seg_pts[ax], bhi[ax]))
+                for ax in range(3))] += 1
         if (covered > 1).any():
             raise ValueError("multi-block blockMeshDict: blocks overlap")
         if (covered == 0).any():
-            raise NotImplementedError(
-                "multi-block unions with dead cells (stairstep solids) are "
-                + _ITEM7)
+            if wedge:
+                raise NotImplementedError(
+                    "dead-cell regions on wedge meshes are not supported")
+            solid = covered == 0
+            for ax in range(3):
+                solid = np.repeat(solid, seg_counts[ax], axis=ax)
 
     empty_axes = set()
     raw_patch_plane = {}
@@ -231,8 +246,16 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
                 raise ValueError(f"patch {name}: face {quad} is not axis-aligned")
         raw_patch_plane[name] = (ptype, axes_sides)
         raw_rects[name] = rects
-        if ptype == "empty":
+        # on a wedge only the swept axis collapses: an `empty` patch at
+        # r = 0 must not take the radial axis
+        if ptype == "empty" and not wedge:
             empty_axes.update(ax for ax, _ in axes_sides)
+    if wedge:
+        # both unrolled wedge planes land on z = 0
+        empty_axes.add(2)
+        if 0 in empty_axes or 1 in empty_axes:
+            raise ValueError("wedge mesh must sweep about the x axis with "
+                             "the radius along y")
 
     kept_axes = [ax for ax in range(3) if counts[ax] > 0 and ax not in empty_axes]
     # OpenFOAM 2D: the empty axis has one cell
@@ -244,8 +267,13 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
         parts = [seg_faces[ax][0]] + [f[1:] for f in seg_faces[ax][1:]]
         return np.concatenate(parts)
 
-    mesh = Mesh(x_faces=tuple(_axis_faces(ax) for ax in kept_axes),
-                dtype=dtype, device=device)
+    x_faces = tuple(_axis_faces(ax) for ax in kept_axes)
+    if wedge:
+        mesh = AxisymmetricMesh(x_faces=x_faces, dtype=dtype, device=device)
+    else:
+        mesh = Mesh(x_faces=x_faces, dtype=dtype, device=device,
+                    solid=(None if solid is None
+                           else _squeeze_to(solid, kept_axes)))
     axis_of = {ax: i for i, ax in enumerate(kept_axes)}
 
     def _cell_index(mesh_axis, coord):
@@ -259,7 +287,7 @@ def parse_block_mesh(bmd: dict, dtype=torch.float32, device="cpu"):
 
     patch_map = {}
     for name, (ptype, axes_sides) in raw_patch_plane.items():
-        if ptype == "empty":
+        if ptype in ("empty", "wedge"):
             continue
         mapped = {(axis_of[ax], side) for ax, side in axes_sides
                   if ax in axis_of}
@@ -461,13 +489,17 @@ def parse_field_file(path: str, mesh: Mesh, patch_map, kept_axes,
             if len(cl) == 1 or all(_bc_equal(cl[0][1], b) for _, b, _ in cl):
                 rows[axis][side] = cl[0][1]
                 continue
-            # several patches with different BCs share this plane: the JAX
-            # package builds a Segmented BC over their face rectangles
+            # several patches with different BCs share this plane: a
+            # Segmented BC over their face rectangles
             _validate_side_coverage(cl, axis, mesh, path)
-            raise NotImplementedError(
-                f"{path}: patches {[nm for nm, _, _ in cl]} split side "
-                f"(axis {axis}, side {side}) with different BCs; Segmented "
-                f"BCs are {_ITEM7}")
+            for nm, b, _ in cl:
+                if isinstance(b, bcm.QGDFluxP):
+                    raise NotImplementedError(
+                        f"patch {nm!r}: qgdFlux inside a split side (axis "
+                        f"{axis}, side {side}) of {path} is not supported "
+                        "(the lagged-gradient state is whole-side)")
+            rows[axis][side] = bcm.Segmented(
+                tuple((rects, b) for _, b, rects in cl))
     # cyclic patches declared in blockMeshDict apply even if boundaryField
     # names them with type cyclic
     for ptype, sides, _ in patch_map.values():

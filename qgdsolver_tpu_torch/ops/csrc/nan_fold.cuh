@@ -1,6 +1,8 @@
-// Max and min for the dt folds of qgd2d.cu and qgd3d.cu: a NaN operand
-// propagates, as in torch.max, torch.maximum and the reference's jnp.max
-// (fmaxf and fminf drop it, so a frame with a NaN cell kept a finite dt).
+// Max and min for the dt folds, the raw sensor's clamp and the smoothing
+// rings of qgd2d.cu and qgd3d.cu: a NaN operand propagates, as in torch.max,
+// torch.maximum, torch.clamp and the reference's jnp.max (fmaxf and fminf
+// drop it, so a frame with a NaN cell kept a finite dt, and a ring dropped
+// a NaN neighbour).
 // On operands without a NaN they are fmaxf and fminf.
 #pragma once
 

@@ -899,7 +899,7 @@ __device__ __forceinline__ float tau_coef(const QGDParams& P, float T) {
 // The raw varScModel5 sensor of the cell at R[i][j] (rho with zero-gradient
 // ghosts staged around it): clip(rC*|grad rho|*h/rho + (1-rC)*sc, minSc,
 // maxSc), floored at cqSc; the cell gradient is the Gauss one of the
-// linear face interpolates.
+// linear face interpolates.  The clamps propagate NaN, as torch.clamp does.
 __device__ __forceinline__ float raw_sensor(const QGDParams& P,
                                             const float (*R)[EL], int i,
                                             int j, float scv) {
@@ -914,7 +914,7 @@ __device__ __forceinline__ float raw_sensor(const QGDParams& P,
   const float v = __fadd_rn(
       __fmul_rn(P.rC, __fdiv_rn(__fmul_rn(mag, P.h_cell), R[i][j])),
       __fmul_rn(P.one_m_rC, scv));
-  return fmaxf(fminf(fmaxf(v, P.minSc), P.maxSc), P.cqSc);
+  return nan_max(nan_min(nan_max(v, P.minSc), P.maxSc), P.cqSc);
 }
 
 // Fold the emit partials v[0..4] (wave x, wave y, tau coefficient x and y,
@@ -1036,7 +1036,7 @@ qgd2d_emit_partial_kernel(QGDParams P, const float* __restrict__ p,
         const float le = s < ny ? raw_t[i][j + 1] : f;
         const float ri = s > 1 ? raw_t[i][j - 1] : f;
         const float s1 = smooth_ring<true>(
-            f, fmaxf(fmaxf(f, fmaxf(up, dn)), fmaxf(le, ri)), P.smooth_ratio,
+            f, nan_max(nan_max(f, nan_max(up, dn)), nan_max(le, ri)), P.smooth_ratio,
             inv);
         const int o = (r - 1) * ny + (s - 1);
         sc_raw[o] = f;
@@ -1154,8 +1154,8 @@ __device__ __forceinline__ bool smooth_pass(float (&v)[SMRW][SMV],
     const float ri = __shfl_down_sync(FULL, cur[0], 1);
 #pragma unroll
     for (int c = 0; c < SMV; ++c) {
-      float nb = fmaxf(fmaxf(cur[c], prev[c]), nxt[c]);
-      nb = fmaxf(nb, fmaxf(c > 0 ? cur[c - 1] : le,
+      float nb = nan_max(nan_max(cur[c], prev[c]), nxt[c]);
+      nb = nan_max(nb, nan_max(c > 0 ? cur[c - 1] : le,
                            c + 1 < SMV ? cur[c + 1] : ri));
       float nv = smooth_ring<GUARD>(cur[c], nb, r, y);
       if (EDGE && !(rin[i] && lin[c])) nv = -FLT_MAX;

@@ -1193,9 +1193,9 @@ __device__ __forceinline__ void smooth3_levels(
       const float c = f[mid][i];
       const float yl = i > 0 ? f[mid][i - 1] : q[(i - 1) * S3W];
       const float yh = i + 1 < S3R ? f[mid][i + 1] : q[(i + 1) * S3W];
-      float nb = fmaxf(fmaxf(c, f[lo][i]), f[hi][i]);
-      nb = fmaxf(nb, fmaxf(fmaxf(yl, yh),
-                           fmaxf(q[i * S3W - 1], q[i * S3W + 1])));
+      float nb = nan_max(nan_max(c, f[lo][i]), f[hi][i]);
+      nb = nan_max(nb, nan_max(nan_max(yl, yh),
+                               nan_max(q[i * S3W - 1], q[i * S3W + 1])));
       float v = smooth_ring<GUARD>(c, nb, P.smooth_ratio, inv);
       const bool in = pin && (!EDGE || (yin[i] && zin));
       if (!in) v = -FLT_MAX;
@@ -1578,8 +1578,8 @@ qgd3d_emit_kernel(QGD3DParams P, Emit3 A) {
         const float yh = y < ny - 1 ? F[c + ESW] : f;
         const float zl = z > 0 ? F[c - 1] : f;
         const float zh = z < nz - 1 ? F[c + 1] : f;
-        const float nb = fmaxf(fmaxf(fmaxf(f, xl), xh),
-                               fmaxf(fmaxf(yl, yh), fmaxf(zl, zh)));
+        const float nb = nan_max(nan_max(nan_max(f, xl), xh),
+                                 nan_max(nan_max(yl, yh), nan_max(zl, zh)));
         const float v = smooth_ring<true>(f, nb, P.smooth_ratio, inv);
         smooth3_put(P, A.s1, x, y, z, v);
         if (v > f) raised = true;

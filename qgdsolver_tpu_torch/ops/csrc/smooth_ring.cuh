@@ -2,8 +2,10 @@
 //
 //   f <- max(f, nb / maxRatio),  nb = max(f, its face neighbours),
 //
-// with nb / maxRatio the correctly rounded quotient, so every ring equals the
-// plain PyTorch version's (a division by a tensor) bit for bit.  A correctly
+// with max the NaN-propagating nan_max (nan_fold.cuh), as torch.maximum is,
+// and nb / maxRatio the correctly rounded quotient, so every ring equals the
+// plain PyTorch version's (a division by a tensor) bit for bit, NaN cells
+// included.  A correctly
 // rounded division costs a dozen instructions and a slow-path test; here it
 // is a product by y = RN(1 / maxRatio) and one remainder correction:
 //
@@ -23,6 +25,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "nan_fold.cuh"
 
 // Below this |nb| the remainder may underflow: the ring divides.
 #define SMOOTH_TINY 0x1p-96f
@@ -48,5 +52,5 @@ static __device__ __forceinline__ float smooth_div(float nb, float r,
 template <bool GUARD>
 static __device__ __forceinline__ float smooth_ring(float f, float nb, float r,
                                                     float y) {
-  return fmaxf(f, smooth_div<GUARD>(nb, r, y));
+  return nan_max(f, smooth_div<GUARD>(nb, r, y));
 }

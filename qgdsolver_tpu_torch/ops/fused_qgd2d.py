@@ -107,9 +107,10 @@ def _raw_value(b):
 
 def common_gate(solver, ndim: int) -> bool:
     """The conditions both fused steps (2D and 3D) share: an explicit
-    QGDFoam on a uniform `ndim`-D f32 mesh, perfect gas with constant
-    transport, the `full` stencil, and qgdFlux p (unlimited, unrelaxed)
-    only on x sides."""
+    QGDFoam on a uniform `ndim`-D f32 planar mesh without solid cells,
+    perfect gas with constant transport, the `full` stencil, and qgdFlux p
+    (unlimited, unrelaxed) only on x sides.  The BC kinds are each step's
+    own test: neither takes Mixed, Segmented or waveTransmissive sides."""
     from ..solvers.qgd import QGDFoam
 
     if type(solver) is not QGDFoam:
@@ -117,6 +118,8 @@ def common_gate(solver, ndim: int) -> bool:
     mesh = solver.mesh
     if mesh.ndim != ndim or mesh.dtype != torch.float32:
         return False
+    if mesh.axisymmetric or mesh.solid is not None:
+        return False  # hoop sources, stairstep walls: composable only
     if not all(np.allclose(d, d[0]) for d in mesh.dx):
         return False
     th = solver.thermo
@@ -137,8 +140,11 @@ def supported(solver) -> bool:
     """True if this solver config runs on the fused step."""
     if not common_gate(solver, 2):
         return False
-    if not isinstance(solver.tau_model, (ConstScPrModel1, VarScModel5)):
+    tm = solver.tau_model
+    if not isinstance(tm, (ConstScPrModel1, VarScModel5)):
         return False
+    if isinstance(tm, VarScModel5) and tm.const_sc_mask is not None:
+        return False  # const-Sc cellSet: composable only
     mesh = solver.mesh
     for bcs in solver._bcs():
         for a in range(2):
@@ -1153,7 +1159,8 @@ class TiledState(tp.NamedTuple):
 def tiled_supported(solver) -> bool:
     """True if the config runs on `build_tiled_fused_step`: the fused gate,
     and for varScModel5 a scalar cqSc floor (the kernel takes it as a
-    constant).  The reference's VMEM and slab tests are TPU-only."""
+    constant; `supported` refuses a const-Sc cellSet).  The reference's
+    VMEM and slab tests are TPU-only."""
     if not supported(solver):
         return False
     tm = solver.tau_model

@@ -223,7 +223,7 @@ def supported(solver) -> bool:
     if isinstance(tm, VarScModel5):
         # per-cell cqSc floors / const-Sc cellSets: composable only
         if np.ndim(tm.cqSc) != 0 \
-                or getattr(tm, "const_sc_mask", None) is not None:
+                or tm.const_sc_mask is not None:
             return False
     elif not isinstance(tm, ConstScPrModel1) \
             or type(tm).__name__ not in _CONST_SC_PR:

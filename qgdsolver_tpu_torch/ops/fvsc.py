@@ -1,10 +1,11 @@
 """Face-centered differential operators (PyTorch port of
-`qgdsolver_tpu.ops.fvsc`, the `full` scheme).
+`qgdsolver_tpu.ops.fvsc`).
 
 On a structured rectilinear mesh the reference's full-stencil schemes
 (leastSquares, GaussVolPoint) coincide with the tensor-product vertex
-reconstruction implemented here as `scheme="full"`.  All operators are
-slicing + multiply-add on ghost-padded tensors.
+reconstruction implemented here as `scheme="full"`; `scheme="reduced"` is
+the face-normal-only operator (grad f ~= nf * snGrad(f)).  All operators
+are slicing + multiply-add on ghost-padded tensors.
 
 Conventions: cell fields have the `mesh.ndim` spatial axes trailing, leading
 component axes broadcast through; face fields are tuples with one tensor per
@@ -87,7 +88,19 @@ def scheme_for(spec, term: str) -> str:
     return spec.get(term, spec.get("default", "full"))
 
 
-_FULL_ALIASES = ("full", "leastSquares", "leastSquaresOpt", "GaussVolPoint")
+_SCHEMES = {"leastSquares": "full", "leastSquaresOpt": "full",
+            "GaussVolPoint": "full", "full": "full", "reduced": "reduced"}
+
+
+def normalize_scheme(scheme: str, ndim: int) -> str:
+    """A reference fvsc scheme word -> "full" or "reduced".  The
+    leastSquares words are refused on 3D meshes, as the reference does."""
+    if scheme not in _SCHEMES:
+        raise ValueError(f"unknown fvsc scheme {scheme!r}")
+    if ndim == 3 and scheme in ("leastSquares", "leastSquaresOpt"):
+        raise ValueError("leastSquares fvsc schemes are forbidden on 3D "
+                         "meshes; use GaussVolPoint/full")
+    return _SCHEMES[scheme]
 
 
 def grad_from_padded(fp, mesh: Mesh, scheme="full"):
@@ -95,18 +108,21 @@ def grad_from_padded(fp, mesh: Mesh, scheme="full"):
 
     Scalar input (..., cells+ghosts) -> per-axis tensors (ndim, ..., faces_a):
     leading axis = derivative direction i.  Vector input (d, ...) ->
-    (ndim, d, faces_a), G[i, j] = d U_j / d x_i.
+    (ndim, d, faces_a), G[i, j] = d U_j / d x_i.  The "reduced" scheme
+    keeps the normal component and zeroes the tangential ones.
     """
-    if scheme not in _FULL_ALIASES:
-        raise NotImplementedError(f"fvsc scheme {scheme!r} is not in the port")
+    full = normalize_scheme(scheme, mesh.ndim) == "full"
     nd = mesh.ndim
     out = []
     for a in range(nd):
         comps = [None] * nd
         comps[a] = trim_other_axes(_sn_grad_padded(fp, mesh, a), nd, a)
-        fa = _interp_padded(fp, mesh, a)
+        fa = _interp_padded(fp, mesh, a) if full else None
         for b in range(nd):
             if b == a:
+                continue
+            if not full:
+                comps[b] = torch.zeros_like(comps[a])
                 continue
             tb = _tangential_deriv(fa, mesh, b)
             # tb consumed the b-ghosts; trim the remaining ghost axes
@@ -133,7 +149,13 @@ def div_flux(phi_faces, mesh: Mesh):
 
 def grad_cell(field, bcs: bcm.FieldBCs, mesh: Mesh, t=0.0):
     """fvc::grad — Gauss cell-centered gradient of a scalar, (ndim, cells)."""
-    faces = interpolate(field, bcs, mesh, t=t)
+    return grad_cell_from_faces(interpolate(field, bcs, mesh, t=t), mesh)
+
+
+def grad_cell_from_faces(faces, mesh: Mesh):
+    """fvc::grad from face values already interpolated: (ndim, ..., cells),
+    row a the difference along axis a over dx_a.  A vector's faces give
+    G[i, j] = d U_j / d x_i."""
     nd = mesh.ndim
     comps = []
     for a in range(nd):
@@ -142,3 +164,26 @@ def grad_cell(field, bcs: bcm.FieldBCs, mesh: Mesh, t=0.0):
         dxa = _bcast_1d(mesh.dx[a], fa, ax)
         comps.append((_hi(fa, ax) - _lo(fa, ax)) / dxa)
     return torch.stack(comps, dim=0)
+
+
+def grad_cell_vector(U, bcs: bcm.FieldBCs, mesh: Mesh, t=0.0):
+    """fvc::grad of a vector field -> cell tensor (ndim, d, cells),
+    G[i, j] = d U_j / d x_i."""
+    return grad_cell_from_faces(interpolate(U, bcs, mesh, t=t, vector=True),
+                                mesh)
+
+
+def laplacian_explicit(gamma_faces, field, bcs: bcm.FieldBCs, mesh: Mesh,
+                       t=0.0, vector=False):
+    """fvc::laplacian(Gamma_f, x) = (1/V) sum_f Gamma_f |S_f| snGrad(x),
+    gamma_faces per-axis face tensors (or scalars)."""
+    fp = ghost_pad(field, bcs, mesh, t=t, vector=vector)
+    nd = mesh.ndim
+    tot = None
+    for a in range(nd):
+        g = trim_other_axes(_sn_grad_padded(fp, mesh, a), nd, a)
+        flux = gamma_faces[a] * mesh.face_area(a) * g
+        ax = _ax(flux, nd, a)
+        d = _hi(flux, ax) - _lo(flux, ax)
+        tot = d if tot is None else tot + d
+    return tot / mesh.cell_volume

@@ -113,19 +113,39 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
             return interior
         if isinstance(bc, bcm.FixedGradient):
             return interior + ev(bc.grad, side, interior) * dx
+        if isinstance(bc, bcm.Mixed):
+            v = ev(bc.value, side, interior)
+            f = ev(bc.fraction, side, interior)
+            return 2.0 * (f * v + (1.0 - f) * interior) - interior
         if isinstance(bc, bcm.Periodic):
             return other_interior
-        if isinstance(bc, bcm.Extrapolated):
+        if isinstance(bc, (bcm.Extrapolated, bcm.WaveTransmissive)):
+            # QGDFoam substitutes Mixed for WaveTransmissive before it
+            # pads; elsewhere the marker is the linear-extrapolation
+            # outflow, as in the JAX package
             return 2.0 * interior - near2
         if isinstance(bc, bcm.FluxSwitched):
             v = ev(bc.value, side, interior)
             mask = extend_prior(spmd.localize_layer(bc.outflow, a, nd))
             return torch.where(mask, interior, 2.0 * v - interior)
+        if isinstance(bc, bcm.Segmented):
+            # each segment's layer on its global face rectangles, later
+            # segments winning where they overlap
+            layer = None
+            for rects, sub in bc.segments:
+                sub_layer = one(sub, side, interior, other_interior, dx,
+                                near2)
+                if layer is None:
+                    layer = torch.broadcast_to(sub_layer, interior.shape)
+                else:
+                    m = _segment_mask(rects, a, mesh, ctx, interior.device)
+                    layer = torch.where(m, sub_layer, layer)
+            return layer
         if isinstance(bc, bcm.InletOutlet):
             raise TypeError(
                 "InletOutlet must be resolved per step via "
                 "bc.resolve_inlet_outlet before padding")
-        raise NotImplementedError(f"BC {bc!r} is not in the port yet")
+        raise NotImplementedError(f"BC {bc!r} is not in the port")
 
     n = arr.shape[ax]
     i_lo = _sl(arr, ax, slice(0, 1))
@@ -143,6 +163,33 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
     hi = one(bc_hi, 1, i_hi, i_lo, mesh.dx[a][-1],
              _sl(arr, ax, slice(n - 2, n - 1))) if is_hi else from_next
     return lo, hi, ax
+
+
+def _segment_mask(rects, a, mesh, ctx, device):
+    """Boolean mask over the axis-`a` ghost layer's spatial dims that
+    selects the global cell-index rectangles `rects` (tangential axes in
+    ascending order).  Axes < a carry one ghost position on each side
+    (index -1 and n, clamped into the nearest cell); under an spmd context
+    local positions are offset by the block's start."""
+    nd = mesh.ndim
+    tang = [b for b in range(nd) if b != a]
+    glob = ctx.global_mesh if ctx is not None else mesh
+    mask = None
+    for rect in rects:
+        m = None
+        for k, b in enumerate(tang):
+            lo_k, hi_k = rect[k]
+            ext = mesh.shape[b] + 2 if b < a else mesh.shape[b]
+            idx = torch.arange(ext, device=device) - (1 if b < a else 0)
+            if ctx is not None:
+                idx = idx + ctx.start(b)
+            idx = torch.clamp(idx, 0, glob.shape[b] - 1)
+            shape = [1] * nd
+            shape[b] = ext
+            cond = ((idx >= lo_k) & (idx < hi_k)).reshape(shape)
+            m = cond if m is None else (m & cond)
+        mask = m if mask is None else (mask | m)
+    return mask
 
 
 def ghost_pad(field, bcs: bcm.FieldBCs, mesh: Mesh, t=0.0,

@@ -104,10 +104,14 @@ def block_mesh(ctx: spmd.SpmdContext) -> ShardMesh:
 
 def spmd_supported(solver) -> tp.Optional[str]:
     """None if `build_spmd_step` can decompose this solver; else the reason.
-    Every QGDFoam config of the port is decomposable: graded spacings ride
-    the ShardMesh windows."""
+    Graded spacings and wedge metrics ride the ShardMesh windows, and
+    per-cell cqSc floors and const-Sc cellSets are windowed per block
+    (`spmd.localize_cells`); stairstep solid masks are not decomposed, as
+    in the reference (their stencils are indexed globally)."""
     if not hasattr(solver, "make_step"):
         return f"{type(solver).__name__} has no composable step"
+    if getattr(solver.mesh, "solid", None) is not None:
+        return "stairstep solid masks are globally indexed"
     return None
 
 
@@ -158,9 +162,10 @@ def build_spmd_step(solver, grid: ProcessGrid):
     ShardMesh, under `spmd.active`; to_spmd cuts this rank's block out of a
     global State; from_spmd gathers the global State onto every rank (a
     collective: every rank calls it).  The lagged qgdFlux rows of a State
-    (`pbc`) are computed on every rank, but only the rank at the physical
-    side reads them (its ghost_pad is the only one that applies that BC):
-    from_spmd takes the owner's rows and no broadcast is made.  (The JAX
+    (`pbc`) and its waveTransmissive face values (`wt`) are computed on
+    every rank, but only the rank at the physical side reads them (its
+    ghost_pad is the only one that applies that BC): from_spmd takes the
+    owner's rows and no broadcast is made.  (The JAX
     version takes a template state to derive its PartitionSpecs; here the
     windows follow from the mesh.)  Raises ValueError when a split does not
     divide its axis, and NotImplementedError for a solver `spmd_supported`
@@ -172,7 +177,8 @@ def build_spmd_step(solver, grid: ProcessGrid):
     nd = mesh.ndim
     ctx = block_context(mesh, grid)
     local_step = dataclasses.replace(solver, mesh=block_mesh(ctx)).make_step()
-    flux_sides = solver._flux_sides()
+    owners = {"pbc": solver._flux_sides(),
+              "wt": tuple((a, side) for _, a, side, _ in solver._wt_sides())}
 
     def step(s):
         with spmd.active(ctx):
@@ -184,10 +190,10 @@ def build_spmd_step(solver, grid: ProcessGrid):
     def from_spmd(s):
         out = {}
         for name, v in zip(s._fields, s):
-            if name == "pbc":
+            if name in owners:
                 out[name] = tuple(
                     _join(spmd.all_gather(g), ctx, nd, owner)
-                    for g, owner in zip(v, flux_sides))
+                    for g, owner in zip(v, owners[name]))
             elif torch.is_tensor(v) and v.ndim >= nd:
                 out[name] = _join(spmd.all_gather(v), ctx, nd)
             else:

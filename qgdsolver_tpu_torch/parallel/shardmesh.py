@@ -10,14 +10,16 @@ lengths, mirrored ghost centres) are windows of the global ones.  At a
 partition face they therefore carry the true neighbour-side spacings, the
 same numbers the serial mesh has for that interior face, so the decomposed
 step is the serial discretization with no geometry exchange.  Each process
-is one block, so the windows start at plain integer offsets.
+is one block, so the windows start at plain integer offsets.  A block of an
+`AxisymmetricMesh` is an `AxisymmetricShardMesh`: its r-weighted volumes
+and face areas need only the block's own faces and centres.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import cached_property
 
-from ..core.mesh import Mesh
+from ..core.mesh import AxisymmetricMesh, Mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +34,9 @@ class ShardMesh(Mesh):
     def window(global_mesh: Mesh, starts, shape) -> "ShardMesh":
         faces = tuple(xf[s:s + n + 1] for xf, s, n
                       in zip(global_mesh.x_faces, starts, shape))
-        return ShardMesh(x_faces=faces, dtype=global_mesh.dtype,
+        cls = (AxisymmetricShardMesh if global_mesh.axisymmetric
+               else ShardMesh)
+        return cls(x_faces=faces, dtype=global_mesh.dtype,
                          device=global_mesh.device, global_mesh=global_mesh,
                          starts=tuple(int(s) for s in starts))
 
@@ -51,3 +55,9 @@ class ShardMesh(Mesh):
     @cached_property
     def h_face_1d(self) -> tuple:
         return self._win(self.global_mesh.h_face_1d, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisymmetricShardMesh(ShardMesh, AxisymmetricMesh):
+    """A block of an `AxisymmetricMesh`: ShardMesh's windows, and the
+    r-weighted metrics of the block's cells."""

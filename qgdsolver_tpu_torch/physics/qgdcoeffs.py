@@ -1,6 +1,6 @@
 """tau-regularization coefficient models (PyTorch port of
-`qgdsolver_tpu.physics.qgdcoeffs`: the constScPrModel1 family and
-varScModel5).
+`qgdsolver_tpu.physics.qgdcoeffs`: the constScPrModel1 family and the
+varScModel5/6/7 shock sensors).
 
 A model is a frozen dataclass; `correct()` maps the current thermo state to a
 `Coeffs` record.  varScModel5's relaxed sensor is carried in the solver state.
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import typing as tp
 
+import numpy as np
 import torch
 
 from ..core import bc as bcm
@@ -187,16 +188,27 @@ class VarScModel5(TauModel):
     maxSc: float = 1.0
     cqSc: tp.Any = 0.0  # scalar or per-cell bad-quality floor
     smoothCoeff: float = 0.1
+    # optional const-Sc cellSet: cells where the 0/1 mask is set keep
+    # const_sc_value instead of the sensor value
+    const_sc_mask: tp.Any = None
+    const_sc_value: float = 1.0
 
     def sc_raw_update(self, mesh: Mesh, rho, sc_prev):
-        """The sensor update before fvc::smooth."""
+        """The sensor update before fvc::smooth: relaxation, clamp, the
+        cqSc floor and the const-Sc cellSet, in the reference's order."""
         grad_rho = fvsc.grad_cell(rho, _zg(mesh.ndim), mesh)
         mag_grad = torch.sqrt(torch.sum(torch.square(grad_rho), dim=0))
         sc = self.rC * (mag_grad * mesh.h_cell / rho) \
             + (1.0 - self.rC) * sc_prev
         sc = torch.clamp(sc, self.minSc, self.maxSc)
-        return torch.maximum(
+        sc = torch.maximum(
             sc, bcm.as_value(spmd.localize_cells(self.cqSc, mesh.ndim), sc))
+        if self.const_sc_mask is not None:
+            mask = bcm.as_value(
+                spmd.localize_cells(np.asarray(self.const_sc_mask),
+                                    mesh.ndim), sc)
+            sc = torch.where(mask > 0, self.const_sc_value, sc)
+        return sc
 
     def sc_update(self, mesh: Mesh, rho, sc_prev):
         """The full relaxed sensor update (raw + fvc::smooth), shared by
@@ -213,7 +225,74 @@ class VarScModel5(TauModel):
         return _finish(mesh, tau, tau_f, p, sc, self.Pr)
 
 
+def _pressure_jump_sensor(mesh: Mesh, p, bc_p=None, t=0.0):
+    """Per-cell |sum_faces +-dp_f| / mean(p_f), the varScModel6/7 sensor.
+
+    Internal faces contribute the signed jump +-(p_nei - p_own), which
+    telescopes to the per-axis second difference; a boundary face
+    contributes p_face - p_cell = (p_ghost - p_cell)/2 with a positive
+    sign, p_face from the p BCs (zero-gradient without them)."""
+    from ..ops.pad import ghost_pad
+
+    nd = mesh.ndim
+    pe_full = ghost_pad(p, _zg(nd) if bc_p is None else bc_p, mesh, t=t)
+    total = torch.zeros_like(p)
+    sum_pf = torch.zeros_like(p)
+    for a in range(nd):
+        # keep only the axis-a ghosts
+        sl = [slice(1, pe_full.shape[b] - 1) for b in range(nd)]
+        sl[a] = slice(None)
+        pe = pe_full[tuple(sl)]
+        dp = torch.diff(pe, dim=a)  # n + 1 face deltas (ghosts at the ends)
+        n = dp.shape[a]
+        dp = torch.cat([dp.narrow(a, 0, 1) * 0.5, dp.narrow(a, 1, n - 2),
+                        dp.narrow(a, n - 1, 1) * 0.5], dim=a)
+        total = total + dp.narrow(a, 1, n - 1) - dp.narrow(a, 0, n - 1)
+        pf = 0.5 * (pe.narrow(a, 0, n) + pe.narrow(a, 1, n))
+        sum_pf = sum_pf + pf.narrow(a, 0, n - 1) + pf.narrow(a, 1, n - 1)
+    return torch.abs(total) / (sum_pf / (2.0 * nd))
+
+
+@register("tau", "varScModel6")
+@dataclasses.dataclass(frozen=True)
+class VarScModel6(TauModel):
+    """Pressure-jump sensor: Sc = |sum +-dp_f|/mean(p_f), tau_f as
+    model1's."""
+
+    alpha: float = 0.5
+    Pr: float = 1.0
+
+    def correct(self, mesh: Mesh, *, c, p, bc_p=None, t=0.0, **_):
+        tau = self.alpha * mesh.h_cell / c
+        aoc_f = _interp_zg(self.alpha / c, mesh)
+        tau_f = tuple(aoc_f[a] * mesh.h_face(a) for a in range(mesh.ndim))
+        sc = _pressure_jump_sensor(mesh, p, bc_p=bc_p, t=t)
+        return _finish(mesh, tau, tau_f, p, sc, self.Pr)
+
+
+@register("tau", "varScModel7")
+@dataclasses.dataclass(frozen=True)
+class VarScModel7(TauModel):
+    """varScModel6 scaled by cSc1, with optional clamps (a negative minSc
+    or maxSc disables it, as in the reference)."""
+
+    alpha: float = 0.5
+    Pr: float = 1.0
+    cSc1: float = 1.0
+    minSc: float = -1.0
+    maxSc: float = -1.0
+
+    def correct(self, mesh: Mesh, *, c, p, bc_p=None, t=0.0, **_):
+        tau = self.alpha * mesh.h_cell / c
+        aoc_f = _interp_zg(self.alpha / c, mesh)
+        tau_f = tuple(aoc_f[a] * mesh.h_face(a) for a in range(mesh.ndim))
+        sc = self.cSc1 * _pressure_jump_sensor(mesh, p, bc_p=bc_p, t=t)
+        if self.minSc >= 0:
+            sc = torch.clamp(sc, min=self.minSc)
+        if self.maxSc >= 0:
+            sc = torch.clamp(sc, max=self.maxSc)
+        return _finish(mesh, tau, tau_f, p, sc, self.Pr)
+
+
 register_missing("tau", "ROADMAP queue 1, item 8 (the QHD family)",
                  "constTau", "HbyUQHD", "H2bynuQHD", "T0byGr")
-register_missing("tau", "ROADMAP queue 1, item 7 (the rest of QGDFoam)",
-                 "varScModel6", "varScModel7")

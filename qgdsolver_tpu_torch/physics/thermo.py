@@ -1,5 +1,6 @@
 """Thermophysical models (PyTorch port of `qgdsolver_tpu.physics.thermo`:
-the calorically perfect psi-gas and constant transport).
+the calorically perfect psi-gas with constant, Sutherland or power-law
+transport).
 
 A thermo model is a frozen dataclass of scalars with elementwise methods on
 tensors.
@@ -26,6 +27,31 @@ class ConstTransport(Transport):
 
     def mu(self, p, T):
         return torch.full_like(T, self.mu0)
+
+
+@register("transport", "sutherland")
+@dataclasses.dataclass(frozen=True)
+class SutherlandTransport(Transport):
+    """sutherlandTransport: mu = As*sqrt(T)/(1 + Ts/T)."""
+
+    As: float
+    Ts: float
+
+    def mu(self, p, T):
+        return self.As * torch.sqrt(T) / (1.0 + self.Ts / T)
+
+
+@register("transport", "powerLaw")
+@dataclasses.dataclass(frozen=True)
+class PowerLawTransport(Transport):
+    """powerLawTransport: mu = mu0*(T/T0)^k."""
+
+    mu0: float
+    T0: float
+    k: float
+
+    def mu(self, p, T):
+        return self.mu0 * (T / self.T0) ** self.k
 
 
 @register("thermo", "psiPerfectGas")
@@ -78,8 +104,6 @@ class PerfectGasThermo:
         return self.transport.mu(p, T) / self.Pr
 
 
-register_missing("transport", "ROADMAP queue 1, item 7 (the rest of QGDFoam)",
-                 "sutherland", "powerLaw")
 register_missing("thermo", "ROADMAP queue 1, item 7 (JANAF thermo; RhoThermo "
-                 "and rhoConst with rhoQGDFoam)",
+                 "and rhoConst with rhoQGDFoam and zQGDFoam)",
                  "rhoConst", "rhoThermo", "janafPerfectGas")

@@ -9,12 +9,46 @@ from __future__ import annotations
 import dataclasses
 import typing as tp
 
+import numpy as np
 import torch
 
+from ..core import bc as bcm
 from ..core.mesh import Mesh
 from ..parallel import spmd
 
 SMALL = 1e-30
+
+
+def e_bcs_from_T(bc_T: bcm.FieldBCs, e_of_T, Cv) -> bcm.FieldBCs:
+    """Internal-energy BCs derived from the T BCs, e_wall = e(T_wall), for
+    the implicit heat-diffusion solve (the reference's e patches derived
+    from the T patches); the constant de/dT Cv converts a FixedGradient of
+    T (grad_e = Cv*grad_T).  Plain values become float64 numpy arrays
+    (tensors stay tensors), cast to the field's dtype where the BC is
+    applied."""
+
+    def e_of(v):
+        return e_of_T(v if torch.is_tensor(v) else np.asarray(v, np.float64))
+
+    def lifted(fn, raw):
+        if callable(raw):
+            return lambda t_, c_: fn(raw(t_, c_))
+        return fn(raw)
+
+    def t2e(b):
+        if isinstance(b, bcm.FixedValue):
+            return bcm.FixedValue(lifted(e_of, b.value))
+        if isinstance(b, bcm.InletOutlet):
+            return bcm.InletOutlet(lifted(e_of, b.inlet_value))
+        if isinstance(b, bcm.FixedGradient):
+            return bcm.FixedGradient(lifted(
+                lambda g: Cv * (g if torch.is_tensor(g)
+                                else np.asarray(g, np.float64)), b.grad))
+        if isinstance(b, bcm.Mixed):
+            return bcm.Mixed(lifted(e_of, b.value), b.fraction)
+        return b
+
+    return bc_T.map(t2e)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""QGDFoam — compressible QGD solver, explicit branch (PyTorch port of
+"""QGDFoam — compressible QGD solver (PyTorch port of
 `qgdsolver_tpu.solvers.qgd`).
 
 Per step (reference QGDFoam.C):
@@ -7,21 +7,28 @@ Per step (reference QGDFoam.C):
   updateFluxes.H : gradUf/gradef/gradRhof/gradPf = fvsc::grad; divUf
                    rhoW = tau_f*((Uf.gradRhof)Uf + rhoUf*divUf + (rhoUf.grad)Uf)
                    jm = rhoUf - rhoW - tau_f*gradPf; Pif; qf
+                   (the Navier-Stokes stress and heat flux in Pif and qf
+                   only with explicit diffusion)
   QGDCourantNo.H + setDeltaT
-  QGDRhoEqn.H, QGDUEqn.H, QGDEEqn.H : explicit updates
+  QGDRhoEqn.H    : explicit update
+  QGDUEqn.H      : explicit update; with implicitDiffusion the Helmholtz
+                   solve rho/dt(U - U*) - lap(muEff_f, U) = div(phiTauMC)
+  QGDEEqn.H      : explicit update; with implicitDiffusion
+                   rho/dt(e - e*) - lap(alphaEff_f, e) = 0
   closure        : p = rho/psi
 
 Primitive ghosts are derived thermodynamically from the p/T/U boundary
 conditions (rho_ghost = p_ghost*psi(T_ghost) etc.); each primitive is padded
-once and reused by all four fvsc gradients.
-
-Not in the port yet (raise NotImplementedError): implicit diffusion, the
-qgdFlux limiter and relaxation.  Stairstep solids, waveTransmissive and
-axisymmetric meshes have no representation in this package yet.
+once and reused by all four fvsc gradients.  Beside the main path the step
+takes stairstep solid masks (`Mesh.solid`: mirror fill before the step,
+solid cells clamped after it, masked Helmholtz solves), wedge meshes
+(`AxisymmetricMesh`: the radial hoop source, always explicit),
+waveTransmissive outflows (a carried face value in `State.wt`, substituted
+as a Mixed BC each step) and the qgdFlux limiter and relaxation.
 
 The step runs decomposed as it is: `parallel.sharding.build_spmd_step`
-builds it on a block mesh under an spmd context, which `ghost_pad` and the
-reductions consult.
+builds it on a block mesh under an spmd context, which `ghost_pad`, the
+reductions and the CG's dots consult (solid masks are not decomposed).
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import torch
 
 from ..core import bc as bcm
 from ..core.mesh import Mesh
-from ..ops import fvsc
+from ..ops import fvsc, linsolve
 from ..ops.pad import ghost_pad
 from ..physics.qgdcoeffs import ConstScPrModel1, TauModel
 from ..physics.thermo import PerfectGasThermo
@@ -50,6 +57,17 @@ class State(tp.NamedTuple):
     # lagged qgdFlux p-BC gradients, one per QGDFluxP-marked (axis, side):
     # dp/dn = -phiwStar/(tau_f*|Sf|) from the PREVIOUS step's fluxes
     pbc: tp.Tuple[torch.Tensor, ...] = ()
+    # waveTransmissive carried face values, one per marked (field, axis,
+    # side) in `QGDFoam._wt_sides` order, each a boundary layer (size 1
+    # along its axis)
+    wt: tp.Tuple[torch.Tensor, ...] = ()
+
+
+def _edge(f, nd, a, side):
+    """The boundary cell layer of f (trailing nd spatial axes) at side
+    `side` of axis a, kept as a size-1 axis."""
+    ax = f.ndim - nd + a
+    return f.narrow(ax, 0 if side == 0 else f.shape[ax] - 1, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +80,13 @@ class QGDFoam:
     bc_T: tp.Optional[bcm.FieldBCs] = None
     time: TimeControls = TimeControls()
     implicit_diffusion: bool = False
+    cg_tol: float = 1e-8
+    cg_maxiter: int = 500
     fvsc_scheme: tp.Any = "full"  # word or {term: word} dict
+    # qgdFlux robustness for a shock standing on the patch: qgdflux_limit
+    # clamps |dp/dn| to limit x the interior |snGrad p| at the patch, and
+    # qgdflux_relax under-relaxes the carried gradient.  The defaults (None,
+    # 1.0) are the reference BC as it is.
     qgdflux_limit: tp.Optional[float] = None
     qgdflux_relax: float = 1.0
 
@@ -77,6 +101,15 @@ class QGDFoam:
         return tuple((a, side) for a in range(self.mesh.ndim)
                      for side in (0, 1)
                      if isinstance(bp[a, side], bcm.QGDFluxP))
+
+    def _wt_sides(self):
+        """(field, axis, side, bc) of every waveTransmissive side of the
+        p, T and U BCs, in that field order."""
+        bu, bp, bt = self._bcs()
+        return tuple((key, a, side, bcs[a, side])
+                     for key, bcs in (("p", bp), ("T", bt), ("U", bu))
+                     for a in range(self.mesh.ndim) for side in (0, 1)
+                     if isinstance(bcs[a, side], bcm.WaveTransmissive))
 
     def _pbc_zeros(self):
         out = []
@@ -97,9 +130,14 @@ class QGDFoam:
         rhoU = rho[None] * U0
         rhoE = rho * e + 0.5 * rho * torch.sum(U0 * U0, dim=0)
         sc = torch.zeros_like(rho) if sc0 is None else bcm.as_value(sc0, rho)
+        fields = {"p": p0, "T": T0, "U": U0}
+        # the carried waveTransmissive face values start at the boundary
+        # cells
+        wt = tuple(_edge(fields[key], mesh.ndim, a, side)
+                   for key, a, side, _ in self._wt_sides())
         return State(rho=rho, rhoU=rhoU, rhoE=rhoE, sc=sc,
                      t=bcm.as_value(t0, rho), dt=bcm.as_value(self.time.dt0, rho),
-                     pbc=self._pbc_zeros())
+                     pbc=self._pbc_zeros(), wt=wt)
 
     def primitives(self, s: State):
         th = self.thermo
@@ -110,17 +148,13 @@ class QGDFoam:
         return U, e, T, p
 
     def make_step(self):
-        """Build the explicit step State -> State."""
-        if self.implicit_diffusion:
-            raise NotImplementedError("implicit diffusion is not in the port")
-        if self.qgdflux_limit is not None or self.qgdflux_relax != 1.0:
-            raise NotImplementedError(
-                "the qgdFlux limiter and relaxation are not in the port")
+        """Build the step State -> State."""
         mesh = self.mesh
         nd = mesh.ndim
         th = self.thermo
         bc_U, bc_p0, bc_T = self._bcs()
         tc = self.time
+        implicit = self.implicit_diffusion
         scheme = self.fvsc_scheme
         sch_U = fvsc.scheme_for(scheme, "grad(U)")
         sch_e = fvsc.scheme_for(scheme, "grad(e)")
@@ -131,6 +165,22 @@ class QGDFoam:
         gamma = th.gamma
         flux_sides = self._flux_sides()
 
+        # stairstep solids: mirror fill before the step, solid cells
+        # clamped after it, masked Helmholtz solves
+        wall = fluid_mask = None
+        if mesh.solid is not None:
+            from ..core.solid import StairstepSolid
+
+            wall = StairstepSolid(mesh.solid, device=mesh.device)
+            fluid_mask = ~wall.solid.cpu().numpy()
+
+        wt_sides = self._wt_sides()
+        wt_has_T = any(key == "T" for key, _, _, _ in wt_sides)
+        # e BCs from the T BCs (e_wall = e(T_wall)), for the implicit e
+        # solve; per step when a T side carries a waveTransmissive value
+        bc_e = (None if wt_has_T else
+                common.e_bcs_from_T(bc_T, th.e_from_T, th.Cv))
+
         def step(s: State) -> State:
             rho, rhoU, rhoE, sc_prev, t, dt = s[:6]
             # substitute the lagged qgdFlux gradients into the p BCs
@@ -138,17 +188,57 @@ class QGDFoam:
             for i, (a, side) in enumerate(flux_sides):
                 bc_p = bc_p.replace(a, side, bcm.FixedGradient(s.pbc[i]))
             U, e, T, p = self.primitives(s)
+            if wall is not None:
+                # mirror fill of the solid boundary cells: the shared faces
+                # see a zero normal velocity and the wall pressure
+                T = wall.mirror(T)
+                p = wall.mirror(p)
+                U = wall.mirror_vector(U)
+                e = torch.where(wall.boundary, th.e_from_T(T), e)
+                rho = torch.where(wall.boundary, th.rho_from_p_T(p, T), rho)
+                rhoU = torch.where(wall.boundary[None], rho[None] * U, rhoU)
+                rhoE = torch.where(
+                    wall.boundary,
+                    rho * e + 0.5 * rho * torch.sum(U * U, dim=0), rhoE)
+            # waveTransmissive (advectiveFvPatchField, Euler ddt): the BC
+            # acts as the mixed condition face = frac*ref + (1-frac)*cell,
+            # ref = (v_old + k*field_inf)/(1+k), frac = (1+k)/(1+alpha+k),
+            # alpha = w dt/delta, k = w dt/lInf, w = max(Un, 0) + c
+            bc_Uw, bc_Tw = bc_U, bc_T
+            wt_ref, wt_frac = [], []
+            for i, (key, a, side, b) in enumerate(wt_sides):
+                un = _edge(U[a], nd, a, side) * (1.0 if side else -1.0)
+                w = torch.clamp(un, min=0.0) + th.c_from_pT(
+                    _edge(p, nd, a, side), _edge(T, nd, a, side))
+                delta = 0.5 * float(mesh.dx[a][-1 if side else 0])
+                al = w * dt / delta
+                k = (w * dt / b.l_inf) if b.l_inf > 0 else 0.0
+                ref = (s.wt[i] + k * b.field_inf) / (1.0 + k)
+                frac = (1.0 + k) / (1.0 + al + k)
+                wt_ref.append(ref)
+                wt_frac.append(frac)
+                sub = bcm.Mixed(ref, frac)
+                if key == "p":
+                    bc_p = bc_p.replace(a, side, sub)
+                elif key == "T":
+                    bc_Tw = bc_Tw.replace(a, side, sub)
+                else:
+                    bc_Uw = bc_Uw.replace(a, side, sub)
+            bc_ew = (common.e_bcs_from_T(bc_Tw, th.e_from_T, th.Cv)
+                     if wt_has_T else bc_e)
             # resolve inletOutlet markers against the current flow direction
-            bc_Ur = bcm.resolve_inlet_outlet(bc_U, U, nd)
-            bc_Tr = bcm.resolve_inlet_outlet(bc_T, U, nd)
+            bc_Ur = bcm.resolve_inlet_outlet(bc_Uw, U, nd)
+            bc_Tr = bcm.resolve_inlet_outlet(bc_Tw, U, nd)
             bc_p = bcm.resolve_inlet_outlet(bc_p, U, nd)
+            bc_er = bcm.resolve_inlet_outlet(bc_ew, U, nd)
             c = th.c_from_pT(p, T)
             mu_mol = th.mu(p, T)
             alphau_mol = th.alphah(p, T)
 
             # thermo.correct(): tau coefficients + effective transport
             coeffs = self.tau_model.correct(mesh, c=c, p=p, rho=rho,
-                                            sc_prev=sc_prev, mu=mu_mol)
+                                            sc_prev=sc_prev, mu=mu_mol,
+                                            bc_p=bc_p, t=t)
             tau_f = coeffs.tau_f
             mu_eff = mu_mol + coeffs.mu_qgd
             alphau_eff = alphau_mol + coeffs.alphau_qgd
@@ -205,7 +295,8 @@ class QGDFoam:
                 phiJm_a = jm_n * area[a]
                 phiJm.append(phiJm_a)
 
-                # momentum fluxes
+                # momentum fluxes (the Navier-Stokes stress only when the
+                # diffusion is explicit)
                 u_gradp = sum(uf[i] * gradPf[a][i] for i in range(nd))
                 iso = u_gradp + gamma * pf[a] * divU
                 urr = UrhoUf_row[a]  # (k, faces): interp(U_a * rhoU_k)
@@ -215,9 +306,10 @@ class QGDFoam:
                         sum(urr[k] * gU[k, j] for k in range(nd))
                         + uf[a] * gradPf[a][j]
                         + (iso if j == a else 0.0))
-                    pij = pij + muf[a] * (
-                        gU[a, j] + gU[j, a]
-                        - ((2.0 / 3.0) * divU if j == a else 0.0))
+                    if not implicit:
+                        pij = pij + muf[a] * (
+                            gU[a, j] + gU[j, a]
+                            - ((2.0 / 3.0) * divU if j == a else 0.0))
                     pi_row.append(pij)
                 phiPi = area[a] * torch.stack(pi_row, dim=0)
                 mf = phiJm_a * uf
@@ -228,7 +320,8 @@ class QGDFoam:
                 de = [gradef[a][k] - (pf[a] / rhof[a] ** 2) * gradRhof[a][k]
                       for k in range(nd)]
                 q_n = -tau_f[a] * sum(urr[k] * de[k] for k in range(nd))
-                q_n = q_n - alphauf[a] * gradef[a][a]
+                if not implicit:
+                    q_n = q_n - alphauf[a] * gradef[a][a]
                 phiPiU = area[a] * sum(pi_row[j] * uf[j] for j in range(nd))
                 e_flux.append(phiJm_a * Hf[a] + q_n * area[a] - phiPiU)
 
@@ -237,8 +330,84 @@ class QGDFoam:
             dt_new = common.set_delta_t(dt, co, common.tau_f_min(tau_f), tc)
 
             rho_new = rho - dt_new * fvsc.div_flux(tuple(phiJm), mesh)
+            if wall is not None:
+                # solid cells are not prognostic: clamp to the mirror fill
+                rho_new = torch.where(wall.solid, rho, rho_new)
             rhoU_new = rhoU - dt_new * fvsc.div_flux(tuple(mom_flux), mesh)
+            if mesh.axisymmetric:
+                # wedge hoop terms of the radial momentum (u_theta = 0): the
+                # side faces' (p - Pi_theta_theta)/r per volume, with
+                #   Pi_tt = tau*(U.grad p + gamma*p*divU)
+                #           + mu_eff*(2 u_r/r - (2/3) divU),
+                # divU the cylindrical divergence.  The viscous part stays
+                # explicit in both diffusion modes: the implicit Helmholtz
+                # solve has no 1/r^2 hoop term.
+                r_c = mesh.cell_coords(1)
+                divU_cell = fvsc.div_flux(
+                    tuple(Uf[a][a] * area[a] for a in range(nd)), mesh)
+                gradp_cell = fvsc.grad_cell_from_faces(pf, mesh)
+                u_gradp_cell = sum(U[i] * gradp_cell[i] for i in range(nd))
+                pi_tt = (coeffs.tau * (u_gradp_cell + gamma * p * divU_cell)
+                         + mu_eff * (2.0 * U[1] / r_c
+                                     - (2.0 / 3.0) * divU_cell))
+                rhoU_new = torch.stack(
+                    [rhoU_new[0], rhoU_new[1] + dt_new * (p - pi_tt) / r_c])
+            if wall is not None:
+                rhoU_new = torch.where(wall.solid[None], rhoU, rhoU_new)
+            U_new = rhoU_new / rho_new[None]
+
+            if implicit:
+                # tauMC = muEff*dev2(grad(U)^T), phiTauMC = Sf & interp(tauMC)
+                gradU_cell = fvsc.grad_cell_vector(U, bc_Ur, mesh, t=t)
+                if wall is not None:
+                    # solid cells take the adjacent fluid cell's gradient
+                    gradU_cell = torch.stack([
+                        torch.stack([wall.mirror(gradU_cell[i, j])
+                                     for j in range(nd)])
+                        for i in range(nd)])
+                tauMC = mu_eff * dev2T(gradU_cell, nd)
+                tauMC_f = fvsc.interpolate(
+                    tauMC.reshape((nd * nd,) + mesh.shape), bc_zg, mesh)
+                tauMC_row = [tauMC_f[a].reshape((nd, nd)
+                                                + mesh.face_shape(a))[a]
+                             for a in range(nd)]
+                phiTauMC = tuple(area[a] * tauMC_row[a] for a in range(nd))
+                rhs_U = rho_new * U_new / dt_new \
+                    + fvsc.div_flux(phiTauMC, mesh)
+                U_new = linsolve.solve_helmholtz(
+                    diag_coeff=rho_new / dt_new, gamma_faces=muf, rhs=rhs_U,
+                    x0=U_new, bcs=bc_Ur, mesh=mesh, t=t, vector=True,
+                    tol=self.cg_tol, maxiter=self.cg_maxiter,
+                    fluid_mask=fluid_mask, solid_wall_dirichlet=True).x
+                if wall is not None:
+                    # the solve left the solid cells at 0: restore them
+                    U_new = torch.where(wall.solid[None], U, U_new)
+                rhoU_new = rho_new[None] * U_new
+                # sigmaDotU = (muf*interp(grad U) + tauMC_f) & Uf
+                gradU_f = fvsc.interpolate(
+                    gradU_cell.reshape((nd * nd,) + mesh.shape), bc_zg, mesh)
+                for a in range(nd):
+                    sig = muf[a] * gradU_f[a].reshape(
+                        (nd, nd) + mesh.face_shape(a))[a] + tauMC_row[a]
+                    e_flux[a] = e_flux[a] - area[a] * torch.sum(
+                        sig * Uf[a], dim=0)
+
             rhoE_new = rhoE - dt_new * fvsc.div_flux(tuple(e_flux), mesh)
+            if wall is not None:
+                rhoE_new = torch.where(wall.solid, rhoE, rhoE_new)
+            if implicit or wt_sides:
+                e_new = rhoE_new / rho_new \
+                    - 0.5 * torch.sum(U_new * U_new, dim=0)
+            if implicit:
+                e_new = linsolve.solve_helmholtz(
+                    diag_coeff=rho_new / dt_new, gamma_faces=alphauf,
+                    rhs=rho_new * e_new / dt_new, x0=e_new, bcs=bc_er,
+                    mesh=mesh, t=t, tol=self.cg_tol,
+                    maxiter=self.cg_maxiter, fluid_mask=fluid_mask).x
+                if wall is not None:
+                    e_new = torch.where(wall.solid, e, e_new)
+                rhoE_new = rho_new * (e_new
+                                      + 0.5 * torch.sum(U_new * U_new, dim=0))
 
             # the lagged qgdFlux gradients from this step's phiwStar.  Under
             # decomposition every rank computes rows at its block edge, but
@@ -246,7 +415,7 @@ class QGDFoam:
             # alone builds that BC layer): no broadcast is made, and
             # parallel.sharding's from_spmd takes the owner's rows
             pbc_new = []
-            for a, side in flux_sides:
+            for i, (a, side) in enumerate(flux_sides):
                 ax = phiwStar[a].ndim - nd + a
                 idx = 0 if side == 0 else phiwStar[a].shape[ax] - 1
                 ws = phiwStar[a].narrow(ax, idx, 1)
@@ -254,11 +423,37 @@ class QGDFoam:
                 sign = -1.0 if side == 0 else 1.0
                 arb = torch.broadcast_to(area[a], tau_f[a].shape
                                          ).narrow(ax, idx, 1)
-                pbc_new.append(-sign * ws / (tf * arb))
+                g = -sign * ws / (tf * arb)
+                if self.qgdflux_limit is not None:
+                    # face-local clamp: |dp/dn| <= limit * interior |snGrad|
+                    n = p.shape[a]
+                    pm1 = p.narrow(a, n - 1 if side else 0, 1)
+                    pm2 = p.narrow(a, n - 2 if side else 1, 1)
+                    dxe = float(mesh.dx[a][-1 if side else 0])
+                    cap = self.qgdflux_limit * torch.abs(pm1 - pm2) / dxe
+                    g = torch.clamp(g, min=-cap, max=cap)
+                if self.qgdflux_relax != 1.0:
+                    g = ((1.0 - self.qgdflux_relax) * s.pbc[i]
+                         + self.qgdflux_relax * g)
+                pbc_new.append(g)
+
+            # the realized waveTransmissive face values: the mixed condition
+            # against the updated boundary cells (only the rank at the
+            # physical side reads them, as pbc)
+            wt_new = []
+            for i, (key, a, side, _) in enumerate(wt_sides):
+                if key == "U":
+                    phi_c = _edge(U_new, nd, a, side)
+                else:
+                    T_edge = th.T_from_e(_edge(e_new, nd, a, side))
+                    phi_c = T_edge if key == "T" else th.p_from_rho_T(
+                        _edge(rho_new, nd, a, side), T_edge)
+                wt_new.append(wt_frac[i] * wt_ref[i]
+                              + (1.0 - wt_frac[i]) * phi_c)
 
             return State(rho=rho_new, rhoU=rhoU_new, rhoE=rhoE_new,
                          sc=coeffs.sc, t=t + dt_new, dt=dt_new,
-                         pbc=tuple(pbc_new))
+                         pbc=tuple(pbc_new), wt=tuple(wt_new))
 
         return step
 
@@ -298,3 +493,12 @@ class QGDFoam:
         Fused3DState) to the next; to_fused / from_fused convert to and from
         the composable State."""
         return self.fused_builder()(self)
+
+
+def dev2T(gradU_cell, nd):
+    """dev2(T^t) = T^t - (2/3) tr(T) I for T = grad(U), the deviator of
+    tauMC (OpenFOAM dev2 of the transposed gradient)."""
+    eye = torch.eye(nd, dtype=gradU_cell.dtype, device=gradU_cell.device
+                    ).reshape((nd, nd) + (1,) * (gradU_cell.ndim - 2))
+    tr = sum(gradU_cell[i, i] for i in range(nd))
+    return gradU_cell.transpose(0, 1) - (2.0 / 3.0) * eye * tr

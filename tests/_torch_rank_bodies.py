@@ -78,10 +78,34 @@ def graded_jet(dtype, device):
     return solver
 
 
+def wt_segmented_jet(shape, dtype, device):
+    """The jet with waveTransmissive p and T outlets and a Segmented inlet
+    side: the jet's inflow profile on the middle half of the rows, a slow
+    fixed coflow on the rest."""
+    solver, _ = cases.supersonic_jet(shape=shape, dtype=dtype, device=device)
+    ny = shape[1]
+    inlet = bcm.Segmented((
+        ((((0, ny),),), bcm.FixedValue([50.0, 0.0])),
+        ((((ny // 4, 3 * ny // 4),),), solver.bc_U[0, 0])))
+    return dataclasses.replace(
+        solver, bc_U=solver.bc_U.replace(0, 0, inlet),
+        bc_p=solver.bc_p.replace(0, 1, bcm.WaveTransmissive(1e5, 0.5)),
+        bc_T=solver.bc_T.replace(0, 1, bcm.WaveTransmissive(300.0)))
+
+
 def port_case(name, shape, dtype, device="cpu"):
     """The port's solver for a test case name."""
     if name == "graded_jet":
         return graded_jet(dtype, device)
+    if name == "implicit_jet":
+        solver, _ = cases.supersonic_jet(shape=shape, dtype=dtype,
+                                         device=device)
+        return dataclasses.replace(solver, implicit_diffusion=True)
+    if name == "implicit_wedge_blob":
+        solver, _ = cases.wedge_blob(shape=shape, dtype=dtype, device=device)
+        return dataclasses.replace(solver, implicit_diffusion=True)
+    if name == "wt_segmented_jet":
+        return wt_segmented_jet(shape, dtype, device)
     base = {"periodic_jet": "supersonic_jet",
             "inlet_outlet_jet": "supersonic_jet"}.get(name, name)
     solver, _ = getattr(cases, base)(shape=shape, dtype=dtype, device=device)

@@ -312,11 +312,19 @@ def test_config_builds_solver(tmp_path):
     common.run_steps(solver.make_step(), solver.init(
         p0=torch.full((8, 4), 1e5), T0=torch.full((8, 4), 300.0),
         U0=torch.zeros((2, 8, 4))), 2)
-    for word, item in (("waveTransmissive", "item 7"),
-                       ("cosVelocity", "item 7")):
-        bad = dict(cfg, boundary={"U": {"x_lo": {"type": word}}})
-        with pytest.raises(NotImplementedError, match=item):
-            config.build_solver(bad, device="cpu")
+    # the waveTransmissive and cosVelocity words build and run
+    wt = dict(cfg, boundary={
+        "p": {"x_hi": {"type": "waveTransmissive", "fieldInf": 1e5,
+                       "lInf": 0.5}},
+        "U": {"x_lo": {"type": "cosVelocity", "amplitude": 2.0,
+                       "omega0": 100.0, "phi0": 0.3, "height": 1.0}}})
+    solver = config.build_solver(wt, device="cpu")
+    assert [k for k, _, _, _ in solver._wt_sides()] == ["p"]
+    s = common.run_steps(solver.make_step(), solver.init(
+        p0=torch.full((8, 4), 1e5), T0=torch.full((8, 4), 300.0),
+        U0=torch.zeros((2, 8, 4))), 2)
+    assert len(s.wt) == 1 and bool(torch.isfinite(s.rhoU).all())
+    assert float(s.rhoU[0].abs().max()) > 0.0
     with pytest.raises(NotImplementedError, match="item 8"):
         config.build_solver(dict(cfg, solver="QHDFoam"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):

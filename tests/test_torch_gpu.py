@@ -4,8 +4,9 @@ torch versions, on
 the card, at the production sizes (1024x512 and 256x126x126 f32), from a
 state after 20 plain steps, and the smoothing kernels on ragged shapes;
 the division-free ring against a correctly rounded division
-(`smooth_ring_check`), and the plain `fvc_smooth` on the card against the
-CPU's.
+(`smooth_ring_check`), the plain `fvc_smooth` on the card against the
+CPU's, the ring kernels' NaN cells against the plain versions', and the
+composable implicit-diffusion step (its CG) on the card against the CPU.
 Marked `gpu`: they skip where no CUDA device exists.  Run them on the card
 with `python -m pytest tests/test_torch_gpu.py -m gpu -q`.
 
@@ -646,15 +647,21 @@ def test_3d_emit_on_ragged_shapes(shape, device):
                     F3.qgd3d_sensor(blk, p, T, sc)) <= 1e-6, edges
 
 
+def _same_with_nan(got, ref):
+    """got equals ref bit for bit, NaN exactly where ref is NaN."""
+    bad = torch.isnan(ref)
+    return (torch.equal(torch.isnan(got), bad)
+            and torch.equal(got[~bad], ref[~bad]))
+
+
 def test_3d_sensor_path_with_a_nan_cell(device, record_property):
     """One NaN cell of p in fresh frames (its rho NaN), and one NaN cell of
-    a sensor: what qgd3d_emit and qgd3d_smooth give beside their plain
-    versions.  The raw sensor is NaN exactly where the plain one is (its
-    clamps propagate NaN, as torch.clamp does).  The rings take their max
-    with fmaxf, which drops a NaN operand, while the plain rings'
-    torch.maximum propagates it: where the plain ring 1 or rings are NaN
-    the kernels' may be finite (recorded as properties; ROADMAP queue 3).
-    Everywhere else the kernels equal the plain versions bit for bit."""
+    a sensor: qgd3d_emit and qgd3d_smooth beside their plain versions.  The
+    raw sensor is NaN exactly where the plain one is (its clamps propagate
+    NaN, as torch.clamp does), and so are ring 1 and the rings: their max
+    is nan_max, which propagates NaN as the plain rings' torch.maximum
+    does.  Everywhere else the kernels equal the plain versions bit for
+    bit.  The NaN counts are recorded as properties."""
     shape = (20, 40, 70)
     prm = F3.make_params(cases.supersonic_jet_3d_varsc(shape=shape,
                                                        device=device)[0])[0]
@@ -667,20 +674,63 @@ def test_3d_sensor_path_with_a_nan_cell(device, record_property):
     assert int(torch.isnan(ref).sum()) == 7
     ok = ~torch.isnan(ref)
     assert _rel(ref[ok], raw[ok]) <= 1e-6
-    cells, _ = F3.smooth_reference_3d(prm, raw, 1)
+    cells, flag = F3.smooth_reference_3d(prm, raw, 1)
     plain = F._edge_frame(cells)
-    bad = torch.isnan(plain)
-    assert torch.equal(s1[~bad], plain[~bad])
-    record_property("emit_ring1_plain_nan_cells", int(bad.sum()))
+    assert _same_with_nan(s1, plain)
+    assert float(chg) == float(flag)
+    record_property("emit_ring1_plain_nan_cells", int(torch.isnan(plain).sum()))
     record_property("emit_ring1_kernel_nan_cells", int(torch.isnan(s1).sum()))
     f = torch.full(shape, 0.1, device=device)
     f[10, 20, 30] = float("nan")
-    out, _ = F3.qgd3d_smooth(prm, f, F3.SMOOTH3_RINGS)
-    cells, _ = F3.smooth_reference_3d(prm, f, F3.SMOOTH3_RINGS)
+    out, flag = F3.qgd3d_smooth(prm, f, F3.SMOOTH3_RINGS)
+    cells, ref_flag = F3.smooth_reference_3d(prm, f, F3.SMOOTH3_RINGS)
     plain = F._edge_frame(cells)
-    bad = torch.isnan(plain)
-    assert torch.equal(out[~bad], plain[~bad])
-    record_property("smooth_plain_nan_cells", int(bad.sum()))
+    assert int(torch.isnan(plain).sum()) > 1
+    assert _same_with_nan(out, plain)
+    assert float(flag) == float(ref_flag) == 0.0
+    record_property("smooth_plain_nan_cells", int(torch.isnan(plain).sum()))
+    record_property("smooth_kernel_nan_cells", int(torch.isnan(out).sum()))
+
+
+def test_2d_sensor_path_with_a_nan_cell(device, record_property):
+    """The 2D counterpart: one NaN cell of p in fresh frames for
+    qgd2d_emit, whose raw sensor is NaN exactly where emit_reference's is
+    and within rel 1e-6 elsewhere (on the card the plain version's
+    gradient divides by dx as a Python float, which torch turns into a
+    product by its reciprocal), and whose ring 1 and flag are the plain
+    ring's of the kernel's own raw sensor, NaN cells included; and one NaN
+    cell of a sensor for qgd2d_smooth (1, 3 and SMOOTH_KMAX rings against
+    the plain rings): NaN exactly where the plain rings are, bit for bit
+    elsewhere."""
+    shape = (130, 131)
+    prm = F.make_params(cases.supersonic_jet_varsc(shape=shape,
+                                                   device=device)[0])[0]
+    p, T, ux, uy = random_frames_2d(shape, 29, device)
+    p[40, 50] = float("nan")
+    sc = torch.full_like(p, 0.1)
+    got = F.qgd2d_emit(prm, p, T, ux, uy, sc)
+    ref = F.emit_reference(prm, p, T, ux, uy, sc)
+    bad = torch.isnan(ref[2])
+    assert int(bad.sum()) == 5
+    assert torch.equal(torch.isnan(got[2]), bad)
+    assert _rel(ref[2][~bad], got[2][~bad]) <= 1e-6
+    s1, flag = S.smooth_reference(prm, got[2], 1)
+    assert int(torch.isnan(s1).sum()) > 5
+    assert _same_with_nan(got[3], s1)
+    assert float(got[4]) == float(flag)
+    record_property("emit_ring1_plain_nan_cells", int(torch.isnan(s1).sum()))
+    record_property("emit_ring1_kernel_nan_cells",
+                    int(torch.isnan(got[3]).sum()))
+    f = torch.full(shape, 0.1, device=device)
+    f[60, 70] = float("nan")
+    for k in sorted({1, 3, F.SMOOTH_KMAX}):
+        out, flag = F.qgd2d_smooth(prm, f, k)
+        cells, ref_flag = S.smooth_reference(prm, f, k)
+        plain = F._edge_frame(cells)
+        assert int(torch.isnan(plain).sum()) > 1
+        assert _same_with_nan(out, plain), k
+        assert float(flag) == float(ref_flag), k
+    record_property("smooth_plain_nan_cells", int(torch.isnan(plain).sum()))
     record_property("smooth_kernel_nan_cells", int(torch.isnan(out).sum()))
 
 
@@ -944,3 +994,47 @@ def test_fvc_smooth_on_card_equals_cpu(shape, field, device):
     got = qgdcoeffs.fvc_smooth(cpu.to(device), 0.1).cpu()
     assert torch.equal(got, qgdcoeffs.fvc_smooth(cpu, 0.1))
     assert not torch.equal(got, cpu)
+
+
+def test_cg_on_card_matches_cpu(device):
+    """The implicit-diffusion Helmholtz solve of the jet's U (float64) on
+    the card and on the CPU: equal iteration counts, x within 1e-12 of its
+    max (the card's sums reduce in another order), and one host read per
+    group of CG_GROUP iterations plus one."""
+    from qgdsolver_tpu_torch.ops import linsolve
+
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        solver, s = cases.supersonic_jet(shape=(256, 128), dtype=torch.float64,
+                                         device=dev)
+        mesh = solver.mesh
+        U = s.rhoU / s.rho[None]
+        g = tuple(torch.full(mesh.face_shape(a), 5e-3, dtype=torch.float64,
+                             device=dev) for a in range(2))
+        diag = s.rho / 1e-6
+        linsolve.reset_counts()
+        res = linsolve.solve_helmholtz(
+            diag_coeff=diag, gamma_faces=g, rhs=diag * U, x0=U,
+            bcs=bc.resolve_inlet_outlet(solver.bc_U, U, 2), mesh=mesh,
+            vector=True, tol=1e-12, maxiter=500)
+        out[dev.type] = (res, linsolve.cg.reads)
+    (gpu, reads), (cpu, _) = out["cuda"], out["cpu"]
+    n = int(cpu.iters)
+    assert int(gpu.iters) == n > 1
+    assert _rel(cpu.x, gpu.x.cpu()) <= 1e-12
+    assert reads == -(-n // linsolve.CG_GROUP) + 1
+
+
+def test_implicit_jet_on_card_matches_cpu(device):
+    """5 implicit-diffusion steps of the jet at 256x128 (float64; the
+    composable path: the fused gates refuse implicit diffusion) on the card
+    and on the CPU: every field within 1e-10 of its max."""
+    out = []
+    for dev in (device, torch.device("cpu")):
+        solver, s = cases.supersonic_jet(shape=(256, 128), dtype=torch.float64,
+                                         device=dev, implicit_diffusion=True)
+        assert not solver.fused_supported()
+        out.append(common.run_steps(solver.make_step(), s, 5))
+    gpu, cpu = out
+    for f in ("rho", "rhoU", "rhoE", "t", "dt"):
+        assert _rel(getattr(cpu, f), getattr(gpu, f).cpu()) <= 1e-10, f

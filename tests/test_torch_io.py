@@ -251,7 +251,12 @@ mergePatchPairs ();
 
 
 def test_dead_cell_and_wedge_meshes_raise():
-    """The JAX L-shaped fixture layout and a wedge name ROADMAP item 7."""
+    """The JAX L-shaped fixture layout parses into a mesh whose solid mask
+    (the uncovered quarter) equals the JAX package's; the same blocks
+    swept as a wedge are not bricks after the unrolling r = hypot(y, z)
+    and raise ValueError, as in the JAX package."""
+    from qgdsolver_tpu.io.foam_fields import parse_block_mesh as j_parse
+
     lshape = {
         "vertices": [[0, 0, 0], [1, 0, 0], [2, 0, 0], [0, 0.5, 0],
                      [1, 0.5, 0], [2, 0.5, 0], [0, 1, 0], [1, 1, 0],
@@ -261,11 +266,15 @@ def test_dead_cell_and_wedge_meshes_raise():
                    "hex", [1, 2, 5, 4, 9, 10, 13, 12], [8, 8, 1],
                    "hex", [3, 4, 7, 6, 11, 12, 15, 14], [8, 8, 1]],
         "boundary": []}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        parse_block_mesh(lshape)
+    mesh, _, kept = parse_block_mesh(lshape)
+    jmesh, _, jkept = j_parse(lshape)
+    assert kept == jkept and mesh.shape == jmesh.shape == (16, 16, 1)
+    np.testing.assert_array_equal(mesh.solid, jmesh.solid)
+    assert int(mesh.solid.sum()) == 64 and bool(mesh.solid[8:, 8:].all())
     wedge = dict(lshape, boundary=["w", {"type": "wedge", "faces": []}])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        parse_block_mesh(wedge)
+    for parse in (parse_block_mesh, j_parse):
+        with pytest.raises(ValueError, match="not an axis-aligned brick"):
+            parse(wedge)
 
 
 def test_write_time_dir_roundtrip(tmp_path):
@@ -320,8 +329,10 @@ def test_nonuniform_lists_read_as_the_parser_reads_them(tmp_path):
 
 def test_split_sides(tmp_path):
     """Two patches claiming the same face rectangle is an overlap and is
-    rejected; a proper split side (jet_coflow_case) needs the Segmented BC,
-    which names ROADMAP item 7."""
+    rejected; a proper split side (jet_coflow_case: a jet inlet and a
+    coflow on the x-low plane) builds a Segmented BC, and 5 steps of the
+    case equal the JAX package's in float64 to round-off (1e-12 of each
+    field's max)."""
     case = _copy(tmp_path)
     bmd = (case / "system" / "blockMeshDict").read_text().replace(
         "inlet        { type patch; faces ((0 4 7 3)); }",
@@ -335,9 +346,24 @@ def test_split_sides(tmp_path):
     (case / "0" / "U").write_text(u)
     with pytest.raises(ValueError, match="several patches"):
         foam_case.build_case(str(case), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        foam_case.build_case(os.path.join(FIX, "jet_coflow_case"),
-                             device="cpu")
+    path = os.path.join(FIX, "jet_coflow_case")
+    solver, state = foam_case.build_case(path, device="cpu",
+                                         dtype=torch.float64)
+    assert isinstance(solver.bc_U[0, 0], bcm.Segmented)
+    assert not solver.fused_supported()
+    jsolver, js = jfc.build_case(path)
+    jsolver = dataclasses.replace(
+        jsolver, mesh=dataclasses.replace(jsolver.mesh, dtype=np.float64))
+    js = jax.tree.map(lambda x: np.asarray(x, np.float64), js)
+    np.testing.assert_allclose(state.rho.numpy(), js.rho, rtol=1e-12)
+    out = interop.state_to_numpy(common.run_steps(solver.make_step(), state,
+                                                  5))
+    jstep = jax.jit(jsolver.make_step())
+    for _ in range(5):
+        js = jstep(js)
+    for f in ("rho", "rhoU", "rhoE", "t", "dt"):
+        a, b = np.asarray(getattr(js, f)), getattr(out, f)
+        assert np.max(np.abs(a - b)) <= 1e-12 * np.max(np.abs(a)), f
 
 
 def test_build_case_3d_flagship_rides_fused_kernel(tmp_path):
@@ -386,10 +412,15 @@ def test_unported_words_raise(tmp_path):
         foam_case.build_foam_thermo({"thermoType": {"thermo": "janaf"}})
     with pytest.raises(NotImplementedError, match="item 7"):
         foam_case.build_foam_thermo(
-            {"thermoType": {"transport": "sutherland"}})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        foam_fields._bc_from_entry({"type": "waveTransmissive"}, 2, (0, 1),
-                                   False)
+            {"thermoType": {"type": "heRhoQGDThermo",
+                            "equationOfState": "rhoConst"}})
+    # words ported since: they map as the JAX package maps them
+    th = foam_case.build_foam_thermo(
+        {"thermoType": {"transport": "sutherland"}})
+    assert type(th.transport).__name__ == "SutherlandTransport"
+    b = foam_fields._bc_from_entry({"type": "waveTransmissive",
+                                    "fieldInf": 1e5}, 2, (0, 1), False)
+    assert isinstance(b, bcm.WaveTransmissive) and b.field_inf == 1e5
     with pytest.raises(NotImplementedError, match="items 8-9"):
         foam_fields._bc_from_entry({"type": "qhdFlux"}, 2, (0, 1), False)
     with pytest.raises(ValueError, match="unsupported boundary"):

@@ -105,11 +105,23 @@ def test_run_steps_checks_state(tmp_path):
 
 
 def test_unported_branches_raise():
+    """The implicit-diffusion and qgdFlux limiter/relaxation branches are
+    ported (they build and step); what QGDFoam's neighbours still lack
+    raises NotImplementedError naming ROADMAP item 7."""
     import dataclasses
 
-    tsolver, _ = tcases.supersonic_jet(shape=(16, 8), dtype=torch.float64,
-                                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tsolver, implicit_diffusion=True).make_step()
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tsolver, qgdflux_relax=0.5).make_step()
+    from qgdsolver_tpu_torch.core import config
+
+    tsolver, ts = tcases.supersonic_jet(shape=(16, 8), dtype=torch.float64,
+                                        device="cpu")
+    for kw in ({"implicit_diffusion": True}, {"qgdflux_relax": 0.5},
+               {"qgdflux_limit": 4.0}):
+        s = dataclasses.replace(tsolver, **kw).make_step()(ts)
+        assert bool(torch.isfinite(s.rho).all()), kw
+    cfg = {"solver": "zQGDFoam", "mesh": {"shape": [8, 4]}}
+    with pytest.raises(NotImplementedError, match="item 7"):
+        config.build_solver(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        config.build_solver(dict(cfg, solver="QGDFoam",
+                                 thermo={"type": "janafPerfectGas"}),
+                            device="cpu")

@@ -165,6 +165,94 @@ def test_matches_jax_spmd_step(world, key):
     _close(jax.tree.map(np.asarray, s), ranks[0], 1e-9, key)
 
 
+# key: (case, shape, (px, py), steps, bound against the serial port)
+CASES2 = {
+    # the CG's dots are all-reduced sums: their order differs from the
+    # serial sums, so the two agree to the solves' tolerance, 2*n*cg_tol
+    "implicit_jet_2x1": ("implicit_jet", (32, 16), (2, 1), 10, 2e-7),
+    "implicit_wedge_blob_1x2": ("implicit_wedge_blob", (16, 16), (1, 2), 10,
+                                2e-7),
+    "wt_segmented_jet_1x2": ("wt_segmented_jet", (32, 16), (1, 2), 10,
+                             1e-12),
+    "wt_segmented_jet_2x1": ("wt_segmented_jet", (32, 16), (2, 1), 10,
+                             1e-12),
+}
+
+
+@pytest.fixture(scope="module")
+def world2():
+    """The cases of CASES2 on one 2-rank world (gloo, CPU): {key: (port
+    initial state, per-rank gathered port State)}."""
+    jobs, init = [], {}
+    for key, (name, shape, grid, steps, _) in CASES2.items():
+        solver = bodies.port_case(name, shape, torch.float64)
+        s0 = interop.state_to_numpy(solver.init(
+            *_rest_state(solver, name)))
+        init[key] = s0
+        jobs.append(("spmd", name, shape, "float64", grid, steps, s0))
+    per_rank = distributed.spawn(bodies.run_jobs, 2, jobs, "cpu",
+                                 device="cpu", timeout=120)
+    return {key: (init[key], [r[i][0] for r in per_rank])
+            for i, key in enumerate(CASES2)}
+
+
+def _rest_state(solver, name):
+    """(p0, T0, U0) of a case: the builders' own initial fields."""
+    base = {"implicit_jet": "supersonic_jet",
+            "wt_segmented_jet": "supersonic_jet",
+            "implicit_wedge_blob": "wedge_blob"}[name]
+    _, s = getattr(cases, base)(shape=solver.mesh.shape, dtype=torch.float64,
+                                device="cpu")
+    U, _, T, p = solver.primitives(s)
+    return p, T, U
+
+
+@pytest.mark.parametrize("key", list(CASES2))
+def test_two_ranks_match_port_serial_step(world2, key):
+    """Implicit diffusion (the CG's dots as all-reduces), a wedge, and
+    waveTransmissive outlets with a Segmented inlet go through
+    build_spmd_step unchanged: two ranks (2x1 and 1x2) against the serial
+    port; the gathered waveTransmissive carry is the owner rank's."""
+    name, shape, _, steps, tol = CASES2[key]
+    s0, ranks = world2[key]
+    solver = bodies.port_case(name, shape, torch.float64)
+    s = interop.state_from_numpy(s0, dtype=torch.float64)
+    step = solver.make_step()
+    for _ in range(steps):
+        s = step(s)
+    ref = interop.state_to_numpy(s)
+    assert len(ref.wt) == (2 if name == "wt_segmented_jet" else 0)
+    for got in ranks:
+        _close(ref, got, tol, key)
+        for a, b in zip(ref.wt, got.wt):
+            np.testing.assert_allclose(b, a, rtol=tol, atol=0.0,
+                                       err_msg=f"{key} wt")
+    assert _rel_change(s0, ref) > 1e-6, "the state must evolve"
+
+
+def _rel_change(a, b):
+    return float(np.max(np.abs(a.rhoU - b.rhoU)) / np.max(np.abs(b.rhoU)))
+
+
+def test_solid_masks_are_not_decomposed():
+    """A stairstep solid mesh is refused by build_spmd_step, as in the
+    JAX package (its stencils are globally indexed)."""
+    import dataclasses
+
+    from qgdsolver_tpu_torch.core.mesh import Mesh
+
+    solver, _ = cases.supersonic_jet(shape=(16, 8), dtype=torch.float64,
+                                     device="cpu")
+    solid = np.zeros((16, 8), dtype=bool)
+    solid[:4, :2] = True
+    masked = dataclasses.replace(solver, mesh=Mesh(
+        x_faces=solver.mesh.x_faces, dtype=torch.float64, solid=solid))
+    assert sharding.spmd_supported(solver) is None
+    assert "solid" in sharding.spmd_supported(masked)
+    with pytest.raises(NotImplementedError, match="solid"):
+        sharding.build_spmd_step(masked, sharding.ProcessGrid(2, 1))
+
+
 def test_measure_scaling_runs_in_a_world(world):
     out = world["scaling"]
     assert out["devices"] == 4
