@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profiler-check N   # the profiler's lost sessions
 
 Builds the CUDA kernels of the fused 2D and 3D QGDFoam steps from the
 sources in the checkout, and for each dimension checks each kernel against
@@ -201,35 +202,72 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / n
 
 
-def device_events(fn, n: int, sessions: int = 3) -> list:
-    """(name, microseconds) of each CUDA kernel, copy and fill that n calls
-    of fn() ran, from the profiler.  It loses some events at the start of a
-    session, so n calls run first and a marker kernel (`torch.cuda._sleep`,
-    named spin_kernel) after them; only the events after the marker count.
-    Now and then a session loses the marker too: then the measurement is
-    taken again in a new session, at most `sessions` in all."""
+# a profiler session that launches at once sometimes records no event at
+# all; one that first waits this long has not (`--profiler-check`)
+PROFILE_SETTLE_S = 0.02
+
+
+def profile_session(fn, n: int, settle: float):
+    """(CUDA events, end of the marker or None) of one profiler session
+    that waits `settle` seconds, runs n calls of fn(), a marker kernel
+    (`torch.cuda._sleep`, named spin_kernel) and n calls more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(sessions):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for half in range(2):
-                for _ in range(n):
-                    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(settle)
+        for half in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            if half == 0:
+                torch.cuda._sleep(1000)
                 torch.cuda.synchronize()
-                if half == 0:
-                    torch.cuda._sleep(1000)
-                    torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
-        if marks:
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    return events, (marks[0] if marks else None)
+
+
+def device_events(fn, n: int, sessions: int = 5) -> list:
+    """(name, microseconds) of each CUDA kernel, copy and fill that n calls
+    of fn() ran, from the profiler.  A session can lose every event, or
+    some at its start, so it waits PROFILE_SETTLE_S first and runs n calls
+    before its marker kernel; only the events after the marker count.  A
+    session that lost the marker all the same is taken again with twice
+    the wait, at most `sessions` in all."""
+    settle = PROFILE_SETTLE_S
+    for _ in range(sessions):
+        events, mark = profile_session(fn, n, settle)
+        if mark is not None:
             return [(e.name, e.time_range.elapsed_us()) for e in events
-                    if e.time_range.start >= marks[0]
+                    if e.time_range.start >= mark
                     and "spin_kernel" not in e.name]
+        settle *= 2
     raise AssertionError(f"the profiler lost the marker kernel in {sessions} "
                          "sessions")
+
+
+def profiler_check(sessions: int) -> int:
+    """`python3 chip_smoke.py --profiler-check N`: N profiler sessions that
+    launch at once and N that wait PROFILE_SETTLE_S, taken in turn, each
+    on 10 calls of a 1e5-float add; prints how many of each lost the
+    marker, and how many recorded no event at all."""
+    check(torch.cuda.is_available(), "no CUDA device")
+    x = torch.zeros(100_000, device="cuda")
+    fn = lambda: x.add_(1.0)  # noqa: E731
+    fn()
+    lost = {0.0: [0, 0], PROFILE_SETTLE_S: [0, 0]}
+    for _ in range(sessions):
+        for settle, count in lost.items():
+            events, mark = profile_session(fn, 10, settle)
+            count[0] += mark is None
+            count[1] += not events
+    for settle, (marker, empty) in lost.items():
+        print(f"profiler sessions waiting {settle} s: {marker} of {sessions} "
+              f"lost the marker, {empty} recorded no event")
+    print(card_line())
+    return 0
 
 
 def device_ms(fn, n: int, warmup: int = 3, same: bool = True,
@@ -1972,6 +2010,8 @@ def phase_slice(dev, card, root):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--profiler-check"]:
+        return profiler_check(int(sys.argv[2]))
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.ops import smoothing as S
