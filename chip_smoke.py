@@ -45,8 +45,15 @@ cases' maxRatio and a sweep.  Phase 21 runs what QGDFoam does beyond the
 fused kernels on the composable path at 1024x512 f32: the case CLI with
 implicit diffusion (CG Helmholtz solves), a Segmented inlet with a
 waveTransmissive outlet, and a wedge, each against the same run on the
-CPU, with ms/step, CG iterations and host reads per step.  One line per phase; any failure exits
-non-zero. The last
+CPU, with ms/step, CG iterations and host reads per step.  Phase 22
+runs the static-mesh QHD family, scalar transport, rhoQGDFoam and zQGDFoam
+on the composable path (the reference has no Pallas kernel for any of
+them): the buoyant cavity as QHDFoam at 128x128 and 512x512 f64, as
+SRFQHDFoam and as mulesQHDFoam, the scalar box at 64x64 f64, and the
+1024x512 f32 jet as rhoQGDFoam with a stiffened gas and as zQGDFoam, each
+against the CPU over its first 3 steps, with ms/step, CG iterations a
+solve by kind (p, U, T) and host reads per step.  One line per phase; any
+failure exits non-zero. The last
 line is {"ok": true, "device": {...}}. Without a CUDA device it fails
 before printing any result. It imports nothing of JAX."""
 from __future__ import annotations
@@ -601,7 +608,7 @@ def check_physical(name, solver, s) -> str:
     for fld, x in (("rho", s.rho), ("T", T), ("e", e)):
         check(bool(torch.isfinite(x).all()) and bool((x > 0).all()),
               f"{name}: {fld} not finite and positive")
-    mach = float((U.norm(dim=0) / solver.thermo.c(T)).max())
+    mach = float((U.norm(dim=0) / solver.thermo.c_from_pT(p, T)).max())
     check(mach < 5.0, f"{name}: max Mach {mach}")
     return f"t={float(s.t):.4e} max Mach {mach:.3f}"
 
@@ -2009,6 +2016,183 @@ def phase_slice(dev, card, root):
           flush=True)
 
 
+@contextlib.contextmanager
+def solve_log():
+    """Record each Helmholtz solve of the step as (kind, iterations): p for
+    the singular pressure solve, U for a vector solve, T (or e) for the
+    rest.  The iteration counts stay on the device until read."""
+    from qgdsolver_tpu_torch.ops import linsolve
+
+    orig = linsolve.solve_helmholtz
+    log = []
+
+    def logged(**kw):
+        res = orig(**kw)
+        kind = ("p" if kw.get("singular") else
+                "U" if kw.get("vector") else "T")
+        log.append((kind, res.iters))
+        return res
+
+    linsolve.solve_helmholtz = logged
+    try:
+        yield log
+    finally:
+        linsolve.solve_helmholtz = orig
+
+
+def iters_per_solve(log) -> dict:
+    """{kind: mean CG iterations a solve} of a solve_log."""
+    out = {}
+    for kind in ("p", "U", "T"):
+        its = [int(i) for k, i in log if k == kind]
+        if its:
+            out[kind] = sum(its) / len(its)
+    return out
+
+
+def state_gap(ref, got) -> dict:
+    """{field: max |got - ref| over max |ref|} of two States' tensor
+    fields (got on any device)."""
+    return {f: rel_err(a.double(), b.cpu().double())
+            for f, a, b in zip(ref._fields, ref, got)
+            if torch.is_tensor(a)}
+
+
+def qhd_checks(label, s) -> str:
+    """Finite fields, and for the cavities T within its walls' bounds (the
+    maximum principle); a summary."""
+    for f, x in zip(s._fields, s):
+        check(bool(torch.isfinite(x).all()), f"{label}: {f} not finite")
+    if hasattr(s, "p"):
+        tmax, tmin = float(s.T.max()), float(s.T.min())
+        check(-1.0 - 1e-6 < tmin and tmax < 1.0 + 1e-6,
+              f"{label}: T in [{tmin}, {tmax}] outside the walls' [-1, 1]")
+        return (f"t={float(s.t):.4e} max|U| {float(s.U.abs().max()):.3e} "
+                f"T in [{tmin:.4f}, {tmax:.4f}]")
+    return f"t={float(s.t):.4e} T in [{float(s.T.min()):.4f}, " \
+        f"{float(s.T.max()):.4f}]"
+
+
+def family_run(label, build, n, cpu_steps=3):
+    """One run of phase 22: build(device) -> (solver, state) on the card
+    and on the CPU, in the build's dtype.  The card's first cpu_steps steps
+    are held against the CPU's, each field within its bound of the field's
+    max: float64 without a CG 1e-9, with one 2*n*cg_tol (the solves stop
+    at |r| <= cg_tol*|b|, their dots summed in another order), float32
+    1e-3 (the kernel paths' bound).  Then n steps on the card after one of
+    warm-up, timed by CUDA events, with the CG iterations a solve by kind
+    (p, U, T) and the host reads a step."""
+    from qgdsolver_tpu_torch.ops import linsolve
+
+    solver, s = build(torch.device("cuda", 0))
+    check(not (hasattr(solver, "fused_supported")
+               and solver.fused_supported()), f"{label}: a fused gate took it")
+    csolver, c = build(torch.device("cpu"))
+    step, cstep = solver.make_step(), csolver.make_step()
+    f64 = solver.mesh.dtype == torch.float64
+    with solve_log() as log:
+        for _ in range(cpu_steps):
+            s, c = step(s), cstep(c)
+    uses_cg = bool(log)
+    share = (2 * cpu_steps * solver.cg_tol if uses_cg else 1e-9) if f64 \
+        else 1e-3
+    gaps = state_gap(c, s)
+    for f, g in gaps.items():
+        check(g <= share, f"{label}: {f} {g:.2e} of its max from the CPU's "
+              f"after {cpu_steps} steps (> {share:g})")
+    box = [step(s)]
+
+    def one():
+        box[0] = step(box[0])
+
+    linsolve.reset_counts()
+    with solve_log() as log:
+        ms = cuda_ms(one, n, warmup=0)
+    its = iters_per_solve(log)
+    reads = linsolve.cg.reads / n
+    if log:
+        check(linsolve.cg.reads <= sum(int(i) for _, i in log)
+              / linsolve.CG_GROUP + 2 * len(log),
+              f"{label}: {linsolve.cg.reads} host reads for {len(log)} "
+              "solves")
+    phys = (check_physical(label, solver, box[0]) if hasattr(box[0], "rho")
+            else qhd_checks(label, box[0]))
+    cg = ", ".join(f"{k} {v:.1f}" for k, v in its.items()) or "none"
+    return (f"{label}: {ms:.3f} ms/step over {n} steps, CG iterations/solve "
+            f"{cg}, {reads:.2f} host reads/step; first {cpu_steps} steps vs "
+            f"the CPU max " + f"{max(gaps.values()):.1e}"
+            + f" (bound {share:g}); {phys}")
+
+
+def jet_variant(kind, dev):
+    """The supersonic jet's mesh and BCs (1024x512 f32) as rhoQGDFoam with
+    a stiffened gas (p_inf 2e5: rho = (p + p_inf)/(R T)) or as zQGDFoam,
+    from the jet's initial p, T and U."""
+    import dataclasses
+
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.physics import thermo as tm
+    from qgdsolver_tpu_torch.solvers.rho_qgd import RhoQGDFoam
+    from qgdsolver_tpu_torch.solvers.zqgd import ZQGDFoam
+
+    jet, s = cases.supersonic_jet(SHAPE, torch.float32, device=dev)
+    U, _, T, p = jet.primitives(s)
+    kw = {f.name: getattr(jet, f.name) for f in dataclasses.fields(ZQGDFoam)}
+    if kind == "rho":
+        kw["thermo"] = tm.RhoThermo(eos=tm.StiffenedGasEoS(R=287.0,
+                                                           p_inf=2e5),
+                                    Cp=1004.5, R=287.0)
+        solver = RhoQGDFoam(**kw)
+    else:
+        solver = ZQGDFoam(**kw)
+    return solver, solver.init(p0=p, T0=T, U0=U)
+
+
+def phase_family(card):
+    """Phase 22: the static-mesh QHD family, scalar transport, rhoQGDFoam
+    and zQGDFoam on the composable path (torch ops; the reference has no
+    Pallas kernel for any of them): the buoyant cavity (QHDFoam, 128x128
+    and 512x512 f64, BASELINE.json config 2), the cavity as SRFQHDFoam
+    (omega (0, 0, 1)) and as mulesQHDFoam, the scalar box (64x64 f64,
+    config 1), and the 1024x512 f32 jet as rhoQGDFoam with a stiffened gas
+    (config 5) and as zQGDFoam, each through `family_run`; and the 128x128
+    cavity timed with the CG's groups of CG_GROUP and of 16 iterations,
+    A B B A (`cg_group_ab`)."""
+    import dataclasses
+
+    from qgdsolver_tpu_torch import cases
+
+    t0 = time.perf_counter()
+
+    def cavity(shape, **over):
+        def build(d):
+            solver, s = cases.buoyant_cavity(shape, device=d)
+            return dataclasses.replace(solver, **over), s
+        return build
+
+    msgs = [
+        family_run("QHDFoam cavity 128x128", cavity((128, 128)), 10),
+        "QHDFoam cavity 128x128 CG groups A B B A, ms/step: " + "; ".join(
+            f"of {g}: " + ", ".join(f"{t:.3f}" for t in ts)
+            for g, ts in cg_group_ab(cavity((128, 128)), 5).items()),
+        family_run("QHDFoam cavity 512x512", cavity((512, 512)), 3),
+        family_run("SRFQHDFoam cavity 128x128 omega (0, 0, 1)",
+                   cavity((128, 128), omega=(0.0, 0.0, 1.0)), 10),
+        family_run("mulesQHDFoam cavity 128x128",
+                   cavity((128, 128), t_equation="mules"), 10),
+        family_run("scalarTransportQHDFoam box 64x64",
+                   lambda d: cases.scalar_box((64, 64), device=d), 20),
+        family_run(f"rhoQGDFoam stiffened-gas jet {SHAPE} f32",
+                   lambda d: jet_variant("rho", d), 20),
+        family_run(f"zQGDFoam jet {SHAPE} f32",
+                   lambda d: jet_variant("z", d), 20),
+    ]
+    print("phase 22 QHD family, scalar transport, rhoQGDFoam, zQGDFoam "
+          "(composable, torch ops): ok " + " | ".join(msgs)
+          + f" | {time.perf_counter() - t0:.1f} s | card: {card}",
+          flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--profiler-check"]:
         return profiler_check(int(sys.argv[2]))
@@ -2081,6 +2265,7 @@ def main() -> int:
     phase_ring_check(dev, card)
     with tempfile.TemporaryDirectory() as root:
         phase_slice(dev, card, root)
+    phase_family(card)
     entries = []
     for k, v in stats.items():
         # each kernel's bound at the shape its time was taken; the 2D update

@@ -1,6 +1,7 @@
 """Canonical case configurations (PyTorch port of `qgdsolver_tpu.cases`:
-the 2D supersonic jets (uniform and graded), the wedge blob, the 3D duct and
-the 3D varsc jet).  Each builder
+the 2D supersonic jets (uniform and graded), the wedge blob, the QHDFoam
+buoyant cavity, the scalar-transport box, the 3D duct and the 3D varsc
+jet).  Each builder
 returns (solver, initial_state), with every tensor in `dtype` on `device`:
 the card by default (a RuntimeError where there is none; pass device="cpu"
 to run on the CPU).
@@ -14,10 +15,13 @@ import torch
 
 from .core import bc as bcm
 from .core.mesh import AxisymmetricMesh, Mesh, checked_device
-from .physics.qgdcoeffs import ConstScPrModel1, VarScModel5
-from .physics.thermo import PerfectGasThermo
+from .physics.qgdcoeffs import (ConstScPrModel1, H2bynuQHD, HbyUQHD,
+                                VarScModel5)
+from .physics.thermo import PerfectGasThermo, RhoConstThermo
 from .solvers import common
 from .solvers.qgd import QGDFoam
+from .solvers.qhd import QHDFoam
+from .solvers.scalar_transport import ScalarTransportQHD
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -135,6 +139,49 @@ def wedge_blob(shape=(128, 64), dtype=torch.float64, device="cuda"):
         p0=mesh.tensor(p0),
         T0=torch.full(mesh.shape, 300.0, dtype=dtype, device=mesh.device),
         U0=torch.zeros((2,) + mesh.shape, dtype=dtype, device=mesh.device))
+
+
+def buoyant_cavity(shape=(128, 128), dtype=torch.float64, beta=-3e-3,
+                   device="cuda"):
+    """QHDFoam differentially heated cavity (BASELINE.json config 2): hot
+    x-low and cold x-high walls (T = +-1), adiabatic y walls, no slip,
+    gravity along -y, at rest."""
+    mesh = Mesh.uniform(shape, lengths=(1.0, 1.0), dtype=dtype,
+                        device=checked_device(device))
+    thermo = RhoConstThermo(rho0=1.0, Cp=1000.0, mu0=1e-2, Pr=0.71, beta=beta)
+    solver = QHDFoam(
+        mesh=mesh, thermo=thermo, tau_model=H2bynuQHD(alpha=0.3),
+        g=(0.0, -9.81),
+        bc_U=bcm.FieldBCs.uniform(bcm.FixedValue([0.0, 0.0]), 2),
+        bc_T=bcm.FieldBCs(((bcm.FixedValue(1.0), bcm.FixedValue(-1.0)),
+                           (bcm.ZeroGradient(), bcm.ZeroGradient()))),
+        bc_p=bcm.FieldBCs.uniform(bcm.ZeroGradient(), 2),
+        time=common.TimeControls(max_co=0.3, max_dt=0.05, dt0=1e-3),
+    )
+    return solver, solver.init(
+        torch.zeros((2,) + mesh.shape, dtype=dtype, device=mesh.device),
+        torch.zeros(mesh.shape, dtype=dtype, device=mesh.device))
+
+
+def scalar_box(shape=(64, 64), dtype=torch.float64, device="cuda"):
+    """scalarTransportQHDFoam on a periodic unit box (BASELINE.json config
+    1): a Gaussian blob of T carried along x at unit speed."""
+    mesh = Mesh.uniform(shape, lengths=(1.0, 1.0), dtype=dtype,
+                        device=checked_device(device))
+    thermo = RhoConstThermo(rho0=1.0, Cp=1000.0, mu0=1e-3, Pr=1.0)
+    per = bcm.FieldBCs.uniform(bcm.Periodic(), 2)
+    solver = ScalarTransportQHD(
+        mesh=mesh, thermo=thermo, tau_model=HbyUQHD(alpha=0.2, U0=1.0),
+        bc_T=per, bc_U=per,
+        time=common.TimeControls(max_co=0.4, max_dt=0.01, dt0=1e-4),
+    )
+    x = np.asarray(mesh.centers[0])[:, None] * np.ones(mesh.shape)
+    y = np.asarray(mesh.centers[1])[None, :] * np.ones(mesh.shape)
+    T0 = mesh.tensor(np.exp(-((x - 0.5) ** 2 + (y - 0.5) ** 2) / 0.01))
+    U0 = torch.stack([torch.ones(mesh.shape, dtype=dtype, device=mesh.device),
+                      torch.zeros(mesh.shape, dtype=dtype,
+                                  device=mesh.device)])
+    return solver, solver.init(T0, U0)
 
 
 def supersonic_jet_varsc(shape=(512, 256), dtype=torch.float32, mach=2.0,

@@ -6,7 +6,8 @@ surface of the reference solvers.
     torchrun --nproc-per-node N -m qgdsolver_tpu_torch <case_dir>
         --devices PXxPY
 
-Reads an OpenFOAM-layout case directory (`io.foam_case.build_case`), runs
+Reads an OpenFOAM-layout case directory (`io.foam_case.build_case`: the
+QGD solvers, the static-mesh QHD family and scalar transport), runs
 chunks of K steps with `solvers.common.run_steps` (the adaptive dt stays on
 the device; `t` is read back once per chunk), writes OpenFOAM-format time
 directories via `io.foam_write` whenever the solution time crosses the next
@@ -15,7 +16,8 @@ timeStep counts steps), and prints the reference-style Time/deltaT lines.
 
 On a CUDA device a config the fused kernels take runs on them
 (`QGDFoam.fused_builder()`; the log names the builder); otherwise, and with
---no-fused, the composable step runs.  `--device cuda` without a card is an
+--no-fused, the composable step runs (the log says when the fused gates
+refused the config: every application but QGDFoam).  `--device cuda` without a card is an
 error: there is no fallback to the CPU.
 
 --devices PXxPY decomposes the case over PX*PY ranks, the reference's
@@ -136,14 +138,17 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
             step, to_spmd, from_fused = sharding.build_spmd_step(solver, grid)
             state = to_spmd(state)
             log(f"composable step engaged: build_spmd_step {where}")
-    elif want_fused and solver.fused_supported():
+    elif (want_fused and hasattr(solver, "fused_supported")
+          and solver.fused_supported()):  # only QGDFoam has fused steps
         builder = solver.fused_builder()
         step, to_fused, from_fused = builder(solver)
         state = to_fused(state)
         log(f"fused kernel path engaged: {builder.__name__}")
     else:
         step = solver.make_step()
-        log("composable step engaged: make_step")
+        log("composable step engaged: make_step" + (
+            f" (the fused gates refuse this {type(solver).__name__} config)"
+            if want_fused else ""))
 
     def in_t(x):
         # a time as the carried t holds it: in f32 an instant between two
@@ -236,7 +241,7 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m qgdsolver_tpu_torch",
-        description="Run an OpenFOAM-layout QGDFoam case directory "
+        description="Run an OpenFOAM-layout case directory "
                     "(application from system/controlDict).")
     ap.add_argument("case", help="case directory")
     ap.add_argument("--device", default="cuda",

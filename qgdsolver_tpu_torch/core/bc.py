@@ -1,5 +1,5 @@
 """Boundary conditions over structured block faces (PyTorch port of
-`qgdsolver_tpu.core.bc`, the BCs of QGDFoam).
+`qgdsolver_tpu.core.bc`, the BCs of QGDFoam and the QHD family).
 
 A BC is a small frozen dataclass that maps the first interior cell layer to a
 ghost cell layer; ops/pad.py applies it.  Ghost conventions (ghost center
@@ -19,8 +19,9 @@ or a callable `f(t, coords)` over torch coordinate tensors of the ghost layer
 (how time-dependent BCs such as cosVelocity are written).
 
 State-coupled BCs are markers the solver substitutes each step: QGDFluxP by a
-FixedGradient of the lagged dp/dn, WaveTransmissive by a Mixed condition of
-the carried face value.
+FixedGradient of the lagged dp/dn, QHDFluxP by a FixedGradient of the
+step's own dp/dn, WaveTransmissive by a Mixed condition of the carried face
+value.
 """
 from __future__ import annotations
 
@@ -114,6 +115,13 @@ class Segmented(BC):
 class QGDFluxP(BC):
     """qgdFlux pressure BC marker: the solver substitutes a FixedGradient
     with dp/dn = -phiwStar/(tau_f*|Sf|) from the previous step."""
+
+
+@dataclasses.dataclass(frozen=True)
+class QHDFluxP(BC):
+    """qhdFlux pressure BC marker: QHDFoam substitutes a FixedGradient with
+    dp/dn = -phiwStar*rho_f/(tau_f*|Sf|) from the same step's regularizer
+    flux before its pressure solve."""
 
 
 @dataclasses.dataclass(frozen=True)

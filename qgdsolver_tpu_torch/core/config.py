@@ -1,5 +1,7 @@
 """Typed case configuration: the dictionary/run-time-selection system
-(PyTorch port of `qgdsolver_tpu.core.config`, for QGDFoam configs).
+(PyTorch port of `qgdsolver_tpu.core.config`: QGDFoam, rhoQGDFoam,
+zQGDFoam, the QHD family and scalarTransportQHDFoam; interQHDFoam raises
+naming its ROADMAP item).
 
 A case is a plain JSON-able dict with the reference's four selection points
 (fvsc scheme, tau model, thermo combination, BC types per field file) plus
@@ -48,16 +50,11 @@ register("bc", "cosVelocity")(
     lambda amplitude, omega0, phi0, height, ndim, **kw: bcm.cos_velocity(
         amplitude, omega0, phi0, height, ndim,
         **{k: kw[k] for k in ("flow_axis", "profile_axis") if k in kw}))
-register_missing("bc", "ROADMAP queue 1, items 8-9 (the QHD family)",
-                 "qhdFlux", "mQhdFlux")
+register("bc", "qhdFlux")(lambda **_: bcm.QHDFluxP())
+register_missing("bc", "ROADMAP queue 1, item 9 (interQHDFoam, two-phase)",
+                 "mQhdFlux")
 
 _NOT_PORTED_SOLVERS = {
-    "zQGDFoam": "ROADMAP queue 1, item 7 (zQGDFoam and rhoQGDFoam's "
-                "RhoThermo)",
-    "QHDFoam": "ROADMAP queue 1, item 8",
-    "SRFQHDFoam": "ROADMAP queue 1, item 8",
-    "mulesQHDFoam": "ROADMAP queue 1, item 8",
-    "scalarTransportQHDFoam": "ROADMAP queue 1, item 8",
     "interQHDFoam": "ROADMAP queue 1, item 9",
 }
 
@@ -97,17 +94,23 @@ def build_bcs(cfg: dict, ndim: int):
 
 
 def build_thermo(cfg: dict):
-    if "janaf" in cfg or "eos" in cfg:
-        raise NotImplementedError(
-            "JANAF and equation-of-state thermo are not in the PyTorch port "
-            "yet: ROADMAP queue 1, item 7 (rhoQGDFoam's RhoThermo, stiffened "
-            "gas, janaf)")
-    kw = {k: v for k, v in cfg.items() if k not in ("type", "transport")}
-    if "transport" in cfg:
-        tcfg = cfg["transport"]
-        kw["transport"] = create(
-            "transport", tcfg["type"],
-            **{k: v for k, v in tcfg.items() if k != "type"})
+    """thermo sub-dict -> thermo: a `type` word of the thermo registry,
+    with its `transport` and `eos` sub-dicts (words of their registries)
+    and a `janaf` sub-dict of coefficient lists."""
+    from ..physics.thermo import JanafThermo
+
+    kw = {k: v for k, v in cfg.items()
+          if k not in ("type", "transport", "eos", "janaf")}
+    if "janaf" in cfg:
+        j = cfg["janaf"]
+        kw["janaf"] = JanafThermo(R=j["R"], low=tuple(j["low"]),
+                                  high=tuple(j["high"]),
+                                  Tcommon=j.get("Tcommon", 1000.0))
+    for key, kind in (("transport", "transport"), ("eos", "eos")):
+        if key in cfg:
+            sub = cfg[key]
+            kw[key] = create(kind, sub["type"],
+                             **{k: v for k, v in sub.items() if k != "type"})
     return create("thermo", cfg["type"], **kw)
 
 
@@ -128,18 +131,29 @@ def build_time_controls(cfg: dict) -> TimeControls:
 
 
 def build_solver(cfg: dict, device="cuda"):
-    """Top-level case builder (the solver-main startup equivalent): QGDFoam
-    and rhoQGDFoam's psi-thermo configs, on `device` (the card by default;
-    pass device="cpu" to build on the CPU)."""
+    """Top-level case builder (the solver-main startup equivalent) on
+    `device` (the card by default; pass device="cpu" to build on the CPU):
+    QGDFoam, rhoQGDFoam, zQGDFoam, the QHD family (QHDFoam, SRFQHDFoam with
+    `omega`, mulesQHDFoam) and scalarTransportQHDFoam."""
     from ..solvers.qgd import QGDFoam
+    from ..solvers.qhd import QHDFoam
+    from ..solvers.scalar_transport import ScalarTransportQHD
+    from ..solvers.zqgd import ZQGDFoam
 
+    solvers = {
+        "QGDFoam": QGDFoam, "rhoQGDFoam": QGDFoam, "zQGDFoam": ZQGDFoam,
+        "QHDFoam": QHDFoam, "SRFQHDFoam": QHDFoam, "mulesQHDFoam": QHDFoam,
+        "scalarTransportQHDFoam": ScalarTransportQHD,
+    }
     name = cfg["solver"]
     if name in _NOT_PORTED_SOLVERS:
         raise NotImplementedError(
             f"solver {name!r} is not in the PyTorch port yet: "
             f"{_NOT_PORTED_SOLVERS[name]}")
-    if name not in ("QGDFoam", "rhoQGDFoam"):
+    if name not in solvers:
         raise KeyError(f"unknown solver {name!r}")
+    cls = solvers[name]
+    fields = cls.__dataclass_fields__
     mesh = build_mesh(cfg["mesh"], device=device)
     nd = mesh.ndim
 
@@ -150,15 +164,19 @@ def build_solver(cfg: dict, device="cuda"):
         kw["tau_model"] = build_tau_model(cfg["tau"])
     if "controlDict" in cfg:
         kw["time"] = build_time_controls(cfg["controlDict"])
-    if "fvsc" in cfg:
+    if "fvsc" in cfg and "fvsc_scheme" in fields:
         kw["fvsc_scheme"] = cfg["fvsc"]
     bnd = cfg.get("boundary", {})
     for field, attr in (("U", "bc_U"), ("p", "bc_p"), ("T", "bc_T")):
-        if field in bnd:
+        if field in bnd and attr in fields:
             kw[attr] = build_bcs(bnd[field], nd)
-    if "implicit_diffusion" in cfg:
-        kw["implicit_diffusion"] = cfg["implicit_diffusion"]
-    return QGDFoam(**kw)
+    for extra in ("g", "omega", "implicit_diffusion", "p_ref_value"):
+        if extra in cfg and extra in fields:
+            v = cfg[extra]
+            kw[extra] = tuple(v) if isinstance(v, list) else v
+    if name == "mulesQHDFoam":
+        kw["t_equation"] = "mules"
+    return cls(**kw)
 
 
 def load_case(path: str, device="cuda"):

@@ -1,13 +1,16 @@
-"""Carry meshes and solver state between the JAX package and this port.
+"""Carry meshes, solver configs and state between the JAX package and this
+port.
 
 Both packages build the same solver from the same `cases` arguments, so with
 equal states they compute the same thing.  Data crosses as numpy arrays:
-`state_from_numpy` takes a `qgdsolver_tpu` State whose leaves were converted
-with `np.asarray` (its pbc and waveTransmissive wt tuples included),
+`state_from_numpy` takes a `qgdsolver_tpu` State (QGD, QHD or scalar
+transport, told apart by its field names) whose leaves were converted with
+`np.asarray` (a QGD State's pbc and waveTransmissive wt tuples included),
 `state_to_numpy` gives this package's State back with numpy leaves,
 `mesh_from` rebuilds a mesh of either package (its face coordinates, solid
-mask and wedge kind) as this port's, and `solver_from` a QGDFoam config
-with plain BC values.  None of them imports JAX.
+mask and wedge kind) as this port's, and `solver_from` a QGDFoam,
+rhoQGDFoam, zQGDFoam, QHDFoam (SRF and MULES variants included) or
+ScalarTransportQHD config with plain BC values.  None of them imports JAX.
 """
 from __future__ import annotations
 
@@ -18,32 +21,44 @@ import torch
 
 from .core import bc as bcm
 from .core.mesh import AxisymmetricMesh, Mesh
-from .solvers.qgd import State
+from .solvers import qgd, qhd, scalar_transport
+
+# a State's class by its field names
+_STATES = {cls._fields[:3]: cls for cls in (qgd.State, qhd.State,
+                                            scalar_transport.State)}
+_TUPLES = ("pbc", "wt")
 
 
-def state_from_numpy(s, device="cpu", dtype=torch.float32) -> State:
+def _state_class(s):
+    cls = _STATES.get(tuple(s._fields[:3]))
+    if cls is None:
+        raise TypeError(f"no State with fields {s._fields}")
+    return cls
+
+
+def state_from_numpy(s, device="cpu", dtype=torch.float32):
     """A State with numpy (or array-like) leaves -> this port's State of
-    tensors in `dtype` on `device`."""
+    the same kind, tensors in `dtype` on `device`."""
 
     def conv(x):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
-    return State(rho=conv(s.rho), rhoU=conv(s.rhoU), rhoE=conv(s.rhoE),
-                 sc=conv(s.sc), t=conv(s.t), dt=conv(s.dt),
-                 pbc=tuple(conv(g) for g in s.pbc),
-                 wt=tuple(conv(w) for w in getattr(s, "wt", ())))
+    cls = _state_class(s)
+    return cls(**{f: (tuple(conv(g) for g in getattr(s, f, ()))
+                      if f in _TUPLES else conv(getattr(s, f)))
+                  for f in cls._fields})
 
 
-def state_to_numpy(s: State) -> State:
-    """This port's State -> the same State with numpy leaves (on the host)."""
+def state_to_numpy(s):
+    """This port's State -> the same State with numpy leaves (on the
+    host)."""
 
     def conv(x):
         return x.detach().cpu().numpy()
 
-    return State(rho=conv(s.rho), rhoU=conv(s.rhoU), rhoE=conv(s.rhoE),
-                 sc=conv(s.sc), t=conv(s.t), dt=conv(s.dt),
-                 pbc=tuple(conv(g) for g in s.pbc),
-                 wt=tuple(conv(w) for w in s.wt))
+    return type(s)(**{f: (tuple(conv(g) for g in v) if f in _TUPLES
+                          else conv(v))
+                      for f, v in zip(s._fields, s)})
 
 
 def mesh_from(m, device="cpu", dtype=torch.float32) -> Mesh:
@@ -81,36 +96,64 @@ def _bc_from(b):
                   for f in dataclasses.fields(b)})
 
 
+def _same(mod, obj, **over):
+    """`obj` rebuilt as the class of the same name in module `mod`, its
+    dataclass fields as plain values (`over` replaces some)."""
+    cls = getattr(mod, type(obj).__name__)
+    kw = {f.name: _plain(getattr(obj, f.name))
+          for f in dataclasses.fields(obj) if f.name not in over}
+    return cls(**kw, **over)
+
+
+def _thermo_from(th):
+    """A thermo of either package as the port's: its transport, equation
+    of state and JANAF tables rebuilt by class name."""
+    from .physics import thermo
+
+    over = {}
+    for name in ("transport", "eos", "janaf"):
+        if hasattr(th, name):
+            sub = getattr(th, name)
+            over[name] = (_same(thermo, sub, low=tuple(sub.low),
+                                high=tuple(sub.high))
+                          if name == "janaf" else _same(thermo, sub))
+    return _same(thermo, th, **over)
+
+
 def solver_from(s, device="cpu", dtype=torch.float32):
-    """The port's QGDFoam of a QGDFoam config of the JAX package (or of
-    this one): its mesh (`mesh_from`: solid mask and wedge included), its
-    perfect-gas thermo and transport, tau model (the const-Sc cellSet and
-    a per-cell cqSc as numpy arrays), BCs with plain values, time
-    controls and the solver switches, so that a test builds both packages'
-    solvers from one config.  Reads the other package's objects by their
-    class and field names; imports nothing of it."""
-    from .physics import qgdcoeffs, thermo
+    """The port's solver of a config of the JAX package (or of this one):
+    QGDFoam (and so rhoQGDFoam), ZQGDFoam, QHDFoam (with g, omega,
+    t_equation and p_ref_value) or ScalarTransportQHD, of the same class
+    name.  It carries the mesh (`mesh_from`: solid mask and wedge
+    included), the thermo (perfect gas, rhoConst, RhoThermo with its
+    equation of state, JANAF with its coefficient tuples) and its
+    transport, the tau model (the const-Sc cellSet and a per-cell cqSc as
+    numpy arrays), the BCs with plain values, the time controls and the
+    solver switches, so that a test builds both packages' solvers from one
+    config.  Reads the other package's objects by their class and field
+    names; imports nothing of it."""
+    from .physics import qgdcoeffs
+    from .solvers import zqgd
     from .solvers.common import TimeControls
-    from .solvers.qgd import QGDFoam
 
-    def same(mod, obj, **over):
-        cls = getattr(mod, type(obj).__name__)
-        kw = {f.name: _plain(getattr(obj, f.name))
-              for f in dataclasses.fields(obj) if f.name not in over}
-        return cls(**kw, **over)
-
-    th = s.thermo
+    cls = {c.__name__: c for c in (qgd.QGDFoam, zqgd.ZQGDFoam, qhd.QHDFoam,
+                                   scalar_transport.ScalarTransportQHD)
+           }[type(s).__name__]
     kw = dict(
         mesh=mesh_from(s.mesh, device=device, dtype=dtype),
-        thermo=same(thermo, th, transport=same(thermo, th.transport)),
-        tau_model=same(qgdcoeffs, s.tau_model),
+        thermo=_thermo_from(s.thermo),
+        tau_model=_same(qgdcoeffs, s.tau_model),
         time=TimeControls(**dataclasses.asdict(s.time)))
-    for name in ("bc_U", "bc_p", "bc_T"):
-        bcs = getattr(s, name)
-        if bcs is not None:
-            kw[name] = bcm.FieldBCs(tuple(tuple(_bc_from(b) for b in row)
-                                          for row in bcs.bcs))
-    for name in ("implicit_diffusion", "cg_tol", "cg_maxiter", "fvsc_scheme",
-                 "qgdflux_limit", "qgdflux_relax"):
-        kw[name] = getattr(s, name)
-    return QGDFoam(**kw)
+    for f in dataclasses.fields(cls):
+        if f.name in kw or not hasattr(s, f.name):
+            continue
+        v = getattr(s, f.name)
+        if f.name.startswith("bc_"):
+            if v is not None:
+                kw[f.name] = bcm.FieldBCs(tuple(
+                    tuple(_bc_from(b) for b in row) for row in v.bcs))
+        elif f.name in ("g", "omega"):
+            kw[f.name] = None if v is None else tuple(float(x) for x in v)
+        else:
+            kw[f.name] = v
+    return cls(**kw)

@@ -11,15 +11,20 @@ Mirrors the reference's startup reads:
     `QGD` sub-dict (QGDCoeffs model word + its coefficients +
     implicitDiffusion).
 
-`build_case` takes `application QGDFoam` (and rhoQGDFoam with a psi
-thermo) in 2D and 3D, with const, sutherland, polynomial (read as powerLaw,
-as the JAX package does) or powerLaw transport, on wedge meshes and on
-multi-block unions with dead cells (stairstep solids); the other
-applications and the janaf/rhoConst/heRho thermo words raise
-NotImplementedError naming the ROADMAP item they wait for.
+`build_case` takes `application` QGDFoam, rhoQGDFoam and zQGDFoam, the QHD
+family (QHDFoam, SRFQHDFoam with constant/SRFProperties, mulesQHDFoam;
+constant/g for the gravity) and scalarTransportQHDFoam, in 2D and 3D, with
+the hePsi (perfect gas, hConst or janaf) and heRho (perfectGas,
+stiffenedGas or rhoConst) thermo words and const, sutherland, polynomial
+(read as powerLaw, as the JAX package does) or powerLaw transport, on
+wedge meshes and on multi-block unions with dead cells (stairstep solids)
+where the JAX package takes them; QHDDyMFoam, interQHDFoam and the
+Lagrangian and reacting applications raise NotImplementedError naming the
+ROADMAP item they wait for.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -57,18 +62,19 @@ _TAU_KEYS = {
 
 # applications of the JAX package that the port does not run yet
 _NOT_PORTED_APPS = {
-    "zQGDFoam": "ROADMAP queue 1, item 7 (zQGDFoam and rhoQGDFoam's "
-                "RhoThermo)",
-    "QHDFoam": "ROADMAP queue 1, item 8",
-    "SRFQHDFoam": "ROADMAP queue 1, item 8",
-    "mulesQHDFoam": "ROADMAP queue 1, item 8",
-    "QHDDyMFoam": "ROADMAP queue 1, item 8",
-    "scalarTransportQHDFoam": "ROADMAP queue 1, item 8",
+    "QHDDyMFoam": "ROADMAP queue 1, item 8b (QHDDyMFoam: moving meshes)",
     "interQHDFoam": "ROADMAP queue 1, item 9",
     "particlesQGDFoam": "ROADMAP queue 1, item 10",
     "particlesQHDFoam": "ROADMAP queue 1, item 10",
     "reactingLagrangianQGDFoam": "ROADMAP queue 1, item 10",
 }
+_QGD_APPS = ("QGDFoam", "rhoQGDFoam", "zQGDFoam")
+_QHD_APPS = ("QHDFoam", "SRFQHDFoam", "mulesQHDFoam")
+# the applications that take stairstep solids and wedges (their solvers
+# carry the mirror walls and the hoop sources), as in the JAX package
+_SOLID_APPS = ("QGDFoam",) + _QHD_APPS
+_WEDGE_APPS = ("QGDFoam", "rhoQGDFoam", "scalarTransportQHDFoam") \
+    + _QHD_APPS
 
 
 def time_controls(control_dict: dict) -> TimeControls:
@@ -130,8 +136,13 @@ _RR = 8314.462618  # universal gas constant [J/(kmol K)], OpenFOAM's RR
 
 def build_foam_thermo(thermo_props: dict):
     """constant/thermophysicalProperties thermoType + mixture dicts -> a
-    thermo instance: hePsiQGDThermo with hConst and perfectGas, and const,
-    sutherland or powerLaw transport."""
+    thermo instance: hePsiQGDThermo with hConst (`PerfectGasThermo`) or
+    janaf (`JanafPerfectGasThermo`), heRhoQGDThermo with rhoConst
+    (`RhoConstThermo`, beta from the top level or the transport dict) or a
+    `RhoThermo` of perfectGas or stiffenedGas (p = rho*R*T - pInf, pInf
+    from the equationOfState dict), each with const, sutherland or
+    powerLaw transport.  (The JAX package reads stiffenedGas as
+    perfectGas.)"""
     from ..physics import thermo as tm
 
     tt = thermo_props.get("thermoType", {})
@@ -143,16 +154,10 @@ def build_foam_thermo(thermo_props: dict):
     spec = mix.get("specie", {})
     thermodyn = mix.get("thermodynamics", {})
     transp = mix.get("transport", {})
+    eosd = mix.get("equationOfState", {})
 
-    if caloric == "janaf":
-        raise NotImplementedError(
-            "janaf thermo is not in the PyTorch port yet: ROADMAP queue 1, "
-            "item 7 (janaf, rhoConst and heRho thermo)")
-    if (word.startswith("heRho") or word.startswith("rho")
-            or eos_word != "perfectGas"):
-        raise NotImplementedError(
-            f"{word} with {eos_word} is not in the PyTorch port yet: "
-            "ROADMAP queue 1, item 7 (RhoThermo, rhoConst and stiffened gas)")
+    R = _RR / float(spec.get("molWeight", 28.96))
+    Pr = float(transp.get("Pr", 1.0))
     if transport_word == "sutherland":
         transport = tm.SutherlandTransport(
             As=float(transp.get("As", 1.458e-6)),
@@ -163,21 +168,42 @@ def build_foam_thermo(thermo_props: dict):
                                          k=float(transp.get("k", 0.7)))
     else:
         transport = tm.ConstTransport(mu0=float(transp.get("mu", 0.0)))
-    W = float(spec.get("molWeight", 28.96))
-    return tm.PerfectGasThermo(
-        R=_RR / W, Cp=float(thermodyn.get("Cp", 1004.5)),
-        transport=transport,
-        Pr=float(transp.get("Pr", 1.0)))
+
+    if caloric == "janaf":
+        j = tm.JanafThermo(
+            R=R, low=tuple(float(x) for x in thermodyn.get("lowCpCoeffs", [])),
+            high=tuple(float(x)
+                       for x in thermodyn.get("highCpCoeffs", [])),
+            Tcommon=float(thermodyn.get("Tcommon", 1000.0)))
+        return tm.JanafPerfectGasThermo(janaf=j, transport=transport, Pr=Pr)
+
+    Cp = float(thermodyn.get("Cp", 1004.5))
+    if word.startswith("heRho") or word.startswith("rho"):
+        if eos_word == "rhoConst":
+            beta = thermo_props.get("beta", transp.get("beta", 0.0))
+            return tm.RhoConstThermo(
+                rho0=float(eosd.get("rho", eosd.get("rho0", 1000.0))), Cp=Cp,
+                mu0=float(transp.get("mu", 1e-3)), Pr=Pr,
+                beta=float(beta or 0.0))
+        if eos_word == "stiffenedGas":
+            eos = tm.StiffenedGasEoS(
+                R=R, p_inf=float(eosd.get("pInf", eosd.get("p_inf", 0.0))))
+        else:
+            eos = tm.PerfectGasEoS(R=R)
+        return tm.RhoThermo(eos=eos, Cp=Cp, R=R, transport=transport, Pr=Pr)
+    return tm.PerfectGasThermo(R=R, Cp=Cp, transport=transport, Pr=Pr)
 
 
-def build_case(case_dir: str, device="cuda", dtype=torch.float32):
+def build_case(case_dir: str, device="cuda", dtype=None):
     """Full case ingestion: blockMeshDict + system/constant dicts + `0/`
     (or the start time's) field files -> (solver, initial state), with the
     mesh and state in `dtype` on `device`: the card by default (a
     RuntimeError where there is none; pass device="cpu" for the CPU).
-    Dispatches on controlDict `application`."""
+    dtype None is float32 for the QGD solvers and float64 for the QHD
+    family and scalar transport, whose CG solves stop at cg_tol 1e-8 of
+    the rhs, below float32's resolution.  Dispatches on controlDict
+    `application`."""
     from .foam_fields import load_block_mesh, load_initial_fields
-    from ..solvers.qgd import QGDFoam
 
     device = checked_device(device)
     cfg = load_case(case_dir)
@@ -187,8 +213,10 @@ def build_case(case_dir: str, device="cuda", dtype=torch.float32):
         raise NotImplementedError(
             f"application {app!r} is not in the PyTorch port yet: "
             f"{_NOT_PORTED_APPS[app]}")
-    if app not in ("QGDFoam", "rhoQGDFoam"):
+    if app not in _QGD_APPS + _QHD_APPS + ("scalarTransportQHDFoam",):
         raise ValueError(f"unsupported application {app!r}")
+    if dtype is None:
+        dtype = torch.float32 if app in _QGD_APPS else torch.float64
     mesh, patch_map, kept_axes = load_block_mesh(case_dir, dtype=dtype,
                                                  device=device)
     time_name, t0 = start_time(case_dir, control)
@@ -200,12 +228,14 @@ def build_case(case_dir: str, device="cuda", dtype=torch.float32):
         base = load_initial_fields(case_dir, mesh, patch_map, kept_axes)
         for k, v in base.items():
             fields.setdefault(k, v)
-    if mesh.solid is not None and app != "QGDFoam":
-        # as the JAX package: the stairstep walls are QGDFoam's (and the
-        # QHD family's), not rhoQGDFoam's
+    if mesh.solid is not None and app not in _SOLID_APPS:
         raise NotImplementedError(
             "dead-cell (L-shaped multi-block) meshes are supported by the "
             "stairstep-wall QGD/QHD families only; got " + app)
+    if mesh.axisymmetric and app not in _WEDGE_APPS:
+        # only solvers with the radial hoop sources may run wedges
+        raise NotImplementedError(
+            f"wedge (axisymmetric) meshes are not supported by {app}")
 
     def fld(name):
         if name not in fields:
@@ -213,18 +243,78 @@ def build_case(case_dir: str, device="cuda", dtype=torch.float32):
         arr, bcs = fields[name]
         return mesh.tensor(arr), bcs
 
-    U0, bc_U = fld("U")
-    p0, bc_p = fld("p")
-    T0, bc_T = fld("T")
-    kw = dict(mesh=mesh, bc_U=bc_U, bc_p=bc_p, bc_T=bc_T,
-              time=cfg.get("time_controls", TimeControls()),
-              implicit_diffusion=cfg.get("implicit_diffusion", False),
-              fvsc_scheme=fvsc_schemes(cfg.get("fvSchemes", {})))
+    kw = dict(mesh=mesh, time=cfg.get("time_controls", TimeControls()))
     if "thermophysicalProperties" in cfg:
         kw["thermo"] = build_foam_thermo(cfg["thermophysicalProperties"])
         kw["tau_model"] = cfg["tau_model"]
-    solver = QGDFoam(**kw)
+    U0, bc_U = fld("U")
+    T0, bc_T = fld("T")
+    if app == "scalarTransportQHDFoam":
+        from ..solvers.scalar_transport import ScalarTransportQHD
+
+        solver = ScalarTransportQHD(bc_T=bc_T, bc_U=bc_U, **kw)
+        return solver, solver.init(T0=T0, U0=U0, t0=t0)
+
+    fvsc = fvsc_schemes(cfg.get("fvSchemes", {}))
+    if app in _QHD_APPS:
+        from ..solvers.qhd import QHDFoam
+
+        kw.update(bc_U=bc_U, bc_T=bc_T, fvsc_scheme=fvsc,
+                  implicit_diffusion=cfg.get("implicit_diffusion", True))
+        p0 = None
+        if "p" in fields:
+            p0, kw["bc_p"] = fld("p")
+        g = _read_gravity(case_dir, kept_axes)
+        if g is not None:
+            kw["g"] = g
+        if app == "mulesQHDFoam":
+            kw["t_equation"] = "mules"
+        if app == "SRFQHDFoam":
+            omega = _read_srf_omega(case_dir)
+            if omega is not None:
+                kw["omega"] = omega
+        solver = QHDFoam(**kw)
+        return solver, solver.init(U0=U0, T0=T0, p0=p0, t0=t0)
+
+    from ..solvers.qgd import QGDFoam
+    from ..solvers.zqgd import ZQGDFoam
+
+    p0, bc_p = fld("p")
+    cls = ZQGDFoam if app == "zQGDFoam" else QGDFoam
+    solver = cls(bc_U=bc_U, bc_p=bc_p, bc_T=bc_T, fvsc_scheme=fvsc,
+                 implicit_diffusion=cfg.get("implicit_diffusion", False),
+                 **kw)
     return solver, solver.init(p0=p0, T0=T0, U0=U0, t0=t0)
+
+
+def _read_gravity(case_dir: str, kept_axes):
+    """constant/g's value on the mesh's kept axes, or None without the
+    file."""
+    p = os.path.join(case_dir, "constant", "g")
+    if not os.path.exists(p):
+        return None
+    v = foamdict.parse_file(p).get("value", [0.0, 0.0, 0.0])
+    return tuple(float(v[ax]) for ax in kept_axes)
+
+
+def _read_srf_omega(case_dir: str):
+    """constant/SRFProperties -> the rotation vector: rpmCoeffs.rpm about
+    `axis`, or an `omega` vector (or scalar about z); None without the
+    file or either entry."""
+    p = os.path.join(case_dir, "constant", "SRFProperties")
+    if not os.path.exists(p):
+        return None
+    d = foamdict.parse_file(p)
+    sub = d.get("rpmCoeffs", {})
+    if "rpm" in sub:
+        w = float(sub["rpm"]) * 2.0 * math.pi / 60.0
+        return tuple(w * float(a) for a in d.get("axis", [0.0, 0.0, 1.0]))
+    if "omega" in d:
+        v = d["omega"]
+        if isinstance(v, list):
+            return tuple(float(x) for x in v)
+        return (0.0, 0.0, float(v))
+    return None
 
 
 def start_time(case_dir: str, control: dict):

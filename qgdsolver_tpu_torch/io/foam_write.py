@@ -132,15 +132,22 @@ def write_time_dir(case_dir: str, time_name: str, fields: dict,
 
 
 def state_fields(solver, state) -> dict:
-    """A QGDFoam state's prognostic field files: U, p and T as float64
-    numpy cell arrays (the AUTO_WRITE set of the reference application)."""
-    from ..solvers import qgd
+    """A solver state's prognostic field files as float64 numpy cell arrays
+    (the AUTO_WRITE set of the reference application): U, p and T of the
+    QGD solvers (from the conservative State) and of the QHD family, T and
+    the carried U of scalar transport."""
+    from ..solvers import qgd, qhd, scalar_transport, zqgd
 
-    if isinstance(solver, qgd.QGDFoam):
+    if isinstance(solver, (qgd.QGDFoam, zqgd.ZQGDFoam)):
         U, e, T, p = solver.primitives(state)
-        return {name: x.detach().cpu().double().numpy()
-                for name, x in (("U", U), ("p", p), ("T", T))}
-    raise TypeError(f"no field mapping for {type(solver).__name__}")
+        fields = (("U", U), ("p", p), ("T", T))
+    elif isinstance(solver, qhd.QHDFoam):
+        fields = (("U", state.U), ("T", state.T), ("p", state.p))
+    elif isinstance(solver, scalar_transport.ScalarTransportQHD):
+        fields = (("T", state.T), ("U", state.U))
+    else:
+        raise TypeError(f"no field mapping for {type(solver).__name__}")
+    return {name: x.detach().cpu().double().numpy() for name, x in fields}
 
 
 def write_state(case_dir: str, solver, state, time_name=None) -> str:

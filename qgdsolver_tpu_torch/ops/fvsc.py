@@ -80,6 +80,27 @@ def interp_axis_from_padded(fp, mesh: Mesh, a: int):
     return trim_other_axes(_interp_padded(fp, mesh, a), mesh.ndim, a)
 
 
+def grad(field, bcs: bcm.FieldBCs, mesh: Mesh, scheme="full", t=0.0,
+         vector=False):
+    """fvsc::grad of a cell field under `bcs` (`grad_from_padded` of its
+    ghost-padded tensor)."""
+    return grad_from_padded(ghost_pad(field, bcs, mesh, t=t, vector=vector),
+                            mesh, scheme=scheme)
+
+
+def sn_grad(field, bcs: bcm.FieldBCs, mesh: Mesh, t=0.0, vector=False):
+    """Face-normal gradient per axis (a face tuple) of a cell field under
+    `bcs`."""
+    return sn_grad_from_padded(ghost_pad(field, bcs, mesh, t=t,
+                                         vector=vector), mesh)
+
+
+def sn_grad_from_padded(fp, mesh: Mesh):
+    """Face-normal gradient per axis of an already ghost-padded tensor."""
+    return tuple(trim_other_axes(_sn_grad_padded(fp, mesh, a), mesh.ndim, a)
+                 for a in range(mesh.ndim))
+
+
 def scheme_for(spec, term: str) -> str:
     """Per-term fvsc scheme selection: one word for every term, or a dict
     keyed by term name with an optional "default" entry."""

@@ -177,8 +177,13 @@ def build_spmd_step(solver, grid: ProcessGrid):
     nd = mesh.ndim
     ctx = block_context(mesh, grid)
     local_step = dataclasses.replace(solver, mesh=block_mesh(ctx)).make_step()
-    owners = {"pbc": solver._flux_sides(),
-              "wt": tuple((a, side) for _, a, side, _ in solver._wt_sides())}
+    # the QGD States' boundary rows (the QHD and scalar-transport States
+    # have none)
+    owners = {}
+    if hasattr(solver, "_flux_sides"):
+        owners = {"pbc": solver._flux_sides(),
+                  "wt": tuple((a, side)
+                              for _, a, side, _ in solver._wt_sides())}
 
     def step(s):
         with spmd.active(ctx):

@@ -170,6 +170,18 @@ def all_any(x):
     return all_max(x.to(torch.int32)) > 0
 
 
+def first_shard_value(v):
+    """The value of the 0-dim tensor `v` on the rank whose every block
+    coordinate is 0 (the owner of the global cell (0, ..., 0)), broadcast
+    to every rank: one all-reduce of `v` masked to that rank (the pRefCell
+    fix of a decomposed pressure solve)."""
+    ctx = current()
+    if ctx is None:
+        return v
+    first = all(c == 0 for c in ctx.coords)
+    return all_sum(v if first else torch.zeros_like(v))
+
+
 def all_gather(x: torch.Tensor) -> list:
     """Every rank's x (same shape on each), in rank order, on x's device."""
     if not dist.is_initialized():

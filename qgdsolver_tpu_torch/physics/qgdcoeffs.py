@@ -1,6 +1,7 @@
 """tau-regularization coefficient models (PyTorch port of
-`qgdsolver_tpu.physics.qgdcoeffs`: the constScPrModel1 family and the
-varScModel5/6/7 shock sensors).
+`qgdsolver_tpu.physics.qgdcoeffs`: the constScPrModel1 family, constTau,
+the QHD models HbyUQHD, H2bynuQHD and T0byGr, and the varScModel5/6/7
+shock sensors).
 
 A model is a frozen dataclass; `correct()` maps the current thermo state to a
 `Coeffs` record.  varScModel5's relaxed sensor is carried in the solver state.
@@ -18,7 +19,7 @@ import torch
 
 from ..core import bc as bcm
 from ..core.mesh import Mesh
-from ..core.registry import register, register_missing
+from ..core.registry import register
 from ..ops import fvsc
 from ..parallel import spmd
 
@@ -86,6 +87,72 @@ class ConstScPrModel1n(ConstScPrModel1):
 class ConstScPrModel2(ConstScPrModel1):
     """Same tau as model1 with fixed Sc/Pr handling (reference
     constScPrModel2)."""
+
+
+def _no_qgd(tau, tau_f):
+    """Coeffs without QGD viscosity or heat-flux add-ins (Sc = 0)."""
+    z = torch.zeros_like(tau)
+    return Coeffs(tau=tau, tau_f=tau_f, mu_qgd=z, alphau_qgd=z, sc=z)
+
+
+def _uniform(mesh: Mesh, value, like):
+    """tau = value on every cell and face, in `like`'s dtype and device."""
+    kw = dict(dtype=like.dtype, device=like.device)
+    return _no_qgd(torch.full(mesh.shape, value, **kw),
+                   tuple(torch.full(mesh.face_shape(a), value, **kw)
+                         for a in range(mesh.ndim)))
+
+
+@register("tau", "constTau")
+@dataclasses.dataclass(frozen=True)
+class ConstTau(TauModel):
+    """tau = tau0 from the config, Sc = 0: no QGD viscosity or heat
+    flux."""
+
+    tau0: float = 0.0
+
+    def correct(self, mesh: Mesh, *, p=None, ref=None, **_):
+        return _uniform(mesh, self.tau0, ref if ref is not None else p)
+
+
+@register("tau", "HbyUQHD")
+@dataclasses.dataclass(frozen=True)
+class HbyUQHD(TauModel):
+    """QHD: tau = alpha*h/U0, tau_f = interp(tau)."""
+
+    alpha: float = 0.5
+    U0: float = 1.0
+
+    def correct(self, mesh: Mesh, *, p=None, T=None, ref=None, **_):
+        ref = ref if ref is not None else (p if p is not None else T)
+        tau = torch.broadcast_to(self.alpha * mesh.h_cell / self.U0,
+                                 mesh.shape).to(ref.dtype)
+        return _no_qgd(tau, _interp_zg(tau, mesh))
+
+
+@register("tau", "H2bynuQHD")
+@dataclasses.dataclass(frozen=True)
+class H2bynuQHD(TauModel):
+    """QHD: tau = alpha*h^2/nu, nu = mu/rho."""
+
+    alpha: float = 0.5
+
+    def correct(self, mesh: Mesh, *, mu, rho, **_):
+        tau = self.alpha * torch.square(mesh.h_cell) / (mu / rho)
+        return _no_qgd(tau, _interp_zg(tau, mesh))
+
+
+@register("tau", "T0byGr")
+@dataclasses.dataclass(frozen=True)
+class T0byGr(TauModel):
+    """QHD: tau = T0/Gr, a constant."""
+
+    T0: float = 1.0
+    Gr: float = 1.0
+
+    def correct(self, mesh: Mesh, *, p=None, T=None, ref=None, **_):
+        ref = ref if ref is not None else (p if p is not None else T)
+        return _uniform(mesh, self.T0 / self.Gr, ref)
 
 
 def _neighbour_max(field):
@@ -292,7 +359,3 @@ class VarScModel7(TauModel):
         if self.maxSc >= 0:
             sc = torch.clamp(sc, max=self.maxSc)
         return _finish(mesh, tau, tau_f, p, sc, self.Pr)
-
-
-register_missing("tau", "ROADMAP queue 1, item 8 (the QHD family)",
-                 "constTau", "HbyUQHD", "H2bynuQHD", "T0byGr")

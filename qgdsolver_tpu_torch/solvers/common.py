@@ -19,13 +19,14 @@ from ..parallel import spmd
 SMALL = 1e-30
 
 
-def e_bcs_from_T(bc_T: bcm.FieldBCs, e_of_T, Cv) -> bcm.FieldBCs:
+def e_bcs_from_T(bc_T: bcm.FieldBCs, e_of_T, Cv=None) -> bcm.FieldBCs:
     """Internal-energy BCs derived from the T BCs, e_wall = e(T_wall), for
     the implicit heat-diffusion solve (the reference's e patches derived
     from the T patches); the constant de/dT Cv converts a FixedGradient of
-    T (grad_e = Cv*grad_T).  Plain values become float64 numpy arrays
-    (tensors stay tensors), cast to the field's dtype where the BC is
-    applied."""
+    T (grad_e = Cv*grad_T).  With a T-dependent cv (Cv None, the JANAF
+    thermo) a FixedGradient T BC has no such conversion and raises.  Plain
+    values become float64 numpy arrays (tensors stay tensors), cast to the
+    field's dtype where the BC is applied."""
 
     def e_of(v):
         return e_of_T(v if torch.is_tensor(v) else np.asarray(v, np.float64))
@@ -41,6 +42,11 @@ def e_bcs_from_T(bc_T: bcm.FieldBCs, e_of_T, Cv) -> bcm.FieldBCs:
         if isinstance(b, bcm.InletOutlet):
             return bcm.InletOutlet(lifted(e_of, b.inlet_value))
         if isinstance(b, bcm.FixedGradient):
+            if Cv is None:
+                raise ValueError(
+                    "FixedGradient T BC with a T-dependent cv: no static "
+                    "grad_e conversion exists (use ZeroGradient or "
+                    "FixedValue)")
             return bcm.FixedGradient(lifted(
                 lambda g: Cv * (g if torch.is_tensor(g)
                                 else np.asarray(g, np.float64)), b.grad))
@@ -82,6 +88,28 @@ def courant_acoustic(Uf, cf, dt, mesh: Mesh):
         un = Uf[a][a]
         wave = torch.maximum(torch.abs(un + cf[a]), torch.abs(un - cf[a]))
         m = torch.max(wave * dt / mesh.h_face(a))
+        co = m if co is None else torch.maximum(co, m)
+    return spmd.all_max(co)
+
+
+def courant_advective(Uf, dt, mesh: Mesh):
+    """QHD advective Courant: max over faces of |Un|*dt/h_f, global under
+    an spmd context."""
+    co = None
+    for a in range(mesh.ndim):
+        m = torch.max(torch.abs(Uf[a][a]) * dt / mesh.h_face(a))
+        co = m if co is None else torch.maximum(co, m)
+    return spmd.all_max(co)
+
+
+def courant_mag(Uf, dt, mesh: Mesh):
+    """scalarTransportQHDFoam's Courant: max over faces of |Uf|*dt/h_f
+    (the whole face velocity's magnitude), global under an spmd
+    context."""
+    co = None
+    for a in range(mesh.ndim):
+        mag = torch.sqrt(torch.sum(torch.square(Uf[a]), dim=0))
+        m = torch.max(mag * dt / mesh.h_face(a))
         co = m if co is None else torch.maximum(co, m)
     return spmd.all_max(co)
 

@@ -121,6 +121,7 @@ class QGDFoam:
         return tuple(out)
 
     def init(self, p0, T0, U0, t0=0.0, sc0=None) -> State:
+        """The conservative State of primitive fields (ZQGDFoam's too)."""
         th = self.thermo
         mesh = self.mesh
         p0, T0, U0 = (mesh.tensor(x) if not torch.is_tensor(x) else x
@@ -162,7 +163,11 @@ class QGDFoam:
         sch_p = fvsc.scheme_for(scheme, "grad(p)")
         bc_zg = bcm.FieldBCs.uniform(bcm.ZeroGradient(), nd)
         area = tuple(mesh.face_area(a) for a in range(nd))
-        gamma = th.gamma
+        # a constant gamma for the calorically perfect thermos; None for a
+        # variable cp (JANAF), whose gamma(T) is interpolated to the faces
+        # each step
+        gamma = getattr(th, "gamma", None)
+        Cv = getattr(th, "Cv", None)
         flux_sides = self._flux_sides()
 
         # stairstep solids: mirror fill before the step, solid cells
@@ -179,7 +184,7 @@ class QGDFoam:
         # e BCs from the T BCs (e_wall = e(T_wall)), for the implicit e
         # solve; per step when a T side carries a waveTransmissive value
         bc_e = (None if wt_has_T else
-                common.e_bcs_from_T(bc_T, th.e_from_T, th.Cv))
+                common.e_bcs_from_T(bc_T, th.e_from_T, Cv))
 
         def step(s: State) -> State:
             rho, rhoU, rhoE, sc_prev, t, dt = s[:6]
@@ -224,7 +229,7 @@ class QGDFoam:
                     bc_Tw = bc_Tw.replace(a, side, sub)
                 else:
                     bc_Uw = bc_Uw.replace(a, side, sub)
-            bc_ew = (common.e_bcs_from_T(bc_Tw, th.e_from_T, th.Cv)
+            bc_ew = (common.e_bcs_from_T(bc_Tw, th.e_from_T, Cv)
                      if wt_has_T else bc_e)
             # resolve inletOutlet markers against the current flow direction
             bc_Ur = bcm.resolve_inlet_outlet(bc_Uw, U, nd)
@@ -267,6 +272,8 @@ class QGDFoam:
             pf = fvsc.interp_from_padded(p_pad, mesh)
             cf = fvsc.interp_from_padded(c_pad, mesh)
             Hf = fvsc.interp_from_padded(H_pad, mesh)
+            gammaf = ((gamma,) * nd if gamma is not None else
+                      fvsc.interp_from_padded(th.gamma_of(T_pad), mesh))
             muf = fvsc.interpolate(mu_eff, bc_zg, mesh)
             alphauf = fvsc.interpolate(alphau_eff, bc_zg, mesh)
 
@@ -298,7 +305,7 @@ class QGDFoam:
                 # momentum fluxes (the Navier-Stokes stress only when the
                 # diffusion is explicit)
                 u_gradp = sum(uf[i] * gradPf[a][i] for i in range(nd))
-                iso = u_gradp + gamma * pf[a] * divU
+                iso = u_gradp + gammaf[a] * pf[a] * divU
                 urr = UrhoUf_row[a]  # (k, faces): interp(U_a * rhoU_k)
                 pi_row = []
                 for j in range(nd):
@@ -347,7 +354,8 @@ class QGDFoam:
                     tuple(Uf[a][a] * area[a] for a in range(nd)), mesh)
                 gradp_cell = fvsc.grad_cell_from_faces(pf, mesh)
                 u_gradp_cell = sum(U[i] * gradp_cell[i] for i in range(nd))
-                pi_tt = (coeffs.tau * (u_gradp_cell + gamma * p * divU_cell)
+                gam_c = gamma if gamma is not None else th.gamma_of(T)
+                pi_tt = (coeffs.tau * (u_gradp_cell + gam_c * p * divU_cell)
                          + mu_eff * (2.0 * U[1] / r_c
                                      - (2.0 / 3.0) * divU_cell))
                 rhoU_new = torch.stack(

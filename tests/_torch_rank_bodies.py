@@ -6,7 +6,9 @@ port and no JAX (the JAX references run in the pytest process).  A job is
 (kind, case, shape, dtype, (px, py), steps, initial State with numpy
 leaves): kind "spmd" is the decomposed composable step, "k3" and "k5" the
 decomposed fused steps, "scaling" a `measure_scaling` call (shape: its
-base tile; no state).  `run_jobs` runs the jobs in turn on this rank and
+base tile; no state).  The case is any solver of `port_case`: the QGD
+jets, the QHD buoyant cavity (also with the MULES T equation) and the
+scalar box, whose States `interop` carries by their field names.  `run_jobs` runs the jobs in turn on this rank and
 returns, per job, the gathered global State (numpy leaves) and the launch
 counts of the flagged kernel wrappers over its steps.
 """
@@ -93,6 +95,29 @@ def wt_segmented_jet(shape, dtype, device):
         bc_T=solver.bc_T.replace(0, 1, bcm.WaveTransmissive(300.0)))
 
 
+def mules_box(shape, dtype, device):
+    """(solver, State): tests/test_solver_variants.py's MULES box (a
+    periodic channel, explicit diffusion) with its top hat of T at
+    0.2 < x < 0.5, its front on the middle of x, carried at U = (1, 0)."""
+    from qgdsolver_tpu_torch.physics.qgdcoeffs import HbyUQHD
+    from qgdsolver_tpu_torch.physics.thermo import RhoConstThermo
+    from qgdsolver_tpu_torch.solvers.mules_qhd import MulesQHDFoam
+
+    mesh = Mesh.uniform(shape, lengths=(1.0, 1.0), dtype=dtype,
+                        device=device)
+    per = bcm.FieldBCs.uniform(bcm.Periodic(), 2)
+    solver = MulesQHDFoam(
+        mesh=mesh, thermo=RhoConstThermo(rho0=1.0, Cp=1000.0, mu0=1e-6,
+                                         Pr=1.0),
+        tau_model=HbyUQHD(alpha=0.2, U0=1.0), g=(0.0, 0.0), bc_U=per,
+        bc_T=per, bc_p=per, implicit_diffusion=False,
+        time=TimeControls(max_co=0.3, max_dt=2e-3, dt0=5e-4))
+    x = np.asarray(mesh.centers[0])[:, None] * np.ones(mesh.shape)
+    T0 = mesh.tensor((np.abs(x - 0.35) < 0.15).astype(np.float64))
+    U0 = torch.stack([torch.ones_like(T0), torch.zeros_like(T0)])
+    return solver, solver.init(U0, T0)
+
+
 def port_case(name, shape, dtype, device="cpu"):
     """The port's solver for a test case name."""
     if name == "graded_jet":
@@ -106,6 +131,12 @@ def port_case(name, shape, dtype, device="cpu"):
         return dataclasses.replace(solver, implicit_diffusion=True)
     if name == "wt_segmented_jet":
         return wt_segmented_jet(shape, dtype, device)
+    if name == "mules_box":
+        return mules_box(shape, dtype, device)[0]
+    if name == "mules_cavity":
+        solver, _ = cases.buoyant_cavity(shape=shape, dtype=dtype,
+                                         device=device)
+        return dataclasses.replace(solver, t_equation="mules")
     base = {"periodic_jet": "supersonic_jet",
             "inlet_outlet_jet": "supersonic_jet"}.get(name, name)
     solver, _ = getattr(cases, base)(shape=shape, dtype=dtype, device=device)

@@ -184,7 +184,8 @@ def test_cli_main_and_device_errors(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("entry", [
     "supersonic_jet", "supersonic_jet_varsc", "supersonic_duct_3d",
-    "supersonic_jet_3d_varsc", "build_case"])
+    "supersonic_jet_3d_varsc", "buoyant_cavity", "scalar_box",
+    "build_case"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """The case builders and case ingestion run on the card unless asked
     for the CPU: without a card their default raises, never falling back."""
@@ -198,7 +199,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
     _, state = build(device="cpu")
-    assert state.rho.device.type == "cpu"
+    assert state[0].device.type == "cpu"
 
 
 @pytest.mark.parametrize("entry", ["build_mesh", "build_solver",
@@ -325,8 +326,11 @@ def test_config_builds_solver(tmp_path):
         U0=torch.zeros((2, 8, 4))), 2)
     assert len(s.wt) == 1 and bool(torch.isfinite(s.rhoU).all())
     assert float(s.rhoU[0].abs().max()) > 0.0
-    with pytest.raises(NotImplementedError, match="item 8"):
-        config.build_solver(dict(cfg, solver="QHDFoam"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        config.build_solver(dict(cfg, thermo={"type": "janafPerfectGas"}),
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        config.build_solver(dict(cfg, solver="interQHDFoam"), device="cpu")
+    # the JANAF thermo word is ported since: it builds its thermo
+    janaf = {"type": "janafPerfectGas", "janaf": {
+        "R": 296.8, "low": [3.3, 1.4e-3, -4e-6, 5.6e-9, -2.4e-12, -1e3, 4.0],
+        "high": [2.9, 1.5e-3, -5.7e-7, 1e-10, -6.8e-15, -923.0, 6.0]}}
+    solver = config.build_solver(dict(cfg, thermo=janaf), device="cpu")
+    assert type(solver.thermo).__name__ == "JanafPerfectGasThermo"

@@ -406,30 +406,31 @@ def test_build_case_3d_flagship_rides_fused_kernel(tmp_path):
 
 def test_unported_words_raise(tmp_path):
     """Words of the JAX package the port lacks name their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        foam_case.tau_model({"QGD": {"QGDCoeffs": "constTau"}})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        foam_case.build_foam_thermo({"thermoType": {"thermo": "janaf"}})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        foam_case.build_foam_thermo(
-            {"thermoType": {"type": "heRhoQGDThermo",
-                            "equationOfState": "rhoConst"}})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        foam_fields._bc_from_entry({"type": "mQhdFlux"}, 2, (0, 1), False)
     # words ported since: they map as the JAX package maps them
+    assert foam_case.tau_model({"QGD": {"QGDCoeffs": "constTau",
+                                        "Tau": 1e-3}}).tau0 == 1e-3
+    for tt, cls in (({"thermo": "janaf"}, "JanafPerfectGasThermo"),
+                    ({"type": "heRhoQGDThermo",
+                      "equationOfState": "rhoConst"}, "RhoConstThermo")):
+        th = foam_case.build_foam_thermo({"thermoType": tt})
+        assert type(th).__name__ == cls
     th = foam_case.build_foam_thermo(
         {"thermoType": {"transport": "sutherland"}})
     assert type(th.transport).__name__ == "SutherlandTransport"
     b = foam_fields._bc_from_entry({"type": "waveTransmissive",
                                     "fieldInf": 1e5}, 2, (0, 1), False)
     assert isinstance(b, bcm.WaveTransmissive) and b.field_inf == 1e5
-    with pytest.raises(NotImplementedError, match="items 8-9"):
-        foam_fields._bc_from_entry({"type": "qhdFlux"}, 2, (0, 1), False)
+    assert isinstance(foam_fields._bc_from_entry({"type": "qhdFlux"}, 2,
+                                                 (0, 1), False), bcm.QHDFluxP)
     with pytest.raises(ValueError, match="unsupported boundary"):
         foam_fields._bc_from_entry({"type": "noSuchWord"}, 2, (0, 1), False)
     case = _copy(tmp_path)
     ctrl = (case / "system" / "controlDict").read_text().replace(
-        "application     QGDFoam;", "application     QHDFoam;")
+        "application     QGDFoam;", "application     QHDDyMFoam;")
     (case / "system" / "controlDict").write_text(ctrl)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         foam_case.build_case(str(case), device="cpu")
 
 

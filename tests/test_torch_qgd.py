@@ -106,8 +106,9 @@ def test_run_steps_checks_state(tmp_path):
 
 def test_unported_branches_raise():
     """The implicit-diffusion and qgdFlux limiter/relaxation branches are
-    ported (they build and step); what QGDFoam's neighbours still lack
-    raises NotImplementedError naming ROADMAP item 7."""
+    ported (they build and step), and so are QGDFoam's neighbours of
+    ROADMAP item 7 (zQGDFoam, the JANAF thermo); interQHDFoam still raises
+    NotImplementedError naming its item."""
     import dataclasses
 
     from qgdsolver_tpu_torch.core import config
@@ -118,10 +119,9 @@ def test_unported_branches_raise():
                {"qgdflux_limit": 4.0}):
         s = dataclasses.replace(tsolver, **kw).make_step()(ts)
         assert bool(torch.isfinite(s.rho).all()), kw
-    cfg = {"solver": "zQGDFoam", "mesh": {"shape": [8, 4]}}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        config.build_solver(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        config.build_solver(dict(cfg, solver="QGDFoam",
-                                 thermo={"type": "janafPerfectGas"}),
-                            device="cpu")
+    cfg = {"solver": "zQGDFoam", "mesh": {"shape": [8, 4]},
+           "thermo": {"type": "psiPerfectGas", "R": 287.0, "Cp": 1004.5}}
+    assert type(config.build_solver(cfg, device="cpu")).__name__ == \
+        "ZQGDFoam"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        config.build_solver(dict(cfg, solver="interQHDFoam"), device="cpu")
