@@ -1,7 +1,8 @@
 """Typed case configuration: the dictionary/run-time-selection system
 (PyTorch port of `qgdsolver_tpu.core.config`: QGDFoam, rhoQGDFoam,
-zQGDFoam, the QHD family and scalarTransportQHDFoam; interQHDFoam raises
-naming its ROADMAP item).
+zQGDFoam, the QHD family and scalarTransportQHDFoam; QHDDyMFoam,
+interQHDFoam and the Lagrangian and reacting solvers raise naming their
+ROADMAP item).
 
 A case is a plain JSON-able dict with the reference's four selection points
 (fvsc scheme, tau model, thermo combination, BC types per field file) plus
@@ -55,7 +56,11 @@ register_missing("bc", "ROADMAP queue 1, item 9 (interQHDFoam, two-phase)",
                  "mQhdFlux")
 
 _NOT_PORTED_SOLVERS = {
+    "QHDDyMFoam": "ROADMAP queue 1, item 8b (QHDDyMFoam: moving meshes)",
     "interQHDFoam": "ROADMAP queue 1, item 9",
+    "particlesQGDFoam": "ROADMAP queue 1, item 10",
+    "particlesQHDFoam": "ROADMAP queue 1, item 10",
+    "reactingLagrangianQGDFoam": "ROADMAP queue 1, item 10",
 }
 
 

@@ -275,6 +275,10 @@ def test_cli_devices_2x1_matches_one_rank(app, tmp_path):
     ("particlesQGDFoam", "item 10"), ("particlesQHDFoam", "item 10"),
     ("reactingLagrangianQGDFoam", "item 10")])
 def test_apps_still_to_come_raise(app, item, tmp_path):
+    """build_case and core.config's build_solver raise naming the item."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+        config.build_solver({"solver": app, "mesh": {"shape": [4, 4]}},
+                            device="cpu")
     case = write_case(str(tmp_path), "QHDFoam")
     path = os.path.join(case, "system", "controlDict")
     text = open(path).read().replace("application QHDFoam;",
@@ -286,16 +290,13 @@ def test_apps_still_to_come_raise(app, item, tmp_path):
 
 
 def test_words_and_fields_still_to_come_raise():
-    """mQhdFlux (interQHDFoam's) and interQHDFoam in a config raise naming
-    item 9; QHDFoam's moving-mesh fields raise naming item 8b; qhdFlux
-    builds its marker."""
+    """mQhdFlux (interQHDFoam's) raises naming item 9; QHDFoam's
+    moving-mesh fields raise naming item 8b; qhdFlux builds its
+    marker."""
     with pytest.raises(NotImplementedError, match="item 9"):
         config.build_bcs({"x_lo": {"type": "mQhdFlux"}}, 2)
     assert type(config.build_bcs({"x_lo": {"type": "qhdFlux"}}, 2)[0, 0]
                 ).__name__ == "QHDFluxP"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        config.build_solver({"solver": "interQHDFoam",
-                             "mesh": {"shape": [4, 4]}}, device="cpu")
     solver, _ = cases.buoyant_cavity((8, 8), device="cpu")
     for field in ("mesh_velocity", "mesh_scale", "mesh_faces"):
         moving = dataclasses.replace(solver, **{field: lambda t: (0.0, 0.0)})
