@@ -66,11 +66,12 @@ def run_both(jsolver, js, n, tol, monkeypatch, floors=None):
     field's max (1e-9 without a CG; with one 2*cg_tol a step, each solve
     stopping at |r| <= cg_tol*|b| in both packages), and every Helmholtz
     solve of the windows (p, U, T, in order) takes as many CG iterations
-    as the JAX package's.  The windows keep the two trajectories from
-    parting: started from States that differ in the last bits, a pressure
-    solve's residual a few iterations before its stop differs by far more
-    than those bits (its recurrence carries ~eps*|A||p| against a small
-    |b|), and the stop can then fall on either side of an iteration.
+    as the JAX package's (`same_iterations`).  The windows keep the two
+    trajectories from parting: started from States that differ in the last
+    bits, a pressure solve's residual a few iterations before its stop
+    differs by far more than those bits (its recurrence carries
+    ~eps*|A||p| against a small |b|), and the stop can then fall on either
+    side of an iteration.
     `floors` ({field: scale}) sets a field's least scale: a field that is
     round-off of zero (the pressure of a uniform stream) is held against
     its physical scale.  Returns (the JAX States [0..n], the port's last
@@ -94,5 +95,21 @@ def run_both(jsolver, js, n, tol, monkeypatch, floors=None):
                     continue
                 assert _rel(getattr(states[k + 1], f), getattr(ts, f),
                             floors.get(f, 0.0)) <= tol, (k, f)
-    assert [x[:2] for x in jlog] == [x[:2] for x in tlog], (jlog, tlog)
+    same_iterations(jlog, tlog, getattr(jsolver, "cg_tol", 0.0))
     return states, ts, [x[:2] for x in tlog]
+
+
+def same_iterations(jlog, tlog, cg_tol, band=1e-3):
+    """Both packages' solves in the same order and kinds with equal CG
+    iteration counts.  The one exception is a stop decided by round-off:
+    counts one apart where the solve that stopped first ended within
+    `band` of its threshold (cg_tol*(1 - band) <= |r|/|b| <= cg_tol), the
+    other package's residual at that iteration having landed just above
+    it."""
+    assert [x[0] for x in jlog] == [x[0] for x in tlog], (jlog, tlog)
+    for j, t in zip(jlog, tlog):
+        if j[1] == t[1]:
+            continue
+        first = j if j[1] < t[1] else t
+        assert abs(j[1] - t[1]) == 1 and \
+            cg_tol * (1.0 - band) <= first[2] <= cg_tol, (j, t)

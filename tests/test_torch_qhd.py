@@ -13,7 +13,7 @@ float64.  The JAX package runs n steps; the port runs n one-step windows
 from its States (`_torch_parity.run_both`): every QHD step solves p, and U
 and T when the diffusion is implicit, so each window's fields are held
 within 2*cg_tol of their max (n windows: 2*n*cg_tol), with equal CG
-iteration counts for every solve; without a CG the bound is 1e-9 (the
+iteration counts for every solve (`_torch_parity.same_iterations`); without a CG the bound is 1e-9 (the
 same formulas in the same order).
 """
 import dataclasses
