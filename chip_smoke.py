@@ -2073,18 +2073,21 @@ def qhd_checks(label, s) -> str:
         f"{float(s.T.max()):.4f}]"
 
 
-def family_run(label, build, n, cpu_steps=3):
-    """One run of phase 22: build(device) -> (solver, state) on the card
-    and on the CPU, in the build's dtype.  The card's first cpu_steps steps
-    are held against the CPU's, each field within its bound of the field's
-    max: float64 without a CG 1e-9, with one 2*n*cg_tol (the solves stop
-    at |r| <= cg_tol*|b|, their dots summed in another order), float32
-    1e-3 (the kernel paths' bound).  Then n steps on the card after one of
-    warm-up, timed by CUDA events, with the CG iterations a solve by kind
-    (p, U, T) and the host reads a step."""
+def family_run(label, build, n, cpu_steps=3, checks=None):
+    """One run of phase 22 (and 23): build(device) -> (solver, state) on
+    the card and on the CPU, in the build's dtype.  The card's first
+    cpu_steps steps are held against the CPU's, each field within its
+    bound of the field's max: float64 without a CG 1e-9, with one
+    2*n*cg_tol (the solves stop at |r| <= cg_tol*|b|, their dots summed in
+    another order), float32 1e-3 (the kernel paths' bound).  Then n steps
+    on the card after one of warm-up, timed by CUDA events, with the CG
+    iterations a solve by kind (p, U, T) and the host reads a step;
+    checks(label, first state, last state) -> summary, when given, checks
+    the end state (else the QGD or QHD cavity checks)."""
     from qgdsolver_tpu_torch.ops import linsolve
 
     solver, s = build(torch.device("cuda", 0))
+    s_first = s
     check(not (hasattr(solver, "fused_supported")
                and solver.fused_supported()), f"{label}: a fused gate took it")
     csolver, c = build(torch.device("cpu"))
@@ -2115,7 +2118,8 @@ def family_run(label, build, n, cpu_steps=3):
               / linsolve.CG_GROUP + 2 * len(log),
               f"{label}: {linsolve.cg.reads} host reads for {len(log)} "
               "solves")
-    phys = (check_physical(label, solver, box[0]) if hasattr(box[0], "rho")
+    phys = (checks(label, s_first, box[0]) if checks is not None else
+            check_physical(label, solver, box[0]) if hasattr(box[0], "rho")
             else qhd_checks(label, box[0]))
     cg = ", ".join(f"{k} {v:.1f}" for k, v in its.items()) or "none"
     return (f"{label}: {ms:.3f} ms/step over {n} steps, CG iterations/solve "
@@ -2193,6 +2197,233 @@ def phase_family(card):
           flush=True)
 
 
+def finite(label, s):
+    for f, x in zip(s._fields, s):
+        check(bool(torch.isfinite(x).all()), f"{label}: {f} not finite")
+
+
+def bounded_alpha(label, s, first, rtol):
+    """alpha1 within [0, 1] and its volume (sum of alpha*V) within rtol of
+    the first state's; a summary."""
+    finite(label, s)
+    a, a0 = s.alpha1.double(), first.alpha1.double()
+    lo, hi = float(a.min()), float(a.max())
+    check(-1e-12 <= lo and hi <= 1.0 + 1e-12,
+          f"{label}: alpha1 in [{lo}, {hi}] outside [0, 1]")
+    vol = float(a.sum()) / float(a0.sum()) - 1.0
+    check(abs(vol) <= rtol, f"{label}: alpha volume drift {vol:.2e} "
+          f"(> {rtol:g})")
+    return (f"t={float(s.t):.4e} alpha1 in [{lo:.3g}, {hi:.3g}], volume "
+            f"drift {vol:.1e} (bound {rtol:g}), max|U| "
+            f"{float(s.U.abs().max()):.3e}")
+
+
+def piston(dev, n=(512, 128)):
+    """tests/test_dym.py's piston channel at n cells, its face
+    trajectories tensors on `dev` (general motion, `mesh_faces`): the left
+    wall advances at 0.2 into a channel whose right end is open."""
+    from qgdsolver_tpu_torch.core import bc
+    from qgdsolver_tpu_torch.core.mesh import Mesh
+    from qgdsolver_tpu_torch.physics.qgdcoeffs import ConstTau
+    from qgdsolver_tpu_torch.physics.thermo import RhoConstThermo
+    from qgdsolver_tpu_torch.solvers.common import TimeControls
+    from qgdsolver_tpu_torch.solvers.qhd_dym import QHDDyMFoam
+
+    f64 = torch.float64
+    mesh = Mesh.uniform(n, lengths=(1.0, 0.25), dtype=f64, device=dev)
+    x0 = torch.linspace(0.0, 1.0, n[0] + 1, dtype=f64, device=dev)
+    y0 = torch.linspace(0.0, 0.25, n[1] + 1, dtype=f64, device=dev)
+    v_p = 0.2
+
+    def faces(t):
+        left = v_p * t
+        return left + (1.0 - left) * x0, y0
+
+    zg, slip = bc.ZeroGradient(), bc.Symmetry()
+    solver = QHDDyMFoam(
+        mesh_faces=faces, mesh=mesh,
+        thermo=RhoConstThermo(rho0=1.0, Cp=1000.0, mu0=1e-4, Pr=1.0),
+        tau_model=ConstTau(tau0=2e-3),
+        bc_U=bc.FieldBCs(((bc.FixedValue([v_p, 0.0]), zg), (slip, slip))),
+        bc_T=bc.FieldBCs.uniform(zg, 2),
+        bc_p=bc.FieldBCs(((zg, bc.FixedValue(0.0)), (zg, zg))),
+        time=TimeControls(max_co=0.3, max_dt=2e-3, dt0=1e-4), cg_tol=1e-12)
+    return solver, solver.init(torch.zeros((2,) + n, dtype=f64, device=dev),
+                               torch.zeros(n, dtype=f64, device=dev))
+
+
+def drop(dev, n=256):
+    """tests/test_inter_qhd.py's drop (R 0.2 in the unit box, 1000:1
+    densities, cg_tol 1e-9) at n x n, with surface tension 0.07 and no
+    gravity: a static drop."""
+    from qgdsolver_tpu_torch.core.mesh import Mesh
+    from qgdsolver_tpu_torch.physics.twophase import TwoPhaseProperties
+    from qgdsolver_tpu_torch.solvers.common import TimeControls
+    from qgdsolver_tpu_torch.solvers.inter_qhd import InterQHDFoam
+
+    mesh = Mesh.uniform((n, n), dtype=torch.float64, device=dev)
+    solver = InterQHDFoam(
+        mesh=mesh, props=TwoPhaseProperties(
+            rho1=1000.0, rho2=1.0, nu1=1e-6, nu2=1.5e-5, tau1=2e-4,
+            tau2=2e-4, sigma=0.07, c_alpha=1.0),
+        g=(0.0, 0.0), time=TimeControls(max_co=0.2, max_dt=1e-3, dt0=1e-4),
+        cg_tol=1e-9)
+    x = mesh.centers[0][:, None] * np.ones(mesh.shape)
+    y = mesh.centers[1][None, :] * np.ones(mesh.shape)
+    r = np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2)
+    return solver, solver.init(
+        torch.zeros((2, n, n), dtype=torch.float64, device=dev),
+        mesh.tensor((r < 0.2) * 1.0))
+
+
+def gcl_run(label, motion, n=256, steps=50):
+    """Uniform T and U on a moving n x n grid (zeroGradient sides) for
+    `steps` steps on the card: the discrete GCL keeps them uniform; the
+    largest drift of each relative to its value."""
+    from qgdsolver_tpu_torch.core import bc
+    from qgdsolver_tpu_torch.core.mesh import Mesh
+    from qgdsolver_tpu_torch.physics.qgdcoeffs import ConstTau
+    from qgdsolver_tpu_torch.physics.thermo import RhoConstThermo
+    from qgdsolver_tpu_torch.solvers import common
+    from qgdsolver_tpu_torch.solvers.qhd_dym import QHDDyMFoam
+
+    dev, f64 = torch.device("cuda", 0), torch.float64
+    x0 = torch.linspace(0.0, 1.0, n + 1, dtype=f64, device=dev)
+    zg = bc.FieldBCs.uniform(bc.ZeroGradient(), 2)
+    solver = QHDDyMFoam(
+        mesh=Mesh.uniform((n, n), dtype=f64, device=dev),
+        thermo=RhoConstThermo(rho0=1.0, Cp=1000.0, mu0=1e-3, Pr=1.0),
+        tau_model=ConstTau(tau0=1e-4), bc_U=zg, bc_T=zg, bc_p=zg,
+        time=common.TimeControls(adjust_time_step=False, dt0=5e-3),
+        cg_tol=1e-12, **motion(x0))
+    U0 = torch.stack([torch.full((n, n), 0.8, dtype=f64, device=dev),
+                      torch.full((n, n), -0.3, dtype=f64, device=dev)])
+    s = common.run_steps(solver.make_step(), solver.init(
+        U0, torch.full((n, n), 3.7, dtype=f64, device=dev)), steps)
+    dT = float((s.T - 3.7).abs().max()) / 3.7
+    dU = max(float((s.U[0] - 0.8).abs().max()) / 0.8,
+             float((s.U[1] + 0.3).abs().max()) / 0.3)
+    check(dT <= 1e-9 and dU <= 1e-9, f"{label}: uniform fields drifted "
+          f"(T {dT:.2e}, U {dU:.2e} of their values > 1e-9)")
+    return (f"{label} GCL {n}x{n}, {steps} steps to t={float(s.t):.3f}: "
+            f"uniform T drift {dT:.1e}, U {dU:.1e} (bound 1e-9)")
+
+
+def cli_write_read(case, dev, steps, fields):
+    """The case CLI for `steps` steps on the card (composable step, no
+    kernel launched, one write at the end), the written fields read back
+    through build_case against the same steps run directly; a summary."""
+    from qgdsolver_tpu_torch.io import foam_case
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.solvers import common
+
+    solver, s = foam_case.build_case(case, device=dev)
+    ref = common.run_steps(solver.make_step(), s, steps)
+    log, secs, launches = run_cli([case, "--max-steps", str(steps),
+                                   "--device", "cuda"],
+                                  F.KERNELS + F3.KERNELS)
+    check("composable step engaged: make_step" in log,
+          f"the CLI did not take the composable step:\n{log}")
+    check(not any(launches.values()), f"CLI launched kernels {launches}")
+    _, back = latest_state(case, dev)
+    gaps = {f: rel_err(getattr(ref, f), getattr(back, f)) for f in fields}
+    for f, g in gaps.items():
+        # written with 12 significant digits
+        check(g <= 1e-9, f"{case}: {f} read back {g:.2e} from the run")
+    check(abs(float(back.t) - float(ref.t)) <= 1e-6 * float(ref.t),
+          f"{case}: read back t {float(back.t)} against {float(ref.t)}")
+    return (f"CLI {os.path.basename(case)} {steps} steps in {secs:.1f} s, "
+            f"written and read back: " + ", ".join(
+                f"{f} {g:.1e}" for f, g in gaps.items()))
+
+
+def phase_moving_twophase(card, root):
+    """Phase 23: QHDDyMFoam and interQHDFoam on the composable path
+    (torch ops; the reference has no Pallas kernel for either) in float64,
+    each against the CPU over its first 3 steps (`family_run`), no kernel
+    launched: tests/fixtures/dym_case at 256x256 (uniformDilation with
+    checkMeshCourantNo), the piston channel at 512x128 (general face
+    motion), tests/fixtures/inter_case at 256x256 with a water column, and
+    a static drop with surface tension at 256x256 (alpha in [0, 1], its
+    volume to 1e-6); the GCL on the card (uniform fields on a dilating and
+    a sloshing 256x256 grid, 50 steps); and the case CLI on both edited
+    fixtures with a write and a read-back."""
+    from qgdsolver_tpu_torch.io import foam_case
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    edit = [("system/blockMeshDict", r"\(24 24 1\)", "(256 256 1)")]
+    dym = fixture_case(root, "dym_case", "dym_256", edit)
+    with open(os.path.join(dym, "0", "p"), "w") as f:
+        f.write("FoamFile { version 2.0; format ascii; class volScalarField;"
+                " object p; }\ndimensions [0 2 -2 0 0 0 0];\n"
+                "internalField uniform 0;\nboundaryField { left { type "
+                "zeroGradient; } right { type zeroGradient; } bottom { type "
+                "zeroGradient; } top { type zeroGradient; } frontAndBack "
+                "{ type empty; } }\n")
+    inter = fixture_case(root, "inter_case", "inter_256", edit)
+
+    def dym_build(d):
+        solver, s = foam_case.build_case(dym, device=d)
+        check(solver.mesh.shape == (256, 256) and solver.check_mesh_courant
+              and solver.mesh_scale is not None, "dym_case: the motion")
+        return solver, s
+
+    def inter_build(d):
+        solver, s = foam_case.build_case(inter, device=d)
+        y = solver.mesh.centers[1][None, :] * np.ones(solver.mesh.shape)
+        return solver, s._replace(alpha1=solver.mesh.tensor((y < 0.4) * 1.0))
+
+    def dym_checks(label, first, s):
+        # the maximum principle: T within its walls' 299 and 301
+        finite(label, s)
+        tmin, tmax = float(s.T.min()), float(s.T.max())
+        check(299.0 - 1e-9 <= tmin and tmax <= 301.0 + 1e-9,
+              f"{label}: T in [{tmin}, {tmax}] outside the walls' "
+              "[299, 301]")
+        return f"t={float(s.t):.4e} T in [{tmin:.4f}, {tmax:.4f}]"
+
+    def piston_checks(label, first, s):
+        finite(label, s)
+        u_out = float(s.U[0, -1].mean())
+        check(0.0 < u_out, f"{label}: outflow {u_out} not pushed out")
+        return f"t={float(s.t):.4e} outlet u {u_out:.4f} (piston 0.2)"
+
+    runs = [
+        ("QHDDyMFoam dym_case 256x256 (uniformDilation, "
+         "checkMeshCourantNo)", dym_build, 10, dym_checks),
+        ("QHDDyMFoam piston 512x128 (mesh_faces)", piston, 10,
+         piston_checks),
+        ("interQHDFoam inter_case 256x256 water column", inter_build, 5,
+         lambda label, first, s: bounded_alpha(label, s, first, 5e-3)),
+        ("interQHDFoam static drop 256x256 sigma 0.07", drop, 5,
+         lambda label, first, s: bounded_alpha(label, s, first, 1e-6)),
+    ]
+    kernels = F.KERNELS + F3.KERNELS
+    msgs = []
+    for label, build, n, checks in runs:
+        for k in kernels:
+            k.launches = 0
+        msgs.append(family_run(label, build, n, checks=checks))
+        launched = {k.__name__: k.launches for k in kernels if k.launches}
+        check(not launched, f"{label}: kernels launched {launched}")
+    msgs.append(gcl_run("dilating", lambda x0: dict(
+        mesh_scale=lambda t: (1.0 + 0.15 * torch.sin(3.0 * t),
+                              1.0 + 0.15 * torch.sin(5.1 * t + 0.5)))))
+    msgs.append(gcl_run("sloshing", lambda x0: dict(mesh_faces=lambda t: (
+        x0 + 0.08 * torch.sin(3.0 * t) * torch.sin(np.pi * x0),
+        x0 + 0.05 * torch.sin(5.1 * t) * x0 * (1.0 - x0)))))
+    msgs.append(cli_write_read(dym, dev, 5, ("U", "T", "p")))
+    msgs.append(cli_write_read(inter, dev, 5, ("U", "p", "alpha1")))
+    print("phase 23 QHDDyMFoam and interQHDFoam (composable, torch ops, "
+          "f64): ok " + " | ".join(msgs)
+          + f" | {time.perf_counter() - t0:.1f} s | card: {card}",
+          flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--profiler-check"]:
         return profiler_check(int(sys.argv[2]))
@@ -2266,6 +2497,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         phase_slice(dev, card, root)
     phase_family(card)
+    with tempfile.TemporaryDirectory() as root:
+        phase_moving_twophase(card, root)
     entries = []
     for k, v in stats.items():
         # each kernel's bound at the shape its time was taken; the 2D update

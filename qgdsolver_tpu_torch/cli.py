@@ -7,7 +7,8 @@ surface of the reference solvers.
         --devices PXxPY
 
 Reads an OpenFOAM-layout case directory (`io.foam_case.build_case`: the
-QGD solvers, the static-mesh QHD family and scalar transport), runs
+QGD solvers, the QHD family with QHDDyMFoam, scalar transport and
+interQHDFoam), runs
 chunks of K steps with `solvers.common.run_steps` (the adaptive dt stays on
 the device; `t` is read back once per chunk), writes OpenFOAM-format time
 directories via `io.foam_write` whenever the solution time crosses the next

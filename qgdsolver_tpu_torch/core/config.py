@@ -1,8 +1,11 @@
 """Typed case configuration: the dictionary/run-time-selection system
 (PyTorch port of `qgdsolver_tpu.core.config`: QGDFoam, rhoQGDFoam,
-zQGDFoam, the QHD family and scalarTransportQHDFoam; QHDDyMFoam,
-interQHDFoam and the Lagrangian and reacting solvers raise naming their
-ROADMAP item).
+zQGDFoam, the QHD family with QHDDyMFoam, scalarTransportQHDFoam and
+interQHDFoam; the Lagrangian and reacting solvers raise naming their
+ROADMAP item).  Two keys go beyond the JAX package's configs: a
+QHDDyMFoam config's motion is a `dynamicMesh` dict of the dynamicMeshDict
+words `foam_case` reads, and an interQHDFoam config's phases a `props`
+dict of `TwoPhaseProperties` fields.
 
 A case is a plain JSON-able dict with the reference's four selection points
 (fvsc scheme, tau model, thermo combination, BC types per field file) plus
@@ -23,7 +26,7 @@ import torch
 
 from . import bc as bcm
 from .mesh import Mesh, checked_device
-from .registry import create, register, register_missing
+from .registry import create, register
 from ..physics import qgdcoeffs, thermo  # noqa: F401 — registers the words
 from ..solvers.common import TimeControls
 
@@ -52,12 +55,11 @@ register("bc", "cosVelocity")(
         amplitude, omega0, phi0, height, ndim,
         **{k: kw[k] for k in ("flow_axis", "profile_axis") if k in kw}))
 register("bc", "qhdFlux")(lambda **_: bcm.QHDFluxP())
-register_missing("bc", "ROADMAP queue 1, item 9 (interQHDFoam, two-phase)",
-                 "mQhdFlux")
+# interQHDFoam's mixture qhdFlux: the same marker, substituted per step by
+# the mixture gradient
+register("bc", "mQhdFlux")(lambda **_: bcm.QHDFluxP())
 
 _NOT_PORTED_SOLVERS = {
-    "QHDDyMFoam": "ROADMAP queue 1, item 8b (QHDDyMFoam: moving meshes)",
-    "interQHDFoam": "ROADMAP queue 1, item 9",
     "particlesQGDFoam": "ROADMAP queue 1, item 10",
     "particlesQHDFoam": "ROADMAP queue 1, item 10",
     "reactingLagrangianQGDFoam": "ROADMAP queue 1, item 10",
@@ -139,7 +141,12 @@ def build_solver(cfg: dict, device="cuda"):
     """Top-level case builder (the solver-main startup equivalent) on
     `device` (the card by default; pass device="cpu" to build on the CPU):
     QGDFoam, rhoQGDFoam, zQGDFoam, the QHD family (QHDFoam, SRFQHDFoam with
-    `omega`, mulesQHDFoam) and scalarTransportQHDFoam."""
+    `omega`, mulesQHDFoam, QHDDyMFoam with its `dynamicMesh` dict),
+    scalarTransportQHDFoam and interQHDFoam (its `props` dict and the
+    `alpha1` BCs)."""
+    from ..io.foam_case import dynamic_mesh_kwargs
+    from ..physics.twophase import TwoPhaseProperties
+    from ..solvers.inter_qhd import InterQHDFoam
     from ..solvers.qgd import QGDFoam
     from ..solvers.qhd import QHDFoam
     from ..solvers.scalar_transport import ScalarTransportQHD
@@ -148,7 +155,9 @@ def build_solver(cfg: dict, device="cuda"):
     solvers = {
         "QGDFoam": QGDFoam, "rhoQGDFoam": QGDFoam, "zQGDFoam": ZQGDFoam,
         "QHDFoam": QHDFoam, "SRFQHDFoam": QHDFoam, "mulesQHDFoam": QHDFoam,
+        "QHDDyMFoam": QHDFoam,
         "scalarTransportQHDFoam": ScalarTransportQHD,
+        "interQHDFoam": InterQHDFoam,
     }
     name = cfg["solver"]
     if name in _NOT_PORTED_SOLVERS:
@@ -163,16 +172,17 @@ def build_solver(cfg: dict, device="cuda"):
     nd = mesh.ndim
 
     kw = dict(mesh=mesh)
-    if "thermo" in cfg:
+    if "thermo" in cfg and "thermo" in fields:
         kw["thermo"] = build_thermo(cfg["thermo"])
-    if "tau" in cfg:
+    if "tau" in cfg and "tau_model" in fields:
         kw["tau_model"] = build_tau_model(cfg["tau"])
     if "controlDict" in cfg:
         kw["time"] = build_time_controls(cfg["controlDict"])
     if "fvsc" in cfg and "fvsc_scheme" in fields:
         kw["fvsc_scheme"] = cfg["fvsc"]
     bnd = cfg.get("boundary", {})
-    for field, attr in (("U", "bc_U"), ("p", "bc_p"), ("T", "bc_T")):
+    for field, attr in (("U", "bc_U"), ("p", "bc_p"), ("T", "bc_T"),
+                        ("alpha1", "bc_alpha")):
         if field in bnd and attr in fields:
             kw[attr] = build_bcs(bnd[field], nd)
     for extra in ("g", "omega", "implicit_diffusion", "p_ref_value"):
@@ -181,6 +191,13 @@ def build_solver(cfg: dict, device="cuda"):
             kw[extra] = tuple(v) if isinstance(v, list) else v
     if name == "mulesQHDFoam":
         kw["t_equation"] = "mules"
+    if name == "QHDDyMFoam":
+        kw.update(dynamic_mesh_kwargs(cfg.get("dynamicMesh", {}), nd))
+    if name == "interQHDFoam":
+        if "props" not in cfg:
+            raise ValueError("an interQHDFoam config needs a `props` dict "
+                             "(the TwoPhaseProperties fields)")
+        kw["props"] = TwoPhaseProperties(**cfg["props"])
     return cls(**kw)
 
 

@@ -219,6 +219,137 @@ class Mesh:
             v = v * _reshape_axis(self.dx[a], a, self.ndim)
         return self.tensor(v)
 
+    def face_coords(self, axis: int) -> torch.Tensor:
+        """Face coordinates along `axis`, broadcastable to axis-face
+        fields."""
+        return self.bcast(self.x_faces[axis], axis)
+
+
+class TracedMesh:
+    """The geometry of a mesh whose per-axis face coordinates are tensors
+    on the state's device: the post-motion mesh of one step of a moving
+    mesh (QHDDyMFoam's `mesh_faces`, the counterpart of OpenFOAM's
+    mesh.update()).
+
+    Every geometry quantity is recomputed from the face tensors with the
+    formulas of `Mesh`, in torch ops on the device, so a step on a moving
+    mesh reads no geometry back to the host.  An instance lives for one
+    step; its quantities are cached on it.  It offers the `Mesh` surface
+    the ops and solvers read (`dx`, `centers`, `w_face`, `d_centers`,
+    `h_face_1d`, `ext_centers`, `bcast`, `tensor`, `cell_volume`,
+    `face_area`, `h_face`, `h_cell`, `cell_coords`, `face_coords`)."""
+
+    axisymmetric = False
+    solid = None
+
+    def __init__(self, x_faces, dtype=None, device=None):
+        first = x_faces[0]
+        self.dtype = dtype or (first.dtype if torch.is_tensor(first)
+                               else torch.float64)
+        self.device = torch.device(device if device is not None else
+                                   first.device if torch.is_tensor(first)
+                                   else "cpu")
+        self.x_faces = tuple(torch.as_tensor(f, dtype=self.dtype,
+                                             device=self.device)
+                             for f in x_faces)
+        self.shape = tuple(int(f.shape[0]) - 1 for f in self.x_faces)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.x_faces)
+
+    def face_shape(self, axis: int) -> tuple:
+        s = list(self.shape)
+        s[axis] += 1
+        return tuple(s)
+
+    @cached_property
+    def dx(self) -> tuple:
+        return tuple(torch.diff(f) for f in self.x_faces)
+
+    @cached_property
+    def centers(self) -> tuple:
+        return tuple(0.5 * (f[:-1] + f[1:]) for f in self.x_faces)
+
+    @cached_property
+    def _pdx(self) -> tuple:
+        return tuple(torch.cat([d[:1], d, d[-1:]]) for d in self.dx)
+
+    @cached_property
+    def d_centers(self) -> tuple:
+        return tuple(0.5 * (p[:-1] + p[1:]) for p in self._pdx)
+
+    @cached_property
+    def w_face(self) -> tuple:
+        return tuple(p[1:] / (p[:-1] + p[1:]) for p in self._pdx)
+
+    @property
+    def w_vertex(self) -> tuple:
+        return self.w_face
+
+    @cached_property
+    def h_face_1d(self) -> tuple:
+        return tuple(torch.cat([d[:1], torch.minimum(d[:-1], d[1:]),
+                                d[-1:]]) for d in self.dx)
+
+    @cached_property
+    def ext_centers(self) -> tuple:
+        return tuple(torch.cat([2 * f[:1] - c[:1], c, 2 * f[-1:] - c[-1:]])
+                     for f, c in zip(self.x_faces, self.centers))
+
+    def tensor(self, arr) -> torch.Tensor:
+        """A tensor (or number) in the mesh's dtype on its device; no
+        host copy of a tensor already there."""
+        return torch.as_tensor(arr, dtype=self.dtype, device=self.device)
+
+    def bcast(self, arr_1d, axis: int) -> torch.Tensor:
+        return _reshape_axis(self.tensor(arr_1d), axis, self.ndim)
+
+    def cell_coords(self, axis: int) -> torch.Tensor:
+        return self.bcast(self.centers[axis], axis)
+
+    def face_coords(self, axis: int) -> torch.Tensor:
+        return self.bcast(self.x_faces[axis], axis)
+
+    def _area(self, axis: int):
+        a_ = None
+        for b in range(self.ndim):
+            if b != axis:
+                d = _reshape_axis(self.dx[b], b, self.ndim)
+                a_ = d if a_ is None else a_ * d
+        if a_ is None:  # a 1D mesh: unit face areas
+            return torch.ones((1,), dtype=self.dtype, device=self.device)
+        return a_
+
+    def face_area(self, axis: int) -> torch.Tensor:
+        return self._face_area_t[axis]
+
+    @cached_property
+    def _face_area_t(self) -> tuple:
+        return tuple(self._area(a) for a in range(self.ndim))
+
+    def h_face(self, axis: int) -> torch.Tensor:
+        return self.bcast(self.h_face_1d[axis], axis)
+
+    @cached_property
+    def h_cell(self) -> torch.Tensor:
+        num = den = 0.0
+        for a in range(self.ndim):
+            hf = self.h_face_1d[a]
+            h_lo = _reshape_axis(hf[:-1], a, self.ndim)
+            h_hi = _reshape_axis(hf[1:], a, self.ndim)
+            area = self._area(a)
+            num = num + area * (h_lo + h_hi)
+            den = den + 2.0 * area
+        return torch.broadcast_to(num / den, self.shape).contiguous()
+
+    @cached_property
+    def cell_volume(self) -> torch.Tensor:
+        v = _reshape_axis(self.dx[0], 0, self.ndim)
+        for a in range(1, self.ndim):
+            v = v * _reshape_axis(self.dx[a], a, self.ndim)
+        return v
+
 
 @dataclasses.dataclass(frozen=True)
 class AxisymmetricMesh(Mesh):

@@ -9,8 +9,9 @@ transport, told apart by its field names) whose leaves were converted with
 `state_to_numpy` gives this package's State back with numpy leaves,
 `mesh_from` rebuilds a mesh of either package (its face coordinates, solid
 mask and wedge kind) as this port's, and `solver_from` a QGDFoam,
-rhoQGDFoam, zQGDFoam, QHDFoam (SRF and MULES variants included) or
-ScalarTransportQHD config with plain BC values.  None of them imports JAX.
+rhoQGDFoam, zQGDFoam, QHDFoam (SRF, MULES and QHDDyMFoam variants
+included, the motion callables given in torch), ScalarTransportQHD or
+InterQHDFoam config with plain BC values.  None of them imports JAX.
 """
 from __future__ import annotations
 
@@ -21,11 +22,14 @@ import torch
 
 from .core import bc as bcm
 from .core.mesh import AxisymmetricMesh, Mesh
-from .solvers import qgd, qhd, scalar_transport
+from .solvers import inter_qhd, qgd, qhd, scalar_transport
 
 # a State's class by its field names
 _STATES = {cls._fields[:3]: cls for cls in (qgd.State, qhd.State,
-                                            scalar_transport.State)}
+                                            scalar_transport.State,
+                                            inter_qhd.State)}
+# a moving mesh's motion callables: they belong to their array library
+_MOTION = ("mesh_velocity", "mesh_scale", "mesh_faces")
 _TUPLES = ("pbc", "wt")
 
 
@@ -120,32 +124,41 @@ def _thermo_from(th):
     return _same(thermo, th, **over)
 
 
-def solver_from(s, device="cpu", dtype=torch.float32):
+def solver_from(s, device="cpu", dtype=torch.float32, **over):
     """The port's solver of a config of the JAX package (or of this one):
     QGDFoam (and so rhoQGDFoam), ZQGDFoam, QHDFoam (with g, omega,
-    t_equation and p_ref_value) or ScalarTransportQHD, of the same class
+    t_equation, p_ref_value and QHDDyMFoam's check_mesh_courant),
+    ScalarTransportQHD or InterQHDFoam (its TwoPhaseProperties, contact
+    angles, alpha smoothing flags and alpha field name), of the same class
     name.  It carries the mesh (`mesh_from`: solid mask and wedge
     included), the thermo (perfect gas, rhoConst, RhoThermo with its
     equation of state, JANAF with its coefficient tuples) and its
     transport, the tau model (the const-Sc cellSet and a per-cell cqSc as
     numpy arrays), the BCs with plain values, the time controls and the
     solver switches, so that a test builds both packages' solvers from one
-    config.  Reads the other package's objects by their class and field
-    names; imports nothing of it."""
-    from .physics import qgdcoeffs
+    config.  A motion callable (QHDDyMFoam's mesh_velocity, mesh_scale,
+    mesh_faces) is a function of its own array library and cannot be
+    carried: pass its torch counterpart in `over` (which sets any field);
+    a moving config without one raises.  Reads the other package's objects
+    by their class and field names; imports nothing of it."""
+    from .physics import qgdcoeffs, twophase
     from .solvers import zqgd
     from .solvers.common import TimeControls
 
     cls = {c.__name__: c for c in (qgd.QGDFoam, zqgd.ZQGDFoam, qhd.QHDFoam,
-                                   scalar_transport.ScalarTransportQHD)
+                                   scalar_transport.ScalarTransportQHD,
+                                   inter_qhd.InterQHDFoam)
            }[type(s).__name__]
-    kw = dict(
-        mesh=mesh_from(s.mesh, device=device, dtype=dtype),
-        thermo=_thermo_from(s.thermo),
-        tau_model=_same(qgdcoeffs, s.tau_model),
-        time=TimeControls(**dataclasses.asdict(s.time)))
+    kw = dict(mesh=mesh_from(s.mesh, device=device, dtype=dtype),
+              time=TimeControls(**dataclasses.asdict(s.time)))
+    if hasattr(s, "thermo"):
+        kw["thermo"] = _thermo_from(s.thermo)
+    if hasattr(s, "tau_model"):
+        kw["tau_model"] = _same(qgdcoeffs, s.tau_model)
+    if hasattr(s, "props"):
+        kw["props"] = _same(twophase, s.props)
     for f in dataclasses.fields(cls):
-        if f.name in kw or not hasattr(s, f.name):
+        if f.name in kw or f.name in over or not hasattr(s, f.name):
             continue
         v = getattr(s, f.name)
         if f.name.startswith("bc_"):
@@ -154,6 +167,14 @@ def solver_from(s, device="cpu", dtype=torch.float32):
                     tuple(_bc_from(b) for b in row) for row in v.bcs))
         elif f.name in ("g", "omega"):
             kw[f.name] = None if v is None else tuple(float(x) for x in v)
+        elif f.name in _MOTION:
+            if v is not None:
+                raise ValueError(
+                    f"{f.name} is a callable of the other package: pass "
+                    f"its torch counterpart as solver_from(..., "
+                    f"{f.name}=...)")
+        elif f.name == "contact_angles" and v:
+            kw[f.name] = {k: _same(twophase, ca) for k, ca in v.items()}
         else:
             kw[f.name] = v
-    return cls(**kw)
+    return cls(**kw, **over)

@@ -12,15 +12,17 @@ Mirrors the reference's startup reads:
     implicitDiffusion).
 
 `build_case` takes `application` QGDFoam, rhoQGDFoam and zQGDFoam, the QHD
-family (QHDFoam, SRFQHDFoam with constant/SRFProperties, mulesQHDFoam;
-constant/g for the gravity) and scalarTransportQHDFoam, in 2D and 3D, with
-the hePsi (perfect gas, hConst or janaf) and heRho (perfectGas,
-stiffenedGas or rhoConst) thermo words and const, sutherland, polynomial
-(read as powerLaw, as the JAX package does) or powerLaw transport, on
-wedge meshes and on multi-block unions with dead cells (stairstep solids)
-where the JAX package takes them; QHDDyMFoam, interQHDFoam and the
-Lagrangian and reacting applications raise NotImplementedError naming the
-ROADMAP item they wait for.
+family (QHDFoam, SRFQHDFoam with constant/SRFProperties, mulesQHDFoam,
+QHDDyMFoam with constant/dynamicMeshDict; constant/g for the gravity),
+scalarTransportQHDFoam and interQHDFoam (constant/transportProperties, the
+alpha.<phase1> field and its contact-angle walls, cAlpha from
+system/fvSolution), in 2D and 3D, with the hePsi (perfect gas, hConst or
+janaf) and heRho (perfectGas, stiffenedGas or rhoConst) thermo words and
+const, sutherland, polynomial (read as powerLaw, as the JAX package does)
+or powerLaw transport, on wedge meshes and on multi-block unions with dead
+cells (stairstep solids) where the JAX package takes them; the Lagrangian
+and reacting applications raise NotImplementedError naming the ROADMAP
+item they wait for.
 """
 from __future__ import annotations
 
@@ -62,8 +64,6 @@ _TAU_KEYS = {
 
 # applications of the JAX package that the port does not run yet
 _NOT_PORTED_APPS = {
-    "QHDDyMFoam": "ROADMAP queue 1, item 8b (QHDDyMFoam: moving meshes)",
-    "interQHDFoam": "ROADMAP queue 1, item 9",
     "particlesQGDFoam": "ROADMAP queue 1, item 10",
     "particlesQHDFoam": "ROADMAP queue 1, item 10",
     "reactingLagrangianQGDFoam": "ROADMAP queue 1, item 10",
@@ -73,8 +73,8 @@ _QHD_APPS = ("QHDFoam", "SRFQHDFoam", "mulesQHDFoam")
 # the applications that take stairstep solids and wedges (their solvers
 # carry the mirror walls and the hoop sources), as in the JAX package
 _SOLID_APPS = ("QGDFoam",) + _QHD_APPS
-_WEDGE_APPS = ("QGDFoam", "rhoQGDFoam", "scalarTransportQHDFoam") \
-    + _QHD_APPS
+_WEDGE_APPS = ("QGDFoam", "rhoQGDFoam", "scalarTransportQHDFoam",
+               "QHDDyMFoam", "interQHDFoam") + _QHD_APPS
 
 
 def time_controls(control_dict: dict) -> TimeControls:
@@ -200,9 +200,9 @@ def build_case(case_dir: str, device="cuda", dtype=None):
     mesh and state in `dtype` on `device`: the card by default (a
     RuntimeError where there is none; pass device="cpu" for the CPU).
     dtype None is float32 for the QGD solvers and float64 for the QHD
-    family and scalar transport, whose CG solves stop at cg_tol 1e-8 of
-    the rhs, below float32's resolution.  Dispatches on controlDict
-    `application`."""
+    family (QHDDyMFoam and interQHDFoam included) and scalar transport,
+    whose CG solves stop at cg_tol 1e-8 of the rhs, below float32's
+    resolution.  Dispatches on controlDict `application`."""
     from .foam_fields import load_block_mesh, load_initial_fields
 
     device = checked_device(device)
@@ -213,7 +213,8 @@ def build_case(case_dir: str, device="cuda", dtype=None):
         raise NotImplementedError(
             f"application {app!r} is not in the PyTorch port yet: "
             f"{_NOT_PORTED_APPS[app]}")
-    if app not in _QGD_APPS + _QHD_APPS + ("scalarTransportQHDFoam",):
+    if app not in _QGD_APPS + _QHD_APPS + ("QHDDyMFoam", "interQHDFoam",
+                                           "scalarTransportQHDFoam"):
         raise ValueError(f"unsupported application {app!r}")
     if dtype is None:
         dtype = torch.float32 if app in _QGD_APPS else torch.float64
@@ -244,10 +245,39 @@ def build_case(case_dir: str, device="cuda", dtype=None):
         return mesh.tensor(arr), bcs
 
     kw = dict(mesh=mesh, time=cfg.get("time_controls", TimeControls()))
+    fvsc = fvsc_schemes(cfg.get("fvSchemes", {}))
+    U0, bc_U = fld("U")
+    g = _read_gravity(case_dir, kept_axes)
+    if app == "interQHDFoam":
+        from ..solvers.inter_qhd import InterQHDFoam
+
+        props, phase1 = _read_two_phase(cfg.get("transportProperties", {}),
+                                        case_dir)
+        alpha_name = next((n for n in (f"alpha.{phase1}", "alpha1",
+                                       "alpha.water", "alpha")
+                           if n in fields), None)
+        if alpha_name is None:
+            raise ValueError(
+                f"case {case_dir} has no alpha field for phase {phase1!r}")
+        a0, bc_a = fld(alpha_name)
+        kw.update(props=props, bc_U=bc_U, bc_alpha=bc_a, fvsc_scheme=fvsc,
+                  implicit_diffusion=cfg.get("implicit_diffusion", True),
+                  alpha_field=alpha_name)
+        if g is not None:
+            kw["g"] = g
+        p0 = None
+        if "p" in fields or "p_rgh" in fields:
+            p0, kw["bc_p"] = fld("p" if "p" in fields else "p_rgh")
+        angles = _read_contact_angles(case_dir, time_name, alpha_name,
+                                      patch_map)
+        if angles:
+            kw["contact_angles"] = angles
+        solver = InterQHDFoam(**kw)
+        return solver, solver.init(U0=U0, alpha0=a0, p0=p0, t0=t0)
+
     if "thermophysicalProperties" in cfg:
         kw["thermo"] = build_foam_thermo(cfg["thermophysicalProperties"])
         kw["tau_model"] = cfg["tau_model"]
-    U0, bc_U = fld("U")
     T0, bc_T = fld("T")
     if app == "scalarTransportQHDFoam":
         from ..solvers.scalar_transport import ScalarTransportQHD
@@ -255,8 +285,7 @@ def build_case(case_dir: str, device="cuda", dtype=None):
         solver = ScalarTransportQHD(bc_T=bc_T, bc_U=bc_U, **kw)
         return solver, solver.init(T0=T0, U0=U0, t0=t0)
 
-    fvsc = fvsc_schemes(cfg.get("fvSchemes", {}))
-    if app in _QHD_APPS:
+    if app in _QHD_APPS + ("QHDDyMFoam",):
         from ..solvers.qhd import QHDFoam
 
         kw.update(bc_U=bc_U, bc_T=bc_T, fvsc_scheme=fvsc,
@@ -264,7 +293,6 @@ def build_case(case_dir: str, device="cuda", dtype=None):
         p0 = None
         if "p" in fields:
             p0, kw["bc_p"] = fld("p")
-        g = _read_gravity(case_dir, kept_axes)
         if g is not None:
             kw["g"] = g
         if app == "mulesQHDFoam":
@@ -273,6 +301,8 @@ def build_case(case_dir: str, device="cuda", dtype=None):
             omega = _read_srf_omega(case_dir)
             if omega is not None:
                 kw["omega"] = omega
+        if app == "QHDDyMFoam":
+            kw.update(_read_dynamic_mesh(case_dir, mesh.ndim))
         solver = QHDFoam(**kw)
         return solver, solver.init(U0=U0, T0=T0, p0=p0, t0=t0)
 
@@ -285,6 +315,129 @@ def build_case(case_dir: str, device="cuda", dtype=None):
                  implicit_diffusion=cfg.get("implicit_diffusion", False),
                  **kw)
     return solver, solver.init(p0=p0, T0=T0, U0=U0, t0=t0)
+
+
+def dynamic_mesh_kwargs(d: dict, ndim: int) -> dict:
+    """QHDDyMFoam's motion from a dynamicMeshDict (its words at the top
+    level or in a coeffs sub-dict), as QHDFoam fields with torch motion
+    callables (the contract of `solvers.qhd_dym`):
+      solver uniformVelocity;  velocity (ux uy uz);   // mesh_velocity
+      solver uniformDilation;  rate (rx ry rz);       // s_a(t) = 1 + r_a t
+      oscillatingLinearMotionCoeffs { amplitude (ax ay az); omega w; }
+        // x(t) = A sin(w t): mesh_velocity = A w cos(w t)
+      checkMeshCourantNo yes;                         // check_mesh_courant
+    velocity and rate may appear together; {} without a motion word."""
+    sub = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            sub.update(v)
+    sub.update({k: v for k, v in d.items() if not isinstance(v, dict)})
+    kw = {}
+    if "amplitude" in sub and "omega" in sub:
+        amp = tuple(float(x) for x in sub["amplitude"])[:ndim]
+        om = float(sub["omega"])
+
+        def mesh_velocity_osc(t, _a=amp, _w=om):
+            c = _w * torch.cos(_w * torch.as_tensor(t))
+            return tuple(a * c for a in _a)
+
+        kw["mesh_velocity"] = mesh_velocity_osc
+    if "velocity" in sub:
+        vel = tuple(float(x) for x in sub["velocity"])[:ndim]
+        kw["mesh_velocity"] = lambda t, _v=vel: _v
+    if "rate" in sub:
+        rate = tuple(float(x) for x in sub["rate"])[:ndim]
+        kw["mesh_scale"] = lambda t, _r=rate: tuple(1.0 + r * t for r in _r)
+    if kw:
+        kw["check_mesh_courant"] = bool(sub.get("checkMeshCourantNo", False))
+    return kw
+
+
+def _read_dynamic_mesh(case_dir: str, ndim: int) -> dict:
+    """constant/dynamicMeshDict -> QHDFoam motion fields
+    (`dynamic_mesh_kwargs`), {} without the file."""
+    p = os.path.join(case_dir, "constant", "dynamicMeshDict")
+    if not os.path.exists(p):
+        return {}
+    return dynamic_mesh_kwargs(foamdict.parse_file(p), ndim)
+
+
+def _read_contact_angles(case_dir: str, time_name: str, alpha_name: str,
+                         patch_map) -> dict:
+    """The wall contact angles of the alpha field's boundaryField
+    (constant/dynamicAlphaContactAngle words, degrees in the dict, radians
+    in `ContactAngle`): {(axis, side): ContactAngle}.  (The field reader
+    maps these words to zeroGradient, so the file is read again here for
+    their parameters.)"""
+    from ..physics.twophase import ContactAngle
+
+    path = os.path.join(case_dir, time_name, alpha_name)
+    if not os.path.exists(path):
+        path = os.path.join(case_dir, "0", alpha_name)
+        if not os.path.exists(path):
+            return {}
+    out = {}
+    for name, entry in foamdict.parse_file(path).get(
+            "boundaryField", {}).items():
+        if name not in patch_map or not isinstance(entry, dict):
+            continue
+        word = entry.get("type", "")
+        if isinstance(word, list):
+            word = word[0]
+        if "AlphaContactAngle" not in str(word):
+            continue
+        rad = math.radians
+        ca = ContactAngle(theta0=rad(float(entry.get("theta0", 90.0))),
+                          uTheta=float(entry.get("uTheta", 0.0)),
+                          thetaA=rad(float(entry.get("thetaA", 0.0))),
+                          thetaR=rad(float(entry.get("thetaR", 0.0))))
+        for axis, side in patch_map[name][1]:
+            out[(axis, side)] = ca
+    return out
+
+
+def _read_two_phase(transport_props: dict, case_dir: str):
+    """constant/transportProperties -> (TwoPhaseProperties, phase1 name):
+    the phase pair (`phases (water air)`), each phase's nu/rho sub-dict,
+    the per-phase relaxation times tau<phase> (or Tau<phase>), sigma, and
+    cAlpha from system/fvSolution's alpha solver dict."""
+    from ..physics.twophase import TwoPhaseProperties
+
+    d = transport_props
+    phases = d.get("phases", ["water", "air"])
+    if not isinstance(phases, list):
+        phases = [str(phases), "air"]
+    if len(phases) < 2:
+        raise ValueError(
+            f"case {case_dir}: transportProperties `phases {tuple(phases)}` "
+            "must name two phases (e.g. `phases (water air);`)")
+    p1, p2 = str(phases[0]), str(phases[1])
+
+    def last(v):
+        # dimensionedScalar entries parse as [word, dims..., value]
+        return float(v[-1] if isinstance(v, list) else v)
+
+    def phase(name, default_nu, default_rho):
+        sub = d.get(name, {})
+        return (last(sub.get("nu", default_nu)),
+                last(sub.get("rho", default_rho)))
+
+    nu1, rho1 = phase(p1, 1e-6, 1000.0)
+    nu2, rho2 = phase(p2, 1.48e-5, 1.0)
+    tau1 = last(d.get("tau" + p1, d.get("Tau" + p1, 1e-5)))
+    tau2 = last(d.get("tau" + p2, d.get("Tau" + p2, tau1)))
+    c_alpha = 1.0
+    fvsol = os.path.join(case_dir, "system", "fvSolution")
+    if os.path.exists(fvsol):
+        for key, sub in foamdict.parse_file(fvsol).get("solvers",
+                                                       {}).items():
+            if key.startswith("alpha") and isinstance(sub, dict) \
+                    and "cAlpha" in sub:
+                c_alpha = float(sub["cAlpha"])
+    return TwoPhaseProperties(rho1=rho1, rho2=rho2, nu1=nu1, nu2=nu2,
+                              tau1=tau1, tau2=tau2,
+                              sigma=last(d.get("sigma", 0.0)),
+                              c_alpha=c_alpha), p1
 
 
 def _read_gravity(case_dir: str, kept_axes):
@@ -358,6 +511,7 @@ def load_case(case_dir: str) -> dict:
         "controlDict": "system/controlDict",
         "fvSchemes": "system/fvSchemes",
         "thermophysicalProperties": "constant/thermophysicalProperties",
+        "transportProperties": "constant/transportProperties",
     }
     for key, rel in paths.items():
         p = os.path.join(case_dir, rel)

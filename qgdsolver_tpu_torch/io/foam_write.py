@@ -134,9 +134,12 @@ def write_time_dir(case_dir: str, time_name: str, fields: dict,
 def state_fields(solver, state) -> dict:
     """A solver state's prognostic field files as float64 numpy cell arrays
     (the AUTO_WRITE set of the reference application): U, p and T of the
-    QGD solvers (from the conservative State) and of the QHD family, T and
-    the carried U of scalar transport."""
-    from ..solvers import qgd, qhd, scalar_transport, zqgd
+    QGD solvers (from the conservative State) and of the QHD family
+    (QHDDyMFoam's too: its solver is a QHDFoam), T and the carried U of
+    scalar transport, and U, p and the phase fraction of interQHDFoam,
+    whose file is named after the case's first phase
+    (`solver.alpha_field`)."""
+    from ..solvers import inter_qhd, qgd, qhd, scalar_transport, zqgd
 
     if isinstance(solver, (qgd.QGDFoam, zqgd.ZQGDFoam)):
         U, e, T, p = solver.primitives(state)
@@ -145,6 +148,9 @@ def state_fields(solver, state) -> dict:
         fields = (("U", state.U), ("T", state.T), ("p", state.p))
     elif isinstance(solver, scalar_transport.ScalarTransportQHD):
         fields = (("T", state.T), ("U", state.U))
+    elif isinstance(solver, inter_qhd.InterQHDFoam):
+        fields = (("U", state.U), ("p", state.p),
+                  (solver.alpha_field, state.alpha1))
     else:
         raise TypeError(f"no field mapping for {type(solver).__name__}")
     return {name: x.detach().cpu().double().numpy() for name, x in fields}

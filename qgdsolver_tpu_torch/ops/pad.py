@@ -69,9 +69,11 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
     ax = _spatial_axis(arr.ndim, nd, a)
     ncomp = arr.shape[0] if vector else 0
     ctx = spmd.current()
-    # BC value callables see the GLOBAL boundary coordinates; the layer is
+    # BC value callables see the GLOBAL boundary coordinates (of this
+    # step's moved mesh when the block is a window of one); the layer is
     # then windowed to the block
-    cmesh = ctx.global_mesh if ctx is not None else mesh
+    cmesh = mesh if ctx is None else getattr(mesh, "global_mesh",
+                                             ctx.global_mesh)
 
     def extend_prior(v):
         """Extend a BC layer along the already-padded axes b < a to the

@@ -7,7 +7,8 @@ the global reductions.  `build_spmd_step` is that here: the solver is rebuilt
 on this rank's block (`ShardMesh`) and its unmodified `make_step()` runs
 under an active `parallel.spmd` context, which routes the partition-edge
 ghosts of `ghost_pad` through the neighbour ranks and turns the Courant,
-tau and fvc::smooth reductions into collectives.  The JAX package's GSPMD
+tau and fvc::smooth reductions into collectives (QHDDyMFoam and
+interQHDFoam included).  The JAX package's GSPMD
 helpers (`sharded_step`, `shard_state`, ...) have no counterpart: this is
 the one decomposed composable path.
 """
@@ -106,8 +107,11 @@ def spmd_supported(solver) -> tp.Optional[str]:
     """None if `build_spmd_step` can decompose this solver; else the reason.
     Graded spacings and wedge metrics ride the ShardMesh windows, and
     per-cell cqSc floors and const-Sc cellSets are windowed per block
-    (`spmd.localize_cells`); stairstep solid masks are not decomposed, as
-    in the reference (their stencils are indexed globally)."""
+    (`spmd.localize_cells`); a moving mesh's post-motion geometry is
+    windowed per step (`TracedShardMesh`), and interQHDFoam's State
+    (U, alpha1, p) windows as any other; stairstep solid masks are not
+    decomposed, as in the reference (their stencils are indexed
+    globally)."""
     if not hasattr(solver, "make_step"):
         return f"{type(solver).__name__} has no composable step"
     if getattr(solver.mesh, "solid", None) is not None:

@@ -12,14 +12,17 @@ same numbers the serial mesh has for that interior face, so the decomposed
 step is the serial discretization with no geometry exchange.  Each process
 is one block, so the windows start at plain integer offsets.  A block of an
 `AxisymmetricMesh` is an `AxisymmetricShardMesh`: its r-weighted volumes
-and face areas need only the block's own faces and centres.
+and face areas need only the block's own faces and centres.  A block of a
+`TracedMesh` (a moving mesh's geometry of one step, face tensors on the
+device) is a `TracedShardMesh`, which windows the global tensors the same
+way.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import cached_property
 
-from ..core.mesh import AxisymmetricMesh, Mesh
+from ..core.mesh import AxisymmetricMesh, Mesh, TracedMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +64,36 @@ class ShardMesh(Mesh):
 class AxisymmetricShardMesh(ShardMesh, AxisymmetricMesh):
     """A block of an `AxisymmetricMesh`: ShardMesh's windows, and the
     r-weighted metrics of the block's cells."""
+
+
+class TracedShardMesh(TracedMesh):
+    """A block of a `TracedMesh` (a moving mesh's post-motion geometry
+    under a decomposition): the block's own face tensors, and windows of
+    the global tensors for what reaches past the block (ghost widths, so
+    face weights and centre distances; QGD face lengths; mirrored ghost
+    centres).  Its partition faces see the neighbour block's spacing, as
+    `ShardMesh`'s do, and nothing leaves the device."""
+
+    def __init__(self, global_mesh: TracedMesh, starts, shape):
+        self.global_mesh = global_mesh
+        self.starts = tuple(int(s) for s in starts)
+        super().__init__(tuple(f[s:s + n + 1] for f, s, n
+                               in zip(global_mesh.x_faces, self.starts,
+                                      shape)),
+                         dtype=global_mesh.dtype, device=global_mesh.device)
+
+    def _win(self, arrs, extra: int) -> tuple:
+        return tuple(arr[s:s + n + extra] for arr, s, n
+                     in zip(arrs, self.starts, self.shape))
+
+    @cached_property
+    def _pdx(self) -> tuple:
+        return self._win(self.global_mesh._pdx, 2)
+
+    @cached_property
+    def ext_centers(self) -> tuple:
+        return self._win(self.global_mesh.ext_centers, 2)
+
+    @cached_property
+    def h_face_1d(self) -> tuple:
+        return self._win(self.global_mesh.h_face_1d, 1)

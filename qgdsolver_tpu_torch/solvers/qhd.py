@@ -1,5 +1,6 @@
 """QHDFoam — the incompressible quasi-hydrodynamic solver with Boussinesq
-buoyancy (PyTorch port of `qgdsolver_tpu.solvers.qhd`, static meshes).
+buoyancy, on static and moving meshes (PyTorch port of
+`qgdsolver_tpu.solvers.qhd`).
 
 Per step (reference QHDFoam.C):
   updateFields.H : gradUf/gradTf (fvsc), interpolations, BdFrc = beta*T*g
@@ -28,8 +29,20 @@ cell.  Under an spmd context the step runs decomposed as it is: the CG's
 dots and the bounds are collectives and the pRef value comes from the rank
 that owns the global cell (0, ..., 0) (`spmd.first_shard_value`).
 
-Mesh motion (QHDDyMFoam: `mesh_velocity`, `mesh_scale`, `mesh_faces`,
-`check_mesh_courant`) keeps its fields but is not in the port yet.
+Mesh motion (QHDDyMFoam, `solvers.qhd_dym`, whose docstring states the
+motion callables' contract): a rigid `mesh_velocity` makes the convective
+flux relative to the mesh (fvc::makeRelative) and the Courant number of
+the relative face speed; a per-axis dilation `mesh_scale` runs the step on
+the logical grid with metric factors on every operator, the moving-volume
+ddt and Thomas-Lombard mixed-area mesh fluxes; general per-axis face
+motion `mesh_faces` takes the Courant number and setDeltaT on the
+pre-motion mesh, then runs the whole step on the post-motion geometry (a
+`TracedMesh` of face tensors on the device; decomposed, this block's
+`TracedShardMesh` window of it) with the volume ratio V_old/V_new in the
+ddt and the Thomas-Lombard sweeps, so the discrete geometric conservation
+law holds exactly.  `check_mesh_courant` folds the mesh face speed's
+Courant number (global under a decomposition) into the dt controller.
+No path reads `t` or any geometry back to the host.
 """
 from __future__ import annotations
 
@@ -39,10 +52,13 @@ import typing as tp
 import numpy as np
 import torch
 
+import numbers
+
 from ..core import bc as bcm
-from ..core.mesh import Mesh
+from ..core.mesh import Mesh, TracedMesh
 from ..ops import fvsc, linsolve, mules
 from ..parallel import spmd
+from ..parallel.shardmesh import TracedShardMesh
 from ..physics.qgdcoeffs import HbyUQHD, TauModel
 from ..physics.thermo import RhoConstThermo
 from . import common
@@ -68,6 +84,21 @@ def _cross_omega(omega, U, nd):
                         omega[0] * U[1] - omega[1] * U[0]], dim=0)
 
 
+def motion_value(v, like):
+    """A motion callable's value as a tensor in `like`'s dtype on its
+    device: a tensor is moved (a no-op on that device), a number filled on
+    the device, a sequence stacked element by element, anything else
+    (a numpy array) copied from the host.  Nothing is read back."""
+    if torch.is_tensor(v):
+        return v.to(dtype=like.dtype, device=like.device)
+    if isinstance(v, numbers.Number):
+        return torch.full((), float(v), dtype=like.dtype, device=like.device)
+    if isinstance(v, (tuple, list)):
+        return torch.stack([motion_value(x, like) for x in v])
+    return torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=like.dtype,
+                           device=like.device)
+
+
 def _sub_flux_bc(bc_p, grads):
     """bc_p with its QHDFluxP markers replaced by this step's
     FixedGradient layers ({(axis, side): gradient})."""
@@ -84,9 +115,11 @@ class QHDFoam:
     tau_model: TauModel = HbyUQHD()
     g: tp.Optional[tp.Tuple[float, ...]] = None  # gravity, len = ndim
     omega: tp.Optional[tp.Tuple[float, float, float]] = None  # SRF rotation
-    # QHDDyMFoam's moving meshes (a prescribed rigid velocity, per-axis
-    # dilation, per-axis face trajectories, and the mesh Courant cap): not
-    # in the port yet, make_step raises when one is set
+    # QHDDyMFoam's moving meshes: a rigid velocity t -> (ndim,), per-axis
+    # dilation factors t -> (ndim,) (x_a = s_a(t)*xi_a, may be combined
+    # with the rigid velocity), or per-axis face trajectories t -> tuple of
+    # (n_a + 1,) strictly increasing coordinates (alone); and the mesh
+    # Courant cap
     mesh_velocity: tp.Optional[tp.Callable] = None
     mesh_scale: tp.Optional[tp.Callable] = None
     mesh_faces: tp.Optional[tp.Callable] = None
@@ -130,20 +163,27 @@ class QHDFoam:
                      dt=bcm.as_value(self.time.dt0, T0))
 
     def make_step(self):
-        for name in ("mesh_velocity", "mesh_scale", "mesh_faces"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"QHDFoam {name}: moving meshes are not in the PyTorch "
-                    "port yet: ROADMAP queue 1, item 8b (QHDDyMFoam)")
-        if self.check_mesh_courant:
-            raise NotImplementedError(
-                "QHDFoam check_mesh_courant: moving meshes are not in the "
-                "PyTorch port yet: ROADMAP queue 1, item 8b (QHDDyMFoam)")
+        general = self.mesh_faces is not None
+        deform = self.mesh_scale is not None
+        rigid = self.mesh_velocity is not None
+        if deform and self.t_equation == "mules":
+            raise NotImplementedError("mules T-equation on a deforming mesh")
+        if general and (deform or rigid):
+            raise ValueError(
+                "mesh_faces is the general motion spec: do not combine it "
+                "with mesh_velocity/mesh_scale")
+        if general and self.t_equation == "mules":
+            raise NotImplementedError("mules T-equation on a deforming mesh")
         mesh = self.mesh
         nd = mesh.ndim
+        if general and mesh.axisymmetric:
+            # a moved mesh's geometry is planar (TracedMesh): the wedge's
+            # r-weighted metrics and hoop source would be lost
+            raise NotImplementedError("mesh_faces on a wedge mesh")
         bc_U, bc_T, bc_p0 = self._bcs()
         thermo = self.thermo
         tc = self.time
+        check_co = self.check_mesh_courant
         gvec = mesh.tensor(np.asarray(self.g if self.g is not None
                                       else (0.0,) * nd, dtype=np.float64)
                            ).reshape((nd,) + (1,) * nd)
@@ -154,10 +194,13 @@ class QHDFoam:
         sch_U = fvsc.scheme_for(self.fvsc_scheme, "grad(U)")
         sch_T = fvsc.scheme_for(self.fvsc_scheme, "grad(T)")
         sch_p = fvsc.scheme_for(self.fvsc_scheme, "grad(p)")
-        area = tuple(mesh.face_area(a) for a in range(nd))
         mules_T = self.t_equation == "mules"
         flux_sides = tuple((a, side) for a in range(nd) for side in (0, 1)
                            if isinstance(bc_p0[a, side], bcm.QHDFluxP))
+        # the logical face coordinates xi of a dilating mesh (x = s(t)*xi),
+        # on the device once
+        xi_f = (tuple(mesh.bcast(mesh.x_faces[a], a) for a in range(nd))
+                if deform else None)
 
         # stairstep solids: mirror fill before the step, masked
         # Helmholtz/Poisson operators (zero-flux immersed faces), solid
@@ -167,18 +210,34 @@ class QHDFoam:
         if mesh.solid is not None:
             from ..core.solid import StairstepSolid
 
+            if general or deform or rigid:
+                raise NotImplementedError("solid masks on a deforming mesh")
             wall = StairstepSolid(mesh.solid, device=mesh.device)
             fluid_mask = ~np.asarray(mesh.solid, dtype=bool)
             fmasks = linsolve.face_fluid_masks(mesh.solid, mesh)
             ref_cell = tuple(int(i) for i in np.argwhere(fluid_mask)[0])
 
-        def helmholtz(**kw):
+        def helmholtz(m, **kw):
             return linsolve.solve_helmholtz(
-                mesh=mesh, tol=self.cg_tol, maxiter=self.cg_maxiter,
+                mesh=m, tol=self.cg_tol, maxiter=self.cg_maxiter,
                 fluid_mask=fluid_mask, **kw).x
+
+        def traced(faces, like):
+            """The post-motion geometry of face coordinates `faces`: a
+            TracedMesh, or under a decomposition this block's window of
+            the global one (its partition faces see the neighbour's
+            spacing)."""
+            tm = TracedMesh(tuple(motion_value(f, like) for f in faces),
+                            dtype=like.dtype, device=like.device)
+            ctx = spmd.current()
+            if ctx is None:
+                return tm
+            return TracedShardMesh(tm, [ctx.start(b) for b in range(nd)],
+                                   mesh.shape)
 
         def step(s: State) -> State:
             U, T, p, t, dt = s
+            m = mesh
             if wall is not None:
                 # mirror fill of the solid boundary cells: the shared faces
                 # see zero normal velocity and zero-gradient scalars
@@ -191,22 +250,77 @@ class QHDFoam:
             rho = thermo.rho(p, T)
             mu = thermo.mu(p, T)
             alpha = thermo.alphah(p, T)
+            um = motion_value(self.mesh_velocity(t), T) if rigid else None
+
+            if general:
+                # OpenFOAM's order: Courant + setDeltaT on the pre-motion
+                # mesh, mesh.update(), then the whole step on the
+                # post-motion geometry
+                m_old = traced(self.mesh_faces(t), T)
+                m_est = traced(self.mesh_faces(t + dt), T)
+                Uf0 = fvsc.interpolate(U, bc_Us, m_old, t=t, vector=True)
+                Uf_rel0 = []
+                mesh_co = torch.zeros((), dtype=T.dtype, device=T.device)
+                for a in range(nd):
+                    um_f = m_old.bcast(
+                        (m_est.x_faces[a] - m_old.x_faces[a]) / dt, a)
+                    Uf_rel0.append(torch.cat(
+                        [Uf0[a][i:i + 1] - um_f[None] if i == a
+                         else Uf0[a][i:i + 1] for i in range(nd)], dim=0))
+                    if check_co:
+                        mesh_co = torch.maximum(
+                            mesh_co,
+                            spmd.all_max(torch.max(torch.abs(um_f))) * dt
+                            / spmd.all_min(torch.min(m_old.h_face(a))))
+                co0 = common.courant_advective(tuple(Uf_rel0), dt, m_old)
+                if check_co:
+                    co0 = torch.maximum(co0, mesh_co)
+                coeffs0 = self.tau_model.correct(m_old, p=p, T=T, ref=T,
+                                                 mu=mu, rho=rho)
+                dt_new = common.set_delta_t(
+                    dt, co0, common.tau_f_min(coeffs0.tau_f), tc)
+                m = traced(self.mesh_faces(t + dt_new), T)
+                vol_ratio = m_old.cell_volume / m.cell_volume
+                # Thomas-Lombard mixed-area mesh fluxes (axis a: the new
+                # spacings for b < a, the old for b > a): the face sweeps
+                # telescope to V_new - V_old per cell exactly, the
+                # discrete geometric conservation law
+                mesh_sweep = []
+                for a in range(nd):
+                    sw = m.bcast((m.x_faces[a] - m_old.x_faces[a])
+                                 * (1.0 / dt_new), a)
+                    for b in range(nd):
+                        if b < a:
+                            sw = sw * m.bcast(m.dx[b], b)
+                        elif b > a:
+                            sw = sw * m_old.bcast(m_old.dx[b], b)
+                    mesh_sweep.append(sw)
 
             # updateFields.H
-            gradUf = fvsc.grad(U, bc_Us, mesh, scheme=sch_U, t=t, vector=True)
-            gradTf = fvsc.grad(T, bc_Ts, mesh, scheme=sch_T, t=t)
-            muf = fvsc.interpolate(mu, bc_zg, mesh)
-            alphaf = fvsc.interpolate(alpha, bc_zg, mesh)
-            rhof = fvsc.interpolate(rho, bc_zg, mesh)
-            Uf = fvsc.interpolate(U, bc_Us, mesh, t=t, vector=True)
-            Tf = fvsc.interpolate(T, bc_Ts, mesh, t=t)
+            gradUf = fvsc.grad(U, bc_Us, m, scheme=sch_U, t=t, vector=True)
+            gradTf = fvsc.grad(T, bc_Ts, m, scheme=sch_T, t=t)
+            if deform:
+                # per-axis dilation x_i = s_i(t)*xi_i: the logical-grid
+                # derivatives take 1/s_i metric factors
+                s_old = [motion_value(v, T) for v in self.mesh_scale(t)]
+                gradUf = tuple(torch.stack([gradUf[a][i] / s_old[i]
+                                            for i in range(nd)])
+                               for a in range(nd))
+                gradTf = tuple(torch.stack([gradTf[a][i] / s_old[i]
+                                            for i in range(nd)])
+                               for a in range(nd))
+            muf = fvsc.interpolate(mu, bc_zg, m)
+            alphaf = fvsc.interpolate(alpha, bc_zg, m)
+            rhof = fvsc.interpolate(rho, bc_zg, m)
+            Uf = fvsc.interpolate(U, bc_Us, m, t=t, vector=True)
+            Tf = fvsc.interpolate(T, bc_Ts, m, t=t)
             BdFrc = thermo.beta * T[None] * gvec
             if omega is not None:
                 # the SRF Coriolis force: BdFrc -= 2*Omega x U
                 BdFrc = BdFrc - 2.0 * _cross_omega(omega, U, nd)
-            BdFrcf = fvsc.interpolate(BdFrc, bc_zg, mesh, vector=True)
+            BdFrcf = fvsc.interpolate(BdFrc, bc_zg, m, vector=True)
             Hif = tuple(alphaf[a] / rhof[a] for a in range(nd))
-            tau_f = self.tau_model.correct(mesh, p=p, T=T, ref=T, mu=mu,
+            tau_f = self.tau_model.correct(m, p=p, T=T, ref=T, mu=mu,
                                            rho=rho).tau_f
 
             # updateFluxes.H: (Uf & gradUf)_a[j] = sum_i Uf_i dU_j/dx_i at
@@ -216,6 +330,7 @@ class QHDFoam:
                                  for i in range(nd)) for j in range(nd)],
                             dim=0)
                 for a in range(nd))
+            area = tuple(m.face_area(a) for a in range(nd))
             phiu = tuple(Uf[a][a] * area[a] for a in range(nd))
             wo = tuple(tau_f[a] * (u_dot_gradU[a] - BdFrcf[a])
                        for a in range(nd))
@@ -224,9 +339,79 @@ class QHDFoam:
             # phiu/phiwo are not masked at immersed faces: the mirror fill
             # reproduces the body-fitted wall values there
 
-            # Courant + setDeltaT
-            co = common.courant_advective(Uf, dt, mesh)
-            dt_new = common.set_delta_t(dt, co, common.tau_f_min(tau_f), tc)
+            # Courant + setDeltaT (general motion chose dt before the
+            # motion): on a moving mesh the face velocity relative to the
+            # mesh, and with check_mesh_courant the mesh face speed too
+            if deform:
+                # the physical h_face is h*s: 1/s folds into the velocity;
+                # the mesh face speed is u_m = sdot_a*xi_a + um_a
+                sv = torch.stack(s_old).reshape((nd,) + (1,) * nd)
+                um0 = um.reshape((nd,) + (1,) * nd) if rigid else 0.0
+                s_fwd = [motion_value(v, T) for v in self.mesh_scale(t + dt)]
+                mesh_co = torch.zeros((), dtype=T.dtype, device=T.device)
+                Uf_co = []
+                for a in range(nd):
+                    sdot_a = (s_fwd[a] - s_old[a]) / dt
+                    dil = torch.broadcast_to(sdot_a * xi_f[a],
+                                             Uf[a].shape[1:])[None]
+                    dil = torch.cat([dil if i == a else torch.zeros_like(dil)
+                                     for i in range(nd)], dim=0)
+                    Uf_co.append((Uf[a] - um0 - dil) / sv)
+                    if check_co:
+                        # global reductions under a decomposition
+                        h_phys = (spmd.all_min(torch.min(m.h_face(a)))
+                                  * s_old[a])
+                        um0_a = um[a] if rigid else 0.0
+                        mesh_co = torch.maximum(
+                            mesh_co,
+                            spmd.all_max(torch.max(torch.abs(
+                                sdot_a * xi_f[a] + um0_a))) * dt / h_phys)
+                co = common.courant_advective(tuple(Uf_co), dt, m)
+                if check_co:
+                    co = torch.maximum(co, mesh_co)
+            elif rigid:
+                Uf_rel = tuple(Uf[a] - um.reshape((nd,) + (1,) * nd)
+                               for a in range(nd))
+                co = common.courant_advective(Uf_rel, dt, m)
+                if check_co:
+                    co = torch.maximum(co, torch.max(torch.stack([
+                        torch.abs(um[a]) * dt
+                        / spmd.all_min(torch.min(m.h_face(a)))
+                        for a in range(nd)])))
+            elif not general:
+                co = common.courant_advective(Uf, dt, m)
+            if not general:
+                dt_new = common.set_delta_t(dt, co, common.tau_f_min(tau_f),
+                                            tc)
+
+            # the deforming mesh's metric factors: face areas fA, the
+            # moving-volume ddt (V/V')*old/dt, the physical divergence 1/V'
+            if deform:
+                s_new = [motion_value(v, T)
+                         for v in self.mesh_scale(t + dt_new)]
+                sp_old, sp_new = s_old[0], s_new[0]
+                for b in range(1, nd):
+                    sp_old = sp_old * s_old[b]
+                    sp_new = sp_new * s_new[b]
+                fA = [sp_new / s_new[a] for a in range(nd)]
+                vr = sp_old / sp_new
+                inv_v = 1.0 / sp_new
+                phiu = tuple(phiu[a] * fA[a] for a in range(nd))
+                phiwo = tuple(phiwo[a] * fA[a] for a in range(nd))
+                gam_p = tuple(taubyrhof[a] / (s_new[a] * s_new[a])
+                              for a in range(nd))
+            else:
+                # general motion's operators already live on the
+                # post-motion geometry: only the volume ratio enters
+                vr = vol_ratio if general else None
+                inv_v = None
+                gam_p = taubyrhof
+
+            def scaled(x):
+                return x if inv_v is None else x * inv_v
+
+            def ddt_old(x):
+                return x / dt_new if vr is None else x * vr / dt_new
 
             # QHDpEqn.H; the qhdFlux p BC: dp/dn = -phiwStar*rho_f /
             # (tau_f*|Sf|), phiwStar = phiwo (the regularizer flux without
@@ -242,8 +427,8 @@ class QHDFoam:
                 flux_grads[(a, side)] = -sign * wn * rf / tf
             bc_p = bcm.resolve_inlet_outlet(_sub_flux_bc(bc_p0, flux_grads),
                                             U, nd)
-            rhs_p = fvsc.div_flux(phiu, mesh) - fvsc.div_flux(phiwo, mesh)
-            p_new = helmholtz(diag_coeff=0.0, gamma_faces=taubyrhof,
+            rhs_p = scaled(fvsc.div_flux(phiu, m) - fvsc.div_flux(phiwo, m))
+            p_new = helmholtz(m, diag_coeff=0.0, gamma_faces=gam_p,
                               rhs=-rhs_p, x0=p, bcs=bc_p, t=t,
                               singular=singular)
             if singular:
@@ -259,15 +444,45 @@ class QHDFoam:
 
             # phi = phiu - phiwo + pEqn.flux(): the face flux the CG
             # balanced (its laplacian part masked at immersed faces, as
-            # the masked operator was)
-            snp = fvsc.sn_grad(p_new, bc_p, mesh, t=t)
+            # the masked operator was; on a dilating mesh the flux of
+            # sp_new*gam_p over the logical area)
+            snp = fvsc.sn_grad(p_new, bc_p, m, t=t)
             if fmasks is not None:
                 snp = tuple(snp[a] * fmasks[a] for a in range(nd))
-            phi = tuple(phiu[a] - phiwo[a] - taubyrhof[a] * area[a] * snp[a]
+            tb_flux = (tuple(taubyrhof[a] * fA[a] / s_new[a]
+                             for a in range(nd)) if deform else taubyrhof)
+            phi = tuple(phiu[a] - phiwo[a] - tb_flux[a] * area[a] * snp[a]
                         for a in range(nd))
+            if general:
+                # fvc::makeRelative(phi, U) with the Thomas-Lombard sweeps
+                phi = tuple(phi[a] - mesh_sweep[a] for a in range(nd))
+            elif rigid or deform:
+                # fvc::makeRelative(phi, U): less the mesh face flux; a
+                # dilation's u_m = sdot*xi + um over Thomas-Lombard mixed
+                # areas, so that sum_f u_m.A*dt = V' - V per cell exactly
+                umv = um if rigid else torch.zeros(nd, dtype=T.dtype,
+                                                   device=T.device)
+                phim = []
+                for a in range(nd):
+                    if deform:
+                        sdot = (s_new[a] - s_old[a]) / dt_new
+                        a_mesh = area[a]
+                        for b in range(nd):
+                            if b < a:
+                                a_mesh = a_mesh * s_new[b]
+                            elif b > a:
+                                a_mesh = a_mesh * s_old[b]
+                        phim.append((sdot * xi_f[a] + umv[a]) * a_mesh)
+                    else:
+                        phim.append(umv[a] * area[a])
+                phi = tuple(phi[a] - phim[a] for a in range(nd))
 
             # QHDUEqn.H
-            gradPf = fvsc.grad(p_new, bc_p, mesh, scheme=sch_p, t=t)
+            gradPf = fvsc.grad(p_new, bc_p, m, scheme=sch_p, t=t)
+            if deform:
+                gradPf = tuple(torch.stack([gradPf[a][i] / s_new[i]
+                                            for i in range(nd)])
+                               for a in range(nd))
             Wf = tuple(tau_f[a] * (u_dot_gradU[a] + gradPf[a] / rhof[a]
                                    - BdFrcf[a]) for a in range(nd))
             # phiUf = qgdFlux(phi, U, Uf) - Sf&(Uf*Wf) = phi*Uf - phiu*Wf
@@ -276,40 +491,50 @@ class QHDFoam:
             # the explicit transposed stress div(nu_f Sf & interp(T(gradU))):
             # at an a-face (Sf & T(gradU))_j = |Sf| dU_a/dx_j, column a of
             # G[i, j] = dU_j/dx_i
-            gradU_cell = fvsc.grad_cell_vector(U, bc_Us, mesh, t=t)
+            gradU_cell = fvsc.grad_cell_vector(U, bc_Us, m, t=t)
             if wall is not None:
                 # solid cells take the adjacent fluid cell's gradient
                 gradU_cell = torch.stack([
                     torch.stack([wall.mirror(gradU_cell[i, j])
                                  for j in range(nd)]) for i in range(nd)])
             gradU_f = fvsc.interpolate(
-                gradU_cell.reshape((nd * nd,) + tuple(mesh.shape)), bc_zg,
-                mesh)
+                gradU_cell.reshape((nd * nd,) + tuple(m.shape)), bc_zg, m)
             transp_flux = tuple(
                 nuf[a] * area[a]
-                * gradU_f[a].reshape((nd, nd) + mesh.face_shape(a))[:, a]
+                * gradU_f[a].reshape((nd, nd) + m.face_shape(a))[:, a]
                 for a in range(nd))
-            grad_p_cell = fvsc.grad_cell(p_new, bc_p, mesh, t=t)
-            rhs_U = (U / dt_new
-                     - fvsc.div_flux(phiUf, mesh)
-                     + fvsc.div_flux(transp_flux, mesh)
+            nuf_lap = nuf
+            grad_p_cell = fvsc.grad_cell(p_new, bc_p, m, t=t)
+            if deform:
+                # flux component j carries d/dx_j: 1/s_j; A_phys = A*fA
+                transp_flux = tuple(
+                    torch.stack([transp_flux[a][i] * (fA[a] / s_new[i])
+                                 for i in range(nd)]) for a in range(nd))
+                nuf_lap = tuple(nuf[a] / (s_new[a] * s_new[a])
+                                for a in range(nd))
+                grad_p_cell = torch.stack([grad_p_cell[i] / s_new[i]
+                                           for i in range(nd)])
+            rhs_U = (ddt_old(U)
+                     - scaled(fvsc.div_flux(phiUf, m))
+                     + scaled(fvsc.div_flux(transp_flux, m))
                      - grad_p_cell / rho[None]
                      + BdFrc)
-            if mesh.axisymmetric:
+            if m.axisymmetric:
                 # the cylindrical vector laplacian's hoop term -u_r/r^2 of
                 # (lap U)_r (the r-weighted metrics give the rest)
-                r_c = mesh.cell_coords(1)
+                r_c = m.cell_coords(1)
                 rhs_U = torch.stack([
                     rhs_U[0], rhs_U[1] + -(mu / rho) * U[1] / (r_c * r_c)])
             if self.implicit_diffusion:
-                U_new = helmholtz(diag_coeff=1.0 / dt_new, gamma_faces=nuf,
-                                  rhs=rhs_U, x0=U, bcs=bc_Us, t=t,
-                                  vector=True, solid_wall_dirichlet=True)
+                U_new = helmholtz(m, diag_coeff=1.0 / dt_new,
+                                  gamma_faces=nuf_lap, rhs=rhs_U, x0=U,
+                                  bcs=bc_Us, t=t, vector=True,
+                                  solid_wall_dirichlet=True)
             else:
                 # explicit diffusion on immersed walls: the mirror-filled U
                 # already holds the no-slip ghost
                 U_new = dt_new * (rhs_U + fvsc.laplacian_explicit(
-                    nuf, U, bc_Us, mesh, t=t, vector=True))
+                    nuf_lap, U, bc_Us, m, t=t, vector=True))
 
             phiTf = tuple(phi[a] * Tf[a] for a in range(nd))
             Hif_m = (tuple(Hif[a] * fmasks[a] for a in range(nd))
@@ -318,29 +543,33 @@ class QHDFoam:
                 # MULESTEqn.H: bounded explicit advection between the
                 # global bounds, then the diffusion correction
                 T_adv, _ = mules.explicit_solve(
-                    T, phi, phiTf, dt_new, mesh, spmd.all_max(torch.max(T)),
+                    T, phi, phiTf, dt_new, m, spmd.all_max(torch.max(T)),
                     spmd.all_min(torch.min(T)), n_iter=self.mules_n_iter)
                 if self.implicit_diffusion:
-                    T_new = helmholtz(diag_coeff=1.0 / dt_new,
+                    T_new = helmholtz(m, diag_coeff=1.0 / dt_new,
                                       gamma_faces=Hif, rhs=T_adv / dt_new,
                                       x0=T_adv, bcs=bc_Ts, t=t)
                 else:
                     T_new = T_adv + dt_new * fvsc.laplacian_explicit(
-                        Hif_m, T_adv, bc_Ts, mesh, t=t)
+                        Hif_m, T_adv, bc_Ts, m, t=t)
             else:
                 # QHDTEqn.H
                 phiTauTReg = tuple(
                     tau_f[a] * phiu[a] * torch.sum(Uf[a] * gradTf[a], dim=0)
                     for a in range(nd))
-                rhs_T = (T / dt_new - fvsc.div_flux(phiTf, mesh)
-                         + fvsc.div_flux(phiTauTReg, mesh))
+                rhs_T = (ddt_old(T) - scaled(fvsc.div_flux(phiTf, m))
+                         + scaled(fvsc.div_flux(phiTauTReg, m)))
                 if self.implicit_diffusion:
-                    T_new = helmholtz(diag_coeff=1.0 / dt_new,
-                                      gamma_faces=Hif, rhs=rhs_T, x0=T,
+                    Hif_lap = (tuple(Hif[a] / (s_new[a] * s_new[a])
+                                     for a in range(nd)) if deform else Hif)
+                    T_new = helmholtz(m, diag_coeff=1.0 / dt_new,
+                                      gamma_faces=Hif_lap, rhs=rhs_T, x0=T,
                                       bcs=bc_Ts, t=t)
                 else:
+                    Hif_lap = (tuple(Hif_m[a] / (s_new[a] * s_new[a])
+                                     for a in range(nd)) if deform else Hif_m)
                     T_new = dt_new * (rhs_T + fvsc.laplacian_explicit(
-                        Hif_m, T, bc_Ts, mesh, t=t))
+                        Hif_lap, T, bc_Ts, m, t=t))
 
             if wall is not None:
                 # solid cells are not prognostic: they keep their carried

@@ -57,7 +57,7 @@ def solve_logs(monkeypatch):
     yield jlog, tlog
 
 
-def run_both(jsolver, js, n, tol, monkeypatch, floors=None):
+def run_both(jsolver, js, n, tol, monkeypatch, floors=None, over=None):
     """n steps of a JAX solver and of its port from one State.
 
     The JAX package runs its trajectory once, every State kept.  The port
@@ -74,10 +74,12 @@ def run_both(jsolver, js, n, tol, monkeypatch, floors=None):
     side of an iteration.
     `floors` ({field: scale}) sets a field's least scale: a field that is
     round-off of zero (the pressure of a uniform stream) is held against
-    its physical scale.  Returns (the JAX States [0..n], the port's last
+    its physical scale.  `over` ({field: value}) sets fields of the port's
+    solver, such as the torch counterparts of QHDDyMFoam's motion
+    callables, which `interop.solver_from` cannot carry.  Returns (the JAX States [0..n], the port's last
     window State with numpy leaves, the port's [(kind, iterations)])."""
     floors = floors or {}
-    tsolver = interop.solver_from(jsolver, dtype=F64)
+    tsolver = interop.solver_from(jsolver, dtype=F64, **(over or {}))
     tstep = tsolver.make_step()
     step = jsolver.make_step()
     with solve_logs(monkeypatch) as (jlog, tlog):

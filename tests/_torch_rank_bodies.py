@@ -7,8 +7,11 @@ port and no JAX (the JAX references run in the pytest process).  A job is
 leaves): kind "spmd" is the decomposed composable step, "k3" and "k5" the
 decomposed fused steps, "scaling" a `measure_scaling` call (shape: its
 base tile; no state).  The case is any solver of `port_case`: the QGD
-jets, the QHD buoyant cavity (also with the MULES T equation) and the
-scalar box, whose States `interop` carries by their field names.  `run_jobs` runs the jobs in turn on this rank and
+jets, the QHD buoyant cavity (also with the MULES T equation), the scalar
+box, QHDDyMFoam's dilating and general-motion meshes and interQHDFoam's
+graded drop, whose States `interop` carries by their field names; a case
+name "case!fault" runs it with one of the JAX package's decomposition
+faults put back into the port (`_fault_patches`).  `run_jobs` runs the jobs in turn on this rank and
 returns, per job, the gathered global State (numpy leaves) and the launch
 counts of the flagged kernel wrappers over its steps.
 """
@@ -118,8 +121,131 @@ def mules_box(shape, dtype, device):
     return solver, solver.init(U0, T0)
 
 
+def _blob(mesh, x0, y0, width):
+    x = mesh.centers[0][:, None] * np.ones(mesh.shape)
+    y = mesh.centers[1][None, :] * np.ones(mesh.shape)
+    return mesh.tensor(np.exp(-((x - x0) ** 2 + (y - y0) ** 2) / width))
+
+
+def dym_dilation(shape, dtype, device):
+    """(solver, State): tests/test_spmd.py's deforming QHDDyMFoam (an
+    oscillating dilation with a rigid velocity and the mesh Courant cap)
+    on the port, its motion in torch."""
+    from qgdsolver_tpu_torch.physics.qgdcoeffs import ConstTau
+    from qgdsolver_tpu_torch.physics.thermo import RhoConstThermo
+    from qgdsolver_tpu_torch.solvers.qhd_dym import QHDDyMFoam
+
+    mesh = Mesh.uniform(shape, dtype=dtype, device=device)
+    zg = bcm.FieldBCs.uniform(bcm.ZeroGradient(), 2)
+    solver = QHDDyMFoam(
+        mesh_scale=lambda t: (1.0 + 0.15 * torch.sin(3.0 * t),
+                              1.0 + 0.15 * torch.sin(5.1 * t + 0.5)),
+        mesh_velocity=lambda t: (0.05, -0.02), check_mesh_courant=True,
+        mesh=mesh, thermo=RhoConstThermo(rho0=1.0, Cp=1000.0, mu0=1e-3,
+                                         Pr=1.0),
+        tau_model=ConstTau(tau0=1e-4), bc_U=zg, bc_T=zg, bc_p=zg,
+        time=TimeControls(max_co=0.3, max_dt=5e-3, dt0=1e-3), cg_tol=1e-12)
+    T0 = _blob(mesh, 0.4, 0.6, 0.05)
+    return solver, solver.init(torch.zeros((2,) + mesh.shape, dtype=dtype,
+                                           device=device), T0)
+
+
+def dym_general(shape, dtype, device):
+    """(solver, State): tests/test_spmd.py's general-motion QHDDyMFoam
+    (sloshing faces along x, breathing along y, the mesh Courant cap) on
+    the port, its face trajectories torch tensors on `device`."""
+    from qgdsolver_tpu_torch.physics.qgdcoeffs import ConstTau
+    from qgdsolver_tpu_torch.physics.thermo import RhoConstThermo
+    from qgdsolver_tpu_torch.solvers.qhd_dym import QHDDyMFoam
+
+    mesh = Mesh.uniform(shape, dtype=dtype, device=device)
+    x0, y0 = (torch.linspace(0.0, 1.0, n + 1, dtype=dtype, device=device)
+              for n in shape)
+
+    def faces(t):
+        return (x0 + 0.06 * torch.sin(3.0 * t) * torch.sin(np.pi * x0),
+                y0 + 0.04 * torch.sin(5.1 * t) * y0 * (1.0 - y0))
+
+    zg = bcm.FieldBCs.uniform(bcm.ZeroGradient(), 2)
+    solver = QHDDyMFoam(
+        mesh_faces=faces, check_mesh_courant=True, mesh=mesh,
+        thermo=RhoConstThermo(rho0=1.0, Cp=1000.0, mu0=1e-3, Pr=1.0),
+        tau_model=ConstTau(tau0=1e-4), bc_U=zg, bc_T=zg, bc_p=zg,
+        time=TimeControls(max_co=0.3, max_dt=5e-3, dt0=1e-3), cg_tol=1e-12)
+    T0 = _blob(mesh, 0.45, 0.55, 0.05)
+    return solver, solver.init(torch.zeros((2,) + mesh.shape, dtype=dtype,
+                                           device=device), T0)
+
+
+def graded_drop(shape, dtype, device):
+    """(solver, State): a heavy drop with surface tension under gravity on
+    a graded mesh (x expanding, y contracting: the blocks' mean cell
+    volumes differ), a 60 degree contact angle on the floor, the alpha
+    smoothing on, and a pure-Neumann p (the pRef fix).  Its interface
+    crosses both partition lines of a 2x2 decomposition."""
+    from qgdsolver_tpu_torch.physics.twophase import (ContactAngle,
+                                                      TwoPhaseProperties)
+    from qgdsolver_tpu_torch.solvers.inter_qhd import InterQHDFoam
+
+    nx, ny = shape
+    mesh = Mesh(x_faces=(graded_faces(nx, 1.0, 3.0),
+                         graded_faces(ny, 1.0, 0.4)),
+                dtype=dtype, device=device)
+    props = TwoPhaseProperties(rho1=1000.0, rho2=1.0, nu1=1e-6, nu2=1.5e-5,
+                               tau1=2e-4, tau2=2e-4, sigma=0.07,
+                               c_alpha=1.0)
+    solver = InterQHDFoam(
+        mesh=mesh, props=props, g=(0.0, -9.81),
+        contact_angles={(1, 0): ContactAngle(theta0=np.radians(60.0))},
+        smooth_alpha=True,
+        time=TimeControls(max_co=0.2, max_dt=1e-3, dt0=1e-4), cg_tol=1e-10)
+    x = mesh.centers[0][:, None] * np.ones(mesh.shape)
+    y = mesh.centers[1][None, :] * np.ones(mesh.shape)
+    r = np.sqrt((x - 0.5) ** 2 + (y - 0.45) ** 2)
+    a0 = mesh.tensor(0.5 * (1.0 - np.tanh((r - 0.25) / 0.03)))
+    return solver, solver.init(torch.zeros((2,) + mesh.shape, dtype=dtype,
+                                           device=device), a0)
+
+
+# the JAX package's decomposition faults of interQHDFoam, put back into
+# the port's step by name: each makes a block use its own edges where the
+# serial step sees the neighbour's
+def _fault_patches():
+    from qgdsolver_tpu_torch.ops import mules
+    from qgdsolver_tpu_torch.physics import twophase
+    from qgdsolver_tpu_torch.solvers import inter_qhd
+
+    def own_edge_upwind(phi_a, fld, nd, a):
+        ax = fld.ndim - nd + a
+        n = fld.shape[ax]
+        ext = torch.cat([fld.narrow(ax, 0, 1), fld,
+                         fld.narrow(ax, n - 1, 1)], dim=ax)
+        lo, hi = mules._pairs(ext, nd, a)
+        return torch.where(phi_a >= 0, lo, hi) * phi_a
+
+    def both_ends_zeroed(phic, nd, a):
+        ax = phic.ndim - nd + a
+        n = phic.shape[ax]
+        mask = torch.ones(n, dtype=phic.dtype, device=phic.device)
+        mask[0] = mask[n - 1] = 0.0
+        shape = [1] * phic.ndim
+        shape[ax] = n
+        return phic * mask.reshape(shape)
+
+    return {
+        "upwind": (inter_qhd, "upwind_flux", own_edge_upwind),
+        "pref": (inter_qhd, "pressure_reference",
+                 lambda p, nd: p[(0,) * nd]),
+        "compression": (inter_qhd, "uncoupled_zeroed", both_ends_zeroed),
+        "delta_n": (inter_qhd, "_whole_mesh", lambda mesh: mesh),
+        "contact": (twophase, "owns_wall", lambda a, side: True),
+    }
+
+
 def port_case(name, shape, dtype, device="cpu"):
     """The port's solver for a test case name."""
+    if name in ("dym_dilation", "dym_general", "graded_drop"):
+        return globals()[name](shape, dtype, device)[0]
     if name == "graded_jet":
         return graded_jet(dtype, device)
     if name == "implicit_jet":
@@ -176,15 +302,27 @@ def run_jobs(jobs, device="cpu"):
                 sharding.ProcessGrid(px, py), n_steps=steps, repeats=1,
                 base=shape), {}))
             continue
-        solver = port_case(name, shape, dtype, dev)
-        step, to_blocks, from_blocks = builder(kind)(
-            solver, sharding.ProcessGrid(px, py))
-        s = to_blocks(interop.state_from_numpy(state_np, device=dev,
-                                               dtype=dtype))
-        for k in kernels:
-            k.launches = 0
-        for _ in range(steps):
-            s = step(s)
+        # "case!fault": the case with one of the JAX package's
+        # decomposition faults put back (`_fault_patches`)
+        name, _, fault = name.partition("!")
+        patch = _fault_patches()[fault] if fault else None
+        if patch is not None:
+            mod, attr, fn = patch
+            saved = getattr(mod, attr)
+            setattr(mod, attr, fn)
+        try:
+            solver = port_case(name, shape, dtype, dev)
+            step, to_blocks, from_blocks = builder(kind)(
+                solver, sharding.ProcessGrid(px, py))
+            s = to_blocks(interop.state_from_numpy(state_np, device=dev,
+                                                   dtype=dtype))
+            for k in kernels:
+                k.launches = 0
+            for _ in range(steps):
+                s = step(s)
+        finally:
+            if patch is not None:
+                setattr(mod, attr, saved)
         launches = {k.__name__: k.launches for k in kernels if k.launches}
         out.append((interop.state_to_numpy(from_blocks(s)), launches))
     return out

@@ -326,7 +326,8 @@ def test_config_builds_solver(tmp_path):
         U0=torch.zeros((2, 8, 4))), 2)
     assert len(s.wt) == 1 and bool(torch.isfinite(s.rhoU).all())
     assert float(s.rhoU[0].abs().max()) > 0.0
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # interQHDFoam (item 9) is ported since: its config needs its phases
+    with pytest.raises(ValueError, match="props"):
         config.build_solver(dict(cfg, solver="interQHDFoam"), device="cpu")
     # the JANAF thermo word is ported since: it builds its thermo
     janaf = {"type": "janafPerfectGas", "janaf": {

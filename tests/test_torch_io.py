@@ -405,9 +405,11 @@ def test_build_case_3d_flagship_rides_fused_kernel(tmp_path):
 
 
 def test_unported_words_raise(tmp_path):
-    """Words of the JAX package the port lacks name their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        foam_fields._bc_from_entry({"type": "mQhdFlux"}, 2, (0, 1), False)
+    """Words of the JAX package map as the JAX package maps them, those of
+    items 8b and 9 (mQhdFlux, QHDDyMFoam) included since they are
+    ported."""
+    assert isinstance(foam_fields._bc_from_entry({"type": "mQhdFlux"}, 2,
+                                                 (0, 1), False), bcm.QHDFluxP)
     # words ported since: they map as the JAX package maps them
     assert foam_case.tau_model({"QGD": {"QGDCoeffs": "constTau",
                                         "Tau": 1e-3}}).tau0 == 1e-3
@@ -430,8 +432,10 @@ def test_unported_words_raise(tmp_path):
     ctrl = (case / "system" / "controlDict").read_text().replace(
         "application     QGDFoam;", "application     QHDDyMFoam;")
     (case / "system" / "controlDict").write_text(ctrl)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        foam_case.build_case(str(case), device="cpu")
+    # the QGDFoam jet has no T-equation QHD fields: QHDDyMFoam reads it as
+    # the JAX package does, as a QHD case
+    solver, _ = foam_case.build_case(str(case), device="cpu")
+    assert type(solver).__name__ == "QHDFoam"
 
 
 # ---------------------------------------------------------------------------

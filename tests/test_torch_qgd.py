@@ -107,8 +107,8 @@ def test_run_steps_checks_state(tmp_path):
 def test_unported_branches_raise():
     """The implicit-diffusion and qgdFlux limiter/relaxation branches are
     ported (they build and step), and so are QGDFoam's neighbours of
-    ROADMAP item 7 (zQGDFoam, the JANAF thermo); interQHDFoam still raises
-    NotImplementedError naming its item."""
+    ROADMAP item 7 (zQGDFoam, the JANAF thermo); so is interQHDFoam (item
+    9), whose config without its phases raises."""
     import dataclasses
 
     from qgdsolver_tpu_torch.core import config
@@ -123,5 +123,5 @@ def test_unported_branches_raise():
            "thermo": {"type": "psiPerfectGas", "R": 287.0, "Cp": 1004.5}}
     assert type(config.build_solver(cfg, device="cpu")).__name__ == \
         "ZQGDFoam"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="props"):
         config.build_solver(dict(cfg, solver="interQHDFoam"), device="cpu")

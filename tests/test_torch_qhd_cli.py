@@ -275,36 +275,63 @@ def test_cli_devices_2x1_matches_one_rank(app, tmp_path):
     ("particlesQGDFoam", "item 10"), ("particlesQHDFoam", "item 10"),
     ("reactingLagrangianQGDFoam", "item 10")])
 def test_apps_still_to_come_raise(app, item, tmp_path):
-    """build_case and core.config's build_solver raise naming the item."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        config.build_solver({"solver": app, "mesh": {"shape": [4, 4]}},
-                            device="cpu")
+    """build_case and core.config's build_solver raise naming the item for
+    the applications of item 10.  Those of items 8b (QHDDyMFoam) and 9
+    (interQHDFoam) are ported since: their configs build, and a QHDFoam
+    case directory renamed to them builds as the JAX package builds it (a
+    static QHDFoam without a dynamicMeshDict; no alpha field, a
+    ValueError)."""
+    cfg = {"solver": app, "mesh": {"shape": [4, 4]}}
     case = write_case(str(tmp_path), "QHDFoam")
     path = os.path.join(case, "system", "controlDict")
     text = open(path).read().replace("application QHDFoam;",
                                      f"application {app};")
     with open(path, "w") as f:
         f.write(text)
+    if app == "QHDDyMFoam":
+        solver = config.build_solver(
+            dict(cfg, thermo={"type": "rhoConst", "rho0": 1.0, "Cp": 1000.0,
+                              "mu0": 1e-2, "Pr": 0.71},
+                 dynamicMesh={"velocity": [1.0, 0.0, 0.0],
+                              "checkMeshCourantNo": True}),
+            device="cpu")
+        assert solver.mesh_velocity(0.0) == (1.0, 0.0)
+        assert solver.check_mesh_courant
+        solver, _ = foam_case.build_case(case, device="cpu")
+        assert type(solver).__name__ == "QHDFoam"
+        assert solver.mesh_velocity is None and solver.mesh_scale is None
+        return
+    if app == "interQHDFoam":
+        solver = config.build_solver(
+            dict(cfg, props={"rho1": 1000.0, "rho2": 1.0, "nu1": 1e-6,
+                             "nu2": 1.5e-5, "tau1": 1e-4, "tau2": 1e-4}),
+            device="cpu")
+        assert type(solver).__name__ == "InterQHDFoam"
+        with pytest.raises(ValueError, match="no alpha field"):
+            foam_case.build_case(case, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+        config.build_solver(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         foam_case.build_case(case, device="cpu")
 
 
 def test_words_and_fields_still_to_come_raise():
-    """mQhdFlux (interQHDFoam's) raises naming item 9; QHDFoam's
-    moving-mesh fields raise naming item 8b; qhdFlux builds its
-    marker."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        config.build_bcs({"x_lo": {"type": "mQhdFlux"}}, 2)
-    assert type(config.build_bcs({"x_lo": {"type": "qhdFlux"}}, 2)[0, 0]
-                ).__name__ == "QHDFluxP"
-    solver, _ = cases.buoyant_cavity((8, 8), device="cpu")
-    for field in ("mesh_velocity", "mesh_scale", "mesh_faces"):
-        moving = dataclasses.replace(solver, **{field: lambda t: (0.0, 0.0)})
-        with pytest.raises(NotImplementedError,
-                           match="item 8b \\(QHDDyMFoam\\)"):
-            moving.make_step()
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        dataclasses.replace(solver, check_mesh_courant=True).make_step()
+    """The words and fields of items 8b and 9 are ported since: mQhdFlux
+    (interQHDFoam's) builds the QHDFluxP marker qhdFlux builds, and
+    QHDFoam's moving-mesh fields and the mesh Courant cap step."""
+    for word in ("mQhdFlux", "qhdFlux"):
+        assert type(config.build_bcs({"x_lo": {"type": word}}, 2)[0, 0]
+                    ).__name__ == "QHDFluxP"
+    solver, s = cases.buoyant_cavity((8, 8), device="cpu")
+    faces = solver.mesh.x_faces
+    for over in ({"mesh_velocity": lambda t: (0.0, 0.0)},
+                 {"mesh_scale": lambda t: (1.0, 1.0)},
+                 {"mesh_faces": lambda t: faces},
+                 {"mesh_velocity": lambda t: (0.1, 0.0),
+                  "check_mesh_courant": True}):
+        out = dataclasses.replace(solver, **over).make_step()(s)
+        assert bool(torch.isfinite(out.T).all()), over
 
 
 def test_config_builds_every_ported_solver():
