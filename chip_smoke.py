@@ -52,8 +52,14 @@ them): the buoyant cavity as QHDFoam at 128x128 and 512x512 f64, as
 SRFQHDFoam and as mulesQHDFoam, the scalar box at 64x64 f64, and the
 1024x512 f32 jet as rhoQGDFoam with a stiffened gas and as zQGDFoam, each
 against the CPU over its first 3 steps, with ms/step, CG iterations a
-solve by kind (p, U, T) and host reads per step.  One line per phase; any
-failure exits non-zero. The last
+solve by kind (p, U, T) and host reads per step.  Phase 23 runs
+QHDDyMFoam and interQHDFoam the same way, and phase 24 the Lagrangian and
+reacting applications: particlesQGDFoam on the 1024x512 f32 jet with
+262144 parcels, particlesQHDFoam on the 128x128 f64 cavity with 65536,
+reactingLagrangianQGDFoam through the CLI at 1024x512 f64 with its
+DeviceISAT table's hits, lookups and evictions, and the two-way jet on 2x1
+ranks sharing the card; no kernel is launched in either.  One line per
+phase; any failure exits non-zero. The last
 line is {"ok": true, "device": {...}}. Without a CUDA device it fails
 before printing any result. It imports nothing of JAX."""
 from __future__ import annotations
@@ -2199,7 +2205,8 @@ def phase_family(card):
 
 def finite(label, s):
     for f, x in zip(s._fields, s):
-        check(bool(torch.isfinite(x).all()), f"{label}: {f} not finite")
+        if torch.is_tensor(x):
+            check(bool(torch.isfinite(x).all()), f"{label}: {f} not finite")
 
 
 def bounded_alpha(label, s, first, rtol):
@@ -2424,6 +2431,366 @@ def phase_moving_twophase(card, root):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the Lagrangian and reacting applications (torch ops)
+# ---------------------------------------------------------------------------
+
+
+def cloud_of(n, lo, hi, seed, dtype, device, u=0.0, T=350.0, d=5e-5):
+    """n parcels from a numpy seed, uniform over the box [lo, hi], at
+    velocity u, temperature T and diameter d: (x, u, Tp, dp) tensors."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.uniform(a, b, n) for a, b in zip(lo, hi)])
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    return (t(x), t(np.full_like(x, 0.0) + np.asarray(u).reshape(-1, 1)),
+            t(np.full(n, T)), t(np.full(n, d)))
+
+
+def pstate_gap(ref, got) -> dict:
+    """{fluid field or c.<cloud array>: max |got - ref| over max |ref|} of
+    two PStates (got on any device)."""
+    gaps = {f: g for f, g in state_gap(ref.fluid, got.fluid).items()
+            if f not in ("t", "dt")}
+    for f in ("x", "u", "Tp", "dp", "active"):
+        gaps["c." + f] = rel_err(getattr(ref.cloud, f).double(),
+                                 getattr(got.cloud, f).cpu().double())
+    return gaps
+
+
+def host_reads():
+    """The host reads the step makes: the CG's stop tests and DeviceISAT's
+    all-hit test."""
+    from qgdsolver_tpu_torch.ops import linsolve
+    from qgdsolver_tpu_torch.physics import chemistry
+
+    return linsolve.cg.reads + chemistry.DeviceISAT.reads
+
+
+def cloud_run(label, build, n, share, checks, cpu_steps=3):
+    """One run of phase 24: build(device) -> (solver, PState) on the card
+    and on the CPU, cpu_steps steps of each, every fluid field and cloud
+    array within `share` of its max; then n steps on the card after one of
+    warm-up, timed by CUDA events, with the host reads a step;
+    checks(label, solver, first, last) -> summary."""
+    solver, s = build(torch.device("cuda", 0))
+    first = s
+    csolver, c = build(torch.device("cpu"))
+    step, cstep = solver.make_step(), csolver.make_step()
+    for _ in range(cpu_steps):
+        s, c = step(s), cstep(c)
+    gaps = pstate_gap(c, s)
+    for f, g in gaps.items():
+        check(g <= share, f"{label}: {f} {g:.2e} of its max from the CPU's "
+              f"after {cpu_steps} steps (> {share:g})")
+    box = [step(s)]
+
+    def one():
+        box[0] = step(box[0])
+
+    reads = host_reads()
+    ms = cuda_ms(one, n, warmup=0)
+    reads = (host_reads() - reads) / n
+    return (f"{label}: {ms:.3f} ms/step over {n} steps, {reads:.2f} host "
+            f"reads/step; first {cpu_steps} steps vs the CPU max "
+            f"{max(gaps.values()):.1e} (bound {share:g}); "
+            + checks(label, solver, first, box[0]))
+
+
+def cloud_jet(shape, dtype, device):
+    """particlesQGDFoam: cases.supersonic_jet's mesh and BCs with
+    tests/fixtures/particles_case's cloud constants (rho 2500, Cp 900),
+    two-way."""
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.solvers.particles import (ParticlesQGDFoam,
+                                                       ThermoCloud)
+
+    fluid, fs = cases.supersonic_jet(shape=shape, dtype=dtype, device=device)
+    return ParticlesQGDFoam(fluid=fluid, cloud=ThermoCloud(
+        rho_p=2500.0, Cp_p=900.0, two_way=True)), fs
+
+
+def momentum_exchange(solver, s) -> str:
+    """One cloud evolve on the card's state: the gas's momentum source
+    over the step, sum(rhoUSu V) dt, against the parcels' gain
+    -sum(m du), within 32 float32 roundings of sum |m du| (a few roundings
+    a parcel's term and the cell sums' additions)."""
+    fluid = solver.fluid
+    U, _, T, _ = fluid.primitives(s.fluid)
+    dt = s.fluid.dt
+    cloud, rhoUSu, _ = solver.cloud.evolve(s.cloud, fluid.mesh, dt,
+                                           rho_g=s.fluid.rho, U_g=U, T_g=T)
+    m = solver.cloud.mass(s.cloud).double()
+    du = (cloud.u - s.cloud.u).double()
+    gain = (m * du).sum(dim=1)
+    src = (rhoUSu.double() * fluid.mesh.cell_volume.double()).sum(
+        dim=(1, 2)) * float(dt)
+    scale = (m * du.abs()).sum(dim=1)
+    bound = 32 * float(torch.finfo(torch.float32).eps) * scale
+    miss = (src + gain).abs()
+    check(bool((miss <= bound).all()), f"momentum exchange: gas {src} "
+          f"against the parcels' gain {gain} (bound {bound})")
+    return (f"momentum exchange x over one step: the gas gains "
+            f"{float(src[0]):.6e}, the parcels {float(gain[0]):.6e} "
+            f"(|sum| {float(miss[0]):.1e}, bound {float(bound[0]):.1e})")
+
+
+def cloud_rank(state_np, shape, grid, steps):
+    """A rank of phase 24's decomposed cloud run: `steps` steps of the
+    two-way jet (float32) on this rank's block, the lost parcels read, the
+    gathered PState with numpy leaves."""
+    from qgdsolver_tpu_torch import interop
+    from qgdsolver_tpu_torch.parallel import distributed, sharding
+    from qgdsolver_tpu_torch.solvers import particles
+
+    dev = distributed.rank_device("cuda")
+    solver, _ = cloud_jet(shape, torch.float32, dev)
+    step, to_s, from_s = sharding.build_spmd_step(
+        solver, sharding.ProcessGrid(*grid))
+    s = to_s(interop.state_from_numpy(state_np, device=dev,
+                                      dtype=torch.float32))
+    for _ in range(steps):
+        s = step(s)
+    particles.raise_dropped(s)
+    return interop.state_to_numpy(from_s(s))
+
+
+def cloud_multiset(c):
+    """The active parcels' (x, u, Tp, dp) rows, sorted (numpy)."""
+    m = c.active > 0.5
+    rows = np.concatenate([c.x[:, m], c.u[:, m], c.Tp[None, m],
+                           c.dp[None, m]]).astype(np.float64)
+    return rows[:, np.lexsort(rows)]
+
+
+def decomposed_cloud(shape=(256, 128), steps=10):
+    """particlesQGDFoam at `shape` f32 on 2x1 ranks sharing the card
+    (gloo), with parcels planted across the partition face x = 2, against
+    the serial card run: fields within 1e-5 of their max and the parcel
+    multiset within 1e-5 of each row's max (float32 sums in another
+    order: the atomics of the serial run and the slot order of the
+    ranks)."""
+    from qgdsolver_tpu_torch import interop
+    from qgdsolver_tpu_torch.parallel import distributed
+    from qgdsolver_tpu_torch.solvers import common
+    from qgdsolver_tpu_torch.solvers.particles import PState
+
+    dev = torch.device("cuda", 0)
+    solver, fs = cloud_jet(shape, torch.float32, dev)
+    x, u, Tp, dp = cloud_of(4096, (0.05, 0.05), (3.95, 1.95), 24,
+                            torch.float64, "cpu")
+    xs, us = x.numpy(), u.numpy()
+    xs[:, :64] = np.stack([np.full(64, 2.0 - 2e-5),
+                           np.linspace(0.2, 1.8, 64)])
+    us[:, :64] = np.stack([np.full(64, 400.0), np.zeros(64)])
+    xs[:, 64:128] = np.stack([np.full(64, 2.0 + 2e-5),
+                              np.linspace(0.2, 1.8, 64)])
+    us[:, 64:128] = np.stack([np.full(64, -400.0), np.zeros(64)])
+    cloud = solver.cloud.make(xs, us, Tp, dp, device=dev,
+                              dtype=torch.float32)
+    s0 = PState(fluid=fs, cloud=cloud)
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(cloud_rank, 2, interop.state_to_numpy(s0),
+                              shape, (2, 1), steps, device="cuda",
+                              timeout=600)
+    secs = time.perf_counter() - t0
+    ref = interop.state_to_numpy(common.run_steps(solver.make_step(), s0,
+                                                  steps))
+    crossed = int(((ref.cloud.x[0, :128] >= 2.0)
+                   != (xs[0, :128] >= 2.0)).sum())
+    check(crossed == 128, f"decomposed cloud: {crossed} of 128 planted "
+          "parcels crossed the partition face")
+    worst = 0.0
+    for got in ranks:
+        for f in ("rho", "rhoU", "rhoE"):
+            a, b = getattr(ref.fluid, f), getattr(got.fluid, f)
+            worst = max(worst, float(np.abs(a - b).max() / np.abs(a).max()))
+        A, B = cloud_multiset(ref.cloud), cloud_multiset(got.cloud)
+        check(A.shape == B.shape, f"decomposed cloud: {B.shape[1]} active "
+              f"parcels against the serial {A.shape[1]}")
+        worst = max(worst, float((np.abs(A - B) / np.maximum(
+            np.abs(A).max(axis=1, keepdims=True), 1e-30)).max()))
+    check(worst <= 1e-5, f"decomposed cloud: {worst:.2e} of the max from "
+          "the serial card run (> 1e-5)")
+    return (f"decomposed {shape} f32 2x1 ranks (gloo, sharing the card) "
+            f"{steps} steps: 128 planted parcels crossed x = 2, fields and "
+            f"parcel multiset {worst:.1e} of their max from the serial card "
+            f"run (bound 1e-5); {secs:.1f} s")
+
+
+def reacting_case(root, n_parcels=65536):
+    """tests/fixtures/reacting_case at 1024x512 cells with its one parcel
+    replaced by n_parcels evaporating parcels from a numpy seed, uniform
+    over the unit square."""
+    case = fixture_case(root, "reacting_case", "reacting_1024", [
+        ("system/blockMeshDict", r"\(8 8 1\)", "(%d %d 1)" % SHAPE)])
+    rng = np.random.default_rng(24)
+    xy = rng.uniform(0.0, 1.0, (n_parcels, 2))
+    path = os.path.join(case, "constant", "reactingCloud1Properties")
+    with open(path) as f:
+        text = f.read()
+    pos = " ".join("(%.9g %.9g 0.05)" % (a, b) for a, b in xy)
+    text, k = re.subn(r"positions\s*\(\(.*?\)\);", f"positions ({pos});",
+                      text, flags=re.S)
+    check(k == 1, "reacting_case: no parcel positions to replace")
+    with open(path, "w") as f:
+        f.write(text)
+    return case
+
+
+def reacting_run(root, card_steps=3, n=10):
+    """reactingLagrangianQGDFoam at 1024x512 f64 (TDAC/EulerImplicit with
+    the ISATDevice table of the fixture, tol 1e-3, capacity 2^15) through
+    the CLI: 3 steps and a write on the card, every specie file written
+    and read back against the CPU's 3 steps (1e-9 of each field's max, the
+    table's hits, lookups and evictions equal); then n timed steps on the
+    card with the counters and host reads a step."""
+    from qgdsolver_tpu_torch.io import foam_case
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.physics import chemistry
+    from qgdsolver_tpu_torch.solvers import common
+
+    case = reacting_case(root)
+    csolver, c = foam_case.build_case(case, device="cpu")
+    check(c.cloud.x.shape == (2, 65536) and c.fluid.rho.dtype == torch.float64
+          and c.fluid.tab["keys"].shape == (6, 1 << 15),
+          "reacting_case: parcels, dtype or table")
+    c = common.run_steps(csolver.make_step(), c, card_steps)
+    log, secs, launches = run_cli([case, "--max-steps", str(card_steps),
+                                   "--device", "cuda"],
+                                  F.KERNELS + F3.KERNELS)
+    check("composable step engaged: make_step" in log,
+          f"the CLI did not take the composable step:\n{log}")
+    check(not any(launches.values()), f"CLI launched kernels {launches}")
+    tdirs = [d for d in os.listdir(case)
+             if d not in ("0", "system", "constant")]
+    check(len(tdirs) == 1, f"reacting CLI wrote {tdirs}")
+    files = sorted(os.listdir(os.path.join(case, tdirs[0])))
+    check(files == ["F", "N2", "O2", "T", "U", "p"],
+          f"reacting CLI wrote {files}")
+    _, back = latest_state(case, torch.device("cuda", 0))
+    # the gas starts at rest: its momentum (the parcels' drag) is held
+    # against a 1 kg/(m^2 s) scale
+    gaps = {f: float((getattr(c.fluid, f).double()
+                      - getattr(back.fluid, f).cpu().double()).abs().max())
+            / max(float(getattr(c.fluid, f).abs().max()),
+                  1.0 if f == "rhoU" else 1e-30)
+            for f in ("rho", "rhoU", "rhoE", "Y", "T")}
+    for f, g in gaps.items():
+        check(g <= 1e-9, f"reacting CLI: {f} read back {g:.2e} from the "
+              "CPU's run (> 1e-9)")
+
+    # the table's counters, card against CPU, over the same 3 steps
+    ctrl = os.path.join(case, "system", "controlDict")
+    with open(ctrl) as f:
+        text = f.read()
+    with open(ctrl, "w") as f:
+        f.write(text.replace("startFrom       latestTime;",
+                             "startFrom       startTime;"))
+    solver, s = foam_case.build_case(case, device=torch.device("cuda", 0))
+    step = solver.make_step()
+    s = common.run_steps(step, s, card_steps)
+    names = ("hits", "lookups", "evictions")
+    card = [chemistry.DeviceISAT.counter(s.fluid.tab, k) for k in names]
+    cpu = [chemistry.DeviceISAT.counter(c.fluid.tab, k) for k in names]
+    check(card == cpu, f"reacting: ISAT counters {card} on the card "
+          f"against {cpu} on the CPU")
+    box = [s]
+
+    def one():
+        box[0] = step(box[0])
+
+    reads = host_reads()
+    ms = cuda_ms(one, n, warmup=0)
+    reads = (host_reads() - reads) / n
+    now = [chemistry.DeviceISAT.counter(box[0].fluid.tab, k) for k in names]
+    per = [(a - b) / n for a, b in zip(now, card)]
+    finite("reacting fluid", box[0].fluid._replace(tab=None))
+    return (f"reactingLagrangianQGDFoam {SHAPE} f64, 65536 evaporating "
+            f"parcels, CLI {card_steps} steps + write in {secs:.1f} s (every "
+            f"specie file, read back vs the CPU's run max "
+            f"{max(gaps.values()):.1e}, bound 1e-9; ISAT hits/lookups/"
+            f"evictions after {card_steps} steps {card}, the CPU's "
+            f"{cpu}); {ms:.3f} ms/step over {n} steps, ISAT a step: hits "
+            f"{per[0]:.0f}, lookups {per[1]:.0f}, evictions {per[2]:.0f}; "
+            f"{reads:.2f} host reads/step")
+
+
+def phase_lagrangian_reacting(card, root):
+    """Phase 24: particlesQGDFoam, particlesQHDFoam and
+    reactingLagrangianQGDFoam (with its DeviceISAT table) on the composable
+    path (torch ops; the reference has no Pallas kernel for any), no kernel
+    launched: the two-way jet at 1024x512 f32 with 262144 parcels (the
+    gas's momentum source against the parcels' gain), the one-way cavity
+    at 128x128 f64 with 65536 parcels, each against the CPU over 3 steps
+    and timed; the reacting case through the CLI (`reacting_run`); and the
+    two-way jet decomposed on 2x1 ranks sharing the card
+    (`decomposed_cloud`)."""
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.solvers.particles import (ParticlesQHDFoam,
+                                                       PState, ThermoCloud)
+
+    t0 = time.perf_counter()
+
+    def jet(d):
+        solver, fs = cloud_jet(SHAPE, torch.float32, d)
+        cloud = solver.cloud.make(*cloud_of(1 << 18, (0.0, 0.0), (4.0, 2.0),
+                                            18, torch.float32, d))
+        return solver, PState(fluid=fs, cloud=cloud)
+
+    def jet_checks(label, solver, first, s):
+        finite(label, s.fluid)
+        umean = float(s.cloud.u[0].mean())
+        check(umean > 0.0, f"{label}: the parcels are not dragged ({umean})")
+        return (f"mean parcel u {umean:.3e}, parcel T in "
+                f"[{float(s.cloud.Tp.min()):.2f}, "
+                f"{float(s.cloud.Tp.max()):.2f}]; "
+                + momentum_exchange(solver, s))
+
+    def cavity(d):
+        fluid, fs = cases.buoyant_cavity((128, 128), device=d)
+        solver = ParticlesQHDFoam(fluid=fluid, cloud=ThermoCloud(
+            two_way=False, wall="rebound"))
+        cloud = solver.cloud.make(*cloud_of(1 << 16, (0.0, 0.0), (1.0, 1.0),
+                                            16, torch.float64, d,
+                                            u=(0.01, -0.02), T=0.5, d=1e-4))
+        return solver, PState(fluid=fs, cloud=cloud)
+
+    def cavity_checks(label, solver, first, s):
+        finite(label, s.fluid)
+        x = s.cloud.x
+        check(bool((x >= 0).all() and (x <= 1).all()
+                   and (s.cloud.active == 1).all()),
+              f"{label}: a parcel left the closed cavity")
+        T = s.fluid.T
+        return (f"{int(s.cloud.active.sum())} parcels inside, T in "
+                f"[{float(T.min()):.4f}, {float(T.max()):.4f}]")
+
+    kernels = F.KERNELS + F3.KERNELS
+    for k in kernels:
+        k.launches = 0
+    msgs = [
+        cloud_run(f"particlesQGDFoam jet {SHAPE} f32, 262144 parcels "
+                  "(two-way)", jet, 20, 1e-3, jet_checks),
+        cloud_run("particlesQHDFoam cavity 128x128 f64, 65536 parcels "
+                  "(one-way)", cavity, 5, 2 * 3 * 1e-8, cavity_checks),
+        reacting_run(root),
+        decomposed_cloud(),
+    ]
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    check(not launched, f"phase 24: kernels launched {launched}")
+    print("phase 24 particlesQGDFoam, particlesQHDFoam, "
+          "reactingLagrangianQGDFoam (composable, torch ops; no kernel "
+          "launched): ok " + " | ".join(msgs)
+          + f" | {time.perf_counter() - t0:.1f} s | card: {card}",
+          flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--profiler-check"]:
         return profiler_check(int(sys.argv[2]))
@@ -2499,6 +2866,8 @@ def main() -> int:
     phase_family(card)
     with tempfile.TemporaryDirectory() as root:
         phase_moving_twophase(card, root)
+    with tempfile.TemporaryDirectory() as root:
+        phase_lagrangian_reacting(card, root)
     entries = []
     for k, v in stats.items():
         # each kernel's bound at the shape its time was taken; the 2D update

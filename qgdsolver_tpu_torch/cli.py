@@ -7,8 +7,9 @@ surface of the reference solvers.
         --devices PXxPY
 
 Reads an OpenFOAM-layout case directory (`io.foam_case.build_case`: the
-QGD solvers, the QHD family with QHDDyMFoam, scalar transport and
-interQHDFoam), runs
+QGD solvers, the QHD family with QHDDyMFoam, scalar transport,
+interQHDFoam, and the Lagrangian and reacting applications, whose t and dt
+are their fluid State's), runs
 chunks of K steps with `solvers.common.run_steps` (the adaptive dt stays on
 the device; `t` is read back once per chunk), writes OpenFOAM-format time
 directories via `io.foam_write` whenever the solution time crosses the next
@@ -28,8 +29,12 @@ the launcher's world.  Every rank builds the case; on a CUDA device a config
 the kernels take, on blocks that divide the mesh, runs K3
 (`build_sharded_fused_step`, 2D) or K5 (`build_sharded_fused_step_3d`, 3D
 x-ring), otherwise the decomposed composable step
-(`parallel.sharding.build_spmd_step`); the log names which.  Rank 0 alone
-logs and writes, after the fields are gathered.
+(`parallel.sharding.build_spmd_step`; a Lagrangian cloud's parcels go to
+the ranks whose blocks hold them, and a tabulated reacting case is
+refused with `sharding.spmd_supported`'s reason); the log names which.
+Rank 0 alone logs and writes, after the fields are gathered.  A decomposed
+cloud's lost parcels are read with t once a chunk
+(`particles.raise_dropped`), and raise.
 """
 from __future__ import annotations
 
@@ -110,7 +115,7 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
     block of it."""
     from .io import foam_case, foam_write, foamdict
     from .parallel import distributed, sharding
-    from .solvers import common
+    from .solvers import common, particles
 
     writer = True
     if grid is not None:
@@ -151,16 +156,26 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
             f" (the fused gates refuse this {type(solver).__name__} config)"
             if want_fused else ""))
 
+    def fluid(s):
+        # the Lagrangian solvers' t and dt are their fluid State's
+        return getattr(s, "fluid", s)
+
     def in_t(x):
         # a time as the carried t holds it: in f32 an instant between two
         # f32 values can never be landed on, and the landing step below
         # would trim dt to a remainder the f32 sum t + dt cannot add
         if not math.isfinite(x):
             return x
-        return float(torch.tensor(x, dtype=state.t.dtype))
+        return float(torch.tensor(x, dtype=fluid(state).t.dtype))
+
+    def now(s):
+        # the once-a-chunk host read: t, and a decomposed cloud's lost
+        # parcels (raises)
+        particles.raise_dropped(s)
+        return float(fluid(s).t)
 
     end_time = in_t(end_time)
-    t = float(state.t)
+    t = float(fluid(state).t)
     n_steps = 0
     by_steps = write_control == "timeStep"
     next_write = None
@@ -186,8 +201,10 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
         # exactly 1.2x, so seeding dt = (target - t)/1.2 makes the next
         # step land ON the target when the CFL allows (Time::adjustDeltaT
         # parity, adjustableRunTime)
-        return s._replace(dt=torch.as_tensor(dt_val, dtype=s.dt.dtype,
-                                             device=s.dt.device))
+        f = fluid(s)
+        f = f._replace(dt=torch.as_tensor(dt_val, dtype=f.dt.dtype,
+                                          device=f.dt.device))
+        return s._replace(fluid=f) if hasattr(s, "fluid") else f
 
     t_wall = time.perf_counter()
     while t < end_time and (max_steps is None or n_steps < max_steps):
@@ -195,7 +212,7 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
         if adjustable and next_write is not None:
             target = min(target, next_write)
         k = chunk if max_steps is None else min(chunk, max_steps - n_steps)
-        dt_cur = max(float(state.dt), 1e-300)
+        dt_cur = max(float(fluid(state).dt), 1e-300)
         if math.isfinite(target):
             remaining = target - t
             if adjustable and remaining <= dt_cur * 1.2 * (1 + 1e-12):
@@ -203,9 +220,9 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
                 state = _set_dt(state, remaining / 1.2)
                 state = common.run_steps(step, state, 1)
                 n_steps += 1
-                t = float(state.t)
+                t = now(state)
                 log("Time = %.8g  deltaT = %.8g  (%d steps, %.1f s)"
-                    % (t, float(state.dt), n_steps,
+                    % (t, float(fluid(state).dt), n_steps,
                        time.perf_counter() - t_wall))
                 if next_write is not None and t >= next_write * (1 - 1e-9):
                     write()
@@ -223,9 +240,10 @@ def _run(case_dir, max_steps, chunk, log, fused, device, grid) -> int:
                 k = max(1, min(k, int(remaining / dt_cur) + 1))
         state = common.run_steps(step, state, k)
         n_steps += k
-        t = float(state.t)
+        t = now(state)
         log("Time = %.8g  deltaT = %.8g  (%d steps, %.1f s)"
-            % (t, float(state.dt), n_steps, time.perf_counter() - t_wall))
+            % (t, float(fluid(state).dt), n_steps,
+               time.perf_counter() - t_wall))
         if next_write is not None:
             due = (n_steps >= next_write) if by_steps else (t >= next_write)
             if due:

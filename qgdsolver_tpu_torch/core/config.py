@@ -1,8 +1,8 @@
 """Typed case configuration: the dictionary/run-time-selection system
 (PyTorch port of `qgdsolver_tpu.core.config`: QGDFoam, rhoQGDFoam,
 zQGDFoam, the QHD family with QHDDyMFoam, scalarTransportQHDFoam and
-interQHDFoam; the Lagrangian and reacting solvers raise naming their
-ROADMAP item).  Two keys go beyond the JAX package's configs: a
+interQHDFoam; the Lagrangian and reacting solvers are built from case
+directories or the Python API, as in the JAX package).  Two keys go beyond the JAX package's configs: a
 QHDDyMFoam config's motion is a `dynamicMesh` dict of the dynamicMeshDict
 words `foam_case` reads, and an interQHDFoam config's phases a `props`
 dict of `TwoPhaseProperties` fields.
@@ -27,7 +27,8 @@ import torch
 from . import bc as bcm
 from .mesh import Mesh, checked_device
 from .registry import create, register
-from ..physics import qgdcoeffs, thermo  # noqa: F401 — registers the words
+# imported for the words they register
+from ..physics import chemistry, qgdcoeffs, thermo  # noqa: F401
 from ..solvers.common import TimeControls
 
 # ---------------------------------------------------------------------------
@@ -59,11 +60,11 @@ register("bc", "qhdFlux")(lambda **_: bcm.QHDFluxP())
 # the mixture gradient
 register("bc", "mQhdFlux")(lambda **_: bcm.QHDFluxP())
 
-_NOT_PORTED_SOLVERS = {
-    "particlesQGDFoam": "ROADMAP queue 1, item 10",
-    "particlesQHDFoam": "ROADMAP queue 1, item 10",
-    "reactingLagrangianQGDFoam": "ROADMAP queue 1, item 10",
-}
+# solvers this config format does not describe (a cloud, a mixture, a
+# mechanism): built from a case directory or the Python API, as in the JAX
+# package, whose build_solver does not build them either
+_CASE_ONLY_SOLVERS = ("particlesQGDFoam", "particlesQHDFoam",
+                      "reactingLagrangianQGDFoam")
 
 
 def _dtype(word) -> torch.dtype:
@@ -143,7 +144,9 @@ def build_solver(cfg: dict, device="cuda"):
     QGDFoam, rhoQGDFoam, zQGDFoam, the QHD family (QHDFoam, SRFQHDFoam with
     `omega`, mulesQHDFoam, QHDDyMFoam with its `dynamicMesh` dict),
     scalarTransportQHDFoam and interQHDFoam (its `props` dict and the
-    `alpha1` BCs)."""
+    `alpha1` BCs).  The Lagrangian and reacting solvers raise
+    NotImplementedError: a config does not describe their cloud or
+    mixture (build them from a case directory or the Python API)."""
     from ..io.foam_case import dynamic_mesh_kwargs
     from ..physics.twophase import TwoPhaseProperties
     from ..solvers.inter_qhd import InterQHDFoam
@@ -160,10 +163,11 @@ def build_solver(cfg: dict, device="cuda"):
         "interQHDFoam": InterQHDFoam,
     }
     name = cfg["solver"]
-    if name in _NOT_PORTED_SOLVERS:
+    if name in _CASE_ONLY_SOLVERS:
         raise NotImplementedError(
-            f"solver {name!r} is not in the PyTorch port yet: "
-            f"{_NOT_PORTED_SOLVERS[name]}")
+            f"solver {name!r} is not built from a config: build it from an "
+            "OpenFOAM case directory (io.foam_case.build_case) or the "
+            "Python API (solvers.particles, solvers.reacting)")
     if name not in solvers:
         raise KeyError(f"unknown solver {name!r}")
     cls = solvers[name]

@@ -224,6 +224,15 @@ class Mesh:
         fields."""
         return self.bcast(self.x_faces[axis], axis)
 
+    @cached_property
+    def faces_f64(self) -> tuple:
+        """The face coordinates per axis as float64 1-D tensors on the
+        mesh's device, moved there once (the parcels' cell search compares
+        positions with them in float64)."""
+        return tuple(torch.as_tensor(xf, dtype=torch.float64,
+                                     device=self.device)
+                     for xf in self.x_faces)
+
 
 class TracedMesh:
     """The geometry of a mesh whose per-axis face coordinates are tensors

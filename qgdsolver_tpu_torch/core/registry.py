@@ -2,7 +2,9 @@
 `qgdsolver_tpu.core.registry`, the OpenFOAM run-time selection tables).
 
 Each registry maps a config word to a constructor, so case files select
-tau-coefficient models, thermo pieces and BC types by name.
+tau-coefficient models, thermo pieces, BC types, and the combustion,
+chemistrySolver, chemistryReduction and chemistryTabulation models
+(`physics.chemistry`) by name.
 """
 from __future__ import annotations
 

@@ -16,19 +16,24 @@ family (QHDFoam, SRFQHDFoam with constant/SRFProperties, mulesQHDFoam,
 QHDDyMFoam with constant/dynamicMeshDict; constant/g for the gravity),
 scalarTransportQHDFoam and interQHDFoam (constant/transportProperties, the
 alpha.<phase1> field and its contact-angle walls, cAlpha from
-system/fvSolution), in 2D and 3D, with the hePsi (perfect gas, hConst or
-janaf) and heRho (perfectGas, stiffenedGas or rhoConst) thermo words and
-const, sutherland, polynomial (read as powerLaw, as the JAX package does)
-or powerLaw transport, on wedge meshes and on multi-block unions with dead
-cells (stairstep solids) where the JAX package takes them; the Lagrangian
-and reacting applications raise NotImplementedError naming the ROADMAP
-item they wait for.
+system/fvSolution), particlesQGDFoam and particlesQHDFoam (a cloud from
+constant/thermoCloud1Properties), and reactingLagrangianQGDFoam (the
+species list, per-specie dicts and ScNumbers of thermophysicalProperties,
+the reactions and the TDAC/ISATDevice words of chemistryProperties,
+combustionProperties, per-specie 0/ fields with the Ydefault fallback, and
+an evaporating cloud from reactingCloud1Properties), in 2D and 3D, with the
+hePsi (perfect gas, hConst or janaf) and heRho (perfectGas, stiffenedGas
+or rhoConst) thermo words and const, sutherland, polynomial (read as
+powerLaw, as the JAX package does) or powerLaw transport, on wedge meshes
+and on multi-block unions with dead cells (stairstep solids) where the JAX
+package takes them.
 """
 from __future__ import annotations
 
 import math
 import os
 
+import numpy as np
 import torch
 
 from . import foamdict
@@ -62,19 +67,17 @@ _TAU_KEYS = {
     "Gr": "Gr",
 }
 
-# applications of the JAX package that the port does not run yet
-_NOT_PORTED_APPS = {
-    "particlesQGDFoam": "ROADMAP queue 1, item 10",
-    "particlesQHDFoam": "ROADMAP queue 1, item 10",
-    "reactingLagrangianQGDFoam": "ROADMAP queue 1, item 10",
-}
 _QGD_APPS = ("QGDFoam", "rhoQGDFoam", "zQGDFoam")
 _QHD_APPS = ("QHDFoam", "SRFQHDFoam", "mulesQHDFoam")
+_CLOUD_APPS = ("particlesQGDFoam", "particlesQHDFoam")
+_APPS = _QGD_APPS + _QHD_APPS + _CLOUD_APPS + (
+    "QHDDyMFoam", "interQHDFoam", "scalarTransportQHDFoam",
+    "reactingLagrangianQGDFoam")
 # the applications that take stairstep solids and wedges (their solvers
 # carry the mirror walls and the hoop sources), as in the JAX package
-_SOLID_APPS = ("QGDFoam",) + _QHD_APPS
+_SOLID_APPS = ("QGDFoam", "particlesQGDFoam") + _QHD_APPS
 _WEDGE_APPS = ("QGDFoam", "rhoQGDFoam", "scalarTransportQHDFoam",
-               "QHDDyMFoam", "interQHDFoam") + _QHD_APPS
+               "QHDDyMFoam", "interQHDFoam") + _QHD_APPS + _CLOUD_APPS
 
 
 def time_controls(control_dict: dict) -> TimeControls:
@@ -199,25 +202,25 @@ def build_case(case_dir: str, device="cuda", dtype=None):
     (or the start time's) field files -> (solver, initial state), with the
     mesh and state in `dtype` on `device`: the card by default (a
     RuntimeError where there is none; pass device="cpu" for the CPU).
-    dtype None is float32 for the QGD solvers and float64 for the QHD
-    family (QHDDyMFoam and interQHDFoam included) and scalar transport,
-    whose CG solves stop at cg_tol 1e-8 of the rhs, below float32's
-    resolution.  Dispatches on controlDict `application`."""
+    dtype None is float32 for the QGD solvers (particlesQGDFoam
+    included) and float64 for the QHD family (QHDDyMFoam, interQHDFoam
+    and particlesQHDFoam included) and scalar transport, whose CG solves
+    stop at cg_tol 1e-8 of the rhs, below float32's resolution, and for
+    reactingLagrangianQGDFoam, whose DeviceISAT keys quantize log T, log p
+    and Y to the table's tolerance (float32's rounding of a log moves a
+    key across a quantum between devices).  Dispatches on controlDict
+    `application`."""
     from .foam_fields import load_block_mesh, load_initial_fields
 
     device = checked_device(device)
     cfg = load_case(case_dir)
     control = cfg.get("controlDict", {})
     app = str(control.get("application", "QGDFoam"))
-    if app in _NOT_PORTED_APPS:
-        raise NotImplementedError(
-            f"application {app!r} is not in the PyTorch port yet: "
-            f"{_NOT_PORTED_APPS[app]}")
-    if app not in _QGD_APPS + _QHD_APPS + ("QHDDyMFoam", "interQHDFoam",
-                                           "scalarTransportQHDFoam"):
+    if app not in _APPS:
         raise ValueError(f"unsupported application {app!r}")
     if dtype is None:
-        dtype = torch.float32 if app in _QGD_APPS else torch.float64
+        dtype = (torch.float32 if app in _QGD_APPS + ("particlesQGDFoam",)
+                 else torch.float64)
     mesh, patch_map, kept_axes = load_block_mesh(case_dir, dtype=dtype,
                                                  device=device)
     time_name, t0 = start_time(case_dir, control)
@@ -275,10 +278,17 @@ def build_case(case_dir: str, device="cuda", dtype=None):
         solver = InterQHDFoam(**kw)
         return solver, solver.init(U0=U0, alpha0=a0, p0=p0, t0=t0)
 
+    if app == "reactingLagrangianQGDFoam":
+        return _build_reacting(case_dir, cfg, fields, fld, kw, fvsc, U0,
+                               bc_U, kept_axes, t0)
+
     if "thermophysicalProperties" in cfg:
         kw["thermo"] = build_foam_thermo(cfg["thermophysicalProperties"])
         kw["tau_model"] = cfg["tau_model"]
     T0, bc_T = fld("T")
+    if app in _CLOUD_APPS:
+        return _build_cloud_app(app, case_dir, cfg, fields, fld, kw, fvsc,
+                                U0, bc_U, T0, bc_T, g, kept_axes, t0)
     if app == "scalarTransportQHDFoam":
         from ..solvers.scalar_transport import ScalarTransportQHD
 
@@ -315,6 +325,317 @@ def build_case(case_dir: str, device="cuda", dtype=None):
                  implicit_diffusion=cfg.get("implicit_diffusion", False),
                  **kw)
     return solver, solver.init(p0=p0, T0=T0, U0=U0, t0=t0)
+
+
+def _inactive_placeholder(st, has_parcels):
+    """A case without an injection block holds one placeholder parcel,
+    deactivated here (or a two-way cloud would deposit phantom drag and
+    heat into its cell)."""
+    if has_parcels:
+        return st
+    return st._replace(cloud=st.cloud._replace(active=st.cloud.active * 0))
+
+
+def _build_cloud_app(app, case_dir, cfg, fields, fld, kw, fvsc, U0, bc_U,
+                     T0, bc_T, g, kept_axes, t0):
+    """particlesQGDFoam (QGDFoam with a two-way cloud) or
+    particlesQHDFoam (QHDFoam with a one-way cloud)."""
+    from ..solvers.particles import (ParticlesQGDFoam, ParticlesQHDFoam,
+                                     ThermoCloud)
+
+    cloud_kw, parcels, has_parcels, _ = _read_cloud(case_dir, kept_axes)
+    kw.update(bc_U=bc_U, bc_T=bc_T, fvsc_scheme=fvsc)
+    if app == "particlesQGDFoam":
+        from ..solvers.qgd import QGDFoam
+
+        p0, bc_p = fld("p")
+        fluid = QGDFoam(bc_p=bc_p, implicit_diffusion=cfg.get(
+            "implicit_diffusion", False), **kw)
+        solver = ParticlesQGDFoam(fluid=fluid, cloud=ThermoCloud(
+            two_way=True, **cloud_kw))
+        st = solver.init(p0=p0, T0=T0, U0=U0, t0=t0, **parcels)
+        return solver, _inactive_placeholder(st, has_parcels)
+    from ..solvers.qhd import QHDFoam
+
+    if "p" in fields:
+        kw["bc_p"] = fields["p"][1]
+    if g is not None:
+        kw["g"] = g
+    fluid = QHDFoam(implicit_diffusion=cfg.get("implicit_diffusion", True),
+                    **kw)
+    solver = ParticlesQHDFoam(fluid=fluid, cloud=ThermoCloud(
+        two_way=False, **cloud_kw))
+    st = solver.init(U0=U0, T0=T0, t0=t0, **parcels)
+    return solver, _inactive_placeholder(st, has_parcels)
+
+
+def _build_reacting(case_dir, cfg, fields, fld, kw, fvsc, U0, bc_U,
+                    kept_axes, t0):
+    """reactingLagrangianQGDFoam: the reacting QGD solver, with the
+    reacting cloud when the case has a cloud dictionary (the reacting
+    cloud's first; the reference's createClouds.H reads
+    reactingCloud1Properties for this solver), without one the Eulerian
+    core alone."""
+    from ..solvers.reacting import ReactingQGDFoam
+
+    mesh = kw["mesh"]
+    thermo_props = cfg.get("thermophysicalProperties", {})
+    mix = build_reaction_thermo(thermo_props, case_dir)
+    combustion, chem_solver, tabulation = _read_chemistry(case_dir, mix)
+    p0, bc_p = fld("p")
+    T0, bc_T = fld("T")
+    Y0, bc_Y = _species_fields(fields, mix)
+    if "tau_model" in cfg:
+        kw["tau_model"] = cfg["tau_model"]
+    fluid = ReactingQGDFoam(
+        mixture=mix, combustion=combustion, chemistry_solver=chem_solver,
+        tabulation=tabulation, bc_U=bc_U, bc_p=bc_p, bc_T=bc_T, bc_Y=bc_Y,
+        implicit_diffusion=cfg.get("implicit_diffusion", False),
+        fvsc_scheme=fvsc, **kw)
+    Y0 = mesh.tensor(Y0)
+    cloud_kw, parcels, has_parcels, cloud_props = _read_cloud(
+        case_dir, kept_axes,
+        names=("reactingCloud1Properties", "reactingCloudProperties",
+               "cloudProperties", "thermoCloud1Properties",
+               "thermoCloudProperties"))
+    if not cloud_props:
+        return fluid, fluid.init(p0=p0, T0=T0, U0=U0, Y0=Y0, t0=t0)
+    from ..solvers.particles import ReactingCloud, ReactingLagrangianQGDFoam
+
+    # evaporation maps onto the d^2-law
+    evap = cloud_props.get("evaporation", {})
+    sp_word = str(evap.get("specie", mix.species[0].name))
+    names = [sp.name for sp in mix.species]
+    cloud = ReactingCloud(
+        two_way=True,
+        evap_specie=names.index(sp_word) if sp_word in names else 0,
+        K_evap=float(evap.get("K", 0.0)),
+        latent_heat=float(evap.get("latentHeat", 0.0)), **cloud_kw)
+    solver = ReactingLagrangianQGDFoam(fluid=fluid, cloud=cloud)
+    st = solver.init(p0=p0, T0=T0, U0=U0, Y0=Y0, t0=t0, **parcels)
+    return solver, _inactive_placeholder(st, has_parcels)
+
+
+def _read_cloud(case_dir: str, kept_axes,
+                names=("thermoCloud1Properties", "thermoCloudProperties",
+                       "cloudProperties", "reactingCloud1Properties")):
+    """constant/*CloudProperties (the first of `names` present) ->
+    (ThermoCloud kwargs, initial parcels as numpy arrays,
+    has_real_parcels, the raw dict).  Read: constantProperties {rho0;
+    Cp0;} and a manual-injection block `initialParcels { positions
+    ((x y z) ...); U0 (ux uy uz); T0; d0; }`.  Without an injection block
+    the parcels are one placeholder the caller deactivates."""
+    props = {}
+    for name in names:
+        p = os.path.join(case_dir, "constant", name)
+        if os.path.exists(p):
+            props = foamdict.parse_file(p)
+            break
+    const = props.get("constantProperties", {})
+    kw = {}
+    if "rho0" in const:
+        kw["rho_p"] = float(const["rho0"])
+    if "Cp0" in const:
+        kw["Cp_p"] = float(const["Cp0"])
+    inj = props.get("initialParcels", {})
+    pos = inj.get("positions", [])
+    if pos and not isinstance(pos[0], list):
+        pos = [pos]
+    n = max(len(pos), 1)
+    xyz = (np.asarray([[float(c) for c in q] for q in pos]) if pos
+           else np.zeros((1, 3)))
+    u0 = inj.get("U0", [0.0, 0.0, 0.0])
+    parcels = {
+        "x_p": np.stack([xyz[:, ax] for ax in kept_axes]),
+        "u_p": np.stack([np.full(n, float(u0[ax])) for ax in kept_axes]),
+        "T_p": np.full(n, float(inj.get("T0", 300.0))),
+        "d_p": np.full(n, float(inj.get("d0", 1e-4)))}
+    return kw, parcels, bool(pos), props
+
+
+def build_reaction_thermo(thermo_props: dict, case_dir: str):
+    """thermophysicalProperties (psiQGDReactionThermo style) ->
+    MixtureThermo: the `species` word list, per-specie {specie,
+    thermodynamics, transport} sub-dicts (hConst Cp and Hf, or janaf
+    coefficients), `inertSpecie` and the `ScNumbers` list of (name Sc)
+    pairs; the first specie's transport `mu` and `Pr` for the mixture."""
+    from ..physics import thermo as tm
+    from ..physics.species import MixtureThermo, Specie
+
+    d = thermo_props
+    names = [str(sp) for sp in d.get("species", [])]
+    if not names:
+        raise ValueError(f"reacting case {case_dir}: thermophysicalProperties"
+                         " has no `species` list")
+    inert = str(d.get("inertSpecie", names[-1]))
+    sc_map = {str(pair[0]): float(pair[1])
+              for pair in d.get("ScNumbers", [])
+              if isinstance(pair, list) and len(pair) == 2}
+    mix_transport = None
+    mix_pr = 0.7
+    species = []
+    for name in names:
+        sub = d.get(name, {})
+        spec = sub.get("specie", {})
+        thermodyn = sub.get("thermodynamics", {})
+        transp = sub.get("transport", {})
+        W = float(spec.get("molWeight", 28.96))
+        janaf = None
+        if "highCpCoeffs" in thermodyn:
+            janaf = tm.JanafThermo(
+                R=_RR / W,
+                low=tuple(float(x) for x in thermodyn.get("lowCpCoeffs", [])),
+                high=tuple(float(x)
+                           for x in thermodyn.get("highCpCoeffs", [])),
+                Tcommon=float(thermodyn.get("Tcommon", 1000.0)))
+        species.append(Specie(
+            name=name, W=W, Cp=float(thermodyn.get("Cp", 1000.0)),
+            hf=float(thermodyn.get("Hf", thermodyn.get("hf", 0.0))),
+            janaf=janaf, Sc=sc_map.get(name, 1.0)))
+        if mix_transport is None and "mu" in transp:
+            mix_transport = tm.ConstTransport(mu0=float(transp["mu"]))
+            mix_pr = float(transp.get("Pr", 0.7))
+    return MixtureThermo(
+        species=tuple(species),
+        inert_index=names.index(inert) if inert in names else -1,
+        transport=mix_transport or tm.ConstTransport(1.8e-5), Pr=mix_pr)
+
+
+def _parse_reaction_side(side: str, name_to_idx: dict):
+    """'F + 2O2' -> ((index of F, 1.0), (index of O2, 2.0)); words that
+    name no specie (a third body's M) are dropped."""
+    out = []
+    for term in side.split("+"):
+        term = term.strip()
+        if not term:
+            continue
+        i = 0
+        while i < len(term) and (term[i].isdigit() or term[i] == "."):
+            i += 1
+        coeff = float(term[:i]) if i else 1.0
+        sp = term[i:].strip()
+        if sp in name_to_idx:
+            out.append((name_to_idx[sp], coeff))
+    return tuple(out)
+
+
+def _read_reactions(src: dict, name_to_idx: dict) -> list:
+    """A `reactions` dict -> Reactions: the [ir]reversible[ThirdBody]
+    ArrheniusReaction words, `reaction "lhs = rhs"`, A, beta, Ta and the
+    third-body `coeffs ((name eff) ...)` list."""
+    from ..physics.chemistry import Reaction
+
+    out = []
+    for sub in src.values():
+        if not isinstance(sub, dict) or "reaction" not in sub:
+            continue
+        eq = sub["reaction"]
+        if isinstance(eq, list):
+            eq = " ".join(str(x) for x in eq)
+        lhs_s, _, rhs_s = str(eq).strip('"').partition("=")
+        word = sub.get("type", "irreversibleArrheniusReaction")
+        word = str(word[0] if isinstance(word, list) else word)
+        effs = []
+        raw_eff = sub.get("coeffs", sub.get("efficiencies", []))
+        if isinstance(raw_eff, list):
+            pairs = (raw_eff if raw_eff and isinstance(raw_eff[0], list)
+                     else [raw_eff])
+            effs = [(name_to_idx[str(pr[0])], float(pr[1])) for pr in pairs
+                    if isinstance(pr, list) and len(pr) == 2
+                    and str(pr[0]) in name_to_idx]
+        out.append(Reaction(
+            lhs=_parse_reaction_side(lhs_s, name_to_idx),
+            rhs=_parse_reaction_side(rhs_s, name_to_idx),
+            A=float(sub.get("A", 1.0)), beta=float(sub.get("beta", 0.0)),
+            Ta=float(sub.get("Ta", 0.0)),
+            reversible=word.lower().startswith("reversible"),
+            third_body="thirdbody" in word.lower(),
+            efficiencies=tuple(effs)))
+    return out
+
+
+def _read_chemistry(case_dir: str, mix):
+    """constant/chemistryProperties (and constant/reactions) with
+    constant/combustionProperties -> (combustion model, chemistry solver,
+    DeviceISAT or None).  A TDAC method (or an active reduction or
+    tabulation sub-dict) builds a TDACChemistrySolver around the named
+    base solver, with DRG for an active reduction; an active tabulation is
+    a DeviceISAT (`method ISATDevice`, and the reference's ISAT word
+    too)."""
+    from ..physics import chemistry as chem
+
+    name_to_idx = {sp.name: i for i, sp in enumerate(mix.species)}
+    chem_props = {}
+    p = os.path.join(case_dir, "constant", "chemistryProperties")
+    if os.path.exists(p):
+        chem_props = foamdict.parse_file(p)
+    reactions = _read_reactions(chem_props.get("reactions", {}),
+                                name_to_idx)
+    rp = os.path.join(case_dir, "constant", "reactions")
+    if os.path.exists(rp):
+        reactions += _read_reactions(
+            foamdict.parse_file(rp).get("reactions", {}), name_to_idx)
+
+    comb_word = "laminar" if reactions else "none"
+    cp = os.path.join(case_dir, "constant", "combustionProperties")
+    if os.path.exists(cp):
+        cd = foamdict.parse_file(cp)
+        w = cd.get("combustionModel", comb_word)
+        comb_word = str(w[0] if isinstance(w, list) else w).split("<")[0]
+        if not bool(cd.get("active", True)):
+            comb_word = "none"
+    comb_kw = {}
+    if comb_word in ("laminar", "PaSR", "EDC", "zoneCombustion",
+                     "infinitelyFastChemistry"):
+        comb_kw["reactions"] = tuple(reactions)
+    try:
+        combustion = create("combustion", comb_word, **comb_kw)
+    except TypeError:
+        # a family whose constructor takes no reaction list
+        combustion = create("combustion", comb_word)
+    if not bool(chem_props.get("chemistry", True)):
+        combustion = chem.NoCombustion()
+
+    ctype = chem_props.get("chemistryType", {})
+    solver_word = str(ctype.get("solver", "EulerImplicit"))
+    method = str(ctype.get("method", "standard"))
+    base = create("chemistrySolver",
+                  solver_word if solver_word != "TDAC" else "EulerImplicit")
+    tab_sub = chem_props.get("tabulation", {})
+    red_sub = chem_props.get("reduction", {})
+    if not (method == "TDAC" or tab_sub or red_sub):
+        return combustion, base, None
+    reduction = tabulation = None
+    if bool(red_sub.get("active", False)):
+        targets = [str(sp) for sp in red_sub.get("targetSpecies",
+                                                 red_sub.get("species", []))]
+        tgt = tuple(name_to_idx[sp] for sp in targets if sp in name_to_idx)
+        if tgt:
+            reduction = chem.DRG(
+                targets=tgt, threshold=float(red_sub.get("tolerance", 0.01)))
+    if bool(tab_sub.get("active", False)):
+        tabulation = chem.DeviceISAT(tol=float(tab_sub.get("tolerance",
+                                                           1e-3)))
+    return (combustion, chem.TDACChemistrySolver(base=base,
+                                                 reduction=reduction),
+            tabulation)
+
+
+def _species_fields(fields: dict, mix):
+    """Per-specie 0/<name> fields, 0/Ydefault for the rest -> (Y0 as a
+    (n_species, *cells) numpy stack, per-specie BC tuple)."""
+    default = fields.get("Ydefault")
+    arrs, bcs = [], []
+    for sp in mix.species:
+        if sp.name in fields:
+            a, b = fields[sp.name]
+        elif default is not None:
+            a, b = default
+        else:
+            raise ValueError(f"missing 0/{sp.name} field (and no Ydefault)")
+        arrs.append(np.asarray(a))
+        bcs.append(b)
+    return np.stack(arrs), tuple(bcs)
 
 
 def dynamic_mesh_kwargs(d: dict, ndim: int) -> dict:

@@ -136,12 +136,25 @@ def state_fields(solver, state) -> dict:
     (the AUTO_WRITE set of the reference application): U, p and T of the
     QGD solvers (from the conservative State) and of the QHD family
     (QHDDyMFoam's too: its solver is a QHDFoam), T and the carried U of
-    scalar transport, and U, p and the phase fraction of interQHDFoam,
+    scalar transport, U, p and the phase fraction of interQHDFoam,
     whose file is named after the case's first phase
-    (`solver.alpha_field`)."""
-    from ..solvers import inter_qhd, qgd, qhd, scalar_transport, zqgd
+    (`solver.alpha_field`), and U, p, T and one file per specie of the
+    reacting solver (a specie without a 0/ file of its own is templated
+    from 0/Ydefault).  The Lagrangian solvers write their fluid's fields
+    (the parcels live in a checkpoint, not in lagrangian/ directories)."""
+    from ..solvers import (inter_qhd, particles, qgd, qhd, reacting,
+                           scalar_transport, zqgd)
 
-    if isinstance(solver, (qgd.QGDFoam, zqgd.ZQGDFoam)):
+    if isinstance(solver, (particles.ParticlesQGDFoam,
+                           particles.ParticlesQHDFoam,
+                           particles.ReactingLagrangianQGDFoam)):
+        return state_fields(solver.fluid, state.fluid)
+    if isinstance(solver, reacting.ReactingQGDFoam):
+        U, e, T, p = solver.primitives(state)
+        fields = (("U", U), ("p", p), ("T", T)) + tuple(
+            (sp.name, state.Y[i])
+            for i, sp in enumerate(solver.mixture.species))
+    elif isinstance(solver, (qgd.QGDFoam, zqgd.ZQGDFoam)):
         U, e, T, p = solver.primitives(state)
         fields = (("U", U), ("p", p), ("T", T))
     elif isinstance(solver, qhd.QHDFoam):
@@ -160,6 +173,6 @@ def write_state(case_dir: str, solver, state, time_name=None) -> str:
     """runTime.write(): dump the solver state's prognostic fields into a
     time directory named after the current solution time."""
     if time_name is None:
-        t = float(state.t)
+        t = float(getattr(state, "fluid", state).t)
         time_name = ("%d" % int(t)) if t == int(t) else ("%.6g" % t)
     return write_time_dir(case_dir, time_name, state_fields(solver, state))

@@ -116,6 +116,13 @@ def spmd_supported(solver) -> tp.Optional[str]:
         return f"{type(solver).__name__} has no composable step"
     if getattr(solver.mesh, "solid", None) is not None:
         return "stairstep solid masks are globally indexed"
+    fluid = getattr(solver, "fluid", solver)
+    if hasattr(fluid, "_tabulation") and fluid._tabulation()[0] is not None:
+        # the table's slots hash compositions from every cell of the
+        # process; the JAX package's decomposition refuses it too (its
+        # key rows are taken for a spatial leaf)
+        return ("a DeviceISAT chemistry table is per-process state and is "
+                "not decomposed")
     return None
 
 
@@ -158,7 +165,15 @@ def _join(blocks, ctx: spmd.SpmdContext, nd: int, owner=None):
     return x if len(cols) == 1 else torch.cat(cols, dim=x.ndim - nd)
 
 
-def build_spmd_step(solver, grid: ProcessGrid):
+def _with_mesh(solver, mesh):
+    """`solver` on `mesh`; the Lagrangian solvers nest it in their fluid."""
+    if hasattr(solver, "fluid"):
+        return dataclasses.replace(
+            solver, fluid=dataclasses.replace(solver.fluid, mesh=mesh))
+    return dataclasses.replace(solver, mesh=mesh)
+
+
+def build_spmd_step(solver, grid: ProcessGrid, capacity=None):
     """(step, to_spmd, from_spmd): the solver's composable step on this
     rank's block of `grid`, inside a launched world of grid.size ranks.
 
@@ -171,32 +186,47 @@ def build_spmd_step(solver, grid: ProcessGrid):
     ghost_pad is the only one that applies that BC): from_spmd takes the
     owner's rows and no broadcast is made.  (The JAX
     version takes a template state to derive its PartitionSpecs; here the
-    windows follow from the mesh.)  Raises ValueError when a split does not
-    divide its axis, and NotImplementedError for a solver `spmd_supported`
-    rejects."""
+    windows follow from the mesh.)
+
+    A Lagrangian solver's PState: the fluid State windows as above and
+    to_spmd gives this rank the cloud's parcels resident in its block, in
+    `capacity` slots (default: the cloud's slot count, which no rank can
+    overflow; `particles.distribute_cloud`, which raises ValueError for a
+    rank with more residents or a parcel outside the mesh); from_spmd
+    joins the ranks' slot blocks in rank order and sums their dropped
+    counts.  Raises ValueError when a split does not divide its axis, and
+    NotImplementedError for a solver `spmd_supported` rejects."""
     reason = spmd_supported(solver)
     if reason is not None:
         raise NotImplementedError(f"spmd decomposition unsupported: {reason}")
     mesh = solver.mesh
     nd = mesh.ndim
     ctx = block_context(mesh, grid)
-    local_step = dataclasses.replace(solver, mesh=block_mesh(ctx)).make_step()
-    # the QGD States' boundary rows (the QHD and scalar-transport States
-    # have none)
+    local_step = _with_mesh(solver, block_mesh(ctx)).make_step()
+    # the QGD States' boundary rows (the QHD, scalar-transport and
+    # reacting States have none)
+    fluid = getattr(solver, "fluid", solver)
     owners = {}
-    if hasattr(solver, "_flux_sides"):
-        owners = {"pbc": solver._flux_sides(),
+    if hasattr(fluid, "_flux_sides"):
+        owners = {"pbc": fluid._flux_sides(),
                   "wt": tuple((a, side)
-                              for _, a, side, _ in solver._wt_sides())}
+                              for _, a, side, _ in fluid._wt_sides())}
 
     def step(s):
         with spmd.active(ctx):
             return local_step(s)
 
     def to_spmd(s):
+        if hasattr(s, "cloud"):
+            return type(s)(fluid=to_spmd(s.fluid),
+                           cloud=_cloud_block(s.cloud, mesh, grid, ctx,
+                                              capacity))
         return type(s)(*(_window(v, ctx, nd) for v in s))
 
     def from_spmd(s):
+        if hasattr(s, "cloud"):
+            return type(s)(fluid=from_spmd(s.fluid),
+                           cloud=_join_cloud(s.cloud))
         out = {}
         for name, v in zip(s._fields, s):
             if name in owners:
@@ -210,3 +240,25 @@ def build_spmd_step(solver, grid: ProcessGrid):
         return type(s)(**out)
 
     return step, to_spmd, from_spmd
+
+
+def _cloud_block(cloud, mesh, grid: ProcessGrid, ctx, capacity):
+    """This rank's slot block of a global cloud: its resident parcels,
+    active first, in `capacity` slots, and a zero dropped count."""
+    from ..solvers.particles import distribute_cloud
+
+    cap = int(capacity if capacity is not None else cloud.active.shape[0])
+    blocks = distribute_cloud(cloud, mesh, grid, cap)
+    r = grid.rank(*ctx.coords[:2]) if mesh.ndim > 1 else ctx.coords[0]
+    return type(cloud)(
+        *(v.narrow(v.ndim - 1, r * cap, cap).contiguous()
+          for v in blocks[:5]),
+        dropped=torch.zeros((), dtype=torch.int64, device=cloud.x.device))
+
+
+def _join_cloud(c):
+    """The ranks' slot blocks joined in rank order (a collective), with the
+    dropped counts summed."""
+    fields = [torch.cat(spmd.all_gather(v), dim=v.ndim - 1) for v in c[:5]]
+    dropped = None if c.dropped is None else sum(spmd.all_gather(c.dropped))
+    return type(c)(*fields, dropped=dropped)

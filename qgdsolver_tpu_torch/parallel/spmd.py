@@ -233,6 +233,19 @@ def exchange(a: int, send_lo, send_hi, recv_lo, recv_hi,
         _unwire(dst, w)
 
 
+def hop_exchange(a: int, up: torch.Tensor, down: torch.Tensor):
+    """One hop of fixed-size slot arrays along decomposed mesh axis a,
+    cyclically, as one `batch_isend_irecv`: `up` goes to the next rank,
+    `down` to the previous one.  Returns (from_prev, from_next): what the
+    previous rank sent up and the next rank sent down.  A Lagrangian
+    cloud's migration packs its slot arrays (x, u, Tp, dp, active) into
+    one tensor a direction."""
+    from_prev = torch.empty_like(up)
+    from_next = torch.empty_like(down)
+    exchange(a, [down], [up], [from_prev], [from_next], periodic=True)
+    return from_prev, from_next
+
+
 def _sl(arr, axis, s):
     idx = [slice(None)] * arr.ndim
     idx[axis] = s

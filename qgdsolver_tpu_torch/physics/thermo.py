@@ -266,6 +266,18 @@ class JanafThermo:
     def e_abs(self, T):
         return self.h_abs(T) - self.R * T
 
+    def s_abs(self, T):
+        """Standard-state entropy s0(T): s/R = a0 ln T + a1 T + a2 T^2/2
+        + a3 T^3/3 + a4 T^4/4 + a6 (the equilibrium constants of reversible
+        reactions take it)."""
+        a = self._coeffs(T)
+        poly = (a[..., 0] * torch.log(T)
+                + T * (a[..., 1] + T * (a[..., 2] / 2
+                                        + T * (a[..., 3] / 3
+                                               + T * a[..., 4] / 4)))
+                + a[..., 6])
+        return self.R * poly
+
     def cv(self, T):
         return self.cp(T) - self.R
 

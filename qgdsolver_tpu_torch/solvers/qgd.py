@@ -148,8 +148,15 @@ class QGDFoam:
         p = th.p_from_rho_T(s.rho, T)
         return U, e, T, p
 
-    def make_step(self):
-        """Build the step State -> State."""
+    def make_step(self, external_sources: bool = False):
+        """Build the step State -> State.
+
+        external_sources=True: the step takes (state, srcs), srcs a tuple
+        (rhoSu, rhoUSu, rhoESu) or a callable of the dt this step applies
+        returning one (the parcel exchange then conserves exactly under
+        adaptive time steps): the createZeroSources.H slots of the
+        Lagrangian solvers (particlesQGDFoam: rhoUSu = parcels.SU(U),
+        rhoESu = parcels.Sh(e)), each a cell field or a number."""
         mesh = self.mesh
         nd = mesh.ndim
         th = self.thermo
@@ -186,7 +193,7 @@ class QGDFoam:
         bc_e = (None if wt_has_T else
                 common.e_bcs_from_T(bc_T, th.e_from_T, Cv))
 
-        def step(s: State) -> State:
+        def step(s: State, srcs=None) -> State:
             rho, rhoU, rhoE, sc_prev, t, dt = s[:6]
             # substitute the lagged qgdFlux gradients into the p BCs
             bc_p = bc_p0
@@ -336,11 +343,15 @@ class QGDFoam:
             co = common.courant_acoustic(Uf, cf, dt, mesh)
             dt_new = common.set_delta_t(dt, co, common.tau_f_min(tau_f), tc)
 
-            rho_new = rho - dt_new * fvsc.div_flux(tuple(phiJm), mesh)
+            if callable(srcs):
+                srcs = srcs(dt_new)
+            rho_new = rho - dt_new * _less(fvsc.div_flux(tuple(phiJm), mesh),
+                                           srcs, 0)
             if wall is not None:
                 # solid cells are not prognostic: clamp to the mirror fill
                 rho_new = torch.where(wall.solid, rho, rho_new)
-            rhoU_new = rhoU - dt_new * fvsc.div_flux(tuple(mom_flux), mesh)
+            rhoU_new = rhoU - dt_new * _less(
+                fvsc.div_flux(tuple(mom_flux), mesh), srcs, 1)
             if mesh.axisymmetric:
                 # wedge hoop terms of the radial momentum (u_theta = 0): the
                 # side faces' (p - Pi_theta_theta)/r per volume, with
@@ -400,7 +411,8 @@ class QGDFoam:
                     e_flux[a] = e_flux[a] - area[a] * torch.sum(
                         sig * Uf[a], dim=0)
 
-            rhoE_new = rhoE - dt_new * fvsc.div_flux(tuple(e_flux), mesh)
+            rhoE_new = rhoE - dt_new * _less(
+                fvsc.div_flux(tuple(e_flux), mesh), srcs, 2)
             if wall is not None:
                 rhoE_new = torch.where(wall.solid, rhoE, rhoE_new)
             if implicit or wt_sides:
@@ -463,7 +475,9 @@ class QGDFoam:
                          sc=coeffs.sc, t=t + dt_new, dt=dt_new,
                          pbc=tuple(pbc_new), wt=tuple(wt_new))
 
-        return step
+        if external_sources:
+            return step
+        return lambda s: step(s)
 
     # -- fused kernel path ----------------------------------------------------
     def fused_supported(self) -> bool:
@@ -501,6 +515,12 @@ class QGDFoam:
         Fused3DState) to the next; to_fused / from_fused convert to and from
         the composable State."""
         return self.fused_builder()(self)
+
+
+def _less(div, srcs, i):
+    """div minus source i of srcs (rho, rhoU, rhoE), the order of the
+    reference's `ddt = -(div - Su)`; div itself without sources."""
+    return div if srcs is None else div - srcs[i]
 
 
 def dev2T(gradU_cell, nd):

@@ -5,7 +5,12 @@ resume contract) written as `step_<n>.npz` with one `leaf_i` array per leaf
 in the JAX flatten order of the state, plus a `.json` sidecar.  The layout
 is the JAX package's own, so a checkpoint written by either package restores
 into the other: a QGDFoam State flattens to rho, rhoU, rhoE, sc, t, dt, then
-the pbc tensors (the JAX State's empty `wt` tuple adds no leaf).
+the pbc tensors (the JAX State's empty `wt` tuple adds no leaf).  A
+Lagrangian `PState` flattens to its fluid State's leaves, then the cloud's
+x, u, Tp, dp and active (a serial cloud's dropped count is None: no leaf);
+a reacting State's DeviceISAT table dict by sorted key (its counters are
+int64 scalars here, two uint32 limbs in the JAX package, so a tabulated
+reacting checkpoint restores only into the package that wrote it).
 
 Flatten order follows JAX's pytree rules for the containers a state holds:
 NamedTuples, tuples and lists in order, dicts by sorted key, None as an

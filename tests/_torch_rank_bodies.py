@@ -326,3 +326,76 @@ def run_jobs(jobs, device="cpu"):
         launches = {k.__name__: k.launches for k in kernels if k.launches}
         out.append((interop.state_to_numpy(from_blocks(s)), launches))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Lagrangian clouds decomposed (tests/test_torch_particles_spmd.py)
+# ---------------------------------------------------------------------------
+
+
+def cloud_case(name, shape, dtype, device="cpu"):
+    """The port's particlesQGDFoam solver of a cloud test case: "cloud_jet"
+    is the supersonic jet with particles_case's cloud constants (rho 2500,
+    Cp 900), two-way, escaping walls; "cloud_periodic" a periodic box in a
+    uniform 20 m/s stream with periodic cloud walls."""
+    from qgdsolver_tpu_torch.solvers.particles import (ParticlesQGDFoam,
+                                                       ThermoCloud)
+
+    if name == "cloud_jet":
+        fluid, _ = cases.supersonic_jet(shape=shape, dtype=dtype,
+                                        device=device)
+        return ParticlesQGDFoam(fluid=fluid, cloud=ThermoCloud(
+            rho_p=2500.0, Cp_p=900.0, two_way=True))
+    mesh = Mesh.uniform(shape, lengths=(1.0, 0.5), dtype=dtype,
+                        device=device)
+    per = bcm.FieldBCs.uniform(bcm.Periodic(), 2)
+    fluid = QGDFoam(mesh=mesh, thermo=PerfectGasThermo(R=287.0, Cp=1004.5),
+                    tau_model=ConstScPrModel1(alpha=0.5), bc_U=per,
+                    bc_p=per, bc_T=per,
+                    time=TimeControls(max_co=0.3, max_dt=1e-4, dt0=1e-6))
+    return ParticlesQGDFoam(fluid=fluid, cloud=ThermoCloud(
+        rho_p=800.0, two_way=True, wall="periodic"))
+
+
+def long_way_round(xa, act, a, ctx):
+    """The JAX package's migration rule (its `_migrate`): up past the
+    block's high face, down below its low face, so a parcel that wrapped a
+    periodic edge goes the long way round, a block a step."""
+    mesh = ctx.global_mesh
+    lo = float(mesh.x_faces[a][ctx.start(a)])
+    hi = float(mesh.x_faces[a][ctx.start(a) + ctx.axes[a].n_local])
+    up = act * (xa >= hi).to(act.dtype)
+    down = act * (xa < lo).to(act.dtype)
+    return up, down * (1.0 - up), torch.zeros_like(act)
+
+
+def run_cloud_jobs(jobs, device="cpu"):
+    """Run each cloud job on this rank: (case, shape, (px, py), steps,
+    initial PState with numpy leaves, slot capacity or None, fault or
+    None), the fault "long_way" putting the JAX package's migration rule
+    back.  After the steps `particles.raise_dropped` reads the lost
+    parcels, as the CLI does.  Per job ("ok", the gathered PState with
+    numpy leaves) or ("error", exception class name, message)."""
+    from qgdsolver_tpu_torch.solvers import particles
+
+    dev = distributed.rank_device(device)
+    out = []
+    for name, shape, (px, py), steps, state_np, capacity, fault in jobs:
+        saved = particles.hop_masks
+        if fault == "long_way":
+            particles.hop_masks = long_way_round
+        try:
+            solver = cloud_case(name, shape, torch.float64, dev)
+            step, to_blocks, from_blocks = sharding.build_spmd_step(
+                solver, sharding.ProcessGrid(px, py), capacity=capacity)
+            s = to_blocks(interop.state_from_numpy(state_np, device=dev,
+                                                   dtype=torch.float64))
+            for _ in range(steps):
+                s = step(s)
+            particles.raise_dropped(s)
+            out.append(("ok", interop.state_to_numpy(from_blocks(s))))
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            out.append(("error", type(e).__name__, str(e)))
+        finally:
+            particles.hop_masks = saved
+    return out

@@ -274,13 +274,17 @@ def test_cli_devices_2x1_matches_one_rank(app, tmp_path):
     ("QHDDyMFoam", "item 8b"), ("interQHDFoam", "item 9"),
     ("particlesQGDFoam", "item 10"), ("particlesQHDFoam", "item 10"),
     ("reactingLagrangianQGDFoam", "item 10")])
-def test_apps_still_to_come_raise(app, item, tmp_path):
-    """build_case and core.config's build_solver raise naming the item for
-    the applications of item 10.  Those of items 8b (QHDDyMFoam) and 9
-    (interQHDFoam) are ported since: their configs build, and a QHDFoam
-    case directory renamed to them builds as the JAX package builds it (a
-    static QHDFoam without a dynamicMeshDict; no alpha field, a
-    ValueError)."""
+def test_ported_apps_build_from_case_directories(app, item, tmp_path):
+    """Every application of the ROADMAP items named builds from a case
+    directory.  Those of items 8b (QHDDyMFoam) and 9 (interQHDFoam) build
+    from their configs too, and a QHDFoam case directory renamed to them
+    builds as the JAX package builds it (a static QHDFoam without a
+    dynamicMeshDict; no alpha field, a ValueError).  Those of item 10 (the
+    Lagrangian and reacting solvers) build from their fixture case
+    directories (particlesQHDFoam from the renamed QHDFoam one, its
+    placeholder parcel inactive), and core.config's build_solver refuses
+    them, as the JAX package's does, pointing at the case directory or the
+    Python API, without naming an item still to come."""
     cfg = {"solver": app, "mesh": {"shape": [4, 4]}}
     case = write_case(str(tmp_path), "QHDFoam")
     path = os.path.join(case, "system", "controlDict")
@@ -310,10 +314,21 @@ def test_apps_still_to_come_raise(app, item, tmp_path):
         with pytest.raises(ValueError, match="no alpha field"):
             foam_case.build_case(case, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+    with pytest.raises(NotImplementedError,
+                       match="case directory .* or the Python API") as err:
         config.build_solver(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        foam_case.build_case(case, device="cpu")
+    assert "ROADMAP" not in str(err.value) and item not in str(err.value)
+    fixture = {"particlesQGDFoam": "particles_case",
+               "reactingLagrangianQGDFoam": "reacting_case"}.get(app)
+    if fixture is not None:
+        case = os.path.join(os.path.dirname(__file__), "fixtures", fixture)
+    solver, state = foam_case.build_case(case, device="cpu")
+    assert type(solver).__name__ == {
+        "particlesQGDFoam": "ParticlesQGDFoam",
+        "particlesQHDFoam": "ParticlesQHDFoam",
+        "reactingLagrangianQGDFoam": "ReactingLagrangianQGDFoam"}[app]
+    assert float(state.cloud.active.sum()) == (
+        0.0 if app == "particlesQHDFoam" else state.cloud.x.shape[1])
 
 
 def test_words_and_fields_still_to_come_raise():
