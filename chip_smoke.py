@@ -58,8 +58,13 @@ reacting applications: particlesQGDFoam on the 1024x512 f32 jet with
 262144 parcels, particlesQHDFoam on the 128x128 f64 cavity with 65536,
 reactingLagrangianQGDFoam through the CLI at 1024x512 f64 with its
 DeviceISAT table's hits, lookups and evictions, and the two-way jet on 2x1
-ranks sharing the card; no kernel is launched in either.  One line per
-phase; any failure exits non-zero. The last
+ranks sharing the card; no kernel is launched in either.  Phase 25 runs
+the port's graft entry points: `graft_entry.entry()`'s step against the
+same steps on the CPU, `graft_entry.dryrun_multichip(4)` on ranks sharing
+the card (K3 and K5 bit for bit the serial kernel path), and
+`utils.badcells.select_bad_cells` on four meshes against the CPU, and
+tests/fixtures/particles_case built and stepped against the CPU.  One
+line per phase; any failure exits non-zero. The last
 line is {"ok": true, "device": {...}}. Without a CUDA device it fails
 before printing any result. It imports nothing of JAX."""
 from __future__ import annotations
@@ -2791,6 +2796,186 @@ def phase_lagrangian_reacting(card, root):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the graft entry points and selectBadCells (no new kernel)
+# ---------------------------------------------------------------------------
+
+
+def entry_run(cpu_steps=3, n=20, share=1e-3) -> str:
+    """`graft_entry.entry()` on the card: its first cpu_steps steps held
+    within `share` of each field's max against entry(device="cpu") (phase
+    21's bound for the composable path), then n steps timed by CUDA
+    events, and check_physical on the end state."""
+    from qgdsolver_tpu_torch import cases, graft_entry
+
+    step, (s,) = graft_entry.entry()
+    check(s.rho.is_cuda, "entry(): the State is not on the card")
+    cstep, (c,) = graft_entry.entry(device="cpu")
+    for _ in range(cpu_steps):
+        s, c = step(s), cstep(c)
+    errs = {}
+    for f in ("rho", "rhoU", "rhoE", "dt"):
+        errs[f] = rel_err(getattr(c, f), getattr(s, f).cpu())
+        check(errs[f] <= share, f"entry(): {f} {errs[f]:.2e} of its max "
+              f"from the CPU's after {cpu_steps} steps (> {share:g})")
+    box = [s]
+
+    def one():
+        box[0] = step(box[0])
+
+    ms = cuda_ms(one, n, warmup=0)
+    solver, _ = cases.supersonic_jet(shape=tuple(s.rho.shape),
+                                     device=s.rho.device)
+    phys = check_physical("entry()", solver, box[0])
+    return (f"entry() {tuple(s.rho.shape)} f32 composable: first "
+            f"{cpu_steps} steps vs the CPU "
+            + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+            + f" (share {share:g}); {ms:.3f} ms/step over {n} steps; {phys}")
+
+
+def dryrun_run(n_ranks=4):
+    """`graft_entry.dryrun_multichip(n_ranks)` on ranks sharing the card:
+    each path within its bound of the port's serial step (the function
+    raises otherwise), K3 and K5 bit for bit the serial kernel path, each
+    flagged kernel of their paths launched once a step on every rank, and
+    no kernel under the composable path.  (message, {path: launches})."""
+    from qgdsolver_tpu_torch import graft_entry
+    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    steps = graft_entry.DRYRUN_STEPS
+    t0 = time.perf_counter()
+    rep = graft_entry.dryrun_multichip(n_ranks)
+    secs = time.perf_counter() - t0
+    check(rep["spmd"]["launches"] == {},
+          f"dry run spmd: kernels launched {rep['spmd']['launches']}")
+    totals = {}
+    for path, kernels in (("k3", F.SHARDED_KERNELS),
+                          ("k5", F3.SHARDED_KERNELS)):
+        r = rep[path]
+        check(r["bitwise"], f"dry run {path}: not bit for bit the serial "
+              f"kernel path {r['max_rel']}")
+        for k in kernels:
+            got = r["launches"].get(k.__name__, 0)
+            check(got == n_ranks * steps, f"dry run {path}: {k.__name__} "
+                  f"launched {got} times, expected {n_ranks * steps}")
+        totals[path] = sum(r["launches"].values())
+    msg = "; ".join(
+        f"{path} {r['shape']} on {r['grid'][0]}x{r['grid'][1]} "
+        f"({r['bound']}): largest difference from serial "
+        f"{max(r['max_rel'].values()):.1e}"
+        + (" (bitwise)" if r["bitwise"] else "")
+        + f", launches {r['launches']}" for path, r in rep.items())
+    return (f"dryrun_multichip({n_ranks}), {steps} steps, {SHARED}: {msg}; "
+            f"{secs:.1f} s"), totals
+
+
+def badcells_run(dev, root) -> str:
+    """`select_bad_cells` on the card against the CPU, on the 4096x2048
+    CLI case's mesh (uniform: 0 bad), the graded jet at 1024x512, the
+    wedge_case fixture's AxisymmetricMesh and a graded 256x126x126 mesh,
+    each at the default thresholds and at thresholds midway between 1 and
+    the mesh's maxima (which flag part of the cells): masks bit for bit,
+    maxima and n_bad equal; ms a call by CUDA events (the three numbers'
+    host read included)."""
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.core.mesh import Mesh
+    from qgdsolver_tpu_torch.io import foam_fields
+    from qgdsolver_tpu_torch.utils import badcells
+
+    def geom(n, length, ratio):
+        w = ratio ** (np.arange(n) / max(n - 1, 1))
+        return np.concatenate([[0.0], np.cumsum(w / w.sum() * length)])
+
+    big = write_case(root, "badcells_big", BIG, varsc=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    wedge = os.path.join(here, "tests", "fixtures", "wedge_case")
+    faces3 = (geom(SHAPE3[0], 4.0, 3.0), geom(SHAPE3[1], 1.0, 2.5),
+              geom(SHAPE3[2], 1.0, 0.4))
+    meshes = {
+        f"CLI case {BIG[0]}x{BIG[1]}":
+            lambda d: foam_fields.load_block_mesh(big, device=d)[0],
+        f"jet_graded {SHAPE[0]}x{SHAPE[1]}":
+            lambda d: cases.supersonic_jet_graded(shape=SHAPE,
+                                                  device=d)[0].mesh,
+        "wedge_case": lambda d: foam_fields.load_block_mesh(wedge,
+                                                            device=d)[0],
+        "graded {}x{}x{}".format(*SHAPE3):
+            lambda d: Mesh(x_faces=faces3, device=d),
+    }
+    msgs = []
+    for label, build in meshes.items():
+        mesh, cmesh = build(dev), build(torch.device("cpu"))
+        check(mesh.device.type == "cuda", f"{label}: mesh not on the card")
+        top = badcells.select_bad_cells(mesh)
+        mid = (0.5 * (1.0 + top.max_aspect_ratio),
+               0.5 * (1.0 + top.max_expansion))
+        counts = []
+        for th in ((100.0, 3.0), mid):
+            got = badcells.select_bad_cells(mesh, *th)
+            ref = badcells.select_bad_cells(cmesh, *th)
+            for m in ("high_aspect_ratio", "high_expansion"):
+                check(getattr(got, m).is_cuda
+                      and torch.equal(getattr(got, m).cpu(), getattr(ref, m)),
+                      f"{label} {th}: {m} differs from the CPU's")
+            for v in ("max_aspect_ratio", "max_expansion", "n_bad"):
+                check(getattr(got, v) == getattr(ref, v),
+                      f"{label} {th}: {v} {getattr(got, v)} vs the CPU's "
+                      f"{getattr(ref, v)}")
+            counts.append((got.n_bad, int(got.high_aspect_ratio.sum()),
+                           int(got.high_expansion.sum())))
+        if label.startswith("CLI"):
+            check(counts[0][0] == 0, f"{label}: {counts[0][0]} bad cells")
+        ms = cuda_ms(lambda: badcells.select_bad_cells(mesh), 5)
+        msgs.append(f"{label} ({type(mesh).__name__}): n_bad {counts[0][0]} "
+                    f"(defaults); midway ({mid[0]!r}, {mid[1]!r}) n_bad "
+                    f"{counts[1][0]}, aspect {counts[1][1]}, expansion "
+                    f"{counts[1][2]} of {mesh.shape}; max aspect "
+                    f"{top.max_aspect_ratio!r}, max expansion "
+                    f"{top.max_expansion!r}; {ms:.3f} ms/call")
+    return "select_bad_cells vs the CPU (masks bitwise, maxima equal): " \
+        + "; ".join(msgs)
+
+
+def particles_fixture_run() -> str:
+    """tests/fixtures/particles_case, the one fixture no other phase
+    builds, through `foam_case.build_case` on the card against the CPU
+    (`cloud_run` at phase 24's float32 bound), so every fixture's case
+    ingestion runs on the card."""
+    from qgdsolver_tpu_torch.io import foam_case
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    case = os.path.join(here, "tests", "fixtures", "particles_case")
+
+    def checks(label, solver, first, s):
+        finite(label, s.fluid)
+        return (f"{int(s.cloud.active.sum())} of "
+                f"{int(first.cloud.active.sum())} parcels active")
+
+    return cloud_run("particles_case (build_case) f32",
+                     lambda d: foam_case.build_case(case, device=d), 20,
+                     1e-3, checks)
+
+
+def phase_graft_badcells(dev, card, root, sharded):
+    """Phase 25: the port's graft entry points and selectBadCells on the
+    card, and the particles_case fixture.  No kernel of its own: the dry run's launches of K3's and K5's
+    kernels are printed and kept in their kernels-line entries as
+    `dryrun_launches`."""
+    t0 = time.perf_counter()
+    msgs = [entry_run()]
+    msg, totals = dryrun_run()
+    msgs.append(msg)
+    msgs.append(badcells_run(dev, root))
+    msgs.append(particles_fixture_run())
+    for e in sharded:
+        e["dryrun_launches"] = totals[e["name"][:2]]
+    print("phase 25 graft_entry and select_bad_cells: ok " + " | ".join(msgs)
+          + f" | dry-run launches K3 {totals['k3']}, K5 {totals['k5']}"
+          + f" | {time.perf_counter() - t0:.1f} s | card: {card}",
+          flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--profiler-check"]:
         return profiler_check(int(sys.argv[2]))
@@ -2868,6 +3053,8 @@ def main() -> int:
         phase_moving_twophase(card, root)
     with tempfile.TemporaryDirectory() as root:
         phase_lagrangian_reacting(card, root)
+    with tempfile.TemporaryDirectory() as root:
+        phase_graft_badcells(dev, card, root, sharded)
     entries = []
     for k, v in stats.items():
         # each kernel's bound at the shape its time was taken; the 2D update

@@ -1,22 +1,51 @@
 """OpenFOAM dictionary parsing (PyTorch port of `qgdsolver_tpu.io.foamdict`).
 
-Both packages load the same native parser, `native/foamdict.cpp` at the
-repository root, built on demand with g++ into `native/libfoamdict.so` and
-bound with ctypes; the pure-Python fallback implements the same grammar for
-environments without a toolchain.  Host-side parsing only: nothing here
-touches torch.
+The port keeps its own copy of the reference's native parser,
+`csrc/foamdict.cpp` (byte-identical to the JAX package's), built on demand
+with g++ into `build/foamdict/` at the repository root and bound with
+ctypes.  The library's name carries a hash of the source and the flags, so
+an edited source builds anew, and it is written beside its target and
+renamed, so a process loading it never sees a half-written file.  The
+pure-Python grammar below is the plain version, used where no toolchain is
+found.  Host-side parsing only: nothing here touches torch.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import os
+import pathlib
 import re
 import subprocess
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "foamdict.cpp"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "foamdict"
+CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
 _LIB = None
 _TRIED = False
+
+
+def library_path() -> pathlib.Path:
+    """The library's path, keyed by the flags and the source's bytes."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0"
+                       + SOURCE.read_bytes())
+    return BUILD_DIR / f"libfoamdict_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> pathlib.Path:
+    """Compile the parser unless this source was built already."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        try:
+            subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                           check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return so
 
 
 def _load_native():
@@ -24,30 +53,14 @@ def _load_native():
     if _TRIED:
         return _LIB
     _TRIED = True
-    so = os.path.abspath(os.path.join(_NATIVE_DIR, "libfoamdict.so"))
-    src = os.path.abspath(os.path.join(_NATIVE_DIR, "foamdict.cpp"))
-    if not os.path.exists(so) and os.path.exists(src):
-        # build beside the target and rename, so that a process loading
-        # the library never sees a half-written file
-        tmp = f"{so}.{os.getpid()}.tmp"
-        try:
-            subprocess.run(
-                ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",
-                 "-o", tmp, src],
-                check=True, capture_output=True, timeout=120,
-            )
-            os.replace(tmp, so)
-        except Exception:
-            return None
-    if os.path.exists(so):
-        try:
-            lib = ctypes.CDLL(so)
-            lib.foamdict_parse_json.restype = ctypes.c_void_p
-            lib.foamdict_parse_json.argtypes = [ctypes.c_char_p]
-            lib.foamdict_free.argtypes = [ctypes.c_void_p]
-            _LIB = lib
-        except OSError:
-            _LIB = None
+    try:
+        lib = ctypes.CDLL(str(_build()))
+    except (OSError, subprocess.SubprocessError):
+        return None  # no toolchain: the Python grammar parses
+    lib.foamdict_parse_json.restype = ctypes.c_void_p
+    lib.foamdict_parse_json.argtypes = [ctypes.c_char_p]
+    lib.foamdict_free.argtypes = [ctypes.c_void_p]
+    _LIB = lib
     return _LIB
 
 
@@ -128,11 +141,7 @@ def _parse_py(text: str) -> dict:
         if tok == "(":
             out = []
             while peek() not in (")", None):
-                if peek() == "{":
-                    take()
-                    out.append(dict_body())
-                else:
-                    out.append(single())
+                out.append(single())
             take()
             return out
         if tok == "[":
@@ -142,7 +151,12 @@ def _parse_py(text: str) -> dict:
             take()
             return {"__dims__": dims}
         if tok == "{":
-            return dict_body()
+            # a dictionary inside a list or a value: its closing brace is
+            # its own, as in the native parser
+            d = dict_body()
+            if peek() == "}":
+                take()
+            return d
         return atom(tok)
 
     def value_tokens():

@@ -1,2 +1,2 @@
-"""Checkpoints and observability."""
-from . import checkpoint, observability  # noqa: F401
+"""Checkpoints, observability and mesh-quality screening."""
+from . import checkpoint, observability, badcells  # noqa: F401

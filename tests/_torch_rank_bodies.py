@@ -287,6 +287,15 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
+def dryrun_rank_fails(grids, device, steps):
+    """A dry-run rank body whose rank 1 raises while the others return at
+    once (no collective, so no peer sees a reset connection first): the
+    dry run must raise with rank 1's report."""
+    if torch.distributed.get_rank() == 1:
+        raise RuntimeError("planted failure on rank 1")
+    return {}
+
+
 def run_jobs(jobs, device="cpu"):
     """Run each job on this rank; [(global State with numpy leaves,
     {wrapper: launches}), ...]."""

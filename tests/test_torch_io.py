@@ -13,8 +13,13 @@ rho to rtol 1e-6: the port's state is f32, and rho comes back through
 p*(1/(R*T)).
 """
 import dataclasses
+import glob
+import json
 import os
 import shutil
+import subprocess
+import sys
+import time
 
 import jax
 import numpy as np
@@ -22,6 +27,7 @@ import pytest
 import torch
 
 from qgdsolver_tpu.io import foam_case as jfc
+from qgdsolver_tpu.io import foamdict as jfoamdict
 from qgdsolver_tpu_torch import interop
 from qgdsolver_tpu_torch.core import bc as bcm
 from qgdsolver_tpu_torch.io import foam_case, foam_fields, foam_write, foamdict
@@ -544,3 +550,163 @@ def test_case_mapping():
     beta = th["mixture"]["transport"]["beta"]
     assert beta[0]["__dims__"] == [0, 0, 0, -1, 0, 0, 0]
     assert float(beta[1]) == 3e-3
+
+
+# ---------------------------------------------------------------------------
+# the port's own native parser: built from io/csrc/foamdict.cpp into
+# build/foamdict/, never from or into the JAX package's native/ directory
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE = os.path.realpath(os.path.join(ROOT, "native"))
+
+# a fresh build into the build root argv[1] under an audit hook that
+# records every file opened, renamed, removed or loaded and every command
+# run, then a parse of argv[2]
+_AUDITED_BUILD = r"""
+import json, os, pathlib, sys
+from qgdsolver_tpu_torch.io import foamdict as fd
+
+seen = []
+EVENTS = ("open", "os.rename", "os.remove", "os.mkdir", "os.listdir",
+          "os.scandir", "os.chmod", "os.truncate", "shutil.copyfile",
+          "shutil.rmtree", "ctypes.dlopen", "subprocess.Popen", "os.exec",
+          "os.posix_spawn", "os.system")
+
+def flat(args):
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            yield from flat(a)
+        elif isinstance(a, (str, bytes, os.PathLike)):
+            yield os.fsdecode(a)
+
+def hook(event, args):
+    if event in EVENTS:
+        seen.append([event, list(flat(args))])
+
+sys.addaudithook(hook)
+fd.BUILD_DIR = pathlib.Path(sys.argv[1])
+ok = fd.native_available()
+d = fd.parse_file(sys.argv[2])
+print(json.dumps({"ok": ok, "lib": fd._LIB._name, "seen": seen, "d": d}))
+"""
+
+
+def _run(code, *args):
+    return subprocess.run([sys.executable, "-c", code, *map(str, args)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+
+
+def test_native_parser_builds_under_its_own_build_dir(tmp_path):
+    """The port's parser builds its own copy of the source into its build
+    directory (a fresh, temporary root here) and loads it from there: no
+    file under the repository's native/ is opened, written, renamed,
+    loaded or passed to a command."""
+    assert foamdict.SOURCE.parent.name == "csrc"
+    assert foamdict.BUILD_DIR == foamdict.SOURCE.parents[3] / "build" \
+        / "foamdict"
+    root = tmp_path / "build"
+    out = _run(_AUDITED_BUILD, root,
+               os.path.join(CASE, "system", "controlDict"))
+    assert out.returncode == 0, out.stderr
+    rep = json.loads(out.stdout)
+    assert rep["ok"]
+    lib = os.path.realpath(rep["lib"])
+    assert os.path.dirname(lib) == os.path.realpath(root)
+    assert os.path.basename(lib).startswith("libfoamdict_")
+    events = {e for e, _ in rep["seen"]}
+    assert {"subprocess.Popen", "os.rename", "ctypes.dlopen"} <= events
+    for event, paths in rep["seen"]:
+        for p in paths:
+            real = os.path.realpath(os.path.join(ROOT, p))
+            assert real != NATIVE and not real.startswith(NATIVE + os.sep), \
+                (event, p)
+    assert rep["d"] == json.loads(json.dumps(jfoamdict.parse_file(
+        os.path.join(CASE, "system", "controlDict"))))
+
+
+def test_library_key_hashes_source_and_flags(tmp_path, monkeypatch):
+    src = tmp_path / "foamdict.cpp"
+    src.write_bytes(foamdict.SOURCE.read_bytes())
+    monkeypatch.setattr(foamdict, "SOURCE", src)
+    key = foamdict.library_path()
+    assert key.parent == foamdict.BUILD_DIR
+    src.write_bytes(src.read_bytes() + b"// edited\n")
+    assert foamdict.library_path() != key
+    src.write_bytes(foamdict.SOURCE.read_bytes()[:-len(b"// edited\n")])
+    assert foamdict.library_path() == key
+    monkeypatch.setattr(foamdict, "CXX_FLAGS", foamdict.CXX_FLAGS + ("-g",))
+    assert foamdict.library_path() != key
+
+
+def _fixture_dicts(case):
+    return sorted(p for p in glob.glob(os.path.join(FIX, case, "**", "*"),
+                                       recursive=True) if os.path.isfile(p))
+
+
+@pytest.mark.parametrize("case", sorted(os.listdir(FIX)))
+def test_three_parsers_agree_on_every_fixture_dictionary(case):
+    """The port's native parser, its Python grammar and the JAX package's
+    parser give equal dicts on every file of every fixture case."""
+    assert foamdict.native_available()
+    files = _fixture_dicts(case)
+    assert any(p.endswith("controlDict") for p in files)
+    for p in files:
+        with open(p) as f:
+            text = f.read()
+        native = json.loads(json.dumps(foamdict.parse(text)))
+        py = json.loads(json.dumps(foamdict._parse_py(text)))
+        ref = json.loads(json.dumps(jfoamdict.parse(text)))
+        assert native == ref, p
+        assert py == ref, p
+
+
+_RACE = r"""
+import json, os, pathlib, sys, time
+from qgdsolver_tpu_torch.io import foamdict as fd
+
+fd.BUILD_DIR = pathlib.Path(sys.argv[1])
+go = pathlib.Path(sys.argv[2])
+pathlib.Path(f"{go}.{os.getpid()}.ready").touch()
+while not go.exists():
+    time.sleep(0.005)
+ok = fd.native_available()
+print(json.dumps({"ok": ok, "lib": fd._LIB._name if ok else None,
+                  "d": fd.parse_file(sys.argv[3])}))
+"""
+
+
+def test_two_processes_building_at_once_both_load_a_whole_library(
+        tmp_path):
+    """Two processes started on an empty build root, released together:
+    each builds beside the target and renames, so both load a whole
+    library (no Python fallback) and parse alike, and no partial file is
+    left behind."""
+    root, go = tmp_path / "build", tmp_path / "go"
+    blockmesh = os.path.join(CASE, "system", "blockMeshDict")
+    procs = [subprocess.Popen([sys.executable, "-c", _RACE, str(root),
+                               str(go), blockmesh], cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for _ in range(2)]
+    try:
+        deadline = time.monotonic() + 120
+        while len(glob.glob(f"{go}.*.ready")) < 2:
+            assert time.monotonic() < deadline, "the processes did not start"
+            assert all(p.poll() is None for p in procs)
+            time.sleep(0.01)
+        go.touch()
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    reps = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        reps.append(json.loads(out))
+    assert all(r["ok"] for r in reps)
+    assert reps[0]["lib"] == reps[1]["lib"]
+    assert reps[0]["d"] == reps[1]["d"] == json.loads(json.dumps(
+        jfoamdict.parse_file(blockmesh)))
+    assert os.listdir(root) == [os.path.basename(reps[0]["lib"])]

@@ -3,6 +3,10 @@
 Inputs are float64 fields from a numpy seed; the formulas and their order are
 the same in both packages, so they agree to 1e-12 relative.
 """
+import ast
+import os
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -209,8 +213,71 @@ def test_port_imports_no_jax():
             "qgdsolver_tpu_torch.ops.fused_qgd2d, "
             "qgdsolver_tpu_torch.ops.fused_qgd3d, qgdsolver_tpu_torch.cli, "
             "qgdsolver_tpu_torch.io.foam_write, qgdsolver_tpu_torch.utils, "
+            "qgdsolver_tpu_torch.utils.badcells, "
+            "qgdsolver_tpu_torch.graft_entry, "
             "qgdsolver_tpu_torch.core.config, qgdsolver_tpu_torch.__main__; "
             "import sys; assert 'jax' not in sys.modules")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# a citation of the reference's code, `path:line` or `path:line-line`
+_CITATION = re.compile(r"[\w./]+\.\w+:\d+(-\d+)?")
+
+
+def _port_sources():
+    return sorted((ROOT / "qgdsolver_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _docstrings(tree):
+    """The string constants that are docstrings (not code)."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_no_reference_and_names_no_native_dir(path):
+    """Every module of the port and chip_smoke.py: no import of `jax` or
+    of `qgdsolver_tpu` (static, relative beyond the package, or by a
+    string passed to an import function), and no string in code that
+    names the repository's native/ directory; docstrings, and strings
+    that cite the reference's file:line, are allowed."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    depth = len(path.relative_to(ROOT).parts) - 1  # package levels
+    refs = ("jax", "qgdsolver_tpu")
+
+    def banned(name):
+        return name is not None and name.split(".")[0] in refs
+
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        where = f"{path.name}:{getattr(node, 'lineno', '?')}"
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                assert not banned(alias.name), where
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0 or node.level <= depth, where
+            assert not banned(node.module), where
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in ("import_module", "__import__") and node.args:
+                arg = node.args[0]
+                assert not (isinstance(arg, ast.Constant)
+                            and banned(str(arg.value))), where
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            text = _CITATION.sub("", node.value)
+            assert not re.search(r"(^|[/\\])native([/\\]|$)", text), where
