@@ -10,9 +10,10 @@ particlesQHDFoam) is here a fixed-size structure of arrays:
   * gas properties at the owner cell (OpenFOAM's cell-value interpolation);
   * Schiller-Naumann drag and Ranz-Marshall heat transfer with exact
     exponential integrators;
-  * two-way sources by `index_add_` of each parcel's exchange into its
-    owner cell before the move (on the card the float atomics sum in
-    another order each run: round-off, not bit for bit);
+  * two-way sources by `ops.deposit.deposit` of each parcel's exchange
+    into its owner cell before the move: each cell's parcels added in
+    parcel order from zero, on the card by a sort and csrc/deposit.cu's
+    kernel, so the card's sources equal the CPU's bit for bit;
   * escape (deactivate), periodic or rebound walls against the global
     domain bounds.
 
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.mesh import Mesh
+from ..ops.deposit import deposit
 from ..parallel import spmd
 
 
@@ -70,12 +72,6 @@ def _positive(dt):
     """dt floored at 1e-30 (a tensor or a number, kept so)."""
     return torch.clamp(dt, min=1e-30) if torch.is_tensor(dt) \
         else max(dt, 1e-30)
-
-
-def _deposit(values, flat, ncell):
-    """Scatter-add of per-parcel values into their cells."""
-    return torch.zeros(ncell, dtype=values.dtype,
-                       device=values.device).index_add_(0, flat, values)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,15 +171,15 @@ class ThermoCloud:
         vol = torch.broadcast_to(mesh.cell_volume, mesh.shape).reshape(
             -1)[flat]
         w = act / (vol * _positive(dt))
-        ncell = int(np.prod(mesh.shape))
-        rhoUSu = torch.stack([
-            _deposit(-m * dup[a] * w, flat, ncell).reshape(mesh.shape)
-            for a in range(nd)])
         # energy: convective heat to the parcels and the drag's work
         q_p = m * self.Cp_p * dTp
         work = m * torch.sum(dup * U_at, dim=0)
-        rhoESu = _deposit(-(q_p + work) * w, flat, ncell).reshape(mesh.shape)
-        return cloud, rhoUSu, rhoESu
+        # the momentum rows and the energy row in one deposition (one sort)
+        src = deposit(torch.stack([-m * dup[a] * w for a in range(nd)]
+                                  + [-(q_p + work) * w]), flat,
+                      int(np.prod(mesh.shape)))
+        src = src.reshape((nd + 1,) + mesh.shape)
+        return cloud, src[:nd], src[nd]
 
 
 def hop_masks(xa, act, a: int, ctx):
@@ -416,8 +412,8 @@ class ReactingCloud(ThermoCloud):
         vol = torch.broadcast_to(mesh.cell_volume, mesh.shape).reshape(
             -1)[flat]
         w = cloud.active / (vol * _positive(dt))
-        src = _deposit(dm * w, flat, int(np.prod(mesh.shape))).reshape(
-            mesh.shape)
+        src = deposit((dm * w)[None], flat, int(np.prod(mesh.shape)))[0]
+        src = src.reshape(mesh.shape)
         YSu = [torch.zeros_like(src) for _ in range(n_species)]
         YSu[self.evap_specie] = src
         return cloud, src, rhoUSu, rhoESu - self.latent_heat * src, YSu

@@ -6,12 +6,15 @@
   found by a `scatter_reduce` amax and written without collisions) on a
   saturated table: the card's table and retrieved rates bitwise the
   CPU's over three calls, the counters equal.
-* Cloud deposition (`index_add_` of the parcels' momentum and energy into
-  their cells, float atomics on the card): each cell within
+* Cloud deposition (`ops.deposit`: each cell's parcels summed in parcel
+  order from zero, csrc/deposit.cu on the card): each cell within
   (k + 4) eps sum_k (1 + 1/f) |term| of the CPU's, k the parcels in the
-  cell (the atomics' order), f = 1 - exp(-dt/tau) of the parcel's drag or
-  heat relaxation, the smaller (an ulp of exp on either device is 1/f
-  ulps of f), and the moved parcels within 1e-13 of their max.
+  cell, f = 1 - exp(-dt/tau) of the parcel's drag or heat relaxation, the
+  smaller (an ulp of exp on either device is 1/f ulps of f), and the
+  moved parcels within 1e-13 of their max.  The deposition kernel itself
+  equals its plain version (`index_add_` on the CPU) bit for bit on the
+  same per-parcel terms, the jet's and an evaporating cloud's, and two
+  runs of the two-way float32 jet from one State are equal bit for bit.
 * particlesQGDFoam, 5 float64 steps on the card within 1e-9 of each field's
   max of the CPU's.
 """
@@ -172,3 +175,69 @@ def test_particles_qgd_card_matches_cpu(device):
     for f in ("x", "u", "Tp"):
         x, y = getattr(a.cloud, f), getattr(b.cloud, f).cpu()
         assert float((x - y).abs().max()) <= 1e-9 * float(x.abs().max()), f
+
+
+def _jet_cloud(device, shape=(256, 128), n=1 << 15):
+    """particlesQGDFoam on the float32 jet with n seeded parcels (the
+    particles_case cloud constants), two-way."""
+    from qgdsolver_tpu_torch.solvers.particles import (ParticlesQGDFoam,
+                                                       PState, ThermoCloud)
+
+    rng = np.random.default_rng(5)
+    fluid, fs = cases.supersonic_jet(shape, dtype=torch.float32,
+                                     device=device)
+    solver = ParticlesQGDFoam(fluid=fluid, cloud=ThermoCloud(
+        rho_p=2500.0, Cp_p=900.0))
+    parcels = (np.stack([rng.uniform(0.0, 4.0, n), rng.uniform(0.0, 2.0, n)]),
+               np.zeros((2, n)), np.full(n, 350.0), np.full(n, 5e-5))
+    return solver, PState(fluid=fs, cloud=solver.cloud.make(
+        *parcels, device=device, dtype=torch.float32))
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b)
+               if torch.is_tensor(x))
+
+
+def test_two_way_jet_runs_twice_bitwise(device, monkeypatch):
+    """The two-way float32 jet (256x128, 32768 parcels), 3 steps twice
+    from one State on the card: every field and cloud array equal bit for
+    bit, and one deposit launch a step.  Each launch's inputs, and those of
+    an evaporating cloud's deposit, give the kernel's sums bitwise its
+    plain version's on the CPU."""
+    from qgdsolver_tpu_torch.ops import deposit as D
+    from qgdsolver_tpu_torch.solvers.particles import ReactingCloud
+
+    solver, s0 = _jet_cloud(device)
+    seen = []
+    orig = particles.deposit
+
+    def recorded(values, flat, ncell):
+        out = orig(values, flat, ncell)
+        seen.append((values, flat, ncell, out))
+        return out
+
+    monkeypatch.setattr(particles, "deposit", recorded)
+    runs = []
+    D.deposit.launches = 0
+    for _ in range(2):
+        step = solver.make_step()
+        s = s0
+        for _ in range(3):
+            s = step(s)
+        runs.append(s)
+    assert D.deposit.launches == 6
+    assert _bits_equal(runs[0].fluid, runs[1].fluid)
+    assert _bits_equal(runs[0].cloud, runs[1].cloud)
+    # an evaporating cloud's mass deposit after the move
+    fs = runs[0].fluid
+    U, _, T, _ = solver.fluid.primitives(fs)
+    ReactingCloud(rho_p=2500.0, Cp_p=900.0, K_evap=1e-8,
+                  latent_heat=2e6).evolve_reacting(
+        runs[0].cloud, solver.mesh, fs.dt, rho_g=fs.rho, U_g=U, T_g=T,
+        n_species=2)
+    assert len(seen) == 8 and seen[-1][0].shape[0] == 1
+    for values, flat, ncell, out in seen:
+        ref = D.deposit_reference(values.cpu(), flat.cpu(), ncell)
+        assert torch.equal(out.cpu().view(torch.int32),
+                           ref.view(torch.int32))
