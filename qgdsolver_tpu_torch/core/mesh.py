@@ -225,6 +225,17 @@ class Mesh:
         return self.bcast(self.x_faces[axis], axis)
 
     @cached_property
+    def uniform_volume(self) -> bool:
+        """True when every cell has one volume by construction: each axis's
+        widths equal to round-off, and not a wedge.  Read from the host
+        geometry, so deciding it reads nothing from the device; the CG
+        then needs no volume weight (`ops.linsolve`)."""
+        if self.axisymmetric:
+            return False
+        return all(float(np.ptp(d)) <= 1e-9 * float(np.max(np.abs(d)))
+                   for d in self.dx)
+
+    @cached_property
     def faces_f64(self) -> tuple:
         """The face coordinates per axis as float64 1-D tensors on the
         mesh's device, moved there once (the parcels' cell search compares
@@ -250,6 +261,8 @@ class TracedMesh:
 
     axisymmetric = False
     solid = None
+    # general motion: the volumes are device tensors that may vary
+    uniform_volume = False
 
     def __init__(self, x_faces, dtype=None, device=None):
         first = x_faces[0]

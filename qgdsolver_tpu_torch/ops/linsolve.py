@@ -17,6 +17,18 @@ count, is that of the loop that stops at once.
 
 For singular pure-Neumann systems the nullspace (constants) is projected out
 of the rhs and the iterates, the analogue of OpenFOAM's pRefCell.
+
+The Helmholtz operator A = diag - lap is assembled per unit volume, so where
+cell volumes vary (graded meshes, wedges, general mesh motion) it is not
+symmetric; V*A, OpenFOAM's integrated fvMatrix, is.  There `solve_helmholtz`
+runs the CG in the volume-weighted inner product <a, b> = sum(V a b), which
+is CG on V*A with the Jacobi preconditioner V*D, and in which the
+volume-weighted mean removal of a singular system is the orthogonal
+projector.  The stop test stays |r| <= tol*|b| on the unweighted residual.
+On a mesh whose volumes are uniform by construction (`Mesh.uniform_volume`)
+no weight is taken, and the arithmetic is the JAX package's.  (The JAX
+package runs every mesh unweighted: on a wedge its pressure solves stall at
+maxiter.)
 """
 from __future__ import annotations
 
@@ -64,9 +76,12 @@ class _Carry(tp.NamedTuple):
     ok: torch.Tensor
 
 
-def _cg_parts(matvec, b, x0, tol, maxiter, precond, project):
+def _cg_parts(matvec, b, x0, tol, maxiter, precond, project, weight):
     """(carry0, cond, body, norm_b, project) of the reference's loop:
-    cond(c) = rr > (tol*|b|)^2 and it < maxiter and ok."""
+    cond(c) = rr > (tol*|b|)^2 and it < maxiter and ok.  weight: the cell
+    weights of the inner product that drives alpha, beta and rz (None: the
+    plain sum)."""
+    dot = _dot if weight is None else (lambda a, c: _dot(weight * a, c))
     if project is not None:
         b = project(b)
         x0 = project(x0)
@@ -91,13 +106,13 @@ def _cg_parts(matvec, b, x0, tol, maxiter, precond, project):
         Ap = matvec(c.p)
         if project is not None:
             Ap = project(Ap)
-        alpha = c.rz / torch.clamp(_dot(c.p, Ap), min=tiny)
+        alpha = c.rz / torch.clamp(dot(c.p, Ap), min=tiny)
         x = c.x + alpha * c.p
         r = c.r - alpha * Ap
         z = M(r)
         if project is not None:
             z = project(z)
-        rz = _dot(r, z)
+        rz = dot(r, z)
         beta = rz / torch.clamp(c.rz, min=tiny)
         p = z + beta * c.p
         rr = _dot(r, r)
@@ -107,26 +122,28 @@ def _cg_parts(matvec, b, x0, tol, maxiter, precond, project):
         ok = torch.isfinite(rr) & (rz > 0)
         return _Carry(x, r, z, p, rz, rr, c.it + 1, ok)
 
-    carry = _Carry(x0, r0, z0, z0, _dot(r0, z0), _dot(r0, r0),
+    carry = _Carry(x0, r0, z0, z0, dot(r0, z0), _dot(r0, r0),
                    torch.zeros((), dtype=torch.int64, device=b.device),
                    torch.ones((), dtype=torch.bool, device=b.device))
     return carry, cond, body, norm_b
 
 
 def cg(matvec, b, x0, *, tol=1e-7, maxiter=1000, precond=None, project=None,
-       group=CG_GROUP) -> CGResult:
+       weight=None, group=CG_GROUP) -> CGResult:
     """Preconditioned conjugate gradient for a symmetric positive
     (semi)definite `matvec`: stops when |r| <= tol*|b|, after `maxiter`
     iterations, or at a breakdown (the iterate of the breaking iteration).
 
     precond: approximate inverse (Jacobi); identity if None.  project:
-    nullspace projector applied to b, x, the residuals and z.  The host
+    nullspace projector applied to b, x, the residuals and z.  weight:
+    cell weights of the inner product (a `matvec` self-adjoint in it: V for
+    a per-volume operator); None, the plain sum.  The host
     reads the stop test once every `group` iterations and nothing else:
     `cg.reads` counts the reads and `cg.solves` the solves, and
     `cg.iterations` sums the iteration counts on the device (a 0-dim
     tensor; reading it is the caller's sync)."""
     c, cond, body, norm_b = _cg_parts(matvec, b, x0, tol, maxiter, precond,
-                                      project)
+                                      project, weight)
     live = cond(c)
     while True:
         cg.reads += 1
@@ -155,11 +172,11 @@ reset_counts()
 
 
 def cg_exact_stop(matvec, b, x0, *, tol=1e-7, maxiter=1000, precond=None,
-                  project=None) -> CGResult:
+                  project=None, weight=None) -> CGResult:
     """`cg` with the stop test read after every iteration: the loop `cg`'s
     groups must reproduce (its test)."""
     c, cond, body, norm_b = _cg_parts(matvec, b, x0, tol, maxiter, precond,
-                                      project)
+                                      project, weight)
     while bool(cond(c)):
         c = body(c)
     x = c.x if project is None else project(c.x)
@@ -228,8 +245,10 @@ def solve_helmholtz(*, diag_coeff, gamma_faces, rhs, x0, bcs, mesh: Mesh,
 
     The affine BC part is split off (the homogeneous-BC linear part feeds
     the CG, A(0) moves to the rhs), so FixedValue/FixedGradient/Mixed BCs
-    keep a symmetric matvec.  singular=True projects out the mean (the
-    pure-Neumann pressure equation; the result has zero mean).
+    keep a matvec that is symmetric in the CG's inner product: the plain
+    sum on a mesh of uniform volumes, else the volume-weighted one (CG on
+    V*A; module docstring).  singular=True projects out the volume-weighted
+    mean (the pure-Neumann pressure equation; the result has zero mean).
 
     fluid_mask: boolean fluid-cell array of a stairstep solid mesh.  Faces
     touching solid cells carry no flux, solid rows become an identity block
@@ -304,5 +323,6 @@ def solve_helmholtz(*, diag_coeff, gamma_faces, rhs, x0, bcs, mesh: Mesh,
                 return f - torch.where(solid_sel, 0.0, m)
             return f - m
 
+    weight = None if mesh.uniform_volume else mesh.cell_volume
     return cg(matvec, b, x0, tol=tol, maxiter=maxiter, precond=precond,
-              project=project)
+              project=project, weight=weight)

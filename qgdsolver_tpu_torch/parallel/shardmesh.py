@@ -59,6 +59,11 @@ class ShardMesh(Mesh):
     def h_face_1d(self) -> tuple:
         return self._win(self.global_mesh.h_face_1d, 1)
 
+    @cached_property
+    def uniform_volume(self) -> bool:
+        # the global mesh's, so every rank's CG takes the same inner product
+        return self.global_mesh.uniform_volume
+
 
 @dataclasses.dataclass(frozen=True)
 class AxisymmetricShardMesh(ShardMesh, AxisymmetricMesh):

@@ -115,3 +115,41 @@ def same_iterations(jlog, tlog, cg_tol, band=1e-3):
         first = j if j[1] < t[1] else t
         assert abs(j[1] - t[1]) == 1 and \
             cg_tol * (1.0 - band) <= first[2] <= cg_tol, (j, t)
+
+
+@contextlib.contextmanager
+def true_residuals(monkeypatch):
+    """[(iterations, |r|/|b|, maxiter)] of every port CG solve in the
+    context, r = b - A x recomputed from the returned x with the
+    unweighted system's own matvec (both projected for a singular system,
+    as the CG takes them): the oracle of a solve on a mesh whose volumes
+    vary, where the CG runs in the volume-weighted inner product and its
+    counts part from the JAX package's."""
+    log = []
+    orig = linsolve.cg
+
+    def recorded(matvec, b, x0, **kw):
+        res = orig(matvec, b, x0, **kw)
+        proj = kw.get("project") or (lambda f: f)
+        bp = proj(b)
+        r = proj(bp - matvec(res.x))
+        nb = float(torch.sqrt(torch.sum(bp * bp)))
+        log.append((int(res.iters),
+                    float(torch.sqrt(torch.sum(r * r))) / max(nb, 1e-300),
+                    kw.get("maxiter", 1000)))
+        return res
+
+    # `cg` keeps its counts on the module's `cg`, which is this wrapper
+    # inside the context
+    recorded.reads, recorded.solves = orig.reads, orig.solves
+    recorded.iterations = orig.iterations
+    monkeypatch.setattr(linsolve, "cg", recorded)
+    yield log
+
+
+def assert_solves_converged(log, cg_tol):
+    """Every solve of a `true_residuals` log stopped by its test: fewer
+    iterations than maxiter and |b - A x|/|b| <= 10*cg_tol."""
+    assert log, "no solve recorded"
+    for it, res, maxiter in log:
+        assert it < maxiter and res <= 10.0 * cg_tol, (it, res, log)

@@ -205,3 +205,109 @@ def test_cg_breakdown_returns_the_breaking_iterate():
     assert int(j.iters) == int(t.iters) == int(e.iters) == 1
     np.testing.assert_allclose(t.x.numpy(), np.asarray(j.x), rtol=1e-12)
     assert torch.equal(t.x, e.x) and bool(t.x.abs().max() > 0)
+
+
+# ---------------------------------------------------------------------------
+# cell volumes that vary: the CG on V*A (the JAX package's unweighted CG on
+# the per-volume operator stalls there)
+# ---------------------------------------------------------------------------
+
+
+def _graded_faces(n, length, ratio):
+    r = ratio ** (1.0 / (n - 1))
+    w = r ** np.arange(n)
+    return np.concatenate([[0.0], np.cumsum(w / w.sum() * length)])
+
+
+def _varying_mesh(kind):
+    from qgdsolver_tpu_torch.core.mesh import AxisymmetricMesh
+
+    if kind == "graded":
+        return TMesh(x_faces=(_graded_faces(24, 1.0, 8.0),
+                              _graded_faces(16, 1.0, 0.2)), dtype=F64)
+    return AxisymmetricMesh(x_faces=(np.linspace(0.0, 1.0, 25),
+                                     np.linspace(0.0, 0.5, 17)), dtype=F64)
+
+
+@pytest.mark.parametrize("singular", [True, False],
+                         ids=["poisson_singular", "helmholtz"])
+@pytest.mark.parametrize("kind", ["graded", "wedge"])
+def test_weighted_cg_converges_where_volumes_vary(kind, singular,
+                                                  monkeypatch):
+    """A graded mesh (expansion 8 along x, 0.2 along y) and a wedge, with
+    seeded face diffusivities and a seeded rhs: the pure-Neumann Poisson
+    system (projected) and a Helmholtz one.  The CG in the volume-weighted
+    inner product stops by its test, its unweighted residual |b - A x|/|b|
+    recomputed from x within 10*tol, and the iterate solves the system
+    (x + c for the singular one).  The same system run in the plain inner
+    product, as the JAX package runs it, reaches maxiter."""
+    from _torch_parity import assert_solves_converged, true_residuals
+
+    rng = np.random.default_rng(7)
+    mesh = _varying_mesh(kind)
+    assert not mesh.uniform_volume
+    gamma = tuple(torch.as_tensor(rng.uniform(0.5, 1.5, mesh.face_shape(a)))
+                  for a in range(2))
+    zg = tbc.FieldBCs.uniform(tbc.ZeroGradient(), 2)
+    rhs = torch.as_tensor(rng.standard_normal(mesh.shape))
+    kw = dict(diag_coeff=0.0 if singular else 3.0, gamma_faces=gamma,
+              rhs=rhs, x0=torch.zeros(mesh.shape, dtype=F64), bcs=zg,
+              mesh=mesh, tol=1e-10, maxiter=1000, singular=singular)
+    with true_residuals(monkeypatch) as solves:
+        res = tls.solve_helmholtz(**kw)
+    assert_solves_converged(solves, 1e-10)
+    assert int(res.iters) < 300
+    # a mesh of the same geometry that claims uniform volumes: no weight
+    plain_mesh = _varying_mesh(kind)
+    object.__setattr__(plain_mesh, "uniform_volume", True)
+    plain = tls.solve_helmholtz(**{**kw, "mesh": plain_mesh})
+    assert int(plain.iters) == 1000 and float(plain.residual) > 1e-6
+
+
+def test_cg_weight_only_where_volumes_vary(monkeypatch):
+    """solve_helmholtz hands the CG no weight on a uniform mesh (one built
+    by Mesh.uniform, one from linspace faces with round-off widths, and a
+    decomposition's block of one), so those solves keep the JAX package's
+    arithmetic; a graded mesh, a block of it, a wedge and a moving mesh's
+    TracedMesh take their cell volumes."""
+    from qgdsolver_tpu_torch.core.mesh import TracedMesh
+    from qgdsolver_tpu_torch.parallel.shardmesh import ShardMesh
+
+    seen = []
+    orig = tls.cg
+
+    def recorded(*args, **kw):
+        seen.append(kw.get("weight"))
+        return orig(*args, **kw)
+
+    recorded.reads = recorded.solves = 0
+    recorded.iterations = None
+    monkeypatch.setattr(tls, "cg", recorded)
+    uniform = TMesh.uniform((12, 8), lengths=(0.3, 0.7), dtype=F64)
+    graded = _varying_mesh("graded")
+    meshes = {
+        "uniform": uniform,
+        "linspace": TMesh(x_faces=(np.linspace(0.1, 0.37, 13),
+                                   np.linspace(-1.0, 2.3, 9)), dtype=F64),
+        "uniform block": ShardMesh.window(uniform, (6, 0), (6, 8)),
+        "graded": graded,
+        "graded block": ShardMesh.window(graded, (0, 8), (24, 8)),
+        "wedge": _varying_mesh("wedge"),
+        "traced": TracedMesh(tuple(torch.as_tensor(f) for f
+                                   in uniform.x_faces)),
+    }
+    zg = tbc.FieldBCs.uniform(tbc.ZeroGradient(), 2)
+    for name, m in meshes.items():
+        gamma = tuple(torch.ones(m.face_shape(a), dtype=F64)
+                      for a in range(2))
+        tls.solve_helmholtz(diag_coeff=1.0, gamma_faces=gamma,
+                            rhs=torch.ones(m.shape, dtype=F64),
+                            x0=torch.zeros(m.shape, dtype=F64), bcs=zg,
+                            mesh=m, tol=1e-8, maxiter=50)
+        w = seen[-1]
+        if name in ("uniform", "linspace", "uniform block"):
+            assert w is None, name
+        else:
+            assert torch.equal(torch.broadcast_to(w, m.shape),
+                               torch.broadcast_to(m.cell_volume, m.shape)), \
+                name
