@@ -123,8 +123,8 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
             return other_interior
         if isinstance(bc, (bcm.Extrapolated, bcm.WaveTransmissive)):
             # QGDFoam substitutes Mixed for WaveTransmissive before it
-            # pads; elsewhere the marker is the linear-extrapolation
-            # outflow, as in the JAX package
+            # pads; elsewhere a whole-side marker is the
+            # linear-extrapolation outflow, as in the JAX package
             return 2.0 * interior - near2
         if isinstance(bc, bcm.FluxSwitched):
             v = ev(bc.value, side, interior)
@@ -135,6 +135,11 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
             # segments winning where they overlap
             layer = None
             for rects, sub in bc.segments:
+                if isinstance(sub, bcm.WaveTransmissive):
+                    raise TypeError(
+                        "a waveTransmissive segment of a split side needs "
+                        "its carried face value, which only QGDFoam's step "
+                        "substitutes: not padded as an extrapolation")
                 sub_layer = one(sub, side, interior, other_interior, dx,
                                 near2)
                 if layer is None:

@@ -209,8 +209,7 @@ def build_spmd_step(solver, grid: ProcessGrid, capacity=None):
     owners = {}
     if hasattr(fluid, "_flux_sides"):
         owners = {"pbc": fluid._flux_sides(),
-                  "wt": tuple((a, side)
-                              for _, a, side, _ in fluid._wt_sides())}
+                  "wt": tuple(w[1:3] for w in fluid._wt_sides())}
 
     def step(s):
         with spmd.active(ctx):

@@ -24,7 +24,8 @@ takes stairstep solid masks (`Mesh.solid`: mirror fill before the step,
 solid cells clamped after it, masked Helmholtz solves), wedge meshes
 (`AxisymmetricMesh`: the radial hoop source, always explicit),
 waveTransmissive outflows (a carried face value in `State.wt`, substituted
-as a Mixed BC each step) and the qgdFlux limiter and relaxation.
+as a Mixed BC each step, on a whole side or on its segment of a split side)
+and the qgdFlux limiter and relaxation.
 
 The step runs decomposed as it is: `parallel.sharding.build_spmd_step`
 builds it on a block mesh under an spmd context, which `ghost_pad`, the
@@ -40,7 +41,8 @@ import torch
 from ..core import bc as bcm
 from ..core.mesh import Mesh
 from ..ops import fvsc, linsolve
-from ..ops.pad import ghost_pad
+from ..ops.pad import _segment_mask, ghost_pad
+from ..parallel import spmd
 from ..physics.qgdcoeffs import ConstScPrModel1, TauModel
 from ..physics.thermo import PerfectGasThermo
 from . import common
@@ -58,8 +60,9 @@ class State(tp.NamedTuple):
     # dp/dn = -phiwStar/(tau_f*|Sf|) from the PREVIOUS step's fluxes
     pbc: tp.Tuple[torch.Tensor, ...] = ()
     # waveTransmissive carried face values, one per marked (field, axis,
-    # side) in `QGDFoam._wt_sides` order, each a boundary layer (size 1
-    # along its axis)
+    # side, segment) in `QGDFoam._wt_sides` order, each a whole-side
+    # boundary layer (size 1 along its axis); a segment's layer holds the
+    # boundary cells' values outside the segment, which nothing reads
     wt: tp.Tuple[torch.Tensor, ...] = ()
 
 
@@ -103,13 +106,22 @@ class QGDFoam:
                      if isinstance(bp[a, side], bcm.QGDFluxP))
 
     def _wt_sides(self):
-        """(field, axis, side, bc) of every waveTransmissive side of the
-        p, T and U BCs, in that field order."""
+        """(field, axis, side, bc, seg) of every waveTransmissive BC of the
+        p, T and U BCs, in that field order: a whole side (seg None), or
+        segment `seg` of a split (Segmented) side."""
         bu, bp, bt = self._bcs()
-        return tuple((key, a, side, bcs[a, side])
-                     for key, bcs in (("p", bp), ("T", bt), ("U", bu))
-                     for a in range(self.mesh.ndim) for side in (0, 1)
-                     if isinstance(bcs[a, side], bcm.WaveTransmissive))
+        out = []
+        for key, bcs in (("p", bp), ("T", bt), ("U", bu)):
+            for a in range(self.mesh.ndim):
+                for side in (0, 1):
+                    b = bcs[a, side]
+                    if isinstance(b, bcm.WaveTransmissive):
+                        out.append((key, a, side, b, None))
+                    elif isinstance(b, bcm.Segmented):
+                        out.extend((key, a, side, sub, i) for i, (_, sub)
+                                   in enumerate(b.segments)
+                                   if isinstance(sub, bcm.WaveTransmissive))
+        return tuple(out)
 
     def _pbc_zeros(self):
         out = []
@@ -135,7 +147,7 @@ class QGDFoam:
         # the carried waveTransmissive face values start at the boundary
         # cells
         wt = tuple(_edge(fields[key], mesh.ndim, a, side)
-                   for key, a, side, _ in self._wt_sides())
+                   for key, a, side, _, _ in self._wt_sides())
         return State(rho=rho, rhoU=rhoU, rhoE=rhoE, sc=sc,
                      t=bcm.as_value(t0, rho), dt=bcm.as_value(self.time.dt0, rho),
                      pbc=self._pbc_zeros(), wt=wt)
@@ -187,7 +199,11 @@ class QGDFoam:
             fluid_mask = ~wall.solid.cpu().numpy()
 
         wt_sides = self._wt_sides()
-        wt_has_T = any(key == "T" for key, _, _, _ in wt_sides)
+        # the segments of each split side a waveTransmissive segment sits in
+        wt_segs = [None if seg is None else
+                   {"p": bc_p0, "T": bc_T, "U": bc_U}[key][a, side].segments
+                   for key, a, side, _, seg in wt_sides]
+        wt_has_T = any(w[0] == "T" for w in wt_sides)
         # e BCs from the T BCs (e_wall = e(T_wall)), for the implicit e
         # solve; per step when a T side carries a waveTransmissive value
         bc_e = (None if wt_has_T else
@@ -215,10 +231,12 @@ class QGDFoam:
             # waveTransmissive (advectiveFvPatchField, Euler ddt): the BC
             # acts as the mixed condition face = frac*ref + (1-frac)*cell,
             # ref = (v_old + k*field_inf)/(1+k), frac = (1+k)/(1+alpha+k),
-            # alpha = w dt/delta, k = w dt/lInf, w = max(Un, 0) + c
-            bc_Uw, bc_Tw = bc_U, bc_T
+            # alpha = w dt/delta, k = w dt/lInf, w = max(Un, 0) + c; per
+            # face, so on a segment of a split side the Mixed condition
+            # replaces that segment alone
+            sub_bcs = {"p": bc_p, "T": bc_T, "U": bc_U}
             wt_ref, wt_frac = [], []
-            for i, (key, a, side, b) in enumerate(wt_sides):
+            for i, (key, a, side, b, seg) in enumerate(wt_sides):
                 un = _edge(U[a], nd, a, side) * (1.0 if side else -1.0)
                 w = torch.clamp(un, min=0.0) + th.c_from_pT(
                     _edge(p, nd, a, side), _edge(T, nd, a, side))
@@ -229,13 +247,9 @@ class QGDFoam:
                 frac = (1.0 + k) / (1.0 + al + k)
                 wt_ref.append(ref)
                 wt_frac.append(frac)
-                sub = bcm.Mixed(ref, frac)
-                if key == "p":
-                    bc_p = bc_p.replace(a, side, sub)
-                elif key == "T":
-                    bc_Tw = bc_Tw.replace(a, side, sub)
-                else:
-                    bc_Uw = bc_Uw.replace(a, side, sub)
+                sub_bcs[key] = sub_bcs[key].replace(a, side, _substitute(
+                    sub_bcs[key][a, side], seg, bcm.Mixed(ref, frac)))
+            bc_p, bc_Tw, bc_Uw = sub_bcs["p"], sub_bcs["T"], sub_bcs["U"]
             bc_ew = (common.e_bcs_from_T(bc_Tw, th.e_from_T, Cv)
                      if wt_has_T else bc_e)
             # resolve inletOutlet markers against the current flow direction
@@ -461,15 +475,19 @@ class QGDFoam:
             # against the updated boundary cells (only the rank at the
             # physical side reads them, as pbc)
             wt_new = []
-            for i, (key, a, side, _) in enumerate(wt_sides):
+            for i, (key, a, side, _, seg) in enumerate(wt_sides):
                 if key == "U":
                     phi_c = _edge(U_new, nd, a, side)
                 else:
                     T_edge = th.T_from_e(_edge(e_new, nd, a, side))
                     phi_c = T_edge if key == "T" else th.p_from_rho_T(
                         _edge(rho_new, nd, a, side), T_edge)
-                wt_new.append(wt_frac[i] * wt_ref[i]
-                              + (1.0 - wt_frac[i]) * phi_c)
+                v = wt_frac[i] * wt_ref[i] + (1.0 - wt_frac[i]) * phi_c
+                if seg is not None:
+                    # outside the segment: the boundary cells
+                    v = torch.where(_segment_cells(wt_segs[i], seg, a,
+                                                   mesh), v, phi_c)
+                wt_new.append(v)
 
             return State(rho=rho_new, rhoU=rhoU_new, rhoE=rhoE_new,
                          sc=coeffs.sc, t=t + dt_new, dt=dt_new,
@@ -515,6 +533,36 @@ class QGDFoam:
         Fused3DState) to the next; to_fused / from_fused convert to and from
         the composable State."""
         return self.fused_builder()(self)
+
+
+def _substitute(bc, seg, sub):
+    """bc with sub in place of segment `seg` of a Segmented bc, or sub
+    itself for a whole side (seg None)."""
+    if seg is None:
+        return sub
+    segs = bc.segments
+    return bcm.Segmented(segs[:seg] + ((segs[seg][0], sub),)
+                         + segs[seg + 1:])
+
+
+def _segment_cells(segments, seg, a, mesh):
+    """Bool mask over the axis-a boundary layer of the cells that segment
+    `seg` of a Segmented side holds: its face rectangles less those of the
+    later segments, which win where they overlap (`ops.pad`)."""
+    ctx = spmd.current()
+    nd = mesh.ndim
+
+    def cells(rects):
+        m = _segment_mask(rects, a, mesh, ctx, mesh.device)
+        # the mask spans the ghosts of the axes padded before a
+        for b in range(a):
+            m = m.narrow(b, 1, mesh.shape[b])
+        return m
+
+    mask = cells(segments[seg][0])
+    for rects, _ in segments[seg + 1:]:
+        mask = mask & ~cells(rects)
+    return mask.reshape([1 if b == a else mesh.shape[b] for b in range(nd)])
 
 
 def _less(div, srcs, i):

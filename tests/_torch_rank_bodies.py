@@ -98,6 +98,26 @@ def wt_segmented_jet(shape, dtype, device):
         bc_T=solver.bc_T.replace(0, 1, bcm.WaveTransmissive(300.0)))
 
 
+def wt_split_outlet(shape, dtype, device):
+    """`wt_segmented_jet` with its outlet side split: waveTransmissive p
+    and T on the rows [0, 3*ny/8) (the same BCs as the whole side there),
+    the jet's own outlet BCs (fixed p, zero-gradient T) on the rest."""
+    solver = wt_segmented_jet(shape, dtype, device)
+    jet, _ = cases.supersonic_jet(shape=shape, dtype=dtype, device=device)
+    k = 3 * shape[1] // 8
+
+    def split(whole, rest):
+        return bcm.Segmented(((((((0, k),),), whole),
+                               ((((k, shape[1]),),), rest))))
+
+    return dataclasses.replace(
+        solver,
+        bc_p=solver.bc_p.replace(0, 1, split(solver.bc_p[0, 1],
+                                             jet.bc_p[0, 1])),
+        bc_T=solver.bc_T.replace(0, 1, split(solver.bc_T[0, 1],
+                                             jet.bc_T[0, 1])))
+
+
 def mules_box(shape, dtype, device):
     """(solver, State): tests/test_solver_variants.py's MULES box (a
     periodic channel, explicit diffusion) with its top hat of T at
@@ -257,6 +277,8 @@ def port_case(name, shape, dtype, device="cpu"):
         return dataclasses.replace(solver, implicit_diffusion=True)
     if name == "wt_segmented_jet":
         return wt_segmented_jet(shape, dtype, device)
+    if name == "wt_split_outlet":
+        return wt_split_outlet(shape, dtype, device)
     if name == "mules_box":
         return mules_box(shape, dtype, device)[0]
     if name == "mules_cavity":

@@ -176,6 +176,10 @@ CASES2 = {
                              1e-12),
     "wt_segmented_jet_2x1": ("wt_segmented_jet", (32, 16), (2, 1), 10,
                              1e-12),
+    # a waveTransmissive segment of a split outlet side, its border inside
+    # rank 0's block (1x2) or the side on rank 1 alone (2x1): bit for bit
+    "wt_split_outlet_1x2": ("wt_split_outlet", (32, 16), (1, 2), 10, 0.0),
+    "wt_split_outlet_2x1": ("wt_split_outlet", (32, 16), (2, 1), 10, 0.0),
 }
 
 
@@ -200,6 +204,7 @@ def _rest_state(solver, name):
     """(p0, T0, U0) of a case: the builders' own initial fields."""
     base = {"implicit_jet": "supersonic_jet",
             "wt_segmented_jet": "supersonic_jet",
+            "wt_split_outlet": "supersonic_jet",
             "implicit_wedge_blob": "wedge_blob"}[name]
     _, s = getattr(cases, base)(shape=solver.mesh.shape, dtype=torch.float64,
                                 device="cpu")
@@ -209,10 +214,11 @@ def _rest_state(solver, name):
 
 @pytest.mark.parametrize("key", list(CASES2))
 def test_two_ranks_match_port_serial_step(world2, key):
-    """Implicit diffusion (the CG's dots as all-reduces), a wedge, and
-    waveTransmissive outlets with a Segmented inlet go through
-    build_spmd_step unchanged: two ranks (2x1 and 1x2) against the serial
-    port; the gathered waveTransmissive carry is the owner rank's."""
+    """Implicit diffusion (the CG's dots as all-reduces), a wedge,
+    waveTransmissive outlets with a Segmented inlet, and waveTransmissive
+    segments of a split outlet go through build_spmd_step unchanged: two
+    ranks (2x1 and 1x2) against the serial port; the gathered
+    waveTransmissive carry is the owner rank's."""
     name, shape, _, steps, tol = CASES2[key]
     s0, ranks = world2[key]
     solver = bodies.port_case(name, shape, torch.float64)
@@ -221,7 +227,7 @@ def test_two_ranks_match_port_serial_step(world2, key):
     for _ in range(steps):
         s = step(s)
     ref = interop.state_to_numpy(s)
-    assert len(ref.wt) == (2 if name == "wt_segmented_jet" else 0)
+    assert len(ref.wt) == (2 if name.startswith("wt_") else 0)
     for got in ranks:
         _close(ref, got, tol, key)
         for a, b in zip(ref.wt, got.wt):
