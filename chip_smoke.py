@@ -1972,10 +1972,13 @@ def phase_slice(dev, card, root):
     kernel launched; then the case through build_case as (a') below.
     (b) tests/fixtures/jet_coflow_case (a Segmented inlet side: jet and
     coflow patches, an inletOutlet top, slip bottom) with a
-    waveTransmissive p outlet; (c) cases.wedge_blob.  Each of (a'), (b)
-    and (c): its first 3 steps against the same run on the CPU, 20 timed
-    steps, check_physical; and (a') timed with the CG's groups of
-    CG_GROUP and of 16 iterations, A B B A."""
+    waveTransmissive p outlet; (b') the same case with its outlet split
+    into two patches, the lower a waveTransmissive segment of p and T (a
+    Segmented outlet side whose segment carries its face values);
+    (c) cases.wedge_blob.  Each of (a'), (b), (b') and (c): its first 3
+    steps against the same run on the CPU, 20 timed steps,
+    check_physical; and (a') timed with the CG's groups of CG_GROUP and
+    of 16 iterations, A B B A."""
     from qgdsolver_tpu_torch import cases
     from qgdsolver_tpu_torch.io import foam_case
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
@@ -2017,6 +2020,35 @@ def phase_slice(dev, card, root):
 
     msgs.append(slice_run("(b) jet_coflow_case Segmented + waveTransmissive",
                           build_coflow, 20, card))
+    # (b') the outlet split into two patches, its lower one a
+    # waveTransmissive segment of p and T carrying its face values
+    split = fixture_case(root, "jet_coflow_case", "coflow_wt_split", [
+        ("system/blockMeshDict", r"\(64 16 1\)(.*?)\(64 16 1\)",
+         "(%d %d 1)\\1(%d %d 1)" % (nx, ny // 2, nx, ny // 2)),
+        ("system/blockMeshDict",
+         r"outlet\s*\{ type patch; faces \(\(1 2 6 5\) \(2 9 11 6\)\); \}",
+         "outletLow { type patch; faces ((1 2 6 5)); }\n"
+         "    outletHigh { type patch; faces ((2 9 11 6)); }"),
+        ("0/p", r"outlet\s*\{[^}]*\}",
+         "outletLow { type waveTransmissive; fieldInf 101325; lInf 0.5; "
+         "value uniform 101325; }\n    outletHigh { type zeroGradient; }"),
+        ("0/T", r"outlet\s*\{[^}]*\}",
+         "outletLow { type waveTransmissive; fieldInf 300; "
+         "value uniform 300; }\n    outletHigh { type zeroGradient; }")])
+
+    def build_split(d):
+        from qgdsolver_tpu_torch.core import bc as bcm
+
+        solver, state = foam_case.build_case(split, device=d)
+        segs = [w[4] for w in solver._wt_sides()]
+        check(solver.mesh.shape == SHAPE and len(state.wt) == 2
+              and isinstance(solver.bc_p[0, 1], bcm.Segmented)
+              and None not in segs,
+              "split coflow case: shape or waveTransmissive segments")
+        return solver, state
+
+    msgs.append(slice_run("(b') jet_coflow_case split outlet, "
+                          "waveTransmissive segment", build_split, 20, card))
     msgs.append(slice_run(
         "(c) wedge_blob",
         lambda d: cases.wedge_blob(SHAPE, torch.float32, device=d), 20,
@@ -2350,6 +2382,147 @@ def cli_write_read(case, dev, steps, fields):
                 f"{f} {g:.1e}" for f, g in gaps.items()))
 
 
+@contextlib.contextmanager
+def cg_residuals():
+    """[(iterations, |b - A x|/|b|, maxiter, the rhs's number of axes)] of
+    every CG solve in the context, the residual recomputed from the returned x with the
+    unweighted system's own matvec (both projected for a singular
+    system): on a mesh whose volumes vary the CG runs in the
+    volume-weighted inner product, and this is the system it must solve.
+    Each entry reads the device once."""
+    from qgdsolver_tpu_torch.ops import linsolve
+
+    log = []
+    orig = linsolve.cg
+
+    def recorded(matvec, b, x0, **kw):
+        res = orig(matvec, b, x0, **kw)
+        proj = kw.get("project") or (lambda f: f)
+        bp = proj(b)
+        r = proj(bp - matvec(res.x))
+        log.append((int(res.iters), float(torch.linalg.vector_norm(r)
+                                         / torch.linalg.vector_norm(bp)),
+                    kw.get("maxiter", 1000), b.dim()))
+        return res
+
+    # `cg` keeps its counts on the module's `cg`, this wrapper meanwhile
+    recorded.reads, recorded.solves = orig.reads, orig.solves
+    recorded.iterations = orig.iterations
+    linsolve.cg = recorded
+    try:
+        yield log
+    finally:
+        linsolve.cg = orig
+        orig.reads, orig.solves = recorded.reads, recorded.solves
+        orig.iterations = recorded.iterations
+
+
+def wedge_film_case(root) -> str:
+    """tests/fixtures/wedge_case as an interQHDFoam case (water and air,
+    sigma 0.07, an inflow of 0.05 m/s at x = 0, noSlip at the outer wall;
+    tests/test_torch_inter_qhd.py's edit)."""
+    case = fixture_case(root, "wedge_case", "wedge_film", [
+        ("system/controlDict", r"application\s+QGDFoam;",
+         "application     interQHDFoam;"),
+        ("0/p", r"uniform 101325", "uniform 0")])
+    os.remove(os.path.join(case, "0", "T"))
+    files = {
+        "constant/transportProperties":
+            "FoamFile { version 2.0; format ascii; class dictionary; "
+            "object transportProperties; }\nphases (water air);\n"
+            "water { nu 1e-06; rho 1000; }\nair   { nu 1.48e-05; rho 1; }\n"
+            "tauwater 1e-5;\ntauair 1e-5;\nsigma 0.07;\n",
+        "0/alpha.water":
+            "FoamFile { version 2.0; format ascii; class volScalarField; "
+            "object alpha.water; }\ninternalField uniform 0;\n"
+            "boundaryField { inlet { type zeroGradient; } "
+            "outlet { type zeroGradient; } axis { type empty; } "
+            "outer { type zeroGradient; } front { type wedge; } "
+            "back { type wedge; } }\n",
+        "0/U":
+            "FoamFile { version 2.0; format ascii; class volVectorField; "
+            "object U; }\ninternalField uniform (0 0 0);\n"
+            "boundaryField { inlet { type fixedValue; "
+            "value uniform (0.05 0 0); } outlet { type zeroGradient; } "
+            "axis { type empty; } outer { type noSlip; } "
+            "front { type wedge; } back { type wedge; } }\n"}
+    for rel, text in files.items():
+        with open(os.path.join(case, rel), "w") as f:
+            f.write(text)
+    return case
+
+
+def wedge_film_run(root, cpu_steps=3, steps=30) -> str:
+    """interQHDFoam's annular film on the wedge fixture, float64: the
+    card's first cpu_steps steps within 1e-9 of each field's max from the
+    CPU's (with equal CG counts: each solve's stop then falls on the same
+    iteration), then the rest of `steps` free steps on the card, timed:
+    finite, alpha in [0, 1], and every solve stopped by its test before
+    cg_maxiter with its unweighted residual within 10*cg_tol (the CG on
+    V*A; the JAX package's stalls at cg_maxiter here)."""
+    from qgdsolver_tpu_torch.io import foam_case
+
+    case = wedge_film_case(root)
+
+    def build(d):
+        solver, s = foam_case.build_case(case, device=d)
+        check(solver.mesh.axisymmetric and solver.mesh.dtype == torch.float64,
+              "wedge film: not a float64 wedge")
+        r = solver.mesh.centers[1]
+        dr = float(solver.mesh.dx[1][0])
+        a0 = np.broadcast_to(0.5 * (1.0 + np.tanh((r[None, :] - 0.35)
+                                                  / (2.0 * dr))),
+                             solver.mesh.shape)
+        return solver, s._replace(alpha1=solver.mesh.tensor(a0))
+
+    solver, s = build(torch.device("cuda", 0))
+    csolver, c = build(torch.device("cpu"))
+    step, cstep = solver.make_step(), csolver.make_step()
+    with cg_residuals() as card_log:
+        for _ in range(cpu_steps):
+            s = step(s)
+    with cg_residuals() as cpu_log:
+        for _ in range(cpu_steps):
+            c = cstep(c)
+    same = [x[0] for x in card_log] == [x[0] for x in cpu_log]
+    share = 1e-9 if same else 2 * cpu_steps * solver.cg_tol
+    gaps = state_gap(c, s)
+    for f, g in gaps.items():
+        check(g <= share, f"wedge film: {f} {g:.2e} of its max from the "
+              f"CPU's after {cpu_steps} steps (> {share:g})")
+    box = [s]
+
+    def one():
+        box[0] = step(box[0])
+
+    with cg_residuals() as log:
+        ms = cuda_ms(one, steps - cpu_steps, warmup=0)
+    log = card_log + log
+    # p's solves are of a cell field, U's of a vector field
+    p_its = [x[0] for x in log if x[3] == solver.mesh.ndim]
+    check(len(p_its) == steps, f"wedge film: {len(p_its)} p solves in "
+          f"{steps} steps")
+    for it, res, maxiter, _ in log:
+        check(it < maxiter and res <= 10 * solver.cg_tol,
+              f"wedge film: a solve took {it} iterations (cap {maxiter}) "
+              f"to |b - A x|/|b| {res:.2e} (bound {10 * solver.cg_tol:g})")
+    finite("wedge film", box[0])
+    lo, hi = float(box[0].alpha1.min()), float(box[0].alpha1.max())
+    check(-1e-8 <= lo and hi <= 1.0 + 1e-8,
+          f"wedge film: alpha1 in [{lo}, {hi}] outside [0, 1]")
+    return (f"interQHDFoam wedge film {solver.mesh.shape} f64: {steps} free "
+            f"steps, {ms:.3f} ms/step over the last {steps - cpu_steps} "
+            f"(with a residual check's read a solve), alpha1 in "
+            f"[{lo:.3g}, {hi:.3g}], "
+            f"p {sum(p_its) / len(p_its):.1f} CG iterations a solve (cap "
+            f"{solver.cg_maxiter}), largest |b - A x|/|b| "
+            f"{max(x[1] for x in log):.1e} (bound "
+            f"{10 * solver.cg_tol:g}); first {cpu_steps} steps vs the CPU "
+            + ", ".join(f"{k} {v:.1e}" for k, v in gaps.items()
+                        if k not in ("t", "dt"))
+            + f" (bound {share:g}{'' if same else ', CG counts one apart'})")
+
+
 def phase_moving_twophase(card, root):
     """Phase 23: QHDDyMFoam and interQHDFoam on the composable path
     (torch ops; the reference has no Pallas kernel for either) in float64,
@@ -2359,8 +2532,10 @@ def phase_moving_twophase(card, root):
     motion), tests/fixtures/inter_case at 256x256 with a water column, and
     a static drop with surface tension at 256x256 (alpha in [0, 1], its
     volume to 1e-6); the GCL on the card (uniform fields on a dilating and
-    a sloshing 256x256 grid, 50 steps); and the case CLI on both edited
-    fixtures with a write and a read-back."""
+    a sloshing 256x256 grid, 50 steps); the case CLI on both edited
+    fixtures with a write and a read-back; and the annular film on the
+    wedge fixture, 30 free float64 steps with every solve converged
+    (`wedge_film_run`)."""
     from qgdsolver_tpu_torch.io import foam_case
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
@@ -2430,6 +2605,11 @@ def phase_moving_twophase(card, root):
         x0 + 0.05 * torch.sin(5.1 * t) * x0 * (1.0 - x0)))))
     msgs.append(cli_write_read(dym, dev, 5, ("U", "T", "p")))
     msgs.append(cli_write_read(inter, dev, 5, ("U", "p", "alpha1")))
+    for k in kernels:
+        k.launches = 0
+    msgs.append(wedge_film_run(root))
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    check(not launched, f"wedge film: kernels launched {launched}")
     print("phase 23 QHDDyMFoam and interQHDFoam (composable, torch ops, "
           "f64): ok " + " | ".join(msgs)
           + f" | {time.perf_counter() - t0:.1f} s | card: {card}",
@@ -2500,8 +2680,241 @@ def cloud_run(label, build, n, share, checks, cpu_steps=3):
     reads = (host_reads() - reads) / n
     return (f"{label}: {ms:.3f} ms/step over {n} steps, {reads:.2f} host "
             f"reads/step; first {cpu_steps} steps vs the CPU max "
-            f"{max(gaps.values()):.1e} (bound {share:g}); "
+            f"{max(gaps.values()):.1e} (bound {share:g}: "
+            + ", ".join(f"{k} {v:.1e}" for k, v in gaps.items()) + "); "
             + checks(label, solver, first, box[0]))
+
+
+@contextlib.contextmanager
+def deposits(keep=2):
+    """{rows: [(values, cells, ncell, sums)]} of the first `keep` calls on
+    the card of each row count (3: the jet's momentum and energy, 1: the
+    evaporated mass) of the clouds' `deposit` in the context."""
+    from qgdsolver_tpu_torch.solvers import particles
+
+    seen = {}
+    orig = particles.deposit
+
+    def recorded(values, flat, ncell):
+        out = orig(values, flat, ncell)
+        got = seen.setdefault(values.shape[0], [])
+        if values.is_cuda and len(got) < keep:
+            got.append((values, flat, ncell, out))
+        return out
+
+    particles.deposit = recorded
+    try:
+        yield seen
+    finally:
+        particles.deposit = orig
+
+
+def deposit_bitwise(seen) -> int:
+    """Each recorded deposit's sums on the card against its plain version
+    (`index_add_` on the CPU) on the same inputs, bit for bit; the number
+    of calls checked."""
+    from qgdsolver_tpu_torch.ops import deposit as D
+
+    n = 0
+    for rows, calls in seen.items():
+        for values, flat, ncell, out in calls:
+            check(values.is_cuda, "deposit: inputs not on the card")
+            ref = D.deposit_reference(values.cpu(), flat.cpu(), ncell)
+            ints = torch.int32 if ref.dtype == torch.float32 else torch.int64
+            same = torch.equal(out.cpu().view(ints), ref.view(ints))
+            check(same, f"deposit ({rows} rows, {values.shape[1]} parcels): "
+                  f"the kernel's sums differ from index_add_ on the CPU by "
+                  f"{float((out.cpu() - ref).abs().max()):.2e}")
+            n += 1
+    return n
+
+
+def deposit_entry(values, flat, ncell, launches, per_step) -> dict:
+    """The kernels-line entry of `deposit` on one call's inputs (the jet's
+    momentum and energy rows): the kernel's device ms (profiler), all the
+    wrapper's device work (the stable sort, its gather, the zero fill and
+    the kernel), the plain version's (`index_add_` a row, atomics on the
+    card) and one `index_add_` of every row; the bound from the bytes the
+    function must move: the values and cells read once, the (k, ncell)
+    sums written once."""
+    from qgdsolver_tpu_torch.ops import deposit as D
+
+    k, n = values.shape
+    out = D.deposit(values, flat, ncell)
+    err = float((out.cpu() - D.deposit_reference(
+        values.cpu(), flat.cpu(), ncell)).abs().max())
+    item = values.element_size()
+    nbytes = item * k * n + flat.element_size() * n + item * k * ncell
+    ops = k * n
+    b_ms, b_by = bound(nbytes, ops)
+    return {
+        "name": "deposit", "route": "cuda",
+        "source": "qgdsolver_tpu_torch/ops/csrc/deposit.cu",
+        "replaces": "qgdsolver_tpu/solvers/particles.py:160",
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(lambda: D.deposit(values, flat, ncell), 20,
+                        match="deposit_kernel"),
+        "plain_ms": device_ms(
+            lambda: D.deposit_reference(values, flat, ncell), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.zeros(
+            (k, ncell), dtype=values.dtype, device=values.device).index_add_(
+                1, flat, values), 20),
+        "wrapper_ms": device_ms(lambda: D.deposit(values, flat, ncell), 20),
+        "ops": ops, "shape": [k, n, ncell],
+        "launches_per_step": per_step,
+        "note": ("replaces XLA scatter-adds (.at[flat].add, "
+                 "qgdsolver_tpu/solvers/particles.py:160, :168, :372), not "
+                 "Pallas")}
+
+
+def jet_twice(build, steps=3) -> str:
+    """The two-way jet stepped `steps` times twice from one State on the
+    card: every fluid field and cloud array equal bit for bit."""
+    solver, s0 = build(torch.device("cuda", 0))
+    runs = []
+    for _ in range(2):
+        step, s = solver.make_step(), s0
+        for _ in range(steps):
+            s = step(s)
+        runs.append(s)
+    a, b = runs
+    for part in ("fluid", "cloud"):
+        for f, x, y in zip(getattr(a, part)._fields, getattr(a, part),
+                           getattr(b, part)):
+            if torch.is_tensor(x):
+                check(torch.equal(x, y), f"two-way jet run twice: "
+                      f"{part}.{f} differs "
+                      f"({rel_err(x.double(), y.double()):.1e})")
+    return f"two runs of {steps} steps from one State bitwise equal"
+
+
+def op_trace(fn):
+    """(fn()'s result, [(aten op, its float output copied to the CPU)]) of
+    every op fn() dispatches; a call of the clouds' `deposit` enters the
+    op name "deposit" (its own ops differ between the devices)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from qgdsolver_tpu_torch.solvers import particles
+
+    log = []
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if torch.is_tensor(o) and o.is_floating_point():
+                    log.append((func.overloadpacket.__name__,
+                                o.detach().to("cpu", copy=True)))
+            return out
+
+    orig = particles.deposit
+
+    def marked(values, flat, ncell):
+        log.append(("deposit", None))
+        return orig(values, flat, ncell)
+
+    particles.deposit = marked
+    try:
+        with Recorder():
+            out = fn()
+    finally:
+        particles.deposit = orig
+    return out, log
+
+
+def jet_stages(solver, csolver, s) -> str:
+    """Where the two-way f32 jet's card-vs-CPU gap comes from: from the
+    card's State s and its copy on the CPU, one cloud evolve on each device
+    op by op up to its deposition (the gas at the parcels, drag, heat,
+    positions: each op's output against the CPU's), the deposited sources,
+    the gas update fed the CPU's sources on both devices, and the whole
+    step."""
+    from qgdsolver_tpu_torch import interop
+
+    c = interop.state_from_numpy(interop.state_to_numpy(s), device="cpu",
+                                 dtype=torch.float32)
+    out = {}
+    for name, sol, st in (("card", solver, s), ("cpu", csolver, c)):
+        U, _, T, _ = sol.fluid.primitives(st.fluid)
+        out[name] = op_trace(
+            lambda sol=sol, st=st, U=U, T=T: sol.cloud.evolve(
+                st.cloud, sol.mesh, st.fluid.dt, rho_g=st.fluid.rho, U_g=U,
+                T_g=T))
+    (card_res, card_ops), (cpu_res, cpu_ops) = out["card"], out["cpu"]
+    first, worst = None, {}
+    for (op, x), (op2, y) in zip(card_ops, cpu_ops):
+        if op != op2:
+            first = first or f"(the op orders part: {op}, {op2})"
+            break
+        if op == "deposit":
+            break
+        if x.shape != y.shape or torch.equal(x, y):
+            continue
+        g = rel_err(y.double(), x.double())
+        worst[op] = max(worst.get(op, 0.0), g)
+        if first is None:
+            first = f"{op} ({g:.1e})"
+    src = [rel_err(b.double(), a.cpu().double()) for a, b in
+           zip(card_res[1:], cpu_res[1:])]
+    # the moved parcels: positions a rounding apart, and those whose owner
+    # cell (next step's deposition cell) differs between the devices
+    from qgdsolver_tpu_torch.solvers.particles import _flat, owner_cells
+
+    moved = [(r[0].x.cpu(), r[0].active.cpu() > 0.5)
+             for r in (card_res, cpu_res)]
+    xs_differ = int((moved[0][0] != moved[1][0]).any(dim=0).sum())
+    cells = [_flat(owner_cells(x, csolver.mesh), csolver.mesh)
+             for x, _ in moved]
+    flipped = int(((cells[0] != cells[1]) & moved[1][1]).sum())
+    fstep, cfstep = (x.fluid.make_step(external_sources=True)
+                     for x in (solver, csolver))
+    srcs = (0.0,) + tuple(x for x in cpu_res[1:])
+    fed = state_gap(cfstep(c.fluid, srcs),
+                    fstep(s.fluid, tuple(x if not torch.is_tensor(x) else
+                                         x.cuda() for x in srcs)))
+    whole = pstate_gap(csolver.make_step()(c), solver.make_step()(s))
+    return ("one step from the card's State, card vs CPU: evolve's ops "
+            f"before the deposition first differ at {first or 'none'}, "
+            "largest by op " + (", ".join(f"{k} {v:.1e}" for k, v in
+                                          sorted(worst.items(),
+                                                 key=lambda kv: -kv[1])[:5])
+                                or "none")
+            + f"; sources rhoUSu {src[0]:.1e}, rhoESu {src[1]:.1e}; "
+            f"{xs_differ} of {moved[1][0].shape[1]} moved parcels' positions "
+            f"differ, {flipped} of them in another owner cell; the gas "
+            "update fed the CPU's sources "
+            + ", ".join(f"{k} {v:.1e}" for k, v in fed.items()
+                        if k in ("rho", "rhoU", "rhoE"))
+            + "; the whole step max "
+            + f"{max(whole.values()):.1e}")
+
+
+def deposit_ab(build, n=10) -> str:
+    """ms/step of the two-way jet with the deposition kernel and with the
+    plain version on the card (`index_add_` a row, float atomics: the
+    parent's deposition), A B B A, CUDA events."""
+    from qgdsolver_tpu_torch.ops import deposit as D
+    from qgdsolver_tpu_torch.solvers import particles
+
+    solver, s = build(torch.device("cuda", 0))
+    step = solver.make_step()
+    box = [step(s)]
+
+    def one():
+        box[0] = step(box[0])
+
+    times = {"kernel": [], "index_add_": []}
+    try:
+        for name in ("kernel", "index_add_", "index_add_", "kernel"):
+            particles.deposit = (D.deposit if name == "kernel"
+                                 else D.deposit_reference)
+            times[name].append(cuda_ms(one, n, warmup=1))
+    finally:
+        particles.deposit = D.deposit
+    return ("jet ms/step A B B A, deposition kernel " + ", ".join(
+        f"{t:.3f}" for t in times["kernel"]) + " against index_add_ "
+        "(atomics) " + ", ".join(f"{t:.3f}" for t in times["index_add_"]))
 
 
 def cloud_jet(shape, dtype, device):
@@ -2735,6 +3148,7 @@ def phase_lagrangian_reacting(card, root):
     two-way jet decomposed on 2x1 ranks sharing the card
     (`decomposed_cloud`)."""
     from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.ops import deposit as D
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.solvers.particles import (ParticlesQHDFoam,
@@ -2779,21 +3193,51 @@ def phase_lagrangian_reacting(card, root):
     kernels = F.KERNELS + F3.KERNELS
     for k in kernels:
         k.launches = 0
-    msgs = [
-        cloud_run(f"particlesQGDFoam jet {SHAPE} f32, 262144 parcels "
-                  "(two-way)", jet, 20, 1e-3, jet_checks),
-        cloud_run("particlesQHDFoam cavity 128x128 f64, 65536 parcels "
-                  "(one-way)", cavity, 5, 2 * 3 * 1e-8, cavity_checks),
-        reacting_run(root),
-        decomposed_cloud(),
-    ]
+    # the main path's deposition launches: the jet's 24 steps (3 against
+    # the CPU, 1 warm-up, 20 timed), one a step, and its momentum check's
+    # evolve; the reacting case's 16
+    # (3 through the CLI, 3 on the card, 10 timed), two a step (the
+    # exchange and the evaporated mass)
+    D.deposit.launches = 0
+    with deposits() as seen:
+        msgs = [cloud_run(f"particlesQGDFoam jet {SHAPE} f32, 262144 "
+                          "parcels (two-way)", jet, 20, 1e-3, jet_checks)]
+        jet_launches = D.deposit.launches
+        msgs += [
+            cloud_run("particlesQHDFoam cavity 128x128 f64, 65536 parcels "
+                      "(one-way)", cavity, 5, 2 * 3 * 1e-8, cavity_checks),
+            reacting_run(root)]
+    launches = D.deposit.launches
+    check(jet_launches == 25 and launches - jet_launches == 32,
+          f"phase 24: deposit launched {jet_launches} times in the jet's 24 "
+          "steps and momentum check (one each), and "
+          f"{launches - jet_launches} in the reacting case's 16 steps (two "
+          "a step)")
+    checked = deposit_bitwise(seen)
+    check(sorted(seen) == [1, 3], f"phase 24: deposits of {sorted(seen)} rows")
+    values, flat, ncell, _ = seen[3][0]
+    entry = deposit_entry(values, flat, ncell, launches, {
+        "particlesQGDFoam": (jet_launches - 1) / 24,
+        "reactingLagrangianQGDFoam": (launches - jet_launches) / 16})
+    msgs.append(f"deposit: {launches} launches on the main path, {checked} "
+                "calls (the jet's and the evaporated mass) bitwise their "
+                "plain version on the CPU")
+    solver, s = jet(torch.device("cuda", 0))
+    csolver, c = jet(torch.device("cpu"))
+    step, cstep = solver.make_step(), csolver.make_step()
+    for _ in range(3):
+        s, c = step(s), cstep(c)
+    msgs.append(jet_twice(jet) + "; " + jet_stages(solver, csolver, s))
+    msgs.append(deposit_ab(jet))
+    msgs.append(decomposed_cloud())
     launched = {k.__name__: k.launches for k in kernels if k.launches}
     check(not launched, f"phase 24: kernels launched {launched}")
     print("phase 24 particlesQGDFoam, particlesQHDFoam, "
-          "reactingLagrangianQGDFoam (composable, torch ops; no kernel "
-          "launched): ok " + " | ".join(msgs)
+          "reactingLagrangianQGDFoam (composable, torch ops, the deposition "
+          "kernel; no QGD kernel launched): ok " + " | ".join(msgs)
           + f" | {time.perf_counter() - t0:.1f} s | card: {card}",
           flush=True)
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -3052,7 +3496,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         phase_moving_twophase(card, root)
     with tempfile.TemporaryDirectory() as root:
-        phase_lagrangian_reacting(card, root)
+        deposit = phase_lagrangian_reacting(card, root)
     with tempfile.TemporaryDirectory() as root:
         phase_graft_badcells(dev, card, root, sharded)
     entries = []
@@ -3086,8 +3530,9 @@ def main() -> int:
                              "not Pallas")
             entry.update(v["extra"])
         entries.append(entry)
-    # no single PyTorch call computes any of these functions: library_ms null
-    print(json.dumps({"kernels": entries + sharded}))
+    # no single PyTorch call computes any of the QGD kernels' functions:
+    # library_ms null; the deposition's is one index_add_
+    print(json.dumps({"kernels": entries + sharded + [deposit]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,10 @@ The JAX package deposits with `.at[flat].add`, which adds a cell's parcels
 in parcel order from zero on its CPU backend, and so does `index_add_` on a
 CPU tensor: that is the plain version here.  On the card `index_add_` adds
 by atomics, in another order each run.  `deposit` instead sorts the parcels
-by cell with a stable sort (`sort_cells`) and launches `deposit_f32` /
-`deposit_f64` from csrc/deposit.cu, which sums each occupied cell's run of
-parcels in parcel order from zero: the card's sums equal the CPU's bit for
-bit for equal inputs.  The wrapper counts its launches in
+by cell with a stable sort (parcel order kept within a cell) and launches
+`deposit_f32` / `deposit_f64` from csrc/deposit.cu, which sums each
+occupied cell's run of parcels in parcel order from zero: the card's sums
+equal the CPU's bit for bit for equal inputs.  The wrapper counts its launches in
 `deposit.launches`.
 """
 from __future__ import annotations
@@ -26,13 +26,6 @@ def deposit_reference(values, flat, ncell):
         torch.zeros(ncell, dtype=values.dtype,
                     device=values.device).index_add_(0, flat, v)
         for v in values])
-
-
-def sort_cells(flat):
-    """(order, cells): the stable permutation that sorts the parcels by
-    cell, parcel order kept within a cell, and the sorted cells."""
-    order = torch.argsort(flat, stable=True)
-    return order, flat[order].contiguous()
 
 
 def deposit(values, flat, ncell):
@@ -57,7 +50,8 @@ def deposit(values, flat, ncell):
     if n == 0 or k == 0:
         return out
     values = values.contiguous()
-    order, cells = sort_cells(flat)
+    order = torch.argsort(flat, stable=True)
+    cells = flat[order].contiguous()
     lib = _build.load()
     fn = lib.deposit_f32 if values.dtype == torch.float32 else lib.deposit_f64
     with torch.cuda.device(dev):

@@ -320,7 +320,7 @@ def test_config_builds_solver(tmp_path):
         "U": {"x_lo": {"type": "cosVelocity", "amplitude": 2.0,
                        "omega0": 100.0, "phi0": 0.3, "height": 1.0}}})
     solver = config.build_solver(wt, device="cpu")
-    assert [k for k, _, _, _ in solver._wt_sides()] == ["p"]
+    assert [w[0] for w in solver._wt_sides()] == ["p"]
     s = common.run_steps(solver.make_step(), solver.init(
         p0=torch.full((8, 4), 1e5), T0=torch.full((8, 4), 300.0),
         U0=torch.zeros((2, 8, 4))), 2)

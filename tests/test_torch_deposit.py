@@ -51,13 +51,10 @@ def test_deposit_equals_jax_scatter_add(pattern, dtype):
         np.testing.assert_array_equal(_bits(got[r].numpy()), _bits(ref))
 
 
-def test_deposit_sort_keeps_parcel_order_and_checks_inputs():
-    """sort_cells is stable (a cell's parcels in parcel order); deposit
-    refuses mismatched shapes and integer values."""
+def test_deposit_checks_its_inputs():
+    """deposit refuses values and cells that do not pair, and integer
+    values."""
     flat = torch.tensor([3, 1, 3, 0, 1, 3])
-    order, cells = D.sort_cells(flat)
-    assert order.tolist() == [3, 1, 4, 0, 2, 5]
-    assert cells.tolist() == [0, 1, 1, 3, 3, 3]
     with pytest.raises(ValueError):
         D.deposit(torch.zeros(2, 5), flat, 4)
     with pytest.raises(TypeError):
