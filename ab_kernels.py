@@ -1,18 +1,26 @@
 """Device times of the port's 2D kernels `qgd2d_update`, `qgd2d_emit`,
 `qgd2d_smooth`, `qgd2d_dt`, `qgd2d_dt_fold` and `qgd2d_ghosts`, and of the
 3D `qgd3d_emit` (or a build's `qgd3d_sensor` and ring 1), `qgd3d_sensor`,
-`qgd3d_smooth`, `qgd3d_dt`, `qgd3d_dt_fold` and `qgd3d_ghosts`, from two
-or more builds of their source, on the same inputs, in one process on one
-card.
+`qgd3d_smooth`, `qgd3d_dt`, `qgd3d_dt_fold` and `qgd3d_ghosts`, and of
+the clouds' `deposit_kernel`, from two or more builds of their source, on
+the same inputs, in one process on one card.
 
     python3 ab_kernels.py NAME=PATH/qgd2d.cu [NAME=PATH/qgd3d.cu ...]
+    python3 ab_kernels.py NAME=PATH/deposit.cu
 
 Each PATH (another revision's source, unpacked with `git archive`, or a
 variant of it, beside the headers it includes) is compiled alone with the
 port's nvcc flags into `build/ab_kernels/`; the checkout's own kernels are
 the build "this".  A `qgd2d.cu` build runs the 2D inputs, a `qgd3d.cu`
-build the 3D ones (a kind with no other build is not run).  The inputs
-are those the port's steps hand the kernels, recorded in a step:
+build the 3D ones, a `deposit.cu` build the deposition's (a kind with no
+other build is not run).  The deposition's inputs are the first deposit
+of `chip_smoke.py` phase 24's two-way f32 jet (3 rows of 262144 parcels
+into 524288 cells) and `chip_smoke.skew_patterns` of it (every parcel in
+one cell; half in 8 outlet cells; every other parcel inactive and clamped
+into one cell), each through `ops.deposit.deposit` with every build's
+kernel, held bitwise to this build's and timed A B B A; then the jet's
+ms/step with each build's kernel, A B B A (CUDA events).  The other
+inputs are those the port's steps hand the kernels, recorded in a step:
 
 - the 1024x512 jet after 20 plain steps, on K1's path (`qgd2d_update`,
   `qgd2d_dt`, and `qgd2d_ghosts` on the frames the plain update makes
@@ -76,12 +84,13 @@ PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel",
                    ("qgd2d_dt_kernel", "qgd2d_dt_partial_kernel"),
                    ("qgd2d_ghosts_kernel", "qgd2d_ghost_rows_kernel")),
          "qgd3d": (("qgd3d_emit_kernel", "qgd3d_sensor_kernel"),
-                   "qgd3d_smooth_kernel", "qgd3d_dt_", "qgd3d_ghost")}
+                   "qgd3d_smooth_kernel", "qgd3d_dt_", "qgd3d_ghost"),
+         "deposit": ("deposit_kernel",)}
 
 
 def build_other(name: str, src: pathlib.Path):
-    """(library, ptxas report) of one qgd2d.cu or qgd3d.cu built alone, with
-    the entry points the timed wrappers call bound."""
+    """(library, ptxas report) of one qgd2d.cu, qgd3d.cu or deposit.cu
+    built alone, with the entry points the timed wrappers call bound."""
     from qgdsolver_tpu_torch.ops import _build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -95,6 +104,11 @@ def build_other(name: str, src: pathlib.Path):
     p2 = ctypes.POINTER(_build.QGDParams)
     p3 = ctypes.POINTER(_build.QGD3DParams)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    if src.name.startswith("deposit"):
+        i64 = ctypes.c_longlong
+        for fn in ("deposit_f32", "deposit_f64"):
+            _build._bind(lib, fn, [ptr, i64, c_int, ptr, ptr, ptr, i64, ptr])
+        return lib, proc.stderr
     if src.name.startswith("qgd3d"):
         _build._bind(lib, "qgd3d_smooth", [p3, ptr, ctypes.c_long,
                                            ctypes.c_long, c_int, ptr, ptr,
@@ -383,6 +397,64 @@ def sensor_ring1(prm, p, T, sc):
     return F3.qgd3d_smooth(prm, F3.qgd3d_sensor(prm, p, T, sc), 1)
 
 
+def deposit_inputs(dev):
+    """(label, values, cells, ncell) of the timed deposits: the first
+    deposit of phase 24's two-way jet and `chip_smoke.skew_patterns` of
+    it."""
+    from qgdsolver_tpu_torch.solvers import particles
+
+    solver, s = cs.two_way_jet(dev)
+    seen = []
+    orig = particles.deposit
+
+    def recorded(values, flat, ncell):
+        seen.append((values, flat, ncell))
+        return orig(values, flat, ncell)
+
+    particles.deposit = recorded
+    try:
+        solver.make_step()(s)
+    finally:
+        particles.deposit = orig
+    values, flat, ncell = seen[0]
+    return [("jet", values, flat, ncell)] + [
+        (name, v, f, ncell)
+        for name, (v, f) in cs.skew_patterns(values, flat, ncell).items()]
+
+
+def deposit_runs(builds, dev, card) -> None:
+    """Print each deposit input's device ms through every build (held
+    bitwise to this build's sums), A B B A, then the jet's ms/step."""
+    from qgdsolver_tpu_torch.ops import deposit as D
+
+    order = list(builds) + list(builds)[::-1]
+    for label, v, f, ncell in deposit_inputs(dev):
+        ref = D.deposit(v, f, ncell).view(torch.int32)
+        for name, (lib, _) in builds.items():
+            got = on_library(lib, lambda: D.deposit(v, f, ncell))
+            cs.check(torch.equal(got.view(torch.int32), ref),
+                     f"deposit ({label}): build {name} differs")
+        times = [(name, on_library(builds[name][0], lambda: cs.device_ms(
+            lambda: D.deposit(v, f, ncell), 10, match="deposit_kernel")))
+            for name in order]
+        print(f"deposit, {label}: held against this build (bitwise); "
+              "device ms per call " + " | ".join(
+                  f"{n} {ms:.4f}" for n, ms in times) + f" | card: {card}",
+              flush=True)
+    solver, s = cs.two_way_jet(dev)
+    step = solver.make_step()
+    box = [step(s)]
+
+    def one():
+        box[0] = step(box[0])
+
+    times = [(name, on_library(builds[name][0],
+                               lambda: cs.cuda_ms(one, 20, warmup=2)))
+             for name in order]
+    print("deposit, the two-way jet's step: ms/step " + " | ".join(
+        f"{n} {ms:.3f}" for n, ms in times) + f" | card: {card}", flush=True)
+
+
 def agree(kernel, ref, got) -> None:
     """Hold one build's output against "this" build's."""
     if kernel == "update":
@@ -420,13 +492,15 @@ def main(argv) -> int:
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
 
     this = (_build.load(), _build.ptxas_report())
-    builds = {"qgd2d": {"this": this}, "qgd3d": {"this": this}}
+    builds = {"qgd2d": {"this": this}, "qgd3d": {"this": this},
+              "deposit": {"this": this}}
     for arg in argv:
         name, _, path = arg.partition("=")
-        kind = pathlib.Path(path).name[:5]
+        kind = pathlib.Path(path).name
+        kind = "deposit" if kind.startswith("deposit") else kind[:5]
         if not path or kind not in builds or name in builds[kind]:
             raise SystemExit("usage: ab_kernels.py NAME=PATH/qgd2d.cu|"
-                             f"qgd3d.cu ... ({arg!r})")
+                             f"qgd3d.cu|deposit.cu ... ({arg!r})")
         builds[kind][name] = build_other(name, pathlib.Path(path))
     card = cs.card_line()
     for kind, kernels in PTXAS.items():
@@ -452,6 +526,8 @@ def main(argv) -> int:
         runs += [("qgd2d", job) for job in inputs("cuda")]
     if len(builds["qgd3d"]) > 1:
         runs += [("qgd3d", job) for job in inputs3("cuda")]
+    if len(builds["deposit"]) > 1:
+        deposit_runs(builds["deposit"], "cuda", card)
     for kind, (label, kernel, args) in runs:
         these = builds[kind]
         order = list(these) + list(these)[::-1]

@@ -2382,41 +2382,6 @@ def cli_write_read(case, dev, steps, fields):
                 f"{f} {g:.1e}" for f, g in gaps.items()))
 
 
-@contextlib.contextmanager
-def cg_residuals():
-    """[(iterations, |b - A x|/|b|, maxiter, the rhs's number of axes)] of
-    every CG solve in the context, the residual recomputed from the returned x with the
-    unweighted system's own matvec (both projected for a singular
-    system): on a mesh whose volumes vary the CG runs in the
-    volume-weighted inner product, and this is the system it must solve.
-    Each entry reads the device once."""
-    from qgdsolver_tpu_torch.ops import linsolve
-
-    log = []
-    orig = linsolve.cg
-
-    def recorded(matvec, b, x0, **kw):
-        res = orig(matvec, b, x0, **kw)
-        proj = kw.get("project") or (lambda f: f)
-        bp = proj(b)
-        r = proj(bp - matvec(res.x))
-        log.append((int(res.iters), float(torch.linalg.vector_norm(r)
-                                         / torch.linalg.vector_norm(bp)),
-                    kw.get("maxiter", 1000), b.dim()))
-        return res
-
-    # `cg` keeps its counts on the module's `cg`, this wrapper meanwhile
-    recorded.reads, recorded.solves = orig.reads, orig.solves
-    recorded.iterations = orig.iterations
-    linsolve.cg = recorded
-    try:
-        yield log
-    finally:
-        linsolve.cg = orig
-        orig.reads, orig.solves = recorded.reads, recorded.solves
-        orig.iterations = recorded.iterations
-
-
 def wedge_film_case(root) -> str:
     """tests/fixtures/wedge_case as an interQHDFoam case (water and air,
     sigma 0.07, an inflow of 0.05 m/s at x = 0, noSlip at the outer wall;
@@ -2454,13 +2419,14 @@ def wedge_film_case(root) -> str:
 
 def wedge_film_run(root, cpu_steps=3, steps=30) -> str:
     """interQHDFoam's annular film on the wedge fixture, float64: the
-    card's first cpu_steps steps within 1e-9 of each field's max from the
-    CPU's (with equal CG counts: each solve's stop then falls on the same
-    iteration), then the rest of `steps` free steps on the card, timed:
+    card's first cpu_steps steps with the CPU's CG counts and within 1e-9
+    of each field's max from the CPU's, then the rest of `steps` free
+    steps on the card, timed:
     finite, alpha in [0, 1], and every solve stopped by its test before
     cg_maxiter with its unweighted residual within 10*cg_tol (the CG on
     V*A; the JAX package's stalls at cg_maxiter here)."""
     from qgdsolver_tpu_torch.io import foam_case
+    from qgdsolver_tpu_torch.ops import linsolve
 
     case = wedge_film_case(root)
 
@@ -2478,24 +2444,25 @@ def wedge_film_run(root, cpu_steps=3, steps=30) -> str:
     solver, s = build(torch.device("cuda", 0))
     csolver, c = build(torch.device("cpu"))
     step, cstep = solver.make_step(), csolver.make_step()
-    with cg_residuals() as card_log:
+    with linsolve.true_residuals() as card_log:
         for _ in range(cpu_steps):
             s = step(s)
-    with cg_residuals() as cpu_log:
+    with linsolve.true_residuals() as cpu_log:
         for _ in range(cpu_steps):
             c = cstep(c)
-    same = [x[0] for x in card_log] == [x[0] for x in cpu_log]
-    share = 1e-9 if same else 2 * cpu_steps * solver.cg_tol
+    counts = [x[0] for x in card_log], [x[0] for x in cpu_log]
+    check(counts[0] == counts[1], f"wedge film: CG counts {counts[0]} on "
+          f"the card against {counts[1]} on the CPU")
     gaps = state_gap(c, s)
     for f, g in gaps.items():
-        check(g <= share, f"wedge film: {f} {g:.2e} of its max from the "
-              f"CPU's after {cpu_steps} steps (> {share:g})")
+        check(g <= 1e-9, f"wedge film: {f} {g:.2e} of its max from the "
+              f"CPU's after {cpu_steps} steps (> 1e-9)")
     box = [s]
 
     def one():
         box[0] = step(box[0])
 
-    with cg_residuals() as log:
+    with linsolve.true_residuals() as log:
         ms = cuda_ms(one, steps - cpu_steps, warmup=0)
     log = card_log + log
     # p's solves are of a cell field, U's of a vector field
@@ -2520,7 +2487,7 @@ def wedge_film_run(root, cpu_steps=3, steps=30) -> str:
             f"{10 * solver.cg_tol:g}); first {cpu_steps} steps vs the CPU "
             + ", ".join(f"{k} {v:.1e}" for k, v in gaps.items()
                         if k not in ("t", "dt"))
-            + f" (bound {share:g}{'' if same else ', CG counts one apart'})")
+            + " (bound 1e-9, CG counts equal)")
 
 
 def phase_moving_twophase(card, root):
@@ -2732,11 +2699,11 @@ def deposit_bitwise(seen) -> int:
 def deposit_entry(values, flat, ncell, launches, per_step) -> dict:
     """The kernels-line entry of `deposit` on one call's inputs (the jet's
     momentum and energy rows): the kernel's device ms (profiler), all the
-    wrapper's device work (the stable sort, its gather, the zero fill and
-    the kernel), the plain version's (`index_add_` a row, atomics on the
+    wrapper's device work (the zero-term test, the stable sort, its
+    gather, the zero fill and the kernel), the plain version's (`index_add_` a row, atomics on the
     card) and one `index_add_` of every row; the bound from the bytes the
     function must move: the values and cells read once, the (k, ncell)
-    sums written once."""
+    sums written once.  `skew` holds `deposit_skew`'s times."""
     from qgdsolver_tpu_torch.ops import deposit as D
 
     k, n = values.shape
@@ -2763,9 +2730,57 @@ def deposit_entry(values, flat, ncell, launches, per_step) -> dict:
         "wrapper_ms": device_ms(lambda: D.deposit(values, flat, ncell), 20),
         "ops": ops, "shape": [k, n, ncell],
         "launches_per_step": per_step,
+        "skew": deposit_skew(values, flat, ncell),
         "note": ("replaces XLA scatter-adds (.at[flat].add, "
                  "qgdsolver_tpu/solvers/particles.py:160, :168, :372), not "
                  "Pallas")}
+
+
+def skew_patterns(values, flat, ncell) -> dict:
+    """{pattern: (values, cells)} of the deposition with piled-up cells,
+    from one call's inputs: every parcel in one cell; half the parcels in
+    8 outlet cells, the rest where they were; every other parcel inactive
+    (its values zero) and clamped into one boundary cell, as escaped
+    parcels are."""
+    n = flat.shape[0]
+    half = torch.arange(n, device=flat.device) % 2 == 1
+    pile = flat.clone()
+    pile[half] = ncell - 1 - (torch.arange(n, device=flat.device)[half] % 8)
+    return {
+        "one_cell": (values, torch.full_like(flat, ncell // 2)),
+        "outlet_8_cells_half": (values, pile),
+        "half_inactive_one_cell": (values * (~half).to(values.dtype),
+                                   torch.where(half, ncell - 1, flat))}
+
+
+def deposit_skew(values, flat, ncell) -> dict:
+    """{pattern: {kernel_ms, wrapper_ms, library_ms, longest_run}} of the
+    deposition on `skew_patterns` of the jet's values, each pattern's
+    sums bitwise its plain version on the CPU.  The kernel sums a run in
+    order, so its time grows with the longest run of nonzero terms
+    (`longest_run`), one dependent add each; `index_add_` (one call for
+    every row, atomics) is the library's time."""
+    from qgdsolver_tpu_torch.ops import deposit as D
+
+    out = {}
+    for name, (v, f) in skew_patterns(values, flat, ncell).items():
+        got = D.deposit(v, f, ncell)
+        ref = D.deposit_reference(v.cpu(), f.cpu(), ncell)
+        ints = torch.int32 if ref.dtype == torch.float32 else torch.int64
+        check(torch.equal(got.cpu().view(ints), ref.view(ints)),
+              f"deposit ({name}): the kernel's sums differ from index_add_ "
+              f"on the CPU by {float((got.cpu() - ref).abs().max()):.2e}")
+        live = f[(v != 0).any(dim=0)]
+        out[name] = {
+            "kernel_ms": device_ms(lambda v=v, f=f: D.deposit(v, f, ncell),
+                                   10, match="deposit_kernel"),
+            "wrapper_ms": device_ms(lambda v=v, f=f: D.deposit(v, f, ncell),
+                                    10),
+            "library_ms": device_ms(lambda v=v, f=f: torch.zeros(
+                (v.shape[0], ncell), dtype=v.dtype,
+                device=v.device).index_add_(1, f, v), 10),
+            "longest_run": int(torch.bincount(live, minlength=ncell).max())}
+    return out
 
 
 def jet_twice(build, steps=3) -> str:
@@ -2789,111 +2804,10 @@ def jet_twice(build, steps=3) -> str:
     return f"two runs of {steps} steps from one State bitwise equal"
 
 
-def op_trace(fn):
-    """(fn()'s result, [(aten op, its float output copied to the CPU)]) of
-    every op fn() dispatches; a call of the clouds' `deposit` enters the
-    op name "deposit" (its own ops differ between the devices)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    from qgdsolver_tpu_torch.solvers import particles
-
-    log = []
-
-    class Recorder(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            for o in (out if isinstance(out, (tuple, list)) else (out,)):
-                if torch.is_tensor(o) and o.is_floating_point():
-                    log.append((func.overloadpacket.__name__,
-                                o.detach().to("cpu", copy=True)))
-            return out
-
-    orig = particles.deposit
-
-    def marked(values, flat, ncell):
-        log.append(("deposit", None))
-        return orig(values, flat, ncell)
-
-    particles.deposit = marked
-    try:
-        with Recorder():
-            out = fn()
-    finally:
-        particles.deposit = orig
-    return out, log
-
-
-def jet_stages(solver, csolver, s) -> str:
-    """Where the two-way f32 jet's card-vs-CPU gap comes from: from the
-    card's State s and its copy on the CPU, one cloud evolve on each device
-    op by op up to its deposition (the gas at the parcels, drag, heat,
-    positions: each op's output against the CPU's), the deposited sources,
-    the gas update fed the CPU's sources on both devices, and the whole
-    step."""
-    from qgdsolver_tpu_torch import interop
-
-    c = interop.state_from_numpy(interop.state_to_numpy(s), device="cpu",
-                                 dtype=torch.float32)
-    out = {}
-    for name, sol, st in (("card", solver, s), ("cpu", csolver, c)):
-        U, _, T, _ = sol.fluid.primitives(st.fluid)
-        out[name] = op_trace(
-            lambda sol=sol, st=st, U=U, T=T: sol.cloud.evolve(
-                st.cloud, sol.mesh, st.fluid.dt, rho_g=st.fluid.rho, U_g=U,
-                T_g=T))
-    (card_res, card_ops), (cpu_res, cpu_ops) = out["card"], out["cpu"]
-    first, worst = None, {}
-    for (op, x), (op2, y) in zip(card_ops, cpu_ops):
-        if op != op2:
-            first = first or f"(the op orders part: {op}, {op2})"
-            break
-        if op == "deposit":
-            break
-        if x.shape != y.shape or torch.equal(x, y):
-            continue
-        g = rel_err(y.double(), x.double())
-        worst[op] = max(worst.get(op, 0.0), g)
-        if first is None:
-            first = f"{op} ({g:.1e})"
-    src = [rel_err(b.double(), a.cpu().double()) for a, b in
-           zip(card_res[1:], cpu_res[1:])]
-    # the moved parcels: positions a rounding apart, and those whose owner
-    # cell (next step's deposition cell) differs between the devices
-    from qgdsolver_tpu_torch.solvers.particles import _flat, owner_cells
-
-    moved = [(r[0].x.cpu(), r[0].active.cpu() > 0.5)
-             for r in (card_res, cpu_res)]
-    xs_differ = int((moved[0][0] != moved[1][0]).any(dim=0).sum())
-    cells = [_flat(owner_cells(x, csolver.mesh), csolver.mesh)
-             for x, _ in moved]
-    flipped = int(((cells[0] != cells[1]) & moved[1][1]).sum())
-    fstep, cfstep = (x.fluid.make_step(external_sources=True)
-                     for x in (solver, csolver))
-    srcs = (0.0,) + tuple(x for x in cpu_res[1:])
-    fed = state_gap(cfstep(c.fluid, srcs),
-                    fstep(s.fluid, tuple(x if not torch.is_tensor(x) else
-                                         x.cuda() for x in srcs)))
-    whole = pstate_gap(csolver.make_step()(c), solver.make_step()(s))
-    return ("one step from the card's State, card vs CPU: evolve's ops "
-            f"before the deposition first differ at {first or 'none'}, "
-            "largest by op " + (", ".join(f"{k} {v:.1e}" for k, v in
-                                          sorted(worst.items(),
-                                                 key=lambda kv: -kv[1])[:5])
-                                or "none")
-            + f"; sources rhoUSu {src[0]:.1e}, rhoESu {src[1]:.1e}; "
-            f"{xs_differ} of {moved[1][0].shape[1]} moved parcels' positions "
-            f"differ, {flipped} of them in another owner cell; the gas "
-            "update fed the CPU's sources "
-            + ", ".join(f"{k} {v:.1e}" for k, v in fed.items()
-                        if k in ("rho", "rhoU", "rhoE"))
-            + "; the whole step max "
-            + f"{max(whole.values()):.1e}")
-
-
 def deposit_ab(build, n=10) -> str:
     """ms/step of the two-way jet with the deposition kernel and with the
     plain version on the card (`index_add_` a row, float atomics: the
-    parent's deposition), A B B A, CUDA events."""
+    parent's deposition), A B B A twice, CUDA events."""
     from qgdsolver_tpu_torch.ops import deposit as D
     from qgdsolver_tpu_torch.solvers import particles
 
@@ -2906,15 +2820,27 @@ def deposit_ab(build, n=10) -> str:
 
     times = {"kernel": [], "index_add_": []}
     try:
-        for name in ("kernel", "index_add_", "index_add_", "kernel"):
+        for name in ("kernel", "index_add_", "index_add_", "kernel") * 2:
             particles.deposit = (D.deposit if name == "kernel"
                                  else D.deposit_reference)
             times[name].append(cuda_ms(one, n, warmup=1))
     finally:
         particles.deposit = D.deposit
-    return ("jet ms/step A B B A, deposition kernel " + ", ".join(
+    return ("jet ms/step A B B A twice, deposition kernel " + ", ".join(
         f"{t:.3f}" for t in times["kernel"]) + " against index_add_ "
         "(atomics) " + ", ".join(f"{t:.3f}" for t in times["index_add_"]))
+
+
+def two_way_jet(device):
+    """Phase 24's particlesQGDFoam jet: `cloud_jet` at SHAPE in float32
+    with 262144 parcels from seed 18 over the domain, as (solver,
+    PState)."""
+    from qgdsolver_tpu_torch.solvers.particles import PState
+
+    solver, fs = cloud_jet(SHAPE, torch.float32, device)
+    cloud = solver.cloud.make(*cloud_of(1 << 18, (0.0, 0.0), (4.0, 2.0), 18,
+                                        torch.float32, device))
+    return solver, PState(fluid=fs, cloud=cloud)
 
 
 def cloud_jet(shape, dtype, device):
@@ -3156,12 +3082,6 @@ def phase_lagrangian_reacting(card, root):
 
     t0 = time.perf_counter()
 
-    def jet(d):
-        solver, fs = cloud_jet(SHAPE, torch.float32, d)
-        cloud = solver.cloud.make(*cloud_of(1 << 18, (0.0, 0.0), (4.0, 2.0),
-                                            18, torch.float32, d))
-        return solver, PState(fluid=fs, cloud=cloud)
-
     def jet_checks(label, solver, first, s):
         finite(label, s.fluid)
         umean = float(s.cloud.u[0].mean())
@@ -3201,7 +3121,7 @@ def phase_lagrangian_reacting(card, root):
     D.deposit.launches = 0
     with deposits() as seen:
         msgs = [cloud_run(f"particlesQGDFoam jet {SHAPE} f32, 262144 "
-                          "parcels (two-way)", jet, 20, 1e-3, jet_checks)]
+                          "parcels (two-way)", two_way_jet, 20, 1e-3, jet_checks)]
         jet_launches = D.deposit.launches
         msgs += [
             cloud_run("particlesQHDFoam cavity 128x128 f64, 65536 parcels "
@@ -3221,14 +3141,13 @@ def phase_lagrangian_reacting(card, root):
         "reactingLagrangianQGDFoam": (launches - jet_launches) / 16})
     msgs.append(f"deposit: {launches} launches on the main path, {checked} "
                 "calls (the jet's and the evaporated mass) bitwise their "
-                "plain version on the CPU")
-    solver, s = jet(torch.device("cuda", 0))
-    csolver, c = jet(torch.device("cpu"))
-    step, cstep = solver.make_step(), csolver.make_step()
-    for _ in range(3):
-        s, c = step(s), cstep(c)
-    msgs.append(jet_twice(jet) + "; " + jet_stages(solver, csolver, s))
-    msgs.append(deposit_ab(jet))
+                "plain version on the CPU; piled-up cells bitwise, "
+                "kernel/wrapper/index_add_ ms (longest run): " + ", ".join(
+                    f"{k} {v['kernel_ms']:.4f}/{v['wrapper_ms']:.4f}/"
+                    f"{v['library_ms']:.4f} ({v['longest_run']})"
+                    for k, v in entry["skew"].items()))
+    msgs.append(jet_twice(two_way_jet))
+    msgs.append(deposit_ab(two_way_jet))
     msgs.append(decomposed_cloud())
     launched = {k.__name__: k.launches for k in kernels if k.launches}
     check(not launched, f"phase 24: kernels launched {launched}")

@@ -8,8 +8,12 @@ by atomics, in another order each run.  `deposit` instead sorts the parcels
 by cell with a stable sort (parcel order kept within a cell) and launches
 `deposit_f32` / `deposit_f64` from csrc/deposit.cu, which sums each
 occupied cell's run of parcels in parcel order from zero: the card's sums
-equal the CPU's bit for bit for equal inputs.  The wrapper counts its launches in
-`deposit.launches`.
+equal the CPU's bit for bit for equal inputs.  A parcel whose every value
+is zero (an inactive one: its terms are 0 times a value) is sorted out of
+the runs, past the last cell, where the kernel skips it: a signed zero
+added to a sum that starts from +0 changes no bit, and a long run of
+escaped parcels clamped into a boundary cell costs nothing.  The wrapper
+counts its launches in `deposit.launches`.
 """
 from __future__ import annotations
 
@@ -50,8 +54,9 @@ def deposit(values, flat, ncell):
     if n == 0 or k == 0:
         return out
     values = values.contiguous()
-    order = torch.argsort(flat, stable=True)
-    cells = flat[order].contiguous()
+    key = torch.where((values != 0).any(dim=0), flat, ncell)
+    order = torch.argsort(key, stable=True)
+    cells = key[order].contiguous()
     lib = _build.load()
     fn = lib.deposit_f32 if values.dtype == torch.float32 else lib.deposit_f64
     with torch.cuda.device(dev):

@@ -32,6 +32,7 @@ maxiter.)
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import typing as tp
 from functools import partial
@@ -169,6 +170,42 @@ def reset_counts():
 
 
 reset_counts()
+
+
+@contextlib.contextmanager
+def true_residuals():
+    """[(iterations, |b - A x|/|b|, maxiter, the rhs's number of axes)] of
+    every `cg` solve in the context, the residual recomputed from the
+    returned x with the unweighted system's own matvec (b and r projected
+    for a singular system, as the CG takes them).  Where the cell volumes
+    vary the CG runs in the volume-weighted inner product, and this is the
+    system it must solve.  Each entry reads the device once; `cg`'s counts
+    go on counting."""
+    global cg
+    log = []
+    orig = cg
+
+    def recorded(matvec, b, x0, **kw):
+        res = orig(matvec, b, x0, **kw)
+        proj = kw.get("project") or (lambda f: f)
+        bp = proj(b)
+        r = proj(bp - matvec(res.x))
+        nb = float(torch.linalg.vector_norm(bp))
+        log.append((int(res.iters),
+                    float(torch.linalg.vector_norm(r)) / max(nb, 1e-300),
+                    kw.get("maxiter", 1000), b.dim()))
+        return res
+
+    # `cg` keeps its counts on the module's `cg`, this wrapper meanwhile
+    recorded.reads, recorded.solves = orig.reads, orig.solves
+    recorded.iterations = orig.iterations
+    cg = recorded
+    try:
+        yield log
+    finally:
+        cg = orig
+        orig.reads, orig.solves = recorded.reads, recorded.solves
+        orig.iterations = recorded.iterations
 
 
 def cg_exact_stop(matvec, b, x0, *, tol=1e-7, maxiter=1000, precond=None,

@@ -7,6 +7,7 @@ compared.  Imports the JAX package: only tests use it.
 import contextlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -57,7 +58,8 @@ def solve_logs(monkeypatch):
     yield jlog, tlog
 
 
-def run_both(jsolver, js, n, tol, monkeypatch, floors=None, over=None):
+def run_both(jsolver, js, n, tol, monkeypatch, floors=None, over=None,
+             counts=True):
     """n steps of a JAX solver and of its port from one State.
 
     The JAX package runs its trajectory once, every State kept.  The port
@@ -76,7 +78,9 @@ def run_both(jsolver, js, n, tol, monkeypatch, floors=None, over=None):
     round-off of zero (the pressure of a uniform stream) is held against
     its physical scale.  `over` ({field: value}) sets fields of the port's
     solver, such as the torch counterparts of QHDDyMFoam's motion
-    callables, which `interop.solver_from` cannot carry.  Returns (the JAX States [0..n], the port's last
+    callables, which `interop.solver_from` cannot carry.  `counts=False`
+    drops the count check, for a JAX package whose CG is replaced by
+    `exact_jax_solves`.  Returns (the JAX States [0..n], the port's last
     window State with numpy leaves, the port's [(kind, iterations)])."""
     floors = floors or {}
     tsolver = interop.solver_from(jsolver, dtype=F64, **(over or {}))
@@ -97,7 +101,8 @@ def run_both(jsolver, js, n, tol, monkeypatch, floors=None, over=None):
                     continue
                 assert _rel(getattr(states[k + 1], f), getattr(ts, f),
                             floors.get(f, 0.0)) <= tol, (k, f)
-    same_iterations(jlog, tlog, getattr(jsolver, "cg_tol", 0.0))
+    if counts:
+        same_iterations(jlog, tlog, getattr(jsolver, "cg_tol", 0.0))
     return states, ts, [x[:2] for x in tlog]
 
 
@@ -117,39 +122,40 @@ def same_iterations(jlog, tlog, cg_tol, band=1e-3):
             cg_tol * (1.0 - band) <= first[2] <= cg_tol, (j, t)
 
 
-@contextlib.contextmanager
-def true_residuals(monkeypatch):
-    """[(iterations, |r|/|b|, maxiter)] of every port CG solve in the
-    context, r = b - A x recomputed from the returned x with the
-    unweighted system's own matvec (both projected for a singular system,
-    as the CG takes them): the oracle of a solve on a mesh whose volumes
-    vary, where the CG runs in the volume-weighted inner product and its
-    counts part from the JAX package's."""
-    log = []
-    orig = linsolve.cg
+def _exact_cg(matvec, b, x0, *, tol=1e-7, maxiter=1000, precond=None,
+              project=None):
+    """The JAX package's `cg` contract solved exactly: the dense matrix of
+    the projected operator, assembled column by column from `matvec`, and
+    its least-squares solution (the nullspace of a singular system taken
+    out by `project`, as the CG takes it).  Reports 0 iterations and the
+    residual of the solution."""
+    P = project if project is not None else (lambda f: f)
+    bp = P(b)
+    n = b.size
+    cols = jax.vmap(lambda e: P(matvec(e.reshape(b.shape))).ravel())(
+        jnp.eye(n, dtype=b.dtype))
+    x = P(jnp.linalg.lstsq(cols.T, bp.ravel())[0].reshape(b.shape))
+    r = P(bp - matvec(x))
+    nb = jnp.sqrt(jnp.sum(bp * bp))
+    return jlinsolve.CGResult(
+        x=x, iters=jnp.asarray(0),
+        residual=jnp.sqrt(jnp.sum(r * r)) / jnp.where(nb > 0, nb, 1.0))
 
-    def recorded(matvec, b, x0, **kw):
-        res = orig(matvec, b, x0, **kw)
-        proj = kw.get("project") or (lambda f: f)
-        bp = proj(b)
-        r = proj(bp - matvec(res.x))
-        nb = float(torch.sqrt(torch.sum(bp * bp)))
-        log.append((int(res.iters),
-                    float(torch.sqrt(torch.sum(r * r))) / max(nb, 1e-300),
-                    kw.get("maxiter", 1000)))
-        return res
 
-    # `cg` keeps its counts on the module's `cg`, which is this wrapper
-    # inside the context
-    recorded.reads, recorded.solves = orig.reads, orig.solves
-    recorded.iterations = orig.iterations
-    monkeypatch.setattr(linsolve, "cg", recorded)
-    yield log
+def exact_jax_solves(monkeypatch):
+    """Every Helmholtz solve of the JAX package solved exactly (dense, for
+    the small meshes of the tests) in place of its CG.  Where the cell
+    volumes vary the JAX package's CG runs on the nonsymmetric V^-1 A and
+    its pressure solves stall at cg_maxiter; the exact solution of the
+    same system is what the port's CG on V*A converges to, so the port is
+    held to the JAX package's discretisation (hoop terms, r-weighted
+    metrics, BCs) within the conditioning of the system times cg_tol."""
+    monkeypatch.setattr(jlinsolve, "cg", _exact_cg)
 
 
 def assert_solves_converged(log, cg_tol):
-    """Every solve of a `true_residuals` log stopped by its test: fewer
-    iterations than maxiter and |b - A x|/|b| <= 10*cg_tol."""
+    """Every solve of a `linsolve.true_residuals` log stopped by its test:
+    fewer iterations than maxiter and |b - A x|/|b| <= 10*cg_tol."""
     assert log, "no solve recorded"
-    for it, res, maxiter in log:
+    for it, res, maxiter, _ in log:
         assert it < maxiter and res <= 10.0 * cg_tol, (it, res, log)

@@ -15,10 +15,12 @@ the JAX package runs n steps, the port n one-step windows from its States
 with equal CG iteration counts.  `physics.twophase` is held to the JAX
 package's to round-off.  On a wedge the cell volumes vary with r, and the
 port's pressure CG runs on the symmetric V*A (`ops.linsolve`), where the
-JAX package's stalls at cg_maxiter: those runs are held to their own
-oracles (each solve's unweighted residual within 10*cg_tol before
-cg_maxiter, `_torch_parity.true_residuals`; the Laplace jumps; the film's
-r-weighted volume balance), not to the JAX package.
+JAX package's stalls at cg_maxiter: there the JAX package's solves are
+made exact (`_torch_parity.exact_jax_solves`) and the counts are not
+compared, and the port's runs are held to their own oracles as well
+(each solve's unweighted residual within 10*cg_tol before cg_maxiter,
+`ops.linsolve.true_residuals`; the Laplace jumps; the film's r-weighted
+volume balance).
 """
 import dataclasses
 import math
@@ -41,12 +43,13 @@ from qgdsolver_tpu_torch import cli, interop
 from qgdsolver_tpu_torch.core import bc
 from qgdsolver_tpu_torch.core.mesh import AxisymmetricMesh, Mesh
 from qgdsolver_tpu_torch.io import foam_case, foam_write
+from qgdsolver_tpu_torch.ops import linsolve
 from qgdsolver_tpu_torch.physics import twophase
 from qgdsolver_tpu_torch.solvers import common
 from qgdsolver_tpu_torch.solvers.inter_qhd import InterQHDFoam
 
 from _torch_parity import (F64, ROUND_OFF, _rel, assert_solves_converged,
-                           run_both, true_residuals)
+                           exact_jax_solves, run_both)
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 X64 = np.float64
@@ -290,15 +293,22 @@ def test_inter_qhd_matches_jax(name, monkeypatch):
     flags, with explicit diffusion, on the floor with a static and a
     dynamic contact angle and mQhdFlux walls; the mQhdFlux column.  The
     wedge annulus (smoothing on r-weighted areas) and the axis-centred
-    wedge drop run on the port alone, held to their oracles: every
-    solve's unweighted residual within 10*cg_tol before cg_maxiter, phase
-    1 bounded, its r-weighted volume conserved to 1e-12 (the JAX
-    package's pressure CG stalls at cg_maxiter there)."""
+    wedge drop.  On the wedges the JAX package's pressure CG stalls at
+    cg_maxiter, so its solves are made exact there
+    (`_torch_parity.exact_jax_solves`, counts not compared), and a free
+    run of the port is held to its oracles as well: every solve's
+    unweighted residual within 10*cg_tol before cg_maxiter, phase 1
+    bounded, its r-weighted volume conserved to 1e-12."""
     js, jst, n = _parity_case(name)
     if name in WEDGE:
+        exact_jax_solves(monkeypatch)
+        states, _, log = run_both(js, jst, n, 2 * js.cg_tol, monkeypatch,
+                                  floors={"U": 1e-3, "p": 1e-3},
+                                  counts=False)
+        assert [k == "U" for k, _ in log] == [False, True] * n  # p, U
         solver = _port(js)
         flux = _alpha_balance(monkeypatch)
-        with true_residuals(monkeypatch) as solves:
+        with linsolve.true_residuals() as solves:
             s = common.run_steps(solver.make_step(), _tstate(jst), n)
         assert_solves_converged(solves, js.cg_tol)
         assert len(solves) == 2 * n  # p and U each step
@@ -385,7 +395,7 @@ def test_inter_qhd_wedge_cylindrical_laplace_pressure(monkeypatch):
     term: the Laplace jump sigma/R develops and it stays static, every
     solve converged (unweighted residual within 10*cg_tol)."""
     js, jst = _wedge_annulus()
-    with true_residuals(monkeypatch) as solves:
+    with linsolve.true_residuals() as solves:
         solver, s = _run_port(js, jst, 120)
     assert_solves_converged(solves, js.cg_tol)
     p = s.p.numpy()
@@ -401,7 +411,7 @@ def test_inter_qhd_axis_centered_drop_laplace(monkeypatch):
     2*sigma/R, bounded spurious currents on the first axis rings too,
     every solve converged (unweighted residual within 10*cg_tol)."""
     js, jst, d = _axis_drop()
-    with true_residuals(monkeypatch) as solves:
+    with linsolve.true_residuals() as solves:
         _, s = _run_port(js, jst, 200)
     assert_solves_converged(solves, js.cg_tol)
     p, a = s.p.numpy(), s.alpha1.numpy()
@@ -523,7 +533,9 @@ def test_build_case_inter_mqhdflux(tmp_path):
 
 def test_wedge_inter_qhd_case_ingests_and_runs(tmp_path, monkeypatch):
     """A wedge two-phase case builds through ingestion as the JAX package
-    builds it (BC types, phase properties), and an annular film runs 30
+    builds it (BC types, phase properties); 10 windows of an annular film
+    held to the JAX package with its solves made exact
+    (`_torch_parity.exact_jax_solves`); and the film runs 30
     free float64 steps on the port: finite, bounded, every solve
     converged (unweighted residual within 10*cg_tol before cg_maxiter),
     and the film's r-weighted volume changed by what its boundary faces
@@ -559,7 +571,7 @@ def test_wedge_inter_qhd_case_ingests_and_runs(tmp_path, monkeypatch):
         "front { type wedge; } back { type wedge; } }\n")
     solver, state = foam_case.build_case(str(case), device="cpu")
     assert isinstance(solver, InterQHDFoam) and solver.mesh.axisymmetric
-    js, _ = jfoam_case.build_case(str(case))
+    js, jst = jfoam_case.build_case(str(case))
     js = dataclasses.replace(js, mesh=JAxiMesh(x_faces=js.mesh.x_faces,
                                                dtype=X64))
     port = interop.solver_from(js, dtype=F64)
@@ -572,8 +584,13 @@ def test_wedge_inter_qhd_case_ingests_and_runs(tmp_path, monkeypatch):
     a0 = np.broadcast_to(0.5 * (1.0 + np.tanh((r[None, :] - 0.35)
                                               / (2.0 * dr))),
                          solver.mesh.shape)
+    with monkeypatch.context() as mp:
+        exact_jax_solves(mp)
+        run_both(js, jst._replace(alpha1=jnp.asarray(a0)), 10,
+                 2 * js.cg_tol, mp, floors={"U": 1e-3, "p": 1e-3},
+                 counts=False)
     flux = _alpha_balance(monkeypatch)
-    with true_residuals(monkeypatch) as solves:
+    with linsolve.true_residuals() as solves:
         s = common.run_steps(solver.make_step(), state._replace(
             alpha1=solver.mesh.tensor(a0)), 30)
     assert_solves_converged(solves, solver.cg_tol)

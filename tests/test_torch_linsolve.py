@@ -232,8 +232,7 @@ def _varying_mesh(kind):
 @pytest.mark.parametrize("singular", [True, False],
                          ids=["poisson_singular", "helmholtz"])
 @pytest.mark.parametrize("kind", ["graded", "wedge"])
-def test_weighted_cg_converges_where_volumes_vary(kind, singular,
-                                                  monkeypatch):
+def test_weighted_cg_converges_where_volumes_vary(kind, singular):
     """A graded mesh (expansion 8 along x, 0.2 along y) and a wedge, with
     seeded face diffusivities and a seeded rhs: the pure-Neumann Poisson
     system (projected) and a Helmholtz one.  The CG in the volume-weighted
@@ -241,7 +240,7 @@ def test_weighted_cg_converges_where_volumes_vary(kind, singular,
     recomputed from x within 10*tol, and the iterate solves the system
     (x + c for the singular one).  The same system run in the plain inner
     product, as the JAX package runs it, reaches maxiter."""
-    from _torch_parity import assert_solves_converged, true_residuals
+    from _torch_parity import assert_solves_converged
 
     rng = np.random.default_rng(7)
     mesh = _varying_mesh(kind)
@@ -253,7 +252,7 @@ def test_weighted_cg_converges_where_volumes_vary(kind, singular,
     kw = dict(diag_coeff=0.0 if singular else 3.0, gamma_faces=gamma,
               rhs=rhs, x0=torch.zeros(mesh.shape, dtype=F64), bcs=zg,
               mesh=mesh, tol=1e-10, maxiter=1000, singular=singular)
-    with true_residuals(monkeypatch) as solves:
+    with tls.true_residuals() as solves:
         res = tls.solve_helmholtz(**kw)
     assert_solves_converged(solves, 1e-10)
     assert int(res.iters) < 300

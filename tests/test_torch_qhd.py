@@ -37,7 +37,7 @@ from qgdsolver_tpu.solvers.qhd import QHDFoam as JQHDFoam
 from qgdsolver_tpu_torch import interop
 from qgdsolver_tpu_torch.core import bc
 from qgdsolver_tpu_torch.core.mesh import Mesh
-from qgdsolver_tpu_torch.ops import fvsc, mules
+from qgdsolver_tpu_torch.ops import fvsc, linsolve, mules
 from qgdsolver_tpu_torch.physics import qgdcoeffs
 from qgdsolver_tpu_torch.physics.thermo import RhoConstThermo
 from qgdsolver_tpu_torch.solvers import common
@@ -45,8 +45,8 @@ from qgdsolver_tpu_torch.solvers.mules_qhd import MulesQHDFoam
 from qgdsolver_tpu_torch.solvers.qhd import QHDFoam
 from qgdsolver_tpu_torch.solvers.srf_qhd import SRFQHDFoam
 
-from _torch_parity import (F64, assert_solves_converged, run_both,
-                           true_residuals)
+from _torch_parity import (F64, assert_solves_converged, exact_jax_solves,
+                           run_both)
 
 
 def _cg(jsolver, n=1):
@@ -281,12 +281,15 @@ def test_qhd_flux_p_bc_matches_jax(monkeypatch):
 def test_axisymmetric_qhd_matches_jax(monkeypatch):
     """QHDFoam on a wedge (the hoop term of the radial momentum, the
     r-weighted metrics): a closed pipe, hot at x = 0 and cold at x = 2,
-    with gravity along r, 5 steps of the port from the JAX package's
-    initial State.  The cell volumes vary with r, so the port's CG runs
-    on the symmetric V*A and parts from the JAX package's counts: every
-    solve (p, U, T) is held to its own oracle, the unweighted residual
-    within 10*cg_tol before cg_maxiter; T stays within its wall values
-    and the buoyant flow starts."""
+    with gravity along r, 5 windows from the JAX package's States, each
+    within 2*cg_tol of each field's max.  The cell volumes vary with r:
+    the JAX package's pressure CG on V^-1 A stalls at cg_maxiter there
+    (|r|/|b| ~ 5 at 1000 iterations), so its solves are made exact
+    (`_torch_parity.exact_jax_solves`) and the counts are not compared;
+    the port's CG on V*A is held to its own oracle as well, every solve
+    (p, U, T) with its unweighted residual within 10*cg_tol before
+    cg_maxiter.  T stays within its wall values and the buoyant flow
+    starts."""
     mesh = JAxiMesh(x_faces=(np.linspace(0.0, 2.0, 17),
                              np.linspace(0.0, 0.5, 9)), dtype=np.float64)
     zg, fv = jbc.ZeroGradient(), jbc.FixedValue
@@ -299,17 +302,17 @@ def test_axisymmetric_qhd_matches_jax(monkeypatch):
         bc_T=jbc.FieldBCs(((fv(1.0), fv(0.0)), (zg, zg))),
         time=jcommon.TimeControls(max_co=0.3, max_dt=0.05, dt0=1e-3),
         cg_tol=1e-10)
-    solver = interop.solver_from(js, dtype=F64)
-    s0 = interop.state_from_numpy(js.init(np.zeros((2,) + mesh.shape),
-                                          np.zeros(mesh.shape)), dtype=F64)
-    with true_residuals(monkeypatch) as solves:
-        ts = common.run_steps(solver.make_step(), s0, 5)
+    n = 5
+    exact_jax_solves(monkeypatch)
+    with linsolve.true_residuals() as solves:
+        _, ts, log = run_both(js, js.init(np.zeros((2,) + mesh.shape),
+                                          np.zeros(mesh.shape)),
+                              n, _cg(js), monkeypatch, counts=False)
     assert_solves_converged(solves, js.cg_tol)
-    assert len(solves) == 3 * 5  # p, U and T each step
-    T = ts.T.numpy()
-    assert np.isfinite(ts.U.numpy()).all() and np.isfinite(ts.p.numpy()).all()
-    assert T.min() >= -1e-12 and T.max() <= 1.0 + 1e-12
-    assert np.abs(ts.U.numpy()).max() > 0
+    assert [k for k, _ in log] == ["p", "U", "T"] * n
+    assert np.isfinite(ts.U).all() and np.isfinite(ts.p).all()
+    assert ts.T.min() >= -1e-12 and ts.T.max() <= 1.0 + 1e-12
+    assert np.abs(ts.U).max() > 0
 
 
 def test_masked_cavity_matches_jax(monkeypatch):

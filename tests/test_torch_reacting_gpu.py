@@ -15,6 +15,10 @@
   equals its plain version (`index_add_` on the CPU) bit for bit on the
   same per-parcel terms, the jet's and an evaporating cloud's, and two
   runs of the two-way float32 jet from one State are equal bit for bit.
+* The deposition kernel on tests/test_torch_deposit.py's duplication
+  patterns (every parcel in one cell, a 4:1 ratio, a third inactive, and
+  inactive parcels holding NaN in a row that is not all zero), float32
+  and float64: bitwise its plain version on the CPU.
 * particlesQGDFoam, 5 float64 steps on the card within 1e-9 of each field's
   max of the CPU's.
 """
@@ -241,3 +245,26 @@ def test_two_way_jet_runs_twice_bitwise(device, monkeypatch):
         ref = D.deposit_reference(values.cpu(), flat.cpu(), ncell)
         assert torch.equal(out.cpu().view(torch.int32),
                            ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("pattern", ["one_cell", "ratio_4", "inactive",
+                                     "inactive_nan"])
+def test_deposit_kernel_bitwise_on_card(device, pattern, dtype):
+    from qgdsolver_tpu_torch.ops import deposit as D
+    from test_torch_deposit import _inputs
+
+    v, flat, ncell = _inputs(pattern.replace("_nan", ""), dtype)
+    if pattern == "inactive_nan":
+        # a NaN term is not zero: it stays in its cell's run
+        v[1, 0] = np.nan
+    v, flat = torch.as_tensor(v), torch.as_tensor(flat)
+    launches = D.deposit.launches
+    got = D.deposit(v.to(device), flat.to(device), ncell)
+    assert D.deposit.launches == launches + 1
+    ref = D.deposit_reference(v, flat, ncell)
+    ints = torch.int32 if v.dtype == torch.float32 else torch.int64
+    nan = ref.isnan()
+    # a NaN's payload is the device's own
+    assert torch.equal(got.cpu().isnan(), nan)
+    assert torch.equal(got.cpu()[~nan].view(ints), ref[~nan].view(ints))
