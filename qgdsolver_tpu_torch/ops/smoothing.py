@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..physics.qgdcoeffs import _neighbour_max, smooth_ratio
+from ..utils import observability
 from . import _build
 
 
@@ -102,14 +103,35 @@ def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
     before it, else one copy moves it there.  `cache` (a dict a step
     builder keeps) holds the scratch frame, the flag and the launches of
     the last call per device across calls.  Counts its host flag reads in
-    `reads` and its rings in `rings`."""
+    `reads` and its rings in `rings`.  Inside a traced `run_steps` call
+    the call is a `qgd.smooth_sensor` span and each flag read a
+    `qgd.flag_read` span, with its refill timed on a card
+    (`utils.observability.Segment`)."""
+    seg = observability.active
+    if seg is None:
+        return _smooth_sensor(prm, s1, chg, smooth, k, cache, max_iters,
+                              bool, _no_enqueue)
+    with observability.span("qgd.smooth_sensor"):
+        return _smooth_sensor(prm, s1, chg, smooth, k, cache, max_iters,
+                              seg.flag_read, seg.enqueued)
+
+
+def _no_enqueue():
+    pass
+
+
+def _smooth_sensor(prm, s1, chg, smooth, k, cache, max_iters, read,
+                   enqueued):
+    """`smooth_sensor` with its flag reads through `read` and `enqueued()`
+    called just before the next enqueue after each read."""
     cells = tuple(getattr(prm, a) for a in ("nx", "ny", "nz")[:s1.ndim])
     framed = tuple(s1.shape) != cells
     it, rings, still = 0, 1, False
     if chg is not None:
         smooth_sensor.reads += 1
-        still = not bool(chg)
+        still = not read(chg)
         if still and framed:
+            enqueued()
             return s1
         it, rings = 1, k
     out = torch.empty(tuple(n + 2 for n in cells), dtype=s1.dtype,
@@ -122,16 +144,19 @@ def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
             cache[s1.device] = bufs
     scratch, flag, last = bufs
     if still:
+        enqueued()
         return smooth(prm, s1, 0, out, flag)[0]
     src, dst, n = s1, (out if last % 2 else scratch), 0
     while True:
+        enqueued()
         smooth(prm, src, rings, dst, flag)
         smooth_sensor.rings += rings
         it, n = it + rings, n + 1
         smooth_sensor.reads += 1
-        if not bool(flag) or it >= max_iters:
+        if not read(flag) or it >= max_iters:
             break
         src, dst, rings = dst, (scratch if dst is out else out), k
+    enqueued()
     bufs[2] = n
     if dst is not out:
         out.copy_(dst)

@@ -141,21 +141,29 @@ def run_steps(step_fn, state, n_steps: int, log_every: int = 0,
     the whole state is written by `utils.checkpoint.save` to `dump_dir`
     (default "nonphysical_dump") and NonphysicalStateError is raised with
     its path.  log_fn(done, state) runs every log_every steps.  With both 0
-    the loop never syncs with the device.
+    the loop never syncs with the device.  While a `torch.profiler`
+    session is open the call is a `qgd.run_steps` span and each step a
+    `qgd.step` span, summarised in `utils.observability.segment_log()`.
     """
     from ..utils import checkpoint, observability
 
-    for done in range(1, n_steps + 1):
-        state = step_fn(state)
-        if check_every > 0 and done % check_every == 0:
-            bad = observability.nonphysical_dump(state, check_fields,
-                                                 out=lambda *_: None)
-            if bad:
-                path = checkpoint.save(state, dump_dir or "nonphysical_dump",
-                                       done)
-                raise NonphysicalStateError(
-                    f"nonphysical state at step {done}: {bad} "
-                    f"(state dumped to {path})", dump_path=path)
-        if log_fn is not None and log_every > 0 and done % log_every == 0:
-            log_fn(done, state)
+    seg = observability.segment()  # None while no profiler session is open
+    try:
+        for done in range(1, n_steps + 1):
+            state = step_fn(state) if seg is None else seg.step(step_fn,
+                                                                state)
+            if check_every > 0 and done % check_every == 0:
+                bad = observability.nonphysical_dump(state, check_fields,
+                                                     out=lambda *_: None)
+                if bad:
+                    path = checkpoint.save(
+                        state, dump_dir or "nonphysical_dump", done)
+                    raise NonphysicalStateError(
+                        f"nonphysical state at step {done}: {bad} "
+                        f"(state dumped to {path})", dump_path=path)
+            if log_fn is not None and log_every > 0 and done % log_every == 0:
+                log_fn(done, state)
+    finally:
+        if seg is not None:
+            seg.close()
     return state

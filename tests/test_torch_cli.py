@@ -288,8 +288,12 @@ def test_observability(tmp_path):
         "rhoE": 16 * 8}
     with observability.trace(str(tmp_path / "prof")) as prof:
         solver.make_step()(state)
+        common.run_steps(solver.make_step(), state, 2)
     assert prof.key_averages()
     assert (tmp_path / "prof" / "trace.json").exists()
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert [s["steps"] for s in spans] == [2]
+    assert spans[0]["flag_reads"] == 0 and spans[0]["host_ns"] > 0
 
 
 def test_config_builds_solver(tmp_path):

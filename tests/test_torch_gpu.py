@@ -623,6 +623,40 @@ def test_3d_main_path_with_a_bump_runs_the_rings(device):
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
 
 
+def test_3d_traced_segment_times_each_refill(device, tmp_path):
+    """A segment of the bumped varsc jet on the main path, traced by
+    `observability.trace`: a refill timed on CUDA events for each host flag
+    read, positive and finite on the device's clock, read once the caller
+    has synchronised; the spans are host events only, none on the device's
+    timeline; the events kept follow the session's marker kernel."""
+    import json
+
+    from chip_smoke import with_bump
+    from torch.autograd import DeviceType
+
+    from qgdsolver_tpu_torch.utils import observability
+
+    solver, state = cases.supersonic_jet_3d_varsc(shape=SHAPE3, device=device)
+    step, to_f, _ = solver.make_fused_step()
+    fs = step(to_f(with_bump(solver, state)))
+    reads = S.smooth_sensor.reads
+    with observability.trace(str(tmp_path)) as prof:
+        common.run_steps(step, fs, 5)
+        torch.cuda.synchronize()
+    reads = S.smooth_sensor.reads - reads
+    events = prof.events()
+    assert not any("spin_kernel" in e.name for e in events)
+    assert any("qgd3d_smooth" in e.name for e in events)
+    spans = [e for e in events if e.name.startswith("qgd.")]
+    assert {e.device_type for e in spans} == {DeviceType.CPU}
+    assert sum(e.name == "qgd.flag_read" for e in spans) == reads
+    seg = observability.segment_log()[-1]
+    assert json.loads((tmp_path / "spans.json").read_text()) == [seg]
+    assert seg["steps"] == 5 and seg["flag_reads"] == reads > 5
+    assert seg["refills"] == reads
+    assert 0.0 < seg["refill_us"] < float("inf")
+
+
 @pytest.mark.parametrize("shape", [(1, 9, 126), (2, 1, 33), (17, 2, 31),
                                    (17, 9, 1), (37, 13, 45), (20, 40, 70)])
 def test_3d_emit_on_ragged_shapes(shape, device):
