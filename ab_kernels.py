@@ -7,6 +7,10 @@ the same inputs, in one process on one card.
 
     python3 ab_kernels.py NAME=PATH/qgd2d.cu [NAME=PATH/qgd3d.cu ...]
     python3 ab_kernels.py NAME=PATH/deposit.cu
+    python3 ab_kernels.py --only update3 NAME=PATH/qgd3d.cu
+
+`--only` keeps the timed inputs of the kernels it names (the names of
+`fns` in `main`: `update3` is `qgd3d_update`).
 
 Each PATH (another revision's source, unpacked with `git archive`, or a
 variant of it, beside the headers it includes) is compiled alone with the
@@ -45,6 +49,10 @@ inputs are those the port's steps hand the kernels, recorded in a step:
 - the first ring that the 3D step emits on that jet with a density bump
   (`qgd3d_smooth`: one launch of 1 and of 4 rings, and the step's
   continuation from it to the fixed point, 4 rings a launch);
+- the duct and the varsc jet after 20 plain steps at 256x126x126 (and
+  the duct's K5 slab 0 of an x-ring of 2) and after 3 kernel-path steps
+  at the benchmark's 640x318x318 (`qgd3d_update`, with its bound and each
+  build's launch shape);
 - the 256x126x126 duct and varsc jet after 20 plain steps (`qgd3d_dt`;
   `qgd3d_ghosts` on the frames the plain update makes from them), and
   slab 0 of the duct's x-ring of 2, flagged at its partition plane, as K5
@@ -73,17 +81,22 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ab_kernels"
+# the benchmark's 3D mesh (qgdbench/configs), where `qgd3d_update` is timed
+# beside chip_smoke's SHAPE3
+BENCH3 = (640, 318, 318)
 # the kernels whose ptxas lines are printed, by source: a name, or the
 # names one kernel has had (the first a build has is printed)
 PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel",
                    ("qgd2d_dt_kernel", "qgd2d_dt_partial_kernel"),
                    ("qgd2d_ghosts_kernel", "qgd2d_ghost_rows_kernel")),
-         "qgd3d": (("qgd3d_emit_kernel", "qgd3d_sensor_kernel"),
+         "qgd3d": ("qgd3d_update_kernel",
+                   ("qgd3d_emit_kernel", "qgd3d_sensor_kernel"),
                    "qgd3d_smooth_kernel", "qgd3d_dt_", "qgd3d_ghost"),
          "deposit": ("deposit_kernel",)}
 
@@ -118,6 +131,12 @@ def build_other(name: str, src: pathlib.Path):
         _build._bind(lib, "qgd3d_dt_fold", [p3] + [ptr] * 7)
         _build._bind(lib, "qgd3d_ghosts", [p3] + [ptr] * 8)
         _build._bind(lib, "qgd3d_sensor", [p3] + [ptr] * 5)
+        _build._bind(lib, "qgd3d_update", [p3] + [ptr] * 14)
+        if hasattr(lib, "qgd3d_update_launch"):
+            _build._bind(lib, "qgd3d_update_launch",
+                         [p3, ctypes.POINTER(c_int)])
+        else:  # a build whose chunk was fixed
+            _build._bind(lib, "qgd3d_update_shape", [ctypes.POINTER(c_int)])
         if hasattr(lib, "qgd3d_emit"):
             _build._bind(lib, "qgd3d_emit", [p3] + [ptr] * 7)
         return lib, proc.stderr
@@ -159,6 +178,8 @@ NAMES = {"dt3": "dt", "fold3": "dt_fold", "ghosts3": "ghosts",
 # each build's dt workspaces: a build of another design lays the workspace
 # out otherwise
 WORKSPACES = {}
+# the bound (ms, by) of an input, by its label (`update_inputs3`)
+BOUNDS = {}
 
 
 def on_library(lib, fn):
@@ -233,6 +254,75 @@ def inputs(dev):
     for k in (8, 16):
         out.append((f"K2's continuation from that ring 1, {k} rings a launch",
                     "continuation", (prm, s1, chg, k)))
+    return out
+
+
+def update_launch(lib, prm) -> tuple:
+    """A build's `qgd3d_update` launch at prm's shape on the current
+    device: (tile rows, tile lanes, chunk planes, shared bytes a block,
+    blocks an SM); a build whose chunk was fixed reports that one."""
+    from qgdsolver_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 5)()
+    if hasattr(lib, "qgd3d_update_launch"):
+        code = lib.qgd3d_update_launch(prm, out)
+    else:
+        code = lib.qgd3d_update_shape(out)
+    _build.check(lib, code, "qgd3d_update launch")
+    return tuple(out)
+
+
+def update_inputs3(dev):
+    """(label, "update3", args) of the timed `qgd3d_update` calls, each
+    one's bound (ms, by) into BOUNDS: the duct and the varsc jet after 20
+    plain steps at 256x126x126 (and slab 0 of the duct's x-ring of 2,
+    flagged at its partition plane, as K5 hands it the kernel), and after 3
+    kernel-path steps at the benchmark's 640x318x318.  The bound is the
+    larger of `work_bytes` over the HBM rate and the plain version's
+    `count_ops` over the float32 rate; the operations are counted at
+    256x126x126 and scaled by the cells (the plain version's work is per
+    cell and per face)."""
+    from qgdsolver_tpu_torch import cases
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.parallel import sharding, spmd
+
+    out, ops = [], {}
+    for shape in (cs.SHAPE3, BENCH3):
+        for name in cs.CASES3:
+            if shape == cs.SHAPE3:
+                solver, fs = cs.warm_state(name, shape,
+                                           F3.build_fused_step_3d, dev)
+            else:
+                solver, state = getattr(cases, name)(shape=shape, device=dev)
+                step, to_f, _ = F3.build_fused_step_3d(solver)
+                fs = to_f(state)
+                del state
+                for _ in range(3):
+                    fs = step(fs)
+            prm, _ = F3.make_params(solver)
+            sc = cs.step_sensor(prm, fs) if prm.varsc else None
+            args = (prm, fs.p, fs.T, fs.ux, fs.uy, fs.uz, sc, fs.dt)
+            if shape == cs.SHAPE3:
+                ops[name] = cs.count_ops(
+                    lambda args=args: F3.update_reference_3d(*args))
+            n = ops[name] * np.prod(shape) / np.prod(cs.SHAPE3)
+            label = f"{name} {'x'.join(map(str, shape))}"
+            BOUNDS[label] = cs.bound(cs.work_bytes("qgd3d_update", shape,
+                                                   bool(prm.varsc)), n)
+            out.append((label, "update3", args))
+            if shape == cs.SHAPE3 and name == cs.CASES3[0]:
+                # slab 0 of the duct's x-ring of 2, as K5 hands it the kernel
+                ctx = sharding.block_context(solver.mesh,
+                                             sharding.ProcessGrid(2, 1), 0)
+                blk, _ = F3.block_params(solver, ctx)
+                win = spmd.frame_window(ctx)
+                cut = [f[win].contiguous() for f in args[1:6]]
+                slab = (blk.nx,) + shape[1:]
+                label = (f"{name} slab 0 of an x-ring of 2 "
+                         f"({'x'.join(map(str, slab))}), K5")
+                BOUNDS[label] = cs.bound(cs.work_bytes("qgd3d_update", slab),
+                                         n * slab[0] / shape[0])
+                out.append((label, "update3", (blk, *cut, None, fs.dt)))
     return out
 
 
@@ -457,6 +547,13 @@ def deposit_runs(builds, dev, card) -> None:
 
 def agree(kernel, ref, got) -> None:
     """Hold one build's output against "this" build's."""
+    if kernel == "update3":
+        C = (slice(1, -1),) * 3
+        pairs = [(a[C], b[C]) for a, b in zip(ref[0], got[0])]
+        for a, b in pairs + [(ref[1], got[1])]:
+            cs.check(cs.rel_err(a, b) <= 1e-5,
+                     f"qgd3d_update differs by {cs.rel_err(a, b):.2e}")
+        return
     if kernel == "update":
         C = (slice(1, -1),) * 2
         for a, b in zip(ref[0], got[0]):
@@ -494,13 +591,17 @@ def main(argv) -> int:
     this = (_build.load(), _build.ptxas_report())
     builds = {"qgd2d": {"this": this}, "qgd3d": {"this": this},
               "deposit": {"this": this}}
+    only = set()
+    if argv[:1] == ["--only"]:
+        only, argv = set(argv[1].split(",")), argv[2:]
     for arg in argv:
         name, _, path = arg.partition("=")
         kind = pathlib.Path(path).name
         kind = "deposit" if kind.startswith("deposit") else kind[:5]
         if not path or kind not in builds or name in builds[kind]:
-            raise SystemExit("usage: ab_kernels.py NAME=PATH/qgd2d.cu|"
-                             f"qgd3d.cu|deposit.cu ... ({arg!r})")
+            raise SystemExit("usage: ab_kernels.py [--only KERNEL,...] "
+                             "NAME=PATH/qgd2d.cu|qgd3d.cu|deposit.cu ... "
+                             f"({arg!r})")
         builds[kind][name] = build_other(name, pathlib.Path(path))
     card = cs.card_line()
     for kind, kernels in PTXAS.items():
@@ -515,7 +616,7 @@ def main(argv) -> int:
            "smooth3": F3.qgd3d_smooth, "continuation3": continuation3,
            "sensor_ring1": sensor_ring1, "sensor3": F3.qgd3d_sensor,
            "dt3": F3.qgd3d_dt, "fold3": F3.qgd3d_dt_fold,
-           "ghosts3": ghosts3}
+           "ghosts3": ghosts3, "update3": F3.qgd3d_update}
     # the smoothing loops return one frame; their launches depend on the
     # data, so their device time is the sum of what they ran
     loops = ("continuation", "continuation3")
@@ -525,7 +626,11 @@ def main(argv) -> int:
         print(sweep_2d(others, "cuda"), flush=True)
         runs += [("qgd2d", job) for job in inputs("cuda")]
     if len(builds["qgd3d"]) > 1:
-        runs += [("qgd3d", job) for job in inputs3("cuda")]
+        if not only or "update3" in only:
+            runs += [("qgd3d", job) for job in update_inputs3("cuda")]
+        if not only or only - {"update3"}:
+            runs += [("qgd3d", job) for job in inputs3("cuda")]
+    runs = [r for r in runs if not only or r[1][1] in only]
     if len(builds["deposit"]) > 1:
         deposit_runs(builds["deposit"], "cuda", card)
     for kind, (label, kernel, args) in runs:
@@ -554,8 +659,13 @@ def main(argv) -> int:
             same=kernel not in loops))) for name in order]
         name = NAMES.get(kernel, kernel.rstrip("3"))
         held = (" (bitwise)" if kernel not in ("update", "emit", "sensor3",
-                                               "sensor_ring1")
+                                               "sensor_ring1", "update3")
                 else " (rel 1e-6)" if kernel.startswith("sensor") else "")
+        if label in BOUNDS:
+            extra += " | bound {:.4f} ms by {}".format(*BOUNDS[label])
+            extra += " | launch (tile, chunk, shared B, blocks/SM): " + \
+                ", ".join(f"{n} {update_launch(lib, args[0])}"
+                          for n, (lib, _) in these.items())
         print(f"{kind}_{name}, {label}: held against this build{held}; "
               "device ms per call "
               + " | ".join(f"{n} {ms:.4f}" for n, ms in times)

@@ -759,9 +759,10 @@ def phase_kernels3(warm, stats):
 
     C = (slice(1, -1),) * 3
     jobs = {}
-    shape = F3.update_launch_shape(warm[CASES3[0]][1].p.device)
-    dts = F3.dt_launch_shape(F3.make_params(warm[CASES3[0]][0])[0],
-                             warm[CASES3[0]][1].p.device)
+    prm0 = F3.make_params(warm[CASES3[0]][0])[0]
+    dev0 = warm[CASES3[0]][1].p.device
+    shape = F3.update_launch_shape(prm0, dev0)
+    dts = F3.dt_launch_shape(prm0, dev0)
     launch = (f"qgd3d_update tile {shape['tile'][0]}x{shape['tile'][1]} "
               f"(y x z), chunk {shape['chunk']} x-planes, dynamic shared "
               f"memory {shape['smem_bytes']} B/block, "

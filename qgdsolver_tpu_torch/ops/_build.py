@@ -175,7 +175,7 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd3d_dt_apply", [p3] + [_ptr] * 4)
     _bind(lib, "qgd3d_dt_shape", [p3, ctypes.POINTER(_c_int)])
     _bind(lib, "qgd3d_update", [p3] + [_ptr] * 14)
-    _bind(lib, "qgd3d_update_shape", [ctypes.POINTER(_c_int)])
+    _bind(lib, "qgd3d_update_launch", [p3, ctypes.POINTER(_c_int)])
     _bind(lib, "qgd3d_sensor", [p3] + [_ptr] * 5)
     _bind(lib, "qgd3d_emit", [p3] + [_ptr] * 7)
     _bind(lib, "qgd3d_emit_shape", [p3, ctypes.POINTER(_c_int)])

@@ -48,29 +48,54 @@
 // once per cell over a window resident in VMEM and builds each axis's faces
 // once.  On this card the update moves at least 5 frames in and 5 out (+ the
 // sensor frame for varScModel5), ~40-44 B per cell, but each cell also needs
-// ~3 faces of ~250 float operations over ten cells each: what bounds it is
-// issuing those operations and their operand loads, and keeping enough warps
-// resident to hide the waits.  Its design:
+// ~3 faces of ~140 float operations, each over the values of its two cells
+// and the tangential gradients of its face values: what bounds it is
+// issuing those instructions (~1,000 a cell and plane) and the shared-memory
+// accesses that bring a face its operands, with as many warps resident as
+// the registers allow to hide the waits.  So each operand is worked out once
+// and a face combines what its cells and its neighbouring faces published:
+//   - a cell's base values (p, rho, e = Cv*T, u, the coefficients mu,
+//     alphau, the tau coefficient, and H) are worked out once per plane,
+//     with the zero-gradient coefficient ghosts at physical x/y/z ends;
+//   - the values of each face (u, rho, p, e) are formed once, as the sum
+//     of its two cells' values, and published; a face's tangential gradient
+//     is the difference of its neighbouring faces' sums times 0.5/2d, which
+//     is the reference's (xi(Ap, Bp) - xi(Am, Bm)) / 2d bit for bit, since
+//     halving is exact.  (The mean of the two cells' central differences is
+//     equal in exact arithmetic, but rounds otherwise: it moved the duct's
+//     transverse velocities by ~1e-4 of their max);
 //   - a block owns a TY x TZ tile of (y, z) cells and marches along x over a
-//     chunk of CX planes (many chunks per column, so the card gets several
-//     waves of blocks);
-//   - a ring of NSLOT plane slots in shared memory holds planes x-1, x, x+1,
-//     each with its y and z halo, and the plane in flight, which cp.async
-//     brings in while plane x is computed (4-byte copies: any nz);
-//   - when a plane lands, each staged cell's rho and coefficients are
-//     computed once, with the zero-gradient coefficient ghosts;
-//   - each face is computed once: a thread keeps the x-face x+1/2 of its cell
-//     in registers as the next plane's low face, and the tile's y- and
-//     z-faces of plane x go to shared memory;
+//     chunk of planes; a thread owns one (y, z) cell of the tile (a warp
+//     per row) and keeps its column's base values in registers, so its
+//     x-face reads only its in-plane neighbours' x-face values from shared
+//     memory.  Three more warps own the ring around the tile (a row below
+//     and above it, a lane before and after each row, the four corners) and
+//     march their columns the same way;
+//   - each pass publishes the base values of plane x+2 and the face values
+//     of plane x+1 (three plane buffers used in turn, unrolled so that every
+//     buffer offset is a constant) and the x-faces' values of x+1/2; a cell
+//     computes its x-face x+1/2, the face below it along y and the face
+//     before it along z, taking that neighbour's base values from shared
+//     memory and its own from registers.  The tile's row and lane of faces
+//     on the far side are the low faces of the ring's far row and lane, so
+//     every face of a plane is computed once, at one code site per axis,
+//     and its flux goes to shared memory once for the two cells that share
+//     it; two barriers a plane;
+//   - about 150 warp-wide 4-byte shared accesses a cell (against ~250 when
+//     each face re-read the raw values of ten cells, and re-averaged four
+//     of them for each tangential gradient);
 //   - the march starts one plane before the chunk, and that pass computes
-//     only the first x-face, so every face comes from one code site and its
-//     bits do not depend on where a chunk or a slab starts: K5's update on a
-//     slab is the serial update's window bit for bit.
-// TY = 8, TZ = 32, CX = 16: 256 threads and 65,440 bytes of dynamic shared
-// memory per block, and registers capped so that three blocks (24 warps) fit
-// on an SM.  Each face is a long chain of shared loads and float
-// operations; the time follows that chain's latency more than the tile, the
-// chunk or the blocks per SM.
+//     only the operands and the chunk's first x-face, so every face comes
+//     from one code site and its bits do not depend on where a chunk or a
+//     slab starts: each cell's and face's values are worked out by the same
+//     code from the same frame values in whichever block holds them, and
+//     K5's update on a slab is the serial update's window bit for bit.
+// Threads load their own cells from the frames directly, two planes ahead
+// (4-byte loads, coalesced along z: any nz); a cell beyond the frame repeats
+// its last row or lane, so every value is finite, and no live cell reads it.
+// TY and TZ are the constants below; the registers are capped so that one
+// block fits on an SM (ptxas: no spill).  The chunk follows the grid: 32
+// planes, or 16 where that gives the card more even waves (update_grid).
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -87,21 +112,30 @@ enum { BC_ZG = 0, BC_FIXED = 1, BC_GRAD = 2, BC_SYM = 3, BC_EXTRAP = 4,
 
 constexpr int GT = 256;  // threads of a ghost block
 
-// qgd3d_update's tile, chunk and plane ring
-constexpr int TZ = 32;               // tile cells along z: one warp per row
-constexpr int TY = 8;                // tile rows along y
-constexpr int CX = 16;               // planes one block marches along x
-constexpr int NT = TZ * TY;          // threads of an update block
-constexpr int WZ = TZ + 2;           // a staged row: its lanes and two halo
-constexpr int TILE = (TY + 2) * WZ;  // staged cells of one plane
-constexpr int NSLOT = 4;             // planes x-1, x, x+1 and the one in flight
-// the fields of a ring slot: the frames' values, then what derive computes
-enum { S_P, S_T, S_UX, S_UY, S_UZ, S_SC, S_RHO, S_MU, S_AU, S_TC, S_NF };
-constexpr int SLOT = S_NF * TILE;
+// qgd3d_update's tile, chunk and shared buffers
+constexpr int TZ = 32;               // tile lanes along z: a warp per row
+constexpr int TY = 12;               // tile rows along y
+constexpr int NW = TY + 3;           // warps: the tile's rows, then the ring's
+constexpr int NT = 32 * NW;          // threads of an update block
+// One block an SM: ptxas then gives a thread 128 registers, which the march
+// fills without a spill.  Against TY = 12 on an H100 at 640x318x318 (PERF.md
+// §6): TY = 8 with two blocks an SM spills, TY = 11 and 13 are 3-5% slower,
+// and any operand more in registers spills.  The planes a block marches,
+// the chunk, are 32 or 16 (UPDATE_CHUNKS, update_grid).
+constexpr int UPDATE_MIN_BLOCKS = 1;
+constexpr int UPDATE_CHUNKS[2] = {32, 16};
+constexpr int WZ = TZ + 2;           // a row with its ring lanes
+constexpr int EXT = (TY + 2) * WZ;   // cells of the tile and its ring
+// a cell's base values; a face's values are NFV of them: u, rho, p, e
+enum { B_P, B_RHO, B_E, B_UX, B_UY, B_UZ, B_MU, B_AU, B_TC, B_H, B_NF };
+constexpr int NFV = 6;
 constexpr int YF = (TY + 1) * TZ;    // the y-faces of one plane's tile
 constexpr int ZF = TY * (TZ + 1);    // its z-faces
-constexpr int UPDATE_SMEM =
-    static_cast<int>(sizeof(float)) * (NSLOT * SLOT + 5 * (YF + ZF));
+// three planes of base values and of the y- and z-faces' values, a plane
+// of the x-faces' values, the fluxes of a plane's y- and z-faces
+constexpr int UPDATE_SMEM = static_cast<int>(sizeof(float)) *
+                            ((3 * B_NF + 7 * NFV) * EXT + 5 * (YF + ZF));
+static_assert(2 * TY + 4 <= 32, "the ring's lanes and corners fill one warp");
 
 }  // namespace
 
@@ -135,10 +169,6 @@ struct Frames {
   const float* __restrict__ u[3];
 };
 
-struct Cell {
-  float p, T, rho, e, u[3];
-};
-
 struct Coef {
   float mu;  // mu_eff
   float au;  // alphau_eff (unused when the molecular mu is 0)
@@ -151,30 +181,6 @@ struct Flux {
 };
 
 __device__ __forceinline__ float xi(float a, float b) { return 0.5f * (a + b); }
-
-// Frame f of p, T, ux, uy, uz.
-__device__ __forceinline__ const float* frame_of(const Frames& F, int f) {
-  return f == 0 ? F.p : (f == 1 ? F.T : F.u[f - 2]);
-}
-
-// The step between neighbouring staged cells along an axis of a ring slot:
-// 0 along x, whose neighbours lie in the next or previous slot.
-__host__ __device__ constexpr int tile_step(int ax) {
-  return ax == 1 ? WZ : (ax == 2 ? 1 : 0);
-}
-
-// Staged cell i of ring slot S: the frame values and the derived rho.
-__device__ __forceinline__ Cell tile_cell(const QGD3DParams& P,
-                                          const float* S, int i) {
-  Cell c;
-  c.p = S[S_P * TILE + i];
-  c.T = S[S_T * TILE + i];
-  c.rho = S[S_RHO * TILE + i];
-  c.e = P.Cv * c.T;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) c.u[j] = S[(S_UX + j) * TILE + i];
-  return c;
-}
 
 // Coefficient fields of one cell; one rsqrt feeds c, alpha/c and mu.
 __device__ __forceinline__ Coef cell_coef(const QGD3DParams& P, float p,
@@ -194,69 +200,60 @@ __device__ __forceinline__ Coef cell_coef(const QGD3DParams& P, float p,
   return k;
 }
 
-// The face between staged cell A (index ia of ring slot S0) and B = A +
-// e_AX: B lies in Sp, the next plane's slot, for AX = 0 and in S0
-// otherwise.  Sm and Sp are the slots of the planes before and after S0,
-// which the x-differences of y- and z-faces read.  The rho, coefficient and
-// frame values all come from the ring.  Mirrors the per-axis body of the
-// reference kernel (fused_qgd3d.py:446-521).
+// A cell's base values (B_P .. B_H).
+struct Base {
+  float v[B_NF];
+};
+
+// The base field of face value k: k = 0-2 the velocity, 3 rho, 4 p, 5 e.
+__host__ __device__ constexpr int face_field(int k) {
+  return k < 3 ? B_UX + k : (k == 3 ? B_RHO : (k == 4 ? B_P : B_E));
+}
+
+// The face between A and B = A + e_AX from the two cells' base values and
+// the face's tangential gradients gt[n][k] of face value k along its n-th
+// other axis (x before y before z): the central differences of the
+// neighbouring faces' values, as the reference forms them.  Mirrors the
+// per-axis body of the reference kernel (fused_qgd3d.py:446-521).
 template <int AX>
 __device__ __forceinline__ Flux face_flux(const QGD3DParams& P,
-                                          const float* Sm, const float* S0,
-                                          const float* Sp, int ia) {
-  constexpr int B1 = AX == 0 ? 1 : 0;
-  constexpr int B2 = AX == 2 ? 1 : 2;
-  const float* SB = AX == 0 ? Sp : S0;
-  const int ib = ia + tile_step(AX);
-  const Cell A = tile_cell(P, S0, ia);
-  const Cell B = tile_cell(P, SB, ib);
-
-  const float pf = xi(A.p, B.p);
-  const float rf = xi(A.rho, B.rho);
+                                          const float* a, const float* b,
+                                          const float (&gt)[2][NFV]) {
+  const float pf = xi(a[B_P], b[B_P]);
+  const float rf = xi(a[B_RHO], b[B_RHO]);
   float uf[3], ruf[3], urr[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    uf[j] = xi(A.u[j], B.u[j]);
-    ruf[j] = xi(A.rho * A.u[j], B.rho * B.u[j]);
+    uf[j] = xi(a[B_UX + j], b[B_UX + j]);
+    ruf[j] = xi(a[B_RHO] * a[B_UX + j], b[B_RHO] * b[B_UX + j]);
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k)
-    urr[k] = xi(A.u[AX] * (A.rho * A.u[k]), B.u[AX] * (B.rho * B.u[k]));
-  const float keA = A.u[0] * A.u[0] + A.u[1] * A.u[1] + A.u[2] * A.u[2];
-  const float keB = B.u[0] * B.u[0] + B.u[1] * B.u[1] + B.u[2] * B.u[2];
-  const float Hf = xi(P.CvR * A.T + 0.5f * keA, P.CvR * B.T + 0.5f * keB);
-  const float muf = xi(S0[S_MU * TILE + ia], SB[S_MU * TILE + ib]);
-  const float af = P.mu_const0
-                       ? muf * P.inv_Pr_tau
-                       : xi(S0[S_AU * TILE + ia], SB[S_AU * TILE + ib]);
-  const float tcf = xi(S0[S_TC * TILE + ia], SB[S_TC * TILE + ib]);
+    urr[k] = xi(a[B_UX + AX] * (a[B_RHO] * a[B_UX + k]),
+                b[B_UX + AX] * (b[B_RHO] * b[B_UX + k]));
+  const float Hf = xi(a[B_H], b[B_H]);
+  const float muf = xi(a[B_MU], b[B_MU]);
+  const float af = P.mu_const0 ? muf * P.inv_Pr_tau : xi(a[B_AU], b[B_AU]);
+  const float tcf = xi(a[B_TC], b[B_TC]);
   const float tauf = P.varsc ? (P.alpha / tcf) * P.d[AX] : tcf * P.d[AX];
 
   // gradients at the face: gU[i][j] = dU_j/dx_i
   float gU[3][3], gR[3], gP[3], ge[3];
   const float ia_d = P.inv_d[AX];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) gU[AX][j] = (B.u[j] - A.u[j]) * ia_d;
-  gR[AX] = (B.rho - A.rho) * ia_d;
-  gP[AX] = (B.p - A.p) * ia_d;
-  ge[AX] = (B.e - A.e) * ia_d;
-  // tangential: central difference of the face values along each other axis
-  // (along x the neighbours lie in the slots Sp and Sm)
+  for (int j = 0; j < 3; ++j)
+    gU[AX][j] = (b[B_UX + j] - a[B_UX + j]) * ia_d;
+  gR[AX] = (b[B_RHO] - a[B_RHO]) * ia_d;
+  gP[AX] = (b[B_P] - a[B_P]) * ia_d;
+  ge[AX] = (b[B_E] - a[B_E]) * ia_d;
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
-    const int b = n == 0 ? B1 : B2;
-    const int o = tile_step(b);
-    const Cell Ap = tile_cell(P, b == 0 ? Sp : S0, ia + o);
-    const Cell Bp = tile_cell(P, b == 0 ? Sp : SB, ib + o);
-    const Cell Am = tile_cell(P, b == 0 ? Sm : S0, ia - o);
-    const Cell Bm = tile_cell(P, b == 0 ? Sm : SB, ib - o);
-    const float h = P.inv_2d[b];
+    const int t = n == 0 ? (AX == 0 ? 1 : 0) : (AX == 2 ? 1 : 2);
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      gU[b][j] = (xi(Ap.u[j], Bp.u[j]) - xi(Am.u[j], Bm.u[j])) * h;
-    gR[b] = (xi(Ap.rho, Bp.rho) - xi(Am.rho, Bm.rho)) * h;
-    gP[b] = (xi(Ap.p, Bp.p) - xi(Am.p, Bm.p)) * h;
-    ge[b] = (xi(Ap.e, Bp.e) - xi(Am.e, Bm.e)) * h;
+    for (int j = 0; j < 3; ++j) gU[t][j] = gt[n][j];
+    gR[t] = gt[n][3];
+    gP[t] = gt[n][4];
+    ge[t] = gt[n][5];
   }
 
   const float divU = gU[0][0] + gU[1][1] + gU[2][2];
@@ -595,168 +592,287 @@ __global__ void qgd3d_dt_apply_kernel(QGD3DParams P,
   out[0] = set_delta_t(P, m, -quad[3], dt_old[0]);
 }
 
-__device__ __forceinline__ void store_face(float* buf, int n, int w,
-                                           const Flux& fl) {
+// One cell's base values at plane q from its frame values raw = p, T, ux,
+// uy, uz, sc.  The coefficients take zero-gradient ghosts at physical
+// boundaries: a y-ghost row, a z-ghost lane and an x-ghost plane take those
+// of the interior cell beside them (read from the frames); a halo plane
+// across a partition keeps its own.
+__device__ __forceinline__ Base cell_base(const QGD3DParams& P,
+                                          const Frames& F,
+                                          const float* __restrict__ sc,
+                                          const float (&raw)[6], int q, int s,
+                                          int t, long sx, long sy) {
+  Base c;
+  const float T = raw[1];
+  c.v[B_P] = raw[0];
+  c.v[B_RHO] = raw[0] / (P.R * T);
+  c.v[B_E] = P.Cv * T;
 #pragma unroll
-  for (int k = 0; k < 5; ++k) buf[k * n + w] = fl.f[k];
+  for (int j = 0; j < 3; ++j) c.v[B_UX + j] = raw[2 + j];
+  const float ke = raw[2] * raw[2] + raw[3] * raw[3] + raw[4] * raw[4];
+  c.v[B_H] = P.CvR * T + 0.5f * ke;
+  const int rc =
+      q == 0 && P.edge_lo ? 1 : (q == P.nx + 1 && P.edge_hi ? P.nx : q);
+  const int cs = clampi(s, 1, P.ny), ct = clampi(t, 1, P.nz);
+  float cp = raw[0], cT = T, csc = raw[5];
+  if (rc != q || cs != s || ct != t) {
+    const long g = rc * sx + cs * sy + ct;
+    cp = F.p[g];
+    cT = F.T[g];
+    csc = P.varsc ? sc[g] : 0.0f;
+  }
+  const Coef k = cell_coef(P, cp, cT, csc);
+  c.v[B_MU] = k.mu;
+  c.v[B_AU] = k.au;
+  c.v[B_TC] = k.tc;
+  return c;
 }
+
+// A plane's place in the period of the update's plane buffers.
+template <int M>
+struct Slot {
+  static constexpr int value = M;
+};
 
 // The x-march (see the note at the top).  Block (bx, by, bz) owns the cells
 // t0 = 1 + TZ*bx .. +TZ-1, s0 = 1 + TY*by .. +TY-1 of the planes r0 = 1 +
-// CX*bz .. re; thread (tz, ty) owns the cell (s0 + ty, t0 + tz) of each.
-// Staged cell i of a slot is the frame cell (s0 - 1 + i / WZ, t0 - 1 + i %
-// WZ) of its plane; staged rows and lanes beyond the frame repeat its last
-// one, so every staged value is finite, and no live cell reads them.
-__global__ void __launch_bounds__(NT, 3)
-qgd3d_update_kernel(QGD3DParams P, Frames F, const float* __restrict__ sc,
+// cx*bz .. re.  Warp w < TY owns the tile's row s0 + w, a lane a cell; warps
+// TY and TY + 1 the ring's rows s0 - 1 and s0 + TY; warp TY + 2 the ring's
+// lanes t0 - 1 and t0 + TZ of each tile row (lanes 0 .. 2*TY - 1) and the
+// four corners.  Cell (ry, lz) of the tile and its ring is the frame cell
+// (s0 - 1 + ry, t0 - 1 + lz), index ry * WZ + lz of a shared plane.  Plane q
+// of the march keeps its base values and the values of its cells' low y-
+// faces (between a cell and the one before it along y) and low z-faces in
+// the buffers of slot (q - r0 + 1) % 3; the x-faces' values of the plane
+// being passed are in xv.  A face's values are published as the sums a + b
+// of its two cells' values: with 0.5/2d for 1/2d, the tangential gradients
+// are then the reference's xi differences bit for bit (halving is exact).
+__global__ void __launch_bounds__(NT, UPDATE_MIN_BLOCKS)
+qgd3d_update_kernel(QGD3DParams P, int cx, Frames F,
+                    const float* __restrict__ sc,
                     const float* __restrict__ dt, float* __restrict__ pn,
                     float* __restrict__ Tn, float* __restrict__ uxn,
                     float* __restrict__ uyn, float* __restrict__ uzn,
                     float* __restrict__ side) {
-  extern __shared__ float smem[];   // the ring, then the y- and z-faces
-  float* const yfl = smem + NSLOT * SLOT;  // [5][TY + 1][TZ]
-  float* const zfl = yfl + 5 * YF;         // [5][TY][TZ + 1]
-  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
+  extern __shared__ float smem[];  // [3][B_NF][EXT] base values, then:
+  float* const fv0 = smem + 3 * B_NF * EXT;  // [3][2 * NFV][EXT]
+  float* const xv = fv0 + 3 * 2 * NFV * EXT;  // [NFV][EXT]
+  float* const yfl = xv + NFV * EXT;          // [5][TY + 1][TZ]
+  float* const zfl = yfl + 5 * YF;            // [5][TY][TZ + 1]
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const long sy = nz + 2, sx = (long)(ny + 2) * sy;
   const int s0 = 1 + blockIdx.y * TY, t0 = 1 + blockIdx.x * TZ;
-  const int r0 = 1 + blockIdx.z * CX;
-  const int re = r0 + CX - 1 < nx ? r0 + CX - 1 : nx;
+  const int r0 = 1 + blockIdx.z * cx;
+  const int re = r0 + cx - 1 < nx ? r0 + cx - 1 : nx;
 
-  auto slot = [&](int q) { return smem + (q & (NSLOT - 1)) * SLOT; };
-  auto staged = [&](int i, int& s, int& t) {
-    s = s0 - 1 + i / WZ;
-    t = t0 - 1 + i % WZ;
-    if (s > ny + 1) s = ny + 1;
-    if (t > nz + 1) t = nz + 1;
-  };
-  // plane q's frame values into its slot, by cp.async; this thread copies
-  // the staged cells tid, tid + NT, ...
-  auto stage = [&](int q) {
-    float* S = slot(q);
-    for (int i = tid; i < TILE; i += NT) {
-      int s, t;
-      staged(i, s, t);
-      const long g = q * sx + s * sy + t;
-#pragma unroll
-      for (int f = 0; f < 5; ++f)
-        __pipeline_memcpy_async(S + f * TILE + i, frame_of(F, f) + g,
-                                sizeof(float));
-      if (P.varsc)
-        __pipeline_memcpy_async(S + S_SC * TILE + i, sc + g, sizeof(float));
-    }
-  };
-  // rho and the coefficient fields of plane q's staged cells: the cells this
-  // thread staged, so its own wait for the copies suffices.  The
-  // coefficients take zero-gradient ghosts at physical boundaries: a y-ghost
-  // row, a z-ghost lane and an x-ghost plane take the value of the interior
-  // cell beside them (read from the frame); a halo plane across a partition
-  // keeps its own.
-  auto derive = [&](int q) {
-    float* S = slot(q);
-    const int rc =
-        q == 0 && P.edge_lo ? 1 : (q == nx + 1 && P.edge_hi ? nx : q);
-    for (int i = tid; i < TILE; i += NT) {
-      int s, t;
-      staged(i, s, t);
-      const float p = S[S_P * TILE + i], T = S[S_T * TILE + i];
-      S[S_RHO * TILE + i] = p / (P.R * T);
-      const int cs = clampi(s, 1, ny), ct = clampi(t, 1, nz);
-      float cp = p, cT = T, csc = P.varsc ? S[S_SC * TILE + i] : 0.0f;
-      if (rc != q || cs != s || ct != t) {
-        const long g = rc * sx + cs * sy + ct;
-        cp = F.p[g];
-        cT = F.T[g];
-        csc = P.varsc ? sc[g] : 0.0f;
-      }
-      const Coef k = cell_coef(P, cp, cT, csc);
-      S[S_MU * TILE + i] = k.mu;
-      S[S_AU * TILE + i] = k.au;
-      S[S_TC * TILE + i] = k.tc;
-    }
-  };
-
-  const int ic = (ty + 1) * WZ + tz + 1;  // this thread's cell in a slot
-  const int s = s0 + ty, t = t0 + tz;
-  const bool live = s <= ny && t <= nz;
-  const long j = (long)(s - 1) * nz + (t - 1);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int ry = lane % TY + 1, lz = lane < TY ? 0 : TZ + 1;  // the ring's lanes
+  bool has = true;
+  if (w < TY + 2) {
+    ry = w < TY ? w + 1 : (w == TY ? 0 : TY + 1);
+    lz = lane + 1;
+  } else if (lane >= 2 * TY) {  // the corners; the lanes after them idle
+    const int k = lane - 2 * TY;
+    has = k < 4;
+    ry = (k >> 1 & 1) * (TY + 1);
+    lz = (k & 1) * (TZ + 1);
+  }
+  const bool tile = w < TY;
+  // the faces a cell computes: its low y-face (the tile's rows and the
+  // ring's far row), its low z-face (the tile's lanes and the ring's far
+  // lane)
+  const bool yface = has && ry >= 1 && lz >= 1 && lz <= TZ;
+  const bool zface = has && ry >= 1 && ry <= TY && lz >= 1;
+  const int i = ry * WZ + lz;
+  // in-plane neighbours; a ring cell takes itself beyond the ring (its
+  // values there are not read)
+  const int iym = ry > 0 ? i - WZ : i, iyp = ry < TY + 1 ? i + WZ : i;
+  const int izm = lz > 0 ? i - 1 : i, izp = lz < TZ + 1 ? i + 1 : i;
+  // the frame cell, whose row or lane repeats the frame's last beyond it
+  const int sf = s0 - 1 + ry, tf = t0 - 1 + lz;
+  const int s = sf < ny + 1 ? sf : ny + 1, t = tf < nz + 1 ? tf : nz + 1;
+  const bool live = tile && sf <= ny && tf <= nz;
+  const long cell = s * sy + t;
+  const long j = (long)(s - 1) * nz + (t - 1);  // its cell of `side`
   const float sdt = dt[0] * P.inv_vol;
-  float xlo[5];
+  float hh[3];  // 0.5/2d: the tangential gradient of published sums
+#pragma unroll
+  for (int a = 0; a < 3; ++a) hh[a] = 0.5f * P.inv_2d[a];
 
-  stage(r0 - 1);
-  __pipeline_commit();
-  stage(r0);
-  __pipeline_commit();
-  // pass r computes the x-face r+1/2 and, from r0 on, updates plane r; the
-  // pass r0 - 1 only gives the chunk's first x-face
-#pragma unroll 1
-  for (int r = r0 - 1; r <= re; ++r) {
-    // plane r+2 goes to the slot of plane r-2, which no thread reads since
-    // the last barrier
-    if (r + 2 <= re + 1) stage(r + 2);
-    __pipeline_commit();          // a group per pass, empty at the end
-    __pipeline_wait_prior(1);     // this thread's copies of plane r+1
-#pragma unroll 1
-    for (int q = r == r0 - 1 ? r : r + 1; q <= r + 1; ++q) derive(q);
-    __syncthreads();  // plane r+1 complete; the last pass's faces read
-    const float* Sm = slot(r - 1);
-    const float* S0 = slot(r);
-    const float* Sp = slot(r + 1);
-    const Flux hi = face_flux<0>(P, Sm, S0, Sp, ic);
-    // ws/tau_f on the physical x-boundary faces: the qgdFlux p ghost of this
-    // step
-    if (live && ((r == 0 && P.edge_lo) || (r == nx && P.edge_hi)))
-      side[(r == 0 ? 0 : (long)ny * nz) + j] = hi.ws / hi.tau;
-    if (r >= r0) {
-      // the tile's y-faces (row w / TZ of YF: between staged rows w / TZ and
-      // w / TZ + 1) and z-faces of plane r, each once
-#pragma unroll 1
-      for (int w = tid; w < YF + ZF; w += NT) {
-        if (w < YF) {
-          store_face(yfl, YF, w, face_flux<1>(P, Sm, S0, Sp,
-                                              (w / TZ) * WZ + w % TZ + 1));
-        } else {
-          const int v = w - YF;
-          store_face(zfl, ZF, v,
-                     face_flux<2>(P, Sm, S0, Sp,
-                                  (v / (TZ + 1) + 1) * WZ + v % (TZ + 1)));
+  auto bb = [&](int m) { return smem + m * (B_NF * EXT); };
+  auto fv = [&](int m) { return fv0 + m * (2 * NFV * EXT); };
+  auto load = [&](float (&raw)[6], int q) {
+    const long g = q * sx + cell;
+    raw[0] = F.p[g];
+    raw[1] = F.T[g];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) raw[2 + k] = F.u[k][g];
+    raw[5] = P.varsc ? sc[g] : 0.0f;
+  };
+  auto publish = [&](int m, const Base& c) {
+    float* B = bb(m);
+    if (has) {
+#pragma unroll
+      for (int f = 0; f < B_NF; ++f) B[f * EXT + i] = c.v[f];
+    }
+  };
+  // the sums of this cell's low y- and z-faces of the plane in slot m, from
+  // its own base values c and its neighbours' in shared memory
+  auto face_values = [&](int m, const Base& c, float (&sum)[2 * NFV]) {
+    const float* B = bb(m);
+    float* V = fv(m);
+#pragma unroll
+    for (int k = 0; k < NFV; ++k) {
+      const int f = face_field(k);
+      sum[k] = B[f * EXT + iym] + c.v[f];
+      sum[NFV + k] = B[f * EXT + izm] + c.v[f];
+    }
+    if (has) {
+#pragma unroll
+      for (int k = 0; k < 2 * NFV; ++k) V[k * EXT + i] = sum[k];
+    }
+  };
+
+  float raw[6];   // the frame values of plane c+2, on their way
+  Base bq[3];     // the base values of the planes, by slot
+  float xq[3][5]; // the fluxes of the x-face q+1/2, by the slot of q
+  load(raw, r0 - 1);
+  bq[0] = cell_base(P, F, sc, raw, r0 - 1, s, t, sx, sy);
+  publish(0, bq[0]);
+  load(raw, r0);
+  bq[1] = cell_base(P, F, sc, raw, r0, s, t, sx, sy);
+  publish(1, bq[1]);
+  load(raw, r0 + 1);
+  __syncthreads();
+  {
+    float sum[2 * NFV];
+    face_values(0, bq[0], sum);
+  }
+
+  // pass c (slot m0): the x-face c+1/2 and, from r0 to re, the y- and
+  // z-faces of plane c and its update.  On entry the base values of planes
+  // c and c+1 and the face values of c-1 and c (the pass r0 - 1: c-1 alone)
+  // are published.
+  auto pass = [&](auto slot, int c) {
+    constexpr int m0 = decltype(slot)::value;
+    constexpr int m1 = (m0 + 1) % 3, m2 = (m0 + 2) % 3;  // c+1; c+2 and c-1
+    const Base& b0 = bq[m0];
+    const Base& b1 = bq[m1];
+    float sp[2 * NFV];  // this cell's face sums of plane c+1
+    face_values(m1, b1, sp);
+    if (has) {
+#pragma unroll
+      for (int k = 0; k < NFV; ++k) {
+        const int f = face_field(k);
+        xv[k * EXT + i] = b0.v[f] + b1.v[f];
+      }
+    }
+    if (c + 2 <= re + 1) {
+      bq[m2] = cell_base(P, F, sc, raw, c + 2, s, t, sx, sy);
+      publish(m2, bq[m2]);
+      if (c + 3 <= re + 1) load(raw, c + 3);
+    }
+    __syncthreads();  // the face values of c+1 and c+1/2, the base of c+2
+    if (tile) {  // the x-face c+1/2
+      float gt[2][NFV];
+#pragma unroll
+      for (int k = 0; k < NFV; ++k) {
+        gt[0][k] = (xv[k * EXT + iyp] - xv[k * EXT + iym]) * hh[1];
+        gt[1][k] = (xv[k * EXT + izp] - xv[k * EXT + izm]) * hh[2];
+      }
+      const Flux hi = face_flux<0>(P, b0.v, b1.v, gt);
+      // ws/tau_f on the physical x-boundary faces: the qgdFlux p ghost of
+      // this step
+      if (live && ((c == 0 && P.edge_lo) || (c == nx && P.edge_hi)))
+        side[(c == 0 ? 0 : (long)ny * nz) + j] = hi.ws / hi.tau;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) xq[m0][k] = hi.f[k];
+    }
+    float yo[5], zo[5];  // this cell's low y- and z-face fluxes
+    if (c >= r0) {  // uniform in the block
+      const float* B = bb(m0);
+      const float* Vm = fv(m2);
+      const float* V0 = fv(m0);
+      if (yface) {
+        float gt[2][NFV], a[B_NF];
+#pragma unroll
+        for (int k = 0; k < NFV; ++k) {
+          const float* m = Vm + k * EXT;
+          const float* z = V0 + k * EXT;
+          gt[0][k] = (sp[k] - m[i]) * hh[0];
+          gt[1][k] = (z[izp] - z[izm]) * hh[2];
+        }
+#pragma unroll
+        for (int f = 0; f < B_NF; ++f) a[f] = B[f * EXT + i - WZ];
+        const Flux fl = face_flux<1>(P, a, b0.v, gt);
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          yfl[k * YF + (ry - 1) * TZ + lz - 1] = fl.f[k];
+          yo[k] = fl.f[k];
+        }
+      }
+      if (zface) {
+        float gt[2][NFV], a[B_NF];
+#pragma unroll
+        for (int k = 0; k < NFV; ++k) {
+          const float* m = Vm + (NFV + k) * EXT;
+          const float* z = V0 + (NFV + k) * EXT;
+          gt[0][k] = (sp[NFV + k] - m[i]) * hh[0];
+          gt[1][k] = (z[iyp] - z[iym]) * hh[1];
+        }
+#pragma unroll
+        for (int f = 0; f < B_NF; ++f) a[f] = B[f * EXT + i - 1];
+        const Flux fl = face_flux<2>(P, a, b0.v, gt);
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          zfl[k * ZF + (ry - 1) * (TZ + 1) + lz - 1] = fl.f[k];
+          zo[k] = fl.f[k];
         }
       }
     }
-    __syncthreads();  // the faces of plane r
-    if (r >= r0 && live) {
+    __syncthreads();  // plane c's faces
+    if (c >= r0 && live) {
+      const int yl = (ry - 1) * TZ + lz - 1;
+      const int zl = (ry - 1) * (TZ + 1) + lz - 1;
       float acc[5];
 #pragma unroll
       for (int k = 0; k < 5; ++k) {
-        const float* yk = yfl + k * YF + ty * TZ + tz;
-        const float* zk = zfl + k * ZF + ty * (TZ + 1) + tz;
-        acc[k] = hi.f[k] - xlo[k];
-        acc[k] = acc[k] + (yk[TZ] - yk[0]);
-        acc[k] = acc[k] + (zk[1] - zk[0]);
+        const float* yk = yfl + k * YF + yl;
+        const float* zk = zfl + k * ZF + zl;
+        acc[k] = xq[m0][k] - xq[m2][k];
+        acc[k] = acc[k] + (yk[TZ] - yo[k]);
+        acc[k] = acc[k] + (zk[1] - zo[k]);
       }
-      const Cell o = tile_cell(P, S0, ic);
-      const float rho = o.rho;
-      const float ke = o.u[0] * o.u[0] + o.u[1] * o.u[1] + o.u[2] * o.u[2];
-      const float rhoE = rho * (o.e + 0.5f * ke);
+      const float* ob = b0.v;
+      const float rho = ob[B_RHO];
+      const float ke =
+          ob[B_UX] * ob[B_UX] + ob[B_UY] * ob[B_UY] + ob[B_UZ] * ob[B_UZ];
+      const float rhoE = rho * (ob[B_E] + 0.5f * ke);
       const float rhon = rho - sdt * acc[0];
       const float inv_rhon = 1.0f / rhon;
       float un[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        un[k] = (rho * o.u[k] - sdt * acc[1 + k]) * inv_rhon;
+        un[k] = (rho * ob[B_UX + k] - sdt * acc[1 + k]) * inv_rhon;
       const float rhoEn = rhoE - sdt * acc[4];
       const float en = rhoEn * inv_rhon -
                        0.5f * (un[0] * un[0] + un[1] * un[1] + un[2] * un[2]);
       const float Tv = en * P.inv_Cv;
-      const long i0 = r * sx + s * sy + t;
+      const long i0 = c * sx + cell;
       pn[i0] = rhon * P.R * Tv;
       Tn[i0] = Tv;
       uxn[i0] = un[0];
       uyn[i0] = un[1];
       uzn[i0] = un[2];
     }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) xlo[k] = hi.f[k];
+  };
+  // the passes r0 - 1 .. re, three a trip so that every slot is a constant
+  const int np = re - r0 + 2;
+#pragma unroll 1
+  for (int k = 0; k < np; k += 3) {
+    pass(Slot<0>{}, r0 - 1 + k);
+    if (k + 1 < np) pass(Slot<1>{}, r0 + k);
+    if (k + 2 < np) pass(Slot<2>{}, r0 + 1 + k);
   }
 }
 
@@ -1026,18 +1142,52 @@ cudaError_t dt3_launch(const QGD3DParams& P, const float* T, const float* ux,
   return cudaGetLastError();
 }
 
-// The update's dynamic shared memory is above the 48 KB a launch gets
-// without asking: allow it once on each device.
-cudaError_t allow_update_smem() {
-  static bool done[64] = {};
+// The update's grid and chunk on the current device.  Its dynamic shared
+// memory is above the 48 KB a launch gets without asking: allowed once on
+// each device.  Of UPDATE_CHUNKS the chunk is the one whose waves of blocks
+// (at the resident blocks an SM) times the passes of a block (the chunk's
+// planes, its extra first pass and its set-up, about one pass) are fewest,
+// as qgd3d_dt weighs its own: on an H100, 32 planes at 640x318x318 and
+// 256x126x126 (16: 4% and 2% slower), 16 on a 128x126x126 K5 slab (21%
+// faster than 32, which leaves 176 blocks for 132 SMs; PERF.md §6).  The
+// chunk moves no bit.
+cudaError_t update_grid(const QGD3DParams& P, dim3* grid, int* cx,
+                        int* bps_out = nullptr) {
+  static int sms[64] = {}, bps[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(qgd3d_update_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           UPDATE_SMEM);
-  if (e == cudaSuccess && dev < 64) done[dev] = true;
-  return e;
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    e = cudaFuncSetAttribute(qgd3d_update_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             UPDATE_SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &bps[dev], qgd3d_update_kernel, NT, UPDATE_SMEM);
+    if (e != cudaSuccess) {
+      sms[dev] = 0;
+      return e;
+    }
+  }
+  const long tiles = (long)((P.nz + TZ - 1) / TZ) * ((P.ny + TY - 1) / TY);
+  const long slots = (long)sms[dev] * (bps[dev] > 0 ? bps[dev] : 1);
+  long best = -1;
+  for (const int c : UPDATE_CHUNKS) {
+    const long chunks = (P.nx + c - 1) / c;
+    const long cost = (tiles * chunks + slots - 1) / slots * (c + 2);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *cx = c;
+    }
+  }
+  *grid = dim3((P.nz + TZ - 1) / TZ, (P.ny + TY - 1) / TY,
+               (P.nx + *cx - 1) / *cx);
+  if (bps_out) *bps_out = bps[dev];
+  return cudaSuccess;
 }
 
 
@@ -1696,28 +1846,23 @@ int qgd3d_update(const QGD3DParams* prm, const float* p, const float* T,
   F.u[0] = ux;
   F.u[1] = uy;
   F.u[2] = uz;
-  const cudaError_t e = allow_update_smem();
+  dim3 grid;
+  int cx = 0;
+  const cudaError_t e = update_grid(*prm, &grid, &cx);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((prm->nz + TZ - 1) / TZ, (prm->ny + TY - 1) / TY,
-                  (prm->nx + CX - 1) / CX);
-  qgd3d_update_kernel<<<grid, dim3(TZ, TY), UPDATE_SMEM, st>>>(
-      *prm, F, sc, dt, pn, Tn, uxn, uyn, uzn, side);
+  qgd3d_update_kernel<<<grid, NT, UPDATE_SMEM, st>>>(
+      *prm, cx, F, sc, dt, pn, Tn, uxn, uyn, uzn, side);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The update's launch shape on the current device: out = {TY, TZ, CX,
-// dynamic shared bytes per block, resident blocks per SM}.
-int qgd3d_update_shape(int* out) {
-  cudaError_t e = allow_update_smem();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, qgd3d_update_kernel, NT, UPDATE_SMEM);
+// The update's launch at prm's shape on the current device: out = {TY, TZ,
+// chunk planes, dynamic shared bytes per block, resident blocks per SM}.
+int qgd3d_update_launch(const QGD3DParams* prm, int* out) {
+  dim3 grid;
+  const cudaError_t e = update_grid(*prm, &grid, &out[2], &out[4]);
   out[0] = TY;
   out[1] = TZ;
-  out[2] = CX;
   out[3] = UPDATE_SMEM;
-  out[4] = blocks;
   return static_cast<int>(e);
 }
 

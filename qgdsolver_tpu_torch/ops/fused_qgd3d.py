@@ -653,15 +653,15 @@ def qgd3d_update(prm, p, T, ux, uy, uz, sc, dt):
     return new, side
 
 
-def update_launch_shape(device) -> dict:
-    """The CUDA update kernel's launch shape on `device`: its (y, z) tile,
-    the x-planes one block marches, the dynamic shared memory of a block
-    and the blocks resident on one SM."""
+def update_launch_shape(prm, device) -> dict:
+    """`qgd3d_update`'s launch at prm's shape on `device`: its (y, z) tile,
+    the x-planes one block marches (the chunk, from the grid), the dynamic
+    shared memory of a block and the blocks resident on one SM."""
     lib = _build.load()
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        code = lib.qgd3d_update_shape(out)
-    _build.check(lib, code, "qgd3d_update_shape")
+        code = lib.qgd3d_update_launch(prm, out)
+    _build.check(lib, code, "qgd3d_update_launch")
     return {"tile": (out[0], out[1]), "chunk": out[2], "smem_bytes": out[3],
             "blocks_per_sm": out[4]}
 

@@ -277,6 +277,53 @@ def test_every_bc_kind_matches_jax_composable():
         np.testing.assert_allclose(gb, _f64(ga), atol=quant + 2e-3 * scale)
 
 
+@pytest.mark.parametrize("shape", [(7, 5, 6), (3, 9, 4)])
+def test_face_tangential_difference_is_mean_of_cell_differences(shape):
+    """The tangential difference update_reference_3d takes at a face, the
+    central difference of the neighbouring faces' values (xi(Ap, Bp) -
+    xi(Am, Bm)) / 2d, equals in exact arithmetic the mean of the central
+    differences of the face's two cells, ghost planes, ghost rows and
+    lanes, edges and corners included: checked in float64 within 1e-12 on
+    the frames of every BC kind with a random velocity kick.  In float32
+    the two forms round differently (on the duct the transverse velocities
+    move by ~1e-4 of their max), so the CUDA update takes the reference's
+    form: each face's values are published once and its tangential
+    gradients are differences of its neighbours' values."""
+    from test_torch_gpu import every_bc_kind_3d
+
+    solver, state = every_bc_kind_3d(tcases, tbc, shape, torch.float32,
+                                     torch.as_tensor, device="cpu")
+    rng = np.random.default_rng(1)
+    kick = torch.as_tensor(
+        (20.0 * rng.standard_normal(state.rhoU.shape)).astype(np.float32))
+    state = state._replace(rhoU=state.rhoU + kick * state.rho)
+    _, to_f, _ = F.build_fused_step_3d(solver, plain=True)
+    fs = to_f(state)  # the frames with every ghost filled by its BC
+    prm, _ = F.make_params(solver)
+    assert fs.p.shape == tuple(n + 2 for n in shape)
+    p, T = fs.p.double(), fs.T.double()
+    cells = {"p": p, "rho": p / (prm.R * T), "e": prm.Cv * T,
+             "ux": fs.ux.double(), "uy": fs.uy.double(),
+             "uz": fs.uz.double()}
+    for name, x in cells.items():
+        for a in range(3):
+            for b in range(3):
+                if b == a:
+                    continue
+                c = 3 - a - b
+                faces = F._tan(F._aint(x, a), a, b, prm)
+                h = prm.inv_2d[b]
+                cd = (F._sl(x, b, slice(2, None))
+                      - F._sl(x, b, slice(None, -2))) * h
+                mean = F._sl(F._aint(cd, a), c, slice(1, -1))
+                assert faces.shape == mean.shape
+                scale = float(x.abs().max()) * h
+                if name.startswith("u"):  # the kick: no vacuous check
+                    assert float(faces.abs().max()) > 1e-3 * scale
+                err = float((faces - mean).abs().max())
+                assert err <= 1e-12 * scale, (name, a, b, err / scale)
+
+
 def _one_jax_step(name):
     js, jst, ts, st = _build(name)
     return js, jst, jax.jit(js.make_step())(jst), ts, st

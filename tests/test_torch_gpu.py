@@ -515,11 +515,15 @@ def test_3d_kernels_match_plain_versions(name, device):
 
 
 @pytest.mark.parametrize("name,shape", [("supersonic_duct_3d", (37, 13, 45)),
-                                        ("every_bc_kind_3d", (20, 10, 9))])
+                                        ("every_bc_kind_3d", (20, 10, 9)),
+                                        ("supersonic_jet_3d_varsc",
+                                         (70, 21, 40))])
 def test_3d_update_on_ragged_shapes(name, shape, device):
-    """qgd3d_update where the mesh is no multiple of the kernel's (8, 32)
-    tile or of its 16-plane chunk, and a frame row (nz + 2 floats) is no
-    multiple of 16 bytes: within 1e-5 of each field's max of the plain
+    """qgd3d_update where the mesh is no multiple of the kernel's (12, 32)
+    tile or of its chunk (16 or 32 planes, from the grid: 70 planes make
+    five of 16, the last of 6), and a frame row (nz + 2 floats) is no
+    multiple of 16 bytes: within 1e-5
+    of each field's max of the plain
     version; and on x-slabs whose offsets are no multiple of the chunk,
     flagged at their partition planes, bit for bit the serial kernel's
     window (the qgdFlux side rows too where a slab end is physical)."""
