@@ -49,6 +49,11 @@ inputs are those the port's steps hand the kernels, recorded in a step:
 - the first ring that the 3D step emits on that jet with a density bump
   (`qgd3d_smooth`: one launch of 1 and of 4 rings, and the step's
   continuation from it to the fixed point, 4 rings a launch);
+- the first ring that the first step of the benchmark's
+  jet3d_varsc.shocked cell emits at 640x318x318 (`qgd3d_smooth`: one
+  launch of 4 rings, and the 3D step's smoothing from it as each build's
+  step runs it: its fixed point in three line sweeps, or the ring loop in
+  a build without it);
 - the duct and the varsc jet after 20 plain steps at 256x126x126 (and
   the duct's K5 slab 0 of an x-ring of 2) and after 3 kernel-path steps
   at the benchmark's 640x318x318 (`qgd3d_update`, with its bound and each
@@ -87,9 +92,9 @@ import torch
 import chip_smoke as cs
 
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ab_kernels"
-# the benchmark's 3D mesh (qgdbench/configs), where `qgd3d_update` is timed
-# beside chip_smoke's SHAPE3
-BENCH3 = (640, 318, 318)
+# the benchmark's 3D mesh (qgdbench/configs), where `qgd3d_update` and the
+# 3D smoothing are timed beside chip_smoke's SHAPE3
+BENCH3 = cs.BENCH3
 # the kernels whose ptxas lines are printed, by source: a name, or the
 # names one kernel has had (the first a build has is printed)
 PTXAS = {"qgd2d": ("qgd2d_update_kernel", "qgd2d_smooth_kernel",
@@ -139,6 +144,10 @@ def build_other(name: str, src: pathlib.Path):
             _build._bind(lib, "qgd3d_update_shape", [ctypes.POINTER(c_int)])
         if hasattr(lib, "qgd3d_emit"):
             _build._bind(lib, "qgd3d_emit", [p3] + [ptr] * 7)
+        if hasattr(lib, "qgd3d_smooth_fixed"):
+            _build._bind(lib, "qgd3d_smooth_fixed",
+                         [p3, ptr, ctypes.c_long, ctypes.c_long, ptr, ptr,
+                          ptr])
         return lib, proc.stderr
     _build._bind(lib, "qgd2d_error_string", [c_int], ctypes.c_char_p)
     _build._bind(lib, "qgd2d_dt_partials", [c_int, c_int])
@@ -350,6 +359,14 @@ def inputs3(dev):
     out.append(("the 3D step's continuation from that ring, "
                 f"{F3.SMOOTH3_RINGS} rings a launch", "continuation3",
                 (prm, bumped.sc_s1, bumped.sc_chg)))
+    big = "x".join(map(str, BENCH3))
+    prm_b, shocked = cs.shocked_carry(dev)
+    out += [(f"the ring 1 of the jet3d_varsc.shocked cell's first step "
+             f"({big}), {F3.SMOOTH3_RINGS} rings", "smooth3",
+             (prm_b, shocked.sc_s1, F3.SMOOTH3_RINGS)),
+            (f"the 3D step's smoothing from that ring ({big}): the fixed "
+             "point, or the ring loop in a build without it", "step_smooth3",
+             (prm_b, shocked.sc_s1, shocked.sc_chg))]
     for name in cs.CASES3:
         solver, fs = cs.warm_state(name, cs.SHAPE3, F3.build_fused_step_3d,
                                    dev)
@@ -473,6 +490,19 @@ def continuation3(prm, s1, chg):
     from qgdsolver_tpu_torch.ops import smoothing as S
 
     return S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, F3.SMOOTH3_RINGS)
+
+
+def step_smooth3(prm, s1, chg):
+    """The 3D step's smoothing from the emitted first ring as the build's
+    step runs it: `qgd3d_smooth`'s fixed point where the build has one,
+    else the ring loop."""
+    from qgdsolver_tpu_torch.ops import _build
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import smoothing as S
+
+    return S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, F3.SMOOTH3_RINGS,
+                           cache={"fixed": hasattr(_build.load(),
+                                                   "qgd3d_smooth_fixed")})
 
 
 def sensor_ring1(prm, p, T, sc):
@@ -614,12 +644,13 @@ def main(argv) -> int:
            "smooth": F.qgd2d_smooth, "continuation": continuation,
            "dt": F.qgd2d_dt, "fold": F.qgd2d_dt_fold, "ghosts": ghosts,
            "smooth3": F3.qgd3d_smooth, "continuation3": continuation3,
+           "step_smooth3": step_smooth3,
            "sensor_ring1": sensor_ring1, "sensor3": F3.qgd3d_sensor,
            "dt3": F3.qgd3d_dt, "fold3": F3.qgd3d_dt_fold,
            "ghosts3": ghosts3, "update3": F3.qgd3d_update}
     # the smoothing loops return one frame; their launches depend on the
     # data, so their device time is the sum of what they ran
-    loops = ("continuation", "continuation3")
+    loops = ("continuation", "continuation3", "step_smooth3")
     runs = []
     if len(builds["qgd2d"]) > 1:
         others = {n: b for n, b in builds["qgd2d"].items() if n != "this"}

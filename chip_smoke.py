@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profiler-check N   # the profiler's lost sessions
+    python3 chip_smoke.py --fixed3   # phase 10's 3D smoothing fixed point
 
 Builds the CUDA kernels of the fused 2D and 3D QGDFoam steps from the
 sources in the checkout, and for each dimension checks each kernel against
@@ -22,8 +23,12 @@ against its plain version on the ring the varsc jet with a density bump
 emits, and each of 10 kernel-path steps' sensor frames against
 fvc_smooth of the raw sensor the step before emitted; phase 9 drives the
 varsc jet at rest (no `qgd3d_smooth` launch, one host flag read a step)
-and with the bump (the rings active) through the main path, and phase 10
-times both, with their rings, launches and host flag reads per step.
+and with the bump (the sensor active past ring 1: `qgd3d_smooth`'s fixed
+point, one more read a step) through the main path, and phase 10
+times both, with their rings, launches and host flag reads per step, and
+the fixed point beside a launch of 4 rings and the ring loop on the ring 1
+of the benchmark's shocked 3D jet cell at 640x318x318 (in a process of
+its own: `--fixed3` runs that part alone).
 Then the 4096x2048 varScModel5 + qgdFlux jet (phases 11-14): `qgd2d_emit`
 against its plain version, K2's path in lock-step with its plain path and
 with K1's, the case CLI (`python -m qgdsolver_tpu_torch <case>`) on an
@@ -967,6 +972,106 @@ def smooth3_checks(solver, fs, stats):
         lambda: F3.qgd3d_smooth(prm, s1, 1, out, flag))
     return (lambda: F3.qgd3d_smooth(prm, s1, k, out, flag),
             lambda: S._smooth_plain(prm, s1, k, out, flag))
+
+
+# the benchmark's 3D mesh (qgdbench/configs/jet3d_varsc.json)
+BENCH3 = (640, 318, 318)
+
+
+def shocked_carry(dev, seed=2000002201):
+    """(prm, carry) of the benchmark's jet3d_varsc.shocked cell at BENCH3
+    after one step of its program: the fields qgdbench's generator makes
+    for `seed`, the carry through `solver.make_fused_step()`, one step,
+    whose emitted ring 1 and flag the next step smooths."""
+    from qgdbench import generator, harness
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+
+    cell = harness.resolve(harness.load_benchmark(), "jet3d_varsc.shocked")
+    check(tuple(cell.cfg["shape"]) == BENCH3, "the cell's mesh moved")
+    prog = cell.family.Program(cell.cfg, dev)
+    fs = prog.step(prog.start(generator.fields(cell.cfg, cell.mix, seed,
+                                               dev)))
+    return F3.make_params(prog.solver)[0], fs
+
+
+def fixed_ptxas() -> str:
+    """ptxas's registers, spills and shared memory of the fixed point's
+    kernels (`qgd3d_smooth_kernel` of Fix3Rows, the z pass, and Fix3Cols,
+    the y and x passes), by the cells a thread holds."""
+    from qgdsolver_tpu_torch.ops import _build
+
+    lines = _build.ptxas_report().splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry.*Fix3LILi(\d+)E.*?Fix3(Rows|Cols)", ln)
+        if not m:
+            continue
+        got = [nxt.split(":", 1)[-1].strip() for nxt in lines[i + 1:i + 4]
+               if "registers" in nxt or "spill" in nxt]
+        out.append(f"{m.group(2)} L={m.group(1)}: " + "; ".join(got))
+    return " | ".join(out) or "not reported"
+
+
+def phase_fixed3(dev, card):
+    """The 3D smoothing's fixed point at BENCH3 on the ring 1 that the
+    shocked jet cell's first step emits: `qgd3d_smooth`'s fixed-point call
+    held bitwise to the ring loop (`smooth_sensor` on rings of
+    SMOOTH3_RINGS) and its flag 0; the device time of the call, of each of
+    its passes beside the bound of a pass (the cells read and a frame
+    written at the HBM rate), of one launch of SMOOTH3_RINGS rings and of
+    the ring loop, with the loop's rings, launches and reads; the call's
+    launch shape and its kernels' ptxas lines."""
+    from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
+    from qgdsolver_tpu_torch.ops import smoothing as S
+
+    prm, fs = shocked_carry(dev)
+    s1, chg = fs.sc_s1, fs.sc_chg
+    check(float(chg) == 1.0, "the shocked jet's ring 1 must be raised")
+    out = torch.empty_like(s1)
+    flag = torch.empty((), dtype=s1.dtype, device=s1.device)
+
+    def loop():
+        return S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth,
+                               F3.SMOOTH3_RINGS)
+
+    def fixed():
+        return F3.qgd3d_smooth(prm, s1, S.SMOOTH_FIXED, out, flag)
+
+    was = smooth3_counts()
+    ref = loop()
+    counts = [a - b for a, b in zip(smooth3_counts(), was)]
+    fixed()
+    check(torch.equal(out, ref) and float(flag) == 0.0, "the fixed point "
+          "is not bitwise the ring loop on the shocked jet's ring 1")
+    del ref
+    ms_fixed = device_ms(fixed, 20, match="qgd")
+    passes = {}
+    for name, us in device_events(fixed, 10):
+        m = re.search(r"Fix3L<(\d+), (\d+)>.*Fix3(Rows|Cols)", name)
+        if m:
+            key = (f"{'z' if m.group(3) == 'Rows' else 'y or x'} pass "
+                   f"(L={m.group(1)}, Z={m.group(2)})")
+            passes.setdefault(key, []).append(us / 1e3)
+    pass_ms = {k: float(np.median(v)) for k, v in passes.items()}
+    ms_ring = device_ms(lambda: F3.qgd3d_smooth(prm, s1, F3.SMOOTH3_RINGS,
+                                                out, flag), 10, match="qgd")
+    ms_loop = device_ms(loop, 3, warmup=1, same=False, match="qgd")
+    per_pass = bound(work_bytes("qgd3d_smooth", BENCH3), 0)[0]
+    at = F3.fixed_launch_shape(prm, dev)
+    print(f"phase 10 the 3D smoothing's fixed point, the jet3d_varsc.shocked "
+          f"cell's ring 1 at {BENCH3}: bitwise the ring loop ({counts[0]} "
+          f"rings in {counts[1]} launches, {counts[2]} host flag reads), "
+          f"flag 0 | device ms: fixed point {ms_fixed:.4f} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items())
+          + f"; bound {per_pass:.4f} a pass, {3 * per_pass:.4f} the call, "
+          f"{per_pass:.4f} a frame in and out once), a launch of "
+          f"{F3.SMOOTH3_RINGS} rings {ms_ring:.4f}, the ring loop "
+          f"{ms_loop:.4f} | launch: z pass {at['z_cells']} cells a lane, 8 "
+          f"rows a block; y pass {at['y_cells']} cells a thread, "
+          f"{at['y_threads']} threads a block; x pass {at['x_cells']} cells "
+          f"a thread, {at['x_threads']} threads a block | ptxas: "
+          f"{fixed_ptxas()} "
+          f"| card: {card}", flush=True)
 
 
 def step_bound(kernels, varsc):
@@ -3343,6 +3448,9 @@ def phase_graft_badcells(dev, card, root, sharded):
 def main() -> int:
     if sys.argv[1:2] == ["--profiler-check"]:
         return profiler_check(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--fixed3"]:
+        phase_fixed3(torch.device("cuda", 0), phase_env())
+        return 0
     from qgdsolver_tpu_torch.ops import fused_qgd2d as F
     from qgdsolver_tpu_torch.ops import fused_qgd3d as F3
     from qgdsolver_tpu_torch.ops import smoothing as S
@@ -3385,7 +3493,8 @@ def main() -> int:
     reads = S.smooth_sensor.reads - reads
     check(reads == 40, f"the 3D main path at rest read {reads} smoothing "
           "flags in 40 varsc steps")
-    # with a density bump the rings go on: one more read a launch
+    # with a density bump the sensor goes on past ring 1: one more read a
+    # step for the fixed point's call
     reads = S.smooth_sensor.reads
     bumped = phase_main_path(9, dev, SHAPE3, [(CASES3[1], 20, with_bump)],
                              F3.KERNELS, {"qgd3d_dt": 20, "qgd3d_update": 20,
@@ -3393,12 +3502,24 @@ def main() -> int:
                                           "qgd3d_smooth": 1},
                              least=("qgd3d_smooth",))
     reads = S.smooth_sensor.reads - reads
-    check(reads == 20 + bumped["qgd3d_smooth"], f"the bumped 3D main path "
+    fixed = bumped["qgd3d_smooth"] // F3.SMOOTH3_FIXED_LAUNCHES
+    check(reads == 20 + fixed and bumped["qgd3d_smooth"]
+          == F3.SMOOTH3_FIXED_LAUNCHES * fixed, f"the bumped 3D main path "
           f"read {reads} smoothing flags in 20 steps and "
-          f"{bumped['qgd3d_smooth']} launches")
+          f"{bumped['qgd3d_smooth']} launches, expected one read a step and "
+          f"one a fixed-point call of {F3.SMOOTH3_FIXED_LAUNCHES} launches")
     for k, v in bumped.items():
         launches[k] += v
     phase_time3(dev, card, jobs3, stats)
+    # in an interpreter of its own: the benchmark's mesh holds ~3 GB, and
+    # the profiler sessions of one process have lost events before (PERF.md)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--fixed3"], capture_output=True, text=True,
+                          timeout=1200)
+    print("\n".join(ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("phase 10 ")), flush=True)
+    check(proc.returncode == 0, "phase 10's fixed point (chip_smoke.py "
+          f"--fixed3) failed:\n{proc.stderr[-3000:]}")
 
     solver, ts, emit_jobs = phase_emit(dev, stats)
     phase_lockstep_big(solver, ts)

@@ -183,6 +183,9 @@ def load() -> ctypes.CDLL:
     _bind(lib, "qgd3d_smooth", [p3, _ptr, ctypes.c_long, ctypes.c_long,
                                 _c_int, _ptr, _ptr, _ptr])
     _bind(lib, "qgd3d_smooth_shape", [p3, _c_int, ctypes.POINTER(_c_int)])
+    _bind(lib, "qgd3d_smooth_fixed", [p3, _ptr, ctypes.c_long, ctypes.c_long,
+                                      _ptr, _ptr, _ptr])
+    _bind(lib, "qgd3d_smooth_fixed_shape", [p3, ctypes.POINTER(_c_int)])
     i64 = ctypes.c_longlong
     for name in ("deposit_f32", "deposit_f64"):
         _bind(lib, name, [_ptr, i64, _c_int, _ptr, _ptr, _ptr, i64, _ptr])

@@ -25,7 +25,8 @@
 //                 interior cells (one launch);
 //
 // and, only when the flag is set, qgd3d_smooth carries ring 1 to the fixed
-// point, k rings a launch.
+// point: in three line sweeps (its fixed point, below), or where they do
+// not hold k rings a launch.
 //
 // The x-ring decomposition K5 (build_sharded_fused_step_3d, :930) runs the
 // same kernels on each rank's x-slab, whose x ends may be partition planes:
@@ -1540,6 +1541,368 @@ cudaError_t smooth3_dispatch(int k, const QGD3DParams& P, const Smooth3& A,
 }
 
 // ---------------------------------------------------------------------------
+// qgd3d_smooth's fixed point: fvc::smooth to its end in three line sweeps
+// ---------------------------------------------------------------------------
+//
+// Writes the rings' fixed point itself, in three launches, where the ring
+// kernel above takes ~5 launches of 4 rings and a host read after each.
+// With h(v) = RN(v / maxRatio) (smooth_div), monotone and h(v) <= v for
+// v >= 0 (maxRatio >= 1), a ring is f <- max(f, h(f at each face
+// neighbour)), and the rings of such an f reach
+//
+//   F(c) = max over cells d of h^n(f(d)),  n = |c - d|_1:
+//
+// every path of n faces from d carries the same chain of n roundings, and a
+// longer chain gives less (h^m(v) <= h^n(v) for m >= n).  The max over the
+// L1 ball factors into one pass an axis, F = S_x(S_y(S_z(f))), S_a(g)(c) =
+// max over t of h^|t|(g(c + t e_a)), and S_a is a forward sweep t <- max(g,
+// h(t)) along the axis followed by a backward one over its result (every
+// term the second adds beside S_a's is one of S_a's with a longer chain).
+// These are the rings' divisions and maxima in another order, so F is the
+// ring loop's result bit for bit.  It holds for values that are finite with
+// the sign bit clear: the first pass raises the flag at any other value,
+// and the host then runs the ring loop, whose NaN region depends on its
+// ring count.
+//
+// Each pass writes whole lines of the output frame, ghosts included: the z
+// pass reads the input's cells (its ghost rows read the edge rows they
+// copy), and the y and x passes sweep the output frame in place, each of
+// its lines, so a ghost line of another axis, a copy of an edge line, stays
+// its copy; a line's own ghosts are its end cells.  A block owns whole
+// lines and holds them in registers before it writes one.  A line is cut
+// into segments of L cells, one a thread: each sweep runs along the
+// segment, then the segments hand their end values on in rounds until no
+// end moves.  A carry u = h^k(c) entering a segment stops at the first cell
+// it does not raise: that cell's value is at least u, and the next one's is
+// at least h of it, at least h(u), so no later cell would be raised either.
+// On the jet (maxRatio 1.1, the sensor in [0.05, 1]) no carry passes 32
+// cells, so a sweep takes a few rounds.  The z pass gives a warp one
+// row and a lane one segment, with the carries by shuffle, and stages its
+// rows in shared memory so that its loads and stores are coalesced; the y
+// and x passes give a thread one segment of one of the block's 16 or 32
+// lines (neighbours along z: coalesced), with the carries through shared
+// memory.  h keeps smooth_div's underflow test: a build that skipped it in
+// blocks of cells at least SMOOTH_TINY held twice the code and more
+// registers, and its y pass took 0.33 ms against 0.24.  What bounds the
+// kernel is memory: each pass reads the cells and writes a frame (0.156 ms
+// a pass at 640x318x318 at 3.35 TB/s), while ~6 dependent instructions a
+// cell and sweep over 10^5 lines an axis hide under the loads; each pass
+// takes 0.20-0.25 ms there on an H100 (PERF.md).
+
+constexpr int FIX3_ROWS = 8;         // warps (rows) of a z-pass block
+constexpr int FIX3_MAXN = 32 * 32;   // the longest line: z, 32 lanes of 32
+
+struct Fix3Rows {
+  const float* in;  // cell (0, 0, 0) of the input
+  long sx, sy;      // its x and y strides (z: 1)
+  float* out;       // the (nx+2, ny+2, nz+2) frame
+  float* chg;
+};
+
+// The cells a thread holds (and the y and x passes' lines a block), as a
+// type: the fixed point's kernels take it as their template argument, so
+// that qgd3d_smooth_kernel<K> with an int K still names the ring kernel
+// alone.
+template <int L, int Z = 32>
+struct Fix3L {
+  static constexpr int value = L;
+  static constexpr int lanes = Z;  // the y and x passes' lines a block
+};
+
+struct Fix3Cols {
+  float* out;  // the frame, swept in place
+  long sl;     // its stride along the swept axis
+  long sb;     // its stride between the lines' groups (grid y)
+  int n;       // cells along the swept axis
+};
+
+// The last live cell of a segment of cnt (>= 1) cells, with no register
+// indexed by a variable.
+template <int L>
+__device__ __forceinline__ float fix3_last(const float (&v)[L], int cnt) {
+  float e = v[0];
+#pragma unroll
+  for (int i = 1; i < L; ++i)
+    if (i < cnt) e = v[i];
+  return e;
+}
+
+template <int L>
+__device__ __forceinline__ void fix3_forward(float (&v)[L], int cnt, float r,
+                                             float y) {
+#pragma unroll
+  for (int i = 1; i < L; ++i)
+    if (i < cnt) v[i] = nan_max(v[i], smooth_div<true>(v[i - 1], r, y));
+}
+
+template <int L>
+__device__ __forceinline__ void fix3_backward(float (&v)[L], int cnt, float r,
+                                              float y) {
+#pragma unroll
+  for (int i = L - 2; i >= 0; --i)
+    if (i + 1 < cnt) v[i] = nan_max(v[i], smooth_div<true>(v[i + 1], r, y));
+}
+
+// The forward carry c of the segment before into this one, from its first
+// cell on; true if it raised the last cell (the end this segment hands on).
+template <int L>
+__device__ __forceinline__ bool fix3_carry_forward(float (&v)[L], int cnt,
+                                                   float c, float r, float y) {
+  float u = smooth_div<true>(c, r, y);
+  bool end = false;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    if (i >= cnt || !(u > v[i])) break;
+    v[i] = u;
+    end = i == cnt - 1;
+    u = smooth_div<true>(u, r, y);
+  }
+  return end;
+}
+
+// The backward carry c of the segment after into this one, from its last
+// cell down; true if it raised the first cell.
+template <int L>
+__device__ __forceinline__ bool fix3_carry_backward(float (&v)[L], int cnt,
+                                                    float c, float r,
+                                                    float y) {
+  float u = smooth_div<true>(c, r, y);
+  bool end = false;
+#pragma unroll
+  for (int i = L - 1; i >= 0; --i) {
+    if (i >= cnt) continue;
+    if (!(u > v[i])) break;
+    v[i] = u;
+    end = i == 0;
+    u = smooth_div<true>(u, r, y);
+  }
+  return end;
+}
+
+// S_z of a z-pass warp's row: lane l holds cells l*L ..; fwd / bwd say
+// whether a carry enters the segment from the lane before / after.  After
+// round j lanes 0..j+1 hold their exact ends, so 31 rounds suffice.
+template <int L>
+__device__ __forceinline__ void fix3_row(float (&v)[L], int cnt, bool fwd,
+                                         bool bwd, float r, float y) {
+  const unsigned all = 0xffffffffu;
+  fix3_forward<L>(v, cnt, r, y);
+  for (int round = 0; round < 31; ++round) {
+    const float c = __shfl_up_sync(all, fix3_last(v, cnt), 1);
+    const bool moved = fwd && fix3_carry_forward<L>(v, cnt, c, r, y);
+    if (!__any_sync(all, moved)) break;
+  }
+  fix3_backward<L>(v, cnt, r, y);
+  for (int round = 0; round < 31; ++round) {
+    const float c = __shfl_down_sync(all, v[0], 1);
+    const bool moved = bwd && fix3_carry_backward<L>(v, cnt, c, r, y);
+    if (!__any_sync(all, moved)) break;
+  }
+}
+
+// The z pass: a warp a row of the output frame ((nx+2)(ny+2) of them), its
+// lanes C::value cells each; the flag when a cell read is not finite or
+// has its sign bit set.
+template <class C>
+__global__ void __launch_bounds__(32 * FIX3_ROWS)
+qgd3d_smooth_kernel(QGD3DParams P, Fix3Rows A) {
+  constexpr int L = C::value;
+  // a row staged with a pad after each segment: lane l reads its segment
+  // at l * (L + 1), free of bank conflicts
+  __shared__ float stage[FIX3_ROWS][32 * (L + 1)];
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x, nz = P.nz, wy = P.ny + 2;
+  const long row = (long)blockIdx.x * FIX3_ROWS + threadIdx.y;
+  if (row >= (long)(P.nx + 2) * wy) return;  // the whole warp
+  const int xf = (int)(row / wy), yf = (int)(row - (long)xf * wy);
+  const int cx = min(max(xf - 1, 0), P.nx - 1);
+  const int cy = min(max(yf - 1, 0), P.ny - 1);
+  const float* src = A.in + cx * A.sx + cy * A.sy;
+  float* s = stage[threadIdx.y];
+  float tmp[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+    if (lane + 32 * k < nz) tmp[k] = src[lane + 32 * k];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int e = lane + 32 * k;
+    if (e < nz) s[e + e / L] = tmp[k];
+  }
+  __syncwarp();
+  const int cnt = min(L, nz - lane * L);  // <= 0: a lane past the row
+  float v[L];
+  bool bad = false;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    v[i] = 1.0f;
+    if (i < cnt) {
+      v[i] = s[lane * (L + 1) + i];
+      // the sign bit, or an exponent of all ones (an infinity or NaN)
+      const unsigned b = __float_as_uint(v[i]);
+      bad = bad || (b >> 31) || (b & 0x7f800000u) == 0x7f800000u;
+    }
+  }
+  if (__any_sync(all, bad) && lane == 0) *A.chg = 1.0f;
+  const float r = P.smooth_ratio, y = smooth_inverse(r);
+  const bool fwd = lane > 0 && cnt > 0;
+  const bool bwd = cnt > 0 && (lane + 1) * L < nz;
+  fix3_row<L>(v, cnt, fwd, bwd, r, y);
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+    if (i < cnt) s[lane * (L + 1) + i] = v[i];
+  __syncwarp();
+  float* dst = A.out + row * (nz + 2);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int e = lane + 32 * k;
+    if (e < nz) dst[e + 1] = s[e + e / L];
+  }
+  if (lane == 0) dst[0] = s[0];
+  if (lane == 1) dst[nz + 1] = s[nz - 1 + (nz - 1) / L];
+}
+
+// S_a of a block's Z lines: thread (w, l) holds segment w of line l; ends
+// passes the segments' ends (forward) or starts (backward) on.  After round
+// j segments 0..j+1 hold their exact ends, so W - 1 rounds suffice.
+template <int L, int Z>
+__device__ __forceinline__ void fix3_cols(float (&v)[L], int cnt, float* ends,
+                                          int l, int w, int W, float r,
+                                          float y) {
+  fix3_forward<L>(v, cnt, r, y);
+  for (int round = 0; round + 1 < W; ++round) {
+    ends[w * Z + l] = fix3_last(v, cnt);
+    __syncthreads();
+    const bool moved =
+        w > 0 &&
+        fix3_carry_forward<L>(v, cnt, ends[(w - 1) * Z + l], r, y);
+    if (!__syncthreads_or(moved)) break;
+  }
+  fix3_backward<L>(v, cnt, r, y);
+  for (int round = 0; round + 1 < W; ++round) {
+    ends[w * Z + l] = v[0];
+    __syncthreads();
+    const bool moved =
+        w + 1 < W &&
+        fix3_carry_backward<L>(v, cnt, ends[(w + 1) * Z + l], r, y);
+    if (!__syncthreads_or(moved)) break;
+  }
+}
+
+// The threads of a y- or x-pass block at most: two blocks an SM hold their
+// cells in registers (48 each; one block of 32 cells a thread, which spill
+// less at 64).
+constexpr int FIX3_COLS_THREADS = 640;
+
+// The y or x pass, in place: thread (w, l) of block (bx, g), w = its index
+// over Z, sweeps the frame's line at g * sb + Z * bx + l along the axis of
+// stride sl, its cells 1 + w * L .. (L = C::value, Z = C::lanes); a thread
+// past the frame's z extent only keeps time.
+template <class C>
+__global__ void __launch_bounds__(FIX3_COLS_THREADS, C::value > 16 ? 1 : 2)
+qgd3d_smooth_kernel(QGD3DParams P, Fix3Cols A) {
+  constexpr int L = C::value, Z = C::lanes;
+  __shared__ float ends[FIX3_COLS_THREADS];
+  const int l = threadIdx.x % Z, w = threadIdx.x / Z, W = blockDim.x / Z;
+  const int n = A.n, zf = blockIdx.x * Z + l;
+  const bool live = zf < P.nz + 2;
+  float* line = A.out + blockIdx.y * A.sb + (live ? zf : 0);
+  float* seg = line + (long)(1 + w * L) * A.sl;
+  const int cnt = min(L, n - w * L);
+  float v[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    v[i] = 1.0f;
+    if (live && i < cnt) v[i] = seg[i * A.sl];
+  }
+  __syncthreads();  // every cell read before any is written
+  fix3_cols<L, Z>(v, cnt, ends, l, w, W, P.smooth_ratio,
+                  smooth_inverse(P.smooth_ratio));
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+    if (i < cnt) seg[i * A.sl] = v[i];
+  if (w == 0) line[0] = v[0];
+  if (w == W - 1) line[(long)(n + 1) * A.sl] = fix3_last(v, cnt);
+}
+
+// The z pass's cells a lane: the fewest of FIX3_ROW_L for 32 segments to
+// cover nz (0: none does).
+constexpr int FIX3_ROW_L[] = {1, 2, 4, 8, 12, 16, 24, 32};
+
+template <int L>
+cudaError_t fix3_rows_launch(const QGD3DParams& P, const Fix3Rows& A,
+                             cudaStream_t st) {
+  const long rows = (long)(P.nx + 2) * (P.ny + 2);
+  const unsigned blocks = (unsigned)((rows + FIX3_ROWS - 1) / FIX3_ROWS);
+  qgd3d_smooth_kernel<Fix3L<L>><<<blocks, dim3(32, FIX3_ROWS), 0, st>>>(P, A);
+  return cudaGetLastError();
+}
+
+int fix3_row_cells(int nz) {
+  for (int L : FIX3_ROW_L)
+    if (32 * L >= nz) return L;
+  return 0;
+}
+
+cudaError_t fix3_rows(const QGD3DParams& P, const Fix3Rows& A,
+                      cudaStream_t st) {
+  switch (fix3_row_cells(P.nz)) {
+    case 1: return fix3_rows_launch<1>(P, A, st);
+    case 2: return fix3_rows_launch<2>(P, A, st);
+    case 4: return fix3_rows_launch<4>(P, A, st);
+    case 8: return fix3_rows_launch<8>(P, A, st);
+    case 12: return fix3_rows_launch<12>(P, A, st);
+    case 16: return fix3_rows_launch<16>(P, A, st);
+    case 24: return fix3_rows_launch<24>(P, A, st);
+    case 32: return fix3_rows_launch<32>(P, A, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The y and x passes' launch for lines of n cells: L cells a thread and Z
+// lines a block ({0, 0} where none fits): the most lines a block (32, else
+// 16; neighbours along z, so rows of 128 or 64 B) whose segments of at most
+// 16 cells fit FIX3_COLS_THREADS threads, else 32 cells and 16 lines.  On
+// the shocked jet at 640x318x318 on an H100 the y pass (318 cells: L 16, Z
+// 32) took 0.20 ms against 0.24 with L 8, Z 16; the x pass (640 cells: L
+// 16, Z 16) 0.25 ms against 0.38 with L 32, Z 32 (which spill at 48
+// registers) and 0.34-0.43 with one block of up to 1024 threads an SM
+// (PERF.md).
+struct Fix3Shape {
+  int L, Z;
+};
+
+constexpr Fix3Shape FIX3_COL_SHAPES[] = {{8, 32}, {16, 32}, {16, 16},
+                                         {32, 16}};
+
+Fix3Shape fix3_col_shape(int n) {
+  for (const Fix3Shape& c : FIX3_COL_SHAPES)
+    if ((n + c.L - 1) / c.L * c.Z <= FIX3_COLS_THREADS) return c;
+  return {0, 0};
+}
+
+template <int L, int Z>
+cudaError_t fix3_cols_launch(const QGD3DParams& P, const Fix3Cols& A,
+                             int groups, cudaStream_t st) {
+  qgd3d_smooth_kernel<Fix3L<L, Z>>
+      <<<dim3((P.nz + 2 + Z - 1) / Z, groups), Z * ((A.n + L - 1) / L), 0,
+         st>>>(P, A);
+  return cudaGetLastError();
+}
+
+cudaError_t fix3_cols(const QGD3DParams& P, const Fix3Cols& A, int groups,
+                      cudaStream_t st) {
+  const Fix3Shape c = fix3_col_shape(A.n);
+  switch (c.L * 100 + c.Z) {
+    case 832: return fix3_cols_launch<8, 32>(P, A, groups, st);
+    case 1632: return fix3_cols_launch<16, 32>(P, A, groups, st);
+    case 1616: return fix3_cols_launch<16, 16>(P, A, groups, st);
+    case 3216: return fix3_cols_launch<32, 16>(P, A, groups, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // qgd3d_emit: the raw sensor of the fresh frames, its first fvc::smooth ring
 // and the change flag, in one launch (qgd3d_sensor: the raw sensor alone)
 // ---------------------------------------------------------------------------
@@ -1949,6 +2312,41 @@ int qgd3d_smooth(const QGD3DParams* prm, const float* in, long sx, long sy,
 int qgd3d_smooth_shape(const QGD3DParams* prm, int k, int* out) {
   Smooth3 A = {};
   return static_cast<int>(smooth3_dispatch(k, *prm, A, nullptr, out));
+}
+
+// fvc::smooth's fixed point of the (nx, ny, nz) cells at in (cell (x, y, z)
+// at in[x * sx + y * sy + z]) into the frame out, ghosts edge-replicated, in
+// three launches (z, y, x); chg <- 1 if a cell is not finite or has its sign
+// bit set (out is then not the rings' fixed point), else 0.  Every axis at
+// most FIX3_MAXN cells, and maxRatio at least 1.
+int qgd3d_smooth_fixed(const QGD3DParams* prm, const float* in, long sx,
+                       long sy, float* out, float* chg, void* stream) {
+  const QGD3DParams& P = *prm;
+  if (P.nx > FIX3_MAXN || P.ny > FIX3_MAXN || P.nz > FIX3_MAXN ||
+      !(P.smooth_ratio >= 1.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(chg, 0, sizeof(float), st);
+  const long wz = P.nz + 2, wyz = (long)(P.ny + 2) * wz;
+  if (e == cudaSuccess) e = fix3_rows(P, Fix3Rows{in, sx, sy, out, chg}, st);
+  if (e == cudaSuccess)
+    e = fix3_cols(P, Fix3Cols{out, wz, wyz, P.ny}, P.nx + 2, st);
+  if (e == cudaSuccess)
+    e = fix3_cols(P, Fix3Cols{out, wyz, wz, P.nx}, P.ny + 2, st);
+  return static_cast<int>(e);
+}
+
+// The fixed point's launches at prm's shape: out = {cells a lane of the z
+// pass, cells a thread and threads a block of the y pass, the same of the x
+// pass}; 0 cells where an axis is too long.
+int qgd3d_smooth_fixed_shape(const QGD3DParams* prm, int* out) {
+  const Fix3Shape y = fix3_col_shape(prm->ny), x = fix3_col_shape(prm->nx);
+  out[0] = fix3_row_cells(prm->nz);
+  out[1] = y.L;
+  out[2] = y.L ? (prm->ny + y.L - 1) / y.L * y.Z : 0;
+  out[3] = x.L;
+  out[4] = x.L ? (prm->nx + x.L - 1) / x.L * x.Z : 0;
+  return 0;
 }
 
 }  // extern "C"

@@ -18,8 +18,11 @@ One step:
      sensor (XLA's `fvc_smooth` between the kernel's calls in the
      reference): `smoothing.smooth_sensor` reads the carried flag on the
      host; at 0, ring 1 is the fixed point and `sc_s1` is the frame, with
-     no launch; else `qgd3d_smooth` carries it on, SMOOTH3_RINGS rings a
-     launch, one host flag read a launch;
+     no launch; else `qgd3d_smooth` writes the fixed point of `sc_s1` in
+     three line sweeps (k = SMOOTH_FIXED) and the host reads that call's
+     flag, which is 0 unless a cell is NaN, infinite or negative; there
+     `qgd3d_smooth` carries ring 1 on, SMOOTH3_RINGS rings a launch, one
+     host flag read a launch;
   3. `qgd3d_update`: the six face fluxes of each cell and the explicit
      update into new frames, plus ws/tau_f on the two x-boundary faces;
   4. varScModel5 only: `qgd3d_emit`, the raw sensor over the fresh frames,
@@ -34,7 +37,8 @@ version beside it (`dt_reference_3d`, `smooth_reference_3d`,
 `ghosts_reference_3d`); for CUDA tensors it launches the kernel from
 csrc/qgd3d.cu or raises.  Each wrapper counts its launches in a plain
 integer attribute (`qgd3d_dt.launches`, ...; `qgd3d_smooth.rings` counts
-its rings too).
+its rings too, `.fixed` its fixed-point calls and `.fallbacks` those whose
+flag sent the step to the rings).
 
 `build_sharded_fused_step_3d` (K5) runs the same kernels on each rank's
 x-slab of an x-ring decomposition: the slab's frame carries the
@@ -72,8 +76,9 @@ from .fused_qgd2d import (KINDS, _bc_ghost, _ptr, _raw_value, _scalar,
                           one_cell_extrapolation)
 from .fvsc import _hi, _lo
 from .pad import _sl
-from .smoothing import (_edge_frame, _smooth_plain, require_exact_ring,
-                        smooth_args, smooth_reference, smooth_sensor)
+from .smoothing import (SMOOTH_FIXED, _edge_frame, _smooth_plain,
+                        require_exact_ring, smooth_args, smooth_reference,
+                        smooth_sensor)
 
 FIELDS = ("p", "T", "ux", "uy", "uz")
 _CONST_SC_PR = ("ConstScPrModel1", "ConstScPrModel1n", "ConstScPrModel2")
@@ -752,6 +757,18 @@ def qgd3d_ghosts(prm, frames, side, planes):
 # level per ring), and the rings per launch after the emitted first ring
 SMOOTH3_KMAX = 4
 SMOOTH3_RINGS = 4
+# the fixed point's launches a call (its z, y and x passes) and the most
+# cells along an axis it takes (the z pass: 32 lanes of 32 cells)
+SMOOTH3_FIXED_LAUNCHES = 3
+SMOOTH3_FIXED_MAXN = 1024
+
+
+def fixed_supported(prm) -> bool:
+    """Whether `qgd3d_smooth` takes k = SMOOTH_FIXED at prm: every axis at
+    most SMOOTH3_FIXED_MAXN cells and maxRatio (as float32) at least 1,
+    where h(v) <= v makes the sweeps the rings' fixed point."""
+    return (max(prm.nx, prm.ny, prm.nz) <= SMOOTH3_FIXED_MAXN
+            and float(np.float32(prm.smooth_ratio)) >= 1.0)
 
 
 def qgd3d_smooth(prm, f, k, out=None, flag=None):
@@ -760,10 +777,24 @@ def qgd3d_smooth(prm, f, k, out=None, flag=None):
     into the frame `out` (new if None) with edge-replicated ghosts, and a
     0-dim flag (new if None), 1.0 if the last ring raised any cell, else
     0.0 - see `smooth_reference_3d`.  Each launch adds one to `launches`
-    and k to `rings`."""
+    and k to `rings`.
+
+    k = SMOOTH_FIXED (where `fixed_supported`): the rings' fixed point
+    itself, in line sweeps, and a flag 1.0 if a cell of f is not finite or
+    has its sign bit set (the result is then not the rings'), else 0.0 -
+    see `smoothing.smooth_fixed_reference`.  A call adds one to `fixed`
+    and, on a card, SMOOTH3_FIXED_LAUNCHES to `launches` and none to
+    `rings`.  `fallbacks` counts the calls whose flag sent
+    `smoothing.smooth_sensor` to the rings."""
     nx, ny, nz = prm.nx, prm.ny, prm.nz
+    fixed = k == SMOOTH_FIXED
+    if fixed and not fixed_supported(prm):
+        raise ValueError("qgd3d_smooth: no fixed point at this shape or "
+                         "maxRatio")
     on_card, bare, out, flag = smooth_args(
-        "qgd3d_smooth", (nx, ny, nz), SMOOTH3_KMAX, f, k, out, flag)
+        "qgd3d_smooth", (nx, ny, nz), SMOOTH3_KMAX, f, 0 if fixed else k,
+        out, flag)
+    qgd3d_smooth.fixed += fixed
     if not on_card:
         return _smooth_plain(prm, f, k, out, flag)
     lib = _build.load()
@@ -774,11 +805,18 @@ def qgd3d_smooth(prm, f, k, out=None, flag=None):
         sx, sy = (ny + 2) * (nz + 2), nz + 2
         base = f.data_ptr() + 4 * (sx + sy + 1)
     with torch.cuda.device(f.device):
-        code = lib.qgd3d_smooth(prm, base, sx, sy, k, _ptr(out), _ptr(flag),
-                                _stream(f))
+        if fixed:
+            code = lib.qgd3d_smooth_fixed(prm, base, sx, sy, _ptr(out),
+                                          _ptr(flag), _stream(f))
+        else:
+            code = lib.qgd3d_smooth(prm, base, sx, sy, k, _ptr(out),
+                                    _ptr(flag), _stream(f))
     _build.check(lib, code, "qgd3d_smooth")
-    qgd3d_smooth.launches += 1
-    qgd3d_smooth.rings += k
+    if fixed:
+        qgd3d_smooth.launches += SMOOTH3_FIXED_LAUNCHES
+    else:
+        qgd3d_smooth.launches += 1
+        qgd3d_smooth.rings += k
     return out, flag
 
 
@@ -795,6 +833,19 @@ def smooth_launch_shape(prm, k, device) -> dict:
             "blocks_per_sm": out[4]}
 
 
+def fixed_launch_shape(prm, device) -> dict:
+    """The fixed point's launches at prm's shape: the cells a lane of the z
+    pass holds, and the cells a thread holds and the threads of a block of
+    the y and of the x pass."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        code = lib.qgd3d_smooth_fixed_shape(prm, out)
+    _build.check(lib, code, "qgd3d_smooth_fixed_shape")
+    return {"z_cells": out[0], "y_cells": out[1], "y_threads": out[2],
+            "x_cells": out[3], "x_threads": out[4]}
+
+
 qgd3d_dt.launches = 0
 qgd3d_dt_fold.launches = 0
 qgd3d_dt_apply.launches = 0
@@ -804,6 +855,8 @@ qgd3d_emit.launches = 0
 qgd3d_ghosts.launches = 0
 qgd3d_smooth.launches = 0
 qgd3d_smooth.rings = 0
+qgd3d_smooth.fixed = 0
+qgd3d_smooth.fallbacks = 0
 # the kernels of the serial step
 KERNELS = (qgd3d_dt, qgd3d_update, qgd3d_emit, qgd3d_ghosts, qgd3d_smooth)
 # the flagged kernels of the decomposed step (K5)
@@ -825,7 +878,9 @@ def build_fused_step_3d(solver, plain: bool = False):
     The varScModel5 sensor frame is `smooth_sensor` on `qgd3d_smooth` (or
     its plain version) from the carried first ring and flag, which
     `qgd3d_emit` makes from the fresh frames (a new frame each step, so
-    the carry's `sc` is never written); on a card the builder first
+    the carry's `sc` is never written): the fixed point in one call where
+    `fixed_supported`, the rings where its flag says the sweeps do not
+    hold, or at any other shape; on a card the builder first
     requires the division-free ring exact for the case's maxRatio.
     to_fused makes the first ring and flag of the State's raw sensor with
     the plain ring.
@@ -849,7 +904,8 @@ def build_fused_step_3d(solver, plain: bool = False):
         k_dt, k_update, k_emit, k_ghosts, k_smooth = KERNELS
         if varsc and mesh.device.type == "cuda":
             require_exact_ring(prm, mesh.device)
-    scratch = {}  # the cache of smooth_sensor
+    # the cache of smooth_sensor, and whether it takes the fixed point
+    scratch = {"fixed": varsc and fixed_supported(prm)}
 
     def step(fs: Fused3DState) -> Fused3DState:
         dt_new = k_dt(prm, fs.T, fs.ux, fs.uy, fs.uz, fs.dt)

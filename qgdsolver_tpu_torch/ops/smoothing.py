@@ -5,7 +5,8 @@ A ring is f <- max(f, nbr_max(f)/maxRatio) over the face neighbours, a
 cell beyond a physical edge being the cell itself; fvc::smooth carries the
 rings to their fixed point.  This module holds what does not depend on the
 number of axes: the plain version of a launch of k rings
-(`smooth_reference`, `_smooth_plain`), the checks both wrappers share
+(`smooth_reference`, `_smooth_plain`) and of the fixed point in line sweeps
+(`smooth_fixed_reference`), the checks both wrappers share
 (`smooth_args`), the host loop that groups the rings into launches
 (`smooth_sensor`), and the card's check of the kernels' division-free ring
 (`smooth_ring_check`, `require_exact_ring`).
@@ -47,17 +48,54 @@ def smooth_reference(prm, f, k):
     return f, flag
 
 
+# the k that asks a smoothing call for the fixed point itself (only
+# `qgd3d_smooth` and `_smooth_plain` take it)
+SMOOTH_FIXED = -1
+
+
+def _sweeps(g, a, ratio):
+    """S_a of g: along axis a the forward sweep t <- max(g, t/ratio), then
+    the backward one over its result."""
+    t = g.movedim(a, 0).clone()
+    for i in range(1, t.shape[0]):
+        t[i] = torch.maximum(t[i], t[i - 1] / ratio)
+    for i in range(t.shape[0] - 2, -1, -1):
+        t[i] = torch.maximum(t[i], t[i + 1] / ratio)
+    return t.movedim(0, a).contiguous()
+
+
+def smooth_fixed_reference(prm, f):
+    """Plain version of `qgd3d_smooth`'s fixed point: the rings' fixed point
+    of the cells f (any number of axes) as line sweeps, one axis after the
+    other from the last (`_sweeps`), and a 0-dim flag, 1.0 if a cell is not
+    finite or has its sign bit set, else 0.0.  With h(v) the ring's
+    division by maxRatio (>= 1), the rings reach max over cells d of
+    h^n(f(d)), n the L1 distance, and the sweeps form that max from the
+    same divisions: for a flag of 0 the cells are `fvc_smooth`'s bit for
+    bit (csrc/qgd3d.cu says why); for a flag of 1 they are not the rings'."""
+    ratio = smooth_ratio(prm.smooth_ratio - 1.0, f)
+    flag = (~(torch.isfinite(f) & ~torch.signbit(f))).any().to(f.dtype)
+    for a in reversed(range(f.ndim)):
+        f = _sweeps(f, a, ratio)
+    return f, flag
+
+
 def _smooth_plain(prm, f, k, out, flag):
     """What `qgd2d_smooth` and `qgd3d_smooth` compute, in plain torch:
-    `smooth_reference` on the cells of f (the cells, or the interior of a
-    frame shaped as out), edge-framed into out; the flag into flag."""
+    `smooth_reference` (`smooth_fixed_reference` for k = SMOOTH_FIXED) on
+    the cells of f (the cells, or the interior of a frame shaped as out),
+    edge-framed into out; the flag into flag."""
     cells = tuple(n - 2 for n in out.shape)
     if tuple(f.shape) != cells:
         f = f[(slice(1, -1),) * f.ndim]
-    got, fl = smooth_reference(prm, f, k)
+    got, fl = (smooth_fixed_reference(prm, f) if k == SMOOTH_FIXED
+               else smooth_reference(prm, f, k))
     out.copy_(_edge_frame(got))
     flag.copy_(fl)
     return out, flag
+
+
+_smooth_plain.fallbacks = 0
 
 
 def smooth_args(name, cells, kmax, f, k, out, flag):
@@ -97,12 +135,24 @@ def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
     tests after its first ring: an inactive sensor costs one ring.  Then it
     launches k rings at a time, reading each launch's last-ring flag, until
     a launch's last ring raised no cell or the `fvc_smooth` cap of
-    max_iters rings is reached.  The launches alternate between the
+    max_iters rings is reached.
+
+    Where `cache` holds "fixed" true (the 3D step's) and the flag chg is
+    set, `smooth` first writes the fixed point itself (k = SMOOTH_FIXED)
+    into the returned frame, and the host reads that call's flag: at 0 the
+    frame is the sensor, after two reads in all; at 1 (a cell of s1 not
+    finite or with its sign bit set, where the fixed point is not the
+    rings') `smooth.fallbacks` counts it and the rings run from s1.  A mesh
+    whose L1 diameter (its axes' cells less one each, summed) is not below
+    max_iters - 4, where the rings may stop at the cap short of the fixed
+    point, takes the rings alone.
+
+    The ring launches alternate between the
     returned frame, which is new, and a scratch frame; the last one lands
     in the returned frame when the call takes as many launches as the call
     before it, else one copy moves it there.  `cache` (a dict a step
     builder keeps) holds the scratch frame, the flag and the launches of
-    the last call per device across calls.  Counts its host flag reads in
+    the last call per device across calls, and "fixed".  Counts its host flag reads in
     `reads` and its rings in `rings`.  Inside a traced `run_steps` call
     the call is a `qgd.smooth_sensor` span and each flag read a
     `qgd.flag_read` span, with its refill timed on a card
@@ -146,6 +196,15 @@ def _smooth_sensor(prm, s1, chg, smooth, k, cache, max_iters, read,
     if still:
         enqueued()
         return smooth(prm, s1, 0, out, flag)[0]
+    fixed = cache is not None and cache.get("fixed", False)
+    if fixed and chg is not None and sum(cells) - len(cells) < max_iters - 4:
+        enqueued()
+        smooth(prm, s1, SMOOTH_FIXED, out, flag)
+        smooth_sensor.reads += 1
+        if not read(flag):
+            enqueued()
+            return out
+        smooth.fallbacks += 1
     src, dst, n = s1, (out if last % 2 else scratch), 0
     while True:
         enqueued()

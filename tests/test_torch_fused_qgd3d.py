@@ -214,7 +214,7 @@ def test_fused_step_matches_jax_fused_and_composable(name):
     fused kernel's own stand 0.16 from its composable step's, most of the
     f32 quantization bound (~0.27)."""
     js, jst, ts, st = _build(name)
-    rings = S.smooth_sensor.rings
+    fixed = F.qgd3d_smooth.fixed
     assert JF.supported(js) and F.supported(ts) and ts.fused_supported()
     jstep, jto, jfrom = JF.build_fused_step_3d(js, interpret=True)
     jstep = jax.jit(jstep)
@@ -226,7 +226,7 @@ def test_fused_step_matches_jax_fused_and_composable(name):
     out = interop.state_to_numpy(tfrom(tfs))
     assert _rel(jst.rho, out.rho) > 1e-6, "the state must evolve"
     if name == "flagship_bump":
-        assert S.smooth_sensor.rings > rings, "the rings must continue"
+        assert F.qgd3d_smooth.fixed > fixed, "the smoothing must continue"
     for ref in (jfrom(jfs), cs):
         with_pbc = name != "flagship_bump" or ref is cs
         np.testing.assert_allclose(out.dt, _f64(ref.dt), rtol=1e-6)
@@ -555,19 +555,26 @@ def test_3d_step_on_cpu_is_no_launch():
     """On CPU tensors the 3D varsc step's wrappers take their plain
     versions: no launch and no ring counted by any kernel, while the
     smoothing loop counts one host flag read a step (the carried flag) and
-    one more a call of SMOOTH3_RINGS rings, and the step's sensor is
-    fvc_smooth of the raw sensor the previous step emitted (to_fused's for
-    the first), its carried ring 1 and flag those of that raw sensor.
-    `qgd3d_smooth` checks its inputs."""
+    one more where that flag is set, for the fixed point's call (no ring,
+    no fallback on a sound sensor), and the step's sensor is fvc_smooth of
+    the raw sensor the previous step emitted (to_fused's for the first),
+    its carried ring 1 and flag those of that raw sensor.  `qgd3d_smooth`
+    checks its inputs."""
     ts, s = tcases.supersonic_jet_3d_varsc(shape=RAGGED, device="cpu")
     prm, _ = F.make_params(ts)
     step, to_f, _ = ts.make_fused_step()
     s = ts.make_step()(s)
+    x = torch.arange(RAGGED[0]).reshape(-1, 1, 1)
+    bump = 1.0 + 0.4 * (x == RAGGED[0] // 2).to(s.rho.dtype)
+    s = s._replace(rho=s.rho * bump, rhoE=s.rhoE * bump)
     fs = to_f(s)
     raw = F.raw_sensor(ts, fs.p, fs.T, s.sc)
     before = [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings]
     reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
+    fixed, fallbacks = F.qgd3d_smooth.fixed, F.qgd3d_smooth.fallbacks
+    active = 0
     for _ in range(3):
+        active += float(fs.sc_chg) == 1.0
         new = step(fs)
         assert torch.equal(new.sc, F._edge_frame(
             tcoeffs.fvc_smooth(raw, ts.tau_model.smoothCoeff)))
@@ -578,9 +585,11 @@ def test_3d_step_on_cpu_is_no_launch():
         assert float(new.sc_chg) == float(flag) == float(chg)
         fs = new
     assert [k.launches for k in F.KERNELS] + [F.qgd3d_smooth.rings] == before
-    reads = S.smooth_sensor.reads - reads
-    assert reads >= 3
-    assert S.smooth_sensor.rings - rings == F.SMOOTH3_RINGS * (reads - 3)
+    assert active >= 1, "the bump must set the carried flag"
+    assert S.smooth_sensor.reads - reads == 3 + active
+    assert S.smooth_sensor.rings == rings
+    assert F.qgd3d_smooth.fixed - fixed == active
+    assert F.qgd3d_smooth.fallbacks == fallbacks
     with pytest.raises(ValueError):
         F.qgd3d_smooth(prm, fs.sc_s1, F.SMOOTH3_KMAX + 1)
     with pytest.raises(ValueError):
@@ -849,6 +858,107 @@ def test_emitted_ring_continuation_is_bitwise_fvc_smooth(field, k):
             assert float(chg) == 0.0 and out is s1 and reads == 1
         else:
             assert float(chg) == 1.0 and reads >= 2 and out is not s1
+
+
+def _fixed_field(field, shape):
+    """A sensor for the fixed point's tests: random in [0.05, 1], a spike,
+    at rest (0.05), below the division-free ring's guard (2^-96: subnormals
+    and zeros among them, one normal spike), or zeros."""
+    rng = np.random.default_rng(17)
+    if field == "random":
+        return rng.uniform(0.05, 1.0, size=shape).astype(np.float32)
+    if field == "zeros":
+        return np.zeros(shape, dtype=np.float32)
+    if field == "tiny":
+        raw = np.ldexp(rng.uniform(0.5, 1.0, shape),
+                       rng.integers(-150, -90, shape)).astype(np.float32)
+        raw[rng.random(shape) < 0.1] = 0.0
+        raw[tuple(n // 2 for n in shape)] = 0.5
+        return raw
+    raw = np.full(shape, 0.05, dtype=np.float32)
+    if field == "spike":
+        raw[tuple(n // 3 for n in shape)] = 1.0
+        raw[-1, -1, 0] = 0.7
+    return raw
+
+
+def _with_ratio(prm, ratio):
+    out = _build_params_copy(prm)
+    out.smooth_ratio = ratio
+    return out
+
+
+@pytest.mark.parametrize("start", ["raw", "ring1"])
+@pytest.mark.parametrize("ratio", [1.05, 1.1, 2.0])
+@pytest.mark.parametrize("field", ["random", "spike", "rest", "tiny",
+                                   "zeros"])
+def test_fixed_point_sweeps_are_bitwise_fvc_smooth(field, ratio, start):
+    """The plain version of `qgd3d_smooth`'s fixed point (line sweeps along
+    z, y, x) of the raw sensor or of its first ring, on ragged shapes and
+    through the wrapper on cells and on a frame, is the port's fvc_smooth
+    of the raw sensor edge-framed, bit for bit, with the flag 0."""
+    for shape in (RAGGED, (5, 17, 1), (1, 6, 23)):
+        ts, _ = tcases.supersonic_jet_3d_varsc(shape=shape, device="cpu")
+        prm = _with_ratio(F.make_params(ts)[0], ratio)
+        raw = torch.as_tensor(_fixed_field(field, shape))
+        f = raw if start == "raw" else F.smooth_reference_3d(prm, raw, 1)[0]
+        ref = F._edge_frame(tcoeffs.fvc_smooth(raw, ratio - 1.0))
+        cells, flag = S.smooth_fixed_reference(prm, f)
+        assert torch.equal(F._edge_frame(cells), ref), shape
+        assert float(flag) == 0.0
+        for src in (f, F._edge_frame(f)):
+            out, flag = F.qgd3d_smooth(prm, src, S.SMOOTH_FIXED)
+            assert torch.equal(out, ref) and float(flag) == 0.0, shape
+    if field == "spike":
+        assert float(ref[C][0, 0, 0]) > 0.05, "the spike must spread"
+
+
+@pytest.mark.parametrize("bad", ["nan", "negative", "inf", "minus_zero"])
+def test_fixed_point_flag_sends_the_step_to_the_rings(bad):
+    """A ring 1 with a NaN, a negative, an infinite or a -0 cell: the fixed
+    point's flag is 1, and the 3D step's smoothing (`smooth_sensor` with
+    `fixed`) counts a fallback and returns the ring loop's result, NaN
+    exactly where it has NaN, after one read for the carried flag, one for
+    the fixed point's and one a call of rings.  At rest nothing runs, and a
+    mesh whose diameter reaches the ring cap less a group takes the rings
+    alone."""
+    raw = torch.as_tensor(_fixed_field("spike", RAGGED))
+    ts, _ = tcases.supersonic_jet_3d_varsc(shape=RAGGED, device="cpu")
+    prm, _ = F.make_params(ts)
+    cells, chg = F.smooth_reference_3d(prm, raw, 1)
+    cells[3, 4, 5] = {"nan": float("nan"), "negative": -0.5,
+                      "inf": float("inf"), "minus_zero": -0.0}[bad]
+    s1 = F._edge_frame(cells)
+    assert float(S.smooth_fixed_reference(prm, cells)[1]) == 1.0
+    assert float(F.qgd3d_smooth(prm, s1, S.SMOOTH_FIXED)[1]) == 1.0
+    ring = S.smooth_sensor(prm, s1, chg, F.qgd3d_smooth, F.SMOOTH3_RINGS)
+    reads, rings = S.smooth_sensor.reads, S.smooth_sensor.rings
+    fixed, fallbacks = F.qgd3d_smooth.fixed, F.qgd3d_smooth.fallbacks
+    out = S.smooth_sensor(prm, s1, chg, F.qgd3d_smooth, F.SMOOTH3_RINGS,
+                          cache={"fixed": True})
+    nan = torch.isnan(ring)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ring[~nan])
+    assert (int(nan.sum()) > 1) == (bad == "nan")
+    assert F.qgd3d_smooth.fixed - fixed == 1
+    assert F.qgd3d_smooth.fallbacks - fallbacks == 1
+    calls = (S.smooth_sensor.rings - rings) // F.SMOOTH3_RINGS
+    assert calls >= 1 and S.smooth_sensor.reads - reads == 2 + calls
+    fixed = F.qgd3d_smooth.fixed
+    at_rest = S.smooth_sensor(prm, s1, torch.zeros(()), F.qgd3d_smooth,
+                              F.SMOOTH3_RINGS, cache={"fixed": True})
+    assert at_rest is s1 and F.qgd3d_smooth.fixed == fixed
+    s1 = F._edge_frame(F.smooth_reference_3d(prm, raw, 1)[0])
+    capped = S.smooth_sensor(prm, s1, chg, F.qgd3d_smooth, F.SMOOTH3_RINGS,
+                             cache={"fixed": True},
+                             max_iters=sum(RAGGED) - 3 + 4)
+    assert F.qgd3d_smooth.fixed == fixed
+    assert torch.equal(capped, F._edge_frame(tcoeffs.fvc_smooth(raw, 0.1)))
+    with pytest.raises(ValueError):
+        F.qgd3d_smooth(_with_ratio(prm, 0.9), s1, S.SMOOTH_FIXED)
+    long_x = _build_params_copy(prm)
+    long_x.nx = F.SMOOTH3_FIXED_MAXN + 1
+    assert not F.fixed_supported(long_x) and F.fixed_supported(prm)
 
 
 @pytest.mark.parametrize("name", ["supersonic_jet_3d_varsc", "flagship",

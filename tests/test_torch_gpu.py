@@ -598,9 +598,11 @@ def test_3d_main_path_launches_each_kernel_once_per_step(name, device):
 
 def test_3d_main_path_with_a_bump_runs_the_rings(device):
     """The varsc jet with a density bump through the main path: the emit
-    once a step, `qgd3d_smooth` carrying ring 1 on (4 rings a launch), one
-    host flag read a step and one a launch, and each step's sensor frame
-    fvc_smooth of the raw sensor the step before emitted."""
+    once a step, and where the carried flag is set `qgd3d_smooth`'s fixed
+    point in its three launches instead of the rings (no ring, no
+    fallback), one host flag read a step and one a fixed-point call, and
+    each step's sensor frame fvc_smooth of the raw sensor the step before
+    emitted."""
     from chip_smoke import with_bump
 
     solver, state = cases.supersonic_jet_3d_varsc(shape=SHAPE3, device=device)
@@ -609,9 +611,12 @@ def test_3d_main_path_with_a_bump_runs_the_rings(device):
     fs = step(to_f(with_bump(solver, state)))
     for k in F3.KERNELS:
         k.launches = 0
-    F3.qgd3d_smooth.rings = 0
+    F3.qgd3d_smooth.rings = F3.qgd3d_smooth.fixed = 0
+    F3.qgd3d_smooth.fallbacks = 0
     reads = S.smooth_sensor.reads
+    active = 0
     for _ in range(5):
+        active += float(fs.sc_chg) == 1.0
         raw = F3.qgd3d_emit(prm, fs.p, fs.T, fs.sc, raw=True)[0]
         new = step(fs)
         assert torch.equal(new.sc, F._edge_frame(
@@ -620,9 +625,10 @@ def test_3d_main_path_with_a_bump_runs_the_rings(device):
     reads = S.smooth_sensor.reads - reads
     got = {k.__name__: k.launches for k in F3.KERNELS}
     assert got["qgd3d_emit"] == 10 and got["qgd3d_dt"] == 5
-    assert got["qgd3d_smooth"] >= 1
-    assert F3.qgd3d_smooth.rings == F3.SMOOTH3_RINGS * got["qgd3d_smooth"]
-    assert reads == 5 + got["qgd3d_smooth"]
+    assert active >= 1 and F3.qgd3d_smooth.fixed == active
+    assert got["qgd3d_smooth"] == F3.SMOOTH3_FIXED_LAUNCHES * active
+    assert F3.qgd3d_smooth.rings == 0 and F3.qgd3d_smooth.fallbacks == 0
+    assert reads == 5 + active
     s = from_f(fs)
     assert bool(torch.isfinite(s.rho).all()) and bool((s.rho > 0).all())
 
@@ -967,6 +973,103 @@ def test_smooth3_kernel_on_ragged_shapes(shape, k, device):
     cells, chg = F3.smooth_reference_3d(prm, f, 1)
     s1 = F._edge_frame(cells)
     assert torch.equal(S.smooth_sensor(prm, s1, chg, F3.qgd3d_smooth, k), ref)
+
+
+@pytest.mark.parametrize("ratio", [1.1, 1.05, 2.0])
+@pytest.mark.parametrize("shape", [(37, 13, 45), (20, 70, 9), (9, 30, 130),
+                                   (1, 1, 1), (2, 1, 33), (13, 257, 9),
+                                   (3, 4, 1024), (1024, 3, 5), (70, 33, 97)])
+def test_smooth3_fixed_point_on_ragged_shapes(shape, ratio, device):
+    """`qgd3d_smooth`'s fixed point (k = SMOOTH_FIXED: its z, y and x
+    passes) where no axis is a multiple of a pass's segments or blocks
+    (the longest lines the passes take among them), on cells and on a
+    frame of a random sensor with spikes and of one below the ring's
+    underflow guard: bitwise its plain version, with the flag 0; for the
+    cases' maxRatio also bitwise `fvc_smooth` edge-framed on the card."""
+    solver = cases.supersonic_jet_3d_varsc(shape=shape, device=device)[0]
+    prm = F3.make_params(solver)[0]
+    prm.smooth_ratio = ratio
+    rng = np.random.default_rng(19)
+    fields = [rng.uniform(0.05, 1.0, shape).astype(np.float32)]
+    for _ in range(4):
+        fields[0][tuple(rng.integers(0, n) for n in shape)] = 5.0
+    tiny = np.ldexp(rng.uniform(0.5, 1.0, shape),
+                    rng.integers(-150, -85, shape)).astype(np.float32)
+    tiny[rng.random(shape) < 0.05] = 0.0
+    tiny[tuple(n // 2 for n in shape)] = 1.0
+    fields.append(tiny)
+    for raw in fields:
+        f = torch.as_tensor(raw, device=device)
+        cells, ref_flag = S.smooth_fixed_reference(prm, f)
+        ref = F._edge_frame(cells)
+        assert float(ref_flag) == 0.0
+        for src in (f, F._edge_frame(f)):
+            out, flag = F3.qgd3d_smooth(prm, src, S.SMOOTH_FIXED)
+            assert torch.equal(out, ref)
+            assert float(flag) == 0.0
+        if ratio == 1.1:
+            assert torch.equal(ref, F._edge_frame(F3.fvc_smooth(f, 0.1)))
+
+
+def _shocked(solver, state):
+    """The 3D jet's state with the shocked traffic's three density slabs
+    (rho and rhoE times 1.375, 1.5625 and 1.75 where |x - c| < 0.1, at
+    c = 1, 2 and 3)."""
+    x = torch.as_tensor(np.asarray(solver.mesh.centers[0]),
+                        device=state.rho.device)
+    factor = torch.ones_like(x)
+    for c, a in ((1.0, 0.375), (2.0, 0.5625), (3.0, 0.75)):
+        factor = factor + a * (torch.abs(x - c) < 0.1).to(x.dtype)
+    factor = factor.reshape(-1, 1, 1).to(state.rho.dtype)
+    return state._replace(rho=state.rho * factor, rhoE=state.rhoE * factor)
+
+
+def test_smooth3_fixed_point_on_the_shocked_jet(device):
+    """The ring 1 that the 3D jet with three density slabs emits
+    (96x62x62, 369k cells): the fixed-point call bitwise its plain
+    version and the ring loop, with the flag 0, counted as one fixed call
+    of SMOOTH3_FIXED_LAUNCHES launches and no ring; with one NaN cell its
+    flag is 1 and the step's smoothing falls back to the rings' result, NaN
+    exactly where they have NaN.  Its launches appear in a trace under
+    `qgdbench.timing.kernel_key` as qgd3d_smooth."""
+    from qgdbench.timing import kernel_key
+
+    solver, state = cases.supersonic_jet_3d_varsc(shape=(96, 62, 62),
+                                                  device=device)
+    prm = F3.make_params(solver)[0]
+    step, to_f, _ = solver.make_fused_step()
+    fs = step(to_f(_shocked(solver, state)))
+    assert float(fs.sc_chg) == 1.0, "the slabs must keep the sensor active"
+    rings = S.smooth_sensor(prm, fs.sc_s1, fs.sc_chg, F3.qgd3d_smooth,
+                            F3.SMOOTH3_RINGS)
+    assert not torch.equal(rings, fs.sc_s1)
+    from chip_smoke import device_events
+
+    was = (F3.qgd3d_smooth.launches, F3.qgd3d_smooth.fixed,
+           F3.qgd3d_smooth.rings)
+    out, flag = F3.qgd3d_smooth(prm, fs.sc_s1, S.SMOOTH_FIXED)
+    counts = (F3.qgd3d_smooth.launches - was[0],
+              F3.qgd3d_smooth.fixed - was[1], F3.qgd3d_smooth.rings - was[2])
+    assert counts == (F3.SMOOTH3_FIXED_LAUNCHES, 1, 0)
+    names = [n for n, _ in device_events(
+        lambda: F3.qgd3d_smooth(prm, fs.sc_s1, S.SMOOTH_FIXED), 1)
+        if "smooth" in n]
+    assert len(names) == F3.SMOOTH3_FIXED_LAUNCHES, names
+    assert {kernel_key(n) for n in names} == {"qgd3d_smooth"}, names
+    assert float(flag) == 0.0
+    assert torch.equal(out, rings)
+    cells, _ = S.smooth_fixed_reference(prm, fs.sc_s1[(slice(1, -1),) * 3])
+    assert torch.equal(out, F._edge_frame(cells))
+    bad = fs.sc_s1.clone()
+    bad[40, 30, 20] = float("nan")
+    assert float(F3.qgd3d_smooth(prm, bad, S.SMOOTH_FIXED)[1]) == 1.0
+    ring = S.smooth_sensor(prm, bad, fs.sc_chg, F3.qgd3d_smooth,
+                           F3.SMOOTH3_RINGS)
+    fallbacks = F3.qgd3d_smooth.fallbacks
+    got = S.smooth_sensor(prm, bad, fs.sc_chg, F3.qgd3d_smooth,
+                          F3.SMOOTH3_RINGS, cache={"fixed": True})
+    assert F3.qgd3d_smooth.fallbacks == fallbacks + 1
+    assert _same_with_nan(got, ring) and int(torch.isnan(ring).sum()) > 1
 
 
 @pytest.mark.parametrize("dims", [2, 3])
