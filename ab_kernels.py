@@ -137,11 +137,7 @@ def build_other(name: str, src: pathlib.Path):
         _build._bind(lib, "qgd3d_ghosts", [p3] + [ptr] * 8)
         _build._bind(lib, "qgd3d_sensor", [p3] + [ptr] * 5)
         _build._bind(lib, "qgd3d_update", [p3] + [ptr] * 14)
-        if hasattr(lib, "qgd3d_update_launch"):
-            _build._bind(lib, "qgd3d_update_launch",
-                         [p3, ctypes.POINTER(c_int)])
-        else:  # a build whose chunk was fixed
-            _build._bind(lib, "qgd3d_update_shape", [ctypes.POINTER(c_int)])
+        _build._bind(lib, "qgd3d_update_launch", [p3, ctypes.POINTER(c_int)])
         if hasattr(lib, "qgd3d_emit"):
             _build._bind(lib, "qgd3d_emit", [p3] + [ptr] * 7)
         if hasattr(lib, "qgd3d_smooth_fixed"):
@@ -193,16 +189,15 @@ BOUNDS = {}
 
 def on_library(lib, fn):
     """fn() with the wrappers launching lib's kernels."""
-    from qgdsolver_tpu_torch.ops import _build
-    from qgdsolver_tpu_torch.ops import fused_qgd2d as F
+    from qgdsolver_tpu_torch.ops import _build, launch
 
-    saved = _build.load, F._DT_WORK
+    saved = _build.load, launch._DT_WORK
     _build.load = lambda: lib
-    F._DT_WORK = WORKSPACES.setdefault(id(lib), {})
+    launch._DT_WORK = WORKSPACES.setdefault(id(lib), {})
     try:
         return fn()
     finally:
-        _build.load, F._DT_WORK = saved
+        _build.load, launch._DT_WORK = saved
 
 
 def inputs(dev):
@@ -269,15 +264,12 @@ def inputs(dev):
 def update_launch(lib, prm) -> tuple:
     """A build's `qgd3d_update` launch at prm's shape on the current
     device: (tile rows, tile lanes, chunk planes, shared bytes a block,
-    blocks an SM); a build whose chunk was fixed reports that one."""
+    blocks an SM)."""
     from qgdsolver_tpu_torch.ops import _build
 
     out = (ctypes.c_int * 5)()
-    if hasattr(lib, "qgd3d_update_launch"):
-        code = lib.qgd3d_update_launch(prm, out)
-    else:
-        code = lib.qgd3d_update_shape(out)
-    _build.check(lib, code, "qgd3d_update launch")
+    _build.check(lib, lib.qgd3d_update_launch(prm, out),
+                 "qgd3d_update_launch")
     return tuple(out)
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from .launch import launch
 
 
 def deposit_reference(values, flat, ncell):
@@ -57,14 +57,9 @@ def deposit(values, flat, ncell):
     key = torch.where((values != 0).any(dim=0), flat, ncell)
     order = torch.argsort(key, stable=True)
     cells = key[order].contiguous()
-    lib = _build.load()
-    fn = lib.deposit_f32 if values.dtype == torch.float32 else lib.deposit_f64
-    with torch.cuda.device(dev):
-        code = fn(values.data_ptr(), n, k, order.data_ptr(),
-                  cells.data_ptr(), out.data_ptr(), ncell,
-                  torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "deposit")
-    deposit.launches += 1
+    launch(deposit, "deposit_f32" if values.dtype == torch.float32
+           else "deposit_f64", values, n, k, order, cells, out, ncell,
+           like=values)
     return out
 
 

@@ -41,10 +41,10 @@ Each kernel call is a wrapper: for CPU tensors it runs the plain torch
 version beside it (`dt_reference`, `dt_fold_reference`,
 `dt_apply_reference`, `update_reference`, `ghosts_reference`,
 `emit_reference`, `smoothing.smooth_reference`); for CUDA tensors it
-launches the kernel from csrc/qgd2d.cu or raises.  Each wrapper counts its
-launches in a plain integer attribute (`qgd2d_dt.launches`, ...;
-`qgd2d_smooth.rings` counts its rings too).  The plain versions composed
-are the reference's `frame_fn`.
+launches the kernel from csrc/qgd2d.cu through `launch.launch`, which
+counts the launch in the wrapper's `launches` (`qgd2d_smooth.rings` counts
+its rings too).  The plain versions composed are the reference's
+`frame_fn`.
 
 Restrictions (`supported()`): 2D uniform f32 mesh, PerfectGasThermo with
 constant transport, constScPrModel1 or varScModel5,
@@ -55,7 +55,6 @@ needs a scalar cqSc (`tiled_supported()`).
 """
 from __future__ import annotations
 
-import ctypes
 import typing as tp
 
 import numpy as np
@@ -63,16 +62,19 @@ import torch
 
 from ..core import bc as bcm
 from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5
-from ..physics.thermo import ConstTransport, PerfectGasThermo
 from ..parallel import sharding, spmd
 from ..solvers import common
-from . import _build, fvsc
+from . import _build
+from .fused_common import (KINDS, bc_ghost, common_gate,
+                           one_cell_extrapolation, raw_value, state_frames,
+                           time_controls, x_ghosts, zg)
+from .launch import (check_dt, check_tensors, dt_work, launch, launch_shape,
+                     query)
+from .pad import ghost_pad
 from .smoothing import (_edge_frame, _smooth_plain, require_exact_ring,
                         smooth_args, smooth_reference, smooth_sensor)
 
 FIELDS = ("p", "T", "ux", "uy")
-KINDS = {"zg": 0, "fixed": 1, "grad": 2, "sym": 3, "extrap": 4, "io": 5,
-         "qgdflux": 6}
 
 
 class FusedState(tp.NamedTuple):
@@ -93,47 +95,6 @@ class FusedState(tp.NamedTuple):
 
 _SIMPLE_BCS = (bcm.FixedValue, bcm.ZeroGradient, bcm.FixedGradient,
                bcm.Symmetry, bcm.Extrapolated, bcm.InletOutlet)
-
-
-def _raw_value(b):
-    if isinstance(b, bcm.FixedValue):
-        return b.value
-    if isinstance(b, bcm.FixedGradient):
-        return b.grad
-    if isinstance(b, bcm.InletOutlet):
-        return b.inlet_value
-    return None
-
-
-def common_gate(solver, ndim: int) -> bool:
-    """The conditions both fused steps (2D and 3D) share: an explicit
-    QGDFoam on a uniform `ndim`-D f32 planar mesh without solid cells,
-    perfect gas with constant transport, the `full` stencil, and qgdFlux p
-    (unlimited, unrelaxed) only on x sides.  The BC kinds are each step's
-    own test: neither takes Mixed, Segmented or waveTransmissive sides."""
-    from ..solvers.qgd import QGDFoam
-
-    if type(solver) is not QGDFoam:
-        return False
-    mesh = solver.mesh
-    if mesh.ndim != ndim or mesh.dtype != torch.float32:
-        return False
-    if mesh.axisymmetric or mesh.solid is not None:
-        return False  # hoop sources, stairstep walls: composable only
-    if not all(np.allclose(d, d[0]) for d in mesh.dx):
-        return False
-    th = solver.thermo
-    if not (isinstance(th, PerfectGasThermo)
-            and isinstance(th.transport, ConstTransport)):
-        return False
-    if solver.implicit_diffusion:
-        return False
-    if solver.qgdflux_limit is not None or solver.qgdflux_relax != 1.0:
-        return False
-    for term in ("grad(U)", "grad(e)", "grad(rho)", "grad(p)"):
-        if fvsc.scheme_for(solver.fvsc_scheme, term) != "full":
-            return False
-    return all(a == 0 for a, _ in solver._flux_sides())
 
 
 def supported(solver) -> bool:
@@ -162,7 +123,7 @@ def supported(solver) -> bool:
                 # the exchange fills it: sharded_supported refuses it.
                 if isinstance(b, bcm.Extrapolated) and mesh.shape[a] < 2:
                     return False
-                raw = _raw_value(b)
+                raw = raw_value(b)
                 if raw is not None and not _value_is_static(raw, mesh, a,
                                                             side):
                     return False  # time-dependent BC: composable only
@@ -239,7 +200,7 @@ def _compile_bcs(solver, params: _build.QGDParams) -> np.ndarray:
         kind = ("fixed" if isinstance(bc, bcm.FixedValue)
                 else "grad" if isinstance(bc, bcm.FixedGradient) else "io")
         entry.kind = KINDS[kind]
-        v = _eval_static_value(_raw_value(bc), mesh, a, side,
+        v = _eval_static_value(raw_value(bc), mesh, a, side,
                                vector_comp=comp)
         if v.size == 1:
             entry.value = float(v.reshape(()))
@@ -308,19 +269,6 @@ def make_params(solver) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _zg(f, edges=()):
-    """Coefficient ghosts: zero-gradient copies of the edge cells (any
-    number of axes).  edges[a] = (lo, hi) are the physical-boundary flags of
-    axis a (axes past the tuple are physical on both sides); a partition
-    side keeps its halo cell."""
-    for a, n in enumerate(f.shape):
-        lo, hi = edges[a] if a < len(edges) else (1, 1)
-        idx = torch.arange(n, device=f.device).clamp(1 if lo else 0,
-                                                     n - 2 if hi else n - 1)
-        f = f.index_select(a, idx)
-    return f
-
-
 def _edges(prm):
     """The physical-boundary flags of a 2D block, per axis."""
     return ((prm.edge_lo, prm.edge_hi), (prm.edge_lo_y, prm.edge_hi_y))
@@ -352,24 +300,18 @@ def dt_fold_reference(prm, T, ux, uy):
         + _xi(c[:-1, 1:-1], c[1:, 1:-1])
     wave_y = torch.abs(_xi(uy[1:-1, :-1], uy[1:-1, 1:])) \
         + _xi(c[1:-1, :-1], c[1:-1, 1:])
-    taux, tauy = _face_tau(prm, _zg(c if prm.varsc else prm.alpha * rcs,
-                                    _edges(prm)))
+    taux, tauy = _face_tau(prm, zg(c if prm.varsc else prm.alpha * rcs,
+                                   _edges(prm)))
     tau_min = torch.minimum(torch.min(taux), torch.min(tauy))
     return torch.stack([torch.max(wave_x), torch.max(wave_y), -tau_min,
                         torch.zeros_like(tau_min)])
-
-
-def _time_controls(prm):
-    return common.TimeControls(adjust_time_step=bool(prm.adjust_dt),
-                               max_co=prm.max_co, max_dt=prm.max_dt,
-                               c_tau=prm.c_tau)
 
 
 def dt_apply_reference(prm, quad, dt):
     """Plain version of `qgd2d_dt_apply`: setDeltaT from a (reduced) quad of
     `dt_fold_reference`."""
     co = torch.maximum(quad[0] * dt / prm.hfx, quad[1] * dt / prm.hfy)
-    return common.set_delta_t(dt, co, -quad[2], _time_controls(prm))
+    return common.set_delta_t(dt, co, -quad[2], time_controls(prm))
 
 
 def dt_reference(prm, T, ux, uy, dt):
@@ -400,11 +342,11 @@ def update_reference(prm, p, T, ux, uy, sc, dt):
         mu_eff = (prm.k_mu * p) * rcs
     alphau = None
     if not prm.mu_const0:
-        alphau = _zg(mu_eff / prm.Pr_tau + prm.mu0 / prm.Pr_th, edges)
+        alphau = zg(mu_eff / prm.Pr_tau + prm.mu0 / prm.Pr_th, edges)
         mu_eff = mu_eff + prm.mu0
-    mu_eff = _zg(mu_eff, edges)
-    taufx, taufy = _face_tau(prm, _zg(c if prm.varsc else prm.alpha * rcs,
-                                      edges))
+    mu_eff = zg(mu_eff, edges)
+    taufx, taufy = _face_tau(prm, zg(c if prm.varsc else prm.alpha * rcs,
+                                     edges))
     C = slice(1, -1)
 
     # x-faces: face r+1/2 at row r (rows 0..nx), lanes 1..ny
@@ -529,22 +471,6 @@ def update_reference(prm, p, T, ux, uy, sc, dt):
     return tuple(out), side
 
 
-def _bc_ghost(entry, in1, in2, d, v, un, sd):
-    kind = entry.kind
-    if kind == KINDS["sym"]:
-        return entry.value * in1
-    if kind == KINDS["extrap"]:
-        return 2.0 * in1 - in2
-    if kind == KINDS["fixed"]:
-        return 2.0 * v - in1
-    if kind == KINDS["io"]:
-        outflow = (un < 0) if sd == 0 else (un > 0)
-        return torch.where(outflow, in1, 2.0 * v - in1)
-    if kind == KINDS["grad"]:
-        return in1 + v * d
-    return in1  # zero gradient
-
-
 def ghosts_reference(prm, frames, side, profiles):
     """Plain version of `qgd2d_ghosts`, in place on the fresh frames: the
     x-ghost rows from the interior rows (qgdFlux p: interior +- side*dx),
@@ -554,23 +480,9 @@ def ghosts_reference(prm, frames, side, profiles):
     are: the halo exchange fills them."""
     nr, w = frames[0].shape
     nx, ny = nr - 2, w - 2
-    ux, uy = frames[2], frames[3]
-    (x_lo, x_hi), (y_lo, y_hi) = _edges(prm)
-    for f, fld in enumerate(frames):
-        for sd in (0, 1):
-            if not (x_lo if sd == 0 else x_hi):
-                continue
-            e = prm.bc[f][0][sd]
-            r1, r2, rg = (1, 2, 0) if sd == 0 else (nx, nx - 1, nx + 1)
-            in1 = fld[r1, 1:-1]
-            if e.kind == KINDS["qgdflux"]:
-                q = side[sd, 1:-1] * prm.dx
-                g = in1 + q if sd == 0 else in1 - q
-            else:
-                v = profiles[e.prof, 1:ny + 1] if e.prof >= 0 else e.value
-                g = _bc_ghost(e, in1, fld[r2, 1:-1], prm.dx, v, ux[r1, 1:-1],
-                              sd)
-            fld[rg, 1:-1] = g
+    uy = frames[3]
+    x_ghosts(prm, frames, side[:, 1:-1], profiles[:, 1:ny + 1], prm.dx)
+    y_lo, y_hi = _edges(prm)[1]
     rows = torch.arange(nr, device=uy.device).clamp(1, nx)
     for f, fld in enumerate(frames):
         for sd in (0, 1):
@@ -579,8 +491,8 @@ def ghosts_reference(prm, frames, side, profiles):
             e = prm.bc[f][1][sd]
             l1, l2, lg = (1, 2, 0) if sd == 0 else (ny, ny - 1, ny + 1)
             v = profiles[e.prof, :nr] if e.prof >= 0 else e.value
-            fld[:, lg] = _bc_ghost(e, fld[:, l1], fld[:, l2], prm.dy, v,
-                                   uy[rows, l1], sd)
+            fld[:, lg] = bc_ghost(e, fld[:, l1], fld[:, l2], prm.dy, v,
+                                  uy[rows, l1], sd)
     return frames
 
 
@@ -612,7 +524,7 @@ def emit_reference(prm, p, T, ux, uy, sc):
     wave_y = torch.abs(_xi(uy[C, :-1], uy[C, 1:])) + _xi(c[C, :-1], c[C, 1:])
     co_rate = torch.maximum(torch.max(wave_x) * prm.inv_hfx,
                             torch.max(wave_y) * prm.inv_hfy)
-    coef = _zg(c if prm.varsc else prm.alpha * rcs)
+    coef = zg(c if prm.varsc else prm.alpha * rcs)
     cx = _xi(coef[:-1, C], coef[1:, C])
     cy = _xi(coef[C, :-1], coef[C, 1:])
     if prm.varsc:
@@ -623,7 +535,7 @@ def emit_reference(prm, p, T, ux, uy, sc):
                                  torch.min(cy) * prm.hfy)
     if not prm.varsc:
         return co_rate, tau_rate, None, None, None
-    rho = _zg(p * (1.0 / (prm.R * T)))
+    rho = zg(p * (1.0 / (prm.R * T)))
     fa = 0.5 * rho[:-1] + 0.5 * rho[1:]
     gx = ((fa[1:] - fa[:-1]) / prm.dx)[:, C]
     fb = 0.5 * rho[:, :-1] + 0.5 * rho[:, 1:]
@@ -641,64 +553,8 @@ def emit_reference(prm, p, T, ux, uy, sc):
 # ---------------------------------------------------------------------------
 
 
-def check_tensors(name, shape, *tensors):
-    """Raise unless the tensors are contiguous float32 of `shape` on one CPU
-    or CUDA device; True if that device is a card."""
-    shape = tuple(shape)
-    dev = tensors[0].device
-    for x in tensors:
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: frames must be float32, got {x.dtype}")
-        if x.device != dev:
-            raise ValueError(f"{name}: frames on {x.device} and {dev}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: frame shape {tuple(x.shape)} != {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: frames must be contiguous")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    return dev.type == "cuda"
-
-
 def _check(prm, name, *tensors):
     return check_tensors(name, (prm.nx + 2, prm.ny + 2), *tensors)
-
-
-def _scalar(name, x, like):
-    if x.dtype != torch.float32 or x.numel() != 1 or x.device != like.device:
-        raise ValueError(f"{name}: dt must be a one-element float32 tensor "
-                         f"on {like.device}")
-
-
-def _ptr(x):
-    return x.data_ptr() if x is not None else None
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-# The workspace of the one-launch dt kernels (qgd2d_dt and qgd3d_dt, with
-# their _fold forms) on each (device, stream): the ticket that the kernel's
-# last block sets back to 0, then one partial per block.  Launches on one
-# stream run in turn, so they share it; another stream gets its own.
-_DT_WORK = {}
-_DT_HEAD = 4
-
-
-def dt_work(name, blocks, per_block, x):
-    """The dt workspace for a launch of `blocks` blocks of `per_block`
-    floats each on x's device and the current stream: zeros when made, and
-    every launch leaves its ticket 0."""
-    if blocks < 1:
-        raise RuntimeError(f"{name}: no launch shape ({blocks})")
-    key = (x.device, _stream(x))
-    work = _DT_WORK.get(key)
-    if work is None or work.numel() < _DT_HEAD + per_block * blocks:
-        work = torch.zeros(_DT_HEAD + per_block * blocks, dtype=torch.float32,
-                           device=x.device)
-        _DT_WORK[key] = work
-    return work
 
 
 # floats of a qgd2d_dt block's partial: two max waves, two tau coefficient
@@ -711,18 +567,12 @@ def qgd2d_dt(prm, T, ux, uy, dt):
     One launch: the blocks' partials and, in the last block, the fold and
     setDeltaT."""
     on_card = _check(prm, "qgd2d_dt", T, ux, uy)
-    _scalar("qgd2d_dt", dt, T)
+    check_dt("qgd2d_dt", dt, T)
     if not on_card:
         return dt_reference(prm, T, ux, uy, dt)
-    lib = _build.load()
-    with torch.cuda.device(T.device):
-        work = dt_work("qgd2d_dt", lib.qgd2d_dt_partials(prm.nx, prm.ny),
-                       _DT_NQ, T)
-        out = torch.empty((), dtype=T.dtype, device=T.device)
-        code = lib.qgd2d_dt(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(dt),
-                            _ptr(work), _ptr(out), _stream(T))
-    _build.check(lib, code, "qgd2d_dt")
-    qgd2d_dt.launches += 1
+    work = dt_work(_DT_NQ, T, "qgd2d_dt_partials", prm.nx, prm.ny)
+    out = torch.empty((), dtype=T.dtype, device=T.device)
+    launch(qgd2d_dt, "qgd2d_dt", prm, T, ux, uy, dt, work, out, like=T)
     return out
 
 
@@ -732,15 +582,9 @@ def qgd2d_dt_fold(prm, T, ux, uy):
     on_card = _check(prm, "qgd2d_dt_fold", T, ux, uy)
     if not on_card:
         return dt_fold_reference(prm, T, ux, uy)
-    lib = _build.load()
-    with torch.cuda.device(T.device):
-        work = dt_work("qgd2d_dt_fold", lib.qgd2d_dt_partials(prm.nx, prm.ny),
-                       _DT_NQ, T)
-        quad = torch.empty(4, dtype=T.dtype, device=T.device)
-        code = lib.qgd2d_dt_fold(prm, _ptr(T), _ptr(ux), _ptr(uy),
-                                 _ptr(work), _ptr(quad), _stream(T))
-    _build.check(lib, code, "qgd2d_dt_fold")
-    qgd2d_dt_fold.launches += 1
+    work = dt_work(_DT_NQ, T, "qgd2d_dt_partials", prm.nx, prm.ny)
+    quad = torch.empty(4, dtype=T.dtype, device=T.device)
+    launch(qgd2d_dt_fold, "qgd2d_dt_fold", prm, T, ux, uy, work, quad, like=T)
     return quad
 
 
@@ -748,16 +592,11 @@ def qgd2d_dt_apply(prm, quad, dt):
     """New dt (0-dim tensor) from a reduced quad of `qgd2d_dt_fold` and the
     previous dt - see `dt_apply_reference`."""
     on_card = check_tensors("qgd2d_dt_apply", (4,), quad)
-    _scalar("qgd2d_dt_apply", dt, quad)
+    check_dt("qgd2d_dt_apply", dt, quad)
     if not on_card:
         return dt_apply_reference(prm, quad, dt)
-    lib = _build.load()
-    with torch.cuda.device(quad.device):
-        out = torch.empty((), dtype=quad.dtype, device=quad.device)
-        code = lib.qgd2d_dt_apply(prm, _ptr(quad), _ptr(dt), _ptr(out),
-                                  _stream(quad))
-    _build.check(lib, code, "qgd2d_dt_apply")
-    qgd2d_dt_apply.launches += 1
+    out = torch.empty((), dtype=quad.dtype, device=quad.device)
+    launch(qgd2d_dt_apply, "qgd2d_dt_apply", prm, quad, dt, out, like=quad)
     return out
 
 
@@ -766,20 +605,14 @@ def qgd2d_update(prm, p, T, ux, uy, sc, dt):
     new frames' ghosts unset; `qgd2d_ghosts` fills them."""
     fr = (p, T, ux, uy) + ((sc,) if prm.varsc else ())
     on_card = _check(prm, "qgd2d_update", *fr)
-    _scalar("qgd2d_update", dt, p)
+    check_dt("qgd2d_update", dt, p)
     if not on_card:
         return update_reference(prm, p, T, ux, uy, sc, dt)
-    lib = _build.load()
     new = tuple(torch.empty_like(p) for _ in range(4))
     # lanes 0 and ny+1 of side stay unset: no ghost reads them
     side = torch.empty((2, prm.ny + 2), dtype=p.dtype, device=p.device)
-    with torch.cuda.device(p.device):
-        code = lib.qgd2d_update(prm, _ptr(p), _ptr(T), _ptr(ux), _ptr(uy),
-                                _ptr(sc if prm.varsc else None), _ptr(dt),
-                                *(_ptr(x) for x in new), _ptr(side),
-                                _stream(p))
-    _build.check(lib, code, "qgd2d_update")
-    qgd2d_update.launches += 1
+    launch(qgd2d_update, "qgd2d_update", prm, p, T, ux, uy,
+           sc if prm.varsc else None, dt, *new, side, like=p)
     return new, side
 
 
@@ -788,22 +621,15 @@ def qgd2d_ghosts(prm, frames, side, profiles):
     `ghosts_reference`.  One launch: each ghost cell from interior cells,
     a corner from the x-ghosts beside it."""
     on_card = _check(prm, "qgd2d_ghosts", *frames)
-    if side.shape != (2, prm.ny + 2) or side.device != frames[0].device \
-            or side.dtype != torch.float32 or not side.is_contiguous():
-        raise ValueError("qgd2d_ghosts: side must be a contiguous float32 "
-                         f"(2, {prm.ny + 2}) tensor beside the frames")
-    if profiles.device != frames[0].device or not profiles.is_contiguous() \
-            or profiles.dtype != torch.float32 \
-            or profiles.shape[1] != prm.prof_len:
-        raise ValueError("qgd2d_ghosts: bad profile table")
+    check_tensors("qgd2d_ghosts", (2, prm.ny + 2), side)
+    check_tensors("qgd2d_ghosts", (len(profiles), prm.prof_len), profiles)
+    if side.device != frames[0].device or profiles.device != side.device:
+        raise ValueError("qgd2d_ghosts: side and profiles must lie beside "
+                         "the frames")
     if not on_card:
         return ghosts_reference(prm, frames, side, profiles)
-    lib = _build.load()
-    with torch.cuda.device(side.device):
-        code = lib.qgd2d_ghosts(prm, _ptr(profiles), _ptr(side),
-                                *(_ptr(x) for x in frames), _stream(side))
-    _build.check(lib, code, "qgd2d_ghosts")
-    qgd2d_ghosts.launches += 1
+    launch(qgd2d_ghosts, "qgd2d_ghosts", prm, profiles, side, *frames,
+           like=side)
     return frames
 
 
@@ -817,23 +643,17 @@ def qgd2d_emit(prm, p, T, ux, uy, sc):
     on_card = _check(prm, "qgd2d_emit", *fr)
     if not on_card:
         return emit_reference(prm, p, T, ux, uy, sc)
-    lib = _build.load()
     dev = p.device
-    with torch.cuda.device(dev):
-        n = lib.qgd2d_emit_partials(prm.nx, prm.ny)
-        partials = torch.empty((n, 8), dtype=p.dtype, device=dev)
-        rates = torch.empty(2, dtype=p.dtype, device=dev)
-        raw = s1 = chg = None
-        if prm.varsc:
-            raw = torch.empty((prm.nx, prm.ny), dtype=p.dtype, device=dev)
-            s1 = torch.empty_like(raw)
-            chg = torch.empty((), dtype=p.dtype, device=dev)
-        code = lib.qgd2d_emit(prm, _ptr(p), _ptr(T), _ptr(ux), _ptr(uy),
-                              _ptr(sc if prm.varsc else None), _ptr(partials),
-                              _ptr(rates), _ptr(raw), _ptr(s1), _ptr(chg),
-                              _stream(p))
-    _build.check(lib, code, "qgd2d_emit")
-    qgd2d_emit.launches += 1
+    n = query("qgd2d_emit_partials", prm.nx, prm.ny, device=dev)
+    partials = torch.empty((n, 8), dtype=p.dtype, device=dev)
+    rates = torch.empty(2, dtype=p.dtype, device=dev)
+    raw = s1 = chg = None
+    if prm.varsc:
+        raw = torch.empty((prm.nx, prm.ny), dtype=p.dtype, device=dev)
+        s1 = torch.empty_like(raw)
+        chg = torch.empty((), dtype=p.dtype, device=dev)
+    launch(qgd2d_emit, "qgd2d_emit", prm, p, T, ux, uy,
+           sc if prm.varsc else None, partials, rates, raw, s1, chg, like=p)
     return rates[0], rates[1], raw, s1, chg
 
 
@@ -851,19 +671,12 @@ def qgd2d_smooth(prm, f, k, out=None, flag=None):
     ring raised any cell, else 0.0 - see `smooth_reference`.  k = 0 only
     frames the cells.  Each launch adds one to `launches` and k to
     `rings`."""
-    on_card, bare, out, flag = smooth_args(
+    on_card, out, flag, base, pitches = smooth_args(
         "qgd2d_smooth", (prm.nx, prm.ny), SMOOTH_KMAX, f, k, out, flag)
     if not on_card:
         return _smooth_plain(prm, f, k, out, flag)
-    lib = _build.load()
-    # cell (0, 0) of a frame is its element (1, 1)
-    base, pitch = ((f.data_ptr(), prm.ny) if bare
-                   else (f.data_ptr() + 4 * (prm.ny + 3), prm.ny + 2))
-    with torch.cuda.device(f.device):
-        code = lib.qgd2d_smooth(prm, base, pitch, k, _ptr(out), _ptr(flag),
-                                _stream(f))
-    _build.check(lib, code, "qgd2d_smooth")
-    qgd2d_smooth.launches += 1
+    launch(qgd2d_smooth, "qgd2d_smooth", prm, base, *pitches, k, out, flag,
+           like=f)
     qgd2d_smooth.rings += k
     return out, flag
 
@@ -872,26 +685,18 @@ def update_launch_shape(prm, device) -> dict:
     """`qgd2d_update`'s launch at prm's shape on a card: strip lanes, chunk
     rows, static shared bytes per block, resident blocks per SM and blocks
     of the grid."""
-    lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        _build.check(lib, lib.qgd2d_update_shape(prm.nx, prm.ny, out),
-                     "qgd2d_update_shape")
     return dict(zip(("strip", "chunk", "smem_bytes", "blocks_per_sm",
-                     "blocks"), out))
+                     "blocks"), launch_shape("qgd2d_update_shape", prm.nx,
+                                             prm.ny, device=device)))
 
 
 def dt_launch_shape(prm, device) -> dict:
     """`qgd2d_dt`'s launch at prm's shape on a card: the frame lanes a warp
     owns (it loads one more), warps a block, chunk rows, blocks of the grid
     and resident blocks per SM."""
-    lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        _build.check(lib, lib.qgd2d_dt_shape(prm.nx, prm.ny, out),
-                     "qgd2d_dt_shape")
     return dict(zip(("lanes", "warps", "chunk", "blocks", "blocks_per_sm"),
-                    out))
+                    launch_shape("qgd2d_dt_shape", prm.nx, prm.ny,
+                                 device=device)))
 
 
 qgd2d_dt.launches = 0
@@ -910,61 +715,6 @@ SHARDED_KERNELS = (qgd2d_dt_fold, qgd2d_dt_apply, qgd2d_update, qgd2d_ghosts)
 # ---------------------------------------------------------------------------
 # the step and its State conversions
 # ---------------------------------------------------------------------------
-
-
-def _state_io(solver, frame_sc=_edge_frame):
-    """(to_frames, from_fused) between the composable State and the
-    ghost-padded frames, shared by both 2D fused steps: to_frames gives a
-    FusedState (the sensor cells framed by `frame_sc`), from_fused reads
-    any carry with FusedState's fields."""
-    from ..ops.pad import ghost_pad
-    from ..solvers.qgd import State
-
-    mesh = solver.mesh
-    th = solver.thermo
-    tm = solver.tau_model
-    varsc = isinstance(tm, VarScModel5)
-    flux_sides = solver._flux_sides()
-    bc_U, bc_p, bc_T = solver._bcs()
-    dx = float(mesh.dx[0][0])
-
-    def to_frames(s: State) -> FusedState:
-        bc_pp = bc_p
-        for i, (a, side) in enumerate(flux_sides):
-            bc_pp = bc_pp.replace(a, side, bcm.FixedGradient(s.pbc[i]))
-        U, e, T, p = solver.primitives(s)
-        bc_Ur = bcm.resolve_inlet_outlet(bc_U, U, 2)
-        bc_pp = bcm.resolve_inlet_outlet(bc_pp, U, 2)
-        bc_Tr = bcm.resolve_inlet_outlet(bc_T, U, 2)
-        Upad = ghost_pad(U, bc_Ur, mesh, t=s.t, vector=True)
-        return FusedState(
-            p=ghost_pad(p, bc_pp, mesh, t=s.t).contiguous(),
-            T=ghost_pad(T, bc_Tr, mesh, t=s.t).contiguous(),
-            ux=Upad[0].contiguous(), uy=Upad[1].contiguous(),
-            t=s.t, dt=s.dt,
-            sc=frame_sc(s.sc) if varsc else None)
-
-    def from_fused(fs) -> State:
-        p = fs.p[1:-1, 1:-1]
-        T = fs.T[1:-1, 1:-1]
-        U = torch.stack([fs.ux[1:-1, 1:-1], fs.uy[1:-1, 1:-1]])
-        rho = th.rho_from_p_T(p, T)
-        e = th.e_from_T(T)
-        # lagged qgdFlux gradients from the p ghost rows (ghost = interior
-        # + g*dx on both sides)
-        pbc = []
-        for _, side in flux_sides:
-            if side == 0:
-                g = (fs.p[0:1, 1:-1] - fs.p[1:2, 1:-1]) * (1.0 / dx)
-            else:
-                g = (fs.p[-1:, 1:-1] - fs.p[-2:-1, 1:-1]) * (1.0 / dx)
-            pbc.append(g)
-        sc = fs.sc[1:-1, 1:-1] if varsc else torch.full_like(rho, tm.Sc)
-        return State(rho=rho, rhoU=rho[None] * U,
-                     rhoE=rho * e + 0.5 * rho * torch.sum(U * U, dim=0),
-                     sc=sc, t=fs.t, dt=fs.dt, pbc=tuple(pbc))
-
-    return to_frames, from_fused
 
 
 def build_fused_step(solver, plain: bool = False):
@@ -1002,25 +752,12 @@ def build_fused_step(solver, plain: bool = False):
         return FusedState(p=p, T=T, ux=ux, uy=uy, t=fs.t + dt_new, dt=dt_new,
                           sc=sc_new)
 
-    to_fused, from_fused = _state_io(solver)
-    return step, to_fused, from_fused
+    return (step, *state_frames(solver, FusedState, _edge_frame))
 
 
 # ---------------------------------------------------------------------------
 # K3: K1 on each block of a domain-decomposed run
 # ---------------------------------------------------------------------------
-
-
-def one_cell_extrapolation(solver, grid) -> bool:
-    """True if the blocks of `grid` are one cell wide along a partitioned
-    axis on whose sides some field's BC is extrapolated: at a physical side
-    that ghost reads the second layer, the block's halo, which the exchange
-    of a decomposed step fills only after the ghosts (K3, K5)."""
-    return any(p > 1 and n // p == 1 and any(
-        isinstance(bcs[a, side], bcm.Extrapolated)
-        for bcs in solver._bcs() for side in (0, 1))
-        for a, (n, p) in enumerate(zip(solver.mesh.shape,
-                                       (grid.px, grid.py))))
 
 
 def sharded_supported(solver, grid) -> bool:
@@ -1080,8 +817,6 @@ def build_sharded_fused_step(solver, grid):
     ValueError for a config the kernels do not take or a grid that does not
     divide the mesh.
     """
-    from ..ops.pad import ghost_pad
-
     if not supported(solver) or one_cell_extrapolation(solver, grid):
         raise ValueError("solver config not supported by the fused step")
     mesh = solver.mesh
@@ -1113,7 +848,7 @@ def build_sharded_fused_step(solver, grid):
         with spmd.active(ctx):
             return local_step(fs)
 
-    to_frames, from_fused = _state_io(solver)
+    to_frames, from_fused = state_frames(solver, FusedState, _edge_frame)
     win = spmd.frame_window(ctx)
 
     def to_sharded(s) -> FusedState:
@@ -1241,7 +976,7 @@ def build_tiled_fused_step(solver, plain: bool = False):
         flag = torch.empty((), dtype=cells.dtype, device=cells.device)
         return k_smooth(prm, cells.contiguous(), 0, out, flag)[0]
 
-    to_frames, from_fused = _state_io(solver, frame_sc)
+    to_frames, from_fused = state_frames(solver, FusedState, frame_sc)
 
     def to_fused(s) -> TiledState:
         fs = to_frames(s)

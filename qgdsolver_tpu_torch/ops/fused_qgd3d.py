@@ -35,10 +35,10 @@ Each kernel call is a wrapper: for CPU tensors it runs the plain torch
 version beside it (`dt_reference_3d`, `smooth_reference_3d`,
 `update_reference_3d`, `emit_reference_3d`, `sensor_reference_3d`,
 `ghosts_reference_3d`); for CUDA tensors it launches the kernel from
-csrc/qgd3d.cu or raises.  Each wrapper counts its launches in a plain
-integer attribute (`qgd3d_dt.launches`, ...; `qgd3d_smooth.rings` counts
-its rings too, `.fixed` its fixed-point calls and `.fallbacks` those whose
-flag sent the step to the rings).
+csrc/qgd3d.cu through `launch.launch`, which counts the launches in the
+wrapper's `launches` (`qgd3d_smooth.rings` counts its rings too, `.fixed`
+its fixed-point calls and `.fallbacks` those whose flag sent the step to
+the rings).
 
 `build_sharded_fused_step_3d` (K5) runs the same kernels on each rank's
 x-slab of an x-ring decomposition: the slab's frame carries the
@@ -70,12 +70,12 @@ from ..physics.qgdcoeffs import ConstScPrModel1, VarScModel5, fvc_smooth
 from ..parallel import sharding, spmd
 from ..solvers import common
 from . import _build
-from .fused_qgd2d import (KINDS, _bc_ghost, _ptr, _raw_value, _scalar,
-                          _stream, _time_controls, _zg, check_tensors,
-                          common_gate, dt_work,
-                          one_cell_extrapolation)
+from .fused_common import (KINDS, bc_ghost, common_gate,
+                           one_cell_extrapolation, raw_value, state_frames,
+                           time_controls, x_ghosts, zg)
 from .fvsc import _hi, _lo
-from .pad import _sl
+from .launch import check_dt, check_tensors, dt_work, launch, launch_shape
+from .pad import _sl, ghost_pad
 from .smoothing import (SMOOTH_FIXED, _edge_frame, _smooth_plain,
                         require_exact_ring, smooth_args, smooth_reference,
                         smooth_sensor)
@@ -129,7 +129,7 @@ def _scalar_bc(b, axis, comp=None):
     if not isinstance(b, (bcm.FixedValue, bcm.FixedGradient,
                           bcm.InletOutlet)):
         return None
-    raw = _raw_value(b)
+    raw = raw_value(b)
     if callable(raw):
         return None
     v = _to_numpy(raw)
@@ -144,7 +144,7 @@ def _plane_value(b, mesh, side, comp=None):
     """An x-side BC's value or gradient as a static (ny, nz) float64 plane,
     or None.  A callable is evaluated on the ghost layer's coordinates at
     t=0 and t=1 and must give the same plane there."""
-    raw = _raw_value(b)
+    raw = raw_value(b)
     ny, nz = mesh.shape[1], mesh.shape[2]
     if callable(raw):
         coords = (mesh.tensor(mesh.x_faces[0][0 if side == 0 else -1]
@@ -325,7 +325,7 @@ def dt_fold_reference_3d(prm, T, ux, uy, uz):
     boundaries, the halo plane across a partition plane)."""
     gRT = prm.gammaR * T
     c = gRT * torch.rsqrt(gRT)
-    coef = _zg(c if prm.varsc else prm.alpha / c, _edges(prm))
+    coef = zg(c if prm.varsc else prm.alpha / c, _edges(prm))
     waves = []
     tau_min = torch.full((), float("inf"), dtype=T.dtype, device=T.device)
     for a, u in enumerate((ux, uy, uz)):
@@ -343,7 +343,7 @@ def dt_apply_reference_3d(prm, quad, dt):
     co = torch.zeros((), dtype=quad.dtype, device=quad.device)
     for a in range(3):
         co = torch.maximum(co, quad[a] * dt / prm.d[a])
-    return common.set_delta_t(dt, co, -quad[3], _time_controls(prm))
+    return common.set_delta_t(dt, co, -quad[3], time_controls(prm))
 
 
 def dt_reference_3d(prm, T, ux, uy, uz, dt):
@@ -441,15 +441,15 @@ def update_reference_3d(prm, p, T, ux, uy, uz, sc, dt):
     edges = _edges(prm)
     if prm.varsc:
         mu_qgd = ((prm.k_muv * sc) * p) * rcs
-        tcoef = _zg(gRT * rcs, edges)
+        tcoef = zg(gRT * rcs, edges)
     else:
         mu_qgd = (prm.k_mu * p) * rcs
-        tcoef = _zg(prm.alpha * rcs, edges)
+        tcoef = zg(prm.alpha * rcs, edges)
     if prm.mu_const0:
-        mu_eff, alphau = _zg(mu_qgd, edges), None
+        mu_eff, alphau = zg(mu_qgd, edges), None
     else:
-        mu_eff = _zg(mu_qgd + prm.mu0, edges)
-        alphau = _zg(mu_qgd * prm.inv_Pr_tau + prm.mu0_Pr_th, edges)
+        mu_eff = zg(mu_qgd + prm.mu0, edges)
+        alphau = zg(mu_qgd * prm.inv_Pr_tau + prm.mu0_Pr_th, edges)
     cell = (p, rho, e, H, u3, ru)
     acc = None
     for a in range(3):
@@ -487,7 +487,7 @@ def sensor_reference_3d(prm, p, T, sc):
     plane), relaxed against the current smoothed sensor `sc`.  Returns
     (nx, ny, nz)."""
     C = (slice(1, -1),) * 3
-    rg = _zg(p * (1.0 / (prm.R * T)), _edges(prm))
+    rg = zg(p * (1.0 / (prm.R * T)), _edges(prm))
     r = rg[C]
     g = [(_sl(rg, a, slice(2, None)) - _sl(rg, a, slice(None, -2)))
          * prm.inv_2d[a] for a in range(3)]
@@ -523,36 +523,22 @@ def ghosts_reference_3d(prm, frames, side, planes):
     nx, ny, nz = prm.nx, prm.ny, prm.nz
     ux, uy, uz = frames[2], frames[3], frames[4]
     I = slice(1, -1)
-    for f, fld in enumerate(frames):
-        for sd in (0, 1):
-            if not _edges(prm)[0][sd]:
-                continue
-            e = prm.bc[f][0][sd]
-            r1, r2, rg = (1, 2, 0) if sd == 0 else (nx, nx - 1, nx + 1)
-            in1 = fld[r1, I, I]
-            if e.kind == KINDS["qgdflux"]:
-                q = side[sd] * prm.d[0]
-                g = in1 + q if sd == 0 else in1 - q
-            else:
-                v = planes[e.prof] if e.prof >= 0 else e.value
-                g = _bc_ghost(e, in1, fld[r2, I, I], prm.d[0], v,
-                              ux[r1, I, I], sd)
-            fld[rg, I, I] = g
+    x_ghosts(prm, frames, side, planes, prm.d[0])
     rows = torch.arange(nx + 2, device=ux.device).clamp(1, nx)
     lanes = torch.arange(ny + 2, device=ux.device).clamp(1, ny)
     for f, fld in enumerate(frames):
         for sd in (0, 1):
             e = prm.bc[f][1][sd]
             l1, l2, lg = (1, 2, 0) if sd == 0 else (ny, ny - 1, ny + 1)
-            fld[:, lg, I] = _bc_ghost(e, fld[:, l1, I], fld[:, l2, I],
-                                      prm.d[1], e.value, uy[rows, l1, I], sd)
+            fld[:, lg, I] = bc_ghost(e, fld[:, l1, I], fld[:, l2, I],
+                                     prm.d[1], e.value, uy[rows, l1, I], sd)
     for f, fld in enumerate(frames):
         for sd in (0, 1):
             e = prm.bc[f][2][sd]
             l1, l2, lg = (1, 2, 0) if sd == 0 else (nz, nz - 1, nz + 1)
             un = uz[rows][:, lanes, l1]
-            fld[:, :, lg] = _bc_ghost(e, fld[:, :, l1], fld[:, :, l2],
-                                      prm.d[2], e.value, un, sd)
+            fld[:, :, lg] = bc_ghost(e, fld[:, :, l1], fld[:, :, l2],
+                                     prm.d[2], e.value, un, sd)
     return frames
 
 
@@ -565,6 +551,11 @@ def _check(prm, name, *tensors):
     return check_tensors(name, (prm.nx + 2, prm.ny + 2, prm.nz + 2), *tensors)
 
 
+def _tiled(out, *keys) -> dict:
+    """A 3D shape query's five ints as a dict: the (y, z) tile, then keys."""
+    return {"tile": out[:2], **dict(zip(keys, out[2:]))}
+
+
 # floats of a qgd3d_dt block's partial: three max waves, three tau
 # coefficient extremes
 _DT_NQ = 6
@@ -575,17 +566,12 @@ def qgd3d_dt(prm, T, ux, uy, uz, dt):
     One launch: the blocks' partials and, in the last block, the fold and
     setDeltaT."""
     on_card = _check(prm, "qgd3d_dt", T, ux, uy, uz)
-    _scalar("qgd3d_dt", dt, T)
+    check_dt("qgd3d_dt", dt, T)
     if not on_card:
         return dt_reference_3d(prm, T, ux, uy, uz, dt)
-    lib = _build.load()
-    with torch.cuda.device(T.device):
-        work = dt_work("qgd3d_dt", lib.qgd3d_dt_partials(prm), _DT_NQ, T)
-        out = torch.empty((), dtype=T.dtype, device=T.device)
-        code = lib.qgd3d_dt(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
-                            _ptr(dt), _ptr(work), _ptr(out), _stream(T))
-    _build.check(lib, code, "qgd3d_dt")
-    qgd3d_dt.launches += 1
+    work = dt_work(_DT_NQ, T, "qgd3d_dt_partials", prm)
+    out = torch.empty((), dtype=T.dtype, device=T.device)
+    launch(qgd3d_dt, "qgd3d_dt", prm, T, ux, uy, uz, dt, work, out, like=T)
     return out
 
 
@@ -595,15 +581,10 @@ def qgd3d_dt_fold(prm, T, ux, uy, uz):
     on_card = _check(prm, "qgd3d_dt_fold", T, ux, uy, uz)
     if not on_card:
         return dt_fold_reference_3d(prm, T, ux, uy, uz)
-    lib = _build.load()
-    with torch.cuda.device(T.device):
-        work = dt_work("qgd3d_dt_fold", lib.qgd3d_dt_partials(prm), _DT_NQ,
-                       T)
-        quad = torch.empty(4, dtype=T.dtype, device=T.device)
-        code = lib.qgd3d_dt_fold(prm, _ptr(T), _ptr(ux), _ptr(uy), _ptr(uz),
-                                 _ptr(work), _ptr(quad), _stream(T))
-    _build.check(lib, code, "qgd3d_dt_fold")
-    qgd3d_dt_fold.launches += 1
+    work = dt_work(_DT_NQ, T, "qgd3d_dt_partials", prm)
+    quad = torch.empty(4, dtype=T.dtype, device=T.device)
+    launch(qgd3d_dt_fold, "qgd3d_dt_fold", prm, T, ux, uy, uz, work, quad,
+           like=T)
     return quad
 
 
@@ -611,29 +592,19 @@ def dt_launch_shape(prm, device) -> dict:
     """`qgd3d_dt`'s launch at prm's shape on a card: its (y, z) tile, the
     x-planes a block marches, its blocks and the blocks resident on one
     SM."""
-    lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        code = lib.qgd3d_dt_shape(prm, out)
-    _build.check(lib, code, "qgd3d_dt_shape")
-    return {"tile": (out[0], out[1]), "chunk": out[2], "blocks": out[3],
-            "blocks_per_sm": out[4]}
+    return _tiled(launch_shape("qgd3d_dt_shape", prm, device=device),
+                  "chunk", "blocks", "blocks_per_sm")
 
 
 def qgd3d_dt_apply(prm, quad, dt):
     """New dt (0-dim tensor) from a reduced quad of `qgd3d_dt_fold` - see
     `dt_apply_reference_3d`."""
     on_card = check_tensors("qgd3d_dt_apply", (4,), quad)
-    _scalar("qgd3d_dt_apply", dt, quad)
+    check_dt("qgd3d_dt_apply", dt, quad)
     if not on_card:
         return dt_apply_reference_3d(prm, quad, dt)
-    lib = _build.load()
-    with torch.cuda.device(quad.device):
-        out = torch.empty((), dtype=quad.dtype, device=quad.device)
-        code = lib.qgd3d_dt_apply(prm, _ptr(quad), _ptr(dt), _ptr(out),
-                                  _stream(quad))
-    _build.check(lib, code, "qgd3d_dt_apply")
-    qgd3d_dt_apply.launches += 1
+    out = torch.empty((), dtype=quad.dtype, device=quad.device)
+    launch(qgd3d_dt_apply, "qgd3d_dt_apply", prm, quad, dt, out, like=quad)
     return out
 
 
@@ -642,19 +613,13 @@ def qgd3d_update(prm, p, T, ux, uy, uz, sc, dt):
     the new frames' ghosts unset; `qgd3d_ghosts` fills them."""
     fr = (p, T, ux, uy, uz) + ((sc,) if prm.varsc else ())
     on_card = _check(prm, "qgd3d_update", *fr)
-    _scalar("qgd3d_update", dt, p)
+    check_dt("qgd3d_update", dt, p)
     if not on_card:
         return update_reference_3d(prm, p, T, ux, uy, uz, sc, dt)
-    lib = _build.load()
     new = tuple(torch.empty_like(p) for _ in range(5))
     side = torch.empty((2, prm.ny, prm.nz), dtype=p.dtype, device=p.device)
-    with torch.cuda.device(p.device):
-        code = lib.qgd3d_update(prm, _ptr(p), _ptr(T), _ptr(ux), _ptr(uy),
-                                _ptr(uz), _ptr(sc if prm.varsc else None),
-                                _ptr(dt), *(_ptr(x) for x in new),
-                                _ptr(side), _stream(p))
-    _build.check(lib, code, "qgd3d_update")
-    qgd3d_update.launches += 1
+    launch(qgd3d_update, "qgd3d_update", prm, p, T, ux, uy, uz,
+           sc if prm.varsc else None, dt, *new, side, like=p)
     return new, side
 
 
@@ -662,13 +627,8 @@ def update_launch_shape(prm, device) -> dict:
     """`qgd3d_update`'s launch at prm's shape on `device`: its (y, z) tile,
     the x-planes one block marches (the chunk, from the grid), the dynamic
     shared memory of a block and the blocks resident on one SM."""
-    lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        code = lib.qgd3d_update_launch(prm, out)
-    _build.check(lib, code, "qgd3d_update_launch")
-    return {"tile": (out[0], out[1]), "chunk": out[2], "smem_bytes": out[3],
-            "blocks_per_sm": out[4]}
+    return _tiled(launch_shape("qgd3d_update_launch", prm, device=device),
+                  "chunk", "smem_bytes", "blocks_per_sm")
 
 
 def qgd3d_sensor(prm, p, T, sc):
@@ -681,14 +641,9 @@ def qgd3d_sensor(prm, p, T, sc):
     on_card = _check(prm, "qgd3d_sensor", p, T, sc)
     if not on_card:
         return sensor_reference_3d(prm, p, T, sc)
-    lib = _build.load()
     out = torch.empty((prm.nx, prm.ny, prm.nz), dtype=p.dtype,
                       device=p.device)
-    with torch.cuda.device(p.device):
-        code = lib.qgd3d_sensor(prm, _ptr(p), _ptr(T), _ptr(sc), _ptr(out),
-                                _stream(p))
-    _build.check(lib, code, "qgd3d_sensor")
-    qgd3d_sensor.launches += 1
+    launch(qgd3d_sensor, "qgd3d_sensor", prm, p, T, sc, out, like=p)
     return out
 
 
@@ -707,16 +662,11 @@ def qgd3d_emit(prm, p, T, sc, raw=False):
     if not on_card:
         got, s1, chg = emit_reference_3d(prm, p, T, sc)
         return (got if raw else None), s1, chg
-    lib = _build.load()
-    with torch.cuda.device(p.device):
-        s1 = torch.empty_like(p)
-        chg = torch.empty((), dtype=p.dtype, device=p.device)
-        got = torch.empty((prm.nx, prm.ny, prm.nz), dtype=p.dtype,
-                          device=p.device) if raw else None
-        code = lib.qgd3d_emit(prm, _ptr(p), _ptr(T), _ptr(sc), _ptr(got),
-                              _ptr(s1), _ptr(chg), _stream(p))
-    _build.check(lib, code, "qgd3d_emit")
-    qgd3d_emit.launches += 1
+    s1 = torch.empty_like(p)
+    chg = torch.empty((), dtype=p.dtype, device=p.device)
+    got = torch.empty((prm.nx, prm.ny, prm.nz), dtype=p.dtype,
+                      device=p.device) if raw else None
+    launch(qgd3d_emit, "qgd3d_emit", prm, p, T, sc, got, s1, chg, like=p)
     return got, s1, chg
 
 
@@ -724,13 +674,8 @@ def emit_launch_shape(prm, device) -> dict:
     """`qgd3d_emit`'s launch at prm's shape on a card: its (y, z) tile, the
     x-planes a block writes, its blocks and the blocks resident on one
     SM."""
-    lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        code = lib.qgd3d_emit_shape(prm, out)
-    _build.check(lib, code, "qgd3d_emit_shape")
-    return {"tile": (out[0], out[1]), "chunk": out[2], "blocks": out[3],
-            "blocks_per_sm": out[4]}
+    return _tiled(launch_shape("qgd3d_emit_shape", prm, device=device),
+                  "chunk", "blocks", "blocks_per_sm")
 
 
 def qgd3d_ghosts(prm, frames, side, planes):
@@ -744,12 +689,8 @@ def qgd3d_ghosts(prm, frames, side, planes):
                          "frames")
     if not on_card:
         return ghosts_reference_3d(prm, frames, side, planes)
-    lib = _build.load()
-    with torch.cuda.device(side.device):
-        code = lib.qgd3d_ghosts(prm, _ptr(planes), _ptr(side),
-                                *(_ptr(x) for x in frames), _stream(side))
-    _build.check(lib, code, "qgd3d_ghosts")
-    qgd3d_ghosts.launches += 1
+    launch(qgd3d_ghosts, "qgd3d_ghosts", prm, planes, side, *frames,
+           like=side)
     return frames
 
 
@@ -786,36 +727,22 @@ def qgd3d_smooth(prm, f, k, out=None, flag=None):
     and, on a card, SMOOTH3_FIXED_LAUNCHES to `launches` and none to
     `rings`.  `fallbacks` counts the calls whose flag sent
     `smoothing.smooth_sensor` to the rings."""
-    nx, ny, nz = prm.nx, prm.ny, prm.nz
     fixed = k == SMOOTH_FIXED
     if fixed and not fixed_supported(prm):
         raise ValueError("qgd3d_smooth: no fixed point at this shape or "
                          "maxRatio")
-    on_card, bare, out, flag = smooth_args(
-        "qgd3d_smooth", (nx, ny, nz), SMOOTH3_KMAX, f, 0 if fixed else k,
-        out, flag)
+    on_card, out, flag, base, pitches = smooth_args(
+        "qgd3d_smooth", (prm.nx, prm.ny, prm.nz), SMOOTH3_KMAX, f,
+        0 if fixed else k, out, flag)
     qgd3d_smooth.fixed += fixed
     if not on_card:
         return _smooth_plain(prm, f, k, out, flag)
-    lib = _build.load()
-    # cell (0, 0, 0) of a frame is its element (1, 1, 1)
-    if bare:
-        base, sx, sy = f.data_ptr(), ny * nz, nz
-    else:
-        sx, sy = (ny + 2) * (nz + 2), nz + 2
-        base = f.data_ptr() + 4 * (sx + sy + 1)
-    with torch.cuda.device(f.device):
-        if fixed:
-            code = lib.qgd3d_smooth_fixed(prm, base, sx, sy, _ptr(out),
-                                          _ptr(flag), _stream(f))
-        else:
-            code = lib.qgd3d_smooth(prm, base, sx, sy, k, _ptr(out),
-                                    _ptr(flag), _stream(f))
-    _build.check(lib, code, "qgd3d_smooth")
     if fixed:
-        qgd3d_smooth.launches += SMOOTH3_FIXED_LAUNCHES
+        launch(qgd3d_smooth, "qgd3d_smooth_fixed", prm, base, *pitches, out,
+               flag, like=f, count=SMOOTH3_FIXED_LAUNCHES)
     else:
-        qgd3d_smooth.launches += 1
+        launch(qgd3d_smooth, "qgd3d_smooth", prm, base, *pitches, k, out,
+               flag, like=f)
         qgd3d_smooth.rings += k
     return out, flag
 
@@ -824,26 +751,18 @@ def smooth_launch_shape(prm, k, device) -> dict:
     """`qgd3d_smooth`'s launch of k rings at prm's shape on a card: its
     (y, z) tile, the x-planes a block writes, the dynamic shared memory of
     a block and the blocks resident on one SM."""
-    lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        code = lib.qgd3d_smooth_shape(prm, k, out)
-    _build.check(lib, code, "qgd3d_smooth_shape")
-    return {"tile": (out[0], out[1]), "chunk": out[2], "smem_bytes": out[3],
-            "blocks_per_sm": out[4]}
+    return _tiled(launch_shape("qgd3d_smooth_shape", prm, k, device=device),
+                  "chunk", "smem_bytes", "blocks_per_sm")
 
 
 def fixed_launch_shape(prm, device) -> dict:
     """The fixed point's launches at prm's shape: the cells a lane of the z
     pass holds, and the cells a thread holds and the threads of a block of
     the y and of the x pass."""
-    lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        code = lib.qgd3d_smooth_fixed_shape(prm, out)
-    _build.check(lib, code, "qgd3d_smooth_fixed_shape")
-    return {"z_cells": out[0], "y_cells": out[1], "y_threads": out[2],
-            "x_cells": out[3], "x_threads": out[4]}
+    return dict(zip(("z_cells", "y_cells", "y_threads", "x_cells",
+                     "x_threads"),
+                    launch_shape("qgd3d_smooth_fixed_shape", prm,
+                                 device=device)))
 
 
 qgd3d_dt.launches = 0
@@ -885,13 +804,9 @@ def build_fused_step_3d(solver, plain: bool = False):
     to_fused makes the first ring and flag of the State's raw sensor with
     the plain ring.
     """
-    from ..ops.pad import ghost_pad
-    from ..solvers.qgd import State
-
     if not supported(solver):
         raise ValueError("solver config not supported by the fused 3D step")
     mesh = solver.mesh
-    th = solver.thermo
     tm = solver.tau_model
     varsc = isinstance(tm, VarScModel5)
     prm, planes_np = make_params(solver)
@@ -921,52 +836,15 @@ def build_fused_step_3d(solver, plain: bool = False):
         return Fused3DState(p=p, T=T, ux=ux, uy=uy, uz=uz, t=fs.t + dt_new,
                             dt=dt_new, sc=sc, sc_s1=s1, sc_chg=chg)
 
-    flux_sides = solver._flux_sides()
-    bc_U, bc_p, bc_T = solver._bcs()
-    dx = float(mesh.dx[0][0])
-    C = (slice(1, -1),) * 3
+    to_frames, from_fused = state_frames(solver, Fused3DState, _edge_frame)
 
-    def to_fused(s: State) -> Fused3DState:
-        bc_pp = bc_p
-        for i, (a, side) in enumerate(flux_sides):
-            bc_pp = bc_pp.replace(a, side, bcm.FixedGradient(s.pbc[i]))
-        U, e, T, p = solver.primitives(s)
-        bc_Ur = bcm.resolve_inlet_outlet(bc_U, U, 3)
-        bc_pp = bcm.resolve_inlet_outlet(bc_pp, U, 3)
-        bc_Tr = bcm.resolve_inlet_outlet(bc_T, U, 3)
-        Upad = ghost_pad(U, bc_Ur, mesh, t=s.t, vector=True)
-        pf = ghost_pad(p, bc_pp, mesh, t=s.t).contiguous()
-        Tf = ghost_pad(T, bc_Tr, mesh, t=s.t).contiguous()
-        sc = s1 = chg = None
-        if varsc:
-            sc = _edge_frame(s.sc)
-            s1, chg = smooth_reference(prm, raw_sensor(solver, pf, Tf, s.sc),
-                                       1)
-            s1 = _edge_frame(s1)
-        return Fused3DState(p=pf, T=Tf, ux=Upad[0].contiguous(),
-                            uy=Upad[1].contiguous(), uz=Upad[2].contiguous(),
-                            t=s.t, dt=s.dt, sc=sc, sc_s1=s1, sc_chg=chg)
-
-    def from_fused(fs: Fused3DState) -> State:
-        p = fs.p[C]
-        T = fs.T[C]
-        U = torch.stack([fs.ux[C], fs.uy[C], fs.uz[C]])
-        rho = th.rho_from_p_T(p, T)
-        e = th.e_from_T(T)
-        # lagged qgdFlux gradients from the p ghost planes (ghost = interior
-        # + g*dx on both sides)
-        pbc = []
-        for _, side in flux_sides:
-            if side == 0:
-                g = (fs.p[0:1, 1:-1, 1:-1] - fs.p[1:2, 1:-1, 1:-1]) * (1.0 / dx)
-            else:
-                g = (fs.p[-1:, 1:-1, 1:-1] - fs.p[-2:-1, 1:-1, 1:-1]) \
-                    * (1.0 / dx)
-            pbc.append(g)
-        sc = fs.sc[C] if varsc else torch.full_like(rho, tm.Sc)
-        return State(rho=rho, rhoU=rho[None] * U,
-                     rhoE=rho * e + 0.5 * rho * torch.sum(U * U, dim=0),
-                     sc=sc, t=fs.t, dt=fs.dt, pbc=tuple(pbc))
+    def to_fused(s) -> Fused3DState:
+        fs = to_frames(s)
+        if not varsc:
+            return fs
+        s1, chg = smooth_reference(prm, raw_sensor(solver, fs.p, fs.T, s.sc),
+                                   1)
+        return fs._replace(sc_s1=_edge_frame(s1), sc_chg=chg)
 
     return step, to_fused, from_fused
 
@@ -1024,8 +902,6 @@ def build_sharded_fused_step_3d(solver, grid):
     sensor frame is fvc_smooth of the same raw sensor.  to_sharded /
     from_sharded as in `fused_qgd2d.build_sharded_fused_step`.
     """
-    from ..ops.pad import ghost_pad
-
     if not supported(solver):
         raise ValueError("solver config not supported by the fused 3D step")
     if grid.py != 1:
@@ -1064,17 +940,17 @@ def build_sharded_fused_step_3d(solver, grid):
         with spmd.active(ctx):
             return local_step(fs)
 
-    _, to_fused, from_fused = build_fused_step_3d(solver, plain=True)
+    to_frames, from_fused = state_frames(solver, Fused3DState, _edge_frame)
     framed = FIELDS + (("sc",) if varsc else ())
     win, xs = spmd.frame_window(ctx), ctx.start(0)
 
     def to_sharded(s) -> Fused3DState:
-        fs = to_fused(s)
+        fs = to_frames(s)
         cut = {k: getattr(fs, k)[win].contiguous() for k in framed}
         if varsc:  # the raw sensor has no halo
             cut["sc_raw"] = raw_sensor(solver, fs.p, fs.T,
                                        s.sc)[xs:xs + nxl].contiguous()
-        return fs._replace(sc_s1=None, sc_chg=None, **cut)
+        return fs._replace(**cut)
 
     def from_sharded(fs):
         full = {k: spmd.join_frames(getattr(fs, k), ctx) for k in framed}

@@ -13,12 +13,14 @@ number of axes: the plain version of a launch of k rings
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from ..physics.qgdcoeffs import _neighbour_max, smooth_ratio
 from ..utils import observability
-from . import _build
+from .launch import check_tensors, launch
 
 
 def _edge_frame(interior):
@@ -102,12 +104,13 @@ def smooth_args(name, cells, kmax, f, k, out, flag):
     """The checks and defaults the smoothing wrappers share: f the `cells`
     shaped sensor or the frame around them, 0 <= k <= kmax, out a frame
     (new if None) and flag a 0-dim tensor (new if None) beside f.  Returns
-    (on_card, f holds bare cells, out, flag)."""
-    from .fused_qgd2d import check_tensors  # fused_qgd2d imports this module
-
+    (on_card, out, flag, base, pitches): the address of f's first cell and
+    f's pitches in floats along all axes but the last, as the smoothing
+    kernels take them."""
     frame = tuple(n + 2 for n in cells)
     bare = tuple(f.shape) == tuple(cells)
-    on_card = check_tensors(name, cells if bare else frame, f)
+    dims = tuple(cells) if bare else frame
+    on_card = check_tensors(name, dims, f)
     if not 0 <= k <= kmax:
         raise ValueError(f"{name}: k={k} outside 0..{kmax}")
     out = torch.empty(frame, dtype=f.dtype, device=f.device) \
@@ -118,7 +121,10 @@ def smooth_args(name, cells, kmax, f, k, out, flag):
     check_tensors(name, (), flag)
     if out.device != f.device or flag.device != f.device:
         raise ValueError(f"{name}: out and flag must lie beside f")
-    return on_card, bare, out, flag
+    pitches = tuple(math.prod(dims[a + 1:]) for a in range(len(dims) - 1))
+    # cell (0, ...) of a frame is its element (1, ...)
+    base = f.data_ptr() + (0 if bare else 4 * (sum(pitches) + 1))
+    return on_card, out, flag, base, pitches
 
 
 def smooth_sensor(prm, s1, chg, smooth, k, cache=None, max_iters=10_000):
@@ -235,15 +241,13 @@ def smooth_ring_check(ratio: float, device) -> dict:
     correctly rounded division by float32 `ratio` on every float of each of
     RING_RANGES, on a card (`smooth_ring_check` in qgd2d.cu, which derives
     the reciprocal from the ratio as the smoothing kernels do)."""
-    lib = _build.load()
-    dev = torch.device(device)
-    bad = torch.zeros(len(RING_RANGES), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.smooth_ring_check(float(np.float32(ratio)), bad.data_ptr(),
-                                     stream)
-    _build.check(lib, code, "smooth_ring_check")
+    bad = torch.zeros(len(RING_RANGES), dtype=torch.int32, device=device)
+    launch(smooth_ring_check, "smooth_ring_check", float(np.float32(ratio)),
+           bad, like=bad)
     return dict(zip(RING_RANGES, bad.tolist()))
+
+
+smooth_ring_check.launches = 0
 
 
 _RINGS_CHECKED = set()

@@ -22,6 +22,7 @@ from qgdsolver_tpu.ops.pad import ghost_pad as j_ghost_pad
 from qgdsolver_tpu_torch import cases as tcases
 from qgdsolver_tpu_torch import interop
 from qgdsolver_tpu_torch.core import bc as tbc
+from qgdsolver_tpu_torch.ops import fused_common as FC
 from qgdsolver_tpu_torch.ops import fused_qgd2d as F
 from qgdsolver_tpu_torch.physics.qgdcoeffs import TauModel
 
@@ -310,7 +311,7 @@ def _ghosts_one_launch_model(prm, frames, side, profiles):
 
     def ghost(e, in1, in2, d, v, un, sd):
         # in2 is read only by an extrapolated ghost
-        return F._bc_ghost(e, in1, in2() if e.kind == extrap else None, d,
+        return FC.bc_ghost(e, in1, in2() if e.kind == extrap else None, d,
                            v, un, sd)
 
     def x_ghost(f, sd, s):

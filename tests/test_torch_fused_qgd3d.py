@@ -25,6 +25,7 @@ from qgdsolver_tpu.physics import thermo as jthermo
 from qgdsolver_tpu_torch import cases as tcases
 from qgdsolver_tpu_torch import interop
 from qgdsolver_tpu_torch.core import bc as tbc
+from qgdsolver_tpu_torch.ops import fused_common as FC
 from qgdsolver_tpu_torch.ops import fused_qgd3d as F
 from qgdsolver_tpu_torch.ops import smoothing as S
 from qgdsolver_tpu_torch.physics import qgdcoeffs as tcoeffs
@@ -642,7 +643,7 @@ def _ghosts_one_launch_model(prm, frames, side, planes):
 
     def ghost(e, in1, in2, d, v, un, sd):
         # in2 is read only by an extrapolated ghost
-        return F._bc_ghost(e, in1, in2() if e.kind == extrap else None, d,
+        return FC.bc_ghost(e, in1, in2() if e.kind == extrap else None, d,
                            v, un, sd)
 
     def x_ghost(f, sd, s, t):
